@@ -1,0 +1,136 @@
+"""The IMPALA agent: conv torso + LSTM core + policy/baseline heads.
+
+The counterpart of ``scalable_agent_tpu/models/agent.py`` (reference:
+experiment.py:109-237) with ``core_impl="pallas"`` and
+``conv_backend="pallas"``: the torso runs over the merged [T*B] batch, the
+clipped reward and the one-hot last action are concatenated to its output,
+the done-reset LSTM core (``ops/lstm_cuda.lstm_unroll``) runs over T, and
+the heads run over the merged batch again.  ``forward`` is the whole
+trajectory unroll, shared by actor inference (T=1) and the learner
+(T=unroll_length+1).  Float32 throughout; the bf16 policy is not ported yet
+(ROADMAP.md, queue 1).
+"""
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from scalable_agent_tpu_torch.models.networks import (
+    TORSO_SIZE,
+    ShallowConvTorso,
+    dense,
+    lecun_normal_,
+)
+from scalable_agent_tpu_torch.ops import distributions
+from scalable_agent_tpu_torch.ops.lstm_cuda import lstm_unroll
+from scalable_agent_tpu_torch.types import (
+    AgentOutput,
+    AgentState,
+    StepOutput,
+    map_structure,
+)
+
+CORE_SIZE = 256  # reference: experiment.py:118
+
+
+def initial_state(batch_size: int, core_size: int = CORE_SIZE,
+                  device=None) -> AgentState:
+    """Zero LSTM carry."""
+    zeros = lambda: torch.zeros((batch_size, core_size), dtype=torch.float32,
+                                device=device)
+    return AgentState(c=zeros(), h=zeros())
+
+
+class LSTMCore(nn.Module):
+    """The done-reset LSTM's parameters in the kernel's layout: ``wi
+    [D,4H]``, ``wh [H,4H]``, ``b [4H]``, gates (i, f, g, o).  Initialized
+    like flax's OptimizedLSTMCell gate by gate: lecun_normal input
+    kernels, orthogonal recurrent kernels, zero bias (only the recurrent
+    side has one)."""
+
+    def __init__(self, in_features: int, hidden: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.wi = nn.Parameter(torch.empty(in_features, 4 * hidden))
+        self.wh = nn.Parameter(torch.empty(hidden, 4 * hidden))
+        self.b = nn.Parameter(torch.zeros(4 * hidden))
+        with torch.no_grad():
+            for gate in range(4):
+                cols = slice(gate * hidden, (gate + 1) * hidden)
+                block = torch.empty(in_features, hidden)
+                self.wi[:, cols] = lecun_normal_(block, in_features,
+                                                 generator)
+                block = torch.empty(hidden, hidden)
+                self.wh[:, cols] = nn.init.orthogonal_(block,
+                                                       generator=generator)
+
+    def forward(self, x, done, carry: AgentState):
+        ys, (c, h) = lstm_unroll(x, done, carry.c, carry.h, self.wi,
+                                 self.wh, self.b)
+        return ys, AgentState(c=c, h=h)
+
+
+class ImpalaAgent(nn.Module):
+    """ShallowConvTorso + LSTM(core_size) core + policy/baseline heads.
+
+    ``forward(actions [T,B] int, env_outputs, core_state)`` with
+    env_outputs.reward [T,B], done [T,B], observation.frame [T,B,H,W,C]
+    uint8, returns ``((policy_logits [T,B,A], baseline [T,B]),
+    new_state)``.  Weights are drawn from ``generator``.
+    """
+
+    def __init__(self, num_actions: int,
+                 frame_shape: Sequence[int] = (72, 96, 3),
+                 core_size: int = CORE_SIZE,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dist_spec = distributions.DistributionSpec(sizes=(num_actions,))
+        self.core_size = core_size
+        self.convnet = ShallowConvTorso(frame_shape, generator)
+        in_features = TORSO_SIZE + 1 + self.num_logits
+        self.core = LSTMCore(in_features, core_size, generator)
+        self.policy_logits = dense(core_size, self.num_logits, generator)
+        self.baseline = dense(core_size, 1, generator)
+
+    @property
+    def num_logits(self) -> int:
+        return self.dist_spec.num_logits
+
+    def forward(self, actions, env_outputs: StepOutput,
+                core_state: AgentState
+                ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], AgentState]:
+        unroll_len, batch = actions.shape[:2]
+        reward, _, done, observation = env_outputs
+        flat = lambda t: t.reshape((unroll_len * batch,) + t.shape[2:])
+        conv_out = self.convnet(flat(observation.frame))
+        clipped_reward = torch.clamp(flat(reward).float(), -1.0, 1.0)[:, None]
+        one_hot_last_action = distributions.one_hot_actions(
+            flat(actions), self.dist_spec)
+        torso_out = torch.cat(
+            [conv_out, clipped_reward, one_hot_last_action], dim=-1)
+        core_outputs, new_state = self.core(
+            torso_out.reshape(unroll_len, batch, -1),
+            done.float().contiguous(), core_state)
+        core_flat = core_outputs.reshape(unroll_len * batch, -1)
+        policy_logits = self.policy_logits(core_flat).reshape(
+            unroll_len, batch, self.num_logits)
+        baseline = self.baseline(core_flat).reshape(unroll_len, batch)
+        return (policy_logits, baseline), new_state
+
+
+@torch.no_grad()
+def actor_step(agent: ImpalaAgent, generator: torch.Generator, last_action,
+               env_output: StepOutput, core_state: AgentState
+               ) -> Tuple[AgentOutput, AgentState]:
+    """One batched inference step: unroll T=1 (under ``no_grad``, so the
+    core runs its lean kernel) and sample an action from ``generator``.
+    last_action [B], env_output [B, ...] tensors on the agent's device."""
+    expand = lambda t: None if t is None else t[None]
+    (policy_logits, baseline), new_state = agent(
+        last_action[None], map_structure(expand, env_output), core_state)
+    policy_logits = policy_logits[0]
+    action = distributions.sample(generator, policy_logits, agent.dist_spec)
+    return (AgentOutput(action=action, policy_logits=policy_logits,
+                        baseline=baseline[0]),
+            new_state)

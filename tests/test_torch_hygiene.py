@@ -1,0 +1,114 @@
+"""The port's boundaries: it imports neither JAX nor the JAX package, it
+never runs on the CPU when the card was asked for, and what it does not
+port yet fails loudly instead of being ignored."""
+
+import ast
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from scalable_agent_tpu import config as jax_config
+from scalable_agent_tpu_torch import driver
+from scalable_agent_tpu_torch.config import UNPORTED_FLAGS, Config
+from scalable_agent_tpu_torch.ops import _build, conv_cuda
+
+ROOT = Path(__file__).resolve().parents[1]
+PACKAGE = ROOT / "scalable_agent_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "scalable_agent_tpu")
+
+
+def _port_files():
+    return sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    roots = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots += [alias.name.split(".")[0] for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.append(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_module_imports_jax_or_the_jax_package(path):
+    bad = [root for root in _imported_roots(path) if root in FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_importing_every_module_leaves_jax_out():
+    modules = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(
+            ".__init__")
+        for p in PACKAGE.rglob("*.py"))
+    code = ("import importlib, sys\n"
+            f"for name in {modules!r}:\n"
+            "    importlib.import_module(name)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r})\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   cwd=str(ROOT), timeout=120)
+
+
+def test_cuda_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        driver.train(Config(device="cuda", level_name="fake_small"))
+
+
+def test_kernel_wrappers_refuse_other_devices():
+    x = torch.zeros(2, 8, 8, 3, device="meta")
+    g = torch.zeros(2, 2, 2, 4, device="meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        conv_cuda.conv_gradw(x, g, 8, 4)
+
+
+def test_flag_lists_cover_the_jax_config():
+    jax_fields = {f.name for f in dataclasses.fields(jax_config.Config)}
+    ours = {f.name for f in dataclasses.fields(Config)} - {"device"}
+    assert ours.isdisjoint(UNPORTED_FLAGS)
+    assert ours | set(UNPORTED_FLAGS) == jax_fields
+    for f in dataclasses.fields(Config):
+        if f.name in jax_fields and f.name != "compute_dtype":
+            assert f.default == getattr(jax_config.Config(), f.name), f.name
+
+
+@pytest.mark.parametrize("argv", [["--logdir=/x"], ["--trace", "true"],
+                                  ["--compute_dtype=bfloat16"],
+                                  ["--scan_impl=pallas"], ["--mode=test"],
+                                  ["--torso_type=resnet"]])
+def test_unported_flags_and_values_raise(argv):
+    with pytest.raises(ValueError, match="ROADMAP.md"):
+        Config.from_argv(argv)
+
+
+def test_unknown_flags_still_fail():
+    with pytest.raises(SystemExit):
+        Config.from_argv(["--no_such_flag=1"])
+
+
+def test_build_needs_nvcc(monkeypatch):
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os.path, "isfile", lambda path: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build._nvcc()
+
+
+def test_library_name_follows_the_sources(monkeypatch, tmp_path):
+    source = tmp_path / "k.cu"
+    source.write_text("// one\n")
+    monkeypatch.setattr(_build, "SOURCE_DIR", tmp_path)
+    first = _build.library_path()
+    assert first == _build.library_path()
+    source.write_text("// two\n")
+    assert _build.library_path() != first

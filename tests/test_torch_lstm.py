@@ -1,0 +1,156 @@
+"""The port's done-reset LSTM (scalable_agent_tpu_torch/ops/lstm_cuda.py)
+held against the JAX package's Pallas LSTM (ops/lstm_pallas.py), run as
+the JAX package's own tests run it on the CPU: in interpret mode.
+
+On the CPU the port's wrappers run their plain PyTorch versions, so these
+tests hold that arithmetic (forward, residuals, BPTT) to the Pallas
+kernel's; chip_smoke.py holds the CUDA kernels to the same plain versions
+on the card.
+
+Tolerances: float32 on both sides, the same operations summed in another
+order over at most D+H = 28 terms per dot product and T*B = 20 rows per
+weight gradient — rtol/atol 1e-5 is ~100x f32 epsilon at these scales.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from scalable_agent_tpu.ops import lstm_pallas
+from scalable_agent_tpu_torch.ops import lstm_cuda
+
+T, B, D, H = 5, 4, 12, 16
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _inputs(seed=0, done_rate=0.3):
+    rng = np.random.default_rng(seed)
+    f32 = lambda *shape, scale=1.0: (
+        rng.standard_normal(shape) * scale).astype(np.float32)
+    done = (rng.random((T, B)) < done_rate).astype(np.float32)
+    return dict(x=f32(T, B, D), done=done, c0=f32(B, H, scale=0.5),
+                h0=np.tanh(f32(B, H)), wi=f32(D, 4 * H, scale=D ** -0.5),
+                wh=f32(H, 4 * H, scale=H ** -0.5), b=f32(4 * H, scale=0.1))
+
+
+ORDER = ("x", "done", "c0", "h0", "wi", "wh", "b")
+
+
+def _jax_unroll(arrays):
+    return lstm_pallas.lstm_unroll(*(jnp.asarray(arrays[k]) for k in ORDER),
+                                   True, "float32")
+
+
+def _torch(arrays, requires_grad=False):
+    return {k: torch.tensor(v, requires_grad=requires_grad and k != "done")
+            for k, v in arrays.items()}
+
+
+@pytest.mark.parametrize("seed,done_rate", [(0, 0.3), (1, 0.0), (2, 1.0)])
+def test_forward_matches_pallas(seed, done_rate):
+    arrays = _inputs(seed, done_rate)
+    ys_j, (c_j, h_j) = _jax_unroll(arrays)
+    t = _torch(arrays)
+    ys, (c, h) = lstm_cuda.lstm_unroll(*(t[k] for k in ORDER))
+    np.testing.assert_allclose(ys.numpy(), np.asarray(ys_j), **TOL)
+    np.testing.assert_allclose(c.numpy(), np.asarray(c_j), **TOL)
+    np.testing.assert_allclose(h.numpy(), np.asarray(h_j), **TOL)
+
+
+def test_all_gradients_match_pallas_vjp():
+    """Every gradient of the unroll (x, c0, h0, Wi, Wh, b) for random
+    cotangents on (ys, cT, hT), against jax.vjp through the Pallas
+    custom VJP (its residual forward and BPTT kernel)."""
+    arrays = _inputs(3)
+    rng = np.random.default_rng(4)
+    dys = rng.standard_normal((T, B, H)).astype(np.float32)
+    dct = rng.standard_normal((B, H)).astype(np.float32)
+    dht = rng.standard_normal((B, H)).astype(np.float32)
+
+    diff_keys = ("x", "c0", "h0", "wi", "wh", "b")
+
+    def f(x, c0, h0, wi, wh, b):
+        return lstm_pallas.lstm_unroll(
+            x, jnp.asarray(arrays["done"]), c0, h0, wi, wh, b, True,
+            "float32")
+
+    _, vjp = jax.vjp(f, *(jnp.asarray(arrays[k]) for k in diff_keys))
+    grads_j = vjp((jnp.asarray(dys), (jnp.asarray(dct), jnp.asarray(dht))))
+
+    t = _torch(arrays, requires_grad=True)
+    ys, (c, h) = lstm_cuda.lstm_unroll(*(t[k] for k in ORDER))
+    grads = torch.autograd.grad(
+        (ys, c, h), [t[k] for k in diff_keys],
+        (torch.tensor(dys), torch.tensor(dct), torch.tensor(dht)))
+    for key, got, want in zip(diff_keys, grads, grads_j):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   err_msg=key, **TOL)
+
+
+def test_bptt_plain_matches_autograd_of_the_plain_forward():
+    """The hand-written BPTT's plain version against torch's own autograd
+    through the plain forward: an oracle independent of both kernels."""
+    t = _torch(_inputs(5), requires_grad=True)
+    args = [t[k] for k in ORDER]
+    out = lstm_cuda.lstm_forward_plain(*args, residuals=True)
+    rng = np.random.default_rng(6)
+    dys = torch.tensor(rng.standard_normal((T, B, H)), dtype=torch.float32)
+    dct = torch.tensor(rng.standard_normal((B, H)), dtype=torch.float32)
+    dht = torch.tensor(rng.standard_normal((B, H)), dtype=torch.float32)
+    auto = torch.autograd.grad((out.ys, out.c, out.h),
+                               [t[k] for k in ("x", "c0", "h0", "wi", "wh",
+                                               "b")], (dys, dct, dht))
+    res = lstm_cuda.Residuals(*(r.detach() for r in out.residuals))
+    hand = lstm_cuda.lstm_backward_plain(
+        dys, dct, dht, t["x"].detach(), t["done"], t["wi"].detach(),
+        t["wh"].detach(), res)
+    for got, want in zip(hand, auto):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+def test_unused_outputs_get_zero_cotangents():
+    """Only hT feeds the loss: the autograd Function must fill the missing
+    cotangents (ys, cT) with zeros, as jax.vjp does."""
+    arrays = _inputs(7)
+    t = _torch(arrays, requires_grad=True)
+    _, (_, h) = lstm_cuda.lstm_unroll(*(t[k] for k in ORDER))
+    dwh, = torch.autograd.grad(h.sum(), [t["wh"]])
+
+    def f(wh):
+        _, (_, hj) = lstm_pallas.lstm_unroll(
+            *(jnp.asarray(arrays[k]) for k in ORDER[:5]), wh,
+            jnp.asarray(arrays["b"]), True, "float32")
+        return jnp.sum(hj)
+
+    np.testing.assert_allclose(
+        dwh.numpy(), np.asarray(jax.grad(f)(jnp.asarray(arrays["wh"]))),
+        **TOL)
+
+
+def test_no_grad_runs_the_lean_forward(monkeypatch):
+    """Inference (no_grad, or nothing requiring grad) takes the lean
+    variant; a differentiable call takes the residual one."""
+    seen = []
+    real = lstm_cuda.lstm_forward
+
+    def spy(*args, residuals):
+        seen.append(residuals)
+        return real(*args, residuals=residuals)
+
+    monkeypatch.setattr(lstm_cuda, "lstm_forward", spy)
+    t = _torch(_inputs(8), requires_grad=True)
+    with torch.no_grad():
+        lstm_cuda.lstm_unroll(*(t[k] for k in ORDER))
+    lstm_cuda.lstm_unroll(*(t[k].detach() for k in ORDER))
+    lstm_cuda.lstm_unroll(*(t[k] for k in ORDER))
+    assert seen == [False, False, True]
+
+
+def test_cuda_wrapper_refuses_mixed_devices():
+    t = _torch(_inputs(9))
+    meta = {k: v.to("meta") for k, v in t.items()}
+    meta["x"] = t["x"]
+    with pytest.raises(ValueError, match="CPU or all on one CUDA"):
+        lstm_cuda.lstm_forward(*(meta[k] for k in ORDER), residuals=False)
