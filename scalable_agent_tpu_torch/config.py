@@ -14,27 +14,29 @@ never ignored.
 
 import argparse
 import dataclasses
+import json
+import os
+from typing import Optional
 
 # Every field of scalable_agent_tpu.config.Config this package does not
 # port yet (ROADMAP.md, queue 1).  tests/test_torch_hygiene.py holds this
 # list against the JAX Config so the two cannot drift apart.
 UNPORTED_FLAGS = (
-    "logdir", "benchmark_mode", "num_env_workers_per_group", "dataset_path",
-    "renderer", "test_num_episodes", "test_batch_size", "test_num_workers",
-    "record_to", "fused_forward", "remat_torso", "use_instruction",
+    "benchmark_mode", "dataset_path", "renderer", "record_to",
+    "fused_forward", "remat_torso", "use_instruction",
     "mesh_data", "mesh_seq", "mesh_model", "distributed_coordinator",
     "distributed_num_processes", "distributed_process_id", "inference_mode",
     "accum_fused_shards", "actor", "service_max_batch", "train_backend",
     "updates_per_dispatch", "transport", "inflight_updates", "loss",
     "replay_ratio", "replay_capacity", "target_update_interval",
-    "impact_clip_epsilon", "checkpoint_interval_s", "checkpoint_keep",
-    "profile_dir", "profile_start_update", "profile_num_updates", "trace",
+    "impact_clip_epsilon", "profile_dir", "profile_start_update",
+    "profile_num_updates", "trace",
     "watchdog_timeout_s", "watchdog_abort", "metrics_http_port",
     "learn_telemetry", "health", "health_warmup_intervals",
     "health_ewma_alpha", "health_z_threshold", "health_rel_threshold",
     "health_cooldown_s", "health_max_windows", "health_window_updates",
     "health_baseline_dir", "nonfinite_tolerance", "sentinel_interval",
-    "sentinel_rtol", "no_rollback", "actor_max_restarts", "chaos_spec",
+    "sentinel_rtol", "no_rollback", "chaos_spec",
     "chaos_channel", "compile_cache_dir", "peer_timeout_s",
     "preemption_grace_s", "collective_timeout_s",
     "coordinator_init_timeout_s", "elastic", "fleet_epoch",
@@ -43,7 +45,7 @@ UNPORTED_FLAGS = (
 
 # Ported flags that take only some of the JAX package's values here.
 SUPPORTED_VALUES = {
-    "mode": ("train",),
+    "mode": ("train", "test"),
     "torso_type": ("shallow",),
     "compute_dtype": ("float32",),
     # "pallas" names the fused done-reset core; its counterpart here is
@@ -51,9 +53,10 @@ SUPPORTED_VALUES = {
     "core_impl": ("auto", "pallas"),
     "core_matmul_dtype": ("auto", "float32"),
     "conv_backend": ("auto", "pallas"),
-    # All three compute the same recurrence; the port runs it as a plain
-    # reverse loop.  The fused V-trace kernel is queue 2's next item.
-    "scan_impl": ("auto", "associative", "sequential"),
+    # associative/sequential run the recurrence as a plain reverse loop,
+    # pallas as the fused CUDA kernel; auto resolves to associative
+    # (runtime/learner.py).  time_sharded needs a seq mesh axis.
+    "scan_impl": ("auto", "associative", "sequential", "pallas"),
     "rmsprop_momentum": (0.0,),
     "reward_clipping": ("abs_one", "soft_asymmetric", "none"),
 }
@@ -68,7 +71,8 @@ def _not_ported(what: str) -> ValueError:
 @dataclasses.dataclass
 class Config:
     # -- run control (reference: experiment.py:49-60)
-    mode: str = "train"
+    mode: str = "train"  # train | test
+    logdir: str = "/tmp/agent"
     level_name: str = "fake_benchmark"
     seed: int = 1
 
@@ -94,6 +98,15 @@ class Config:
     # -- env (reference: experiment.py:82-88)
     width: int = 96
     height: int = 72
+    # Env worker processes per actor group; 0 means one per env, as in
+    # the JAX package (driver.worker_processes).
+    num_env_workers_per_group: int = 8
+
+    # -- eval (reference: experiment.py:57-58)
+    test_num_episodes: int = 10
+    test_batch_size: int = 8  # parallel eval envs
+    # Env worker processes of the eval fleet; 0 means one per env.
+    test_num_workers: int = 2
 
     # -- model and kernels
     torso_type: str = "shallow"
@@ -102,7 +115,12 @@ class Config:
     core_matmul_dtype: str = "auto"
     conv_backend: str = "auto"
     scan_impl: str = "auto"
+    checkpoint_interval_s: float = 600.0  # reference: experiment.py:611-612
+    checkpoint_keep: int = 5
     log_interval_s: float = 10.0
+    # Respawns of a failing actor thread (capped exponential backoff)
+    # before its exception ends the run; 0 fails fast.
+    actor_max_restarts: int = 3
 
     # -- the port's own: "cuda" (default), "cuda:N" or "cpu".
     device: str = "cuda"
@@ -120,6 +138,24 @@ class Config:
         """(reference: experiment.py:417-420)"""
         return (self.batch_size * self.unroll_length
                 * self.num_action_repeats)
+
+    def save(self, path: Optional[str] = None) -> str:
+        """Write the config as JSON, by default to
+        ``<logdir>/config.json``."""
+        path = path or os.path.join(self.logdir, "config.json")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(dataclasses.asdict(self), f, indent=2, sort_keys=True)
+        return path
+
+    @classmethod
+    def load(cls, path: str) -> "Config":
+        """Read a saved config; keys this package does not know are
+        dropped."""
+        with open(path) as f:
+            raw = json.load(f)
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in raw.items() if k in known})
 
     @classmethod
     def from_argv(cls, argv=None, description=None) -> "Config":

@@ -1,44 +1,293 @@
-"""A batch of envs stepped in this process.
+"""Vectorized environments: N streams sharded over W worker processes.
 
-A lean counterpart of ``scalable_agent_tpu/envs/vector.py::MultiEnv`` with
-the API ``VectorActor`` calls (``num_envs``, ``initial()``,
-``step_send``/``step_recv``).  The streams run in the calling process, one
-after the other; subprocess env workers are not ported yet (ROADMAP.md,
-queue 1).
+The counterpart of ``scalable_agent_tpu/envs/vector.py::MultiEnv``
+(reference: algorithms/utils/multi_env.py:42-225):
+
+- Each worker process hosts about ``N / W`` ImpalaStream envs (an even
+  split) and steps them one after the other; the parent scatters actions
+  and gathers batched ``StepOutput``s.
+- All frames land in ONE shared-memory slab laid out [N, H, W, C]; only
+  the small fields cross the pipes.
+- ``step_send``/``step_recv`` let an actor thread wait on the pipes while
+  other threads run inference.
+- A worker that dies is respawned with generation-shifted seeds
+  (``_reseeded``); its slice restarts from fresh episodes (done=True).
+  More than ``max_respawns`` deaths of one worker within
+  ``RESPAWN_WINDOW_S`` raise ``RemoteEnvError``.
+- Episode stats of the last ``STATS_EPISODES`` finished episodes go to a
+  ring buffer (``episode_stats``).
+
+Workers start with ``spawn``: the parent holds a CUDA context and threads.
+The constructor's default ``num_workers=0`` steps the streams in the
+calling process instead (the JAX MultiEnv reads 0 as one worker per env;
+the driver's flags keep that meaning, ``driver.worker_processes``).  Only
+frame observations are carried (the fake family has no instruction or
+measurement streams).  This module imports no torch.
 """
 
+import functools
+import logging
+import multiprocessing as mp
+import pickle
+import time
 from collections import deque
+from multiprocessing import shared_memory
 from typing import Callable, Sequence
 
 import numpy as np
 
+from scalable_agent_tpu_torch.envs.worker import (
+    _CLOSE,
+    _INITIAL,
+    _STEP,
+    RemoteEnvError,
+    _dumps_exception,
+)
 from scalable_agent_tpu_torch.types import (
     Observation,
     StepOutput,
     StepOutputInfo,
 )
 
+log = logging.getLogger("scalable_agent_tpu_torch")
+
+# A respawned worker's streams take seed + this * generation, so they do
+# not replay the episodes the dead worker already played.
+RESEED_STRIDE = 90001
+# Worker deaths older than this no longer count against max_respawns.
+RESPAWN_WINDOW_S = 600.0
+# Finished episodes kept in MultiEnv.episode_stats.
+STATS_EPISODES = 100
+
+
+def _reseeded(make_stream_fns, generation: int):
+    """Shift the seed of ``functools.partial(..., seed=...)`` factories by
+    generation; opaque factories pass through unchanged."""
+    if generation <= 0:
+        return list(make_stream_fns)
+    out = []
+    for make in make_stream_fns:
+        if (isinstance(make, functools.partial)
+                and "seed" in (make.keywords or {})):
+            kwargs = dict(make.keywords)
+            kwargs["seed"] = kwargs["seed"] + RESEED_STRIDE * generation
+            make = functools.partial(make.func, *make.args, **kwargs)
+        out.append(make)
+    return out
+
+
+def _run_all(streams, slab, first_index: int, step_of_stream):
+    """Apply ``step_of_stream(i, stream)`` to each stream; frames go to
+    ``slab[first_index + i]``, the small fields come back as arrays."""
+    k = len(streams)
+    rewards = np.zeros((k,), np.float32)
+    dones = np.zeros((k,), bool)
+    returns = np.zeros((k,), np.float32)
+    steps = np.zeros((k,), np.int32)
+    for i, stream in enumerate(streams):
+        out = step_of_stream(i, stream)
+        rewards[i] = out.reward
+        dones[i] = out.done
+        returns[i] = out.info.episode_return
+        steps[i] = out.info.episode_step
+        slab[first_index + i] = out.observation.frame
+    return rewards, dones, returns, steps
+
+
+def _vec_worker_main(conn, make_streams_pickled: bytes, shm_name: str,
+                     slab_shape, slab_dtype, first_index: int,
+                     generation: int = 0):
+    """Hosts a contiguous slice of the env batch.  One process, k envs."""
+    streams = []
+    shm = None
+    try:
+        try:
+            make_streams = _reseeded(
+                pickle.loads(make_streams_pickled), generation)
+            streams = [make() for make in make_streams]
+            shm = shared_memory.SharedMemory(name=shm_name)
+            slab = np.ndarray(slab_shape, slab_dtype, buffer=shm.buf)
+            conn.send((True, None))
+        except Exception as exc:
+            conn.send((False, _dumps_exception(exc)))
+            return
+        # A freshly (re)spawned worker has not started its episodes: its
+        # first _STEP returns initial outputs (done=True, episode_step=0,
+        # the visible episode boundary), so the parent never has to reset
+        # a respawned worker eagerly.
+        initialized = False
+        while True:
+            request = conn.recv()
+            kind = request[0]
+            try:
+                if kind == _INITIAL or (kind == _STEP and not initialized):
+                    payload = _run_all(streams, slab, first_index,
+                                       lambda i, stream: stream.initial())
+                    initialized = True
+                    conn.send((True, payload))
+                elif kind == _STEP:
+                    actions = request[1]
+                    conn.send((True, _run_all(
+                        streams, slab, first_index,
+                        lambda i, stream: stream.step(actions[i]))))
+                elif kind == _CLOSE:
+                    break
+                else:
+                    raise ValueError(f"unknown request kind {kind}")
+            except Exception as exc:
+                conn.send((False, _dumps_exception(exc)))
+    except (EOFError, KeyboardInterrupt):
+        pass
+    finally:
+        for stream in streams:
+            try:
+                stream.close()
+            except Exception:
+                pass
+        if shm is not None:
+            shm.close()
+        conn.close()
+
 
 class MultiEnv:
-    """N ImpalaStream-protocol envs, batched into [N, ...] StepOutputs."""
+    """N ImpalaStream envs across W processes with a shared frame slab.
+
+    ``make_stream_fns``: one picklable zero-arg factory per env.
+    ``frame_spec`` declares the per-env frame shape and dtype.
+    """
 
     def __init__(self, make_stream_fns: Sequence[Callable], frame_spec,
-                 stats_episodes: int = 100):
+                 num_workers: int = 0, max_respawns: int = 16):
         self.num_envs = len(make_stream_fns)
         self._frame_spec = frame_spec
-        self._streams = [fn() for fn in make_stream_fns]
-        self._actions = None
+        self._slab_shape = (self.num_envs,) + tuple(frame_spec.shape)
+        self.max_respawns = max_respawns
+        self.total_respawns = 0  # lifetime stat, never limits recovery
         # (episode_return, episode_length) of finished episodes.
-        self.episode_stats = deque(maxlen=stats_episodes)
+        self.episode_stats = deque(maxlen=STATS_EPISODES)
+        self._pending = None
+        self._streams = []
+        self._shm = None
+        self._slices, self._fns_pickled, self._generations = [], [], []
+        self._respawn_times, self._procs, self._conns = [], [], []
+        num_workers = min(num_workers, self.num_envs)
+        if num_workers <= 0:
+            self._slab = np.zeros(self._slab_shape, frame_spec.dtype)
+            self._streams = [fn() for fn in make_stream_fns]
+            return
+        self._ctx = mp.get_context("spawn")
+        nbytes = int(np.prod(self._slab_shape)
+                     * np.dtype(frame_spec.dtype).itemsize)
+        self._shm = shared_memory.SharedMemory(create=True, size=nbytes)
+        self._slab = np.ndarray(self._slab_shape, frame_spec.dtype,
+                                buffer=self._shm.buf)
+        base, extra = divmod(self.num_envs, num_workers)
+        start = 0
+        for w in range(num_workers):
+            size = base + (1 if w < extra else 0)
+            sl = slice(start, start + size)
+            self._slices.append(sl)
+            self._fns_pickled.append(pickle.dumps(list(make_stream_fns[sl])))
+            self._generations.append(0)
+            self._respawn_times.append(deque())
+            self._procs.append(None)
+            self._conns.append(None)
+            self._spawn_worker(w)
+            start += size
+        failures = []
+        for conn in self._conns:
+            try:
+                ok, payload = conn.recv()
+            except EOFError:
+                failures.append(RemoteEnvError(
+                    "env worker died during construction (no handshake)"))
+                continue
+            if not ok:
+                failures.append(pickle.loads(payload))
+        if failures:
+            self.close()
+            raise failures[0]
 
-    def _gather(self, outputs) -> StepOutput:
-        frames = np.stack([self._frame_spec.validate(o.observation.frame)
-                           for o in outputs])
-        rewards = np.array([o.reward for o in outputs], np.float32)
-        dones = np.array([o.done for o in outputs], bool)
-        returns = np.array([o.info.episode_return for o in outputs],
-                           np.float32)
-        steps = np.array([o.info.episode_step for o in outputs], np.int32)
+    @property
+    def num_workers(self) -> int:
+        return len(self._slices)
+
+    # -- workers -------------------------------------------------------------
+
+    def _spawn_worker(self, w: int) -> None:
+        parent_conn, child_conn = self._ctx.Pipe()
+        proc = self._ctx.Process(
+            target=_vec_worker_main,
+            args=(child_conn, self._fns_pickled[w], self._shm.name,
+                  self._slab_shape, np.dtype(self._frame_spec.dtype),
+                  self._slices[w].start, self._generations[w]),
+            daemon=True)
+        proc.start()
+        child_conn.close()
+        self._procs[w] = proc
+        self._conns[w] = parent_conn
+
+    def _respawn_worker(self, w: int) -> None:
+        """Replace a dead worker: fresh process, shifted seeds, blocking
+        handshake.  Raises RemoteEnvError when worker ``w`` died more
+        than ``max_respawns`` times within ``RESPAWN_WINDOW_S``."""
+        now = time.monotonic()
+        times = self._respawn_times[w]
+        while times and now - times[0] > RESPAWN_WINDOW_S:
+            times.popleft()
+        times.append(now)
+        self.total_respawns += 1
+        if len(times) > self.max_respawns:
+            raise RemoteEnvError(
+                f"env worker {w} crash-looping: {len(times)} deaths in "
+                f"{RESPAWN_WINDOW_S:.0f}s (budget {self.max_respawns})")
+        log.warning("env worker %d (envs %d:%d) died; respawning (%d in "
+                    "window, %d lifetime)", w, self._slices[w].start,
+                    self._slices[w].stop, len(times), self.total_respawns)
+        try:
+            self._conns[w].close()
+        except OSError:
+            pass
+        proc = self._procs[w]
+        if proc is not None and proc.is_alive():
+            proc.kill()
+            proc.join(timeout=5)
+        self._generations[w] += 1
+        self._spawn_worker(w)
+        try:
+            ok, payload = self._conns[w].recv()
+        except EOFError:
+            raise RemoteEnvError(
+                f"env worker {w} died again during respawn handshake")
+        if not ok:
+            raise pickle.loads(payload)
+
+    def _send(self, w: int, request) -> None:
+        """Send to worker ``w``; a dead worker is respawned and primed
+        with its initial outputs instead (same reply layout)."""
+        try:
+            self._conns[w].send(request)
+        except (BrokenPipeError, OSError):
+            self._respawn_worker(w)
+            self._conns[w].send((_INITIAL,))
+
+    def _recv(self, w: int):
+        """One worker's reply as ``(payload, None)`` or ``(None, error)``.
+        A worker dead mid-step is respawned and its slice's fresh initial
+        outputs are substituted."""
+        try:
+            ok, payload = self._conns[w].recv()
+        except (EOFError, OSError):
+            self._respawn_worker(w)
+            self._conns[w].send((_INITIAL,))
+            ok, payload = self._conns[w].recv()
+        if not ok:
+            return None, pickle.loads(payload)
+        return payload, None
+
+    # -- protocol ------------------------------------------------------------
+
+    def _output(self, rewards, dones, returns, steps) -> StepOutput:
         for i in np.nonzero(dones)[0]:
             if steps[i] > 0:  # initial() marks done without an episode
                 self.episode_stats.append((float(returns[i]), int(steps[i])))
@@ -46,26 +295,97 @@ class MultiEnv:
             reward=rewards,
             info=StepOutputInfo(episode_return=returns, episode_step=steps),
             done=dones,
-            observation=Observation(frame=frames),
-        )
+            observation=Observation(frame=self._slab.copy()))
+
+    def _gather(self) -> StepOutput:
+        fields = (np.zeros((self.num_envs,), np.float32),
+                  np.zeros((self.num_envs,), bool),
+                  np.zeros((self.num_envs,), np.float32),
+                  np.zeros((self.num_envs,), np.int32))
+        errors = []
+        for w, sl in enumerate(self._slices):
+            payload, error = self._recv(w)
+            if error is not None:
+                # Keep draining the other workers so the pipes stay
+                # aligned; the first error surfaces after the sweep.
+                errors.append(error)
+                continue
+            for field, part in zip(fields, payload):
+                field[sl] = part
+        if errors:
+            raise errors[0]
+        return self._output(*fields)
 
     def initial(self) -> StepOutput:
-        return self._gather([s.initial() for s in self._streams])
+        if self._streams:
+            return self._output(*_run_all(
+                self._streams, self._slab, 0,
+                lambda i, stream: stream.initial()))
+        for w in range(self.num_workers):
+            self._send(w, (_INITIAL,))
+        return self._gather()
 
     def step_send(self, actions) -> None:
         actions = np.asarray(actions)
         if actions.shape[0] != self.num_envs:
             raise ValueError(
                 f"got {actions.shape[0]} actions for {self.num_envs} envs")
-        self._actions = actions
+        for w, sl in enumerate(self._slices):
+            self._send(w, (_STEP, actions[sl]))
+        self._pending = actions
 
     def step_recv(self) -> StepOutput:
-        if self._actions is None:
+        if self._pending is None:
             raise RuntimeError("step_recv without step_send")
-        actions, self._actions = self._actions, None
-        return self._gather([s.step(a)
-                             for s, a in zip(self._streams, actions)])
+        actions, self._pending = self._pending, None
+        if self._streams:
+            return self._output(*_run_all(
+                self._streams, self._slab, 0,
+                lambda i, stream: stream.step(actions[i])))
+        return self._gather()
+
+    def step(self, actions) -> StepOutput:
+        self.step_send(actions)
+        return self.step_recv()
+
+    def resync(self) -> None:
+        """Best-effort pipe re-alignment after an exception of unknown
+        provenance (the actor retry path): drain stale worker replies,
+        each pipe until it stays quiet for a second, so the next
+        ``initial()``/``step_send`` does not read one as its own."""
+        self._pending = None
+        for conn in self._conns:
+            if conn is None:
+                continue
+            try:
+                while conn.poll(1.0):
+                    conn.recv()
+            except (EOFError, OSError):
+                continue
 
     def close(self):
         for stream in self._streams:
             stream.close()
+        self._streams = []
+        for conn in self._conns:
+            if conn is None:
+                continue
+            try:
+                conn.send((_CLOSE,))
+            except (BrokenPipeError, OSError):
+                pass
+        for proc in self._procs:
+            if proc is None:
+                continue
+            proc.join(timeout=5)
+            if proc.is_alive():
+                proc.kill()
+                proc.join(timeout=5)
+        for conn in self._conns:
+            if conn is not None:
+                conn.close()
+        self._conns, self._procs = [], []
+        if self._shm is not None:
+            self._shm.close()
+            self._shm.unlink()
+            self._shm = None

@@ -20,7 +20,9 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional
+
+import torch
 
 _PACKAGE_DIR = Path(__file__).resolve().parents[1]
 SOURCE_DIR = _PACKAGE_DIR / "csrc"
@@ -32,6 +34,7 @@ NVCC_FLAGS = ARCH_FLAGS + (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # C signatures of csrc/*.cu's extern "C" entry points.  Pointers and the
 # stream go through c_void_p: a bare Python int would be cut to 32 bits.
 _SIGNATURES = {
@@ -44,9 +47,11 @@ _SIGNATURES = {
     "sat_conv_gradw_max_rows_per_thread": ([], _I),
     "sat_conv_gradw_threads": ([], _I),
     "sat_conv_gradw_tile_rows": ([], _I),
+    "sat_vtrace": ([_P] * 7 + [_I, _I, _F, _I, _F, _I, _P], _I),
 }
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _library: Optional[ctypes.CDLL] = None
 # Compiler report (ptxas register/shared-memory lines) of the build this
 # process ran; empty when the library was already built.
@@ -139,6 +144,38 @@ def library() -> ctypes.CDLL:
                 fn.restype = restype
             _library = lib
         return _library
+
+
+def on_cpu(what: str, *tensors) -> bool:
+    """True when every tensor lies on the CPU (the wrapper takes its plain
+    version), False when all lie on one CUDA device (it launches its
+    kernel); anything else raises."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return True
+    if kinds != {"cuda"} or len({t.device for t in tensors}) != 1:
+        raise ValueError(
+            f"{what} tensors must all lie on the CPU or all on one CUDA "
+            f"device, got {sorted(str(t.device) for t in tensors)}")
+    return False
+
+
+def check_operand(name: str, t, shape) -> None:
+    """A kernel operand must be contiguous float32 of ``shape``."""
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def count_launch(launches: Dict[str, int], name: str) -> None:
+    """Add one to a wrapper's launch counter; actor threads, the prefetch
+    thread and the learner launch kernels concurrently."""
+    with _count_lock:
+        launches[name] += 1
 
 
 def check(code: int, what: str) -> None:

@@ -95,12 +95,8 @@ def conv_gradw(x, g, kernel_size: int, stride: int):
                          f"SAME output {(out_h, out_w)}")
     if k % s:
         return _library_gradw(x, g, k, s)
-    kinds = {x.device.type, g.device.type}
-    if kinds == {"cpu"}:
+    if _build.on_cpu("grad-W", x, g):
         return conv_gradw_plain(x, g, k, s)
-    if kinds != {"cuda"} or x.device != g.device:
-        raise ValueError(f"x and g must lie on one CUDA device or both on "
-                         f"the CPU, got {x.device} and {g.device}")
     f = g.shape[-1]
     rows = k * k * c
     lib = _build.library()
@@ -131,7 +127,7 @@ def conv_gradw(x, g, kernel_size: int, stride: int):
         f, k, s, top, left, rows_per_block, num_blocks,
         torch.cuda.current_stream().cuda_stream)
     _build.check(code, "stem grad-W kernel")
-    LAUNCHES["stem_gradw"] += 1
+    _build.count_launch(LAUNCHES, "stem_gradw")
     return dw
 
 

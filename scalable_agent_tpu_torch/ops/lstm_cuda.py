@@ -128,27 +128,6 @@ def lstm_backward_plain(dys, dct, dht, x, done, wi, wh,
 # -- kernel wrappers ---------------------------------------------------------
 
 
-def _on_cpu(*tensors) -> bool:
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
-        return True
-    if kinds != {"cuda"} or len({t.device for t in tensors}) != 1:
-        raise ValueError(
-            f"LSTM tensors must all lie on the CPU or all on one CUDA "
-            f"device, got {sorted(str(t.device) for t in tensors)}")
-    return False
-
-
-def _check(name, t, shape):
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _check_hidden(hidden):
     if hidden % 32 or not 32 <= hidden <= 1024:
         raise ValueError(
@@ -164,7 +143,7 @@ def lstm_forward(x, done, c0, h0, wi, wh, b, residuals: bool) -> Forward:
     """Done-reset LSTM forward.  ``residuals=False`` is the lean variant
     (``_fwd_kernel_lean``), ``True`` also stashes what BPTT needs
     (``_fwd_kernel``)."""
-    if _on_cpu(x, done, c0, h0, wi, wh, b):
+    if _build.on_cpu("LSTM", x, done, c0, h0, wi, wh, b):
         return lstm_forward_plain(x, done, c0, h0, wi, wh, b, residuals)
     steps, batch, in_dim = x.shape
     hidden = c0.shape[-1]
@@ -176,7 +155,7 @@ def lstm_forward(x, done, c0, h0, wi, wh, b, residuals: bool) -> Forward:
             ("c0", c0, (batch, hidden)), ("h0", h0, (batch, hidden)),
             ("wi", wi, (in_dim, 4 * hidden)),
             ("wh", wh, (hidden, 4 * hidden)), ("b", b, (4 * hidden,))):
-        _check(name, t, shape)
+        _build.check_operand(name, t, shape)
     empty = lambda *shape: torch.empty(shape, dtype=torch.float32,
                                        device=x.device)
     ys = empty(steps, batch, hidden)
@@ -195,7 +174,8 @@ def lstm_forward(x, done, c0, h0, wi, wh, b, residuals: bool) -> Forward:
         ptr(c_out), ptr(h_out), steps, batch, in_dim, hidden,
         int(residuals), _stream())
     _build.check(code, "lstm forward kernel")
-    LAUNCHES["lstm_fwd_resid" if residuals else "lstm_fwd_lean"] += 1
+    _build.count_launch(
+        LAUNCHES, "lstm_fwd_resid" if residuals else "lstm_fwd_lean")
     return Forward(ys, c_out, h_out, res)
 
 
@@ -209,7 +189,7 @@ def lstm_backward(dys, dct, dht, x, done, wi, wh,
                   res: Residuals) -> Gradients:
     """BPTT of ``lstm_forward(..., residuals=True)`` for the cotangents
     (dys, dcT, dhT)."""
-    if _on_cpu(dys, dct, dht, x, done, wi, wh, *res):
+    if _build.on_cpu("LSTM", dys, dct, dht, x, done, wi, wh, *res):
         return lstm_backward_plain(dys, dct, dht, x, done, wi, wh, res)
     steps, batch, in_dim = x.shape
     hidden = wh.shape[0]
@@ -224,7 +204,7 @@ def lstm_backward(dys, dct, dht, x, done, wi, wh,
             ("cpost", res.cpost, (steps, batch, hidden)),
             ("hpost", res.hpost, (steps, batch, hidden)),
             ("cnew", res.cnew, (steps, batch, hidden))):
-        _check(name, t, shape)
+        _build.check_operand(name, t, shape)
     empty = lambda *shape: torch.empty(shape, dtype=torch.float32,
                                        device=x.device)
     dgates = empty(steps, batch, gates)
@@ -247,7 +227,7 @@ def lstm_backward(dys, dct, dht, x, done, wi, wh,
     _gemm(lib, res.hpost, (1, hidden), dgates, (gates, 1), hidden, gates,
           rows, dwh)
     _gemm(lib, ones, (0, 0), dgates, (gates, 1), 1, gates, rows, db)
-    LAUNCHES["lstm_bptt"] += 1
+    _build.count_launch(LAUNCHES, "lstm_bptt")
     return Gradients(dx, dc0, dh0, dwi, dwh, db)
 
 

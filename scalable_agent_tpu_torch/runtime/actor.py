@@ -1,14 +1,39 @@
-"""Actors: batched inference over a group of envs, packed into [T+1, B]
-trajectories.
+"""Actors: batched inference over env groups, packed into [T+1, B]
+trajectories, on threads that feed the learner.
 
-The counterpart of ``scalable_agent_tpu/runtime/actor.py::VectorActor``.
-Each unroll starts with the previous unroll's last entry (the T+1 overlap,
-reference: experiment.py:311-321), and the first-ever unroll bootstraps
-from a zero action and a zero agent output (experiment.py:243-251).
-Inference runs ``actor_step`` under ``torch.no_grad()``, so the LSTM core
-takes its lean kernel.  ActorPool threads, prefetch and the service are
-not ported yet (ROADMAP.md, queue 1).
+The counterpart of ``scalable_agent_tpu/runtime/actor.py``:
+
+- ``VectorActor`` drives one env group.  Each unroll starts with the
+  previous unroll's last entry (the T+1 overlap, reference:
+  experiment.py:311-321), and the first-ever unroll bootstraps from a zero
+  action and a zero agent output (experiment.py:243-251).  Inference runs
+  ``actor_step`` under ``torch.no_grad()``, so the LSTM core takes its
+  lean kernel.
+- ``ActorPool`` (``inference_mode="structural"``) runs one thread per
+  group, each on its own CUDA stream, with a private copy of the agent.
+  Trajectories (numpy) go through a bounded queue of one slot per group.
+  The learner publishes weights with ``set_params``: a clone of its
+  parameters made on its own stream, with a CUDA event recorded after it
+  (``snapshot_params_for_inference``).  An actor picks up the newest
+  snapshot at the start of each unroll, makes its stream wait on the
+  event, and copies the snapshot into its private agent, so it never
+  reads weights the learner is updating in place.
+- ``run_with_retry`` gives a failing actor thread a bounded, windowed
+  number of respawns with capped exponential backoff; the terminal
+  exception goes through the queue and is raised by ``get_trajectory``.
+
+The service, accum and native-batcher inference modes are not ported yet
+(ROADMAP.md, queue 1).
 """
+
+import contextlib
+import copy
+import logging
+import queue as queue_lib
+import threading
+import time
+from collections import deque
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -25,6 +50,13 @@ from scalable_agent_tpu_torch.types import (
     AgentState,
     map_structure,
 )
+
+log = logging.getLogger("scalable_agent_tpu_torch")
+
+# run_with_retry: the longest backoff between restarts, and the window
+# after which a restart no longer counts against the budget.
+RESTART_BACKOFF_CAP_S = 30.0
+RESTART_WINDOW_S = 600.0
 
 
 def to_numpy(tree):
@@ -45,6 +77,106 @@ def _stack_time(entries):
         lambda *xs: None if xs[0] is None else np.stack(xs), *entries)
 
 
+class ParamsSnapshot(NamedTuple):
+    """One published weight version: detached copies of the agent's
+    parameters (in ``parameters()`` order) and, on the card, the event
+    recorded after the copies on the publishing stream."""
+
+    version: int
+    tensors: Tuple[torch.Tensor, ...]
+    event: Optional[torch.cuda.Event]
+
+
+@torch.no_grad()
+def snapshot_params_for_inference(agent: ImpalaAgent,
+                                  version: int) -> ParamsSnapshot:
+    """Clone ``agent``'s parameters on the current stream; the copies
+    belong to the snapshot alone, so in-place learner updates cannot reach
+    them."""
+    tensors = tuple(p.detach().clone() for p in agent.parameters())
+    event = None
+    if tensors and tensors[0].is_cuda:
+        event = torch.cuda.Event()
+        event.record()
+    return ParamsSnapshot(version, tensors, event)
+
+
+def publish_trajectory(queue, trajectory, stop: threading.Event) -> bool:
+    """Hand one trajectory to the learner queue, re-checking ``stop``
+    while the bounded queue is full; True when delivered."""
+    while not stop.is_set():
+        try:
+            queue.put(trajectory, timeout=0.1)
+            return True
+        except queue_lib.Full:
+            continue
+    return False
+
+
+def consume_trajectory(queue, timeout: Optional[float] = None):
+    """The learner-side half of the hand-off: pop one item and re-raise a
+    marshalled producer exception."""
+    item = queue.get(timeout=timeout)
+    if isinstance(item, Exception):
+        raise item
+    return item
+
+
+def merged_episode_stats(envs_iter):
+    """Completed-episode (return, length) ring buffers merged across a
+    fleet of MultiEnvs."""
+    stats = []
+    for envs in envs_iter:
+        stats.extend(envs.episode_stats)
+    return stats
+
+
+def run_with_retry(loop_fn: Callable[[], None], *, stop: threading.Event,
+                   deliver: Callable[[Exception], None],
+                   reset: Optional[Callable[[], None]] = None,
+                   max_restarts: int = 3, backoff_s: float = 0.5,
+                   on_restart: Optional[Callable[[], None]] = None) -> None:
+    """Bounded-respawn shell around a producer thread's loop.
+
+    ``loop_fn`` runs until a clean stop or an exception.  A failure gets
+    ``max_restarts`` respawns within a sliding ``RESTART_WINDOW_S``
+    (isolated faults far apart age out) with exponential backoff capped at
+    ``RESTART_BACKOFF_CAP_S``, ``reset()`` called before each retry; the
+    terminal exception goes to ``deliver(exc)``."""
+    thread_name = threading.current_thread().name
+    restart_times = deque()
+    while not stop.is_set():
+        try:
+            loop_fn()
+            return  # clean stop
+        except Exception as exc:
+            if stop.is_set():
+                return  # shutdown cascade
+            now = time.monotonic()
+            while (restart_times
+                   and now - restart_times[0] > RESTART_WINDOW_S):
+                restart_times.popleft()
+            if len(restart_times) >= max_restarts:
+                deliver(exc)
+                return
+            restart_times.append(now)
+            backoff = min(RESTART_BACKOFF_CAP_S,
+                          backoff_s * 2 ** (len(restart_times) - 1))
+            if on_restart is not None:
+                on_restart()
+            log.error("actor %s failed (%s: %s); restart %d/%d in the "
+                      "%.0fs window, retrying in %.2fs", thread_name,
+                      type(exc).__name__, exc, len(restart_times),
+                      max_restarts, RESTART_WINDOW_S, backoff)
+            if reset is not None:
+                try:
+                    reset()
+                except Exception:
+                    log.exception("actor %s reset failed before retry",
+                                  thread_name)
+            stop.wait(backoff)
+
+
 class VectorActor:
     """One env group: batched inference + trajectory accumulation."""
 
@@ -57,9 +189,33 @@ class VectorActor:
         self._device = next(agent.parameters()).device
         self._generator = torch.Generator(device=self._device)
         self._generator.manual_seed(seed)
+        self._loaded = None  # the ParamsSnapshot copied into the agent
         self._last_env_output = None
         self._last_agent_output = None
         self._core_state = None
+
+    @property
+    def envs(self) -> MultiEnv:
+        return self._envs
+
+    @torch.no_grad()
+    def load_params(self, snapshot: ParamsSnapshot) -> None:
+        """Copy a published snapshot into this actor's agent on the
+        current stream, after the stream has waited for the snapshot's
+        copies."""
+        if snapshot is self._loaded:
+            return
+        stream = None
+        if snapshot.event is not None:
+            stream = torch.cuda.current_stream(self._device)
+            stream.wait_event(snapshot.event)
+        for param, value in zip(self._agent.parameters(), snapshot.tensors):
+            param.copy_(value)
+            if stream is not None:
+                # Keep the snapshot's memory from being reused by the
+                # publishing stream before this copy has run.
+                value.record_stream(stream)
+        self._loaded = snapshot
 
     def _bootstrap(self):
         batch = self._envs.num_envs
@@ -72,9 +228,13 @@ class VectorActor:
                                    np.float32),
             baseline=np.zeros((batch,), np.float32))
 
-    def run_unroll(self) -> ActorOutput:
-        """Generate one [T+1, B] trajectory batch (numpy) under the agent's
-        current weights."""
+    def run_unroll(self, params: Optional[ParamsSnapshot] = None
+                   ) -> ActorOutput:
+        """Generate one [T+1, B] trajectory batch (numpy), under
+        ``params`` when given, else under the agent's weights as they
+        are."""
+        if params is not None:
+            self.load_params(params)
         if self._last_env_output is None:
             self._bootstrap()
         env_entries = [self._last_env_output]
@@ -89,6 +249,8 @@ class VectorActor:
                 torch.as_tensor(agent_output.action, device=self._device),
                 to_device(env_output, self._device), core_state)
             agent_output = to_numpy(out)
+            # Wait on the env pipes; other groups' inference runs
+            # meanwhile.
             self._envs.step_send(agent_output.action)
             env_output = self._envs.step_recv()
             env_entries.append(env_output)
@@ -102,5 +264,132 @@ class VectorActor:
             env_outputs=_stack_time(env_entries),
             agent_outputs=_stack_time(agent_entries))
 
+    def reset(self):
+        """Drop the carried unroll state after a mid-unroll failure:
+        re-align the env pipes and force a fresh bootstrap."""
+        self._envs.resync()
+        self._last_env_output = None
+        self._last_agent_output = None
+        self._core_state = None
+
     def close(self):
         self._envs.close()
+
+
+class ActorPool:
+    """One ``VectorActor`` thread per env group, feeding a bounded queue.
+
+    Actor ``i`` samples from a generator seeded ``seed + 1000 * i``, as in
+    the JAX pool; the queue holds one trajectory per group.  ``set_params``
+    must run before ``start``.
+    """
+
+    def __init__(self, agent: ImpalaAgent, env_groups: Sequence[MultiEnv],
+                 unroll_length: int, level_name: str = "", seed: int = 0,
+                 inference_mode: str = "structural", max_restarts: int = 3,
+                 restart_backoff_s: float = 0.5):
+        if inference_mode != "structural":
+            raise ValueError(
+                f"inference_mode={inference_mode!r} is not ported to "
+                f"scalable_agent_tpu_torch yet (ROADMAP.md, queue 1); only "
+                f"'structural' runs")
+        self._device = next(agent.parameters()).device
+        self._actors = []
+        for i, envs in enumerate(env_groups):
+            private = copy.deepcopy(agent).requires_grad_(False)
+            self._actors.append(VectorActor(
+                private, envs, unroll_length, level_name=level_name,
+                seed=seed + 1000 * i))
+        self.queue = queue_lib.Queue(maxsize=len(env_groups))
+        self._params = None
+        self._params_version = 0
+        self._params_lock = threading.Lock()
+        self._stop = threading.Event()
+        self._threads = []
+        self._max_restarts = max(0, int(max_restarts))
+        self._restart_backoff_s = float(restart_backoff_s)
+        self._counts_lock = threading.Lock()
+        # Agent steps handed to the queue (x action repeats = env frames)
+        # and actor-thread respawns.
+        self.agent_steps = 0
+        self.restarts = 0
+        self._steps_per_trajectory = unroll_length * (
+            env_groups[0].num_envs if env_groups else 0)
+
+    @property
+    def actors(self) -> Sequence[VectorActor]:
+        return tuple(self._actors)
+
+    def set_params(self, agent: ImpalaAgent, version: Optional[int] = None):
+        """Publish a snapshot of ``agent``'s weights for subsequent
+        unrolls."""
+        if version is None:
+            version = self._params_version + 1
+        snapshot = snapshot_params_for_inference(agent, version)
+        with self._params_lock:
+            self._params = snapshot
+            self._params_version = version
+
+    def _get_params(self) -> ParamsSnapshot:
+        with self._params_lock:
+            return self._params
+
+    def _count(self, name: str, amount: int) -> None:
+        with self._counts_lock:
+            setattr(self, name, getattr(self, name) + amount)
+
+    def _unroll_loop(self, actor: VectorActor):
+        while not self._stop.is_set():
+            trajectory = actor.run_unroll(self._get_params())
+            if publish_trajectory(self.queue, trajectory, self._stop):
+                self._count("agent_steps", self._steps_per_trajectory)
+
+    def _actor_loop(self, actor: VectorActor, stream):
+        def deliver(exc):
+            publish_trajectory(self.queue, exc, self._stop)
+
+        context = (torch.cuda.stream(stream) if stream is not None
+                   else contextlib.nullcontext())
+        with context:
+            run_with_retry(
+                lambda: self._unroll_loop(actor), stop=self._stop,
+                deliver=deliver, reset=actor.reset,
+                max_restarts=self._max_restarts,
+                backoff_s=self._restart_backoff_s,
+                on_restart=lambda: self._count("restarts", 1))
+
+    def start(self) -> "ActorPool":
+        if self._params is None:
+            raise RuntimeError("set_params before start")
+        for i, actor in enumerate(self._actors):
+            stream = (torch.cuda.Stream(device=self._device)
+                      if self._device.type == "cuda" else None)
+            thread = threading.Thread(
+                target=self._actor_loop, args=(actor, stream), daemon=True,
+                name=f"actor-{i}")
+            thread.start()
+            self._threads.append(thread)
+        return self
+
+    def get_trajectory(self, timeout: Optional[float] = None) -> ActorOutput:
+        return consume_trajectory(self.queue, timeout=timeout)
+
+    def stop(self):
+        """Stop and join every actor thread, then close every group's
+        envs (their worker processes included)."""
+        self._stop.set()
+        for thread in self._threads:
+            thread.join(timeout=10)
+            if thread.is_alive():
+                log.error("actor thread %s did not stop within 10 s",
+                          thread.name)
+        for actor in self._actors:
+            actor.close()
+
+    @property
+    def threads(self) -> Sequence[threading.Thread]:
+        return tuple(self._threads)
+
+    def episode_stats(self):
+        """Merged completed-episode (return, length) ring buffers."""
+        return merged_episode_stats(actor.envs for actor in self._actors)

@@ -18,9 +18,15 @@ experiment.py:346-427):
   no-op on params and ``nu`` (frames still advance), counted in
   ``nonfinite_skips``/``nonfinite_streak`` without a host sync.
 
+V-trace's recurrence follows ``scan_impl`` (``ops/vtrace.py``): ``"auto"``
+resolves to ``"associative"``, as the JAX learner resolves it on a mesh
+without a seq axis (the port has none); ``"pallas"`` runs the fused CUDA
+kernel (``ops/vtrace_cuda.py``).
+
 The parameters live in the agent module; ``TrainState`` holds what the JAX
-TrainState holds besides them.  Device telemetry and the learning-dynamics
-metrics are not ported yet (ROADMAP.md, queue 1).
+TrainState holds besides them.  ``state_dict``/``load_state_dict`` give the
+whole of it (parameters included) for checkpoints.  Device telemetry and
+the learning-dynamics metrics are not ported yet (ROADMAP.md, queue 1).
 """
 
 import dataclasses
@@ -76,7 +82,16 @@ class Learner:
     batch_size * unroll_length * num_action_repeats."""
 
     def __init__(self, agent: ImpalaAgent, hp: LearnerHyperparams,
-                 frames_per_update: int, env_frames: float = 0.0):
+                 frames_per_update: int, env_frames: float = 0.0,
+                 scan_impl: str = "auto"):
+        if scan_impl == "auto":
+            scan_impl = "associative"
+        if scan_impl not in vtrace.SCAN_IMPLS:
+            raise ValueError(
+                f"scan_impl {scan_impl!r} is not one of auto, "
+                f"{', '.join(vtrace.SCAN_IMPLS)} (time_sharded needs a seq "
+                f"mesh axis, not ported yet: ROADMAP.md, queue 1)")
+        self.scan_impl = scan_impl
         self._agent = agent
         self._hp = hp
         self._frames_per_update = float(frames_per_update)
@@ -122,7 +137,8 @@ class Learner:
             values=baselines,
             bootstrap_value=bootstrap_value,
             clip_rho_threshold=hp.clip_rho_threshold,
-            clip_pg_rho_threshold=hp.clip_pg_rho_threshold)
+            clip_pg_rho_threshold=hp.clip_pg_rho_threshold,
+            scan_impl=self.scan_impl)
         pg_loss = losses_lib.compute_policy_gradient_loss(
             target_logits, behaviour.action, vt.pg_advantages,
             dist_spec=dist_spec)
@@ -178,3 +194,33 @@ class Learner:
             nonfinite_streak=state.nonfinite_streak,
             env_frames=torch.tensor(state.env_frames, dtype=torch.float64))
         return metrics
+
+    def state_dict(self) -> Dict[str, object]:
+        """Everything a checkpoint holds: parameters, RMSProp ``nu`` (both
+        by parameter name), ``env_frames`` and the non-finite counters.
+        The tensors are the live ones, not copies."""
+        state = self.state
+        return {
+            "params": dict(self._params),
+            "opt_state": dict(state.opt_state),
+            "env_frames": state.env_frames,
+            "nonfinite_skips": state.nonfinite_skips,
+            "nonfinite_streak": state.nonfinite_streak,
+        }
+
+    @torch.no_grad()
+    def load_state_dict(self, saved: Dict[str, object]) -> None:
+        """Copy a ``state_dict`` (on any device) into this learner."""
+        for group in ("params", "opt_state"):
+            ours = (self._params if group == "params"
+                    else self.state.opt_state)
+            if set(saved[group]) != set(ours):
+                raise ValueError(
+                    f"checkpoint {group} names differ from the agent's: "
+                    f"{sorted(set(saved[group]) ^ set(ours))}")
+            for name, tensor in ours.items():
+                tensor.copy_(saved[group][name])
+        state = self.state
+        state.env_frames = float(saved["env_frames"])
+        for key in ("nonfinite_skips", "nonfinite_streak"):
+            getattr(state, key).copy_(torch.as_tensor(saved[key]))

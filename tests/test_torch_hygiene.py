@@ -5,6 +5,7 @@ port yet fails loudly instead of being ignored."""
 import ast
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -15,7 +16,7 @@ import torch
 from scalable_agent_tpu import config as jax_config
 from scalable_agent_tpu_torch import driver
 from scalable_agent_tpu_torch.config import UNPORTED_FLAGS, Config
-from scalable_agent_tpu_torch.ops import _build, conv_cuda
+from scalable_agent_tpu_torch.ops import _build, conv_cuda, vtrace_cuda
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "scalable_agent_tpu_torch"
@@ -70,6 +71,23 @@ def test_kernel_wrappers_refuse_other_devices():
     g = torch.zeros(2, 2, 2, 4, device="meta")
     with pytest.raises(ValueError, match="CUDA device"):
         conv_cuda.conv_gradw(x, g, 8, 4)
+    t = torch.zeros(5, 2, device="meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        vtrace_cuda.vtrace_fused(t, t, t, t, torch.zeros(2))
+
+
+def test_every_c_entry_point_has_a_signature():
+    """Each extern "C" function of csrc/*.cu (vtrace.cu's sat_vtrace
+    included) is declared in _build._SIGNATURES, and nothing else is."""
+    defined = set()
+    for source in sorted((PACKAGE / "csrc").glob("*.cu")):
+        text = source.read_text()
+        for block in re.findall(r'extern "C" \{(.*?)\}  // extern "C"',
+                                text, re.S):
+            defined |= set(re.findall(r"^\S.*?\b(sat_\w+)\(", block,
+                                      re.M))
+    assert "sat_vtrace" in defined
+    assert defined == set(_build._SIGNATURES)
 
 
 def test_flag_lists_cover_the_jax_config():
@@ -82,9 +100,10 @@ def test_flag_lists_cover_the_jax_config():
             assert f.default == getattr(jax_config.Config(), f.name), f.name
 
 
-@pytest.mark.parametrize("argv", [["--logdir=/x"], ["--trace", "true"],
+@pytest.mark.parametrize("argv", [["--record_to=/x"], ["--trace", "true"],
                                   ["--compute_dtype=bfloat16"],
-                                  ["--scan_impl=pallas"], ["--mode=test"],
+                                  ["--scan_impl=time_sharded"],
+                                  ["--inference_mode=service"],
                                   ["--torso_type=resnet"]])
 def test_unported_flags_and_values_raise(argv):
     with pytest.raises(ValueError, match="ROADMAP.md"):
@@ -112,3 +131,21 @@ def test_library_name_follows_the_sources(monkeypatch, tmp_path):
     assert first == _build.library_path()
     source.write_text("// two\n")
     assert _build.library_path() != first
+
+
+@pytest.mark.parametrize("argv,field,value", [
+    (["--scan_impl=pallas"], "scan_impl", "pallas"),
+    (["--mode=test"], "mode", "test"),
+    (["--logdir=/x"], "logdir", "/x"),
+    (["--num_env_workers_per_group=2"], "num_env_workers_per_group", 2),
+    (["--checkpoint_keep=2"], "checkpoint_keep", 2),
+    (["--actor_max_restarts=0"], "actor_max_restarts", 0)])
+def test_flags_ported_for_the_pool_path(argv, field, value):
+    assert getattr(Config.from_argv(argv), field) == value
+
+
+def test_config_save_load_round_trip(tmp_path):
+    config = Config(logdir=str(tmp_path), scan_impl="pallas", seed=7)
+    path = config.save()
+    assert path == str(tmp_path / "config.json")
+    assert Config.load(path) == config

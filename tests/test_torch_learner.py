@@ -1,7 +1,10 @@
 """The port's learner (scalable_agent_tpu_torch/runtime/learner.py) held
 against a live JAX ``Learner`` on a one-device CPU mesh: the same weights
 (through ``convert.py``) and the same numpy trajectories, three updates,
-the losses of every update and the parameter change of the whole run.
+the losses of every update and the parameter change of the whole run,
+for ``scan_impl="auto"`` (the associative recurrence on both sides) and
+``scan_impl="pallas"`` (the fused V-trace kernel: interpret mode on the
+JAX side, the kernel's plain version here).
 
 The parameter CHANGE is compared, not the parameters: the change is
 where the optimizer's semantics show (optax's ``nu`` starting at 1.0 and
@@ -91,8 +94,7 @@ def _torch_traj(d):
                                   baseline=t["baseline"]))
 
 
-@pytest.fixture(scope="module")
-def runs():
+def _runs(scan_impl):
     batches = [_trajectory(seed) for seed in range(UPDATES)]
     total_frames = 1e3  # short enough that the lr decay shows
 
@@ -101,7 +103,8 @@ def runs():
     mesh = make_mesh(MeshSpec(data=1), devices=jax.devices()[:1])
     jax_learner = JaxLearner(
         jax_agent, JaxHp(total_environment_frames=total_frames), mesh,
-        FRAMES_PER_UPDATE, device_telemetry=False, learn_telemetry=False)
+        FRAMES_PER_UPDATE, device_telemetry=False, learn_telemetry=False,
+        scan_impl=scan_impl)
     state = jax_learner.init(jax.random.key(0), _jax_traj(batches[0]))
     start = jax.tree_util.tree_map(np.asarray, state.params)
     jax_losses = []
@@ -117,7 +120,8 @@ def runs():
     agent = ImpalaAgent(A, (16, 16, 3), core_size=H)
     agent.load_state_dict(convert.flax_to_state_dict(start))
     learner = Learner(agent, LearnerHyperparams(
-        total_environment_frames=total_frames), FRAMES_PER_UPDATE)
+        total_environment_frames=total_frames), FRAMES_PER_UPDATE,
+        scan_impl=scan_impl)
     torch_losses = [
         {k: float(v) for k, v in learner.update(_torch_traj(d)).items()}
         for d in batches]
@@ -126,12 +130,53 @@ def runs():
             torch_losses)
 
 
-def test_losses_match_every_update(runs):
+@pytest.fixture(scope="module")
+def runs():
+    return _runs("auto")
+
+
+@pytest.fixture(scope="module")
+def pallas_runs():
+    return _runs("pallas")
+
+
+def _check_losses(runs):
     _, _, jax_losses, _, torch_losses = runs
     for want, got in zip(jax_losses, torch_losses):
         for key, value in want.items():
             np.testing.assert_allclose(got[key], value, rtol=1e-4,
                                        atol=1e-6, err_msg=key)
+
+
+def _check_parameter_changes(runs):
+    start, jax_end, _, torch_end, _ = runs
+    for name, begin in start.items():
+        want = (jax_end[name] - begin).numpy()
+        got = (torch_end[name] - begin).numpy()
+        scale = float(np.abs(want).max())
+        assert scale > 0, name
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-3 * scale,
+                                   err_msg=name)
+
+
+def test_losses_match_every_update(runs):
+    _check_losses(runs)
+
+
+@pytest.mark.parametrize("check", [_check_losses, _check_parameter_changes],
+                         ids=["losses", "parameter_changes"])
+def test_pallas_scan_impl_matches_jax(pallas_runs, check):
+    check(pallas_runs)
+
+
+def test_scan_impl_resolution():
+    agent = ImpalaAgent(A, (16, 16, 3), core_size=H)
+    resolve = lambda impl: Learner(agent, LearnerHyperparams(),
+                                   FRAMES_PER_UPDATE, scan_impl=impl)
+    assert resolve("auto").scan_impl == "associative"
+    assert resolve("pallas").scan_impl == "pallas"
+    with pytest.raises(ValueError, match="ROADMAP"):
+        resolve("time_sharded")
 
 
 def test_env_frames_and_lr_schedule(runs):
@@ -145,14 +190,25 @@ def test_env_frames_and_lr_schedule(runs):
 
 
 def test_parameter_changes_match(runs):
-    start, jax_end, _, torch_end, _ = runs
-    for name, begin in start.items():
-        want = (jax_end[name] - begin).numpy()
-        got = (torch_end[name] - begin).numpy()
-        scale = float(np.abs(want).max())
-        assert scale > 0, name
-        np.testing.assert_allclose(got, want, rtol=0, atol=1e-3 * scale,
-                                   err_msg=name)
+    _check_parameter_changes(runs)
+
+
+def test_state_dict_round_trip():
+    """load_state_dict restores params, nu, frames and counters exactly
+    into a differently-initialized learner."""
+    make = lambda seed: Learner(
+        ImpalaAgent(A, (16, 16, 3), core_size=H,
+                    generator=torch.Generator().manual_seed(seed)),
+        LearnerHyperparams(), FRAMES_PER_UPDATE)
+    source, target = make(1), make(2)
+    source.update(_torch_traj(_trajectory(4)))
+    target.load_state_dict(source.state_dict())
+    want, got = source.state_dict(), target.state_dict()
+    for group in ("params", "opt_state"):
+        for name, tensor in want[group].items():
+            assert torch.equal(got[group][name], tensor), name
+    assert got["env_frames"] == want["env_frames"] == FRAMES_PER_UPDATE
+    assert float(got["nonfinite_skips"]) == float(want["nonfinite_skips"])
 
 
 def test_nonfinite_update_is_a_counted_noop():
