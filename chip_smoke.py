@@ -14,8 +14,16 @@ a result:
    at [100, 8192] and T=1), float32 with TF32 off, random inputs from a
    seeded generator with ~5% done=1: max abs and scale-floored relative
    error against the stated tolerance, and times from CUDA events (kernel,
-   plain version, and ``torch.nn.grad.conv2d_weight`` as the grad-W
-   yardstick; V-trace also against the ``scan_impl=auto`` recurrence).
+   plain version, and a library call for the same function where there is
+   one: ``torch.nn.grad.conv2d_weight`` for grad-W, ``torch.lstm_cell``
+   after the done-reset for the lean forward; V-trace also against the
+   ``scan_impl=auto`` recurrence).  The lean step kernel is also held at
+   T=1 for B in {1, 8, 32, 64}, at T=5 (five launches), and from two
+   threads on two streams at once; its device time (torch.profiler) must
+   not exceed ``torch.lstm_cell``'s.  Grad-W is also held at N=1, N=3233,
+   17x23 frames (asymmetric SAME pads) and in both input layouts the torso
+   can hand over (contiguous NHWC, an NHWC view of NCHW memory), two calls
+   must give bitwise-equal dW, and its time must be below cuDNN's.
    Then the whole agent, forward and every parameter gradient, on the card
    against the same weights on the CPU.
 3. Train: ``driver.train`` on ``fake_benchmark`` at full width (64 actors
@@ -100,8 +108,9 @@ def _time_ms(torch, fn, iters):
 
 def _device_ms(torch, fn, kernel, iters):
     """Mean device milliseconds per call of the kernels whose name holds
-    ``kernel``, from torch.profiler: the kernel's own time, without the
-    host's launch overhead that a loop of small launches is bound by."""
+    one of ``kernel`` (a string or a tuple of them; None for every kernel
+    the call launches), from torch.profiler: the kernels' own time, without
+    the host's launch overhead that a loop of small launches is bound by."""
     fn()
     torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CPU,
@@ -110,10 +119,11 @@ def _device_ms(torch, fn, kernel, iters):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+    names = (kernel,) if isinstance(kernel, str) else kernel
     us = 0.0
     for evt in prof.key_averages():
-        if (evt.device_type == torch.autograd.DeviceType.CUDA
-                and kernel in evt.key):
+        if evt.device_type == torch.autograd.DeviceType.CUDA and (
+                names is None or any(n in evt.key for n in names)):
             us += getattr(evt, "self_device_time_total", None) or getattr(
                 evt, "self_cuda_time_total", 0.0)
     return us / 1e3 / iters
@@ -159,26 +169,53 @@ def compare_lstm(torch, lstm_cuda, device):
     rows = []
     f4 = 4  # bytes per float32
 
-    # Lean forward at the actor's T=1.
+    # Lean forward: the step kernel at the actor's T=1 for several batch
+    # sizes, and a T=5 forward (five launches) against the plain loop.
+    lean = lambda *a: lstm_cuda.lstm_forward(*a, residuals=False)
+    lean_plain = lambda *a: lstm_cuda.lstm_forward_plain(*a, residuals=False)
+    for batch in (1, 8, 32, 64):
+        xb = rand(1, batch, D)
+        db = (torch.rand((1, batch), generator=gen) < 0.3).float().to(device)
+        cb, hb = rand(batch, H, scale=0.5), torch.tanh(rand(batch, H))
+        argsb = (xb, db, cb, hb, wi, wh, b)
+        err = _errors(zip(lean(*argsb)[:3], lean_plain(*argsb)[:3]))
+        _check(f"lstm_fwd_lean T=1 B={batch}", *err, LSTM_TOL)
+    args5 = (x[:5].contiguous(), done[:5].contiguous(), c0, h0, wi, wh, b)
+    err = _errors(zip(lean(*args5)[:3], lean_plain(*args5)[:3]))
+    _check("lstm_fwd_lean T=5 (five step launches)", *err, LSTM_TOL)
+    compare_lean_streams(torch, lstm_cuda, device, wi, wh, b)
+
     args1 = (x[:1].contiguous(), done[:1].contiguous(), c0, h0, wi, wh, b)
-    kern = lstm_cuda.lstm_forward(*args1, residuals=False)
-    plain = lstm_cuda.lstm_forward_plain(*args1, residuals=False)
+    kern = lean(*args1)
+    plain = lean_plain(*args1)
     torch.cuda.synchronize()
     err = _errors(zip(kern[:3], plain[:3]))
     _check("lstm_fwd_lean", *err, LSTM_TOL)
-    nbytes = f4 * (B * D + B + 2 * B * H + (D + H + 1) * 4 * H
-                   + B * H + 2 * B * H)
+    # The library yardstick: torch.lstm_cell after the done-reset computes
+    # the same function (gate order i, f, g, o; its CUDA path needs both
+    # biases, so the second is zero).
+    keep = (1.0 - args1[1][0])[:, None]
+    zero_b = torch.zeros_like(b)
+    cell = lambda: torch.lstm_cell(args1[0][0], (h0 * keep, c0 * keep),
+                                   wi.t(), wh.t(), b, zero_b)
+    cell_h, cell_c = cell()
+    cell_err = _errors([(cell_h, plain.h), (cell_c, plain.c)])
+    print(f"  (torch.lstm_cell after the reset against the same plain "
+          f"version: max_rel_err {cell_err[1]:.3e})", flush=True)
+    nbytes = f4 * (B * D + B + 2 * B * H + (D + H + 1) * 4 * H + 2 * B * H)
     flops = 2 * B * (D + H) * 4 * H + 12 * B * H
-    device_ms = _device_ms(
-        torch, lambda: lstm_cuda.lstm_forward(*args1, residuals=False),
-        "lstm_fwd_kernel", 50)
-    print(f"  lstm_fwd_lean kernel device time {device_ms:.4f} ms "
-          f"(torch.profiler)", flush=True)
+    device_ms = _device_ms(torch, lambda: lean(*args1), "lstm_step_kernel",
+                           50)
+    cell_device_ms = _device_ms(torch, cell, None, 50)
+    print(f"  lstm_fwd_lean [1,32,266] H=256: step kernel device time "
+          f"{device_ms:.4f} ms, torch.lstm_cell after the reset (all its "
+          f"kernels) {cell_device_ms:.4f} ms (torch.profiler)", flush=True)
+    if not device_ms <= cell_device_ms:
+        raise AssertionError("the lean step kernel's device time exceeds "
+                             "torch.lstm_cell's")
     rows.append(("lstm_fwd_lean", "lstm.cu", "lstm_pallas.py:89", err,
-                 lambda: lstm_cuda.lstm_forward(*args1, residuals=False),
-                 lambda: lstm_cuda.lstm_forward_plain(*args1,
-                                                      residuals=False),
-                 None, nbytes, flops))
+                 lambda: lean(*args1), lambda: lean_plain(*args1),
+                 cell, nbytes, flops))
 
     # Residual forward over the learner's T+1 = 101 steps.
     args = (x, done, c0, h0, wi, wh, b)
@@ -217,10 +254,50 @@ def compare_lstm(torch, lstm_cuda, device):
     return rows
 
 
-def compare_gradw(torch, conv_cuda, device):
-    """The stem grad-W at the learner's merged batch N = 101 * 32."""
+def compare_lean_streams(torch, lstm_cuda, device, wi, wh, b):
+    """Two threads, each on its own stream (as the two actor groups run),
+    launch the T=1 step kernel concurrently; each result must match the
+    plain version."""
+    import threading
+
+    gen = torch.Generator().manual_seed(55)
+    cases = []
+    for _ in range(2):
+        x = torch.randn((1, 32, wi.shape[0]), generator=gen).to(device)
+        done = (torch.rand((1, 32), generator=gen) < 0.3).float().to(device)
+        c = (torch.randn((32, wh.shape[0]), generator=gen) * 0.5).to(device)
+        h = torch.tanh(torch.randn((32, wh.shape[0]), generator=gen)).to(
+            device)
+        cases.append((x, done, c, h, wi, wh, b))
+    outs = [None, None]
+    barrier = threading.Barrier(2)
+
+    def run(i):
+        stream = torch.cuda.Stream()
+        with torch.cuda.stream(stream):
+            barrier.wait()
+            for _ in range(200):
+                outs[i] = lstm_cuda.lstm_forward(*cases[i], residuals=False)
+            stream.synchronize()
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    for i in range(2):
+        plain = lstm_cuda.lstm_forward_plain(*cases[i], residuals=False)
+        err = _errors(zip(outs[i][:3], plain[:3]))
+        _check(f"lstm_fwd_lean, stream {i + 1} of 2 concurrent", *err,
+               LSTM_TOL)
+
+
+def compare_gradw(torch, conv_cuda, device, N=101 * 32):
+    """The stem grad-W at the learner's merged batch N = 101 * 32, then at
+    other image counts, frame sizes and layouts."""
     gen = torch.Generator().manual_seed(4321)
-    N, Hh, W, C, K, S, Fo = 101 * 32, 72, 96, 3, 8, 4, 32
+    Hh, W, C, K, S, Fo = 72, 96, 3, 8, 4, 32
     OH, OW = -(-Hh // S), -(-W // S)
     x = (torch.randint(0, 256, (N, Hh, W, C), generator=gen,
                        dtype=torch.uint8).to(device).float() / 255.0)
@@ -232,12 +309,48 @@ def compare_gradw(torch, conv_cuda, device):
     library = lambda: torch.nn.grad.conv2d_weight(
         x_nchw, (Fo, C, K, K), g_nchw, S, pad)
     lib_dw = library().permute(2, 3, 1, 0)
+    again = conv_cuda.conv_gradw(x, g, K, S)
     torch.cuda.synchronize()
     err = _errors([(kern, plain)])
     _check("stem_gradw", *err, GRADW_TOL)
+    if not torch.equal(kern, again):
+        raise AssertionError("stem_gradw: two calls gave different dW")
+    print("  stem_gradw: two calls bitwise equal", flush=True)
     lib_err = _errors([(lib_dw, plain)])
     print(f"  (cuDNN's conv2d_weight against the same plain version: "
           f"max_rel_err {lib_err[1]:.3e})", flush=True)
+
+    # Both layouts the torso can hand over, for each of x and g: contiguous
+    # NHWC, and an NHWC view of contiguous NCHW memory.
+    planar = lambda t: t.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    for name, xx, gg in (("x NCHW-planar, g NHWC", planar(x), g),
+                         ("x NHWC, g NCHW-planar", x, planar(g)),
+                         ("x and g NCHW-planar", planar(x), planar(g))):
+        got = conv_cuda.conv_gradw(xx, gg, K, S)
+        _check(f"stem_gradw, {name}", *_errors([(got, plain)]), GRADW_TOL)
+        del xx, gg
+    # Image counts that split unevenly or not at all, and an odd frame size
+    # (asymmetric SAME pads) in both layouts.
+    for n, hh, ww in ((1, 72, 96), (N + 1, 72, 96), (64, 17, 23)):
+        xs = (torch.randint(0, 256, (n, hh, ww, C), generator=gen,
+                            dtype=torch.uint8).to(device).float() / 255.0)
+        gs = torch.randn((n, -(-hh // S), -(-ww // S), Fo),
+                         generator=gen).to(device)
+        want = conv_cuda.conv_gradw_plain(xs, gs, K, S)
+        layouts = (((xs, gs, "NHWC"), (planar(xs), planar(gs), "NCHW-planar"))
+                   if n == 64 else ((xs, gs, "NHWC"),))
+        for xx, gg, name in layouts:
+            got = conv_cuda.conv_gradw(xx, gg, K, S)
+            _check(f"stem_gradw N={n} {hh}x{ww} {name}",
+                   *_errors([(got, want)]), GRADW_TOL)
+        del xs, gs
+    device_ms = _device_ms(
+        torch, lambda: conv_cuda.conv_gradw(x, g, K, S),
+        ("conv_gradw_band_kernel", "reduce_partials_kernel"), 10)
+    lib_device_ms = _device_ms(torch, library, None, 10)
+    print(f"  stem_gradw: kernels' device time {device_ms:.4f} ms, cuDNN "
+          f"conv2d_weight {lib_device_ms:.4f} ms (torch.profiler)",
+          flush=True)
     nbytes = 4 * (N * Hh * W * C + N * OH * OW * Fo + K * K * C * Fo)
     flops = 2 * N * OH * OW * K * K * C * Fo
     return [("stem_gradw", "conv.cu", "conv_pallas.py:86", err,
@@ -587,6 +700,9 @@ def main() -> int:
             print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"library {lib_ms if lib_ms is None else round(lib_ms, 4)}"
                   f" ms, bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+            if name == "stem_gradw" and not ms < lib_ms:
+                raise AssertionError("stem_gradw is not faster than "
+                                     "cuDNN's conv2d_weight")
         del rows
         compare_agent(torch, device)
         torch.cuda.empty_cache()

@@ -1,129 +1,318 @@
 // Hand-written Hopper (sm_90a) kernel for the weight gradient of the
-// torso's SAME-padded strided stem conv.
+// torso's SAME-padded 8x8 / stride-4 stem conv (3-channel frames into 32
+// features).
 //
 // Replaces scalable_agent_tpu/ops/conv_pallas.py::_gradw_kernel.  The TPU
-// kernel re-lays the padded input out by space-to-depth, gathers the D*D
-// taps as contiguous slices, and accumulates the [K*K*C, F] product across
-// a sequential grid over batch tiles in VMEM scratch.  What it computes is
-// the row contraction
+// kernel re-lays the padded input out by space-to-depth, gathers the taps
+// as contiguous slices, and accumulates the [K*K*C, F] product across a
+// sequential grid over batch tiles in VMEM scratch.  What it computes is
+// the split-K product
 //
 //   dW[kh, kw, c, f] = sum_{n, oh, ow} x[n, oh*S + kh - ph, ow*S + kw - pw, c]
 //                                      * g[n, oh, ow, f]
 //
-// over P = N*OH*OW rows (1.4 M at the main path's N=3232, 72x96 frames).
+// i.e. dW[192, 32] = P^T[192, P] . G[P, 32] over P = N*OH*OW patch rows
+// (1.4 M at the main path's N=3232 frames of 72x96).
 //
-// Design here: blocks cannot carry a sum from one to the next, so each block
-// owns a contiguous range of rows and writes its own [K*K*C, F] partial sum;
-// a second kernel reduces the partials in a fixed order (deterministic, no
-// atomics).  The im2col gather happens inside the block: a tile of TP rows'
-// patches is staged in shared memory straight from x, with the SAME padding
-// applied as bounds checks (nothing padded is materialised), x and g are
-// read through element strides so an NCHW or channels-last tensor is taken
-// as a view without a copy, and the output is written in HWIO order
-// directly (the TPU kernel's (dh, dw, sh, sw, c) row order needs no undoing).
-// Each thread accumulates a RI x 4 register tile of the output.
-// Bound on the card: 17 GFLOP of f32 FMA over ~0.45 GB of input, i.e.
-// compute-bound at ~0.26 ms; see PERF.md for what this simple design gets.
+// What bounds it on this card: 17.2 GFLOP of float32 FMA over 0.45 GB of
+// input, so f32 FFMA at 67 TFLOP/s (0.256 ms) and not bytes (0.133 ms).
+// A design that gathers every element of a small patch tile from device
+// memory (integer divides per element, two barriers per few FMAs) is
+// bound by address arithmetic and barriers instead, ~10x slower.
+//
+// Design here:
+// * Whole images, in bands of output rows.  Each image's x (and g) is one
+//   contiguous span in both layouts the torso hands over, so a block stages
+//   a band of BR output rows -- (BR-1)*S + K input rows, the K-S halo
+//   included, plus the band's g rows -- into shared memory with cp.async
+//   copies as wide as the alignment allows (16 bytes for the rows of g, 8
+//   for x's rows at a pad of 2), double-buffered: the next band is in
+//   flight while this one is contracted.  The band height is the largest
+//   that lets two stages fit (9 of the 18 output rows at 72x96: each pixel
+//   is read from device memory once, the 4-row halo a second time).  The
+//   SAME padding is zero rows and columns in shared memory: the column pads
+//   are zeroed once, the rows above or below the image per band, so the
+//   inner loop has no bounds checks.
+// * Space-to-depth addressing.  Shared memory keeps the padded band with
+//   its left pad at column pw, so the patch of output (oh, ow) at taps
+//   (kh, kw = 4*q .. 4*q+3) starts at padded column 4*(ow+q): a thread's
+//   12 patch values (4 kw x 3 c) are three aligned 16-byte loads in either
+//   layout, and all integer arithmetic sits outside the FMA loop.  Row
+//   strides are padded to 8 (mod 32) floats so the 8 distinct 16-byte
+//   chunks a warp reads fall on distinct banks.
+// * Register tiles.  A row group of 64 threads covers the 192x32 output:
+//   thread (kh, q, f-tile) holds 12x8 accumulators, reading 5 x 16 bytes of
+//   shared memory per 96 FMAs.  Six row groups (384 threads, 12 warps to
+//   hide shared-memory latency; one block per SM, grid = SM count) take
+//   interleaved output columns of the band and are summed in shared memory
+//   at the end in a fixed order.
+// * Route: float32 FFMA, not 3xTF32 tensor cores.  3xTF32 could reach the
+//   byte bound, but needs three mma.sync per product plus the hi/lo split of
+//   every gathered patch value; FFMA at this tile is ~90% FMA instructions
+//   and targets 2x its bound with exact float32 products.
+// * Deterministic: block b owns the (image, band) units
+//   [b*U/B, (b+1)*U/B) in order, writes its own partial [192, 32], and a
+//   second kernel sums the partials over b in index order.  No atomics: two
+//   calls give bitwise-equal dW.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kTP = 32;        // rows (output positions) per staged tile
-constexpr int kThreads = 256;
-constexpr int kMaxRI = 8;      // output rows per thread
+constexpr int kK = 8;                      // kernel size
+constexpr int kS = 4;                      // stride
+constexpr int kC = 3;                      // input channels
+constexpr int kF = 32;                     // output features
+constexpr int kR = kK * kK * kC;           // 192 rows of dW
+constexpr int kTileR = kS * kC;            // dW rows per thread: 4 kw x 3 c
+constexpr int kTileF = 8;                  // dW columns per thread
+constexpr int kRTiles = kK * (kK / kS);    // (kh, kw quad): 16
+constexpr int kFTiles = kF / kTileF;       // 4
+constexpr int kGroupThreads = kRTiles * kFTiles;  // 64
+constexpr int kGroups = 6;
+constexpr int kThreads = kGroupThreads * kGroups;  // 384
+constexpr int kWarps = kThreads / 32;
 
-__global__ void conv_gradw_partial_kernel(
-    const float* __restrict__ x, long long sxn, long long sxh, long long sxw,
-    long long sxc, const float* __restrict__ g, long long sgn, long long sgh,
-    long long sgw, long long sgf, float* __restrict__ partial, int H, int W,
-    int C, int OH, int OW, int F, int K, int S, int pad_h, int pad_w,
-    long long num_rows, long long rows_per_block) {
-  extern __shared__ float smem[];
-  const int R = K * K * C;
-  float* sp = smem;             // patches, [kTP][R]
-  float* sg = smem + kTP * R;   // cotangent rows, [kTP][F]
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+template <int BYTES>
+__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "n"(BYTES)
+               : "memory");
+}
+
+template <int VEC>
+__device__ __forceinline__ void copy_rows_vec(float* dst, int dst_stride,
+                                              const float* src,
+                                              long long src_stride, int rows,
+                                              int len) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < rows; r += kWarps) {
+    const float* s = src + r * src_stride;
+    float* d = dst + r * dst_stride;
+    for (int v = lane * VEC; v < len; v += 32 * VEC)
+      cp_async<4 * VEC>(d + v, s + v);
+  }
+}
+
+// Asynchronously copies `rows` rows of `len` floats, row r from
+// src + r*src_stride to dst + r*dst_stride, one warp per row, with the
+// widest cp.async that every row's alignment allows.
+__device__ __forceinline__ void copy_rows(float* dst, int dst_stride,
+                                          const float* src,
+                                          long long src_stride, int rows,
+                                          int len) {
+  const unsigned long long bits =
+      reinterpret_cast<unsigned long long>(src) | smem_addr(dst) |
+      static_cast<unsigned long long>(src_stride * 4) |
+      static_cast<unsigned>(dst_stride * 4) | static_cast<unsigned>(len * 4);
+  if ((bits & 15) == 0)
+    copy_rows_vec<4>(dst, dst_stride, src, src_stride, rows, len);
+  else if ((bits & 7) == 0)
+    copy_rows_vec<2>(dst, dst_stride, src, src_stride, rows, len);
+  else
+    copy_rows_vec<1>(dst, dst_stride, src, src_stride, rows, len);
+}
+
+// Zeroes rows [r0, r1) of `stride` floats (a multiple of 4) at dst.
+__device__ __forceinline__ void zero_rows(float* dst, int stride, int r0,
+                                          int r1) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = r0 + warp; r < r1; r += kWarps) {
+    float4* d = reinterpret_cast<float4*>(dst + r * stride);
+    for (int v = lane; v < stride / 4; v += 32)
+      d[v] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+struct Geometry {
+  int H, W, OH, OW, pad_h, pad_w;
+  int band_rows, bands;  // output rows per band, bands per image
+  int xrs;               // padded row stride of the staged x, floats
+  int xplane;            // one channel plane of the staged x (CHW), floats
+  int x_floats;          // staged x region, floats (multiple of 4)
+  int gps;               // plane stride of the staged g (CHW), floats
+  int stage_floats;      // one stage: x region + g region
+};
+
+// Issues the copies of unit u = (image, band) into the stage at `xs`.
+template <bool XCHW, bool GCHW>
+__device__ __forceinline__ void stage_unit(float* xs, const float* x,
+                                           const float* g, long long u,
+                                           const Geometry& q) {
+  const long long n = u / q.bands;
+  const int band = static_cast<int>(u - n * q.bands);
+  const int oh0 = band * q.band_rows;
+  const int rows = min(q.band_rows, q.OH - oh0);
+  const int xr = (rows - 1) * kS + kK;  // padded input rows of the band
+  const int ih0 = oh0 * kS - q.pad_h;
+  const int lo = max(0, -ih0);          // first band row inside the image
+  const int hi = min(xr, q.H - ih0);    // one past the last
+  const float* ximg = x + n * q.H * q.W * kC;
+  if (XCHW) {
+    for (int c = 0; c < kC; ++c) {
+      float* plane = xs + c * q.xplane;
+      zero_rows(plane, q.xrs, 0, lo);
+      zero_rows(plane, q.xrs, hi, xr);
+      copy_rows(plane + lo * q.xrs + q.pad_w, q.xrs,
+                ximg + (c * q.H + ih0 + lo) * static_cast<long long>(q.W),
+                q.W, hi - lo, q.W);
+    }
+  } else {
+    zero_rows(xs, q.xrs, 0, lo);
+    zero_rows(xs, q.xrs, hi, xr);
+    copy_rows(xs + lo * q.xrs + q.pad_w * kC, q.xrs,
+              ximg + (ih0 + lo) * static_cast<long long>(q.W * kC),
+              q.W * kC, hi - lo, q.W * kC);
+  }
+  float* gs = xs + q.x_floats;
+  const float* gimg = g + n * q.OH * q.OW * kF;
+  if (GCHW)
+    copy_rows(gs, q.gps, gimg + oh0 * q.OW, q.OH * q.OW, kF, rows * q.OW);
+  else
+    copy_rows(gs, q.OW * kF, gimg + oh0 * q.OW * kF, q.OW * kF, rows,
+              q.OW * kF);
+}
+
+template <bool XCHW, bool GCHW>
+__global__ void __launch_bounds__(kThreads, 1)
+    conv_gradw_band_kernel(const float* __restrict__ x,
+                           const float* __restrict__ g,
+                           float* __restrict__ partial, Geometry q,
+                           long long units) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
   const int tid = threadIdx.x;
-  const int tf_count = F / 4;   // thread columns, 4 consecutive f each
-  const int tr_count = kThreads / tf_count;
-  const int tf = tid % tf_count;
-  const int tr = tid / tf_count;
-  const bool active = tr < tr_count;
-  const int ri = (R + tr_count - 1) / tr_count;
-  float acc[kMaxRI][4];
+  const int rg = tid / kGroupThreads;  // row group
+  const int t = tid % kGroupThreads;
+  const int ft = t % kFTiles;
+  const int rt = t / kFTiles;
+  const int kh = rt / (kK / kS);
+  const int kq = rt % (kK / kS);       // kw quad: kw = 4*kq .. 4*kq+3
+  const long long u_begin = blockIdx.x * units / gridDim.x;
+  const long long u_end = (blockIdx.x + 1) * units / gridDim.x;
+
+  // Zero both stages once: the copies write only the interior columns, so
+  // the SAME column pads stay zero.
+  for (int i = tid; i < q.stage_floats / 2; i += kThreads)
+    smem4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+
+  float acc[kTileR][kTileF];
 #pragma unroll
-  for (int i = 0; i < kMaxRI; ++i)
+  for (int i = 0; i < kTileR; ++i)
 #pragma unroll
-    for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
-  const long long p_begin = (long long)blockIdx.x * rows_per_block;
-  long long p_end = p_begin + rows_per_block;
-  if (p_end > num_rows) p_end = num_rows;
-  const int plane = OH * OW;
-  for (long long p0 = p_begin; p0 < p_end; p0 += kTP) {
-    for (int e = tid; e < kTP * R; e += kThreads) {
-      const int pp = e / R;
-      const int r = e - pp * R;
-      const long long p = p0 + pp;
-      float v = 0.f;
-      if (p < p_end) {
-        const long long n = p / plane;
-        const int rem = (int)(p - n * plane);
-        const int oh = rem / OW;
-        const int ow = rem - oh * OW;
-        const int kh = r / (K * C);
-        const int r2 = r - kh * K * C;
-        const int kw = r2 / C;
-        const int c = r2 - kw * C;
-        const int ih = oh * S + kh - pad_h;
-        const int iw = ow * S + kw - pad_w;
-        if (ih >= 0 && ih < H && iw >= 0 && iw < W)
-          v = __ldg(x + n * sxn + ih * sxh + iw * sxw + c * sxc);
-      }
-      sp[pp * R + r] = v;
-    }
-    for (int e = tid; e < kTP * F; e += kThreads) {
-      const int pp = e / F;
-      const int f = e - pp * F;
-      const long long p = p0 + pp;
-      float v = 0.f;
-      if (p < p_end) {
-        const long long n = p / plane;
-        const int rem = (int)(p - n * plane);
-        const int oh = rem / OW;
-        const int ow = rem - oh * OW;
-        v = __ldg(g + n * sgn + oh * sgh + ow * sgw + f * sgf);
-      }
-      sg[pp * F + f] = v;
-    }
+    for (int f = 0; f < kTileF; ++f) acc[i][f] = 0.f;
+
+  // This thread's first patch value within a staged band, and its g column.
+  const int x_off = XCHW ? kh * q.xrs + kq * kS
+                         : kh * q.xrs + kq * kS * kC;
+  const int g_off = GCHW ? ft * kTileF * q.gps : ft * kTileF;
+
+  if (u_begin < u_end) stage_unit<XCHW, GCHW>(smem, x, g, u_begin, q);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  for (long long u = u_begin; u < u_end; ++u) {
+    const int buf = static_cast<int>(u - u_begin) & 1;
+    if (u + 1 < u_end)
+      stage_unit<XCHW, GCHW>(smem + (buf ^ 1) * q.stage_floats, x, g, u + 1,
+                             q);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
     __syncthreads();
-    if (active) {
-      for (int pp = 0; pp < kTP; ++pp) {
-        const float* gp = sg + pp * F + tf * 4;
-        const float g0 = gp[0], g1 = gp[1], g2 = gp[2], g3 = gp[3];
-        const float* xp = sp + pp * R;
+
+    const float* xs = smem + buf * q.stage_floats;
+    const float* gs = xs + q.x_floats;
+    const long long n = u / q.bands;
+    const int oh0 = static_cast<int>(u - n * q.bands) * q.band_rows;
+    const int rows = min(q.band_rows, q.OH - oh0);
+    for (int ohl = 0; ohl < rows; ++ohl) {
+      const float* xrow = xs + x_off + ohl * kS * q.xrs;
+      const float* grow = gs + g_off + ohl * q.OW * (GCHW ? 1 : kF);
+#pragma unroll 2
+      for (int ow = rg; ow < q.OW; ow += kGroups) {
+        float xv[kTileR];
+        float gv[kTileF];
+        if (XCHW) {
 #pragma unroll
-        for (int i = 0; i < kMaxRI; ++i) {
-          if (i < ri) {
-            const int r = tr + i * tr_count;
-            const float xv = (r < R) ? xp[r] : 0.f;
-            acc[i][0] = fmaf(xv, g0, acc[i][0]);
-            acc[i][1] = fmaf(xv, g1, acc[i][1]);
-            acc[i][2] = fmaf(xv, g2, acc[i][2]);
-            acc[i][3] = fmaf(xv, g3, acc[i][3]);
+          for (int c = 0; c < kC; ++c) {
+            const float4 v = *reinterpret_cast<const float4*>(
+                xrow + c * q.xplane + ow * kS);
+            xv[c * 4 + 0] = v.x;
+            xv[c * 4 + 1] = v.y;
+            xv[c * 4 + 2] = v.z;
+            xv[c * 4 + 3] = v.w;
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < kTileR / 4; ++j) {
+            const float4 v = *reinterpret_cast<const float4*>(
+                xrow + ow * kS * kC + 4 * j);
+            xv[4 * j + 0] = v.x;
+            xv[4 * j + 1] = v.y;
+            xv[4 * j + 2] = v.z;
+            xv[4 * j + 3] = v.w;
           }
         }
+        if (GCHW) {
+#pragma unroll
+          for (int f = 0; f < kTileF; ++f) gv[f] = grow[f * q.gps + ow];
+        } else {
+#pragma unroll
+          for (int j = 0; j < kTileF / 4; ++j) {
+            const float4 v =
+                *reinterpret_cast<const float4*>(grow + ow * kF + 4 * j);
+            gv[4 * j + 0] = v.x;
+            gv[4 * j + 1] = v.y;
+            gv[4 * j + 2] = v.z;
+            gv[4 * j + 3] = v.w;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kTileR; ++i)
+#pragma unroll
+          for (int f = 0; f < kTileF; ++f)
+            acc[i][f] = fmaf(xv[i], gv[f], acc[i][f]);
       }
     }
-    __syncthreads();
+    __syncthreads();  // the next iteration refills this stage
   }
-  if (!active) return;
-  float* out = partial + (size_t)blockIdx.x * R * F;
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  // Sum the row groups in a fixed order through shared memory (the stages
+  // are free now; the wrapper sizes them to hold kGroups-1 tiles of
+  // 192 x 32).
+  auto out_row = [&](int i) {
+    const int kw = kq * kS + (XCHW ? i % 4 : i / kC);
+    const int c = XCHW ? i / 4 : i % kC;
+    return (kh * kK + kw) * kC + c;
+  };
+  if (rg > 0) {
+    float* red = smem + (rg - 1) * kR * kF;
 #pragma unroll
-  for (int i = 0; i < kMaxRI; ++i) {
-    const int r = tr + i * tr_count;
-    if (i < ri && r < R) {
+    for (int i = 0; i < kTileR; ++i)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) out[(size_t)r * F + tf * 4 + q] = acc[i][q];
+      for (int f = 0; f < kTileF; ++f)
+        red[out_row(i) * kF + ft * kTileF + f] = acc[i][f];
+  }
+  __syncthreads();
+  if (rg == 0) {
+    float* out = partial + static_cast<size_t>(blockIdx.x) * kR * kF;
+#pragma unroll
+    for (int i = 0; i < kTileR; ++i) {
+#pragma unroll
+      for (int f = 0; f < kTileF; ++f) {
+        const int o = out_row(i) * kF + ft * kTileF + f;
+        float v = acc[i][f];
+#pragma unroll
+        for (int r = 0; r < kGroups - 1; ++r) v += smem[r * kR * kF + o];
+        out[o] = v;
+      }
     }
   }
 }
@@ -139,38 +328,51 @@ __global__ void reduce_partials_kernel(const float* __restrict__ partial,
   dw[o] = s;
 }
 
+template <bool XCHW, bool GCHW>
+cudaError_t launch_band(const float* x, const float* g, float* partial,
+                        const Geometry& q, long long units, int num_blocks,
+                        int smem_bytes, cudaStream_t s) {
+  auto kernel = conv_gradw_band_kernel<XCHW, GCHW>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<num_blocks, kThreads, smem_bytes, s>>>(x, g, partial, q, units);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Largest number of output rows each thread may own, for the host-side
-// shape check.
-int sat_conv_gradw_max_rows_per_thread() { return kMaxRI; }
-int sat_conv_gradw_threads() { return kThreads; }
-int sat_conv_gradw_tile_rows() { return kTP; }
-
-int sat_conv_gradw(const float* x, long long sxn, long long sxh,
-                   long long sxw, long long sxc, const float* g,
-                   long long sgn, long long sgh, long long sgw, long long sgf,
-                   float* partial, float* dw, int N, int H, int W, int C,
-                   int OH, int OW, int F, int K, int S, int pad_h, int pad_w,
-                   long long rows_per_block, int num_blocks, void* stream) {
-  const int R = K * K * C;
-  const size_t shared = (size_t)kTP * (R + F) * sizeof(float);
+int sat_conv_gradw(const float* x, const float* g, float* partial, float* dw,
+                   int H, int W, int OH, int OW, int pad_h, int pad_w,
+                   int band_rows, int bands, int xrs, int x_floats, int gps,
+                   int stage_floats, int smem_bytes, int x_chw, int g_chw,
+                   long long units, int num_blocks, void* stream) {
+  // The stages and the final sum of the other row groups must fit.
+  if (smem_bytes < 2 * stage_floats * (int)sizeof(float) ||
+      smem_bytes < (kGroups - 1) * kR * kF * (int)sizeof(float))
+    return (int)cudaErrorInvalidValue;
+  const Geometry q{H,         W,     OH,  OW,
+                   pad_h,     pad_w, band_rows,
+                   bands,     xrs,   ((band_rows - 1) * kS + kK) * xrs,
+                   x_floats,  gps,   stage_floats};
   cudaStream_t s = (cudaStream_t)stream;
-  if (shared > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        conv_gradw_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)shared);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const long long num_rows = (long long)N * OH * OW;
-  conv_gradw_partial_kernel<<<num_blocks, kThreads, shared, s>>>(
-      x, sxn, sxh, sxw, sxc, g, sgn, sgh, sgw, sgf, partial, H, W, C, OH, OW,
-      F, K, S, pad_h, pad_w, num_rows, rows_per_block);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err;
+  if (x_chw && g_chw)
+    err = launch_band<true, true>(x, g, partial, q, units, num_blocks,
+                                  smem_bytes, s);
+  else if (x_chw)
+    err = launch_band<true, false>(x, g, partial, q, units, num_blocks,
+                                   smem_bytes, s);
+  else if (g_chw)
+    err = launch_band<false, true>(x, g, partial, q, units, num_blocks,
+                                   smem_bytes, s);
+  else
+    err = launch_band<false, false>(x, g, partial, q, units, num_blocks,
+                                    smem_bytes, s);
   if (err != cudaSuccess) return (int)err;
-  const int outputs = R * F;
+  const int outputs = kR * kF;
   reduce_partials_kernel<<<(outputs + 255) / 256, 256, 0, s>>>(
       partial, dw, outputs, num_blocks);
   return (int)cudaGetLastError();

@@ -1,20 +1,40 @@
 // Hand-written Hopper (sm_90a) kernels for the done-reset LSTM core.
 //
-// Counterpart of scalable_agent_tpu/ops/lstm_pallas.py.  Three kernels and
+// Counterpart of scalable_agent_tpu/ops/lstm_pallas.py.  Four kernels and
 // a plain C interface (loaded with ctypes by ops/_build.py):
 //
-// * lstm_fwd_kernel<RESID>   replaces _fwd_kernel_lean (RESID=false) and
-//   _fwd_kernel (RESID=true).  On the TPU the grid runs T in order and
-//   keeps the (c, h) carry in VMEM.  Here batch rows are independent, so
-//   one block owns one batch row and loops over T itself: the carry stays
-//   in registers (thread j owns hidden unit j, all four of its gates), and
-//   no synchronisation between blocks is needed.  The block computes
-//   x_t.Wi + h.Wh + b in its own body, reading Wi/Wh coalesced from L2
-//   (2.1 MB of f32 weights stay resident in the 50 MB L2 across steps).
-//   Bound on the card: at T=101, B=32 the work is 3.4 GFLOP, compute-bound
-//   at ~51 us of f32 FMA.  This simple design re-reads both weight matrices
-//   from L2 every step with only B SMs busy and runs far from that bound;
-//   PERF.md has its time.
+// * lstm_step_kernel         replaces _fwd_kernel_lean at the actor's T=1
+//   (one launch per step; a T>1 forward that needs no gradient is T
+//   launches).  The step is a [B, D+H] x [D+H, 4H] product plus the cell:
+//   at B=32, D=266, H=256 it moves 2.3 MB (0.7 us at 3.35 TB/s) and does
+//   34 MFLOP, so what bounds it on this card is latency: one launch, the
+//   weights' trip from L2, a short reduction.  Giving one block to each
+//   batch row (as lstm_fwd_kernel below does) keeps 32 of 132 SMs busy,
+//   each thread walking all 522 weight rows with dependent L2 loads and
+//   every block re-reading the same 2.1 MB: ~10x slower.  Here the gate
+//   columns are split across the card instead: a cluster of 4 CTAs owns 8
+//   hidden units j0..j0+7 (their 32 gate columns j, H+j, 2H+j, 3H+j) for
+//   every batch row, so the pointwise cell stays inside the cluster.  Each CTA takes a quarter of the 522-deep
+//   reduction: it stages its [131, 8 units x 4 gates] slice of [Wi; Wh] in
+//   shared memory once (32-byte segments, every weight byte read once per
+//   launch, the learner's [D, 4H] layout as it is) and [x | keep*h] for 32
+//   batch rows at a time, then each thread accumulates the 4 gates of one
+//   (row, unit).  The four partial gate vectors are summed through
+//   distributed shared memory (cluster.map_shared_rank) in rank order, a
+//   fixed order, by the CTA that owns the row; it applies the bias and the
+//   cell.  For H=256 that is 128 CTAs, one per SM.
+//
+// * lstm_fwd_kernel          replaces _fwd_kernel (the residual forward for
+//   BPTT).  On the TPU the grid runs T in order and keeps the (c, h) carry
+//   in VMEM.  Here batch rows are independent, so one block owns one batch
+//   row and loops over T itself: the carry stays in registers (thread j
+//   owns hidden unit j, all four of its gates), and no synchronisation
+//   between blocks is needed.  The block computes x_t.Wi + h.Wh + b in its
+//   own body, reading Wi/Wh coalesced from L2 (2.1 MB of f32 weights stay
+//   resident in the 50 MB L2 across steps).  Bound on the card: at T=101,
+//   B=32 the work is 3.4 GFLOP, compute-bound at ~51 us of f32 FMA.  This
+//   simple design re-reads both weight matrices from L2 every step with
+//   only B SMs busy and runs far from that bound; PERF.md has its time.
 //
 // * lstm_bwd_chain_kernel    the sequential half of _bwd_kernel: the
 //   reverse dh/dc chain (one block per row, carried grads masked by keep),
@@ -32,9 +52,13 @@
 //   result is deterministic.
 //
 // Every entry point launches on the caller's stream, allocates nothing,
-// and returns cudaGetLastError() so a refused launch is reported.
+// keeps no state between launches, and returns cudaGetLastError() so a
+// refused launch is reported.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -42,7 +66,167 @@ __device__ __forceinline__ float sigmoid_f(float v) {
   return 1.0f / (1.0f + expf(-v));
 }
 
-template <bool RESID>
+constexpr int kStepUnits = 8;   // hidden units per cluster: 32 gate columns
+constexpr int kStepSplit = 4;   // CTAs per cluster, each a quarter of D+H
+constexpr int kStepRows = 32;   // batch rows per pass
+constexpr int kStepThreads = kStepRows * kStepUnits;  // one (row, unit) each
+
+// Rows of the D+H reduction each CTA of a cluster takes.
+inline int step_slice(int k) { return (k + kStepSplit - 1) / kStepSplit; }
+
+// Row stride of the staged [x | keep*h]: odd, so the 4 rows a warp reads
+// fall on distinct banks.
+__host__ __device__ inline int step_xstride(int ks) { return ks | 1; }
+
+inline size_t step_shared_bytes(int k) {
+  const int ks = step_slice(k);
+  return sizeof(float4) * ((size_t)ks * kStepUnits + kStepRows * kStepUnits) +
+         sizeof(float) * (size_t)kStepRows * step_xstride(ks);
+}
+
+// One done-reset LSTM step for all B rows: y = h' and c_out = c' of
+// gates = [x | keep*h0] . [Wi; Wh] + b.  Cluster c owns hidden units
+// j0 = 8c .. 8c+7; its CTA of rank r reduces over rows [r*ks, (r+1)*ks) of
+// the D+H stack.
+__global__ void __cluster_dims__(kStepSplit, 1, 1)
+    __launch_bounds__(kStepThreads)
+        lstm_step_kernel(const float* __restrict__ x,
+                         const float* __restrict__ done,
+                         const float* __restrict__ c0,
+                         const float* __restrict__ h0,
+                         const float* __restrict__ wi,
+                         const float* __restrict__ wh,
+                         const float* __restrict__ bias,
+                         float* __restrict__ y, float* __restrict__ c_out,
+                         int B, int D, int H, int ks) {
+  extern __shared__ float4 smem4[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int j0 = (blockIdx.x / kStepSplit) * kStepUnits;
+  const int G = 4 * H;
+  const int k0 = rank * ks;
+  const int nk = max(0, min(ks, D + H - k0));
+  const int xstride = step_xstride(ks);
+  float4* ws = smem4;                              // [ks][unit]: 4 gates
+  float4* part = smem4 + ks * kStepUnits;          // [row][unit]: 4 gates
+  float* xs = reinterpret_cast<float*>(part + kStepRows * kStepUnits);
+  const int tid = threadIdx.x;
+  const int unit = tid % kStepUnits;
+  const int row = tid / kStepUnits;
+
+  // The weight slice, once per launch: rows k0..k0+nk of [Wi; Wh], the
+  // columns g*H + j0 .. +7 of each gate g, read as 32-byte segments and
+  // stored gate-interleaved so a thread reads its unit's 4 gates at once.
+  // Four loads a thread are in flight before the first store.
+  float* wsf = reinterpret_cast<float*>(ws);
+  for (int base = 0; base < nk * 8; base += 4 * kStepThreads) {
+    float4 v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int e = base + i * kStepThreads + tid;
+      if (e < nk * 8) {
+        const int k = k0 + (e >> 3), gate = (e >> 1) & 3, half = e & 1;
+        const float* wrow =
+            k < D ? wi + (size_t)k * G : wh + (size_t)(k - D) * G;
+        v[i] = __ldg(reinterpret_cast<const float4*>(wrow + gate * H + j0 +
+                                                     4 * half));
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int e = base + i * kStepThreads + tid;
+      if (e < nk * 8) {
+        const int gate = (e >> 1) & 3, half = e & 1;
+        float* d = wsf + ((e >> 3) * kStepUnits + 4 * half) * 4 + gate;
+        d[0] = v[i].x;
+        d[4] = v[i].y;
+        d[8] = v[i].z;
+        d[12] = v[i].w;
+      }
+    }
+  }
+  for (int b0 = 0; b0 < B; b0 += kStepRows) {
+    const int nb = min(kStepRows, B - b0);
+    // [x | keep*h] for this pass's rows, this CTA's reduction rows: the 8
+    // threads of a row stage it (the done-reset multiplies the carry
+    // before the step).
+    if (row < nb) {
+      const int b = b0 + row;
+      const float keep = 1.0f - done[b];
+      float* dst = xs + row * xstride;
+#pragma unroll 8
+      for (int kk = unit; kk < nk; kk += kStepUnits) {
+        const int k = k0 + kk;
+        dst[kk] = k < D ? x[(size_t)b * D + k]
+                        : keep * h0[(size_t)b * H + (k - D)];
+      }
+    }
+    __syncthreads();
+    if (row < nb) {
+      // Two partial sums (even and odd reduction rows) halve the FMA chain.
+      float4 a0 = make_float4(0.f, 0.f, 0.f, 0.f), a1 = a0;
+      const float* xr = xs + row * xstride;
+      int kk = 0;
+#pragma unroll 2
+      for (; kk + 1 < nk; kk += 2) {
+        const float x0 = xr[kk], x1 = xr[kk + 1];
+        const float4 w0 = ws[kk * kStepUnits + unit];
+        const float4 w1 = ws[(kk + 1) * kStepUnits + unit];
+        a0.x = fmaf(x0, w0.x, a0.x);
+        a0.y = fmaf(x0, w0.y, a0.y);
+        a0.z = fmaf(x0, w0.z, a0.z);
+        a0.w = fmaf(x0, w0.w, a0.w);
+        a1.x = fmaf(x1, w1.x, a1.x);
+        a1.y = fmaf(x1, w1.y, a1.y);
+        a1.z = fmaf(x1, w1.z, a1.z);
+        a1.w = fmaf(x1, w1.w, a1.w);
+      }
+      if (kk < nk) {
+        const float x0 = xr[kk];
+        const float4 w0 = ws[kk * kStepUnits + unit];
+        a0.x = fmaf(x0, w0.x, a0.x);
+        a0.y = fmaf(x0, w0.y, a0.y);
+        a0.z = fmaf(x0, w0.z, a0.z);
+        a0.w = fmaf(x0, w0.w, a0.w);
+      }
+      part[row * kStepUnits + unit] =
+          make_float4(a0.x + a1.x, a0.y + a1.y, a0.z + a1.z, a0.w + a1.w);
+    }
+    cluster.sync();  // every CTA's partial gates of this pass are visible
+    // Rank r finalises rows r*8 .. r*8+7 of the pass: the four partials in
+    // rank order, then the bias and the cell.
+    constexpr int kOwnRows = kStepRows / kStepSplit;
+    if (tid < kOwnRows * kStepUnits) {
+      const int r = rank * kOwnRows + tid / kStepUnits;
+      const int u = tid % kStepUnits;
+      if (r < nb) {
+        float4 s = *cluster.map_shared_rank(part + r * kStepUnits + u, 0);
+#pragma unroll
+        for (int q = 1; q < kStepSplit; ++q) {
+          const float4 p =
+              *cluster.map_shared_rank(part + r * kStepUnits + u, q);
+          s.x += p.x;
+          s.y += p.y;
+          s.z += p.z;
+          s.w += p.w;
+        }
+        const int b = b0 + r, j = j0 + u;
+        const size_t o = (size_t)b * H + j;
+        const float keep = 1.0f - done[b];
+        const float ig = sigmoid_f(s.x + bias[j]);
+        const float fg = sigmoid_f(s.y + bias[H + j]);
+        const float gg = tanhf(s.z + bias[2 * H + j]);
+        const float og = sigmoid_f(s.w + bias[3 * H + j]);
+        const float cn = fg * (keep * c0[o]) + ig * gg;
+        const float hn = og * tanhf(cn);
+        y[o] = hn;
+        c_out[o] = cn;
+      }
+    }
+    cluster.sync();  // partials read before the next pass or exit
+  }
+}
+
 __global__ void lstm_fwd_kernel(
     const float* __restrict__ x, const float* __restrict__ done,
     const float* __restrict__ c0, const float* __restrict__ h0,
@@ -99,16 +283,14 @@ __global__ void lstm_fwd_kernel(
     const float og = sigmoid_f(ao + ro + bo);
     const float cn = fg * c + ig * gg;
     const float hn = og * tanhf(cn);
-    if (RESID) {
-      cpost[row * H + j] = c;
-      hpost[row * H + j] = h;
-      cnew[row * H + j] = cn;
-      float* gates = ifgo + row * G;
-      gates[j] = ig;
-      gates[H + j] = fg;
-      gates[2 * H + j] = gg;
-      gates[3 * H + j] = og;
-    }
+    cpost[row * H + j] = c;
+    hpost[row * H + j] = h;
+    cnew[row * H + j] = cn;
+    float* gates = ifgo + row * G;
+    gates[j] = ig;
+    gates[H + j] = fg;
+    gates[2 * H + j] = gg;
+    gates[3 * H + j] = og;
     ys[row * H + j] = hn;
     c = cn;
     h = hn;
@@ -267,24 +449,28 @@ int sat_lstm_forward(const float* x, const float* done, const float* c0,
                      const float* h0, const float* wi, const float* wh,
                      const float* bias, float* ys, float* ifgo, float* cpost,
                      float* hpost, float* cnew, float* c_out, float* h_out,
-                     int T, int B, int D, int H, int write_residuals,
-                     void* stream) {
+                     int T, int B, int D, int H, void* stream) {
   const size_t shared = (size_t)(D + H) * sizeof(float);
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err;
-  if (write_residuals) {
-    err = allow_shared(lstm_fwd_kernel<true>, shared);
-    if (err != cudaSuccess) return (int)err;
-    lstm_fwd_kernel<true><<<B, H, shared, s>>>(x, done, c0, h0, wi, wh, bias,
-                                               ys, ifgo, cpost, hpost, cnew,
-                                               c_out, h_out, T, B, D, H);
-  } else {
-    err = allow_shared(lstm_fwd_kernel<false>, shared);
-    if (err != cudaSuccess) return (int)err;
-    lstm_fwd_kernel<false><<<B, H, shared, s>>>(
-        x, done, c0, h0, wi, wh, bias, ys, nullptr, nullptr, nullptr, nullptr,
-        c_out, h_out, T, B, D, H);
-  }
+  cudaError_t err = allow_shared(lstm_fwd_kernel, shared);
+  if (err != cudaSuccess) return (int)err;
+  lstm_fwd_kernel<<<B, H, shared, (cudaStream_t)stream>>>(
+      x, done, c0, h0, wi, wh, bias, ys, ifgo, cpost, hpost, cnew, c_out,
+      h_out, T, B, D, H);
+  return (int)cudaGetLastError();
+}
+
+int sat_lstm_step(const float* x, const float* done, const float* c0,
+                  const float* h0, const float* wi, const float* wh,
+                  const float* bias, float* y, float* c_out, int B, int D,
+                  int H, void* stream) {
+  if (H % kStepUnits != 0) return (int)cudaErrorInvalidValue;
+  const int ks = step_slice(D + H);
+  const size_t shared = step_shared_bytes(D + H);
+  cudaError_t err = allow_shared(lstm_step_kernel, shared);
+  if (err != cudaSuccess) return (int)err;
+  lstm_step_kernel<<<(H / kStepUnits) * kStepSplit, kStepThreads, shared,
+                     (cudaStream_t)stream>>>(x, done, c0, h0, wi, wh, bias,
+                                             y, c_out, B, D, H, ks);
   return (int)cudaGetLastError();
 }
 

@@ -39,14 +39,11 @@ _F = ctypes.c_float
 # stream go through c_void_p: a bare Python int would be cut to 32 bits.
 _SIGNATURES = {
     "sat_error_string": ([_I], ctypes.c_char_p),
-    "sat_lstm_forward": ([_P] * 14 + [_I] * 5 + [_P], _I),
+    "sat_lstm_forward": ([_P] * 14 + [_I] * 4 + [_P], _I),
+    "sat_lstm_step": ([_P] * 9 + [_I] * 3 + [_P], _I),
     "sat_lstm_backward_chain": ([_P] * 11 + [_I] * 3 + [_P], _I),
     "sat_sgemm": ([_P, _L, _L, _P, _L, _L, _P, _I, _I, _I, _P], _I),
-    "sat_conv_gradw": ([_P, _L, _L, _L, _L, _P, _L, _L, _L, _L, _P, _P]
-                       + [_I] * 11 + [_L, _I, _P], _I),
-    "sat_conv_gradw_max_rows_per_thread": ([], _I),
-    "sat_conv_gradw_threads": ([], _I),
-    "sat_conv_gradw_tile_rows": ([], _I),
+    "sat_conv_gradw": ([_P] * 4 + [_I] * 15 + [_L, _I, _P], _I),
     "sat_vtrace": ([_P] * 7 + [_I, _I, _F, _I, _F, _I, _P], _I),
 }
 

@@ -7,10 +7,18 @@ The counterpart of ``scalable_agent_tpu/ops/conv_pallas.py``.
 the torso-facing op in PyTorch's layout (NCHW input, OIHW weight).
 
 Kernel (``csrc/conv.cu``), launch counter ``LAUNCHES["stem_gradw"]``:
-replaces ``conv_pallas.py::_gradw_kernel`` (via ``conv_gradw``).  Each
-block contracts its own range of the N*OH*OW rows with the im2col gather
-done in shared memory, a second pass sums the per-block partials in a
-fixed order; see the source's header comment and PERF.md for its bound.
+replaces ``conv_pallas.py::_gradw_kernel`` (via ``conv_gradw``).  It is
+bound by float32 FMA (17 GFLOP at the main path's shape).  Each block
+stages bands of whole images -- input rows with their halo and the band's
+cotangent rows -- in shared memory with double-buffered ``cp.async``
+copies, forms every patch value there by space-to-depth addressing, and
+accumulates 12x8 register tiles in six row groups; a second pass sums the
+per-block partials in a fixed order (``gradw_plan`` below sizes the bands
+and assigns the image bands to blocks).  The source's header comment has
+the design and PERF.md its times.  The kernel is built for the stem's geometry
+(``STEM``: 8x8, stride 4, 3 channels into 32 features) and takes ``x``
+and ``g`` each either as contiguous NHWC or as an NHWC view of contiguous
+NCHW memory (``tensor_layout``); anything else raises.
 
 As in ``conv_pallas.py``, a kernel/stride pair with ``K % S != 0`` takes
 the library's weight gradient instead (``torch.nn.grad.conv2d_weight``).
@@ -18,7 +26,8 @@ Otherwise the wrapper takes the plain version only for CPU tensors; for a
 CUDA tensor it launches its kernel or raises.
 """
 
-from typing import Tuple
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -27,10 +36,13 @@ from scalable_agent_tpu_torch.ops import _build
 
 LAUNCHES = {"stem_gradw": 0}
 
-# Blocks the grad-W kernel spreads the rows over: about four per SM of an
-# H100 (132 SMs), enough to fill the card while the partial sums stay a
-# few MB.
-_TARGET_BLOCKS = 528
+# (K, S, C, F) that csrc/conv.cu is built for: the torso's stem.
+STEM = (8, 4, 3, 32)
+# Two stages of a band must fit in a block's shared memory (227 KB on an
+# H100), and so must the final sum of the other five row groups' [K*K*C, F]
+# tiles.
+SMEM_BUDGET = 200 * 1024
+_REDUCE_FLOATS = 5 * STEM[0] * STEM[0] * STEM[2] * STEM[3]
 
 
 def same_pads(size: int, k: int, s: int) -> Tuple[int, Tuple[int, int]]:
@@ -77,10 +89,88 @@ def conv_gradw_plain(x, g, kernel_size: int, stride: int):
     return dw.reshape(k, k, c, f)
 
 
+def tensor_layout(t) -> str:
+    """How an [N, H, W, C] tensor lies in memory: ``"hwc"`` when it is
+    contiguous NHWC, ``"chw"`` when it is an NHWC view of contiguous NCHW
+    memory.  Both keep each image one contiguous span; other strides
+    raise."""
+    if t.is_contiguous():
+        return "hwc"
+    if t.permute(0, 3, 1, 2).is_contiguous():
+        return "chw"
+    raise ValueError(
+        f"the grad-W kernel takes contiguous NHWC or an NHWC view of "
+        f"contiguous NCHW, got shape {tuple(t.shape)} strides {t.stride()}")
+
+
+class GradWPlan(NamedTuple):
+    """Launch geometry of the grad-W kernel; sizes in float32 elements."""
+
+    band_rows: int     # output rows per band
+    bands: int         # bands per image
+    xrs: int           # row stride of a staged input band
+    x_floats: int      # staged input band
+    gps: int           # plane stride of a staged NCHW cotangent band
+    stage_floats: int  # one stage: input band + cotangent band
+    smem_bytes: int    # dynamic shared memory per block
+    units: int         # (image, band) pairs
+    blocks: int
+
+
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _stage(rows: int, out_w: int, x_chw: bool, g_chw: bool):
+    """(xrs, x_floats, gps, stage_floats) of a band of ``rows`` output rows.
+    Row strides are 8 (mod 32) floats, so the 8 patch chunks a warp reads
+    fall on distinct banks; the NCHW cotangent's plane stride is odd."""
+    k, s, c, f = STEM
+    padded_w = (out_w - 1) * s + k
+    width = padded_w if x_chw else padded_w * c
+    xrs = width + (8 - width) % 32
+    x_floats = _round4(((rows - 1) * s + k) * xrs * (c if x_chw else 1))
+    gps = rows * out_w | 1
+    g_floats = _round4(f * gps if g_chw else rows * out_w * f)
+    return xrs, x_floats, gps, x_floats + g_floats
+
+
+def gradw_plan(n: int, out_h: int, out_w: int, x_chw: bool, g_chw: bool,
+               sm_count: int) -> GradWPlan:
+    """Bands: the fewest whose two stages fit ``SMEM_BUDGET``, of equal
+    height.  Blocks: one per SM (at most one per unit); block b owns the
+    units ``block_units(plan, b)``, in order."""
+    fits = [r for r in range(1, out_h + 1)
+            if 8 * _stage(r, out_w, x_chw, g_chw)[3] <= SMEM_BUDGET]
+    if not fits:
+        raise ValueError(f"a {out_w}-wide output row does not fit the "
+                         f"grad-W kernel's shared memory")
+    bands = -(-out_h // fits[-1])
+    rows = -(-out_h // bands)
+    xrs, x_floats, gps, stage = _stage(rows, out_w, x_chw, g_chw)
+    units = n * bands
+    return GradWPlan(rows, bands, xrs, x_floats, gps, stage,
+                     4 * max(2 * stage, _REDUCE_FLOATS), units,
+                     min(units, sm_count))
+
+
+def block_units(plan: GradWPlan, block: int) -> range:
+    """The (image, band) units block ``block`` contracts, in order (unit
+    u is image u // bands, band u % bands): csrc/conv.cu's split."""
+    return range(block * plan.units // plan.blocks,
+                 (block + 1) * plan.units // plan.blocks)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def conv_gradw(x, g, kernel_size: int, stride: int):
     """Weight gradient of the SAME-padded ``kernel_size``/``stride`` conv:
-    x [N,H,W,C], g [N,OH,OW,F] float32 (any strides, e.g. a permuted
-    NCHW tensor) -> dW [K,K,C,F] float32."""
+    x [N,H,W,C], g [N,OH,OW,F] float32 -> dW [K,K,C,F] float32.  On the
+    CPU any strides; on the card each of x and g contiguous NHWC or an NHWC
+    view of contiguous NCHW (as the stem's backward hands them over)."""
     k, s = int(kernel_size), int(stride)
     n, height, width, c = x.shape
     if g.shape[0] != n or x.dtype != torch.float32 or (
@@ -88,8 +178,8 @@ def conv_gradw(x, g, kernel_size: int, stride: int):
         raise ValueError(f"need float32 x [N,H,W,C] and g [N,OH,OW,F], got "
                          f"{x.dtype} {tuple(x.shape)} and {g.dtype} "
                          f"{tuple(g.shape)}")
-    out_h, _ = same_pads(height, k, s)
-    out_w, _ = same_pads(width, k, s)
+    out_h, (top, _) = same_pads(height, k, s)
+    out_w, (left, _) = same_pads(width, k, s)
     if tuple(g.shape[1:3]) != (out_h, out_w):
         raise ValueError(f"g spatial shape {tuple(g.shape[1:3])} is not the "
                          f"SAME output {(out_h, out_w)}")
@@ -98,33 +188,21 @@ def conv_gradw(x, g, kernel_size: int, stride: int):
     if _build.on_cpu("grad-W", x, g):
         return conv_gradw_plain(x, g, k, s)
     f = g.shape[-1]
-    rows = k * k * c
-    lib = _build.library()
-    threads = lib.sat_conv_gradw_threads()
-    tile = lib.sat_conv_gradw_tile_rows()
-    if f % 4 or f // 4 > threads:
-        raise ValueError(f"the grad-W kernel needs F a multiple of 4 up to "
-                         f"{4 * threads}, got {f}")
-    per_thread = -(-rows // (threads // (f // 4)))
-    if per_thread > lib.sat_conv_gradw_max_rows_per_thread():
-        raise ValueError(f"K*K*C={rows} rows at F={f} exceed the grad-W "
-                         f"kernel's register tile")
-    if tile * (rows + f) * 4 > 227 * 1024:
-        raise ValueError(f"K*K*C={rows} at F={f} does not fit the grad-W "
-                         f"kernel's shared-memory tile")
-    num_rows = n * out_h * out_w
-    rows_per_block = -(-num_rows // _TARGET_BLOCKS)
-    rows_per_block = -(-rows_per_block // tile) * tile
-    num_blocks = -(-num_rows // rows_per_block)
-    partial = torch.empty((num_blocks, rows * f), dtype=torch.float32,
-                          device=x.device)
+    if (k, s, c, f) != STEM:
+        raise ValueError(f"the grad-W kernel is built for the stem's "
+                         f"(K, S, C, F) = {STEM}, got {(k, s, c, f)}")
+    x_chw = tensor_layout(x) == "chw"
+    g_chw = tensor_layout(g) == "chw"
     dw = torch.empty((k, k, c, f), dtype=torch.float32, device=x.device)
-    _, (top, _) = same_pads(height, k, s)
-    _, (left, _) = same_pads(width, k, s)
-    code = lib.sat_conv_gradw(
-        x.data_ptr(), *x.stride(), g.data_ptr(), *g.stride(),
-        partial.data_ptr(), dw.data_ptr(), n, height, width, c, out_h, out_w,
-        f, k, s, top, left, rows_per_block, num_blocks,
+    plan = gradw_plan(n, out_h, out_w, x_chw, g_chw,
+                      _sm_count(x.device.index))
+    partial = torch.empty((plan.blocks, k * k * c * f), dtype=torch.float32,
+                          device=x.device)
+    code = _build.library().sat_conv_gradw(
+        x.data_ptr(), g.data_ptr(), partial.data_ptr(), dw.data_ptr(),
+        height, width, out_h, out_w, top, left, plan.band_rows, plan.bands,
+        plan.xrs, plan.x_floats, plan.gps, plan.stage_floats,
+        plan.smem_bytes, int(x_chw), int(g_chw), plan.units, plan.blocks,
         torch.cuda.current_stream().cuda_stream)
     _build.check(code, "stem grad-W kernel")
     _build.count_launch(LAUNCHES, "stem_gradw")

@@ -11,7 +11,13 @@ Kernels (``csrc/lstm.cu``), one launch counter each in ``LAUNCHES``:
 
 - ``lstm_fwd_lean`` replaces ``lstm_pallas.py::_fwd_kernel_lean`` (ys and
   the final carry only; actor inference and every forward that needs no
-  gradient).
+  gradient).  It is one done-reset step for all batch rows, so the lean
+  forward is ``lean_forward``: one launch per step, a single launch at the
+  actor's T=1.  The step is latency-bound (2.3 MB, 34 MFLOP at B=32,
+  D=266, H=256): the gate columns are split over clusters of 4 CTAs, each
+  cluster owning 8 hidden units for every batch row and each CTA a quarter
+  of the D+H reduction, the partial gates summed through distributed
+  shared memory in a fixed order; every weight byte is read once.
 - ``lstm_fwd_resid`` replaces ``lstm_pallas.py::_fwd_kernel`` (also the
   residuals ``ifgo [T,B,4H]``, ``cpost``/``hpost``/``cnew [T,B,H]``).
 - ``lstm_bptt`` replaces ``lstm_pallas.py::_bwd_kernel``: a reverse-chain
@@ -25,7 +31,7 @@ A wrapper takes the plain version only for tensors on the CPU.  For a CUDA
 tensor it launches its kernel or raises; it never falls back.
 """
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -62,27 +68,38 @@ class Gradients(NamedTuple):
 # -- plain PyTorch versions --------------------------------------------------
 
 
+def _cell(x_t, done_t, c, h, wi, wh, b):
+    """One done-reset step: the carry is multiplied by ``1 - done`` before
+    it.  Returns ((i, f, g, o), post-reset c, post-reset h, c', h')."""
+    hidden = c.shape[-1]
+    keep = (1.0 - done_t)[:, None]
+    c = keep * c
+    h = keep * h
+    gates = x_t @ wi + h @ wh + b
+    i = torch.sigmoid(gates[:, :hidden])
+    f = torch.sigmoid(gates[:, hidden:2 * hidden])
+    g = torch.tanh(gates[:, 2 * hidden:3 * hidden])
+    o = torch.sigmoid(gates[:, 3 * hidden:])
+    c_new = f * c + i * g
+    return (i, f, g, o), c, h, c_new, o * torch.tanh(c_new)
+
+
+def lstm_step_plain(x_t, done_t, c, h, wi, wh, b):
+    """The plain version of the lean step kernel: (h', c')."""
+    *_, c_new, h_new = _cell(x_t, done_t, c, h, wi, wh, b)
+    return h_new, c_new
+
+
 def lstm_forward_plain(x, done, c0, h0, wi, wh, b,
                        residuals: bool) -> Forward:
     """The forward as a loop of plain tensor ops over T."""
-    hidden = c0.shape[-1]
     c, h = c0, h0
     ys, stash = [], []
     for t in range(x.shape[0]):
-        keep = (1.0 - done[t])[:, None]
-        c = keep * c
-        h = keep * h
-        gates = x[t] @ wi + h @ wh + b
-        i = torch.sigmoid(gates[:, :hidden])
-        f = torch.sigmoid(gates[:, hidden:2 * hidden])
-        g = torch.tanh(gates[:, 2 * hidden:3 * hidden])
-        o = torch.sigmoid(gates[:, 3 * hidden:])
-        c_new = f * c + i * g
-        h_new = o * torch.tanh(c_new)
+        gates, c_post, h_post, c, h = _cell(x[t], done[t], c, h, wi, wh, b)
         if residuals:
-            stash.append((torch.cat([i, f, g, o], dim=-1), c, h, c_new))
-        ys.append(h_new)
-        c, h = c_new, h_new
+            stash.append((torch.cat(gates, dim=-1), c_post, h_post, c))
+        ys.append(h)
     res = None
     if residuals:
         res = Residuals(*(torch.stack(parts) for parts in zip(*stash)))
@@ -139,12 +156,56 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
+Step = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor],
+                Tuple[torch.Tensor, torch.Tensor]]
+
+
+def lean_forward(step: Step, x, done, c0, h0) -> Forward:
+    """The lean forward as T calls of ``step(x_t, done_t, c, h) -> (h', c')``:
+    one launch of the step kernel per step on the card (a single one at the
+    actor's T=1), the plain step on the CPU.  At T=1 ``ys`` is a view of
+    the new h."""
+    c, h = c0, h0
+    ys = []
+    for t in range(x.shape[0]):
+        h, c = step(x[t], done[t], c, h)
+        ys.append(h)
+    return Forward(ys[0][None] if len(ys) == 1 else torch.stack(ys), c, h,
+                   None)
+
+
+def _step_kernel(lib, wi, wh, b):
+    """The lean step kernel as a ``Step``; operands checked by the
+    caller."""
+    in_dim, hidden = wi.shape[0], wh.shape[0]
+
+    def step(x_t, done_t, c, h):
+        batch = x_t.shape[0]
+        y = torch.empty((batch, hidden), dtype=torch.float32,
+                        device=x_t.device)
+        c_new = torch.empty_like(y)
+        code = lib.sat_lstm_step(
+            x_t.data_ptr(), done_t.data_ptr(), c.data_ptr(), h.data_ptr(),
+            wi.data_ptr(), wh.data_ptr(), b.data_ptr(), y.data_ptr(),
+            c_new.data_ptr(), batch, in_dim, hidden, _stream())
+        _build.check(code, "lstm step kernel")
+        _build.count_launch(LAUNCHES, "lstm_fwd_lean")
+        return y, c_new
+
+    return step
+
+
 def lstm_forward(x, done, c0, h0, wi, wh, b, residuals: bool) -> Forward:
     """Done-reset LSTM forward.  ``residuals=False`` is the lean variant
-    (``_fwd_kernel_lean``), ``True`` also stashes what BPTT needs
-    (``_fwd_kernel``)."""
+    (``_fwd_kernel_lean``, as ``lean_forward`` over the step kernel),
+    ``True`` also stashes what BPTT needs (``_fwd_kernel``)."""
     if _build.on_cpu("LSTM", x, done, c0, h0, wi, wh, b):
-        return lstm_forward_plain(x, done, c0, h0, wi, wh, b, residuals)
+        if residuals:
+            return lstm_forward_plain(x, done, c0, h0, wi, wh, b, True)
+        return lean_forward(
+            lambda x_t, done_t, c, h: lstm_step_plain(x_t, done_t, c, h, wi,
+                                                      wh, b),
+            x, done, c0, h0)
     steps, batch, in_dim = x.shape
     hidden = c0.shape[-1]
     _check_hidden(hidden)
@@ -156,26 +217,26 @@ def lstm_forward(x, done, c0, h0, wi, wh, b, residuals: bool) -> Forward:
             ("wi", wi, (in_dim, 4 * hidden)),
             ("wh", wh, (hidden, 4 * hidden)), ("b", b, (4 * hidden,))):
         _build.check_operand(name, t, shape)
+    lib = _build.library()
+    if not residuals:
+        if wi.data_ptr() % 16 or wh.data_ptr() % 16:
+            raise ValueError("the lean step kernel reads Wi and Wh in "
+                             "16-byte vectors: they must be 16-byte aligned")
+        return lean_forward(_step_kernel(lib, wi, wh, b), x, done, c0, h0)
     empty = lambda *shape: torch.empty(shape, dtype=torch.float32,
                                        device=x.device)
     ys = empty(steps, batch, hidden)
     c_out, h_out = empty(batch, hidden), empty(batch, hidden)
-    res = None
-    if residuals:
-        res = Residuals(empty(steps, batch, 4 * hidden),
-                        empty(steps, batch, hidden),
-                        empty(steps, batch, hidden),
-                        empty(steps, batch, hidden))
-    ptr = lambda t: None if t is None else t.data_ptr()
-    lib = _build.library()
+    res = Residuals(empty(steps, batch, 4 * hidden),
+                    empty(steps, batch, hidden),
+                    empty(steps, batch, hidden),
+                    empty(steps, batch, hidden))
     code = lib.sat_lstm_forward(
-        ptr(x), ptr(done), ptr(c0), ptr(h0), ptr(wi), ptr(wh), ptr(b),
-        ptr(ys), *(ptr(t) for t in (res or (None,) * 4)),
-        ptr(c_out), ptr(h_out), steps, batch, in_dim, hidden,
-        int(residuals), _stream())
+        *(t.data_ptr() for t in (x, done, c0, h0, wi, wh, b, ys, *res,
+                                 c_out, h_out)),
+        steps, batch, in_dim, hidden, _stream())
     _build.check(code, "lstm forward kernel")
-    _build.count_launch(
-        LAUNCHES, "lstm_fwd_resid" if residuals else "lstm_fwd_lean")
+    _build.count_launch(LAUNCHES, "lstm_fwd_resid")
     return Forward(ys, c_out, h_out, res)
 
 

@@ -3,7 +3,9 @@ against the JAX package's Pallas kernel (ops/conv_pallas.py) in interpret
 mode, on the geometries of tests/test_conv_pallas.py.
 
 On the CPU the port's wrapper runs its plain version; chip_smoke.py holds
-the CUDA kernel to that plain version on the card.
+the CUDA kernel to that plain version on the card.  The wrapper's pure
+Python -- the layout read from the strides and the plan that cuts the
+images into bands and hands them to blocks -- is tested here.
 
 Tolerances: float32 sums of at most 3*12*16 = 576 rows in another order;
 rtol/atol 2e-5 is what tests/test_conv_pallas.py holds the Pallas kernel
@@ -17,7 +19,7 @@ import pytest
 import torch
 
 from scalable_agent_tpu.ops import conv_pallas
-from scalable_agent_tpu_torch.ops import conv_cuda
+from scalable_agent_tpu_torch.ops import _build, conv_cuda
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 
@@ -118,3 +120,118 @@ def test_conv2d_same_pads_like_xla(h, w, k, s):
                                 torch.tensor(w_hwio).permute(3, 2, 0, 1), s)
     np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(),
                                np.asarray(want), rtol=1e-5, atol=1e-4)
+
+
+def _layouts(x, g):
+    """The two layouts the stem's backward can hand over, for x and g
+    together: contiguous NHWC, and an NHWC view of contiguous NCHW (the
+    channels-last frame seen as NCHW, permuted back)."""
+    planar = lambda t: t.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    return {"hwc": (x, g), "chw": (planar(x), planar(g))}
+
+
+@pytest.mark.parametrize("layout", ["hwc", "chw"])
+def test_stem_geometry_matches_pallas(layout):
+    """The main path's geometry (72x96x3 frames, 8x8/4 into 32 features)
+    at N=2, in both input layouts.  Each dW entry sums 864 products of
+    standard normals in another order than XLA's, and |dW| reaches ~60, so
+    the absolute tolerance is taken relative to max |dW| (as chip_smoke.py
+    takes GRADW_TOL): 2e-6 of it, ~20x float32 epsilon."""
+    x, g = _case(31, 2, 72, 96, 3, 32, 4)
+    want = conv_pallas.conv_gradw(jnp.asarray(x), jnp.asarray(g), 8, 4,
+                                  interpret=True)
+    xt, gt = _layouts(torch.tensor(x), torch.tensor(g))[layout]
+    assert conv_cuda.tensor_layout(xt) == layout
+    assert conv_cuda.tensor_layout(gt) == layout
+    got = conv_cuda.conv_gradw(xt, gt, 8, 4)
+    assert got.shape == (8, 8, 3, 32)
+    want = np.asarray(want)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5,
+                               atol=2e-6 * np.abs(want).max())
+
+
+def test_tensor_layout_reads_the_strides():
+    x = torch.zeros(2, 9, 11, 3)
+    assert conv_cuda.tensor_layout(x) == "hwc"
+    assert conv_cuda.tensor_layout(
+        torch.zeros(2, 3, 9, 11).permute(0, 2, 3, 1)) == "chw"
+    # The torso's own frame: NHWC memory seen as NCHW, permuted back.
+    assert conv_cuda.tensor_layout(x.permute(0, 3, 1, 2).permute(
+        0, 2, 3, 1)) == "hwc"
+    for other in (torch.zeros(2, 9, 22, 3)[:, :, ::2],
+                  torch.zeros(2, 11, 9, 3).transpose(1, 2),
+                  torch.zeros(2, 9, 11, 6)[..., :3],
+                  torch.zeros(4, 9, 11, 3)[::2]):
+        with pytest.raises(ValueError, match="contiguous NHWC"):
+            conv_cuda.tensor_layout(other)
+
+
+@pytest.mark.parametrize("which", ["x", "g"])
+def test_other_strides_raise_on_the_kernel_route(monkeypatch, which):
+    """A tensor in neither layout is refused before anything launches (no
+    silent copy of a 268 MB frame batch)."""
+    monkeypatch.setattr(_build, "on_cpu", lambda *_: False)
+    x, g = (torch.tensor(a) for a in _case(3, 2, 16, 16, 3, 32, 4))
+    if which == "x":
+        x = torch.zeros(2, 16, 32, 3)[:, :, ::2]
+    else:
+        g = torch.zeros(2, 4, 4, 64)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous NHWC"):
+        conv_cuda.conv_gradw(x, g, 8, 4)
+
+
+def test_other_geometries_raise_on_the_kernel_route(monkeypatch):
+    monkeypatch.setattr(_build, "on_cpu", lambda *_: False)
+    x, g = (torch.tensor(a) for a in _case(4, 2, 16, 16, 1, 32, 4))
+    with pytest.raises(ValueError, match="built for the stem"):
+        conv_cuda.conv_gradw(x, g, 8, 4)
+
+
+PLAN_CASES = [
+    # (N, frame H, W, x CHW, g CHW, SMs): the main path, image counts that
+    # split unevenly or not at all, odd frames, both layouts, tiny frames.
+    (3232, 72, 96, False, False, 132),
+    (3233, 72, 96, True, True, 132),
+    (1, 72, 96, False, True, 132),
+    (64, 17, 23, True, False, 132),
+    (16 * 17, 16, 16, False, False, 132),
+    (5, 72, 96, False, False, 7),
+]
+
+
+@pytest.mark.parametrize("n,h,w,x_chw,g_chw,sms", PLAN_CASES)
+def test_gradw_plan_takes_every_image_band_once_in_order(n, h, w, x_chw,
+                                                         g_chw, sms):
+    out_h, _ = conv_cuda.same_pads(h, 8, 4)
+    out_w, _ = conv_cuda.same_pads(w, 8, 4)
+    plan = conv_cuda.gradw_plan(n, out_h, out_w, x_chw, g_chw, sms)
+    assert plan.units == n * plan.bands
+    assert plan.blocks == min(plan.units, sms)
+    # Equal bands that cover the output rows.
+    assert plan.bands * plan.band_rows >= out_h
+    assert (plan.bands - 1) * plan.band_rows < out_h
+    units = [list(conv_cuda.block_units(plan, b))
+             for b in range(plan.blocks)]
+    assert all(units), "a block with no work"
+    assert max(map(len, units)) - min(map(len, units)) <= 1
+    assert [u for block in units for u in block] == list(range(plan.units))
+    images = [u // plan.bands for block in units for u in block]
+    assert images == sorted(images)
+    assert sorted(set(images)) == list(range(n))
+    # Two stages fit the budget; the final sum of the other five row
+    # groups' [192, 32] tiles fits the allocation; alignment and bank
+    # padding of the stage.
+    assert 8 * plan.stage_floats <= conv_cuda.SMEM_BUDGET
+    assert plan.smem_bytes >= 4 * 5 * 192 * 32
+    assert plan.smem_bytes <= 227 * 1024
+    assert plan.xrs % 32 == 8 and plan.gps % 2 == 1
+    assert plan.x_floats % 4 == 0 and plan.stage_floats % 4 == 0
+
+
+def test_gradw_plan_of_the_main_path():
+    """72x96 frames: two bands of 9 output rows (each 40 input rows with
+    the halo), 6464 units over 132 blocks of 48 or 49."""
+    plan = conv_cuda.gradw_plan(3232, 18, 24, False, False, 132)
+    assert (plan.band_rows, plan.bands, plan.units, plan.blocks) == (
+        9, 2, 6464, 132)
+    assert plan.xrs == 328  # 100 padded columns x 3 channels, to 8 mod 32

@@ -154,3 +154,54 @@ def test_cuda_wrapper_refuses_mixed_devices():
     meta["x"] = t["x"]
     with pytest.raises(ValueError, match="CPU or all on one CUDA"):
         lstm_cuda.lstm_forward(*(meta[k] for k in ORDER), residuals=False)
+
+
+@pytest.mark.parametrize("batch", [1, 33])
+def test_lean_step_at_full_width_matches_pallas(batch):
+    """The actor's lean forward, T=1 at the agent's width (D=266, H=256),
+    against the Pallas lean kernel in interpret mode."""
+    rng = np.random.default_rng(batch)
+    d, h = 266, 256
+    f32 = lambda *shape, scale=1.0: (
+        rng.standard_normal(shape) * scale).astype(np.float32)
+    arrays = dict(x=f32(1, batch, d),
+                  done=(rng.random((1, batch)) < 0.3).astype(np.float32),
+                  c0=f32(batch, h, scale=0.5), h0=np.tanh(f32(batch, h)),
+                  wi=f32(d, 4 * h, scale=d ** -0.5),
+                  wh=f32(h, 4 * h, scale=h ** -0.5), b=f32(4 * h, scale=0.1))
+    ys_j, (c_j, h_j) = _jax_unroll(arrays)
+    t = _torch(arrays)
+    with torch.no_grad():
+        ys, (c, hh) = lstm_cuda.lstm_unroll(*(t[k] for k in ORDER))
+    for got, want in ((ys, ys_j), (c, c_j), (hh, h_j)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("steps", [1, 5])
+def test_lean_forward_runs_one_step_per_time_step(steps):
+    """The lean route: T calls of the step (one kernel launch each on the
+    card), the carry threaded through, against the Pallas lean kernel.  At
+    T=1 ys is a view of the new h, with no copy."""
+    arrays = _inputs(11)
+    arrays["x"], arrays["done"] = (arrays["x"][:steps],
+                                   arrays["done"][:steps])
+    t = _torch(arrays)
+    calls = []
+
+    def step(x_t, done_t, c, h):
+        calls.append(x_t.shape)
+        return lstm_cuda.lstm_step_plain(x_t, done_t, c, h, t["wi"],
+                                         t["wh"], t["b"])
+
+    out = lstm_cuda.lean_forward(step, t["x"], t["done"], t["c0"], t["h0"])
+    assert calls == [(B, D)] * steps and out.residuals is None
+    ys_j, (c_j, h_j) = _jax_unroll(arrays)
+    np.testing.assert_allclose(out.ys.numpy(), np.asarray(ys_j), **TOL)
+    np.testing.assert_allclose(out.c.numpy(), np.asarray(c_j), **TOL)
+    np.testing.assert_allclose(out.h.numpy(), np.asarray(h_j), **TOL)
+    if steps == 1:
+        assert out.ys[0].data_ptr() == out.h.data_ptr()
+    plain = lstm_cuda.lstm_forward_plain(*(t[k] for k in ORDER),
+                                         residuals=False)
+    for got, want in zip(out[:3], plain[:3]):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
