@@ -20,7 +20,14 @@ a result:
    ``scan_impl=auto`` recurrence).  The lean step kernel is also held at
    T=1 for B in {1, 8, 32, 64}, at T=5 (five launches), and from two
    threads on two streams at once; its device time (torch.profiler) must
-   not exceed ``torch.lstm_cell``'s.  Grad-W is also held at N=1, N=3233,
+   not exceed ``torch.lstm_cell``'s.  The residual forward (input-projection
+   GEMM + recurrence kernel) is also held, on all seven outputs, at B in
+   {1, 33, 64}, at T=1, with done=1 at t=0 and on a whole column, and at
+   [8, 4] with H=512 (Wh partly streamed from L2); two calls must be
+   bitwise equal, the BPTT must agree fed by its residuals, and its device
+   time (torch.profiler, both kernels) must be below ``RESID_MAX_MS``;
+   the occupancy query's count of co-resident clusters is printed.
+   Grad-W is also held at N=1, N=3233,
    17x23 frames (asymmetric SAME pads) and in both input layouts the torso
    can hand over (contiguous NHWC, an NHWC view of NCHW memory), two calls
    must give bitwise-equal dW, and its time must be below cuDNN's.
@@ -71,6 +78,8 @@ import time
 MEM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, published
 F32_FLOP_PER_S = 67e12      # H100 SXM float32 without tensor cores
 LSTM_TOL = 1e-4             # scale-relative; f32 sums in another order
+RESID_MAX_MS = 5.9          # residual forward device time: half of the
+                            # one-block-per-row loop's 11.94 ms (PERF.md)
 GRADW_TOL = 1e-4            # scale-relative over 1.4 M summed rows
 AGENT_TOL = 1e-3            # whole model: cuDNN convs vs CPU convs
 VTRACE_TOL = 1e-5           # scale-relative; FMA contraction on the card
@@ -221,20 +230,32 @@ def compare_lstm(torch, lstm_cuda, device):
     args = (x, done, c0, h0, wi, wh, b)
     kern = lstm_cuda.lstm_forward(*args, residuals=True)
     plain = lstm_cuda.lstm_forward_plain(*args, residuals=True)
+    again = lstm_cuda.lstm_forward(*args, residuals=True)
     torch.cuda.synchronize()
-    err = _errors(zip(kern[:3] + tuple(kern.residuals),
-                      plain[:3] + tuple(plain.residuals)))
+    err = _errors(zip(_resid_outputs(kern), _resid_outputs(plain)))
     _check("lstm_fwd_resid", *err, LSTM_TOL)
+    if not all(torch.equal(p, q) for p, q in zip(_resid_outputs(kern),
+                                                   _resid_outputs(again))):
+        raise AssertionError("lstm_fwd_resid: two calls gave different "
+                             "outputs")
+    print("  lstm_fwd_resid: two calls bitwise equal", flush=True)
+    compare_resid_shapes(torch, lstm_cuda, device, gen, wi, b)
+    fwd_ms = resid_device_ms(torch, lstm_cuda, args)
     nbytes = f4 * (T * B * D + T * B + 2 * B * H + (D + H + 1) * 4 * H
                    + T * B * H * 8 + 2 * B * H)
     flops = T * (2 * B * (D + H) * 4 * H + 12 * B * H)
+    if not fwd_ms < RESID_MAX_MS:
+        raise AssertionError(f"the residual forward's device time "
+                             f"{fwd_ms:.4f} ms is not below {RESID_MAX_MS} "
+                             f"ms")
     rows.append(("lstm_fwd_resid", "lstm.cu", "lstm_pallas.py:105", err,
                  lambda: lstm_cuda.lstm_forward(*args, residuals=True),
                  lambda: lstm_cuda.lstm_forward_plain(*args, residuals=True),
                  None, nbytes, flops))
 
-    # BPTT on the plain residuals, so only the backward differs.
-    res = plain.residuals
+    # BPTT on the plain residuals, so only the backward differs; then on
+    # the kernels' own.
+    fwd, res = kern, plain.residuals
     dys, dct, dht = rand(T, B, H), rand(B, H), rand(B, H)
     bargs = (dys, dct, dht, x, done, wi, wh, res)
     kern = lstm_cuda.lstm_backward(*bargs)
@@ -242,6 +263,9 @@ def compare_lstm(torch, lstm_cuda, device):
     torch.cuda.synchronize()
     err = _errors(zip(kern, plain))
     _check("lstm_bptt", *err, LSTM_TOL)
+    chained = lstm_cuda.lstm_backward(*bargs[:-1], fwd.residuals)
+    _check("lstm_bptt on the residual forward kernels' residuals",
+           *_errors(zip(chained, plain)), LSTM_TOL)
     nbytes = f4 * (T * B * H + 2 * B * H + T * B * D + T * B
                    + T * B * 4 * H + 3 * T * B * H + (D + H) * 4 * H
                    + T * B * D + (D + H + 1) * 4 * H + 2 * B * H)
@@ -252,6 +276,75 @@ def compare_lstm(torch, lstm_cuda, device):
                  lambda: lstm_cuda.lstm_backward_plain(*bargs),
                  None, nbytes, flops))
     return rows
+
+
+def _resid_outputs(out):
+    """The residual forward's seven outputs: ys, c, h and the residuals."""
+    return out[:3] + tuple(out.residuals)
+
+
+def compare_resid_shapes(torch, lstm_cuda, device, gen, wi, b):
+    """The residual forward at batch sizes that fill the clusters unevenly
+    or leave one cluster (B=1, 33, 64), at T=1, with a done of 1 at t=0
+    and on a whole column, and at H=512, where a CTA's slice of Wh does
+    not fit its shared memory and the rest is read from L2."""
+    D, H = wi.shape[0], wi.shape[1] // 4
+    rand = lambda *shape, scale=1.0: (
+        torch.randn(shape, generator=gen) * scale).to(device)
+
+    def check(name, steps, batch, hidden, done=None):
+        x = rand(steps, batch, D)
+        if done is None:
+            done = (torch.rand((steps, batch), generator=gen) < 0.05).float()
+        c0 = rand(batch, hidden, scale=0.5)
+        h0 = torch.tanh(rand(batch, hidden))
+        if hidden == H:
+            wi_, b_ = wi, b
+        else:
+            wi_ = rand(D, 4 * hidden, scale=D ** -0.5)
+            b_ = rand(4 * hidden, scale=0.1)
+        wh_ = rand(hidden, 4 * hidden, scale=hidden ** -0.5)
+        args = (x, done.to(device), c0, h0, wi_, wh_, b_)
+        kern = lstm_cuda.lstm_forward(*args, residuals=True)
+        plain = lstm_cuda.lstm_forward_plain(*args, residuals=True)
+        torch.cuda.synchronize()
+        plan = lstm_cuda.resid_plan(batch, hidden)
+        _check(f"lstm_fwd_resid {name}[{steps},{batch},{D}] H={hidden} "
+               f"(R={plan.rows}, {plan.clusters} clusters, Wh rows "
+               f"resident {plan.resident} of {hidden})",
+               *_errors(zip(_resid_outputs(kern), _resid_outputs(plain))),
+               LSTM_TOL)
+
+    for batch in (1, 33, 64):
+        check("", 101, batch, H)
+    check("", 1, 32, H)
+    done = (torch.rand((101, 32), generator=gen) < 0.05).float()
+    done[0] = 1.0
+    done[:, 5] = 1.0
+    check("done=1 at t=0 and in column 5, ", 101, 32, H, done)
+    check("streamed Wh tail ", 8, 4, 512)
+
+
+def resid_device_ms(torch, lstm_cuda, args):
+    """The residual forward's device time at the main path's shapes, both
+    of its kernels (torch.profiler), and how many clusters of the
+    recurrence the card holds at once."""
+    batch, hidden = args[0].shape[1], args[2].shape[1]
+    plan = lstm_cuda.resid_plan(batch, hidden)
+    active = lstm_cuda.resid_active_clusters(plan, hidden)
+    fn = lambda: lstm_cuda.lstm_forward(*args, residuals=True)
+    gemm_ms = _device_ms(torch, fn, "sgemm_kernel<true>", 10)
+    rec_ms = _device_ms(torch, fn, "lstm_resid_kernel", 10)
+    print(f"  lstm_fwd_resid {list(args[0].shape)} H={hidden}: device time "
+          f"{gemm_ms + rec_ms:.4f} ms = input projection (sgemm_kernel<true>)"
+          f" {gemm_ms:.4f} + recurrence (lstm_resid_kernel<{plan.rows}>) "
+          f"{rec_ms:.4f} (torch.profiler); plan {plan.clusters} clusters of 8"
+          f" CTAs, R={plan.rows}, {plan.smem_bytes} bytes of shared memory a "
+          f"CTA; the card holds {active} such clusters at once", flush=True)
+    if active < plan.clusters:
+        print(f"  (the plan's {plan.clusters} clusters run in waves)",
+              flush=True)
+    return gemm_ms + rec_ms
 
 
 def compare_lean_streams(torch, lstm_cuda, device, wi, wh, b):
@@ -525,6 +618,12 @@ def breakdown(torch, driver, config):
           f"in the profiled update", flush=True)
     for name, us in sorted(device_us.items(), key=lambda kv: -kv[1])[:12]:
         print(f"    {us / 1e3:9.3f} ms  {name[:90]}", flush=True)
+    fwd = [(name.split("::")[-1].split("(")[0], us / 1e3)
+           for name, us in device_us.items()
+           if "sgemm_kernel<true>" in name or "lstm_resid_kernel" in name]
+    print(f"  residual LSTM forward in the update: "
+          f"{sum(ms for _, ms in fwd):.3f} ms "
+          f"({', '.join(f'{n} {ms:.3f}' for n, ms in fwd)})", flush=True)
 
 
 def _rows(logdir):

@@ -9,14 +9,14 @@
 //   at B=32, D=266, H=256 it moves 2.3 MB (0.7 us at 3.35 TB/s) and does
 //   34 MFLOP, so what bounds it on this card is latency: one launch, the
 //   weights' trip from L2, a short reduction.  Giving one block to each
-//   batch row (as lstm_fwd_kernel below does) keeps 32 of 132 SMs busy,
-//   each thread walking all 522 weight rows with dependent L2 loads and
-//   every block re-reading the same 2.1 MB: ~10x slower.  Here the gate
-//   columns are split across the card instead: a cluster of 4 CTAs owns 8
-//   hidden units j0..j0+7 (their 32 gate columns j, H+j, 2H+j, 3H+j) for
-//   every batch row, so the pointwise cell stays inside the cluster.  Each CTA takes a quarter of the 522-deep
-//   reduction: it stages its [131, 8 units x 4 gates] slice of [Wi; Wh] in
-//   shared memory once (32-byte segments, every weight byte read once per
+//   batch row keeps 32 of 132 SMs busy, each thread walking all 522
+//   weight rows with dependent L2 loads and every block re-reading the
+//   same 2.1 MB: ~10x slower.  Here the gate columns are split across the
+//   card instead: a cluster of 4 CTAs owns 8 hidden units j0..j0+7 (their
+//   32 gate columns j, H+j, 2H+j, 3H+j) for every batch row, so the
+//   pointwise cell stays inside the cluster.  Each CTA takes a quarter of
+//   the 522-deep reduction: it stages its [131, 8 units x 4 gates] slice
+//   of [Wi; Wh] in shared memory once (32-byte segments, every weight byte read once per
 //   launch, the learner's [D, 4H] layout as it is) and [x | keep*h] for 32
 //   batch rows at a time, then each thread accumulates the 4 gates of one
 //   (row, unit).  The four partial gate vectors are summed through
@@ -24,17 +24,33 @@
 //   fixed order, by the CTA that owns the row; it applies the bias and the
 //   cell.  For H=256 that is 128 CTAs, one per SM.
 //
-// * lstm_fwd_kernel          replaces _fwd_kernel (the residual forward for
-//   BPTT).  On the TPU the grid runs T in order and keeps the (c, h) carry
-//   in VMEM.  Here batch rows are independent, so one block owns one batch
-//   row and loops over T itself: the carry stays in registers (thread j
-//   owns hidden unit j, all four of its gates), and no synchronisation
-//   between blocks is needed.  The block computes x_t.Wi + h.Wh + b in its
-//   own body, reading Wi/Wh coalesced from L2 (2.1 MB of f32 weights stay
-//   resident in the 50 MB L2 across steps).  Bound on the card: at T=101,
-//   B=32 the work is 3.4 GFLOP, compute-bound at ~51 us of f32 FMA.  This
-//   simple design re-reads both weight matrices from L2 every step with
-//   only B SMs busy and runs far from that bound; PERF.md has its time.
+// * sgemm_kernel<true> + lstm_resid_kernel   replace _fwd_kernel (the
+//   residual forward for BPTT), two launches on one stream.  At T=101,
+//   B=32 the work is 3.4 GFLOP (~51 us of f32 FMA on the card); what made
+//   a one-block-per-row loop 230x slower than that was latency: every step
+//   re-read 2.1 MB of Wi/Wh from L2 with dependent loads on 32 SMs.
+//   - The input projection has no recurrence (the done-reset touches only
+//     the carry), so it leaves the loop: pre[T*B, 4H] = x.Wi + b over all
+//     T*B rows in one launch of the tiled GEMM below, the bias added in its
+//     epilogue.  The gates are then (x.Wi + b) + h.Wh, not the TPU
+//     kernel's (x.Wi + h.Wh) + b: about one ulp apart.
+//   - The recurrence keeps Wh on chip for all T steps.  A cluster of 8
+//     CTAs owns R batch rows (clusters split the batch and never meet);
+//     CTA r owns hidden units [r*H/8, (r+1)*H/8) and their 4H/8 gate
+//     columns, and stages that [H, 4H/8] slice of Wh in shared memory once
+//     (128 KiB at H=256), so every weight byte is read from device memory
+//     once per launch.  Where the slice does not fit (H above ~300), the
+//     rows past `resident` are read from L2 each step.  A step: each
+//     thread (unit, eighth of the H-deep reduction) sums its rows for the
+//     R batch rows from the CTA's copy of keep*h; the 8 partial gate
+//     vectors are summed in a fixed order by the thread that owns the
+//     (row, unit) cell, which adds pre, applies the cell (c stays in its
+//     register), writes ys and the residuals in today's layouts (a CTA's
+//     units are contiguous in each gate, so the stores coalesce) and
+//     stores keep_{t+1}*h' into every CTA's next-step h buffer through
+//     distributed shared memory.  The h buffers are double-buffered, so
+//     one cluster.sync() per step separates the reads of one step from
+//     the writes of the next.  No atomics: calls are bitwise repeatable.
 //
 // * lstm_bwd_chain_kernel    the sequential half of _bwd_kernel: the
 //   reverse dh/dc chain (one block per row, carried grads masked by keep),
@@ -49,7 +65,9 @@
 //   transpose a view: dWi = x^T.dgates, dWh = hpost^T.dgates,
 //   db = 1^T.dgates (stride-0 ones) and dx = dgates.Wi^T.  Single pass,
 //   no atomics: each output is summed by one thread in row order, so the
-//   result is deterministic.
+//   result is deterministic.  The instance with a bias epilogue,
+//   sgemm_kernel<true>, is the residual forward's input projection, so the
+//   profiler tells the forward's GEMM from BPTT's (sgemm_kernel<false>).
 //
 // Every entry point launches on the caller's stream, allocates nothing,
 // keeps no state between launches, and returns cudaGetLastError() so a
@@ -227,78 +245,201 @@ __global__ void __cluster_dims__(kStepSplit, 1, 1)
   }
 }
 
-__global__ void lstm_fwd_kernel(
-    const float* __restrict__ x, const float* __restrict__ done,
-    const float* __restrict__ c0, const float* __restrict__ h0,
-    const float* __restrict__ wi, const float* __restrict__ wh,
-    const float* __restrict__ bias, float* __restrict__ ys,
-    float* __restrict__ ifgo, float* __restrict__ cpost,
-    float* __restrict__ hpost, float* __restrict__ cnew,
-    float* __restrict__ c_out, float* __restrict__ h_out, int T, int B,
-    int D, int H) {
-  extern __shared__ float smem[];
-  float* sx = smem;      // x_t of this row, [D]
-  float* sh = smem + D;  // post-reset h of this row, [H]
-  const int b = blockIdx.x;
-  const int j = threadIdx.x;  // hidden unit; blockDim.x == H
-  const int G = 4 * H;
-  float c = c0[(size_t)b * H + j];
-  float h = h0[(size_t)b * H + j];
-  const float bi = bias[j], bf = bias[H + j], bg = bias[2 * H + j],
-              bo = bias[3 * H + j];
-  for (int t = 0; t < T; ++t) {
-    const size_t row = (size_t)t * B + b;
-    // The done-reset multiplies the carry BEFORE the step.
-    const float keep = 1.0f - done[row];
-    c *= keep;
-    h *= keep;
-    for (int k = j; k < D; k += H) sx[k] = x[row * D + k];
-    sh[j] = h;
-    __syncthreads();
-    float ai = 0.f, af = 0.f, ag = 0.f, ao = 0.f;
-    const float* w = wi + j;
-#pragma unroll 4
-    for (int k = 0; k < D; ++k) {
-      const float xk = sx[k];
-      const float* wk = w + (size_t)k * G;
-      ai = fmaf(xk, __ldg(wk), ai);
-      af = fmaf(xk, __ldg(wk + H), af);
-      ag = fmaf(xk, __ldg(wk + 2 * H), ag);
-      ao = fmaf(xk, __ldg(wk + 3 * H), ao);
-    }
-    float ri = 0.f, rf = 0.f, rg = 0.f, ro = 0.f;
-    w = wh + j;
-#pragma unroll 4
-    for (int k = 0; k < H; ++k) {
-      const float hk = sh[k];
-      const float* wk = w + (size_t)k * G;
-      ri = fmaf(hk, __ldg(wk), ri);
-      rf = fmaf(hk, __ldg(wk + H), rf);
-      rg = fmaf(hk, __ldg(wk + 2 * H), rg);
-      ro = fmaf(hk, __ldg(wk + 3 * H), ro);
-    }
-    const float ig = sigmoid_f(ai + ri + bi);
-    const float fg = sigmoid_f(af + rf + bf);
-    const float gg = tanhf(ag + rg + bg);
-    const float og = sigmoid_f(ao + ro + bo);
-    const float cn = fg * c + ig * gg;
-    const float hn = og * tanhf(cn);
-    cpost[row * H + j] = c;
-    hpost[row * H + j] = h;
-    cnew[row * H + j] = cn;
-    float* gates = ifgo + row * G;
-    gates[j] = ig;
-    gates[H + j] = fg;
-    gates[2 * H + j] = gg;
-    gates[3 * H + j] = og;
-    ys[row * H + j] = hn;
-    c = cn;
-    h = hn;
-    // sx/sh are rewritten by the next step.
-    __syncthreads();
+constexpr int kResidCluster = 8;  // CTAs per cluster: the portable maximum
+
+// Most threads a CTA of lstm_resid_kernel<R> runs (blockDim.x == H): its
+// R float4 accumulators and their operands must fit 65536 / threads
+// registers.  The plan (ops/lstm_cuda.py::resid_plan) caps R by H to match.
+__host__ __device__ constexpr int resid_max_threads(int rows) {
+  return rows >= 8 ? 256 : rows >= 4 ? 512 : 1024;
+}
+
+__device__ __forceinline__ void fma4(float a, const float4& w, float4& acc) {
+  acc.x = fmaf(a, w.x, acc.x);
+  acc.y = fmaf(a, w.y, acc.y);
+  acc.z = fmaf(a, w.z, acc.z);
+  acc.w = fmaf(a, w.w, acc.w);
+}
+
+// Four reduction rows k..k+3 of h.Wh for R batch rows: w[i] holds the 4
+// gates of this thread's unit in row k+i of Wh, hb the R rows of keep*h.
+template <int R>
+__device__ __forceinline__ void resid_fma(float4 (&acc)[R], const float* hb,
+                                          int H, int k, const float4 (&w)[4]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float4 h = *reinterpret_cast<const float4*>(hb + r * H + k);
+    fma4(h.x, w[0], acc[r]);
+    fma4(h.y, w[1], acc[r]);
+    fma4(h.z, w[2], acc[r]);
+    fma4(h.w, w[3], acc[r]);
   }
-  c_out[(size_t)b * H + j] = c;
-  h_out[(size_t)b * H + j] = h;
+}
+
+// The recurrence of the residual forward over pre = x.Wi + b.  Cluster q
+// owns batch rows [q*R, q*R + R); its CTA of rank r owns hidden units
+// j0 = r*U .. j0+U-1 (U = H/8).  Shared memory: ws [resident][U] float4
+// (the 4 gates of a unit in one vector), part [8][R][U] float4 (partial
+// gates), hbuf [2][R][H] (keep*h of this step and the next).
+template <int R>
+__global__ void __cluster_dims__(kResidCluster, 1, 1)
+    __launch_bounds__(resid_max_threads(R))
+        lstm_resid_kernel(const float* __restrict__ pre,
+                          const float* __restrict__ done,
+                          const float* __restrict__ c0,
+                          const float* __restrict__ h0,
+                          const float* __restrict__ wh,
+                          float* __restrict__ ys, float* __restrict__ ifgo,
+                          float* __restrict__ cpost,
+                          float* __restrict__ hpost,
+                          float* __restrict__ cnew,
+                          float* __restrict__ c_out,
+                          float* __restrict__ h_out, int T, int B, int H,
+                          int resident) {
+  extern __shared__ float4 smem4[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int U = H / kResidCluster;
+  const int j0 = rank * U;
+  const int b0 = (blockIdx.x / kResidCluster) * R;
+  const int G = 4 * H;
+  const int tid = threadIdx.x;
+  float4* ws = smem4;
+  float4* part = ws + (size_t)resident * U;
+  float* hbuf = reinterpret_cast<float*>(part + kResidCluster * R * U);
+
+  // The resident rows of this CTA's Wh slice, once per launch: columns
+  // g*H + j0 .. +U-1 of each gate g, read as float4 (8 loads a thread in
+  // flight) and stored gate-interleaved.
+  const int quads = U / 4;
+  const int n4 = resident * 4 * quads;
+  for (int base = 0; base < n4; base += 8 * blockDim.x) {
+    float4 v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int e = base + i * blockDim.x + tid;
+      if (e < n4) {
+        const int k = e / (4 * quads), g = (e / quads) % 4, q = e % quads;
+        v[i] = __ldg(reinterpret_cast<const float4*>(wh + (size_t)k * G +
+                                                     g * H + j0 + 4 * q));
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int e = base + i * blockDim.x + tid;
+      if (e < n4) {
+        const int k = e / (4 * quads), g = (e / quads) % 4, q = e % quads;
+        float* d = reinterpret_cast<float*>(ws + k * U + 4 * q) + g;
+        d[0] = v[i].x;
+        d[4] = v[i].y;
+        d[8] = v[i].z;
+        d[12] = v[i].w;
+      }
+    }
+  }
+  // h buffer 0 holds step 0's post-reset h (the done-reset multiplies the
+  // carry BEFORE the step); rows past B stay 0 in both buffers.
+  for (int e = tid; e < 2 * R * H; e += blockDim.x) {
+    const int b = b0 + (e / H) % R;
+    hbuf[e] = (e < R * H && b < B)
+                  ? (1.0f - done[b]) * h0[(size_t)b * H + e % H]
+                  : 0.f;
+  }
+  // Thread tid is (s, u) = (tid / U, tid % U) in both of its roles:
+  // - reduction: unit u over rows [s*H/8, (s+1)*H/8) of Wh, the first
+  //   `resident` of them from shared memory, the rest from L2;
+  // - for s < R, owner of the cell (batch row b0 + s, unit j0 + u): its c
+  //   in a register, the sum of the partials, the cell and the stores.
+  const int s = tid / U, u = tid % U;
+  const int fb = b0 + s, fj = j0 + u;
+  const bool owner = s < R && fb < B;
+  const int kb = s * U, ke = kb + U;
+  const int km = min(max(resident, kb), ke);
+  const float* wcol = wh + j0 + u;
+  float c = owner ? c0[(size_t)fb * H + fj] : 0.f;
+  float h = 0.f;
+  cluster.sync();  // every CTA staged and running before any DSMEM store
+
+  for (int t = 0; t < T; ++t) {
+    const float* hb = hbuf + (t & 1) * R * H;
+    float* hnext = hbuf + ((t + 1) & 1) * R * H;
+    // The owner's inputs, issued before the reduction hides their latency.
+    float4 p = make_float4(0.f, 0.f, 0.f, 0.f);
+    float keep = 1.f, keep_next = 1.f;
+    const size_t row = (size_t)t * B + fb;
+    if (owner) {
+      const float* pr = pre + row * G + fj;
+      p = make_float4(pr[0], pr[H], pr[2 * H], pr[3 * H]);
+      keep = 1.0f - done[row];
+      if (t + 1 < T) keep_next = 1.0f - done[row + B];
+    }
+    float4 acc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int k = kb; k < km; k += 4) {
+      const float4 w[4] = {ws[k * U + u], ws[(k + 1) * U + u],
+                           ws[(k + 2) * U + u], ws[(k + 3) * U + u]};
+      resid_fma<R>(acc, hb, H, k, w);
+    }
+    for (int k = km; k < ke; k += 4) {
+      float4 w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float* col = wcol + (size_t)(k + i) * G;
+        w[i] = make_float4(__ldg(col), __ldg(col + H), __ldg(col + 2 * H),
+                           __ldg(col + 3 * H));
+      }
+      resid_fma<R>(acc, hb, H, k, w);
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) part[(s * R + r) * U + u] = acc[r];
+    __syncthreads();
+    if (owner) {
+      // The 8 partials in slice order, then pre: (x.Wi + b) + h.Wh.
+      float4 g = part[s * U + u];
+#pragma unroll
+      for (int q = 1; q < kResidCluster; ++q) {
+        const float4 o = part[(q * R + s) * U + u];
+        g.x += o.x;
+        g.y += o.y;
+        g.z += o.z;
+        g.w += o.w;
+      }
+      const float ig = sigmoid_f(p.x + g.x);
+      const float fg = sigmoid_f(p.y + g.y);
+      const float gg = tanhf(p.z + g.z);
+      const float og = sigmoid_f(p.w + g.w);
+      const float cp = keep * c;
+      const float cn = fg * cp + ig * gg;
+      const float hn = og * tanhf(cn);
+      const size_t o = row * H + fj;
+      cpost[o] = cp;
+      hpost[o] = hb[s * H + fj];
+      cnew[o] = cn;
+      ys[o] = hn;
+      float* gates = ifgo + row * G + fj;
+      gates[0] = ig;
+      gates[H] = fg;
+      gates[2 * H] = gg;
+      gates[3 * H] = og;
+      c = cn;
+      h = hn;
+      if (t + 1 < T) {
+        const float hk = keep_next * hn;
+#pragma unroll
+        for (int q = 0; q < kResidCluster; ++q)
+          *cluster.map_shared_rank(hnext + s * H + fj, q) = hk;
+      }
+    }
+    // The next step's h is in every CTA, and this step's reads of hb and
+    // part are done; the last one also keeps every CTA's shared memory
+    // alive until no other CTA can store into it.
+    cluster.sync();
+  }
+  if (owner) {
+    c_out[(size_t)fb * H + fj] = c;
+    h_out[(size_t)fb * H + fj] = h;
+  }
 }
 
 __global__ void lstm_bwd_chain_kernel(
@@ -367,12 +508,16 @@ constexpr int kBN = 64;
 constexpr int kBK = 16;
 constexpr int kGemmThreads = 256;
 
-// C[M,N] (row-major, dense) = A[M,K] . B[K,N], A and B given by element
-// strides (any of them may be 0 for a broadcast operand).
+// C[M,N] (row-major, dense) = A[M,K] . B[K,N] (+ bias[N] if kBias), A and
+// B given by element strides (any of them may be 0 for a broadcast
+// operand).
+template <bool kBias>
 __global__ void sgemm_kernel(const float* __restrict__ a, long long sam,
                              long long sak, const float* __restrict__ bm,
                              long long sbk, long long sbn,
-                             float* __restrict__ c, int M, int N, int K) {
+                             float* __restrict__ c,
+                             const float* __restrict__ bias, int M, int N,
+                             int K) {
   __shared__ float as[kBK][kBM + 1];
   __shared__ float bs[kBK][kBN + 1];
   const int tid = threadIdx.x;
@@ -424,7 +569,8 @@ __global__ void sgemm_kernel(const float* __restrict__ a, long long sam,
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int gn = n0 + tx + 16 * q;
-      if (gn < N) c[(size_t)gm * N + gn] = acc[i][q];
+      if (gn < N) c[(size_t)gm * N + gn] = kBias ? acc[i][q] + bias[gn]
+                                                 : acc[i][q];
     }
   }
 }
@@ -437,6 +583,37 @@ cudaError_t allow_shared(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
+template <int R>
+cudaError_t launch_resid(const float* pre, const float* done,
+                         const float* c0, const float* h0, const float* wh,
+                         float* ys, float* ifgo, float* cpost, float* hpost,
+                         float* cnew, float* c_out, float* h_out, int T,
+                         int B, int H, int resident, size_t shared,
+                         cudaStream_t stream) {
+  if (H > resid_max_threads(R)) return cudaErrorInvalidValue;
+  cudaError_t err = allow_shared(lstm_resid_kernel<R>, shared);
+  if (err != cudaSuccess) return err;
+  const int clusters = (B + R - 1) / R;
+  lstm_resid_kernel<R><<<clusters * kResidCluster, H, shared, stream>>>(
+      pre, done, c0, h0, wh, ys, ifgo, cpost, hpost, cnew, c_out, h_out, T,
+      B, H, resident);
+  return cudaGetLastError();
+}
+
+template <int R>
+int active_clusters(int H, size_t shared) {
+  cudaError_t err = allow_shared(lstm_resid_kernel<R>, shared);
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(kResidCluster, 1, 1);
+  config.blockDim = dim3(H, 1, 1);
+  config.dynamicSmemBytes = shared;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(
+      &clusters, (const void*)lstm_resid_kernel<R>, &config);
+  return err == cudaSuccess ? clusters : -(int)err;
+}
+
 }  // namespace
 
 extern "C" {
@@ -445,18 +622,59 @@ const char* sat_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-int sat_lstm_forward(const float* x, const float* done, const float* c0,
-                     const float* h0, const float* wi, const float* wh,
-                     const float* bias, float* ys, float* ifgo, float* cpost,
-                     float* hpost, float* cnew, float* c_out, float* h_out,
-                     int T, int B, int D, int H, void* stream) {
-  const size_t shared = (size_t)(D + H) * sizeof(float);
-  cudaError_t err = allow_shared(lstm_fwd_kernel, shared);
+// The residual forward: pre = x.Wi + b (sgemm_kernel<true>), then
+// lstm_resid_kernel<rows> over it.  `pre` is the caller's [T*B, 4H]
+// scratch; rows, resident and shared come from lstm_cuda.resid_plan.
+int sat_lstm_forward_resid(const float* x, const float* done,
+                           const float* c0, const float* h0, const float* wi,
+                           const float* wh, const float* bias, float* pre,
+                           float* ys, float* ifgo, float* cpost, float* hpost,
+                           float* cnew, float* c_out, float* h_out, int T,
+                           int B, int D, int H, int rows, int resident,
+                           int shared, void* stream) {
+  if (H % (4 * kResidCluster) != 0 || resident % 4 != 0 || resident < 0 ||
+      resident > H)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int M = T * B, N = 4 * H;
+  dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+  sgemm_kernel<true><<<grid, kGemmThreads, 0, s>>>(x, D, 1, wi, N, 1, pre,
+                                                   bias, M, N, D);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  lstm_fwd_kernel<<<B, H, shared, (cudaStream_t)stream>>>(
-      x, done, c0, h0, wi, wh, bias, ys, ifgo, cpost, hpost, cnew, c_out,
-      h_out, T, B, D, H);
-  return (int)cudaGetLastError();
+  switch (rows) {
+    case 1:
+      return (int)launch_resid<1>(pre, done, c0, h0, wh, ys, ifgo, cpost,
+                                  hpost, cnew, c_out, h_out, T, B, H,
+                                  resident, shared, s);
+    case 2:
+      return (int)launch_resid<2>(pre, done, c0, h0, wh, ys, ifgo, cpost,
+                                  hpost, cnew, c_out, h_out, T, B, H,
+                                  resident, shared, s);
+    case 4:
+      return (int)launch_resid<4>(pre, done, c0, h0, wh, ys, ifgo, cpost,
+                                  hpost, cnew, c_out, h_out, T, B, H,
+                                  resident, shared, s);
+    case 8:
+      return (int)launch_resid<8>(pre, done, c0, h0, wh, ys, ifgo, cpost,
+                                  hpost, cnew, c_out, h_out, T, B, H,
+                                  resident, shared, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// How many clusters of lstm_resid_kernel<rows> the card holds at once with
+// `shared` bytes of shared memory a CTA (cudaOccupancyMaxActiveClusters),
+// or minus a CUDA error code.
+int sat_lstm_resid_active_clusters(int H, int rows, int shared) {
+  switch (rows) {
+    case 1: return active_clusters<1>(H, shared);
+    case 2: return active_clusters<2>(H, shared);
+    case 4: return active_clusters<4>(H, shared);
+    case 8: return active_clusters<8>(H, shared);
+    default: return -(int)cudaErrorInvalidValue;
+  }
 }
 
 int sat_lstm_step(const float* x, const float* done, const float* c0,
@@ -492,8 +710,8 @@ int sat_sgemm(const float* a, long long sam, long long sak, const float* b,
               long long sbk, long long sbn, float* c, int M, int N, int K,
               void* stream) {
   dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  sgemm_kernel<<<grid, kGemmThreads, 0, (cudaStream_t)stream>>>(
-      a, sam, sak, b, sbk, sbn, c, M, N, K);
+  sgemm_kernel<false><<<grid, kGemmThreads, 0, (cudaStream_t)stream>>>(
+      a, sam, sak, b, sbk, sbn, c, nullptr, M, N, K);
   return (int)cudaGetLastError();
 }
 

@@ -39,7 +39,8 @@ _F = ctypes.c_float
 # stream go through c_void_p: a bare Python int would be cut to 32 bits.
 _SIGNATURES = {
     "sat_error_string": ([_I], ctypes.c_char_p),
-    "sat_lstm_forward": ([_P] * 14 + [_I] * 4 + [_P], _I),
+    "sat_lstm_forward_resid": ([_P] * 15 + [_I] * 7 + [_P], _I),
+    "sat_lstm_resid_active_clusters": ([_I] * 3, _I),
     "sat_lstm_step": ([_P] * 9 + [_I] * 3 + [_P], _I),
     "sat_lstm_backward_chain": ([_P] * 11 + [_I] * 3 + [_P], _I),
     "sat_sgemm": ([_P, _L, _L, _P, _L, _L, _P, _I, _I, _I, _P], _I),

@@ -19,7 +19,14 @@ Kernels (``csrc/lstm.cu``), one launch counter each in ``LAUNCHES``:
   of the D+H reduction, the partial gates summed through distributed
   shared memory in a fixed order; every weight byte is read once.
 - ``lstm_fwd_resid`` replaces ``lstm_pallas.py::_fwd_kernel`` (also the
-  residuals ``ifgo [T,B,4H]``, ``cpost``/``hpost``/``cnew [T,B,H]``).
+  residuals ``ifgo [T,B,4H]``, ``cpost``/``hpost``/``cnew [T,B,H]``) with
+  two launches.  The input projection has no recurrence, so
+  ``pre = x.Wi + b`` over all T*B rows is one launch of the hand-written
+  GEMM (``pre`` is the wrapper's scratch).  Then the recurrence keeps Wh
+  on chip for all T steps: clusters of 8 CTAs split the batch, each CTA
+  owns H/8 hidden units and holds their slice of Wh in shared memory,
+  and the new h reaches every CTA of the cluster through distributed
+  shared memory, one cluster barrier per step.  ``resid_plan`` sizes it.
 - ``lstm_bptt`` replaces ``lstm_pallas.py::_bwd_kernel``: a reverse-chain
   kernel that stashes ``dgates [T,B,4H]``, then the hand-written strided
   GEMM for ``dx``, ``dWi``, ``dWh`` and ``db`` over the T*B rows.
@@ -152,6 +159,50 @@ def _check_hidden(hidden):
             f"need H a multiple of 32 in [32, 1024], got {hidden}")
 
 
+RESID_CLUSTER = 8     # CTAs per cluster of the recurrence kernel
+SMEM_LIMIT = 232_448  # shared memory one block can use on an H100
+
+
+class ResidPlan(NamedTuple):
+    """Launch geometry of the residual forward's recurrence kernel."""
+
+    rows: int        # batch rows per cluster (R)
+    clusters: int
+    resident: int    # rows of a CTA's [H, 4H/8] Wh slice in shared memory
+    smem_bytes: int  # dynamic shared memory per CTA
+
+
+def resid_plan(batch: int, hidden: int) -> ResidPlan:
+    """R is the least power of two that covers the batch with at most 8
+    clusters (64 SMs, co-resident on an H100), capped by H so that a CTA of
+    H threads keeps its 4R accumulators in registers (csrc/lstm.cu's
+    ``resid_max_threads``).  A CTA holds 8 partial gate vectors and two h
+    buffers for its R rows (24*R*H bytes), then as many rows of its Wh
+    slice (2*H bytes each) as fit, a multiple of 4: all of them up to
+    about H=300.  T and D do not enter the plan."""
+    _check_hidden(hidden)
+    most = 8 if hidden <= 256 else 4 if hidden <= 512 else 2
+    rows = 1
+    while rows < min(-(-batch // RESID_CLUSTER), most):
+        rows *= 2
+    fixed = 24 * rows * hidden
+    row_bytes = 2 * hidden
+    resident = min(hidden, (SMEM_LIMIT - fixed) // row_bytes // 4 * 4)
+    return ResidPlan(rows, -(-batch // rows), resident,
+                     fixed + resident * row_bytes)
+
+
+def resid_active_clusters(plan: ResidPlan, hidden: int) -> int:
+    """How many clusters of the recurrence kernel the card holds at once
+    under ``plan`` (``cudaOccupancyMaxActiveClusters``); more clusters than
+    that run in waves."""
+    n = _build.library().sat_lstm_resid_active_clusters(
+        hidden, plan.rows, plan.smem_bytes)
+    if n < 0:
+        _build.check(-n, "lstm recurrence occupancy query")
+    return n
+
+
 def _stream():
     return torch.cuda.current_stream().cuda_stream
 
@@ -217,11 +268,11 @@ def lstm_forward(x, done, c0, h0, wi, wh, b, residuals: bool) -> Forward:
             ("wi", wi, (in_dim, 4 * hidden)),
             ("wh", wh, (hidden, 4 * hidden)), ("b", b, (4 * hidden,))):
         _build.check_operand(name, t, shape)
+    if wi.data_ptr() % 16 or wh.data_ptr() % 16:
+        raise ValueError("the LSTM kernels read Wi and Wh in 16-byte "
+                         "vectors: they must be 16-byte aligned")
     lib = _build.library()
     if not residuals:
-        if wi.data_ptr() % 16 or wh.data_ptr() % 16:
-            raise ValueError("the lean step kernel reads Wi and Wh in "
-                             "16-byte vectors: they must be 16-byte aligned")
         return lean_forward(_step_kernel(lib, wi, wh, b), x, done, c0, h0)
     empty = lambda *shape: torch.empty(shape, dtype=torch.float32,
                                        device=x.device)
@@ -231,11 +282,14 @@ def lstm_forward(x, done, c0, h0, wi, wh, b, residuals: bool) -> Forward:
                     empty(steps, batch, hidden),
                     empty(steps, batch, hidden),
                     empty(steps, batch, hidden))
-    code = lib.sat_lstm_forward(
-        *(t.data_ptr() for t in (x, done, c0, h0, wi, wh, b, ys, *res,
+    pre = empty(steps * batch, 4 * hidden)  # x.Wi + b, scratch
+    plan = resid_plan(batch, hidden)
+    code = lib.sat_lstm_forward_resid(
+        *(t.data_ptr() for t in (x, done, c0, h0, wi, wh, b, pre, ys, *res,
                                  c_out, h_out)),
-        steps, batch, in_dim, hidden, _stream())
-    _build.check(code, "lstm forward kernel")
+        steps, batch, in_dim, hidden, plan.rows, plan.resident,
+        plan.smem_bytes, _stream())
+    _build.check(code, "lstm residual forward kernels")
     _build.count_launch(LAUNCHES, "lstm_fwd_resid")
     return Forward(ys, c_out, h_out, res)
 

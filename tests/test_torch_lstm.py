@@ -177,6 +177,81 @@ def test_lean_step_at_full_width_matches_pallas(batch):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+@pytest.mark.parametrize("hidden", [32, 256, 320, 512, 1024])
+@pytest.mark.parametrize("batch", [1, 31, 32, 33, 64])
+def test_resid_plan_fits_and_covers_the_batch(batch, hidden):
+    """Every batch row in exactly one cluster (none empty), the shared
+    memory within an H100 block's 232,448 bytes, a CTA of H threads within
+    the register cap of its R, and the resident rows a multiple of 4 that
+    the kernel's float4 loop can split at."""
+    plan = lstm_cuda.resid_plan(batch, hidden)
+    assert plan.rows in (1, 2, 4, 8)
+    assert (plan.clusters - 1) * plan.rows < batch <= plan.clusters * plan.rows
+    assert plan.smem_bytes <= lstm_cuda.SMEM_LIMIT
+    assert plan.smem_bytes == (24 * plan.rows + 2 * plan.resident) * hidden
+    assert 0 < plan.resident <= hidden and plan.resident % 4 == 0
+    assert hidden <= {8: 256, 4: 512}.get(plan.rows, 1024)
+    if batch <= lstm_cuda.RESID_CLUSTER * plan.rows:
+        assert plan.clusters <= lstm_cuda.RESID_CLUSTER
+
+
+def test_resid_plan_keeps_all_of_wh_on_chip_at_the_main_path():
+    """B=32, H=256: 8 clusters of 4 rows, each CTA's [256, 128] slice of
+    Wh (128 KiB) whole in shared memory; at B=1 one cluster."""
+    assert lstm_cuda.resid_plan(32, 256) == lstm_cuda.ResidPlan(
+        rows=4, clusters=8, resident=256, smem_bytes=155_648)
+    assert lstm_cuda.resid_plan(1, 256) == lstm_cuda.ResidPlan(1, 1, 256,
+                                                               137_216)
+
+
+@pytest.mark.parametrize("batch,resident", [(4, 212), (32, 176)])
+def test_resid_plan_streams_the_rest_of_wh_at_h512(batch, resident):
+    """H=512: a CTA's slice of Wh is 512 KiB, so only `resident` of its 512
+    rows stay in shared memory and the rest are read from L2 each step."""
+    plan = lstm_cuda.resid_plan(batch, 512)
+    assert plan.resident == resident < 512
+
+
+def test_resid_cuda_route_launches_the_kernels_only(monkeypatch):
+    """On the card the residual forward is one call of its C entry point
+    (input-projection GEMM + recurrence), with the plan's geometry and a
+    pointer for every operand, counted once; it never runs the plain loop
+    or a PyTorch matmul.  The library is a stand-in, so the test needs no
+    card."""
+    calls = []
+
+    class FakeLibrary:
+        def sat_lstm_forward_resid(self, *args):
+            calls.append(args)
+            return 0
+
+    forbidden = lambda *a, **k: pytest.fail("the CUDA route ran PyTorch math")
+    monkeypatch.setattr(lstm_cuda._build, "on_cpu", lambda *a: False)
+    monkeypatch.setattr(lstm_cuda._build, "library", FakeLibrary)
+    monkeypatch.setattr(lstm_cuda, "_stream", lambda: 7)
+    monkeypatch.setattr(lstm_cuda, "lstm_forward_plain", forbidden)
+    monkeypatch.setattr(torch, "matmul", forbidden)
+    monkeypatch.setattr(torch.Tensor, "__matmul__", forbidden)
+    t = _torch(_inputs(12, done_rate=0.1))
+    hidden = 32
+    t.update(c0=torch.zeros(B, hidden), h0=torch.zeros(B, hidden),
+             wi=torch.zeros(D, 4 * hidden), wh=torch.zeros(hidden, 4 * hidden),
+             b=torch.zeros(4 * hidden))
+    before = lstm_cuda.LAUNCHES["lstm_fwd_resid"]
+    out = lstm_cuda.lstm_forward(*(t[k] for k in ORDER), residuals=True)
+    args, = calls
+    argtypes, _ = lstm_cuda._build._SIGNATURES["sat_lstm_forward_resid"]
+    assert len(args) == len(argtypes)
+    plan = lstm_cuda.resid_plan(B, hidden)
+    assert args[15:] == (T, B, D, hidden, plan.rows, plan.resident,
+                         plan.smem_bytes, 7)
+    outputs = [out.ys, *out.residuals, out.c, out.h]
+    assert list(args[:7]) == [t[k].data_ptr() for k in ORDER]
+    assert list(args[8:15]) == [o.data_ptr() for o in outputs]
+    assert len(set(args[:15])) == 15  # pre is scratch of its own
+    assert lstm_cuda.LAUNCHES["lstm_fwd_resid"] == before + 1
+
+
 @pytest.mark.parametrize("steps", [1, 5])
 def test_lean_forward_runs_one_step_per_time_step(steps):
     """The lean route: T calls of the step (one kernel launch each on the
