@@ -17,37 +17,52 @@ a result:
    plain version, and a library call for the same function where there is
    one: ``torch.nn.grad.conv2d_weight`` for grad-W, ``torch.lstm_cell``
    after the done-reset for the lean forward; V-trace also against the
-   ``scan_impl=auto`` recurrence).  The lean step kernel is also held at
+   ``scan_impl=auto`` recurrence).  Every LSTM and grad-W check below runs
+   twice: for the float32 kernels, then for their bf16-operand variants
+   (``matmul_dtype="bfloat16"``; grad-W on bf16 x and g, the library calls
+   in bf16 too), at the float32 tolerances but for bf16 unrolls longer
+   than ``LSTM_BF16_SHORT_T`` steps (``LSTM_BF16_LONG_TOL``, and the
+   residual forward must be clearly closer to its plain version than to
+   the float32 one).  The lean step kernel is also held at
    T=1 for B in {1, 8, 32, 64}, at T=5 (five launches), and from two
-   threads on two streams at once; its device time (torch.profiler) must
-   not exceed ``torch.lstm_cell``'s.  The residual forward (input-projection
-   GEMM + recurrence kernel) is also held, on all seven outputs, at B in
+   threads on two streams at once; its float32 device time
+   (torch.profiler) must not exceed ``torch.lstm_cell``'s.  The residual
+   forward (input-projection GEMM + recurrence kernel) is also held, on
+   all seven outputs, at B in
    {1, 33, 64}, at T=1, with done=1 at t=0 and on a whole column, and at
    [8, 4] with H=512 (Wh partly streamed from L2); two calls must be
-   bitwise equal, the BPTT must agree fed by its residuals, and its device
+   bitwise equal, the BPTT must agree fed by its residuals and at T=5,
+   and the forward's device
    time (torch.profiler, both kernels) must be below ``RESID_MAX_MS``;
    the occupancy query's count of co-resident clusters is printed.
    Grad-W is also held at N=1, N=3233,
    17x23 frames (asymmetric SAME pads) and in both input layouts the torso
    can hand over (contiguous NHWC, an NHWC view of NCHW memory), two calls
-   must give bitwise-equal dW, and its time must be below cuDNN's.
+   must give bitwise-equal dW, and its float32 time must be below
+   cuDNN's.
    Then the whole agent, forward and every parameter gradient, on the card
-   against the same weights on the CPU.
+   against the same weights on the CPU, under each dtype policy.
 3. Train: ``driver.train`` on ``fake_benchmark`` at full width (64 actors
    in two groups of 32 on ActorPool threads, 8 env worker processes per
-   group, unroll 100, 4 action repeats, LSTM 256, ``--scan_impl=pallas``)
-   for 4 updates into a temporary ``--logdir``, with every launch counter
-   set to 0 just before and read just after: losses finite, env_frames
-   exact, residual forward, BPTT, grad-W and V-trace launched once per
-   update, lean forward at least 100 times per update, metric rows
-   written, and a checkpoint whose manifest verifies.  Then
-   ``driver.test`` (``--mode=test``) on that logdir for 8 episodes, and a
-   1-update ``scan_impl=auto`` train that must launch no V-trace kernel.
+   group, unroll 100, 4 action repeats, LSTM 256, ``--scan_impl=pallas``,
+   the default ``compute_dtype=bfloat16``) for 4 updates into a temporary
+   ``--logdir``, with every launch counter set to 0 just before and read
+   just after: losses finite, env_frames exact, the bf16 variants of the
+   residual forward, BPTT and grad-W and V-trace launched once per
+   update, the bf16 lean forward at least 100 times per update, no float32
+   LSTM or grad-W kernel launched, metric rows written, and a checkpoint
+   whose manifest verifies.  Then ``driver.test`` (``--mode=test``) on that
+   logdir for 8 episodes, a 1-update ``scan_impl=auto`` train that must
+   launch no V-trace kernel, and the float32 policy's path
+   (``--compute_dtype=float32``) for 2 updates, counted the same way for
+   the float32 kernels.
 3b. Where the time goes: one actor unroll, the upload and one update taken
-   apart (with torch.profiler for the update's kernels), then the pool loop's
-   steady state over 10 updates (s per update after the first 2, actor
-   against learner fps, ``wait_batch`` against ``update``).
-3c. Learning: ``fake_bandit`` through the pool on the card (16x16 frames,
+   apart (with torch.profiler for the update's kernels), at bf16 and at
+   float32, then the pool loop's steady state at bf16 over 10 updates (s
+   per update after the first 2, actor against learner fps,
+   ``wait_batch`` against ``update``).
+3c. Learning: ``fake_bandit`` through the pool on the card at the default
+   bf16 policy (16x16 frames,
    32 actors, batch 16, unroll 16, lr 0.002, entropy 0.003, 200 updates,
    ``--scan_impl=pallas``) must lift the mean episode return from the
    random floor (~4) to at least 8, by at least 4.  A run either learns
@@ -60,7 +75,9 @@ a result:
    risen less than 3.4: a stall has learned two cues) and at least 2 runs
    met the full curve (a sound learner misses that about 4% of the time
    at a one-in-two stall rate, 0.6% at one in three).
-4. A ``{"kernels": [...]}`` line, then as the last line
+4. A ``{"kernels": [...]}`` line (the float32 kernels with their launches
+   on the float32 path, the bf16 variants and V-trace with theirs on the
+   main path), the card's line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
@@ -77,13 +94,24 @@ import time
 
 MEM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, published
 F32_FLOP_PER_S = 67e12      # H100 SXM float32 without tensor cores
+BF16_FLOP_PER_S = 989e12    # H100 SXM bf16 tensor cores, dense
 LSTM_TOL = 1e-4             # scale-relative; f32 sums in another order
+# bf16 operands: the same exact products summed in another order, so
+# LSTM_TOL holds while the unroll is short; over a long one a last-bit
+# difference in a float32 h or dgate flips its bf16 rounding (2**-8 of
+# that operand) and the flips accumulate.  Two correct orders of the plain
+# version differ by 3e-4 at T=101 on the CPU; the float32 policy is 6.5e-3
+# away.
+LSTM_BF16_SHORT_T = 10
+LSTM_BF16_LONG_TOL = 3e-3
+AGENT_BF16_TOL = 2e-2       # the CPU tests' band for the bf16 policy
 RESID_MAX_MS = 5.9          # residual forward device time: half of the
                             # one-block-per-row loop's 11.94 ms (PERF.md)
 GRADW_TOL = 1e-4            # scale-relative over 1.4 M summed rows
 AGENT_TOL = 1e-3            # whole model: cuDNN convs vs CPU convs
 VTRACE_TOL = 1e-5           # scale-relative; FMA contraction on the card
 UPDATES = 4
+F32_UPDATES = 2             # the float32 policy's shorter path
 POOL_UPDATES = 10
 BANDIT_UPDATES = 200
 BANDIT_RANDOM = 4.0         # fake_bandit: 16 steps, 4 actions
@@ -150,9 +178,12 @@ def _errors(pairs):
     return worst_abs, worst_rel
 
 
-def _bound_ms(nbytes, flops):
+def _bound_ms(nbytes, flops, bf16=False):
+    """The least time for the work: bytes over the memory rate against
+    operations over the peak of their type (bf16 tensor cores for a bf16
+    variant, float32 FMA otherwise)."""
     t_bytes = nbytes / MEM_BYTES_PER_S
-    t_ops = flops / F32_FLOP_PER_S
+    t_ops = flops / (BF16_FLOP_PER_S if bf16 else F32_FLOP_PER_S)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -164,10 +195,27 @@ def _check(name, err_abs, err_rel, tol):
         raise AssertionError(f"{name} disagrees with its plain version")
 
 
-def compare_lstm(torch, lstm_cuda, device):
-    """Lean forward (T=1), residual forward and BPTT (T=101) vs plain."""
+def _variant(name, matmul_dtype):
+    """A kernel's row name: the bf16-operand variant ends in _bf16."""
+    return name + ("_bf16" if matmul_dtype == "bfloat16" else "")
+
+
+def _lstm_tol(matmul_dtype, steps):
+    """LSTM_TOL, but LSTM_BF16_LONG_TOL for bf16 operands over more than
+    LSTM_BF16_SHORT_T steps."""
+    if matmul_dtype == "bfloat16" and steps > LSTM_BF16_SHORT_T:
+        return LSTM_BF16_LONG_TOL
+    return LSTM_TOL
+
+
+def compare_lstm(torch, lstm_cuda, device, matmul_dtype="float32"):
+    """Lean forward (T=1), residual forward and BPTT (T=101) vs plain, at
+    the products' operand type ``matmul_dtype``."""
+    bf16 = matmul_dtype == "bfloat16"
+    tag = " bf16" if bf16 else ""
     gen = torch.Generator().manual_seed(1234)
     T, B, D, H = 101, 32, 266, 256
+    tol, short_tol = _lstm_tol(matmul_dtype, T), LSTM_TOL
     rand = lambda *shape, scale=1.0: (
         torch.randn(shape, generator=gen) * scale).to(device)
     x = rand(T, B, D)
@@ -176,71 +224,89 @@ def compare_lstm(torch, lstm_cuda, device):
     wi, wh = rand(D, 4 * H, scale=D ** -0.5), rand(H, 4 * H, scale=H ** -0.5)
     b = rand(4 * H, scale=0.1)
     rows = []
-    f4 = 4  # bytes per float32
+    f4 = 4  # bytes per float32: the kernels read float32 in both variants
+    md = dict(matmul_dtype=matmul_dtype)
 
     # Lean forward: the step kernel at the actor's T=1 for several batch
     # sizes, and a T=5 forward (five launches) against the plain loop.
-    lean = lambda *a: lstm_cuda.lstm_forward(*a, residuals=False)
-    lean_plain = lambda *a: lstm_cuda.lstm_forward_plain(*a, residuals=False)
+    lean = lambda *a: lstm_cuda.lstm_forward(*a, residuals=False, **md)
+    lean_plain = lambda *a: lstm_cuda.lstm_forward_plain(
+        *a, residuals=False, **md)
     for batch in (1, 8, 32, 64):
         xb = rand(1, batch, D)
         db = (torch.rand((1, batch), generator=gen) < 0.3).float().to(device)
         cb, hb = rand(batch, H, scale=0.5), torch.tanh(rand(batch, H))
         argsb = (xb, db, cb, hb, wi, wh, b)
         err = _errors(zip(lean(*argsb)[:3], lean_plain(*argsb)[:3]))
-        _check(f"lstm_fwd_lean T=1 B={batch}", *err, LSTM_TOL)
+        _check(f"lstm_fwd_lean{tag} T=1 B={batch}", *err, short_tol)
     args5 = (x[:5].contiguous(), done[:5].contiguous(), c0, h0, wi, wh, b)
     err = _errors(zip(lean(*args5)[:3], lean_plain(*args5)[:3]))
-    _check("lstm_fwd_lean T=5 (five step launches)", *err, LSTM_TOL)
-    compare_lean_streams(torch, lstm_cuda, device, wi, wh, b)
+    _check(f"lstm_fwd_lean{tag} T=5 (five step launches)", *err,
+           short_tol)
+    compare_lean_streams(torch, lstm_cuda, device, wi, wh, b, matmul_dtype)
 
     args1 = (x[:1].contiguous(), done[:1].contiguous(), c0, h0, wi, wh, b)
     kern = lean(*args1)
     plain = lean_plain(*args1)
     torch.cuda.synchronize()
     err = _errors(zip(kern[:3], plain[:3]))
-    _check("lstm_fwd_lean", *err, LSTM_TOL)
+    _check(f"lstm_fwd_lean{tag}", *err, short_tol)
     # The library yardstick: torch.lstm_cell after the done-reset computes
     # the same function (gate order i, f, g, o; its CUDA path needs both
-    # biases, so the second is zero).
+    # biases, so the second is zero), in bf16 for the bf16 variant.
     keep = (1.0 - args1[1][0])[:, None]
     zero_b = torch.zeros_like(b)
-    cell = lambda: torch.lstm_cell(args1[0][0], (h0 * keep, c0 * keep),
-                                   wi.t(), wh.t(), b, zero_b)
+    cast = (lambda t: t.bfloat16()) if bf16 else (lambda t: t)
+    cell_args = tuple(cast(t) for t in (
+        args1[0][0], h0 * keep, c0 * keep, wi.t(), wh.t(), b, zero_b))
+    cell = lambda: torch.lstm_cell(cell_args[0], cell_args[1:3],
+                                   *cell_args[3:])
     cell_h, cell_c = cell()
-    cell_err = _errors([(cell_h, plain.h), (cell_c, plain.c)])
-    print(f"  (torch.lstm_cell after the reset against the same plain "
+    cell_err = _errors([(cell_h.float(), plain.h), (cell_c.float(), plain.c)])
+    print(f"  (torch.lstm_cell{tag} after the reset against the same plain "
           f"version: max_rel_err {cell_err[1]:.3e})", flush=True)
     nbytes = f4 * (B * D + B + 2 * B * H + (D + H + 1) * 4 * H + 2 * B * H)
     flops = 2 * B * (D + H) * 4 * H + 12 * B * H
     device_ms = _device_ms(torch, lambda: lean(*args1), "lstm_step_kernel",
                            50)
     cell_device_ms = _device_ms(torch, cell, None, 50)
-    print(f"  lstm_fwd_lean [1,32,266] H=256: step kernel device time "
-          f"{device_ms:.4f} ms, torch.lstm_cell after the reset (all its "
-          f"kernels) {cell_device_ms:.4f} ms (torch.profiler)", flush=True)
-    if not device_ms <= cell_device_ms:
+    print(f"  lstm_fwd_lean{tag} [1,32,266] H=256: step kernel device time "
+          f"{device_ms:.4f} ms, torch.lstm_cell{tag} after the reset (all "
+          f"its kernels) {cell_device_ms:.4f} ms (torch.profiler)",
+          flush=True)
+    if not bf16 and not device_ms <= cell_device_ms:
         raise AssertionError("the lean step kernel's device time exceeds "
                              "torch.lstm_cell's")
-    rows.append(("lstm_fwd_lean", "lstm.cu", "lstm_pallas.py:89", err,
-                 lambda: lean(*args1), lambda: lean_plain(*args1),
-                 cell, nbytes, flops))
+    rows.append((_variant("lstm_fwd_lean", matmul_dtype), "lstm.cu",
+                 "lstm_pallas.py:89", err, lambda: lean(*args1),
+                 lambda: lean_plain(*args1), cell, nbytes, flops, bf16,
+                 device_ms))
 
     # Residual forward over the learner's T+1 = 101 steps.
     args = (x, done, c0, h0, wi, wh, b)
-    kern = lstm_cuda.lstm_forward(*args, residuals=True)
-    plain = lstm_cuda.lstm_forward_plain(*args, residuals=True)
-    again = lstm_cuda.lstm_forward(*args, residuals=True)
+    resid = lambda: lstm_cuda.lstm_forward(*args, residuals=True, **md)
+    resid_plain = lambda: lstm_cuda.lstm_forward_plain(
+        *args, residuals=True, **md)
+    kern, plain, again = resid(), resid_plain(), resid()
     torch.cuda.synchronize()
     err = _errors(zip(_resid_outputs(kern), _resid_outputs(plain)))
-    _check("lstm_fwd_resid", *err, LSTM_TOL)
+    _check(f"lstm_fwd_resid{tag}", *err, tol)
+    if bf16:
+        # The operands are rounded: the float32 plain version is further.
+        f32_err = _errors(zip(_resid_outputs(kern), _resid_outputs(
+            lstm_cuda.lstm_forward_plain(*args, residuals=True))))
+        print(f"  (lstm_fwd_resid bf16 against the float32 plain version: "
+              f"max_rel_err {f32_err[1]:.3e})", flush=True)
+        if not 2 * err[1] < f32_err[1]:
+            raise AssertionError("lstm_fwd_resid bf16 is not clearly closer "
+                                 "to its plain version than to float32's")
     if not all(torch.equal(p, q) for p, q in zip(_resid_outputs(kern),
                                                    _resid_outputs(again))):
-        raise AssertionError("lstm_fwd_resid: two calls gave different "
-                             "outputs")
-    print("  lstm_fwd_resid: two calls bitwise equal", flush=True)
-    compare_resid_shapes(torch, lstm_cuda, device, gen, wi, b)
-    fwd_ms = resid_device_ms(torch, lstm_cuda, args)
+        raise AssertionError(f"lstm_fwd_resid{tag}: two calls gave "
+                             f"different outputs")
+    print(f"  lstm_fwd_resid{tag}: two calls bitwise equal", flush=True)
+    compare_resid_shapes(torch, lstm_cuda, device, gen, wi, b, matmul_dtype)
+    fwd_ms = resid_device_ms(torch, lstm_cuda, args, matmul_dtype)
     nbytes = f4 * (T * B * D + T * B + 2 * B * H + (D + H + 1) * 4 * H
                    + T * B * H * 8 + 2 * B * H)
     flops = T * (2 * B * (D + H) * 4 * H + 12 * B * H)
@@ -248,33 +314,46 @@ def compare_lstm(torch, lstm_cuda, device):
         raise AssertionError(f"the residual forward's device time "
                              f"{fwd_ms:.4f} ms is not below {RESID_MAX_MS} "
                              f"ms")
-    rows.append(("lstm_fwd_resid", "lstm.cu", "lstm_pallas.py:105", err,
-                 lambda: lstm_cuda.lstm_forward(*args, residuals=True),
-                 lambda: lstm_cuda.lstm_forward_plain(*args, residuals=True),
-                 None, nbytes, flops))
+    rows.append((_variant("lstm_fwd_resid", matmul_dtype), "lstm.cu",
+                 "lstm_pallas.py:105", err, resid, resid_plain, None,
+                 nbytes, flops, bf16, fwd_ms))
 
     # BPTT on the plain residuals, so only the backward differs; then on
     # the kernels' own.
     fwd, res = kern, plain.residuals
     dys, dct, dht = rand(T, B, H), rand(B, H), rand(B, H)
-    bargs = (dys, dct, dht, x, done, wi, wh, res)
+    bargs = (dys, dct, dht, x, done, wi, wh, res, matmul_dtype)
     kern = lstm_cuda.lstm_backward(*bargs)
     plain = lstm_cuda.lstm_backward_plain(*bargs)
     torch.cuda.synchronize()
     err = _errors(zip(kern, plain))
-    _check("lstm_bptt", *err, LSTM_TOL)
-    chained = lstm_cuda.lstm_backward(*bargs[:-1], fwd.residuals)
-    _check("lstm_bptt on the residual forward kernels' residuals",
-           *_errors(zip(chained, plain)), LSTM_TOL)
+    _check(f"lstm_bptt{tag}", *err, tol)
+    chained = lstm_cuda.lstm_backward(*bargs[:7], fwd.residuals,
+                                      matmul_dtype)
+    _check(f"lstm_bptt{tag} on the residual forward kernels' residuals",
+           *_errors(zip(chained, plain)), tol)
+    # A short unroll, where every rounding must agree at LSTM_TOL.
+    short = lambda t: t[:5].contiguous()
+    res5 = type(res)(*(short(r) for r in res))
+    bargs5 = (short(dys), dct, dht, short(x), short(done), wi, wh, res5,
+              matmul_dtype)
+    _check(f"lstm_bptt{tag} T=5", *_errors(zip(
+        lstm_cuda.lstm_backward(*bargs5),
+        lstm_cuda.lstm_backward_plain(*bargs5))), short_tol)
+    bptt_ms = _device_ms(torch, lambda: lstm_cuda.lstm_backward(*bargs),
+                         ("lstm_bwd_chain_kernel", "sgemm_kernel<false"), 10)
+    print(f"  lstm_bptt{tag}: device time {bptt_ms:.4f} ms (torch.profiler, "
+          f"chain and GEMMs)", flush=True)
     nbytes = f4 * (T * B * H + 2 * B * H + T * B * D + T * B
                    + T * B * 4 * H + 3 * T * B * H + (D + H) * 4 * H
                    + T * B * D + (D + H + 1) * 4 * H + 2 * B * H)
     flops = (2 * T * B * 4 * H * (H + D + D + H) + T * B * 4 * H
              + 20 * T * B * H)
-    rows.append(("lstm_bptt", "lstm.cu", "lstm_pallas.py:123", err,
+    rows.append((_variant("lstm_bptt", matmul_dtype), "lstm.cu",
+                 "lstm_pallas.py:123", err,
                  lambda: lstm_cuda.lstm_backward(*bargs),
                  lambda: lstm_cuda.lstm_backward_plain(*bargs),
-                 None, nbytes, flops))
+                 None, nbytes, flops, bf16, bptt_ms))
     return rows
 
 
@@ -283,11 +362,13 @@ def _resid_outputs(out):
     return out[:3] + tuple(out.residuals)
 
 
-def compare_resid_shapes(torch, lstm_cuda, device, gen, wi, b):
+def compare_resid_shapes(torch, lstm_cuda, device, gen, wi, b,
+                         matmul_dtype="float32"):
     """The residual forward at batch sizes that fill the clusters unevenly
     or leave one cluster (B=1, 33, 64), at T=1, with a done of 1 at t=0
     and on a whole column, and at H=512, where a CTA's slice of Wh does
     not fit its shared memory and the rest is read from L2."""
+    tag = " bf16" if matmul_dtype == "bfloat16" else ""
     D, H = wi.shape[0], wi.shape[1] // 4
     rand = lambda *shape, scale=1.0: (
         torch.randn(shape, generator=gen) * scale).to(device)
@@ -305,15 +386,17 @@ def compare_resid_shapes(torch, lstm_cuda, device, gen, wi, b):
             b_ = rand(4 * hidden, scale=0.1)
         wh_ = rand(hidden, 4 * hidden, scale=hidden ** -0.5)
         args = (x, done.to(device), c0, h0, wi_, wh_, b_)
-        kern = lstm_cuda.lstm_forward(*args, residuals=True)
-        plain = lstm_cuda.lstm_forward_plain(*args, residuals=True)
+        kern = lstm_cuda.lstm_forward(*args, residuals=True,
+                                      matmul_dtype=matmul_dtype)
+        plain = lstm_cuda.lstm_forward_plain(*args, residuals=True,
+                                             matmul_dtype=matmul_dtype)
         torch.cuda.synchronize()
         plan = lstm_cuda.resid_plan(batch, hidden)
-        _check(f"lstm_fwd_resid {name}[{steps},{batch},{D}] H={hidden} "
-               f"(R={plan.rows}, {plan.clusters} clusters, Wh rows "
-               f"resident {plan.resident} of {hidden})",
+        _check(f"lstm_fwd_resid{tag} {name}[{steps},{batch},{D}] "
+               f"H={hidden} (R={plan.rows}, {plan.clusters} clusters, Wh "
+               f"rows resident {plan.resident} of {hidden})",
                *_errors(zip(_resid_outputs(kern), _resid_outputs(plain))),
-               LSTM_TOL)
+               _lstm_tol(matmul_dtype, steps))
 
     for batch in (1, 33, 64):
         check("", 101, batch, H)
@@ -325,17 +408,19 @@ def compare_resid_shapes(torch, lstm_cuda, device, gen, wi, b):
     check("streamed Wh tail ", 8, 4, 512)
 
 
-def resid_device_ms(torch, lstm_cuda, args):
+def resid_device_ms(torch, lstm_cuda, args, matmul_dtype="float32"):
     """The residual forward's device time at the main path's shapes, both
     of its kernels (torch.profiler), and how many clusters of the
     recurrence the card holds at once."""
     batch, hidden = args[0].shape[1], args[2].shape[1]
     plan = lstm_cuda.resid_plan(batch, hidden)
     active = lstm_cuda.resid_active_clusters(plan, hidden)
-    fn = lambda: lstm_cuda.lstm_forward(*args, residuals=True)
-    gemm_ms = _device_ms(torch, fn, "sgemm_kernel<true>", 10)
+    fn = lambda: lstm_cuda.lstm_forward(*args, residuals=True,
+                                        matmul_dtype=matmul_dtype)
+    gemm_ms = _device_ms(torch, fn, "sgemm_kernel<true", 10)
     rec_ms = _device_ms(torch, fn, "lstm_resid_kernel", 10)
-    print(f"  lstm_fwd_resid {list(args[0].shape)} H={hidden}: device time "
+    print(f"  lstm_fwd_resid {matmul_dtype} {list(args[0].shape)} "
+          f"H={hidden}: device time "
           f"{gemm_ms + rec_ms:.4f} ms = input projection (sgemm_kernel<true>)"
           f" {gemm_ms:.4f} + recurrence (lstm_resid_kernel<{plan.rows}>) "
           f"{rec_ms:.4f} (torch.profiler); plan {plan.clusters} clusters of 8"
@@ -347,10 +432,12 @@ def resid_device_ms(torch, lstm_cuda, args):
     return gemm_ms + rec_ms
 
 
-def compare_lean_streams(torch, lstm_cuda, device, wi, wh, b):
+def compare_lean_streams(torch, lstm_cuda, device, wi, wh, b,
+                         matmul_dtype="float32"):
     """Two threads, each on its own stream (as the two actor groups run),
     launch the T=1 step kernel concurrently; each result must match the
     plain version."""
+    tag = " bf16" if matmul_dtype == "bfloat16" else ""
     import threading
 
     gen = torch.Generator().manual_seed(55)
@@ -370,7 +457,8 @@ def compare_lean_streams(torch, lstm_cuda, device, wi, wh, b):
         with torch.cuda.stream(stream):
             barrier.wait()
             for _ in range(200):
-                outs[i] = lstm_cuda.lstm_forward(*cases[i], residuals=False)
+                outs[i] = lstm_cuda.lstm_forward(
+                    *cases[i], residuals=False, matmul_dtype=matmul_dtype)
             stream.synchronize()
 
     threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
@@ -380,37 +468,48 @@ def compare_lean_streams(torch, lstm_cuda, device, wi, wh, b):
         t.join()
     torch.cuda.synchronize()
     for i in range(2):
-        plain = lstm_cuda.lstm_forward_plain(*cases[i], residuals=False)
+        plain = lstm_cuda.lstm_forward_plain(*cases[i], residuals=False,
+                                             matmul_dtype=matmul_dtype)
         err = _errors(zip(outs[i][:3], plain[:3]))
-        _check(f"lstm_fwd_lean, stream {i + 1} of 2 concurrent", *err,
+        _check(f"lstm_fwd_lean{tag}, stream {i + 1} of 2 concurrent", *err,
                LSTM_TOL)
 
 
-def compare_gradw(torch, conv_cuda, device, N=101 * 32):
+def compare_gradw(torch, conv_cuda, device, N=101 * 32, dtype=None):
     """The stem grad-W at the learner's merged batch N = 101 * 32, then at
-    other image counts, frame sizes and layouts."""
+    other image counts, frame sizes and layouts, with x and g of ``dtype``
+    (float32, or bfloat16 for the bf16-operand variant)."""
+    dtype = dtype or torch.float32
+    bf16 = dtype == torch.bfloat16
+    tag = " bf16" if bf16 else ""
     gen = torch.Generator().manual_seed(4321)
     Hh, W, C, K, S, Fo = 72, 96, 3, 8, 4, 32
     OH, OW = -(-Hh // S), -(-W // S)
-    x = (torch.randint(0, 256, (N, Hh, W, C), generator=gen,
-                       dtype=torch.uint8).to(device).float() / 255.0)
-    g = torch.randn((N, OH, OW, Fo), generator=gen).to(device)
+    # x as the torso makes it (uint8 / 255 in dtype), g a cotangent.
+    frames = lambda *shape: (torch.randint(
+        0, 256, shape, generator=gen, dtype=torch.uint8).to(device).to(dtype)
+        / 255.0)
+    cotangent = lambda *shape: torch.randn(shape, generator=gen).to(
+        device).to(dtype)
+    x = frames(N, Hh, W, C)
+    g = cotangent(N, OH, OW, Fo)
     kern = conv_cuda.conv_gradw(x, g, K, S)
     plain = conv_cuda.conv_gradw_plain(x, g, K, S)
     _, (pad, _) = conv_cuda.same_pads(Hh, K, S)
     x_nchw, g_nchw = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
     library = lambda: torch.nn.grad.conv2d_weight(
         x_nchw, (Fo, C, K, K), g_nchw, S, pad)
-    lib_dw = library().permute(2, 3, 1, 0)
+    lib_dw = library().permute(2, 3, 1, 0).float()
     again = conv_cuda.conv_gradw(x, g, K, S)
     torch.cuda.synchronize()
     err = _errors([(kern, plain)])
-    _check("stem_gradw", *err, GRADW_TOL)
+    _check(f"stem_gradw{tag}", *err, GRADW_TOL)
     if not torch.equal(kern, again):
-        raise AssertionError("stem_gradw: two calls gave different dW")
-    print("  stem_gradw: two calls bitwise equal", flush=True)
+        raise AssertionError(f"stem_gradw{tag}: two calls gave different "
+                             f"dW")
+    print(f"  stem_gradw{tag}: two calls bitwise equal", flush=True)
     lib_err = _errors([(lib_dw, plain)])
-    print(f"  (cuDNN's conv2d_weight against the same plain version: "
+    print(f"  (cuDNN's conv2d_weight{tag} against the same plain version: "
           f"max_rel_err {lib_err[1]:.3e})", flush=True)
 
     # Both layouts the torso can hand over, for each of x and g: contiguous
@@ -420,36 +519,37 @@ def compare_gradw(torch, conv_cuda, device, N=101 * 32):
                          ("x NHWC, g NCHW-planar", x, planar(g)),
                          ("x and g NCHW-planar", planar(x), planar(g))):
         got = conv_cuda.conv_gradw(xx, gg, K, S)
-        _check(f"stem_gradw, {name}", *_errors([(got, plain)]), GRADW_TOL)
+        _check(f"stem_gradw{tag}, {name}", *_errors([(got, plain)]),
+               GRADW_TOL)
         del xx, gg
     # Image counts that split unevenly or not at all, and an odd frame size
     # (asymmetric SAME pads) in both layouts.
     for n, hh, ww in ((1, 72, 96), (N + 1, 72, 96), (64, 17, 23)):
-        xs = (torch.randint(0, 256, (n, hh, ww, C), generator=gen,
-                            dtype=torch.uint8).to(device).float() / 255.0)
-        gs = torch.randn((n, -(-hh // S), -(-ww // S), Fo),
-                         generator=gen).to(device)
+        xs = frames(n, hh, ww, C)
+        gs = cotangent(n, -(-hh // S), -(-ww // S), Fo)
         want = conv_cuda.conv_gradw_plain(xs, gs, K, S)
         layouts = (((xs, gs, "NHWC"), (planar(xs), planar(gs), "NCHW-planar"))
                    if n == 64 else ((xs, gs, "NHWC"),))
         for xx, gg, name in layouts:
             got = conv_cuda.conv_gradw(xx, gg, K, S)
-            _check(f"stem_gradw N={n} {hh}x{ww} {name}",
+            _check(f"stem_gradw{tag} N={n} {hh}x{ww} {name}",
                    *_errors([(got, want)]), GRADW_TOL)
         del xs, gs
     device_ms = _device_ms(
         torch, lambda: conv_cuda.conv_gradw(x, g, K, S),
         ("conv_gradw_band_kernel", "reduce_partials_kernel"), 10)
     lib_device_ms = _device_ms(torch, library, None, 10)
-    print(f"  stem_gradw: kernels' device time {device_ms:.4f} ms, cuDNN "
-          f"conv2d_weight {lib_device_ms:.4f} ms (torch.profiler)",
-          flush=True)
-    nbytes = 4 * (N * Hh * W * C + N * OH * OW * Fo + K * K * C * Fo)
+    print(f"  stem_gradw{tag}: kernels' device time {device_ms:.4f} ms, "
+          f"cuDNN conv2d_weight{tag} {lib_device_ms:.4f} ms "
+          f"(torch.profiler)", flush=True)
+    width = x.element_size()
+    nbytes = width * (N * Hh * W * C + N * OH * OW * Fo) + 4 * K * K * C * Fo
     flops = 2 * N * OH * OW * K * K * C * Fo
-    return [("stem_gradw", "conv.cu", "conv_pallas.py:86", err,
+    return [("stem_gradw" + ("_bf16" if bf16 else ""), "conv.cu",
+             "conv_pallas.py:86", err,
              lambda: conv_cuda.conv_gradw(x, g, K, S),
              lambda: conv_cuda.conv_gradw_plain(x, g, K, S),
-             library, nbytes, flops)]
+             library, nbytes, flops, bf16, device_ms)]
 
 
 def compare_vtrace(torch, vtrace_cuda, vtrace, device):
@@ -498,14 +598,18 @@ def compare_vtrace(torch, vtrace_cuda, vtrace, device):
                          err, kernel_fn,
                          lambda args=args: vtrace_cuda.vtrace_fused_plain(
                              *args),
-                         None, nbytes, flops))
+                         None, nbytes, flops, False, device_ms))
     return rows
 
 
-def compare_agent(torch, device):
+def compare_agent(torch, device, compute_dtype=None):
     """Forward and every parameter gradient of the whole agent on the card
     against the same weights on the CPU (plain versions, CPU convs), at
-    full width and a short unroll."""
+    full width and a short unroll, under the dtype policy of
+    ``compute_dtype`` (the core's operands follow it, as ``auto``
+    resolves)."""
+    compute_dtype = compute_dtype or torch.float32
+    bf16 = compute_dtype == torch.bfloat16
     import copy
 
     from scalable_agent_tpu_torch.models import ImpalaAgent
@@ -518,7 +622,9 @@ def compare_agent(torch, device):
 
     gen = torch.Generator().manual_seed(99)
     T, B = 5, 4
-    agent_cpu = ImpalaAgent(9, (72, 96, 3), generator=gen)
+    agent_cpu = ImpalaAgent(
+        9, (72, 96, 3), generator=gen, compute_dtype=compute_dtype,
+        core_matmul_dtype="bfloat16" if bf16 else "float32")
     agent_gpu = copy.deepcopy(agent_cpu).to(device)
 
     def inputs(dev):
@@ -545,7 +651,8 @@ def compare_agent(torch, device):
         results.append([t.detach().cpu() for t in
                         (logits, baseline, state.c, state.h, *grads)])
     err = _errors(zip(*results))
-    _check("agent forward + parameter gradients", *err, AGENT_TOL)
+    _check(f"agent forward + parameter gradients{' (bf16 policy)' * bf16}",
+           *err, AGENT_BF16_TOL if bf16 else AGENT_TOL)
 
 
 def breakdown(torch, driver, config):
@@ -620,7 +727,7 @@ def breakdown(torch, driver, config):
         print(f"    {us / 1e3:9.3f} ms  {name[:90]}", flush=True)
     fwd = [(name.split("::")[-1].split("(")[0], us / 1e3)
            for name, us in device_us.items()
-           if "sgemm_kernel<true>" in name or "lstm_resid_kernel" in name]
+           if "sgemm_kernel<true" in name or "lstm_resid_kernel" in name]
     print(f"  residual LSTM forward in the update: "
           f"{sum(ms for _, ms in fwd):.3f} ms "
           f"({', '.join(f'{n} {ms:.3f}' for n, ms in fwd)})", flush=True)
@@ -777,43 +884,46 @@ def main() -> int:
 
     with float32_precision():
         # -- phase 2: every kernel against its plain version
-        print("phase 2: kernels vs plain versions (float32, TF32 off)",
-              flush=True)
-        rows = compare_lstm(torch, lstm_cuda, device)
-        rows += compare_gradw(torch, conv_cuda, device)
+        print("phase 2: kernels vs plain versions (float32 with TF32 off, "
+              "then the bf16-operand variants; sums in float32)", flush=True)
+        rows = []
+        for matmul_dtype, dtype in (("float32", torch.float32),
+                                    ("bfloat16", torch.bfloat16)):
+            rows += compare_lstm(torch, lstm_cuda, device, matmul_dtype)
+            rows += compare_gradw(torch, conv_cuda, device, dtype=dtype)
         rows += compare_vtrace(torch, vtrace_cuda, vtrace, device)
         timed = {}
         for (name, src, replaces, err, kern_fn, plain_fn, lib_fn, nbytes,
-             flops) in rows:
-            iters = 50 if name in ("lstm_fwd_lean", "vtrace_fused") else 10
+             flops, bf16, device_ms) in rows:
+            iters = 50 if name.startswith(("lstm_fwd_lean",
+                                           "vtrace_fused")) else 10
             ms = _time_ms(torch, kern_fn, iters)
             plain_ms = _time_ms(torch, plain_fn, max(3, iters // 5))
             lib_ms = _time_ms(torch, lib_fn, iters) if lib_fn else None
-            bound_ms, bound_by = _bound_ms(nbytes, flops)
+            bound_ms, bound_by = _bound_ms(nbytes, flops, bf16)
             timed[name] = dict(
                 name=name, route="cuda",
                 source=f"scalable_agent_tpu_torch/csrc/{src}",
                 replaces=f"scalable_agent_tpu/ops/{replaces}",
                 max_abs_err=err[0], ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
-            print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"library {lib_ms if lib_ms is None else round(lib_ms, 4)}"
-                  f" ms, bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+                device_ms=device_ms)
+            print(f"  {name}: kernel {ms:.4f} ms, device {device_ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, library "
+                  f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms, "
+                  f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
             if name == "stem_gradw" and not ms < lib_ms:
                 raise AssertionError("stem_gradw is not faster than "
                                      "cuDNN's conv2d_weight")
         del rows
         compare_agent(torch, device)
+        compare_agent(torch, device, torch.bfloat16)
         torch.cuda.empty_cache()
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as scratch:
-        # -- phase 3: the main path, counted
-        logdir = os.path.join(scratch, "train")
-        config = Config(level_name="fake_benchmark", device="cuda",
-                        logdir=logdir, scan_impl="pallas",
-                        total_environment_frames=float(
-                            UPDATES * Config().frames_per_update()),
-                        log_interval_s=0.0)
+    def train_counted(config, updates, suffix):
+        """driver.train with every count set to 0 just before and read just
+        after; the kernels of the variant ``suffix`` launched as the path
+        runs them, the other variant's never."""
         reset_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.monotonic()
@@ -821,9 +931,9 @@ def main() -> int:
         torch.cuda.synchronize()
         train_s = time.monotonic() - t0
         launches = read_counts()
-        print(f"phase 3: {UPDATES} updates in {train_s:.2f} s "
-              f"({train_s / UPDATES:.3f} s per update, set-up included); "
-              f"max_memory_allocated "
+        print(f"  {updates} updates at compute_dtype={config.compute_dtype} "
+              f"in {train_s:.2f} s ({train_s / updates:.3f} s per update, "
+              f"set-up included); max_memory_allocated "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
               f"launches {launches}", flush=True)
         print(f"  final metrics: {json.dumps(metrics, sort_keys=True)}",
@@ -832,19 +942,37 @@ def main() -> int:
                     "entropy_loss", "grad_norm"):
             if not math.isfinite(metrics[key]):
                 raise AssertionError(f"{key} is not finite: {metrics[key]}")
-        if metrics["env_frames"] != UPDATES * config.frames_per_update():
+        if metrics["env_frames"] != updates * config.frames_per_update():
             raise AssertionError(f"env_frames {metrics['env_frames']} != "
-                                 f"{UPDATES} x {config.frames_per_update()}")
-        expected = {"lstm_fwd_lean": UPDATES * config.unroll_length,
-                    "lstm_fwd_resid": UPDATES, "lstm_bptt": UPDATES,
-                    "stem_gradw": UPDATES, "vtrace_fused": UPDATES}
+                                 f"{updates} x {config.frames_per_update()}")
+        other = "" if suffix else "_bf16"
+        expected = {"lstm_fwd_lean" + suffix: updates * config.unroll_length,
+                    "lstm_fwd_resid" + suffix: updates,
+                    "lstm_bptt" + suffix: updates,
+                    "stem_gradw" + suffix: updates,
+                    "vtrace_fused": updates,
+                    "lstm_fwd_lean" + other: 0, "lstm_fwd_resid" + other: 0,
+                    "lstm_bptt" + other: 0, "stem_gradw" + other: 0}
         for name, want in expected.items():
-            ok = (launches[name] >= want if name == "lstm_fwd_lean"
+            ok = (launches[name] >= want if name == "lstm_fwd_lean" + suffix
                   else launches[name] == want)
             if not ok:
                 raise AssertionError(
-                    f"{name} launched {launches[name]} times on the main "
-                    f"path, expected {want}")
+                    f"{name} launched {launches[name]} times on the path, "
+                    f"expected {want}")
+        return launches
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as scratch:
+        # -- phase 3: the main path (the default policy, bf16), counted
+        logdir = os.path.join(scratch, "train")
+        config = Config(level_name="fake_benchmark", device="cuda",
+                        logdir=logdir, scan_impl="pallas",
+                        total_environment_frames=float(
+                            UPDATES * Config().frames_per_update()),
+                        log_interval_s=0.0)
+        print("phase 3: the main path, fake_benchmark at full width",
+              flush=True)
+        launches = train_counted(config, UPDATES, "_bf16")
         metric_rows = _rows(logdir)
         if [r["step"] for r in metric_rows] != list(range(1, UPDATES + 1)):
             raise AssertionError(f"metrics.jsonl rows: {metric_rows}")
@@ -868,9 +996,9 @@ def main() -> int:
         print(f"  --mode=test: {len(returns)} returns {returns} in "
               f"{time.monotonic() - t0:.1f} s; launches {test_launches}",
               flush=True)
-        if len(returns) != 8 or test_launches["lstm_fwd_lean"] == 0:
+        if len(returns) != 8 or test_launches["lstm_fwd_lean_bf16"] == 0:
             raise AssertionError("--mode=test did not run 8 episodes "
-                                 "through the lean LSTM kernel")
+                                 "through the bf16 lean LSTM kernel")
 
         reset_counts()
         auto = dataclasses.replace(
@@ -881,25 +1009,41 @@ def main() -> int:
         print(f"  scan_impl=auto, 1 update: launches {auto_launches}",
               flush=True)
         if auto_launches["vtrace_fused"] != 0 or (
-                auto_launches["lstm_fwd_resid"] != 1):
+                auto_launches["lstm_fwd_resid_bf16"] != 1):
             raise AssertionError("scan_impl=auto must update through the "
                                  "associative recurrence, not the kernel")
+
+        # The float32 policy's path, shorter: its kernels' launch counts.
+        f32 = dataclasses.replace(
+            config, logdir=os.path.join(scratch, "f32"),
+            compute_dtype="float32",
+            total_environment_frames=float(
+                F32_UPDATES * config.frames_per_update()))
+        f32_launches = train_counted(f32, F32_UPDATES, "")
 
         print("phase 3b: where one iteration of the main path spends its "
               "time", flush=True)
         with float32_precision():
             breakdown(torch, driver, config)
+            print("  the same at compute_dtype=float32:", flush=True)
+            breakdown(torch, driver, f32)
         pool_steady_state(torch, driver, config,
                           os.path.join(scratch, "pool"))
 
-        print("phase 3c: fake_bandit learns through the pool on the card",
-              flush=True)
+        print("phase 3c: fake_bandit learns through the pool on the card "
+              "(bf16 policy)", flush=True)
         learn_bandit(driver, Config, scratch)
 
-    # -- phase 4: the report
-    kernels = [dict(timed[name], launches=launches[name])
+    # -- phase 4: the report.  Launches: the bf16 variants' (and V-trace's)
+    # from the main path, the float32 variants' from the float32 path.
+    counts = dict(f32_launches, **{k: v for k, v in launches.items()
+                                   if k.endswith("_bf16")},
+                  vtrace_fused=launches["vtrace_fused"])
+    kernels = [dict(timed[name], launches=counts[name])
                for name in ("lstm_fwd_lean", "lstm_fwd_resid", "lstm_bptt",
-                            "stem_gradw", "vtrace_fused")]
+                            "stem_gradw", "lstm_fwd_lean_bf16",
+                            "lstm_fwd_resid_bf16", "lstm_bptt_bf16",
+                            "stem_gradw_bf16", "vtrace_fused")]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

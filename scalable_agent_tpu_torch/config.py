@@ -2,10 +2,10 @@
 ``scalable_agent_tpu/config.py``'s ``Config`` this package runs, under the
 same flag names and defaults, plus ``device``.
 
-Two deliberate differences from the JAX defaults: ``compute_dtype`` is
-``float32`` (the only policy ported so far), and ``device`` picks where the
-run happens — ``cuda`` unless the caller asks for ``cpu``, and never the
-CPU silently when a card was asked for.
+The defaults are the JAX package's, ``compute_dtype="bfloat16"`` included
+(``float32`` is the other policy both packages run).  The one addition is
+``device``: where the run happens -- ``cuda`` unless the caller asks for
+``cpu``, and never the CPU silently when a card was asked for.
 
 A JAX flag this package does not port yet, or a value of a ported flag it
 does not support, raises a ``ValueError`` that points at ROADMAP.md; it is
@@ -47,11 +47,12 @@ UNPORTED_FLAGS = (
 SUPPORTED_VALUES = {
     "mode": ("train", "test"),
     "torso_type": ("shallow",),
-    "compute_dtype": ("float32",),
+    "compute_dtype": ("bfloat16", "float32"),
     # "pallas" names the fused done-reset core; its counterpart here is
     # the hand-written CUDA kernel, which "auto" also resolves to.
+    # (core_matmul_dtype is checked as the JAX driver checks it:
+    # resolve_core_matmul_dtype.)
     "core_impl": ("auto", "pallas"),
-    "core_matmul_dtype": ("auto", "float32"),
     "conv_backend": ("auto", "pallas"),
     # associative/sequential run the recurrence as a plain reverse loop,
     # pallas as the fused CUDA kernel; auto resolves to associative
@@ -60,6 +61,24 @@ SUPPORTED_VALUES = {
     "rmsprop_momentum": (0.0,),
     "reward_clipping": ("abs_one", "soft_asymmetric", "none"),
 }
+
+
+def resolve_core_matmul_dtype(config: "Config") -> str:
+    """The operand type of the LSTM kernels' products, as
+    ``scalable_agent_tpu/driver.py:234-246`` resolves it and ``:264-268``
+    checks it: ``auto`` follows ``compute_dtype`` for the fused core (the
+    port's only core, so the JAX xla-core branch never applies here);
+    ``float32`` and ``bfloat16`` are taken as given; anything else raises
+    the JAX driver's error."""
+    dtype = config.core_matmul_dtype
+    if dtype == "auto":
+        dtype = ("bfloat16" if config.compute_dtype == "bfloat16"
+                 else "float32")
+    if dtype not in ("float32", "bfloat16"):
+        raise ValueError(
+            f"core_matmul_dtype must be auto, float32, or bfloat16, "
+            f"got {dtype!r}")
+    return dtype
 
 
 def _not_ported(what: str) -> ValueError:
@@ -110,7 +129,9 @@ class Config:
 
     # -- model and kernels
     torso_type: str = "shallow"
-    compute_dtype: str = "float32"
+    # The one dtype policy (models/agent.py): torso, concat and heads at
+    # compute_dtype; params, loss, V-trace and optimizer in float32.
+    compute_dtype: str = "bfloat16"
     core_impl: str = "auto"
     core_matmul_dtype: str = "auto"
     conv_backend: str = "auto"
@@ -129,6 +150,7 @@ class Config:
         for name, allowed in SUPPORTED_VALUES.items():
             if getattr(self, name) not in allowed:
                 raise _not_ported(f"--{name}={getattr(self, name)}")
+        resolve_core_matmul_dtype(self)
         if self.num_actors < self.batch_size:
             raise ValueError(
                 f"num_actors {self.num_actors} < batch_size "

@@ -54,7 +54,21 @@
 //   [b*U/B, (b+1)*U/B) in order, writes its own partial [192, 32], and a
 //   second kernel sums the partials over b in index order.  No atomics: two
 //   calls give bitwise-equal dW.
+// * Operand type.  The kernel is a template on the type T of x and g:
+//   float, or __nv_bfloat16 for the JAX package's matmul_dtype="bfloat16"
+//   (the stem under compute_dtype=bfloat16, where the torso hands over bf16
+//   x and g; _gradw_kernel rounds its patches and g to bf16 and sums in
+//   float32).  The bf16 variant reads bf16 tensors, half the bytes, and
+//   converts each value to float as it stages a band (bf16 -> float is
+//   exact), so the shared-memory layout, the addressing and the FFMA loop
+//   are the float variant's: its products are exact and its sums float32,
+//   and it differs from its plain version only in summation order.  Its
+//   staging is synchronous -- loads into registers, then stores -- since
+//   cp.async cannot convert; a band is still loaded while the other stage
+//   is contracted by the other warps.  dW is float32 in both.  Entry
+//   points: sat_conv_gradw and sat_conv_gradw_bf16.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -119,6 +133,53 @@ __device__ __forceinline__ void copy_rows(float* dst, int dst_stride,
     copy_rows_vec<1>(dst, dst_stride, src, src_stride, rows, len);
 }
 
+// The same copy from bf16 rows, converted to float on the way: loads of
+// two values (one when a row is not 4-byte aligned), four per lane in
+// flight before their stores, one warp per row.
+__device__ __forceinline__ void copy_rows(float* dst, int dst_stride,
+                                          const __nv_bfloat16* src,
+                                          long long src_stride, int rows,
+                                          int len) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool pairs = ((reinterpret_cast<unsigned long long>(src) |
+                       static_cast<unsigned long long>(src_stride * 2) |
+                       static_cast<unsigned>(len * 2)) &
+                      3) == 0;
+  constexpr int kInFlight = 4;
+  for (int r = warp; r < rows; r += kWarps) {
+    const __nv_bfloat16* s = src + r * src_stride;
+    float* d = dst + r * dst_stride;
+    if (pairs) {
+      const __nv_bfloat162* s2 = reinterpret_cast<const __nv_bfloat162*>(s);
+      const int n = len / 2;
+      for (int v0 = lane; v0 < n; v0 += 32 * kInFlight) {
+        float2 f[kInFlight];
+#pragma unroll
+        for (int i = 0; i < kInFlight; ++i)
+          if (v0 + 32 * i < n) f[i] = __bfloat1622float2(s2[v0 + 32 * i]);
+#pragma unroll
+        for (int i = 0; i < kInFlight; ++i) {
+          const int v = v0 + 32 * i;
+          if (v < n) {
+            d[2 * v] = f[i].x;
+            d[2 * v + 1] = f[i].y;
+          }
+        }
+      }
+    } else {
+      for (int v0 = lane; v0 < len; v0 += 32 * kInFlight) {
+        float f[kInFlight];
+#pragma unroll
+        for (int i = 0; i < kInFlight; ++i)
+          if (v0 + 32 * i < len) f[i] = __bfloat162float(s[v0 + 32 * i]);
+#pragma unroll
+        for (int i = 0; i < kInFlight; ++i)
+          if (v0 + 32 * i < len) d[v0 + 32 * i] = f[i];
+      }
+    }
+  }
+}
+
 // Zeroes rows [r0, r1) of `stride` floats (a multiple of 4) at dst.
 __device__ __forceinline__ void zero_rows(float* dst, int stride, int r0,
                                           int r1) {
@@ -141,10 +202,9 @@ struct Geometry {
 };
 
 // Issues the copies of unit u = (image, band) into the stage at `xs`.
-template <bool XCHW, bool GCHW>
-__device__ __forceinline__ void stage_unit(float* xs, const float* x,
-                                           const float* g, long long u,
-                                           const Geometry& q) {
+template <typename T, bool XCHW, bool GCHW>
+__device__ __forceinline__ void stage_unit(float* xs, const T* x, const T* g,
+                                           long long u, const Geometry& q) {
   const long long n = u / q.bands;
   const int band = static_cast<int>(u - n * q.bands);
   const int oh0 = band * q.band_rows;
@@ -153,7 +213,7 @@ __device__ __forceinline__ void stage_unit(float* xs, const float* x,
   const int ih0 = oh0 * kS - q.pad_h;
   const int lo = max(0, -ih0);          // first band row inside the image
   const int hi = min(xr, q.H - ih0);    // one past the last
-  const float* ximg = x + n * q.H * q.W * kC;
+  const T* ximg = x + n * q.H * q.W * kC;
   if (XCHW) {
     for (int c = 0; c < kC; ++c) {
       float* plane = xs + c * q.xplane;
@@ -171,7 +231,7 @@ __device__ __forceinline__ void stage_unit(float* xs, const float* x,
               q.W * kC, hi - lo, q.W * kC);
   }
   float* gs = xs + q.x_floats;
-  const float* gimg = g + n * q.OH * q.OW * kF;
+  const T* gimg = g + n * q.OH * q.OW * kF;
   if (GCHW)
     copy_rows(gs, q.gps, gimg + oh0 * q.OW, q.OH * q.OW, kF, rows * q.OW);
   else
@@ -179,10 +239,9 @@ __device__ __forceinline__ void stage_unit(float* xs, const float* x,
               q.OW * kF);
 }
 
-template <bool XCHW, bool GCHW>
+template <typename T, bool XCHW, bool GCHW>
 __global__ void __launch_bounds__(kThreads, 1)
-    conv_gradw_band_kernel(const float* __restrict__ x,
-                           const float* __restrict__ g,
+    conv_gradw_band_kernel(const T* __restrict__ x, const T* __restrict__ g,
                            float* __restrict__ partial, Geometry q,
                            long long units) {
   extern __shared__ float4 smem4[];
@@ -214,13 +273,13 @@ __global__ void __launch_bounds__(kThreads, 1)
                          : kh * q.xrs + kq * kS * kC;
   const int g_off = GCHW ? ft * kTileF * q.gps : ft * kTileF;
 
-  if (u_begin < u_end) stage_unit<XCHW, GCHW>(smem, x, g, u_begin, q);
+  if (u_begin < u_end) stage_unit<T, XCHW, GCHW>(smem, x, g, u_begin, q);
   asm volatile("cp.async.commit_group;\n" ::: "memory");
   for (long long u = u_begin; u < u_end; ++u) {
     const int buf = static_cast<int>(u - u_begin) & 1;
     if (u + 1 < u_end)
-      stage_unit<XCHW, GCHW>(smem + (buf ^ 1) * q.stage_floats, x, g, u + 1,
-                             q);
+      stage_unit<T, XCHW, GCHW>(smem + (buf ^ 1) * q.stage_floats, x, g,
+                                u + 1, q);
     asm volatile("cp.async.commit_group;\n" ::: "memory");
     asm volatile("cp.async.wait_group 1;\n" ::: "memory");
     __syncthreads();
@@ -328,11 +387,11 @@ __global__ void reduce_partials_kernel(const float* __restrict__ partial,
   dw[o] = s;
 }
 
-template <bool XCHW, bool GCHW>
-cudaError_t launch_band(const float* x, const float* g, float* partial,
+template <typename T, bool XCHW, bool GCHW>
+cudaError_t launch_band(const T* x, const T* g, float* partial,
                         const Geometry& q, long long units, int num_blocks,
                         int smem_bytes, cudaStream_t s) {
-  auto kernel = conv_gradw_band_kernel<XCHW, GCHW>;
+  auto kernel = conv_gradw_band_kernel<T, XCHW, GCHW>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return err;
@@ -340,15 +399,12 @@ cudaError_t launch_band(const float* x, const float* g, float* partial,
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-int sat_conv_gradw(const float* x, const float* g, float* partial, float* dw,
-                   int H, int W, int OH, int OW, int pad_h, int pad_w,
-                   int band_rows, int bands, int xrs, int x_floats, int gps,
-                   int stage_floats, int smem_bytes, int x_chw, int g_chw,
-                   long long units, int num_blocks, void* stream) {
+template <typename T>
+int gradw(const T* x, const T* g, float* partial, float* dw, int H, int W,
+          int OH, int OW, int pad_h, int pad_w, int band_rows, int bands,
+          int xrs, int x_floats, int gps, int stage_floats, int smem_bytes,
+          int x_chw, int g_chw, long long units, int num_blocks,
+          void* stream) {
   // The stages and the final sum of the other row groups must fit.
   if (smem_bytes < 2 * stage_floats * (int)sizeof(float) ||
       smem_bytes < (kGroups - 1) * kR * kF * (int)sizeof(float))
@@ -360,22 +416,49 @@ int sat_conv_gradw(const float* x, const float* g, float* partial, float* dw,
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
   if (x_chw && g_chw)
-    err = launch_band<true, true>(x, g, partial, q, units, num_blocks,
-                                  smem_bytes, s);
+    err = launch_band<T, true, true>(x, g, partial, q, units, num_blocks,
+                                     smem_bytes, s);
   else if (x_chw)
-    err = launch_band<true, false>(x, g, partial, q, units, num_blocks,
-                                   smem_bytes, s);
+    err = launch_band<T, true, false>(x, g, partial, q, units, num_blocks,
+                                      smem_bytes, s);
   else if (g_chw)
-    err = launch_band<false, true>(x, g, partial, q, units, num_blocks,
-                                   smem_bytes, s);
+    err = launch_band<T, false, true>(x, g, partial, q, units, num_blocks,
+                                      smem_bytes, s);
   else
-    err = launch_band<false, false>(x, g, partial, q, units, num_blocks,
-                                    smem_bytes, s);
+    err = launch_band<T, false, false>(x, g, partial, q, units, num_blocks,
+                                       smem_bytes, s);
   if (err != cudaSuccess) return (int)err;
   const int outputs = kR * kF;
   reduce_partials_kernel<<<(outputs + 255) / 256, 256, 0, s>>>(
       partial, dw, outputs, num_blocks);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int sat_conv_gradw(const float* x, const float* g, float* partial, float* dw,
+                   int H, int W, int OH, int OW, int pad_h, int pad_w,
+                   int band_rows, int bands, int xrs, int x_floats, int gps,
+                   int stage_floats, int smem_bytes, int x_chw, int g_chw,
+                   long long units, int num_blocks, void* stream) {
+  return gradw<float>(x, g, partial, dw, H, W, OH, OW, pad_h, pad_w,
+                      band_rows, bands, xrs, x_floats, gps, stage_floats,
+                      smem_bytes, x_chw, g_chw, units, num_blocks, stream);
+}
+
+int sat_conv_gradw_bf16(const __nv_bfloat16* x, const __nv_bfloat16* g,
+                        float* partial, float* dw, int H, int W, int OH,
+                        int OW, int pad_h, int pad_w, int band_rows,
+                        int bands, int xrs, int x_floats, int gps,
+                        int stage_floats, int smem_bytes, int x_chw,
+                        int g_chw, long long units, int num_blocks,
+                        void* stream) {
+  return gradw<__nv_bfloat16>(x, g, partial, dw, H, W, OH, OW, pad_h, pad_w,
+                              band_rows, bands, xrs, x_floats, gps,
+                              stage_floats, smem_bytes, x_chw, g_chw, units,
+                              num_blocks, stream);
 }
 
 }  // extern "C"

@@ -24,7 +24,7 @@
 //   fixed order, by the CTA that owns the row; it applies the bias and the
 //   cell.  For H=256 that is 128 CTAs, one per SM.
 //
-// * sgemm_kernel<true> + lstm_resid_kernel   replace _fwd_kernel (the
+// * sgemm_kernel<true> + lstm_resid_kernel  replace _fwd_kernel (the
 //   residual forward for BPTT), two launches on one stream.  At T=101,
 //   B=32 the work is 3.4 GFLOP (~51 us of f32 FMA on the card); what made
 //   a one-block-per-row loop 230x slower than that was latency: every step
@@ -65,15 +65,34 @@
 //   transpose a view: dWi = x^T.dgates, dWh = hpost^T.dgates,
 //   db = 1^T.dgates (stride-0 ones) and dx = dgates.Wi^T.  Single pass,
 //   no atomics: each output is summed by one thread in row order, so the
-//   result is deterministic.  The instance with a bias epilogue,
-//   sgemm_kernel<true>, is the residual forward's input projection, so the
-//   profiler tells the forward's GEMM from BPTT's (sgemm_kernel<false>).
+//   result is deterministic.  The instances with a bias epilogue,
+//   sgemm_kernel<true, Op>, are the residual forward's input projection,
+//   so the profiler tells the forward's GEMM from BPTT's
+//   (sgemm_kernel<false, Op>).
+//
+// Operand types.  Every kernel is a template on the type of its products'
+// operands, `Op`: float, or __nv_bfloat16 for the JAX package's
+// matmul_dtype="bfloat16" (lstm_pallas.py::_mm and _bwd_kernel's mm, the
+// default under compute_dtype=bfloat16).  The bf16 variant reads the same
+// float32 tensors and rounds each operand to bf16 in registers as it is
+// staged or loaded (round-to-nearest-even, JAX's astype), then multiplies
+// and sums in float32: a product of two bf16 values is exact in float32,
+// so the two variants differ only in what they round, and the bf16 one
+// from its plain version only in summation order.  What is rounded is
+// what JAX rounds: x, keep*h, Wi and Wh in the forwards; dgates, Wi and
+// Wh in dx and dh_prev, x, hpost and dgates in dWi and dWh.  Not rounded:
+// the carries, ys, every residual (hpost is the float32 h), the bias, and
+// db, which sums the float32 dgates (sgemm_kernel<false, float>).  The
+// shared-memory layouts stay float32, so the bf16 variant keeps the float
+// variant's geometry; it saves no bytes (a later design can stage bf16).
+// The entry points of the bf16 variant end in _bf16.
 //
 // Every entry point launches on the caller's stream, allocates nothing,
 // keeps no state between launches, and returns cudaGetLastError() so a
 // refused launch is reported.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace cg = cooperative_groups;
@@ -82,6 +101,16 @@ namespace {
 
 __device__ __forceinline__ float sigmoid_f(float v) {
   return 1.0f / (1.0f + expf(-v));
+}
+
+// A product operand at the operand type Op, held as a float.
+template <typename Op>
+__device__ __forceinline__ float operand(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ float operand<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 constexpr int kStepUnits = 8;   // hidden units per cluster: 32 gate columns
@@ -106,6 +135,7 @@ inline size_t step_shared_bytes(int k) {
 // gates = [x | keep*h0] . [Wi; Wh] + b.  Cluster c owns hidden units
 // j0 = 8c .. 8c+7; its CTA of rank r reduces over rows [r*ks, (r+1)*ks) of
 // the D+H stack.
+template <typename Op>
 __global__ void __cluster_dims__(kStepSplit, 1, 1)
     __launch_bounds__(kStepThreads)
         lstm_step_kernel(const float* __restrict__ x,
@@ -156,10 +186,10 @@ __global__ void __cluster_dims__(kStepSplit, 1, 1)
       if (e < nk * 8) {
         const int gate = (e >> 1) & 3, half = e & 1;
         float* d = wsf + ((e >> 3) * kStepUnits + 4 * half) * 4 + gate;
-        d[0] = v[i].x;
-        d[4] = v[i].y;
-        d[8] = v[i].z;
-        d[12] = v[i].w;
+        d[0] = operand<Op>(v[i].x);
+        d[4] = operand<Op>(v[i].y);
+        d[8] = operand<Op>(v[i].z);
+        d[12] = operand<Op>(v[i].w);
       }
     }
   }
@@ -175,8 +205,8 @@ __global__ void __cluster_dims__(kStepSplit, 1, 1)
 #pragma unroll 8
       for (int kk = unit; kk < nk; kk += kStepUnits) {
         const int k = k0 + kk;
-        dst[kk] = k < D ? x[(size_t)b * D + k]
-                        : keep * h0[(size_t)b * H + (k - D)];
+        dst[kk] = operand<Op>(k < D ? x[(size_t)b * D + k]
+                                    : keep * h0[(size_t)b * H + (k - D)]);
       }
     }
     __syncthreads();
@@ -280,8 +310,8 @@ __device__ __forceinline__ void resid_fma(float4 (&acc)[R], const float* hb,
 // owns batch rows [q*R, q*R + R); its CTA of rank r owns hidden units
 // j0 = r*U .. j0+U-1 (U = H/8).  Shared memory: ws [resident][U] float4
 // (the 4 gates of a unit in one vector), part [8][R][U] float4 (partial
-// gates), hbuf [2][R][H] (keep*h of this step and the next).
-template <int R>
+// gates), hbuf [2][R][H] (keep*h of this step and the next, as operands).
+template <int R, typename Op>
 __global__ void __cluster_dims__(kResidCluster, 1, 1)
     __launch_bounds__(resid_max_threads(R))
         lstm_resid_kernel(const float* __restrict__ pre,
@@ -330,10 +360,10 @@ __global__ void __cluster_dims__(kResidCluster, 1, 1)
       if (e < n4) {
         const int k = e / (4 * quads), g = (e / quads) % 4, q = e % quads;
         float* d = reinterpret_cast<float*>(ws + k * U + 4 * q) + g;
-        d[0] = v[i].x;
-        d[4] = v[i].y;
-        d[8] = v[i].z;
-        d[12] = v[i].w;
+        d[0] = operand<Op>(v[i].x);
+        d[4] = operand<Op>(v[i].y);
+        d[8] = operand<Op>(v[i].z);
+        d[12] = operand<Op>(v[i].w);
       }
     }
   }
@@ -342,14 +372,15 @@ __global__ void __cluster_dims__(kResidCluster, 1, 1)
   for (int e = tid; e < 2 * R * H; e += blockDim.x) {
     const int b = b0 + (e / H) % R;
     hbuf[e] = (e < R * H && b < B)
-                  ? (1.0f - done[b]) * h0[(size_t)b * H + e % H]
+                  ? operand<Op>((1.0f - done[b]) * h0[(size_t)b * H + e % H])
                   : 0.f;
   }
   // Thread tid is (s, u) = (tid / U, tid % U) in both of its roles:
   // - reduction: unit u over rows [s*H/8, (s+1)*H/8) of Wh, the first
   //   `resident` of them from shared memory, the rest from L2;
   // - for s < R, owner of the cell (batch row b0 + s, unit j0 + u): its c
-  //   in a register, the sum of the partials, the cell and the stores.
+  //   and h in registers (float32: the h buffers hold the operands), the
+  //   sum of the partials, the cell and the stores.
   const int s = tid / U, u = tid % U;
   const int fb = b0 + s, fj = j0 + u;
   const bool owner = s < R && fb < B;
@@ -357,7 +388,7 @@ __global__ void __cluster_dims__(kResidCluster, 1, 1)
   const int km = min(max(resident, kb), ke);
   const float* wcol = wh + j0 + u;
   float c = owner ? c0[(size_t)fb * H + fj] : 0.f;
-  float h = 0.f;
+  float h = owner ? h0[(size_t)fb * H + fj] : 0.f;
   cluster.sync();  // every CTA staged and running before any DSMEM store
 
   for (int t = 0; t < T; ++t) {
@@ -386,8 +417,9 @@ __global__ void __cluster_dims__(kResidCluster, 1, 1)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float* col = wcol + (size_t)(k + i) * G;
-        w[i] = make_float4(__ldg(col), __ldg(col + H), __ldg(col + 2 * H),
-                           __ldg(col + 3 * H));
+        w[i] = make_float4(
+            operand<Op>(__ldg(col)), operand<Op>(__ldg(col + H)),
+            operand<Op>(__ldg(col + 2 * H)), operand<Op>(__ldg(col + 3 * H)));
       }
       resid_fma<R>(acc, hb, H, k, w);
     }
@@ -414,7 +446,7 @@ __global__ void __cluster_dims__(kResidCluster, 1, 1)
       const float hn = og * tanhf(cn);
       const size_t o = row * H + fj;
       cpost[o] = cp;
-      hpost[o] = hb[s * H + fj];
+      hpost[o] = keep * h;
       cnew[o] = cn;
       ys[o] = hn;
       float* gates = ifgo + row * G + fj;
@@ -425,7 +457,7 @@ __global__ void __cluster_dims__(kResidCluster, 1, 1)
       c = cn;
       h = hn;
       if (t + 1 < T) {
-        const float hk = keep_next * hn;
+        const float hk = operand<Op>(keep_next * hn);
 #pragma unroll
         for (int q = 0; q < kResidCluster; ++q)
           *cluster.map_shared_rank(hnext + s * H + fj, q) = hk;
@@ -442,6 +474,7 @@ __global__ void __cluster_dims__(kResidCluster, 1, 1)
   }
 }
 
+template <typename Op>
 __global__ void lstm_bwd_chain_kernel(
     const float* __restrict__ dys, const float* __restrict__ done,
     const float* __restrict__ ifgo, const float* __restrict__ cpost,
@@ -451,7 +484,7 @@ __global__ void lstm_bwd_chain_kernel(
     float* __restrict__ dh0, int T, int B, int H) {
   extern __shared__ float smem[];
   const int G = 4 * H;
-  float* sdg = smem;      // dgates of this row and step, [4H]
+  float* sdg = smem;      // dgates of this row and step as operands, [4H]
   float* sdh = smem + G;  // dh_prev, [H]
   const int b = blockIdx.x;
   const int j = threadIdx.x;  // hidden unit; blockDim.x == H
@@ -472,10 +505,10 @@ __global__ void lstm_bwd_chain_kernel(
     const float d_f = dc_tot * cpost[row * H + j] * fg * (1.0f - fg);
     const float d_i = dc_tot * gg * ig * (1.0f - ig);
     const float d_g = dc_tot * ig * (1.0f - gg * gg);
-    sdg[j] = d_i;
-    sdg[H + j] = d_f;
-    sdg[2 * H + j] = d_g;
-    sdg[3 * H + j] = d_o;
+    sdg[j] = operand<Op>(d_i);
+    sdg[H + j] = operand<Op>(d_f);
+    sdg[2 * H + j] = operand<Op>(d_g);
+    sdg[3 * H + j] = operand<Op>(d_o);
     float* out = dgates + row * G;
     out[j] = d_i;
     out[H + j] = d_f;
@@ -487,7 +520,8 @@ __global__ void lstm_bwd_chain_kernel(
     for (int k = warp; k < H; k += num_warps) {
       const float* wrow = wh + (size_t)k * G;
       float s = 0.f;
-      for (int n = lane; n < G; n += 32) s = fmaf(sdg[n], __ldg(wrow + n), s);
+      for (int n = lane; n < G; n += 32)
+        s = fmaf(sdg[n], operand<Op>(__ldg(wrow + n)), s);
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         s += __shfl_xor_sync(0xffffffffu, s, off);
@@ -510,8 +544,8 @@ constexpr int kGemmThreads = 256;
 
 // C[M,N] (row-major, dense) = A[M,K] . B[K,N] (+ bias[N] if kBias), A and
 // B given by element strides (any of them may be 0 for a broadcast
-// operand).
-template <bool kBias>
+// operand), each element taken at the operand type Op.
+template <bool kBias, typename Op>
 __global__ void sgemm_kernel(const float* __restrict__ a, long long sam,
                              long long sak, const float* __restrict__ bm,
                              long long sbk, long long sbn,
@@ -539,13 +573,15 @@ __global__ void sgemm_kernel(const float* __restrict__ a, long long sam,
       const int mm = a_m_fast ? (e % kBM) : (e / kBK);
       const int kk = a_m_fast ? (e / kBM) : (e % kBK);
       const int gm = m0 + mm, gk = k0 + kk;
-      as[kk][mm] = (gm < M && gk < K) ? a[gm * sam + gk * sak] : 0.f;
+      as[kk][mm] =
+          (gm < M && gk < K) ? operand<Op>(a[gm * sam + gk * sak]) : 0.f;
     }
     for (int e = tid; e < kBK * kBN; e += kGemmThreads) {
       const int nn = b_n_fast ? (e % kBN) : (e / kBK);
       const int kk = b_n_fast ? (e / kBN) : (e % kBK);
       const int gk = k0 + kk, gn = n0 + nn;
-      bs[kk][nn] = (gk < K && gn < N) ? bm[gk * sbk + gn * sbn] : 0.f;
+      bs[kk][nn] =
+          (gk < K && gn < N) ? operand<Op>(bm[gk * sbk + gn * sbn]) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -583,7 +619,7 @@ cudaError_t allow_shared(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
-template <int R>
+template <int R, typename Op>
 cudaError_t launch_resid(const float* pre, const float* done,
                          const float* c0, const float* h0, const float* wh,
                          float* ys, float* ifgo, float* cpost, float* hpost,
@@ -591,10 +627,10 @@ cudaError_t launch_resid(const float* pre, const float* done,
                          int B, int H, int resident, size_t shared,
                          cudaStream_t stream) {
   if (H > resid_max_threads(R)) return cudaErrorInvalidValue;
-  cudaError_t err = allow_shared(lstm_resid_kernel<R>, shared);
+  cudaError_t err = allow_shared(lstm_resid_kernel<R, Op>, shared);
   if (err != cudaSuccess) return err;
   const int clusters = (B + R - 1) / R;
-  lstm_resid_kernel<R><<<clusters * kResidCluster, H, shared, stream>>>(
+  lstm_resid_kernel<R, Op><<<clusters * kResidCluster, H, shared, stream>>>(
       pre, done, c0, h0, wh, ys, ifgo, cpost, hpost, cnew, c_out, h_out, T,
       B, H, resident);
   return cudaGetLastError();
@@ -602,7 +638,7 @@ cudaError_t launch_resid(const float* pre, const float* done,
 
 template <int R>
 int active_clusters(int H, size_t shared) {
-  cudaError_t err = allow_shared(lstm_resid_kernel<R>, shared);
+  cudaError_t err = allow_shared(lstm_resid_kernel<R, float>, shared);
   if (err != cudaSuccess) return -(int)err;
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(kResidCluster, 1, 1);
@@ -610,8 +646,86 @@ int active_clusters(int H, size_t shared) {
   config.dynamicSmemBytes = shared;
   int clusters = 0;
   err = cudaOccupancyMaxActiveClusters(
-      &clusters, (const void*)lstm_resid_kernel<R>, &config);
+      &clusters, (const void*)lstm_resid_kernel<R, float>, &config);
   return err == cudaSuccess ? clusters : -(int)err;
+}
+
+template <typename Op>
+int forward_resid(const float* x, const float* done, const float* c0,
+                  const float* h0, const float* wi, const float* wh,
+                  const float* bias, float* pre, float* ys, float* ifgo,
+                  float* cpost, float* hpost, float* cnew, float* c_out,
+                  float* h_out, int T, int B, int D, int H, int rows,
+                  int resident, int shared, void* stream) {
+  if (H % (4 * kResidCluster) != 0 || resident % 4 != 0 || resident < 0 ||
+      resident > H)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int M = T * B, N = 4 * H;
+  dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+  sgemm_kernel<true, Op><<<grid, kGemmThreads, 0, s>>>(x, D, 1, wi, N, 1,
+                                                       pre, bias, M, N, D);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  switch (rows) {
+    case 1:
+      return (int)launch_resid<1, Op>(pre, done, c0, h0, wh, ys, ifgo, cpost,
+                                      hpost, cnew, c_out, h_out, T, B, H,
+                                      resident, shared, s);
+    case 2:
+      return (int)launch_resid<2, Op>(pre, done, c0, h0, wh, ys, ifgo, cpost,
+                                      hpost, cnew, c_out, h_out, T, B, H,
+                                      resident, shared, s);
+    case 4:
+      return (int)launch_resid<4, Op>(pre, done, c0, h0, wh, ys, ifgo, cpost,
+                                      hpost, cnew, c_out, h_out, T, B, H,
+                                      resident, shared, s);
+    case 8:
+      return (int)launch_resid<8, Op>(pre, done, c0, h0, wh, ys, ifgo, cpost,
+                                      hpost, cnew, c_out, h_out, T, B, H,
+                                      resident, shared, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename Op>
+int step(const float* x, const float* done, const float* c0, const float* h0,
+         const float* wi, const float* wh, const float* bias, float* y,
+         float* c_out, int B, int D, int H, void* stream) {
+  if (H % kStepUnits != 0) return (int)cudaErrorInvalidValue;
+  const int ks = step_slice(D + H);
+  const size_t shared = step_shared_bytes(D + H);
+  cudaError_t err = allow_shared(lstm_step_kernel<Op>, shared);
+  if (err != cudaSuccess) return (int)err;
+  lstm_step_kernel<Op><<<(H / kStepUnits) * kStepSplit, kStepThreads, shared,
+                         (cudaStream_t)stream>>>(x, done, c0, h0, wi, wh,
+                                                 bias, y, c_out, B, D, H, ks);
+  return (int)cudaGetLastError();
+}
+
+template <typename Op>
+int backward_chain(const float* dys, const float* done, const float* ifgo,
+                   const float* cpost, const float* cnew, const float* wh,
+                   const float* dct, const float* dht, float* dgates,
+                   float* dc0, float* dh0, int T, int B, int H,
+                   void* stream) {
+  const size_t shared = (size_t)(5 * H) * sizeof(float);
+  cudaError_t err = allow_shared(lstm_bwd_chain_kernel<Op>, shared);
+  if (err != cudaSuccess) return (int)err;
+  lstm_bwd_chain_kernel<Op><<<B, H, shared, (cudaStream_t)stream>>>(
+      dys, done, ifgo, cpost, cnew, wh, dct, dht, dgates, dc0, dh0, T, B, H);
+  return (int)cudaGetLastError();
+}
+
+template <typename Op>
+int gemm(const float* a, long long sam, long long sak, const float* b,
+         long long sbk, long long sbn, float* c, int M, int N, int K,
+         void* stream) {
+  dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+  sgemm_kernel<false, Op><<<grid, kGemmThreads, 0, (cudaStream_t)stream>>>(
+      a, sam, sak, b, sbk, sbn, c, nullptr, M, N, K);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -622,8 +736,8 @@ const char* sat_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// The residual forward: pre = x.Wi + b (sgemm_kernel<true>), then
-// lstm_resid_kernel<rows> over it.  `pre` is the caller's [T*B, 4H]
+// The residual forward: pre = x.Wi + b (sgemm_kernel<true, Op>), then
+// lstm_resid_kernel<rows, Op> over it.  `pre` is the caller's [T*B, 4H]
 // scratch; rows, resident and shared come from lstm_cuda.resid_plan.
 int sat_lstm_forward_resid(const float* x, const float* done,
                            const float* c0, const float* h0, const float* wi,
@@ -632,41 +746,28 @@ int sat_lstm_forward_resid(const float* x, const float* done,
                            float* cnew, float* c_out, float* h_out, int T,
                            int B, int D, int H, int rows, int resident,
                            int shared, void* stream) {
-  if (H % (4 * kResidCluster) != 0 || resident % 4 != 0 || resident < 0 ||
-      resident > H)
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const int M = T * B, N = 4 * H;
-  dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  sgemm_kernel<true><<<grid, kGemmThreads, 0, s>>>(x, D, 1, wi, N, 1, pre,
-                                                   bias, M, N, D);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  switch (rows) {
-    case 1:
-      return (int)launch_resid<1>(pre, done, c0, h0, wh, ys, ifgo, cpost,
-                                  hpost, cnew, c_out, h_out, T, B, H,
-                                  resident, shared, s);
-    case 2:
-      return (int)launch_resid<2>(pre, done, c0, h0, wh, ys, ifgo, cpost,
-                                  hpost, cnew, c_out, h_out, T, B, H,
-                                  resident, shared, s);
-    case 4:
-      return (int)launch_resid<4>(pre, done, c0, h0, wh, ys, ifgo, cpost,
-                                  hpost, cnew, c_out, h_out, T, B, H,
-                                  resident, shared, s);
-    case 8:
-      return (int)launch_resid<8>(pre, done, c0, h0, wh, ys, ifgo, cpost,
-                                  hpost, cnew, c_out, h_out, T, B, H,
-                                  resident, shared, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return forward_resid<float>(x, done, c0, h0, wi, wh, bias, pre, ys, ifgo,
+                              cpost, hpost, cnew, c_out, h_out, T, B, D, H,
+                              rows, resident, shared, stream);
 }
 
-// How many clusters of lstm_resid_kernel<rows> the card holds at once with
-// `shared` bytes of shared memory a CTA (cudaOccupancyMaxActiveClusters),
-// or minus a CUDA error code.
+int sat_lstm_forward_resid_bf16(const float* x, const float* done,
+                                const float* c0, const float* h0,
+                                const float* wi, const float* wh,
+                                const float* bias, float* pre, float* ys,
+                                float* ifgo, float* cpost, float* hpost,
+                                float* cnew, float* c_out, float* h_out,
+                                int T, int B, int D, int H, int rows,
+                                int resident, int shared, void* stream) {
+  return forward_resid<__nv_bfloat16>(x, done, c0, h0, wi, wh, bias, pre, ys,
+                                      ifgo, cpost, hpost, cnew, c_out, h_out,
+                                      T, B, D, H, rows, resident, shared,
+                                      stream);
+}
+
+// How many clusters of lstm_resid_kernel<rows, float> the card holds at
+// once with `shared` bytes of shared memory a CTA
+// (cudaOccupancyMaxActiveClusters), or minus a CUDA error code.
 int sat_lstm_resid_active_clusters(int H, int rows, int shared) {
   switch (rows) {
     case 1: return active_clusters<1>(H, shared);
@@ -681,15 +782,16 @@ int sat_lstm_step(const float* x, const float* done, const float* c0,
                   const float* h0, const float* wi, const float* wh,
                   const float* bias, float* y, float* c_out, int B, int D,
                   int H, void* stream) {
-  if (H % kStepUnits != 0) return (int)cudaErrorInvalidValue;
-  const int ks = step_slice(D + H);
-  const size_t shared = step_shared_bytes(D + H);
-  cudaError_t err = allow_shared(lstm_step_kernel, shared);
-  if (err != cudaSuccess) return (int)err;
-  lstm_step_kernel<<<(H / kStepUnits) * kStepSplit, kStepThreads, shared,
-                     (cudaStream_t)stream>>>(x, done, c0, h0, wi, wh, bias,
-                                             y, c_out, B, D, H, ks);
-  return (int)cudaGetLastError();
+  return step<float>(x, done, c0, h0, wi, wh, bias, y, c_out, B, D, H,
+                     stream);
+}
+
+int sat_lstm_step_bf16(const float* x, const float* done, const float* c0,
+                       const float* h0, const float* wi, const float* wh,
+                       const float* bias, float* y, float* c_out, int B,
+                       int D, int H, void* stream) {
+  return step<__nv_bfloat16>(x, done, c0, h0, wi, wh, bias, y, c_out, B, D,
+                             H, stream);
 }
 
 int sat_lstm_backward_chain(const float* dys, const float* done,
@@ -698,21 +800,31 @@ int sat_lstm_backward_chain(const float* dys, const float* done,
                             const float* dct, const float* dht, float* dgates,
                             float* dc0, float* dh0, int T, int B, int H,
                             void* stream) {
-  const size_t shared = (size_t)(5 * H) * sizeof(float);
-  cudaError_t err = allow_shared(lstm_bwd_chain_kernel, shared);
-  if (err != cudaSuccess) return (int)err;
-  lstm_bwd_chain_kernel<<<B, H, shared, (cudaStream_t)stream>>>(
-      dys, done, ifgo, cpost, cnew, wh, dct, dht, dgates, dc0, dh0, T, B, H);
-  return (int)cudaGetLastError();
+  return backward_chain<float>(dys, done, ifgo, cpost, cnew, wh, dct, dht,
+                               dgates, dc0, dh0, T, B, H, stream);
+}
+
+int sat_lstm_backward_chain_bf16(const float* dys, const float* done,
+                                 const float* ifgo, const float* cpost,
+                                 const float* cnew, const float* wh,
+                                 const float* dct, const float* dht,
+                                 float* dgates, float* dc0, float* dh0, int T,
+                                 int B, int H, void* stream) {
+  return backward_chain<__nv_bfloat16>(dys, done, ifgo, cpost, cnew, wh, dct,
+                                       dht, dgates, dc0, dh0, T, B, H,
+                                       stream);
 }
 
 int sat_sgemm(const float* a, long long sam, long long sak, const float* b,
               long long sbk, long long sbn, float* c, int M, int N, int K,
               void* stream) {
-  dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  sgemm_kernel<false><<<grid, kGemmThreads, 0, (cudaStream_t)stream>>>(
-      a, sam, sak, b, sbk, sbn, c, nullptr, M, N, K);
-  return (int)cudaGetLastError();
+  return gemm<float>(a, sam, sak, b, sbk, sbn, c, M, N, K, stream);
+}
+
+int sat_sgemm_bf16(const float* a, long long sam, long long sak,
+                   const float* b, long long sbk, long long sbn, float* c,
+                   int M, int N, int K, void* stream) {
+  return gemm<__nv_bfloat16>(a, sam, sak, b, sbk, sbn, c, M, N, K, stream);
 }
 
 }  // extern "C"

@@ -44,7 +44,10 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from scalable_agent_tpu_torch.config import Config
+from scalable_agent_tpu_torch.config import (
+    Config,
+    resolve_core_matmul_dtype,
+)
 from scalable_agent_tpu_torch.envs import (
     MultiEnv,
     create_env,
@@ -99,10 +102,15 @@ def probe_env(config: Config):
 def build_agent(config: Config, observation_spec, action_space,
                 device: torch.device) -> ImpalaAgent:
     """The agent with weights drawn from a generator seeded by
-    ``config.seed``, placed on ``device``."""
+    ``config.seed``, placed on ``device``, under the configuration's dtype
+    policy (``compute_dtype``, and ``core_matmul_dtype`` resolved as the
+    JAX driver resolves it)."""
     generator = torch.Generator().manual_seed(config.seed)
     return ImpalaAgent(action_space.n, observation_spec.frame.shape,
-                       generator=generator).to(device)
+                       generator=generator,
+                       compute_dtype=getattr(torch, config.compute_dtype),
+                       core_matmul_dtype=resolve_core_matmul_dtype(config)
+                       ).to(device)
 
 
 def build_learner(config: Config, agent: ImpalaAgent) -> Learner:
@@ -230,8 +238,8 @@ def train(config: Config) -> Dict[str, float]:
     groups = pool = prefetch_thread = writer = None
     prefetch_stop = threading.Event()
     metrics: Dict[str, torch.Tensor] = {}
-    # Convolutions and matmuls in full float32, as the JAX package's
-    # compute_dtype=float32 configuration runs them.  The flags are
+    # Float32 convolutions and matmuls in full float32, and bf16 ones
+    # summed in float32, as the JAX package runs them.  The flags are
     # process-wide: set once, before any thread starts.
     with float32_precision():
         try:

@@ -7,8 +7,20 @@ clipped reward and the one-hot last action are concatenated to its output,
 the done-reset LSTM core (``ops/lstm_cuda.lstm_unroll``) runs over T, and
 the heads run over the merged batch again.  ``forward`` is the whole
 trajectory unroll, shared by actor inference (T=1) and the learner
-(T=unroll_length+1).  Float32 throughout; the bf16 policy is not ported yet
-(ROADMAP.md, queue 1).
+(T=unroll_length+1).
+
+The one compute-dtype policy is the JAX agent's
+(``scalable_agent_tpu/models/agent.py``), by explicit casts: parameters
+stay float32; the torso runs at ``compute_dtype``; its output, the clipped
+reward and the one-hot action are concatenated in float32 and cast to
+``compute_dtype``; the core takes that as float32 (``jnp.asarray(x,
+float32)``) with its float32 weights and rounds its products' operands to
+``core_matmul_dtype``, its carries, outputs and residuals float32; the
+heads run at ``compute_dtype`` and their outputs are cast to float32, so
+the loss, V-trace and the optimizer see float32 only.  The defaults,
+float32 and float32, are the JAX module's; ``driver.build_agent`` passes
+the configuration's (``compute_dtype=bfloat16`` resolves the core to
+bfloat16 operands).
 """
 
 from typing import Optional, Sequence, Tuple
@@ -20,6 +32,7 @@ from scalable_agent_tpu_torch.models.networks import (
     TORSO_SIZE,
     ShallowConvTorso,
     dense,
+    dense_apply,
     lecun_normal_,
 )
 from scalable_agent_tpu_torch.ops import distributions
@@ -65,9 +78,10 @@ class LSTMCore(nn.Module):
                 self.wh[:, cols] = nn.init.orthogonal_(block,
                                                        generator=generator)
 
-    def forward(self, x, done, carry: AgentState):
+    def forward(self, x, done, carry: AgentState,
+                matmul_dtype: str = "float32"):
         ys, (c, h) = lstm_unroll(x, done, carry.c, carry.h, self.wi,
-                                 self.wh, self.b)
+                                 self.wh, self.b, matmul_dtype)
         return ys, AgentState(c=c, h=h)
 
 
@@ -78,16 +92,26 @@ class ImpalaAgent(nn.Module):
     env_outputs.reward [T,B], done [T,B], observation.frame [T,B,H,W,C]
     uint8, returns ``((policy_logits [T,B,A], baseline [T,B]),
     new_state)``.  Weights are drawn from ``generator``.
+    ``compute_dtype`` and ``core_matmul_dtype`` are the dtype policy's
+    (module docstring).
     """
 
     def __init__(self, num_actions: int,
                  frame_shape: Sequence[int] = (72, 96, 3),
                  core_size: int = CORE_SIZE,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 compute_dtype: torch.dtype = torch.float32,
+                 core_matmul_dtype: str = "float32"):
         super().__init__()
+        if compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute_dtype must be torch.float32 or "
+                             f"torch.bfloat16, got {compute_dtype}")
         self.dist_spec = distributions.DistributionSpec(sizes=(num_actions,))
         self.core_size = core_size
-        self.convnet = ShallowConvTorso(frame_shape, generator)
+        self.compute_dtype = compute_dtype
+        self.core_matmul_dtype = core_matmul_dtype
+        self.convnet = ShallowConvTorso(frame_shape, generator,
+                                        compute_dtype)
         in_features = TORSO_SIZE + 1 + self.num_logits
         self.core = LSTMCore(in_features, core_size, generator)
         self.policy_logits = dense(core_size, self.num_logits, generator)
@@ -103,19 +127,25 @@ class ImpalaAgent(nn.Module):
         unroll_len, batch = actions.shape[:2]
         reward, _, done, observation = env_outputs
         flat = lambda t: t.reshape((unroll_len * batch,) + t.shape[2:])
+        dtype = self.compute_dtype
         conv_out = self.convnet(flat(observation.frame))
         clipped_reward = torch.clamp(flat(reward).float(), -1.0, 1.0)[:, None]
         one_hot_last_action = distributions.one_hot_actions(
             flat(actions), self.dist_spec)
+        # Concatenated in float32, then the policy's cast (identities under
+        # float32); the core takes the compute-dtype values as float32.
         torso_out = torch.cat(
-            [conv_out, clipped_reward, one_hot_last_action], dim=-1)
+            [conv_out.float(), clipped_reward, one_hot_last_action],
+            dim=-1).to(dtype)
         core_outputs, new_state = self.core(
-            torso_out.reshape(unroll_len, batch, -1),
-            done.float().contiguous(), core_state)
+            torso_out.float().reshape(unroll_len, batch, -1),
+            done.float().contiguous(), core_state, self.core_matmul_dtype)
         core_flat = core_outputs.reshape(unroll_len * batch, -1)
-        policy_logits = self.policy_logits(core_flat).reshape(
+        policy_logits = dense_apply(self.policy_logits, core_flat,
+                                    dtype).float().reshape(
             unroll_len, batch, self.num_logits)
-        baseline = self.baseline(core_flat).reshape(unroll_len, batch)
+        baseline = dense_apply(self.baseline, core_flat, dtype).float(
+        ).reshape(unroll_len, batch)
         return (policy_logits, baseline), new_state
 
 

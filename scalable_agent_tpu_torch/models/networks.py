@@ -11,6 +11,13 @@ linear weights); ``convert.py`` maps the flax tree onto them.  The conv
 stack's output is flattened in NHWC order, as the JAX torso flattens, so
 ``fc`` takes the flax kernel's rows unchanged.  The ResNet torso is not
 ported yet (ROADMAP.md, queue 1).
+
+``dtype`` is flax's module dtype, by explicit casts (not autocast, whose
+op lists differ between the CPU and CUDA): the frame is normalised in
+``dtype``; each conv and ``fc`` casts its input, kernel and bias to
+``dtype``, computes in it (float32 accumulation, then one rounding) and
+adds the bias after, as flax does; the output is ``dtype``.  Parameters
+stay float32.  The stem's grad-W kernel takes its operands at ``dtype``.
 """
 
 import math
@@ -51,6 +58,13 @@ def dense(in_features: int, out_features: int,
     return layer
 
 
+def dense_apply(layer: nn.Linear, x: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    """flax ``Dense(dtype=dtype)``: input, kernel and bias cast to ``dtype``;
+    the product, then the bias, in ``dtype``."""
+    return x.to(dtype) @ layer.weight.to(dtype).t() + layer.bias.to(dtype)
+
+
 def _conv(in_channels: int, out_channels: int, kernel: int,
           generator: Optional[torch.Generator]) -> nn.Conv2d:
     layer = torch.nn.utils.skip_init(nn.Conv2d, in_channels, out_channels,
@@ -62,11 +76,13 @@ def _conv(in_channels: int, out_channels: int, kernel: int,
 
 
 class ShallowConvTorso(nn.Module):
-    """Input uint8 frames [N, H, W, C]; output [N, 256] float32."""
+    """Input uint8 frames [N, H, W, C]; output [N, 256] of ``dtype``."""
 
     def __init__(self, frame_shape: Sequence[int],
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         height, width, channels = frame_shape
         layers = []
         for out_channels, kernel, stride in CONV_STACK:
@@ -78,13 +94,13 @@ class ShallowConvTorso(nn.Module):
         self.fc = dense(height * width * channels, TORSO_SIZE, generator)
 
     def forward(self, frame: torch.Tensor) -> torch.Tensor:
-        # [0, 1] floats, NHWC in memory, seen as NCHW (channels-last).
-        x = (frame.float() / 255.0).permute(0, 3, 1, 2)
-        stride = CONV_STACK[0][2]
-        x = torch.relu(stem_conv(x, self.conv_0.weight, stride)
-                       + self.conv_0.bias[:, None, None])
-        for conv, (_, _, stride) in zip((self.conv_1, self.conv_2),
-                                        CONV_STACK[1:]):
-            x = torch.relu(conv2d_same(x, conv.weight, stride, conv.bias))
+        dtype = self.dtype
+        # [0, 1] in dtype, NHWC in memory, seen as NCHW (channels-last).
+        x = (frame.to(dtype) / 255.0).permute(0, 3, 1, 2)
+        for i, (conv, (_, _, stride)) in enumerate(zip(
+                (self.conv_0, self.conv_1, self.conv_2), CONV_STACK)):
+            op = stem_conv if i == 0 else conv2d_same
+            x = torch.relu(op(x, conv.weight.to(dtype), stride)
+                           + conv.bias.to(dtype)[:, None, None])
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
-        return torch.relu(self.fc(x))
+        return torch.relu(dense_apply(self.fc, x, dtype))

@@ -20,7 +20,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -37,16 +37,20 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 # C signatures of csrc/*.cu's extern "C" entry points.  Pointers and the
 # stream go through c_void_p: a bare Python int would be cut to 32 bits.
+# An entry point ending in ``_bf16`` is the bf16-operand variant of the
+# one without, with the same arguments.
 _SIGNATURES = {
     "sat_error_string": ([_I], ctypes.c_char_p),
-    "sat_lstm_forward_resid": ([_P] * 15 + [_I] * 7 + [_P], _I),
     "sat_lstm_resid_active_clusters": ([_I] * 3, _I),
-    "sat_lstm_step": ([_P] * 9 + [_I] * 3 + [_P], _I),
-    "sat_lstm_backward_chain": ([_P] * 11 + [_I] * 3 + [_P], _I),
-    "sat_sgemm": ([_P, _L, _L, _P, _L, _L, _P, _I, _I, _I, _P], _I),
-    "sat_conv_gradw": ([_P] * 4 + [_I] * 15 + [_L, _I, _P], _I),
     "sat_vtrace": ([_P] * 7 + [_I, _I, _F, _I, _F, _I, _P], _I),
 }
+for _name, _signature in {
+        "sat_lstm_forward_resid": ([_P] * 15 + [_I] * 7 + [_P], _I),
+        "sat_lstm_step": ([_P] * 9 + [_I] * 3 + [_P], _I),
+        "sat_lstm_backward_chain": ([_P] * 11 + [_I] * 3 + [_P], _I),
+        "sat_sgemm": ([_P, _L, _L, _P, _L, _L, _P, _I, _I, _I, _P], _I),
+        "sat_conv_gradw": ([_P] * 4 + [_I] * 15 + [_L, _I, _P], _I)}.items():
+    _SIGNATURES[_name] = _SIGNATURES[_name + "_bf16"] = _signature
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()
@@ -158,10 +162,14 @@ def on_cpu(what: str, *tensors) -> bool:
     return False
 
 
-def check_operand(name: str, t, shape) -> None:
-    """A kernel operand must be contiguous float32 of ``shape``."""
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+def check_operand(name: str, t, shape,
+                  dtypes: Tuple[torch.dtype, ...] = (torch.float32,)) -> None:
+    """A kernel operand must be contiguous, of ``shape`` and of one of the
+    ``dtypes`` the kernel admits."""
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} must be "
+                        f"{' or '.join(str(d) for d in dtypes)}, got "
+                        f"{t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")

@@ -6,9 +6,15 @@ The counterpart of ``scalable_agent_tpu/ops/conv_pallas.py``.
 ``g``, HWIO ``dW``) so the tests compare like with like; ``stem_conv`` is
 the torso-facing op in PyTorch's layout (NCHW input, OIHW weight).
 
-Kernel (``csrc/conv.cu``), launch counter ``LAUNCHES["stem_gradw"]``:
-replaces ``conv_pallas.py::_gradw_kernel`` (via ``conv_gradw``).  It is
-bound by float32 FMA (17 GFLOP at the main path's shape).  Each block
+Kernel (``csrc/conv.cu``), launch counters ``LAUNCHES["stem_gradw"]``
+and, for its bf16-operand variant, ``LAUNCHES["stem_gradw_bf16"]``:
+replaces ``conv_pallas.py::_gradw_kernel`` (via ``conv_gradw``).  The
+variant follows the operands' dtype: float32 ``x`` and ``g`` take the
+float32 kernel, bfloat16 ones (the stem under ``compute_dtype=bfloat16``,
+``matmul_dtype="bfloat16"`` in the JAX package) the bf16 kernel, which
+reads half the bytes and sums the exact products in float32; ``dW`` is
+float32 from both.  The float32 kernel is bound by float32 FMA (17 GFLOP
+at the main path's shape).  Each block
 stages bands of whole images -- input rows with their halo and the band's
 cotangent rows -- in shared memory with double-buffered ``cp.async``
 copies, forms every patch value there by space-to-depth addressing, and
@@ -34,7 +40,10 @@ import torch.nn.functional as F
 
 from scalable_agent_tpu_torch.ops import _build
 
-LAUNCHES = {"stem_gradw": 0}
+LAUNCHES = {"stem_gradw": 0, "stem_gradw_bf16": 0}
+# Operand dtypes the kernel takes: its C entry point and launch counter.
+_VARIANTS = {torch.float32: ("sat_conv_gradw", "stem_gradw"),
+             torch.bfloat16: ("sat_conv_gradw_bf16", "stem_gradw_bf16")}
 
 # (K, S, C, F) that csrc/conv.cu is built for: the torso's stem.
 STEM = (8, 4, 3, 32)
@@ -52,28 +61,33 @@ def same_pads(size: int, k: int, s: int) -> Tuple[int, Tuple[int, int]]:
     return out, (total // 2, total - total // 2)
 
 
-def conv2d_same(x, w, stride: int, bias=None):
+def conv2d_same(x, w, stride: int):
     """NCHW conv with XLA's SAME padding: symmetric pads go to ``conv2d``
     itself, an asymmetric pair is applied with ``F.pad`` first."""
     _, (top, bottom) = same_pads(x.shape[2], w.shape[2], stride)
     _, (left, right) = same_pads(x.shape[3], w.shape[3], stride)
     if top == bottom and left == right:
-        return F.conv2d(x, w, bias, stride, (top, left))
-    return F.conv2d(F.pad(x, (left, right, top, bottom)), w, bias, stride)
+        return F.conv2d(x, w, None, stride, (top, left))
+    return F.conv2d(F.pad(x, (left, right, top, bottom)), w, None, stride)
 
 
 def _library_gradw(x, g, k, s):
-    """The library weight gradient, HWIO (the ``K % S != 0`` route)."""
+    """The library weight gradient, HWIO, float32 (the ``K % S != 0``
+    route)."""
     _, (top, bottom) = same_pads(x.shape[1], k, s)
     _, (left, right) = same_pads(x.shape[2], k, s)
     xp = F.pad(x.permute(0, 3, 1, 2), (left, right, top, bottom))
     dw = torch.nn.grad.conv2d_weight(
         xp, (g.shape[-1], x.shape[-1], k, k), g.permute(0, 3, 1, 2), s)
-    return dw.permute(2, 3, 1, 0).contiguous()
+    return dw.permute(2, 3, 1, 0).float().contiguous()
 
 
 def conv_gradw_plain(x, g, kernel_size: int, stride: int):
-    """The plain version: pad, gather the K*K taps, one contraction."""
+    """The plain version: pad, gather the K*K taps, one contraction summed
+    in float32.  bf16 x and g are the products' operands exactly (their
+    float32 values), as ``conv_pallas.conv_gradw`` rounds its operands at
+    ``matmul_dtype="bfloat16"``."""
+    x, g = x.float(), g.float()
     k, s = int(kernel_size), int(stride)
     n, height, width, c = x.shape
     _, out_h, out_w, f = g.shape
@@ -168,16 +182,16 @@ def _sm_count(index: int) -> int:
 
 def conv_gradw(x, g, kernel_size: int, stride: int):
     """Weight gradient of the SAME-padded ``kernel_size``/``stride`` conv:
-    x [N,H,W,C], g [N,OH,OW,F] float32 -> dW [K,K,C,F] float32.  On the
-    CPU any strides; on the card each of x and g contiguous NHWC or an NHWC
-    view of contiguous NCHW (as the stem's backward hands them over)."""
+    x [N,H,W,C], g [N,OH,OW,F], both float32 or both bfloat16 (the
+    products' operand type) -> dW [K,K,C,F] float32.  On the CPU any
+    strides; on the card each of x and g contiguous NHWC or an NHWC view of
+    contiguous NCHW (as the stem's backward hands them over)."""
     k, s = int(kernel_size), int(stride)
     n, height, width, c = x.shape
-    if g.shape[0] != n or x.dtype != torch.float32 or (
-            g.dtype != torch.float32):
-        raise ValueError(f"need float32 x [N,H,W,C] and g [N,OH,OW,F], got "
-                         f"{x.dtype} {tuple(x.shape)} and {g.dtype} "
-                         f"{tuple(g.shape)}")
+    if g.shape[0] != n or x.dtype not in _VARIANTS or g.dtype != x.dtype:
+        raise ValueError(f"need x [N,H,W,C] and g [N,OH,OW,F] both float32 "
+                         f"or both bfloat16, got {x.dtype} {tuple(x.shape)} "
+                         f"and {g.dtype} {tuple(g.shape)}")
     out_h, (top, _) = same_pads(height, k, s)
     out_w, (left, _) = same_pads(width, k, s)
     if tuple(g.shape[1:3]) != (out_h, out_w):
@@ -198,14 +212,15 @@ def conv_gradw(x, g, kernel_size: int, stride: int):
                       _sm_count(x.device.index))
     partial = torch.empty((plan.blocks, k * k * c * f), dtype=torch.float32,
                           device=x.device)
-    code = _build.library().sat_conv_gradw(
+    entry, counter = _VARIANTS[x.dtype]
+    code = getattr(_build.library(), entry)(
         x.data_ptr(), g.data_ptr(), partial.data_ptr(), dw.data_ptr(),
         height, width, out_h, out_w, top, left, plan.band_rows, plan.bands,
         plan.xrs, plan.x_floats, plan.gps, plan.stage_floats,
         plan.smem_bytes, int(x_chw), int(g_chw), plan.units, plan.blocks,
         torch.cuda.current_stream().cuda_stream)
     _build.check(code, "stem grad-W kernel")
-    _build.count_launch(LAUNCHES, "stem_gradw")
+    _build.count_launch(LAUNCHES, counter)
     return dw
 
 
@@ -229,13 +244,16 @@ class _StemConv(torch.autograd.Function):
                 xx = x.detach().requires_grad_(True)
                 dx, = torch.autograd.grad(conv2d_same(xx, w, s), xx, g)
         if ctx.needs_input_grad[1]:
+            # dW is summed in float32 and rounded to the weight's dtype, as
+            # conv_pallas.py's VJP rounds it.
             dw = conv_gradw(x.permute(0, 2, 3, 1), g.permute(0, 2, 3, 1),
-                            w.shape[2], s).permute(3, 2, 0, 1)
+                            w.shape[2], s).permute(3, 2, 0, 1).to(w.dtype)
         return dx, dw, None
 
 
 def stem_conv(x, w, stride: int = 4):
     """SAME-padded conv, x NCHW, w OIHW (square kernel and stride), whose
     weight gradient is the grad-W kernel above.  Numerically the forward
-    IS ``conv2d`` with XLA's SAME padding; only d/dW is computed by hand."""
+    IS ``conv2d`` with XLA's SAME padding; only d/dW is computed by hand.
+    x and w share a dtype, float32 or bfloat16, and so does dW."""
     return _StemConv.apply(x, w, stride)

@@ -5,9 +5,18 @@ The counterpart of ``scalable_agent_tpu/ops/lstm_pallas.py``, with the same
 math and parameter layout: gate order (i, f, g, o); i/f/o sigmoid, g tanh;
 ``c' = f*c + i*g``; ``h' = o*tanh(c')``; the carry is multiplied by
 ``1 - done`` BEFORE each step; ``Wi [D,4H]``, ``Wh [H,4H]``, ``b [4H]``.
-Everything is float32 (the JAX package's ``matmul_dtype="float32"``).
+Every tensor is float32.  ``matmul_dtype`` is the JAX package's: the
+operand type of the products (x.Wi and h.Wh; in BPTT dx, dh_prev, dWi and
+dWh), ``"float32"`` or ``"bfloat16"`` -- the latter rounds each operand to
+bf16 (``.to(bfloat16)``, round-to-nearest-even) and sums the exact
+products in float32, as ``lstm_pallas.py::_mm`` does.  Carries, outputs,
+residuals, the bias and db stay float32 (db sums the unrounded dgates).
+``compute_dtype=bfloat16`` resolves to ``"bfloat16"`` (config.py).
 
-Kernels (``csrc/lstm.cu``), one launch counter each in ``LAUNCHES``:
+Kernels (``csrc/lstm.cu``), one launch counter each in ``LAUNCHES`` per
+operand type (the bf16 variants' counters end in ``_bf16``; each kernel is
+a template on its operand type, reading float32 and rounding in
+registers):
 
 - ``lstm_fwd_lean`` replaces ``lstm_pallas.py::_fwd_kernel_lean`` (ys and
   the final carry only; actor inference and every forward that needs no
@@ -44,7 +53,22 @@ import torch
 
 from scalable_agent_tpu_torch.ops import _build
 
-LAUNCHES = {"lstm_fwd_lean": 0, "lstm_fwd_resid": 0, "lstm_bptt": 0}
+MATMUL_DTYPES = ("float32", "bfloat16")
+LAUNCHES = {name + suffix: 0
+            for name in ("lstm_fwd_lean", "lstm_fwd_resid", "lstm_bptt")
+            for suffix in ("", "_bf16")}
+
+
+def _check_matmul_dtype(matmul_dtype: str) -> str:
+    if matmul_dtype not in MATMUL_DTYPES:
+        raise ValueError(
+            f"matmul_dtype must be float32 or bfloat16, got {matmul_dtype!r}")
+    return matmul_dtype
+
+
+def _suffix(matmul_dtype: str) -> str:
+    """The suffix of a variant's C entry points and launch counters."""
+    return "_bf16" if _check_matmul_dtype(matmul_dtype) == "bfloat16" else ""
 
 
 class Residuals(NamedTuple):
@@ -75,14 +99,24 @@ class Gradients(NamedTuple):
 # -- plain PyTorch versions --------------------------------------------------
 
 
-def _cell(x_t, done_t, c, h, wi, wh, b):
+def _mm(a, b, matmul_dtype: str):
+    """``a @ b`` of float32 tensors with the operands rounded to
+    ``matmul_dtype`` and the products summed in float32
+    (``lstm_pallas.py::_mm``)."""
+    if matmul_dtype == "bfloat16":
+        a = a.to(torch.bfloat16).float()
+        b = b.to(torch.bfloat16).float()
+    return a @ b
+
+
+def _cell(x_t, done_t, c, h, wi, wh, b, matmul_dtype="float32"):
     """One done-reset step: the carry is multiplied by ``1 - done`` before
     it.  Returns ((i, f, g, o), post-reset c, post-reset h, c', h')."""
     hidden = c.shape[-1]
     keep = (1.0 - done_t)[:, None]
     c = keep * c
     h = keep * h
-    gates = x_t @ wi + h @ wh + b
+    gates = _mm(x_t, wi, matmul_dtype) + _mm(h, wh, matmul_dtype) + b
     i = torch.sigmoid(gates[:, :hidden])
     f = torch.sigmoid(gates[:, hidden:2 * hidden])
     g = torch.tanh(gates[:, 2 * hidden:3 * hidden])
@@ -91,19 +125,22 @@ def _cell(x_t, done_t, c, h, wi, wh, b):
     return (i, f, g, o), c, h, c_new, o * torch.tanh(c_new)
 
 
-def lstm_step_plain(x_t, done_t, c, h, wi, wh, b):
+def lstm_step_plain(x_t, done_t, c, h, wi, wh, b, matmul_dtype="float32"):
     """The plain version of the lean step kernel: (h', c')."""
-    *_, c_new, h_new = _cell(x_t, done_t, c, h, wi, wh, b)
+    *_, c_new, h_new = _cell(x_t, done_t, c, h, wi, wh, b,
+                             _check_matmul_dtype(matmul_dtype))
     return h_new, c_new
 
 
-def lstm_forward_plain(x, done, c0, h0, wi, wh, b,
-                       residuals: bool) -> Forward:
+def lstm_forward_plain(x, done, c0, h0, wi, wh, b, residuals: bool,
+                       matmul_dtype: str = "float32") -> Forward:
     """The forward as a loop of plain tensor ops over T."""
+    _check_matmul_dtype(matmul_dtype)
     c, h = c0, h0
     ys, stash = [], []
     for t in range(x.shape[0]):
-        gates, c_post, h_post, c, h = _cell(x[t], done[t], c, h, wi, wh, b)
+        gates, c_post, h_post, c, h = _cell(x[t], done[t], c, h, wi, wh, b,
+                                            matmul_dtype)
         if residuals:
             stash.append((torch.cat(gates, dim=-1), c_post, h_post, c))
         ys.append(h)
@@ -113,10 +150,13 @@ def lstm_forward_plain(x, done, c0, h0, wi, wh, b,
     return Forward(torch.stack(ys), c, h, res)
 
 
-def lstm_backward_plain(dys, dct, dht, x, done, wi, wh,
-                        res: Residuals) -> Gradients:
+def lstm_backward_plain(dys, dct, dht, x, done, wi, wh, res: Residuals,
+                        matmul_dtype: str = "float32") -> Gradients:
     """BPTT as a reverse loop of plain tensor ops (the math of
-    ``lstm_pallas.py::_bwd_kernel``)."""
+    ``lstm_pallas.py::_bwd_kernel``: dgates, x and hpost are product
+    operands, db sums the float32 dgates)."""
+    _check_matmul_dtype(matmul_dtype)
+    mm = lambda a, b: _mm(a, b, matmul_dtype)
     hidden = dct.shape[-1]
     dc, dh = dct, dht
     dwi = torch.zeros_like(wi)
@@ -137,10 +177,10 @@ def lstm_backward_plain(dys, dct, dht, x, done, wi, wh,
         di = dc * g * i * (1.0 - i)
         dg = dc * i * (1.0 - g * g)
         dgates = torch.cat([di, df, dg, do], dim=-1)
-        dxs.append(dgates @ wi.T)
-        dh_prev = dgates @ wh.T
-        dwi = dwi + x[t].T @ dgates
-        dwh = dwh + res.hpost[t].T @ dgates
+        dxs.append(mm(dgates, wi.T))
+        dh_prev = mm(dgates, wh.T)
+        dwi = dwi + mm(x[t].T, dgates)
+        dwh = dwh + mm(res.hpost[t].T, dgates)
         db = db + dgates.sum(dim=0)
         keep = (1.0 - done[t])[:, None]
         dc = dc * f * keep
@@ -225,37 +265,41 @@ def lean_forward(step: Step, x, done, c0, h0) -> Forward:
                    None)
 
 
-def _step_kernel(lib, wi, wh, b):
-    """The lean step kernel as a ``Step``; operands checked by the
-    caller."""
+def _step_kernel(lib, wi, wh, b, suffix):
+    """The lean step kernel of the variant ``suffix`` as a ``Step``;
+    operands checked by the caller."""
     in_dim, hidden = wi.shape[0], wh.shape[0]
+    entry = getattr(lib, "sat_lstm_step" + suffix)
 
     def step(x_t, done_t, c, h):
         batch = x_t.shape[0]
         y = torch.empty((batch, hidden), dtype=torch.float32,
                         device=x_t.device)
         c_new = torch.empty_like(y)
-        code = lib.sat_lstm_step(
+        code = entry(
             x_t.data_ptr(), done_t.data_ptr(), c.data_ptr(), h.data_ptr(),
             wi.data_ptr(), wh.data_ptr(), b.data_ptr(), y.data_ptr(),
             c_new.data_ptr(), batch, in_dim, hidden, _stream())
         _build.check(code, "lstm step kernel")
-        _build.count_launch(LAUNCHES, "lstm_fwd_lean")
+        _build.count_launch(LAUNCHES, "lstm_fwd_lean" + suffix)
         return y, c_new
 
     return step
 
 
-def lstm_forward(x, done, c0, h0, wi, wh, b, residuals: bool) -> Forward:
+def lstm_forward(x, done, c0, h0, wi, wh, b, residuals: bool,
+                 matmul_dtype: str = "float32") -> Forward:
     """Done-reset LSTM forward.  ``residuals=False`` is the lean variant
     (``_fwd_kernel_lean``, as ``lean_forward`` over the step kernel),
     ``True`` also stashes what BPTT needs (``_fwd_kernel``)."""
+    suffix = _suffix(matmul_dtype)
     if _build.on_cpu("LSTM", x, done, c0, h0, wi, wh, b):
         if residuals:
-            return lstm_forward_plain(x, done, c0, h0, wi, wh, b, True)
+            return lstm_forward_plain(x, done, c0, h0, wi, wh, b, True,
+                                      matmul_dtype)
         return lean_forward(
-            lambda x_t, done_t, c, h: lstm_step_plain(x_t, done_t, c, h, wi,
-                                                      wh, b),
+            lambda x_t, done_t, c, h: lstm_step_plain(
+                x_t, done_t, c, h, wi, wh, b, matmul_dtype),
             x, done, c0, h0)
     steps, batch, in_dim = x.shape
     hidden = c0.shape[-1]
@@ -273,7 +317,8 @@ def lstm_forward(x, done, c0, h0, wi, wh, b, residuals: bool) -> Forward:
                          "vectors: they must be 16-byte aligned")
     lib = _build.library()
     if not residuals:
-        return lean_forward(_step_kernel(lib, wi, wh, b), x, done, c0, h0)
+        return lean_forward(_step_kernel(lib, wi, wh, b, suffix), x, done,
+                            c0, h0)
     empty = lambda *shape: torch.empty(shape, dtype=torch.float32,
                                        device=x.device)
     ys = empty(steps, batch, hidden)
@@ -284,28 +329,30 @@ def lstm_forward(x, done, c0, h0, wi, wh, b, residuals: bool) -> Forward:
                     empty(steps, batch, hidden))
     pre = empty(steps * batch, 4 * hidden)  # x.Wi + b, scratch
     plan = resid_plan(batch, hidden)
-    code = lib.sat_lstm_forward_resid(
+    code = getattr(lib, "sat_lstm_forward_resid" + suffix)(
         *(t.data_ptr() for t in (x, done, c0, h0, wi, wh, b, pre, ys, *res,
                                  c_out, h_out)),
         steps, batch, in_dim, hidden, plan.rows, plan.resident,
         plan.smem_bytes, _stream())
     _build.check(code, "lstm residual forward kernels")
-    _build.count_launch(LAUNCHES, "lstm_fwd_resid")
+    _build.count_launch(LAUNCHES, "lstm_fwd_resid" + suffix)
     return Forward(ys, c_out, h_out, res)
 
 
-def _gemm(lib, a, a_strides, b, b_strides, m, n, k, out):
-    code = lib.sat_sgemm(a.data_ptr(), *a_strides, b.data_ptr(), *b_strides,
-                         out.data_ptr(), m, n, k, _stream())
+def _gemm(entry, a, a_strides, b, b_strides, m, n, k, out):
+    code = entry(a.data_ptr(), *a_strides, b.data_ptr(), *b_strides,
+                 out.data_ptr(), m, n, k, _stream())
     _build.check(code, "lstm gemm kernel")
 
 
-def lstm_backward(dys, dct, dht, x, done, wi, wh,
-                  res: Residuals) -> Gradients:
+def lstm_backward(dys, dct, dht, x, done, wi, wh, res: Residuals,
+                  matmul_dtype: str = "float32") -> Gradients:
     """BPTT of ``lstm_forward(..., residuals=True)`` for the cotangents
     (dys, dcT, dhT)."""
+    suffix = _suffix(matmul_dtype)
     if _build.on_cpu("LSTM", dys, dct, dht, x, done, wi, wh, *res):
-        return lstm_backward_plain(dys, dct, dht, x, done, wi, wh, res)
+        return lstm_backward_plain(dys, dct, dht, x, done, wi, wh, res,
+                                   matmul_dtype)
     steps, batch, in_dim = x.shape
     hidden = wh.shape[0]
     gates = 4 * hidden
@@ -325,7 +372,7 @@ def lstm_backward(dys, dct, dht, x, done, wi, wh,
     dgates = empty(steps, batch, gates)
     dc0, dh0 = empty(batch, hidden), empty(batch, hidden)
     lib = _build.library()
-    code = lib.sat_lstm_backward_chain(
+    code = getattr(lib, "sat_lstm_backward_chain" + suffix)(
         dys.data_ptr(), done.data_ptr(), res.ifgo.data_ptr(),
         res.cpost.data_ptr(), res.cnew.data_ptr(), wh.data_ptr(),
         dct.data_ptr(), dht.data_ptr(), dgates.data_ptr(), dc0.data_ptr(),
@@ -335,24 +382,30 @@ def lstm_backward(dys, dct, dht, x, done, wi, wh,
     dx = empty(steps, batch, in_dim)
     dwi, dwh, db = empty(in_dim, gates), empty(hidden, gates), empty(gates)
     ones = torch.ones(1, dtype=torch.float32, device=x.device)
-    # dx = dgates . Wi^T;  dWi = x^T . dgates;  dWh = hpost^T . dgates;
-    # db = 1^T . dgates (a stride-0 row of ones).
-    _gemm(lib, dgates, (gates, 1), wi, (1, gates), rows, in_dim, gates, dx)
-    _gemm(lib, x, (1, in_dim), dgates, (gates, 1), in_dim, gates, rows, dwi)
-    _gemm(lib, res.hpost, (1, hidden), dgates, (gates, 1), hidden, gates,
+    # dx = dgates . Wi^T;  dWi = x^T . dgates;  dWh = hpost^T . dgates,
+    # at the operand type; db = 1^T . dgates (a stride-0 row of ones) sums
+    # the float32 dgates in both variants.
+    gemm = getattr(lib, "sat_sgemm" + suffix)
+    _gemm(gemm, dgates, (gates, 1), wi, (1, gates), rows, in_dim, gates, dx)
+    _gemm(gemm, x, (1, in_dim), dgates, (gates, 1), in_dim, gates, rows, dwi)
+    _gemm(gemm, res.hpost, (1, hidden), dgates, (gates, 1), hidden, gates,
           rows, dwh)
-    _gemm(lib, ones, (0, 0), dgates, (gates, 1), 1, gates, rows, db)
-    _build.count_launch(LAUNCHES, "lstm_bptt")
+    _gemm(lib.sat_sgemm, ones, (0, 0), dgates, (gates, 1), 1, gates, rows,
+          db)
+    _build.count_launch(LAUNCHES, "lstm_bptt" + suffix)
     return Gradients(dx, dc0, dh0, dwi, dwh, db)
 
 
 class _LSTMUnroll(torch.autograd.Function):
-    """Residual forward + BPTT kernel as one differentiable op."""
+    """Residual forward + BPTT kernel as one differentiable op; every
+    gradient is float32, as every input is."""
 
     @staticmethod
-    def forward(ctx, x, done, c0, h0, wi, wh, b):
-        out = lstm_forward(x, done, c0, h0, wi, wh, b, residuals=True)
+    def forward(ctx, x, done, c0, h0, wi, wh, b, matmul_dtype):
+        out = lstm_forward(x, done, c0, h0, wi, wh, b, residuals=True,
+                           matmul_dtype=matmul_dtype)
         ctx.save_for_backward(x, done, wi, wh, *out.residuals)
+        ctx.matmul_dtype = matmul_dtype
         return out.ys, out.c, out.h
 
     @staticmethod
@@ -362,15 +415,16 @@ class _LSTMUnroll(torch.autograd.Function):
                                  else t.contiguous())
         grads = lstm_backward(
             zeros(dys, res[3]), zeros(dct, res[3][0]),
-            zeros(dht, res[3][0]), x, done, wi, wh, Residuals(*res))
+            zeros(dht, res[3][0]), x, done, wi, wh, Residuals(*res),
+            ctx.matmul_dtype)
         return (grads.dx, None, grads.dc0, grads.dh0, grads.dwi, grads.dwh,
-                grads.db)
+                grads.db, None)
 
 
-def lstm_unroll(x, done, c0, h0, wi, wh, b
+def lstm_unroll(x, done, c0, h0, wi, wh, b, matmul_dtype: str = "float32"
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Fused done-reset LSTM unroll, the contract of
-    ``lstm_pallas.lstm_unroll``.
+    ``lstm_pallas.lstm_unroll`` (``matmul_dtype`` as there).
 
     x [T,B,D] float32, done [T,B] float32 (1.0 resets the carry BEFORE the
     step), c0/h0 [B,H], wi [D,4H], wh [H,4H], b [4H] in (i,f,g,o) order.
@@ -379,9 +433,11 @@ def lstm_unroll(x, done, c0, h0, wi, wh, b
     requires one) it runs the lean forward, which writes no residuals.
     """
     args = (x, done, c0, h0, wi, wh, b)
+    _check_matmul_dtype(matmul_dtype)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, c0, h0, wi, wh, b)):
-        ys, c, h = _LSTMUnroll.apply(*args)
+        ys, c, h = _LSTMUnroll.apply(*args, matmul_dtype)
     else:
-        ys, c, h, _ = lstm_forward(*args, residuals=False)
+        ys, c, h, _ = lstm_forward(*args, residuals=False,
+                                   matmul_dtype=matmul_dtype)
     return ys, (c, h)

@@ -8,7 +8,11 @@ The counterpart of ``scalable_agent_tpu/runtime/actor.py``:
   experiment.py:311-321), and the first-ever unroll bootstraps from a zero
   action and a zero agent output (experiment.py:243-251).  Inference runs
   ``actor_step`` under ``torch.no_grad()``, so the LSTM core takes its
-  lean kernel.
+  lean kernel.  The agent's dtype policy holds here as in the learner:
+  at ``compute_dtype=bfloat16`` the torso and heads cast their float32
+  parameters at each step, as the JAX actor's jitted step does, and the
+  lean kernel reads the float32 Wi/Wh and rounds them to bf16 in
+  registers, so no bf16 copy of them is kept per ``load_params``.
 - ``ActorPool`` (``inference_mode="structural"``) runs one thread per
   group, each on its own CUDA stream, with a private copy of the agent.
   Trajectories (numpy) go through a bounded queue of one slot per group.

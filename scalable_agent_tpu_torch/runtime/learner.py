@@ -23,6 +23,10 @@ resolves to ``"associative"``, as the JAX learner resolves it on a mesh
 without a seq axis (the port has none); ``"pallas"`` runs the fused CUDA
 kernel (``ops/vtrace_cuda.py``).
 
+Parameters, their gradients, the loss, V-trace and RMSProp's ``nu`` are
+float32 under either compute dtype: the agent casts its outputs to float32
+and its parameters are float32 (the dtype policy, models/agent.py).
+
 The parameters live in the agent module; ``TrainState`` holds what the JAX
 TrainState holds besides them.  ``state_dict``/``load_state_dict`` give the
 whole of it (parameters included) for checkpoints.  Device telemetry and

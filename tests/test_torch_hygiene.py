@@ -96,12 +96,12 @@ def test_flag_lists_cover_the_jax_config():
     assert ours.isdisjoint(UNPORTED_FLAGS)
     assert ours | set(UNPORTED_FLAGS) == jax_fields
     for f in dataclasses.fields(Config):
-        if f.name in jax_fields and f.name != "compute_dtype":
+        if f.name in jax_fields:
             assert f.default == getattr(jax_config.Config(), f.name), f.name
 
 
 @pytest.mark.parametrize("argv", [["--record_to=/x"], ["--trace", "true"],
-                                  ["--compute_dtype=bfloat16"],
+                                  ["--compute_dtype=float16"],
                                   ["--scan_impl=time_sharded"],
                                   ["--inference_mode=service"],
                                   ["--torso_type=resnet"]])

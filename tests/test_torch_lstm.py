@@ -135,9 +135,9 @@ def test_no_grad_runs_the_lean_forward(monkeypatch):
     seen = []
     real = lstm_cuda.lstm_forward
 
-    def spy(*args, residuals):
+    def spy(*args, residuals, **kwargs):
         seen.append(residuals)
-        return real(*args, residuals=residuals)
+        return real(*args, residuals=residuals, **kwargs)
 
     monkeypatch.setattr(lstm_cuda, "lstm_forward", spy)
     t = _torch(_inputs(8), requires_grad=True)
