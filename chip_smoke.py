@@ -34,7 +34,13 @@ a result:
    bitwise equal, the BPTT must agree fed by its residuals and at T=5,
    and the forward's device
    time (torch.profiler, both kernels) must be below ``RESID_MAX_MS``;
-   the occupancy query's count of co-resident clusters is printed.
+   the occupancy query's count of co-resident clusters is printed.  The
+   BPTT (reverse-chain kernel, products, reduction) is held the same way
+   (B in {1, 33, 64}, T=1, the forced resets, H=32, and [8, 4] at H=512),
+   two calls must be bitwise equal, and its device time (every kernel it
+   launches, split into chain, products and reduction) must be below
+   ``BPTT_MAX_MS``; cuBLAS's time for its three products is printed as
+   the products' yardstick.
    Grad-W is also held at N=1, N=3233,
    17x23 frames (asymmetric SAME pads) and in both input layouts the torso
    can hand over (contiguous NHWC, an NHWC view of NCHW memory), two calls
@@ -107,6 +113,8 @@ LSTM_BF16_LONG_TOL = 3e-3
 AGENT_BF16_TOL = 2e-2       # the CPU tests' band for the bf16 policy
 RESID_MAX_MS = 5.9          # residual forward device time: half of the
                             # one-block-per-row loop's 11.94 ms (PERF.md)
+BPTT_MAX_MS = 2.27          # BPTT device time, every kernel: half of the
+                            # one-block-per-row chain's bf16 4.540 ms
 GRADW_TOL = 1e-4            # scale-relative over 1.4 M summed rows
 AGENT_TOL = 1e-3            # whole model: cuDNN convs vs CPU convs
 VTRACE_TOL = 1e-5           # scale-relative; FMA contraction on the card
@@ -143,10 +151,9 @@ def _time_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(torch, fn, kernel, iters):
-    """Mean device milliseconds per call of the kernels whose name holds
-    one of ``kernel`` (a string or a tuple of them; None for every kernel
-    the call launches), from torch.profiler: the kernels' own time, without
+def _kernel_ms(torch, fn, iters):
+    """Mean device milliseconds per call of each kernel ``fn`` launches,
+    by kernel name, from torch.profiler: the kernels' own time, without
     the host's launch overhead that a loop of small launches is bound by."""
     fn()
     torch.cuda.synchronize()
@@ -156,14 +163,32 @@ def _device_ms(torch, fn, kernel, iters):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    names = (kernel,) if isinstance(kernel, str) else kernel
-    us = 0.0
+    ms = {}
     for evt in prof.key_averages():
-        if evt.device_type == torch.autograd.DeviceType.CUDA and (
-                names is None or any(n in evt.key for n in names)):
-            us += getattr(evt, "self_device_time_total", None) or getattr(
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(evt, "self_device_time_total", None) or getattr(
                 evt, "self_cuda_time_total", 0.0)
-    return us / 1e3 / iters
+            ms[evt.key] = ms.get(evt.key, 0.0) + us / 1e3 / iters
+    return ms
+
+
+def _matching(ms, kernel):
+    """The sum of ``ms`` over the kernels whose name holds one of
+    ``kernel`` (a string or a tuple of them; None for every kernel)."""
+    names = (kernel,) if isinstance(kernel, str) else kernel
+    return sum(t for key, t in ms.items()
+               if names is None or any(n in key for n in names))
+
+
+def _kernel_name(key):
+    """A profiler key without its namespace and argument list."""
+    return key.split("::")[-1].split("(")[0]
+
+
+def _device_ms(torch, fn, kernel, iters):
+    """Mean device milliseconds per call of the kernels of ``fn`` whose
+    name holds one of ``kernel`` (see ``_matching``)."""
+    return _matching(_kernel_ms(torch, fn, iters), kernel)
 
 
 def _errors(pairs):
@@ -325,9 +350,14 @@ def compare_lstm(torch, lstm_cuda, device, matmul_dtype="float32"):
     bargs = (dys, dct, dht, x, done, wi, wh, res, matmul_dtype)
     kern = lstm_cuda.lstm_backward(*bargs)
     plain = lstm_cuda.lstm_backward_plain(*bargs)
+    again = lstm_cuda.lstm_backward(*bargs)
     torch.cuda.synchronize()
     err = _errors(zip(kern, plain))
     _check(f"lstm_bptt{tag}", *err, tol)
+    if not all(torch.equal(p, q) for p, q in zip(kern, again)):
+        raise AssertionError(f"lstm_bptt{tag}: two calls gave different "
+                             f"gradients")
+    print(f"  lstm_bptt{tag}: two calls bitwise equal", flush=True)
     chained = lstm_cuda.lstm_backward(*bargs[:7], fwd.residuals,
                                       matmul_dtype)
     _check(f"lstm_bptt{tag} on the residual forward kernels' residuals",
@@ -340,10 +370,11 @@ def compare_lstm(torch, lstm_cuda, device, matmul_dtype="float32"):
     _check(f"lstm_bptt{tag} T=5", *_errors(zip(
         lstm_cuda.lstm_backward(*bargs5),
         lstm_cuda.lstm_backward_plain(*bargs5))), short_tol)
-    bptt_ms = _device_ms(torch, lambda: lstm_cuda.lstm_backward(*bargs),
-                         ("lstm_bwd_chain_kernel", "sgemm_kernel<false"), 10)
-    print(f"  lstm_bptt{tag}: device time {bptt_ms:.4f} ms (torch.profiler, "
-          f"chain and GEMMs)", flush=True)
+    compare_bptt_shapes(torch, lstm_cuda, device, gen, wi, b, matmul_dtype)
+    bptt_ms = bptt_device_ms(torch, lstm_cuda, bargs)
+    if not bptt_ms < BPTT_MAX_MS:
+        raise AssertionError(f"the BPTT's device time {bptt_ms:.4f} ms is "
+                             f"not below {BPTT_MAX_MS} ms")
     nbytes = f4 * (T * B * H + 2 * B * H + T * B * D + T * B
                    + T * B * 4 * H + 3 * T * B * H + (D + H) * 4 * H
                    + T * B * D + (D + H + 1) * 4 * H + 2 * B * H)
@@ -362,6 +393,35 @@ def _resid_outputs(out):
     return out[:3] + tuple(out.residuals)
 
 
+def _shape_case(torch, gen, device, wi, b, steps, batch, hidden,
+                done=None):
+    """Forward inputs (x, done, c0, h0, Wi, Wh, b) of another shape, drawn
+    from ``gen``: the main path's Wi and b where H is theirs."""
+    D, H = wi.shape[0], wi.shape[1] // 4
+    rand = lambda *shape, scale=1.0: (
+        torch.randn(shape, generator=gen) * scale).to(device)
+    x = rand(steps, batch, D)
+    if done is None:
+        done = (torch.rand((steps, batch), generator=gen) < 0.05).float()
+    c0 = rand(batch, hidden, scale=0.5)
+    h0 = torch.tanh(rand(batch, hidden))
+    if hidden == H:
+        wi_, b_ = wi, b
+    else:
+        wi_ = rand(D, 4 * hidden, scale=D ** -0.5)
+        b_ = rand(4 * hidden, scale=0.1)
+    wh_ = rand(hidden, 4 * hidden, scale=hidden ** -0.5)
+    return x, done.to(device), c0, h0, wi_, wh_, b_
+
+
+def _forced_resets(torch, gen):
+    """A [101, 32] done with ~5% ones, all ones at t=0 and in column 5."""
+    done = (torch.rand((101, 32), generator=gen) < 0.05).float()
+    done[0] = 1.0
+    done[:, 5] = 1.0
+    return done
+
+
 def compare_resid_shapes(torch, lstm_cuda, device, gen, wi, b,
                          matmul_dtype="float32"):
     """The residual forward at batch sizes that fill the clusters unevenly
@@ -369,23 +429,11 @@ def compare_resid_shapes(torch, lstm_cuda, device, gen, wi, b,
     and on a whole column, and at H=512, where a CTA's slice of Wh does
     not fit its shared memory and the rest is read from L2."""
     tag = " bf16" if matmul_dtype == "bfloat16" else ""
-    D, H = wi.shape[0], wi.shape[1] // 4
-    rand = lambda *shape, scale=1.0: (
-        torch.randn(shape, generator=gen) * scale).to(device)
+    D = wi.shape[0]
 
     def check(name, steps, batch, hidden, done=None):
-        x = rand(steps, batch, D)
-        if done is None:
-            done = (torch.rand((steps, batch), generator=gen) < 0.05).float()
-        c0 = rand(batch, hidden, scale=0.5)
-        h0 = torch.tanh(rand(batch, hidden))
-        if hidden == H:
-            wi_, b_ = wi, b
-        else:
-            wi_ = rand(D, 4 * hidden, scale=D ** -0.5)
-            b_ = rand(4 * hidden, scale=0.1)
-        wh_ = rand(hidden, 4 * hidden, scale=hidden ** -0.5)
-        args = (x, done.to(device), c0, h0, wi_, wh_, b_)
+        args = _shape_case(torch, gen, device, wi, b, steps, batch, hidden,
+                           done)
         kern = lstm_cuda.lstm_forward(*args, residuals=True,
                                       matmul_dtype=matmul_dtype)
         plain = lstm_cuda.lstm_forward_plain(*args, residuals=True,
@@ -398,14 +446,100 @@ def compare_resid_shapes(torch, lstm_cuda, device, gen, wi, b,
                *_errors(zip(_resid_outputs(kern), _resid_outputs(plain))),
                _lstm_tol(matmul_dtype, steps))
 
+    H = wi.shape[1] // 4
     for batch in (1, 33, 64):
         check("", 101, batch, H)
     check("", 1, 32, H)
-    done = (torch.rand((101, 32), generator=gen) < 0.05).float()
-    done[0] = 1.0
-    done[:, 5] = 1.0
-    check("done=1 at t=0 and in column 5, ", 101, 32, H, done)
+    check("done=1 at t=0 and in column 5, ", 101, 32, H,
+          _forced_resets(torch, gen))
     check("streamed Wh tail ", 8, 4, 512)
+
+
+def compare_bptt_shapes(torch, lstm_cuda, device, gen, wi, b,
+                        matmul_dtype="float32"):
+    """BPTT, on the plain forward's residuals, at batch sizes that fill
+    the clusters unevenly or leave one cluster (B=1, 33, 64), at T=1, with
+    a done of 1 at t=0 and on a whole column, at H=32 (4 units a CTA), and
+    at H=512, where a CTA's rows of Wh do not fit its shared memory and
+    the rest is read from L2."""
+    tag = " bf16" if matmul_dtype == "bfloat16" else ""
+    D = wi.shape[0]
+
+    def check(name, steps, batch, hidden, done=None):
+        args = _shape_case(torch, gen, device, wi, b, steps, batch, hidden,
+                           done)
+        res = lstm_cuda.lstm_forward_plain(
+            *args, residuals=True, matmul_dtype=matmul_dtype).residuals
+        cot = lambda *shape: torch.randn(shape, generator=gen).to(device)
+        bargs = (cot(steps, batch, hidden), cot(batch, hidden),
+                 cot(batch, hidden), args[0], args[1], args[4], args[5], res,
+                 matmul_dtype)
+        kern = lstm_cuda.lstm_backward(*bargs)
+        plain = lstm_cuda.lstm_backward_plain(*bargs)
+        torch.cuda.synchronize()
+        plan = lstm_cuda.bptt_plan(batch, hidden)
+        _check(f"lstm_bptt{tag} {name}[{steps},{batch},{D}] H={hidden} "
+               f"(R={plan.rows}, {plan.clusters} clusters, Wh depth "
+               f"resident {plan.resident} of {hidden})",
+               *_errors(zip(kern, plain)), _lstm_tol(matmul_dtype, steps))
+
+    H = wi.shape[1] // 4
+    for batch in (1, 33, 64):
+        check("", 101, batch, H)
+    check("", 1, 32, H)
+    check("done=1 at t=0 and in column 5, ", 101, 32, H,
+          _forced_resets(torch, gen))
+    check("", 101, 32, 32)
+    check("streamed Wh tail ", 8, 4, 512)
+
+
+BPTT_CHAIN = "bptt_chain_kernel"
+BPTT_GEMMS = ("bptt_dx_kernel", "bptt_dw_kernel", "sgemm_kernel<false")
+BPTT_REDUCE = "bptt_reduce_kernel"
+
+
+def bptt_device_ms(torch, lstm_cuda, bargs):
+    """The BPTT's device time at the main path's shapes, every kernel it
+    launches (torch.profiler): the chain, the products and the reduction;
+    the co-resident cluster count; and, as the products' yardstick only,
+    cuBLAS's time for the same three products at the operand type
+    (torch.matmul, which the port never calls)."""
+    dys, _, _, x, _, wi, _, res, matmul_dtype = bargs
+    steps, batch, in_dim = x.shape
+    hidden = dys.shape[-1]
+    plan = lstm_cuda.bptt_plan(batch, hidden)
+    active = lstm_cuda.bptt_active_clusters(plan, hidden)
+    ms = _kernel_ms(torch, lambda: lstm_cuda.lstm_backward(*bargs), 10)
+    chain, gemms = _matching(ms, BPTT_CHAIN), _matching(ms, BPTT_GEMMS)
+    reduce = _matching(ms, BPTT_REDUCE)
+    total = _matching(ms, (BPTT_CHAIN, BPTT_REDUCE) + BPTT_GEMMS)
+    kernels = ", ".join(f"{_kernel_name(k)} {v:.4f}" for k, v in ms.items())
+    print(f"  lstm_bptt {matmul_dtype} [{steps},{batch},{in_dim}] "
+          f"H={hidden}: device time {total:.4f} ms = chain {chain:.4f} + "
+          f"products {gemms:.4f} + reduction (db, dW slices) {reduce:.4f} "
+          f"(torch.profiler: {kernels}); "
+          f"plan {plan.clusters} clusters of 8 CTAs, R={plan.rows}, "
+          f"{plan.smem_bytes} bytes of shared memory a CTA; the card holds "
+          f"{active} such clusters at once", flush=True)
+    if active < plan.clusters:
+        print(f"  (the plan's {plan.clusters} clusters run in waves)",
+              flush=True)
+    if abs(total - sum(ms.values())) > 1e-9:
+        raise AssertionError(f"the BPTT launched kernels the profiler "
+                             f"filter does not count: {sorted(ms)}")
+    dtype = torch.bfloat16 if matmul_dtype == "bfloat16" else torch.float32
+    rows = steps * batch
+    dg = torch.randn((rows, 4 * hidden), device=x.device).to(dtype)
+    src = torch.cat([x.reshape(rows, in_dim),
+                     res.hpost.reshape(rows, hidden)], dim=1).to(dtype)
+    wi_t = wi.to(dtype)
+    cublas = _device_ms(torch, lambda: (dg @ wi_t.t(), src.t() @ dg), None,
+                        10)
+    print(f"  (cuBLAS {dtype} torch.matmul for the same products, dx = "
+          f"dgates.Wi^T and [dWi; dWh] = [x | hpost]^T.dgates: "
+          f"{cublas:.4f} ms device time; the products' yardstick, not "
+          f"the BPTT's)", flush=True)
+    return total
 
 
 def resid_device_ms(torch, lstm_cuda, args, matmul_dtype="float32"):
@@ -725,12 +859,16 @@ def breakdown(torch, driver, config):
           f"in the profiled update", flush=True)
     for name, us in sorted(device_us.items(), key=lambda kv: -kv[1])[:12]:
         print(f"    {us / 1e3:9.3f} ms  {name[:90]}", flush=True)
-    fwd = [(name.split("::")[-1].split("(")[0], us / 1e3)
-           for name, us in device_us.items()
-           if "sgemm_kernel<true" in name or "lstm_resid_kernel" in name]
-    print(f"  residual LSTM forward in the update: "
-          f"{sum(ms for _, ms in fwd):.3f} ms "
-          f"({', '.join(f'{n} {ms:.3f}' for n, ms in fwd)})", flush=True)
+    for what, names in (
+            ("residual LSTM forward", ("sgemm_kernel<true",
+                                       "lstm_resid_kernel")),
+            ("LSTM BPTT", (BPTT_CHAIN, BPTT_REDUCE) + BPTT_GEMMS)):
+        parts = [(_kernel_name(name), us / 1e3)
+                 for name, us in device_us.items()
+                 if any(n in name for n in names)]
+        print(f"  {what} in the update: {sum(ms for _, ms in parts):.3f} ms "
+              f"({', '.join(f'{n} {ms:.3f}' for n, ms in parts)})",
+              flush=True)
 
 
 def _rows(logdir):

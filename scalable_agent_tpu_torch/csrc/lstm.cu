@@ -52,23 +52,52 @@
 //     one cluster.sync() per step separates the reads of one step from
 //     the writes of the next.  No atomics: calls are bitwise repeatable.
 //
-// * lstm_bwd_chain_kernel    the sequential half of _bwd_kernel: the
-//   reverse dh/dc chain (one block per row, carried grads masked by keep),
-//   dgates [T,B,4H] stashed to device memory, and dh_prev = dgates.Wh^T as
-//   a warp-cooperative coalesced reduction.  The TPU kernel accumulated
-//   dWi/dWh/db across its sequential grid in VMEM scratch; blocks on Hopper
-//   cannot, so those products (and dx = dgates.Wi^T, which feeds no
-//   recurrence) leave the chain and run in sgemm_kernel over the T*B rows.
+// * bptt_chain_kernel + the products + bptt_reduce_kernel  replace
+//   _bwd_kernel (BPTT), one C call per variant (sat_lstm_backward[_bf16]).
+//   At T=101, B=32 the work is 5.2 GFLOP for dx, dWi and dWh plus 1.7 for
+//   the chain's dh_prev = dgates.Wh^T (7 us on bf16 tensor cores) over
+//   38 MB of operands (11 us at 3.35 TB/s); what made a one-block-per-row
+//   chain ~400x slower than that bound was latency: every step re-read
+//   1 MiB of Wh from L2 with dependent loads on 32 SMs, and a 1-row GEMM
+//   summed db.
+//   - The chain mirrors lstm_resid_kernel in reverse.  A cluster of 8 CTAs
+//     owns R batch rows; CTA r owns hidden units k in [r*H/8, (r+1)*H/8)
+//     and stages THEIR rows of Wh, all 4H columns, in shared memory once
+//     ([H/8, 4H]: 128 KiB at H=256; past `resident` depth positions the
+//     rest is read from L2 each step), so it computes dh_prev for its own
+//     units, which are the units its cells need.  A step: the owner thread
+//     of (row, unit j) holds dc and dh in registers, computes the 4 dgates
+//     of j from the step's residuals (loaded one step ahead, off the
+//     critical path), stashes them for the products, adds them to its
+//     float32 db sums and stores the rounded operands as one float4 into
+//     every CTA's double-buffered [R, H] x 4-gate dgates buffer through
+//     distributed shared memory; one cluster.sync(); each thread sums one
+//     unit over an eighth of the 4H depth for the R rows, the owner adds
+//     the 8 partials in a fixed order and chains dh and dc through the
+//     reset.  No atomics: calls are bitwise repeatable.
+//   - db: each owner sums its dgates over t in float32 registers and writes
+//     a [B, 4H] partial that bptt_reduce_kernel sums over B in row order:
+//     time, then batch, where the TPU kernel summed each step's batch,
+//     then time -- the same float32 terms, another rounding order.
+//   - dx = dgates.Wi^T and [dWi; dWh] = [x | hpost]^T.dgates leave the chain
+//     (the TPU kernel accumulated them across its sequential grid in VMEM
+//     scratch; blocks on Hopper cannot).  The bf16 variant stashes dgates
+//     as bf16 and runs them on bf16 tensor cores (bptt_dx_kernel,
+//     bptt_dw_kernel: mma.sync m16n8k16 from ldmatrix'd shared tiles,
+//     float32 accumulators, x, hpost and Wi rounded as they are staged);
+//     the 3232-deep weight gradient is cut into fixed K slices whose
+//     partials bptt_reduce_kernel sums in slice order.  The float32
+//     variant stashes float32 dgates and keeps sgemm_kernel<false, float>
+//     (TF32 stays off: no tensor cores).
 //
 // * sgemm_kernel             a strided f32 tiled GEMM (64x64 tiles, 16-deep
 //   k-slices in shared memory, 4x4 outputs per thread).  Strides make every
-//   transpose a view: dWi = x^T.dgates, dWh = hpost^T.dgates,
-//   db = 1^T.dgates (stride-0 ones) and dx = dgates.Wi^T.  Single pass,
-//   no atomics: each output is summed by one thread in row order, so the
-//   result is deterministic.  The instances with a bias epilogue,
-//   sgemm_kernel<true, Op>, are the residual forward's input projection,
-//   so the profiler tells the forward's GEMM from BPTT's
-//   (sgemm_kernel<false, Op>).
+//   transpose a view: dWi = x^T.dgates, dWh = hpost^T.dgates and
+//   dx = dgates.Wi^T.  Single pass, no atomics: each output is summed by
+//   one thread in row order, so the result is deterministic.  The
+//   instances with a bias epilogue, sgemm_kernel<true, Op>, are the
+//   residual forward's input projection, so the profiler tells the
+//   forward's GEMM from BPTT's (sgemm_kernel<false, float>).
 //
 // Operand types.  Every kernel is a template on the type of its products'
 // operands, `Op`: float, or __nv_bfloat16 for the JAX package's
@@ -82,10 +111,11 @@
 // what JAX rounds: x, keep*h, Wi and Wh in the forwards; dgates, Wi and
 // Wh in dx and dh_prev, x, hpost and dgates in dWi and dWh.  Not rounded:
 // the carries, ys, every residual (hpost is the float32 h), the bias, and
-// db, which sums the float32 dgates (sgemm_kernel<false, float>).  The
+// db, which sums the float32 dgates in the chain.  The recurrent kernels'
 // shared-memory layouts stay float32, so the bf16 variant keeps the float
-// variant's geometry; it saves no bytes (a later design can stage bf16).
-// The entry points of the bf16 variant end in _bf16.
+// variant's geometry; only BPTT's products stage bf16 tiles (they feed
+// tensor cores) and its dgates stash is bf16.  The entry points of the
+// bf16 variant end in _bf16.
 //
 // Every entry point launches on the caller's stream, allocates nothing,
 // keeps no state between launches, and returns cudaGetLastError() so a
@@ -94,6 +124,9 @@
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <algorithm>
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -474,67 +507,479 @@ __global__ void __cluster_dims__(kResidCluster, 1, 1)
   }
 }
 
-template <typename Op>
-__global__ void lstm_bwd_chain_kernel(
-    const float* __restrict__ dys, const float* __restrict__ done,
-    const float* __restrict__ ifgo, const float* __restrict__ cpost,
-    const float* __restrict__ cnew, const float* __restrict__ wh,
-    const float* __restrict__ dct, const float* __restrict__ dht,
-    float* __restrict__ dgates, float* __restrict__ dc0,
-    float* __restrict__ dh0, int T, int B, int H) {
-  extern __shared__ float smem[];
-  const int G = 4 * H;
-  float* sdg = smem;      // dgates of this row and step as operands, [4H]
-  float* sdh = smem + G;  // dh_prev, [H]
-  const int b = blockIdx.x;
-  const int j = threadIdx.x;  // hidden unit; blockDim.x == H
-  const int lane = j & 31;
-  const int warp = j >> 5;
-  const int num_warps = H >> 5;
-  float dc = dct[(size_t)b * H + j];
-  float dh = dht[(size_t)b * H + j];
-  for (int t = T - 1; t >= 0; --t) {
-    const size_t row = (size_t)t * B + b;
-    const float* gates = ifgo + row * G;
-    const float ig = gates[j], fg = gates[H + j], gg = gates[2 * H + j],
-                og = gates[3 * H + j];
-    const float tc = tanhf(cnew[row * H + j]);
-    const float dh_tot = dys[row * H + j] + dh;
-    const float d_o = dh_tot * tc * og * (1.0f - og);
-    const float dc_tot = dc + dh_tot * og * (1.0f - tc * tc);
-    const float d_f = dc_tot * cpost[row * H + j] * fg * (1.0f - fg);
-    const float d_i = dc_tot * gg * ig * (1.0f - ig);
-    const float d_g = dc_tot * ig * (1.0f - gg * gg);
-    sdg[j] = operand<Op>(d_i);
-    sdg[H + j] = operand<Op>(d_f);
-    sdg[2 * H + j] = operand<Op>(d_g);
-    sdg[3 * H + j] = operand<Op>(d_o);
-    float* out = dgates + row * G;
-    out[j] = d_i;
-    out[H + j] = d_f;
-    out[2 * H + j] = d_g;
-    out[3 * H + j] = d_o;
-    __syncthreads();
-    // dh_prev[k] = sum_n dgates[n] * Wh[k, n]: one warp per row k of Wh,
-    // lanes walk the row contiguously, then a shuffle reduction.
-    for (int k = warp; k < H; k += num_warps) {
-      const float* wrow = wh + (size_t)k * G;
-      float s = 0.f;
-      for (int n = lane; n < G; n += 32)
-        s = fmaf(sdg[n], operand<Op>(__ldg(wrow + n)), s);
+// The type BPTT stashes its dgates in: the products' operand type.
+__device__ __forceinline__ void store_operand(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_operand(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// Four depth positions j..j+3 of dh_prev = dgates.Wh^T for R batch rows:
+// w[i] holds Wh[k][g*H + j+i] of this thread's unit k for the 4 gates g,
+// dg the R rows' operand dgates, gate-interleaved ([R][H] float4).
+template <int R>
+__device__ __forceinline__ void bptt_fma(float4 (&acc)[R], const float4* dg,
+                                         int H, int j, const float4 (&w)[4]) {
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        s += __shfl_xor_sync(0xffffffffu, s, off);
-      if (lane == 0) sdh[k] = s;
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 d = dg[r * H + j + i];
+      acc[r].x = fmaf(d.x, w[i].x, acc[r].x);
+      acc[r].y = fmaf(d.y, w[i].y, acc[r].y);
+      acc[r].z = fmaf(d.z, w[i].z, acc[r].z);
+      acc[r].w = fmaf(d.w, w[i].w, acc[r].w);
     }
-    __syncthreads();
-    // Chain through the pre-step reset: grads vanish where done was 1.
-    const float keep = 1.0f - done[row];
-    dh = sdh[j] * keep;
-    dc = dc_tot * fg * keep;
   }
-  dc0[(size_t)b * H + j] = dc;
-  dh0[(size_t)b * H + j] = dh;
+}
+
+// The reverse chain of BPTT.  Cluster q owns batch rows [q*R, q*R + R); its
+// CTA of rank r owns hidden units j0 = r*U .. j0+U-1 (U = H/8): the cells
+// (row, unit) it chains and the rows k of Wh its dh_prev needs.  Shared
+// memory: ws [resident][U] float4 (Wh[j0+u][g*H + j] over the gates g, for
+// depth position j), dgb [2][R][H] float4 (the step's operand dgates of
+// every unit, gate-interleaved, double-buffered), part [8][R][U] (partial
+// dh_prev).  Writes dgates [T*B, 4H] at the operand type, dc0, dh0 and
+// dbpart [B, 4H] (each row's dgates summed over t in float32).
+template <int R, typename Op>
+__global__ void __cluster_dims__(kResidCluster, 1, 1)
+    __launch_bounds__(resid_max_threads(R))
+        bptt_chain_kernel(const float* __restrict__ dys,
+                          const float* __restrict__ done,
+                          const float* __restrict__ ifgo,
+                          const float* __restrict__ cpost,
+                          const float* __restrict__ cnew,
+                          const float* __restrict__ wh,
+                          const float* __restrict__ dct,
+                          const float* __restrict__ dht,
+                          Op* __restrict__ dgates,
+                          float* __restrict__ dbpart,
+                          float* __restrict__ dc0, float* __restrict__ dh0,
+                          int T, int B, int H, int resident) {
+  extern __shared__ float4 smem4[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int U = H / kResidCluster;
+  const int j0 = rank * U;
+  const int b0 = (blockIdx.x / kResidCluster) * R;
+  const int G = 4 * H;
+  const int tid = threadIdx.x;
+  float4* ws = smem4;
+  float4* dgbuf = ws + (size_t)resident * U;
+  float* part = reinterpret_cast<float*>(dgbuf + 2 * R * H);
+
+  // The resident depth positions of this CTA's Wh rows, once per launch:
+  // each load is 4 consecutive columns of one gate of one row; a warp's
+  // lanes take 4 gates x 8 rows, so each of the 4 scalar stores a lane
+  // makes falls on its own bank.  8 loads a thread in flight.
+  const int n4 = resident * U;
+  for (int base = 0; base < n4; base += 8 * blockDim.x) {
+    float4 v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int e = base + i * blockDim.x + tid;
+      if (e < n4) {
+        const int g = e & 3, u = (e >> 2) % U, jq = (e >> 2) / U;
+        v[i] = __ldg(reinterpret_cast<const float4*>(
+            wh + (size_t)(j0 + u) * G + g * H + 4 * jq));
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int e = base + i * blockDim.x + tid;
+      if (e < n4) {
+        const int g = e & 3, u = (e >> 2) % U, jq = (e >> 2) / U;
+        float* d = reinterpret_cast<float*>(ws + 4 * jq * U + u) + g;
+        d[0] = operand<Op>(v[i].x);
+        d[4 * U] = operand<Op>(v[i].y);
+        d[8 * U] = operand<Op>(v[i].z);
+        d[12 * U] = operand<Op>(v[i].w);
+      }
+    }
+  }
+  // Rows past B are never written and stay 0.
+  for (int e = tid; e < 2 * R * H; e += blockDim.x)
+    dgbuf[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+  // Thread tid is (s, u) = (tid / U, tid % U) in both of its roles:
+  // - reduction: unit k = j0 + u over depth positions [s*U, (s+1)*U) (all
+  //   4 gates of each), the first `resident` from shared memory, the rest
+  //   from L2;
+  // - for s < R, owner of the cell (batch row b0 + s, unit j0 + u): dc, dh
+  //   and the db sums in registers, the dgates, the stores, the chain.
+  const int s = tid / U, u = tid % U;
+  const int fb = b0 + s, fj = j0 + u;
+  const bool owner = s < R && fb < B;
+  const int jb = s * U, je = jb + U;
+  const int jm = min(max(resident, jb), je);
+  const float* wrow = wh + (size_t)(j0 + u) * G;
+  float dc = 0.f, dh = 0.f;
+  float4 db = make_float4(0.f, 0.f, 0.f, 0.f);
+  // The owner's inputs of step t, loaded during step t+1.
+  float4 gate = db;
+  float cp = 0.f, cn = 0.f, dy = 0.f, keep = 1.f;
+  auto load = [&](int t) {
+    const size_t row = (size_t)t * B + fb;
+    const float* gp = ifgo + row * G + fj;
+    gate = make_float4(gp[0], gp[H], gp[2 * H], gp[3 * H]);
+    const size_t o = row * H + fj;
+    cp = cpost[o];
+    cn = cnew[o];
+    dy = dys[o];
+    keep = 1.0f - done[row];
+  };
+  if (owner) {
+    dc = dct[(size_t)fb * H + fj];
+    dh = dht[(size_t)fb * H + fj];
+    load(T - 1);
+  }
+  cluster.sync();  // every CTA staged and running before any DSMEM store
+
+  for (int t = T - 1; t >= 0; --t) {
+    float4* dgb = dgbuf + (t & 1) * R * H;
+    float dc_tot = 0.f, fg = 0.f, kp = 1.f;
+    if (owner) {
+      const float ig = gate.x, gg = gate.z, og = gate.w;
+      fg = gate.y;
+      const float tc = tanhf(cn);
+      const float dh_tot = dy + dh;
+      const float d_o = dh_tot * tc * og * (1.0f - og);
+      dc_tot = dc + dh_tot * og * (1.0f - tc * tc);
+      const float d_f = dc_tot * cp * fg * (1.0f - fg);
+      const float d_i = dc_tot * gg * ig * (1.0f - ig);
+      const float d_g = dc_tot * ig * (1.0f - gg * gg);
+      db.x += d_i;
+      db.y += d_f;
+      db.z += d_g;
+      db.w += d_o;
+      Op* out = dgates + ((size_t)t * B + fb) * G + fj;
+      store_operand(out, d_i);
+      store_operand(out + H, d_f);
+      store_operand(out + 2 * H, d_g);
+      store_operand(out + 3 * H, d_o);
+      const float4 v = make_float4(operand<Op>(d_i), operand<Op>(d_f),
+                                   operand<Op>(d_g), operand<Op>(d_o));
+#pragma unroll
+      for (int q = 0; q < kResidCluster; ++q)
+        *cluster.map_shared_rank(dgb + s * H + fj, q) = v;
+      kp = keep;
+      if (t > 0) load(t - 1);  // in flight across the barrier and the sum
+    }
+    // This step's dgates are in every CTA.  The previous use of this
+    // buffer (step t+2) was read before step t+1's barrier, and the last
+    // barrier keeps every CTA's shared memory alive until no other CTA
+    // can store into it.
+    cluster.sync();
+    float4 acc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int j = jb; j < jm; j += 4) {
+      const float4 w[4] = {ws[j * U + u], ws[(j + 1) * U + u],
+                           ws[(j + 2) * U + u], ws[(j + 3) * U + u]};
+      bptt_fma<R>(acc, dgb, H, j, w);
+    }
+    for (int j = jm; j < je; j += 4) {
+      float4 q[4];
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        q[g] = __ldg(reinterpret_cast<const float4*>(wrow + g * H + j));
+      const float4 w[4] = {
+          make_float4(operand<Op>(q[0].x), operand<Op>(q[1].x),
+                      operand<Op>(q[2].x), operand<Op>(q[3].x)),
+          make_float4(operand<Op>(q[0].y), operand<Op>(q[1].y),
+                      operand<Op>(q[2].y), operand<Op>(q[3].y)),
+          make_float4(operand<Op>(q[0].z), operand<Op>(q[1].z),
+                      operand<Op>(q[2].z), operand<Op>(q[3].z)),
+          make_float4(operand<Op>(q[0].w), operand<Op>(q[1].w),
+                      operand<Op>(q[2].w), operand<Op>(q[3].w))};
+      bptt_fma<R>(acc, dgb, H, j, w);
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      part[(s * R + r) * U + u] =
+          (acc[r].x + acc[r].y) + (acc[r].z + acc[r].w);
+    __syncthreads();
+    if (owner) {
+      // The 8 partials in slice order; then the chain through the
+      // pre-step reset: grads vanish where done was 1.
+      float dh_prev = part[s * U + u];
+#pragma unroll
+      for (int q = 1; q < kResidCluster; ++q)
+        dh_prev += part[(q * R + s) * U + u];
+      dh = dh_prev * kp;
+      dc = dc_tot * fg * kp;
+    }
+  }
+  if (owner) {
+    dc0[(size_t)fb * H + fj] = dc;
+    dh0[(size_t)fb * H + fj] = dh;
+    float* p = dbpart + (size_t)fb * G + fj;
+    p[0] = db.x;
+    p[H] = db.y;
+    p[2 * H] = db.z;
+    p[3 * H] = db.w;
+  }
+}
+
+// db = the B rows of dbpart summed in row order; with splits > 0 also
+// [dWi; dWh] = the `splits` K-slice partials of bptt_dw_kernel summed in
+// slice order (the bf16 variant).  One thread an output.
+__global__ void bptt_reduce_kernel(const float* __restrict__ dbpart,
+                                   float* __restrict__ db,
+                                   const float* __restrict__ wpart,
+                                   float* __restrict__ dwi,
+                                   float* __restrict__ dwh, int B, int D,
+                                   int H, int splits) {
+  const int G = 4 * H;
+  const size_t stride = (size_t)(D + H) * G;
+  const size_t total = G + (splits > 0 ? stride : 0);
+  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
+       e += (size_t)gridDim.x * blockDim.x) {
+    if (e < (size_t)G) {
+      float acc = dbpart[e];
+      for (int b = 1; b < B; ++b) acc += dbpart[(size_t)b * G + e];
+      db[e] = acc;
+    } else {
+      const size_t w = e - G;
+      float acc = wpart[w];
+      for (int z = 1; z < splits; ++z) acc += wpart[z * stride + w];
+      if (w < (size_t)D * G)
+        dwi[w] = acc;
+      else
+        dwh[w - (size_t)D * G] = acc;
+    }
+  }
+}
+
+// BPTT's products on bf16 tensor cores: 64x64 output tiles, 32-deep bf16
+// tiles in shared memory (double-buffered, the next tile's global loads in
+// registers while the current one is multiplied), 4 warps of 32x32, each
+// a 2x4 grid of mma.sync m16n8k16 with float32 accumulators.  Shared
+// tiles are stored with their contiguous global dimension contiguous:
+// kTrans = false keeps [row][k] (K-contiguous operands, dx), kTrans = true
+// [k][row] (dW, whose operands run along K); ldmatrix (.trans) turns
+// either into the mma fragments.  Rows padded by 8 bf16 so that the
+// 8 rows of each ldmatrix fall on distinct banks.
+constexpr int kMmaTile = 64;    // BM = BN
+constexpr int kMmaK = 32;       // BK
+constexpr int kMmaThreads = 128;
+constexpr int kLdN = kMmaK + 8;     // [row][k] row stride, in bf16
+constexpr int kLdT = kMmaTile + 8;  // [k][row] row stride, in bf16
+
+__device__ __forceinline__ unsigned shared_address(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+template <bool kTrans>
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4],
+                                            const __nv_bfloat16* p) {
+  if constexpr (kTrans) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+        "[%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(shared_address(p)));
+  } else {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(shared_address(p)));
+  }
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One warp's 32x32 share of a 64x64 tile over one kMmaK-deep tile pair.
+// Lane l addresses row l%8 of the 8x8 matrix l/8 of each ldmatrix.x4:
+// A's matrices are (m 0-7, k 0-7), (m 8-15, k 0-7), (m 0-7, k 8-15),
+// (m 8-15, k 8-15) -- a0..a3; B's are (n 0-7, k 0-7), (n 0-7, k 8-15),
+// (n 8-15, k 0-7), (n 8-15, k 8-15) -- b0, b1 of two n8 tiles.
+template <bool kTrans>
+__device__ __forceinline__ void mma_tile(const __nv_bfloat16* as,
+                                         const __nv_bfloat16* bs, int wm,
+                                         int wn, int lane,
+                                         float (&acc)[2][4][4]) {
+  const int mat = lane >> 3, r = lane & 7;
+#pragma unroll
+  for (int kk = 0; kk < kMmaK; kk += 16) {
+    unsigned a[2][4], b[2][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const int m = wm + 16 * mi + 8 * (mat & 1), k = kk + 8 * (mat >> 1);
+      ldmatrix_x4<kTrans>(a[mi], kTrans ? as + (k + r) * kLdT + m
+                                        : as + (m + r) * kLdN + k);
+    }
+#pragma unroll
+    for (int ni = 0; ni < 2; ++ni) {
+      const int n = wn + 16 * ni + 8 * (mat >> 1), k = kk + 8 * (mat & 1);
+      ldmatrix_x4<kTrans>(b[ni], kTrans ? bs + (k + r) * kLdT + n
+                                        : bs + (n + r) * kLdN + k);
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj)
+        mma_bf16(acc[mi][nj], a[mi], b[nj >> 1][2 * (nj & 1)],
+                 b[nj >> 1][2 * (nj & 1) + 1]);
+  }
+}
+
+// Writes a block's 64x64 accumulators to c[M, N] (row stride N).
+__device__ __forceinline__ void mma_store(const float (&acc)[2][4][4],
+                                          float* __restrict__ c, int m0,
+                                          int n0, int wm, int wn, int lane,
+                                          int M, int N) {
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wm + 16 * mi + g + 8 * h;
+        const int n = n0 + wn + 8 * nj + 2 * t4;
+        if (m >= M) continue;
+        if (n < N) c[(size_t)m * N + n] = acc[mi][nj][2 * h];
+        if (n + 1 < N) c[(size_t)m * N + n + 1] = acc[mi][nj][2 * h + 1];
+      }
+}
+
+// dx[M, N] = dgates[M, K] . Wi[N, K]^T with M = T*B, N = D, K = 4H (a
+// multiple of kMmaK): both operands K-contiguous, Wi rounded to bf16 as
+// it is staged.
+__global__ void __launch_bounds__(kMmaThreads)
+    bptt_dx_kernel(const __nv_bfloat16* __restrict__ dg,
+                   const float* __restrict__ wi, float* __restrict__ dx,
+                   int M, int N, int K) {
+  __shared__ __align__(16) __nv_bfloat16 as[2][kMmaTile * kLdN];
+  __shared__ __align__(16) __nv_bfloat16 bs[2][kMmaTile * kLdN];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = 32 * (warp & 1), wn = 32 * (warp >> 1);
+  const int m0 = blockIdx.y * kMmaTile, n0 = blockIdx.x * kMmaTile;
+  // A: 64 rows x 4 chunks of 8 bf16, 2 a thread.  B: 64 rows x 16 pairs
+  // of float32, 8 a thread, a row's 16 pairs on 16 neighbouring lanes.
+  uint4 ra[2];
+  float2 rb[8];
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int c = tid + kMmaThreads * q, m = m0 + (c >> 2);
+      ra[q] = m < M ? *reinterpret_cast<const uint4*>(
+                          dg + (size_t)m * K + k0 + 8 * (c & 3))
+                    : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int p = tid + kMmaThreads * q, n = n0 + (p >> 4);
+      rb[q] = n < N ? *reinterpret_cast<const float2*>(
+                          wi + (size_t)n * K + k0 + 2 * (p & 15))
+                    : make_float2(0.f, 0.f);
+    }
+  };
+  auto store = [&](int buf) {
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int c = tid + kMmaThreads * q;
+      *reinterpret_cast<uint4*>(&as[buf][(c >> 2) * kLdN + 8 * (c & 3)]) =
+          ra[q];
+    }
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int p = tid + kMmaThreads * q;
+      *reinterpret_cast<__nv_bfloat162*>(
+          &bs[buf][(p >> 4) * kLdN + 2 * (p & 15)]) =
+          __floats2bfloat162_rn(rb[q].x, rb[q].y);
+    }
+  };
+  float acc[2][4][4] = {};
+  const int nk = K / kMmaK;
+  load(0);
+  store(0);
+  __syncthreads();
+  for (int kt = 0; kt < nk; ++kt) {
+    if (kt + 1 < nk) load((kt + 1) * kMmaK);
+    mma_tile<false>(as[kt & 1], bs[kt & 1], wm, wn, lane, acc);
+    if (kt + 1 < nk) store((kt + 1) & 1);
+    __syncthreads();
+  }
+  mma_store(acc, dx, m0, n0, wm, wn, lane, M, N);
+}
+
+// Slice blockIdx.z of the stacked weight gradient [dWi; dWh] =
+// [x | hpost]^T . dgates: rows [z*kslice, (z+1)*kslice) of the K = T*B
+// into wpart[z] ([D+H, 4H]).  A's column m < D is x's, the rest hpost's,
+// both rounded to bf16 as they are staged; both operands run along K.
+__global__ void __launch_bounds__(kMmaThreads)
+    bptt_dw_kernel(const float* __restrict__ x,
+                   const float* __restrict__ hpost,
+                   const __nv_bfloat16* __restrict__ dg,
+                   float* __restrict__ wpart, int K, int D, int H,
+                   int kslice) {
+  __shared__ __align__(16) __nv_bfloat16 as[2][kMmaK * kLdT];
+  __shared__ __align__(16) __nv_bfloat16 bs[2][kMmaK * kLdT];
+  const int M = D + H, N = 4 * H;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = 32 * (warp & 1), wn = 32 * (warp >> 1);
+  const int m0 = blockIdx.y * kMmaTile, n0 = blockIdx.x * kMmaTile;
+  const int kb = blockIdx.z * kslice, ke = min(K, kb + kslice);
+  // A: 32 k-rows x 32 pairs of columns, 8 a thread, a row's pairs on the
+  // 32 lanes of a warp.  B: 32 k-rows x 8 chunks of 8 bf16, 2 a thread.
+  float2 ra[8];
+  uint4 rb[2];
+  auto column = [&](int k, int m) {
+    if (k >= ke || m >= M) return 0.f;
+    return m < D ? x[(size_t)k * D + m] : hpost[(size_t)k * H + (m - D)];
+  };
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int p = tid + kMmaThreads * q;
+      const int k = k0 + (p >> 5), m = m0 + 2 * (p & 31);
+      ra[q] = make_float2(column(k, m), column(k, m + 1));
+    }
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int c = tid + kMmaThreads * q, k = k0 + (c >> 3);
+      rb[q] = k < ke ? *reinterpret_cast<const uint4*>(
+                           dg + (size_t)k * N + n0 + 8 * (c & 7))
+                     : make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+  auto store = [&](int buf) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int p = tid + kMmaThreads * q;
+      *reinterpret_cast<__nv_bfloat162*>(
+          &as[buf][(p >> 5) * kLdT + 2 * (p & 31)]) =
+          __floats2bfloat162_rn(ra[q].x, ra[q].y);
+    }
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int c = tid + kMmaThreads * q;
+      *reinterpret_cast<uint4*>(&bs[buf][(c >> 3) * kLdT + 8 * (c & 7)]) =
+          rb[q];
+    }
+  };
+  float acc[2][4][4] = {};
+  const int nk = ke > kb ? (ke - kb + kMmaK - 1) / kMmaK : 0;
+  if (nk > 0) {
+    load(kb);
+    store(0);
+  }
+  __syncthreads();
+  for (int kt = 0; kt < nk; ++kt) {
+    if (kt + 1 < nk) load(kb + (kt + 1) * kMmaK);
+    mma_tile<true>(as[kt & 1], bs[kt & 1], wm, wn, lane, acc);
+    if (kt + 1 < nk) store((kt + 1) & 1);
+    __syncthreads();
+  }
+  mma_store(acc, wpart + (size_t)blockIdx.z * M * N, m0, n0, wm, wn, lane, M,
+            N);
 }
 
 constexpr int kBM = 64;
@@ -636,17 +1081,19 @@ cudaError_t launch_resid(const float* pre, const float* done,
   return cudaGetLastError();
 }
 
-template <int R>
-int active_clusters(int H, size_t shared) {
-  cudaError_t err = allow_shared(lstm_resid_kernel<R, float>, shared);
+// How many clusters of 8 CTAs of `kernel` (H threads, `shared` bytes of
+// shared memory a CTA) the card holds at once, or minus a CUDA error code.
+template <typename Kernel>
+int active_clusters(Kernel kernel, int H, size_t shared) {
+  cudaError_t err = allow_shared(kernel, shared);
   if (err != cudaSuccess) return -(int)err;
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(kResidCluster, 1, 1);
   config.blockDim = dim3(H, 1, 1);
   config.dynamicSmemBytes = shared;
   int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(
-      &clusters, (const void*)lstm_resid_kernel<R, float>, &config);
+  err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kernel,
+                                       &config);
   return err == cudaSuccess ? clusters : -(int)err;
 }
 
@@ -704,27 +1151,89 @@ int step(const float* x, const float* done, const float* c0, const float* h0,
   return (int)cudaGetLastError();
 }
 
-template <typename Op>
-int backward_chain(const float* dys, const float* done, const float* ifgo,
-                   const float* cpost, const float* cnew, const float* wh,
-                   const float* dct, const float* dht, float* dgates,
-                   float* dc0, float* dh0, int T, int B, int H,
-                   void* stream) {
-  const size_t shared = (size_t)(5 * H) * sizeof(float);
-  cudaError_t err = allow_shared(lstm_bwd_chain_kernel<Op>, shared);
-  if (err != cudaSuccess) return (int)err;
-  lstm_bwd_chain_kernel<Op><<<B, H, shared, (cudaStream_t)stream>>>(
-      dys, done, ifgo, cpost, cnew, wh, dct, dht, dgates, dc0, dh0, T, B, H);
-  return (int)cudaGetLastError();
+// Everything sat_lstm_backward[_bf16] is given.
+struct BpttArgs {
+  const float *dys, *done, *ifgo, *cpost, *hpost, *cnew, *x, *wi, *wh, *dct,
+      *dht;
+  float *dx, *dc0, *dh0, *dwi, *dwh, *db;
+  void* dgates;  // [T*B, 4H] scratch at the operand type
+  float *dbpart, *wpart;
+  int T, B, D, H, rows, resident, shared, splits;
+  cudaStream_t stream;
+};
+
+template <int R, typename Op>
+cudaError_t launch_bptt_chain(const BpttArgs& a) {
+  if (a.H > resid_max_threads(R)) return cudaErrorInvalidValue;
+  cudaError_t err = allow_shared(bptt_chain_kernel<R, Op>, a.shared);
+  if (err != cudaSuccess) return err;
+  const int clusters = (a.B + R - 1) / R;
+  bptt_chain_kernel<R, Op>
+      <<<clusters * kResidCluster, a.H, a.shared, a.stream>>>(
+          a.dys, a.done, a.ifgo, a.cpost, a.cnew, a.wh, a.dct, a.dht,
+          static_cast<Op*>(a.dgates), a.dbpart, a.dc0, a.dh0, a.T, a.B, a.H,
+          a.resident);
+  return cudaGetLastError();
 }
 
+// dx, dWi and dWh from the float32 variant's dgates: three launches of the
+// strided float32 GEMM.
+cudaError_t bptt_products(const BpttArgs& a, const float* dg) {
+  const int M = a.T * a.B, G = 4 * a.H;
+  const dim3 dx_grid((a.D + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+  sgemm_kernel<false, float><<<dx_grid, kGemmThreads, 0, a.stream>>>(
+      dg, G, 1, a.wi, 1, G, a.dx, nullptr, M, a.D, G);
+  const dim3 dwi_grid((G + kBN - 1) / kBN, (a.D + kBM - 1) / kBM);
+  sgemm_kernel<false, float><<<dwi_grid, kGemmThreads, 0, a.stream>>>(
+      a.x, 1, a.D, dg, G, 1, a.dwi, nullptr, a.D, G, M);
+  const dim3 dwh_grid((G + kBN - 1) / kBN, (a.H + kBM - 1) / kBM);
+  sgemm_kernel<false, float><<<dwh_grid, kGemmThreads, 0, a.stream>>>(
+      a.hpost, 1, a.H, dg, G, 1, a.dwh, nullptr, a.H, G, M);
+  return cudaGetLastError();
+}
+
+// dx and the K-slice partials of [dWi; dWh] from the bf16 variant's
+// dgates, on tensor cores: two launches.
+cudaError_t bptt_products(const BpttArgs& a, const __nv_bfloat16* dg) {
+  const int M = a.T * a.B, G = 4 * a.H;
+  const dim3 dx_grid((a.D + kMmaTile - 1) / kMmaTile,
+                     (M + kMmaTile - 1) / kMmaTile);
+  bptt_dx_kernel<<<dx_grid, kMmaThreads, 0, a.stream>>>(dg, a.wi, a.dx, M,
+                                                         a.D, G);
+  const int ktiles = (M + kMmaK - 1) / kMmaK;
+  const int kslice = (ktiles + a.splits - 1) / a.splits * kMmaK;
+  const dim3 dw_grid(G / kMmaTile, (a.D + a.H + kMmaTile - 1) / kMmaTile,
+                     a.splits);
+  bptt_dw_kernel<<<dw_grid, kMmaThreads, 0, a.stream>>>(
+      a.x, a.hpost, dg, a.wpart, M, a.D, a.H, kslice);
+  return cudaGetLastError();
+}
+
+// BPTT: the chain, the products, then the reduction of db (and, in the
+// bf16 variant, of the dW slices): 5 launches for float32, 4 for bf16.
 template <typename Op>
-int gemm(const float* a, long long sam, long long sak, const float* b,
-         long long sbk, long long sbn, float* c, int M, int N, int K,
-         void* stream) {
-  dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  sgemm_kernel<false, Op><<<grid, kGemmThreads, 0, (cudaStream_t)stream>>>(
-      a, sam, sak, b, sbk, sbn, c, nullptr, M, N, K);
+int backward(const BpttArgs& a) {
+  const bool sliced = std::is_same<Op, __nv_bfloat16>::value;
+  if (a.H % (4 * kResidCluster) != 0 || a.resident % 4 != 0 ||
+      a.resident < 0 || a.resident > a.H || (sliced && a.splits < 1))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  switch (a.rows) {
+    case 1: err = launch_bptt_chain<1, Op>(a); break;
+    case 2: err = launch_bptt_chain<2, Op>(a); break;
+    case 4: err = launch_bptt_chain<4, Op>(a); break;
+    case 8: err = launch_bptt_chain<8, Op>(a); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
+  err = bptt_products(a, static_cast<const Op*>(a.dgates));
+  if (err != cudaSuccess) return (int)err;
+  const int splits = sliced ? a.splits : 0;
+  const size_t G = 4 * (size_t)a.H;
+  const size_t total = G + (sliced ? (a.D + a.H) * G : 0);
+  const int blocks = (int)std::min<size_t>((total + 255) / 256, 2048);
+  bptt_reduce_kernel<<<blocks, 256, 0, a.stream>>>(
+      a.dbpart, a.db, a.wpart, a.dwi, a.dwh, a.B, a.D, a.H, splits);
   return (int)cudaGetLastError();
 }
 
@@ -765,15 +1274,26 @@ int sat_lstm_forward_resid_bf16(const float* x, const float* done,
                                       stream);
 }
 
-// How many clusters of lstm_resid_kernel<rows, float> the card holds at
-// once with `shared` bytes of shared memory a CTA
+// How many clusters of lstm_resid_kernel<rows, float> (the residual
+// forward's recurrence) or of bptt_chain_kernel<rows, float> (BPTT's
+// chain) the card holds at once with `shared` bytes of shared memory a CTA
 // (cudaOccupancyMaxActiveClusters), or minus a CUDA error code.
 int sat_lstm_resid_active_clusters(int H, int rows, int shared) {
   switch (rows) {
-    case 1: return active_clusters<1>(H, shared);
-    case 2: return active_clusters<2>(H, shared);
-    case 4: return active_clusters<4>(H, shared);
-    case 8: return active_clusters<8>(H, shared);
+    case 1: return active_clusters(lstm_resid_kernel<1, float>, H, shared);
+    case 2: return active_clusters(lstm_resid_kernel<2, float>, H, shared);
+    case 4: return active_clusters(lstm_resid_kernel<4, float>, H, shared);
+    case 8: return active_clusters(lstm_resid_kernel<8, float>, H, shared);
+    default: return -(int)cudaErrorInvalidValue;
+  }
+}
+
+int sat_lstm_bptt_active_clusters(int H, int rows, int shared) {
+  switch (rows) {
+    case 1: return active_clusters(bptt_chain_kernel<1, float>, H, shared);
+    case 2: return active_clusters(bptt_chain_kernel<2, float>, H, shared);
+    case 4: return active_clusters(bptt_chain_kernel<4, float>, H, shared);
+    case 8: return active_clusters(bptt_chain_kernel<8, float>, H, shared);
     default: return -(int)cudaErrorInvalidValue;
   }
 }
@@ -794,37 +1314,42 @@ int sat_lstm_step_bf16(const float* x, const float* done, const float* c0,
                              H, stream);
 }
 
-int sat_lstm_backward_chain(const float* dys, const float* done,
-                            const float* ifgo, const float* cpost,
-                            const float* cnew, const float* wh,
-                            const float* dct, const float* dht, float* dgates,
-                            float* dc0, float* dh0, int T, int B, int H,
-                            void* stream) {
-  return backward_chain<float>(dys, done, ifgo, cpost, cnew, wh, dct, dht,
-                               dgates, dc0, dh0, T, B, H, stream);
+// BPTT of the residual forward: bptt_chain_kernel<rows, Op>, the
+// products, bptt_reduce_kernel.  dgates is the caller's [T*B, 4H] scratch
+// at the operand type (float32 here, bf16 in the _bf16 variant), dbpart
+// its [B, 4H] float32 scratch, wpart its [splits, D+H, 4H] float32
+// scratch for the bf16 variant's dW slices (unused here); rows, resident
+// and shared come from lstm_cuda.bptt_plan, splits from
+// lstm_cuda.wgrad_splits.
+int sat_lstm_backward(const float* dys, const float* done, const float* ifgo,
+                      const float* cpost, const float* hpost,
+                      const float* cnew, const float* x, const float* wi,
+                      const float* wh, const float* dct, const float* dht,
+                      float* dx, float* dc0, float* dh0, float* dwi,
+                      float* dwh, float* db, void* dgates, float* dbpart,
+                      float* wpart, int T, int B, int D, int H, int rows,
+                      int resident, int shared, int splits, void* stream) {
+  return backward<float>({dys, done, ifgo, cpost, hpost, cnew, x, wi, wh,
+                          dct, dht, dx, dc0, dh0, dwi, dwh, db, dgates,
+                          dbpart, wpart, T, B, D, H, rows, resident, shared,
+                          splits, (cudaStream_t)stream});
 }
 
-int sat_lstm_backward_chain_bf16(const float* dys, const float* done,
-                                 const float* ifgo, const float* cpost,
-                                 const float* cnew, const float* wh,
-                                 const float* dct, const float* dht,
-                                 float* dgates, float* dc0, float* dh0, int T,
-                                 int B, int H, void* stream) {
-  return backward_chain<__nv_bfloat16>(dys, done, ifgo, cpost, cnew, wh, dct,
-                                       dht, dgates, dc0, dh0, T, B, H,
-                                       stream);
-}
-
-int sat_sgemm(const float* a, long long sam, long long sak, const float* b,
-              long long sbk, long long sbn, float* c, int M, int N, int K,
-              void* stream) {
-  return gemm<float>(a, sam, sak, b, sbk, sbn, c, M, N, K, stream);
-}
-
-int sat_sgemm_bf16(const float* a, long long sam, long long sak,
-                   const float* b, long long sbk, long long sbn, float* c,
-                   int M, int N, int K, void* stream) {
-  return gemm<__nv_bfloat16>(a, sam, sak, b, sbk, sbn, c, M, N, K, stream);
+int sat_lstm_backward_bf16(const float* dys, const float* done,
+                           const float* ifgo, const float* cpost,
+                           const float* hpost, const float* cnew,
+                           const float* x, const float* wi, const float* wh,
+                           const float* dct, const float* dht, float* dx,
+                           float* dc0, float* dh0, float* dwi, float* dwh,
+                           float* db, void* dgates, float* dbpart,
+                           float* wpart, int T, int B, int D, int H, int rows,
+                           int resident, int shared, int splits,
+                           void* stream) {
+  return backward<__nv_bfloat16>({dys, done, ifgo, cpost, hpost, cnew, x, wi,
+                                  wh, dct, dht, dx, dc0, dh0, dwi, dwh, db,
+                                  dgates, dbpart, wpart, T, B, D, H, rows,
+                                  resident, shared, splits,
+                                  (cudaStream_t)stream});
 }
 
 }  // extern "C"

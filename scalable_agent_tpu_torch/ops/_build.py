@@ -42,13 +42,13 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "sat_error_string": ([_I], ctypes.c_char_p),
     "sat_lstm_resid_active_clusters": ([_I] * 3, _I),
+    "sat_lstm_bptt_active_clusters": ([_I] * 3, _I),
     "sat_vtrace": ([_P] * 7 + [_I, _I, _F, _I, _F, _I, _P], _I),
 }
 for _name, _signature in {
         "sat_lstm_forward_resid": ([_P] * 15 + [_I] * 7 + [_P], _I),
         "sat_lstm_step": ([_P] * 9 + [_I] * 3 + [_P], _I),
-        "sat_lstm_backward_chain": ([_P] * 11 + [_I] * 3 + [_P], _I),
-        "sat_sgemm": ([_P, _L, _L, _P, _L, _L, _P, _I, _I, _I, _P], _I),
+        "sat_lstm_backward": ([_P] * 20 + [_I] * 8 + [_P], _I),
         "sat_conv_gradw": ([_P] * 4 + [_I] * 15 + [_L, _I, _P], _I)}.items():
     _SIGNATURES[_name] = _SIGNATURES[_name + "_bf16"] = _signature
 

@@ -36,9 +36,18 @@ registers):
   owns H/8 hidden units and holds their slice of Wh in shared memory,
   and the new h reaches every CTA of the cluster through distributed
   shared memory, one cluster barrier per step.  ``resid_plan`` sizes it.
-- ``lstm_bptt`` replaces ``lstm_pallas.py::_bwd_kernel``: a reverse-chain
-  kernel that stashes ``dgates [T,B,4H]``, then the hand-written strided
-  GEMM for ``dx``, ``dWi``, ``dWh`` and ``db`` over the T*B rows.
+- ``lstm_bptt`` replaces ``lstm_pallas.py::_bwd_kernel`` with one C call
+  (``sat_lstm_backward[_bf16]``).  The reverse chain is the residual
+  forward's cluster design in reverse: each CTA of a cluster of 8 holds
+  ITS units' rows of Wh (all 4H columns) in shared memory, so it computes
+  those units' ``dh_prev`` from the step's dgates, which every owner
+  stores into every CTA through distributed shared memory, one cluster
+  barrier per step; the owners also sum db over t in registers.  It
+  stashes ``dgates [T,B,4H]`` at the operand type for ``dx``, ``dWi`` and
+  ``dWh``: hand-written bf16 tensor-core GEMMs in the bf16 variant (the
+  weight gradient in fixed K slices), the strided float32 GEMM in the
+  float32 one.  A last launch sums db over the batch (and the dW slices)
+  in a fixed order.  ``bptt_plan`` and ``wgrad_splits`` size it.
 
 What bounds them on the card, and what the design does about it, is in
 the source's header comment and in PERF.md.
@@ -212,35 +221,83 @@ class ResidPlan(NamedTuple):
     smem_bytes: int  # dynamic shared memory per CTA
 
 
-def resid_plan(batch: int, hidden: int) -> ResidPlan:
-    """R is the least power of two that covers the batch with at most 8
-    clusters (64 SMs, co-resident on an H100), capped by H so that a CTA of
-    H threads keeps its 4R accumulators in registers (csrc/lstm.cu's
-    ``resid_max_threads``).  A CTA holds 8 partial gate vectors and two h
-    buffers for its R rows (24*R*H bytes), then as many rows of its Wh
-    slice (2*H bytes each) as fit, a multiple of 4: all of them up to
-    about H=300.  T and D do not enter the plan."""
+def _fit(batch, hidden, fixed_per_row, cls):
+    """The plan of a cluster kernel.  R is the least power of two that
+    covers the batch with at most 8 clusters (64 SMs, co-resident on an
+    H100), capped by H so that a CTA of H threads keeps its 4R
+    accumulators in registers (csrc/lstm.cu's ``resid_max_threads``).  A
+    CTA holds ``fixed_per_row * R * H`` bytes of buffers, then as many of
+    its Wh slice's 2*H-byte rows as fit, a multiple of 4 (the kernels'
+    float4 loop)."""
     _check_hidden(hidden)
     most = 8 if hidden <= 256 else 4 if hidden <= 512 else 2
     rows = 1
     while rows < min(-(-batch // RESID_CLUSTER), most):
         rows *= 2
-    fixed = 24 * rows * hidden
+    fixed = fixed_per_row * rows * hidden
     row_bytes = 2 * hidden
     resident = min(hidden, (SMEM_LIMIT - fixed) // row_bytes // 4 * 4)
-    return ResidPlan(rows, -(-batch // rows), resident,
-                     fixed + resident * row_bytes)
+    return cls(rows, -(-batch // rows), resident, fixed + resident * row_bytes)
+
+
+def resid_plan(batch: int, hidden: int) -> ResidPlan:
+    """R as ``_fit`` picks it.  A CTA holds 8 partial gate vectors and two
+    h buffers for its R rows (24*R*H bytes), then as many rows of its [H, 4H/8] Wh slice (2*H bytes
+    each) as fit: all of them up to about H=300.  T and D do not enter the
+    plan."""
+    return _fit(batch, hidden, 24, ResidPlan)
+
+
+class BpttPlan(NamedTuple):
+    """Launch geometry of BPTT's reverse-chain kernel."""
+
+    rows: int        # batch rows per cluster (R)
+    clusters: int
+    resident: int    # depth positions j of a CTA's [H/8, 4H] Wh slice in
+    #                  shared memory (each the 4 gate columns g*H + j)
+    smem_bytes: int  # dynamic shared memory per CTA
+
+
+def bptt_plan(batch: int, hidden: int) -> BpttPlan:
+    """R as ``_fit`` picks it.  A CTA holds two [R, H] x 4-gate dgates
+    buffers and 8 partial dh_prev vectors for its R rows (36*R*H bytes),
+    then as many depth positions of its [H/8, 4H] Wh slice (4 gates x H/8
+    units: 2*H bytes each) as fit: all of them up to about H=300.  T and D
+    do not enter the plan."""
+    return _fit(batch, hidden, 36, BpttPlan)
+
+
+GEMM_TILE = 64        # output tile of the bf16 variant's GEMMs
+GEMM_DEPTH = 32       # K of one shared-memory tile
+WGRAD_BLOCKS = 528    # 4 blocks of the dW GEMM on each of 132 SMs
+
+
+def wgrad_splits(rows: int, in_dim: int, hidden: int) -> int:
+    """How many fixed K slices the bf16 variant cuts the [D+H, 4H] weight
+    gradient's ``rows``-deep sum into: enough for about WGRAD_BLOCKS
+    blocks, at most one a 32-deep tile.  Each slice's partial is summed in
+    slice order, so the result depends on the shapes only."""
+    tiles = -(-(in_dim + hidden) // GEMM_TILE) * (4 * hidden // GEMM_TILE)
+    return max(1, min(-(-rows // GEMM_DEPTH), -(-WGRAD_BLOCKS // tiles)))
+
+
+def _active_clusters(entry: str, plan, hidden: int) -> int:
+    n = getattr(_build.library(), entry)(hidden, plan.rows, plan.smem_bytes)
+    if n < 0:
+        _build.check(-n, "lstm cluster occupancy query")
+    return n
 
 
 def resid_active_clusters(plan: ResidPlan, hidden: int) -> int:
     """How many clusters of the recurrence kernel the card holds at once
     under ``plan`` (``cudaOccupancyMaxActiveClusters``); more clusters than
     that run in waves."""
-    n = _build.library().sat_lstm_resid_active_clusters(
-        hidden, plan.rows, plan.smem_bytes)
-    if n < 0:
-        _build.check(-n, "lstm recurrence occupancy query")
-    return n
+    return _active_clusters("sat_lstm_resid_active_clusters", plan, hidden)
+
+
+def bptt_active_clusters(plan: BpttPlan, hidden: int) -> int:
+    """The same for BPTT's reverse-chain kernel."""
+    return _active_clusters("sat_lstm_bptt_active_clusters", plan, hidden)
 
 
 def _stream():
@@ -339,12 +396,6 @@ def lstm_forward(x, done, c0, h0, wi, wh, b, residuals: bool,
     return Forward(ys, c_out, h_out, res)
 
 
-def _gemm(entry, a, a_strides, b, b_strides, m, n, k, out):
-    code = entry(a.data_ptr(), *a_strides, b.data_ptr(), *b_strides,
-                 out.data_ptr(), m, n, k, _stream())
-    _build.check(code, "lstm gemm kernel")
-
-
 def lstm_backward(dys, dct, dht, x, done, wi, wh, res: Residuals,
                   matmul_dtype: str = "float32") -> Gradients:
     """BPTT of ``lstm_forward(..., residuals=True)`` for the cotangents
@@ -359,7 +410,8 @@ def lstm_backward(dys, dct, dht, x, done, wi, wh, res: Residuals,
     _check_hidden(hidden)
     for name, t, shape in (
             ("dys", dys, (steps, batch, hidden)),
-            ("dcT", dct, (batch, hidden)), ("dhT", dht, (batch, hidden)), ("x", x, (steps, batch, in_dim)),
+            ("dcT", dct, (batch, hidden)), ("dhT", dht, (batch, hidden)),
+            ("x", x, (steps, batch, in_dim)),
             ("done", done, (steps, batch)), ("wi", wi, (in_dim, gates)),
             ("wh", wh, (hidden, gates)),
             ("ifgo", res.ifgo, (steps, batch, gates)),
@@ -367,33 +419,32 @@ def lstm_backward(dys, dct, dht, x, done, wi, wh, res: Residuals,
             ("hpost", res.hpost, (steps, batch, hidden)),
             ("cnew", res.cnew, (steps, batch, hidden))):
         _build.check_operand(name, t, shape)
-    empty = lambda *shape: torch.empty(shape, dtype=torch.float32,
-                                       device=x.device)
-    dgates = empty(steps, batch, gates)
-    dc0, dh0 = empty(batch, hidden), empty(batch, hidden)
-    lib = _build.library()
-    code = getattr(lib, "sat_lstm_backward_chain" + suffix)(
-        dys.data_ptr(), done.data_ptr(), res.ifgo.data_ptr(),
-        res.cpost.data_ptr(), res.cnew.data_ptr(), wh.data_ptr(),
-        dct.data_ptr(), dht.data_ptr(), dgates.data_ptr(), dc0.data_ptr(),
-        dh0.data_ptr(), steps, batch, hidden, _stream())
-    _build.check(code, "lstm backward chain kernel")
-    rows = steps * batch
-    dx = empty(steps, batch, in_dim)
-    dwi, dwh, db = empty(in_dim, gates), empty(hidden, gates), empty(gates)
-    ones = torch.ones(1, dtype=torch.float32, device=x.device)
-    # dx = dgates . Wi^T;  dWi = x^T . dgates;  dWh = hpost^T . dgates,
-    # at the operand type; db = 1^T . dgates (a stride-0 row of ones) sums
-    # the float32 dgates in both variants.
-    gemm = getattr(lib, "sat_sgemm" + suffix)
-    _gemm(gemm, dgates, (gates, 1), wi, (1, gates), rows, in_dim, gates, dx)
-    _gemm(gemm, x, (1, in_dim), dgates, (gates, 1), in_dim, gates, rows, dwi)
-    _gemm(gemm, res.hpost, (1, hidden), dgates, (gates, 1), hidden, gates,
-          rows, dwh)
-    _gemm(lib.sat_sgemm, ones, (0, 0), dgates, (gates, 1), 1, gates, rows,
-          db)
+    if wi.data_ptr() % 16 or wh.data_ptr() % 16:
+        raise ValueError("the LSTM kernels read Wi and Wh in 16-byte "
+                         "vectors: they must be 16-byte aligned")
+    empty = lambda *shape, dtype=torch.float32: torch.empty(
+        shape, dtype=dtype, device=x.device)
+    plan = bptt_plan(batch, hidden)
+    bf16 = matmul_dtype == "bfloat16"
+    splits = wgrad_splits(steps * batch, in_dim, hidden) if bf16 else 0
+    grads = Gradients(empty(steps, batch, in_dim), empty(batch, hidden),
+                      empty(batch, hidden), empty(in_dim, gates),
+                      empty(hidden, gates), empty(gates))
+    # Scratch: dgates at the operand type, each row's db over t, and the
+    # bf16 variant's dW slices.
+    dgates = empty(steps, batch, gates,
+                   dtype=torch.bfloat16 if bf16 else torch.float32)
+    dbpart = empty(batch, gates)
+    wpart = empty(splits, in_dim + hidden, gates)
+    code = getattr(_build.library(), "sat_lstm_backward" + suffix)(
+        *(t.data_ptr() for t in (dys, done, res.ifgo, res.cpost, res.hpost,
+                                 res.cnew, x, wi, wh, dct, dht, *grads,
+                                 dgates, dbpart, wpart)),
+        steps, batch, in_dim, hidden, plan.rows, plan.resident,
+        plan.smem_bytes, splits, _stream())
+    _build.check(code, "lstm backward kernels")
     _build.count_launch(LAUNCHES, "lstm_bptt" + suffix)
-    return Gradients(dx, dc0, dh0, dwi, dwh, db)
+    return grads
 
 
 class _LSTMUnroll(torch.autograd.Function):

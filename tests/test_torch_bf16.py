@@ -438,7 +438,8 @@ def fake_card(monkeypatch):
 def test_cuda_routes_take_the_variant_of_the_operand_type(
         fake_card, matmul_dtype, suffix):
     """Each wrapper launches the variant of its operand type and counts
-    it there; BPTT's db GEMM sums the float32 dgates in both."""
+    it there; BPTT is one call (chain, products and the db reduction,
+    which sums the float32 dgates in both)."""
     t = lstm_case._torch(lstm_case._inputs(12))
     hidden = 32
     t.update(c0=torch.zeros(4, hidden), h0=torch.zeros(4, hidden),
@@ -458,10 +459,8 @@ def test_cuda_routes_take_the_variant_of_the_operand_type(
     steps = lstm_case.T
     assert fake_card == (
         ["sat_lstm_step" + suffix] * steps
-        + ["sat_lstm_forward_resid" + suffix,
-           "sat_lstm_backward_chain" + suffix]
-        + ["sat_sgemm" + suffix] * 3
-        + ["sat_sgemm", "sat_conv_gradw" + suffix])
+        + ["sat_lstm_forward_resid" + suffix, "sat_lstm_backward" + suffix,
+           "sat_conv_gradw" + suffix])
     after = dict(lstm_cuda.LAUNCHES, **conv_cuda.LAUNCHES)
     grown = {k: after[k] - before[k] for k in after if after[k] != before[k]}
     assert grown == {"lstm_fwd_lean" + suffix: steps,

@@ -252,6 +252,118 @@ def test_resid_cuda_route_launches_the_kernels_only(monkeypatch):
     assert lstm_cuda.LAUNCHES["lstm_fwd_resid"] == before + 1
 
 
+@pytest.mark.parametrize("hidden", [32, 256, 320, 512, 1024])
+@pytest.mark.parametrize("batch", [1, 31, 32, 33, 64])
+def test_bptt_plan_fits_and_covers_the_batch(batch, hidden):
+    """BPTT's chain: every batch row in exactly one cluster (none empty),
+    the shared memory (two [R, H] x 4-gate dgates buffers, 8 partial
+    dh_prev vectors, then 2*H bytes per resident depth position of the
+    CTA's [H/8, 4H] Wh slice) within an H100 block's 232,448 bytes, a CTA
+    of H threads within the register cap of its R, and the resident depth
+    a multiple of 4 that the kernel's float4 loop can split at."""
+    plan = lstm_cuda.bptt_plan(batch, hidden)
+    assert plan.rows in (1, 2, 4, 8)
+    assert (plan.clusters - 1) * plan.rows < batch <= plan.clusters * plan.rows
+    assert plan.smem_bytes <= lstm_cuda.SMEM_LIMIT
+    assert plan.smem_bytes == (36 * plan.rows + 2 * plan.resident) * hidden
+    assert 0 < plan.resident <= hidden and plan.resident % 4 == 0
+    assert hidden <= {8: 256, 4: 512}.get(plan.rows, 1024)
+    if batch <= lstm_cuda.RESID_CLUSTER * plan.rows:
+        assert plan.clusters <= lstm_cuda.RESID_CLUSTER
+
+
+def test_bptt_plan_keeps_all_of_wh_on_chip_at_the_main_path():
+    """B=32, H=256: 8 clusters of 4 rows (64 SMs), each CTA's [32, 1024]
+    rows of Wh (128 KiB) whole in shared memory beside 36 KiB of dgates
+    buffers and partials; at H=512 only part of the depth stays."""
+    assert lstm_cuda.bptt_plan(32, 256) == lstm_cuda.BpttPlan(
+        rows=4, clusters=8, resident=256, smem_bytes=167_936)
+    assert lstm_cuda.bptt_plan(1, 256) == lstm_cuda.BpttPlan(1, 1, 256,
+                                                             140_288)
+    assert lstm_cuda.bptt_plan(4, 512).resident == 208
+
+
+@pytest.mark.parametrize("rows,in_dim,hidden,splits", [
+    (101 * 32, 266, 256, 4), (5 * 4, 12, 32, 1), (101, 266, 256, 4),
+    (3, 266, 256, 1), (101 * 64, 266, 512, 2)])
+def test_wgrad_splits_cut_the_depth_into_whole_tiles(rows, in_dim, hidden,
+                                                     splits):
+    """The bf16 weight gradient's K slices: ~528 blocks of 64x64 tiles, at
+    most one slice a 32-deep tile, at least one; the main path's 144 tiles
+    take 4 slices of 26 tiles (the last 23)."""
+    assert lstm_cuda.wgrad_splits(rows, in_dim, hidden) == splits
+
+
+@pytest.mark.parametrize("matmul_dtype,suffix,stash", [
+    ("float32", "", torch.float32), ("bfloat16", "_bf16", torch.bfloat16)])
+def test_bptt_cuda_route_launches_the_kernels_only(monkeypatch, matmul_dtype,
+                                                   suffix, stash):
+    """On the card BPTT is one call of its C entry point (chain, products,
+    reduction), with the plan's geometry and a pointer for every operand,
+    counted once; it never runs the plain loop or a PyTorch matmul.  The
+    dgates scratch is at the operand type, and only the bf16 variant cuts
+    the weight gradient into slices.  The library is a stand-in, so the
+    test needs no card."""
+    calls, scratch = [], []
+
+    class FakeLibrary:
+        def __getattr__(self, name):
+            assert name == "sat_lstm_backward" + suffix
+            return lambda *args: calls.append(args) or 0
+
+    real_empty = torch.empty
+
+    def spy_empty(*shape, **kwargs):
+        t = real_empty(*shape, **kwargs)
+        scratch.append(t)
+        return t
+
+    forbidden = lambda *a, **k: pytest.fail("the CUDA route ran PyTorch math")
+    monkeypatch.setattr(lstm_cuda._build, "on_cpu", lambda *a: False)
+    monkeypatch.setattr(lstm_cuda._build, "library", FakeLibrary)
+    monkeypatch.setattr(lstm_cuda, "_stream", lambda: 7)
+    monkeypatch.setattr(lstm_cuda, "lstm_backward_plain", forbidden)
+    monkeypatch.setattr(torch, "matmul", forbidden)
+    monkeypatch.setattr(torch.Tensor, "__matmul__", forbidden)
+    t = _torch(_inputs(14, done_rate=0.1))
+    hidden = 32
+    res = lstm_cuda.Residuals(torch.rand(T, B, 4 * hidden),
+                              *(torch.rand(T, B, hidden) for _ in range(3)))
+    dys = torch.ones(T, B, hidden)
+    dct, dht = torch.ones(B, hidden), torch.ones(B, hidden)
+    wi, wh = torch.zeros(D, 4 * hidden), torch.zeros(hidden, 4 * hidden)
+    monkeypatch.setattr(torch, "empty", spy_empty)
+    counter = "lstm_bptt" + suffix
+    before = lstm_cuda.LAUNCHES[counter]
+    grads = lstm_cuda.lstm_backward(dys, dct, dht, t["x"], t["done"], wi, wh,
+                                    res, matmul_dtype)
+    args, = calls
+    argtypes, _ = lstm_cuda._build._SIGNATURES["sat_lstm_backward" + suffix]
+    assert len(args) == len(argtypes) == 29
+    plan = lstm_cuda.bptt_plan(B, hidden)
+    splits = lstm_cuda.wgrad_splits(T * B, D, hidden) if suffix else 0
+    assert args[20:] == (T, B, D, hidden, plan.rows, plan.resident,
+                         plan.smem_bytes, splits, 7)
+    inputs = [dys, t["done"], res.ifgo, res.cpost, res.hpost, res.cnew,
+              t["x"], wi, wh, dct, dht]
+    assert list(args[:11]) == [x.data_ptr() for x in inputs]
+    assert list(args[11:17]) == [g.data_ptr() for g in grads]
+    dgates, dbpart, wpart = scratch[-3:]
+    assert list(args[17:20]) == [dgates.data_ptr(), dbpart.data_ptr(),
+                                 wpart.data_ptr()]
+    assert dgates.shape == (T, B, 4 * hidden) and dgates.dtype == stash
+    assert dbpart.shape == (B, 4 * hidden) and dbpart.dtype == torch.float32
+    assert wpart.shape == (splits, D + hidden, 4 * hidden)
+    # One buffer for each operand (the float32 variant's slice scratch is
+    # empty and never read).
+    owned = args[:19] + (args[19:20] if splits else ())
+    assert len(set(owned)) == len(owned)
+    assert [tuple(g.shape) for g in grads] == [
+        (T, B, D), (B, hidden), (B, hidden), (D, 4 * hidden),
+        (hidden, 4 * hidden), (4 * hidden,)]
+    assert lstm_cuda.LAUNCHES[counter] == before + 1
+
+
 @pytest.mark.parametrize("steps", [1, 5])
 def test_lean_forward_runs_one_step_per_time_step(steps):
     """The lean route: T calls of the step (one kernel launch each on the
