@@ -11,7 +11,9 @@ a result:
 2. Each kernel against its plain PyTorch version at the main path's
    shapes (T=101, B=32, D=266, H=256 for the LSTM; N=3232 frames of
    72x96x3 for the stem grad-W; [100, 32] for V-trace, which is also held
-   at [100, 8192] and T=1), float32 with TF32 off, random inputs from a
+   at [100, 8192], T=1, T=101, [3, 33], NaN and +inf rhos and an all-done
+   column, with bitwise-equal calls and its device time at [100, 32]
+   below ``VTRACE_MAX_MS``), float32 with TF32 off, random inputs from a
    seeded generator with ~5% done=1: max abs and scale-floored relative
    error against the stated tolerance, and times from CUDA events (kernel,
    plain version, and a library call for the same function where there is
@@ -118,6 +120,8 @@ BPTT_MAX_MS = 2.27          # BPTT device time, every kernel: half of the
 GRADW_TOL = 1e-4            # scale-relative over 1.4 M summed rows
 AGENT_TOL = 1e-3            # whole model: cuDNN convs vs CPU convs
 VTRACE_TOL = 1e-5           # scale-relative; FMA contraction on the card
+VTRACE_MAX_MS = 0.0078      # V-trace device time at [100, 32]: half of the
+                            # one-thread-per-column walk's 0.0156 ms
 UPDATES = 4
 F32_UPDATES = 2             # the float32 policy's shorter path
 POOL_UPDATES = 10
@@ -686,53 +690,128 @@ def compare_gradw(torch, conv_cuda, device, N=101 * 32, dtype=None):
              library, nbytes, flops, bf16, device_ms)]
 
 
+def _vtrace_errors(torch, pairs):
+    """``_errors`` over the entries finite in the plain version; a NaN, +inf
+    or -inf must sit at the same places in the kernel's output."""
+    finite = []
+    for kernel, plain in pairs:
+        for test in (torch.isnan, torch.isposinf, torch.isneginf):
+            if not torch.equal(test(kernel), test(plain)):
+                raise AssertionError(f"vtrace_fused: {test.__name__} differs "
+                                     f"from the plain version")
+        mask = torch.isfinite(plain)
+        finite.append((kernel[mask], plain[mask]))
+    return _errors(finite)
+
+
+def _bits(torch, tensors):
+    return [t.view(torch.int32) for t in tensors]
+
+
+def _host_ms(torch, fn, iters):
+    """Mean host milliseconds per call: the wrapper's own time on the CPU,
+    with the card kept ahead of it (no synchronise inside the loop)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return host_ms
+
+
 def compare_vtrace(torch, vtrace_cuda, vtrace, device):
-    """Fused V-trace at the learner's [T, B] = [100, 32], and at
-    [100, 8192] and T=1, with ~5% done (discount 0) and log-rho spread
-    over about +-3 so both clips engage.  Also times the scan_impl=auto
-    recurrence at [100, 32]."""
+    """Fused V-trace at the learner's [T, B] = [100, 32], with ~5% done
+    (discount 0) and log-rho spread over about +-3 so both clips engage;
+    also at [100, 8192], T=1, T=101, [3, 33] (T below the kernel's 16
+    chunks, a ragged column tile), NaN log-rhos on a chunk boundary and
+    inside a chunk, a +inf rho (clipped, and with clips of None), and a
+    column that is done at every step.  Two calls must be bitwise equal,
+    and the device time at [100, 32] below ``VTRACE_MAX_MS``.  Also times
+    the scan_impl=auto recurrence at [100, 32]."""
     gen = torch.Generator().manual_seed(777)
 
     def inputs(steps, cols):
         uniform = lambda: torch.rand((steps, cols), generator=gen)
-        log_rhos = (uniform() * 6.0 - 3.0).to(device)
-        discounts = ((uniform() >= 0.05).float() * 0.99).to(device)
-        rewards = torch.randn((steps, cols), generator=gen).to(device)
-        values = torch.randn((steps, cols), generator=gen).to(device)
-        boot = torch.randn((cols,), generator=gen).to(device)
+        log_rhos = uniform() * 6.0 - 3.0
+        discounts = (uniform() >= 0.05).float() * 0.99
+        rewards = torch.randn((steps, cols), generator=gen)
+        values = torch.randn((steps, cols), generator=gen)
+        boot = torch.randn((cols,), generator=gen)
         return log_rhos, discounts, rewards, values, boot
+
+    def check(name, args, clips=(1.0, 1.0)):
+        args = [t.to(device) for t in args]
+        kern = vtrace_cuda.vtrace_fused(*args, *clips)
+        again = vtrace_cuda.vtrace_fused(*args, *clips)
+        plain = vtrace_cuda.vtrace_fused_plain(*args, *clips)
+        torch.cuda.synchronize()
+        err = _vtrace_errors(torch, zip(kern, plain))
+        _check(f"vtrace_fused {name}", *err, VTRACE_TOL)
+        if not all(torch.equal(a, b) for a, b in zip(_bits(torch, kern),
+                                                     _bits(torch, again))):
+            raise AssertionError(f"vtrace_fused {name}: two calls gave "
+                                 f"different bits")
+        return args, kern, err
 
     rows = []
     for steps, cols in ((100, 32), (100, 8192), (1, 32)):
-        args = inputs(steps, cols)
-        kern = vtrace_cuda.vtrace_fused(*args)
-        plain = vtrace_cuda.vtrace_fused_plain(*args)
-        torch.cuda.synchronize()
-        err = _errors(zip(kern, plain))
-        _check(f"vtrace_fused [{steps},{cols}]", *err, VTRACE_TOL)
+        args, _, err = check(f"[{steps},{cols}]", inputs(steps, cols))
         nbytes = 4 * (6 * steps * cols + cols)
         flops = 16 * steps * cols
         kernel_fn = lambda args=args: vtrace_cuda.vtrace_fused(*args)
         ms = _time_ms(torch, kernel_fn, 50)
-        device_ms = _device_ms(torch, kernel_fn, "vtrace_kernel", 50)
+        host_ms = _host_ms(torch, kernel_fn, 200)
+        device_ms = _device_ms(torch, kernel_fn, "vtrace_chunked_kernel", 50)
         bound_ms, bound_by = _bound_ms(nbytes, flops)
         print(f"  vtrace_fused [{steps},{cols}]: {ms:.4f} ms per wrapper "
-              f"call (CUDA events), kernel device time {device_ms:.4f} ms "
-              f"(torch.profiler), bound {bound_ms:.5f} ms ({bound_by})",
+              f"call (CUDA events), host {host_ms:.4f} ms per call, kernel "
+              f"device time {device_ms:.4f} ms (torch.profiler), bound "
+              f"{bound_ms:.5f} ms ({bound_by}); two calls bitwise equal",
               flush=True)
         if (steps, cols) == (100, 32):
+            if not device_ms < VTRACE_MAX_MS:
+                raise AssertionError(
+                    f"vtrace_fused [100,32]: device time {device_ms:.4f} ms "
+                    f"is not below {VTRACE_MAX_MS} ms")
             auto_ms = _time_ms(torch, lambda: vtrace.from_importance_weights(
                 *args, scan_impl="associative"), 20)
             pallas_ms = _time_ms(torch, lambda: vtrace.from_importance_weights(
                 *args, scan_impl="pallas"), 20)
             print(f"  from_importance_weights [100,32]: scan_impl=auto "
-                  f"(associative, the plain reverse loop) {auto_ms:.4f} ms, "
+                  f"(associative, the log-depth scan) {auto_ms:.4f} ms, "
                   f"scan_impl=pallas {pallas_ms:.4f} ms", flush=True)
             rows.append(("vtrace_fused", "vtrace.cu", "vtrace_pallas.py:44",
                          err, kernel_fn,
                          lambda args=args: vtrace_cuda.vtrace_fused_plain(
                              *args),
                          None, nbytes, flops, False, device_ms))
+
+    check("[101,32]", inputs(101, 32))
+    check("[3,33]", inputs(3, 33))
+    # A NaN at the first step of the kernel's chunk 4, and two steps into it.
+    base, extra = divmod(100, vtrace_cuda.KERNEL_CHUNKS)
+    edge = 4 * base + min(4, extra)
+    args = inputs(100, 32)
+    for t, col in ((edge, 3), (edge + 2, 7)):
+        args[0][t, col] = float("nan")
+    _, (vs, pg), _ = check(f"NaN log-rhos at t={edge} and t={edge + 2}",
+                           args)
+    nan = torch.isnan(vs)
+    want = torch.zeros_like(nan)
+    want[:edge + 1, 3] = want[:edge + 3, 7] = True
+    if not torch.equal(nan, want) or not torch.equal(torch.isnan(pg), want):
+        raise AssertionError("vtrace_fused: a NaN log-rho did not reach "
+                             "exactly its step and the earlier ones of its "
+                             "column")
+    args = inputs(100, 32)
+    args[0][40, 5] = float("inf")
+    check("+inf rho", args)
+    check("+inf rho, clips None", args, (None, None))
+    args = inputs(100, 32)
+    args[1][:, 9] = 0.0
+    check("a column done at every step", args)
     return rows
 
 

@@ -3,13 +3,14 @@
 The counterpart of ``scalable_agent_tpu/ops/vtrace.py`` (reference:
 vtrace.py:71-280), with the same ``scan_impl`` dispatch:
 
-- ``"associative"`` and ``"sequential"`` both solve the recurrence
+- ``"associative"`` solves the recurrence
 
       acc_s = delta_s + (discount_s * c_s) * acc_{s+1}
 
-  as a plain reverse loop over time (the JAX package runs an
-  ``associative_scan`` or a ``lax.scan`` outside any kernel; either is plain
-  tensor code here).
+  as the JAX package does, by composing the steps' affine maps
+  (``compose_affine``) in a log-depth reverse scan: about log2(T)
+  doubling levels of tensor ops over all of T.  ``"sequential"`` is the
+  reverse loop over time (JAX: a reverse ``lax.scan``).
 - ``"pallas"`` names the fused V-trace kernel (``ops/vtrace_pallas.py``);
   its counterpart is the hand-written CUDA kernel in ``ops/vtrace_cuda.py``.
   Extra trailing dims are flattened into its batch axis.
@@ -110,23 +111,51 @@ def log_probs_from_logits_and_actions(policy_logits, actions):
     return log_pi.gather(-1, actions.long()[..., None])[..., 0]
 
 
-def _reverse_loop(log_rhos, discounts, rewards, values, bootstrap_value,
-                  clip_rho_threshold, clip_pg_rho_threshold):
-    """The non-kernel paths: elementwise prologue, the recurrence as a
-    reverse loop over T, elementwise epilogue."""
+def compose_affine(later, earlier):
+    """Affine-map composition for the reverse recurrence (the JAX
+    package's ``compose_affine``): each step is f(x) = b + a * x, and
+    f_earlier o f_later is (a_e * a_l, b_e + a_e * b_l)."""
+    a_l, b_l = later
+    a_e, b_e = earlier
+    return a_e * a_l, b_e + a_e * b_l
+
+
+def _linear_recurrence_reverse(a, b, scan_impl: str):
+    """Solve acc_s = b_s + a_s * acc_{s+1} with acc_T = 0, over axis 0.
+
+    ``associative``: a Hillis-Steele reverse scan.  After the level of
+    shift d, entry s holds the composed map of steps [s, s + 2d) (cut at
+    T), so ceil(log2 T) levels leave f_s o ... o f_{T-1} at s, whose b is
+    its value at 0.  ``sequential``: the reverse loop."""
+    if scan_impl == "sequential":
+        acc = torch.zeros_like(b[0])
+        out = []
+        for t in reversed(range(b.shape[0])):
+            acc = b[t] + a[t] * acc
+            out.append(acc)
+        return torch.stack(out[::-1])
+    shift = 1
+    while shift < b.shape[0]:
+        a_c, b_c = compose_affine((a[shift:], b[shift:]),
+                                  (a[:-shift], b[:-shift]))
+        a = torch.cat([a_c, a[-shift:]])
+        b = torch.cat([b_c, b[-shift:]])
+        shift *= 2
+    return b
+
+
+def _recurrence_path(log_rhos, discounts, rewards, values, bootstrap_value,
+                     clip_rho_threshold, clip_pg_rho_threshold, scan_impl):
+    """The non-kernel paths: elementwise prologue, the recurrence by
+    ``scan_impl``, elementwise epilogue."""
     rhos = torch.exp(log_rhos)
     clipped_rhos = (torch.clamp(rhos, max=clip_rho_threshold)
                     if clip_rho_threshold is not None else rhos)
     cs = torch.clamp(rhos, max=1.0)
     values_t_plus_1 = torch.cat([values[1:], bootstrap_value[None]], dim=0)
     deltas = clipped_rhos * (rewards + discounts * values_t_plus_1 - values)
-    a = discounts * cs
-    acc = torch.zeros_like(bootstrap_value)
-    vs_minus_v = []
-    for t in reversed(range(log_rhos.shape[0])):
-        acc = deltas[t] + a[t] * acc
-        vs_minus_v.append(acc)
-    vs = torch.stack(vs_minus_v[::-1]) + values
+    vs = _linear_recurrence_reverse(discounts * cs, deltas,
+                                    scan_impl) + values
     vs_t_plus_1 = torch.cat([vs[1:], bootstrap_value[None]], dim=0)
     clipped_pg_rhos = (torch.clamp(rhos, max=clip_pg_rho_threshold)
                        if clip_pg_rho_threshold is not None else rhos)
@@ -180,9 +209,9 @@ def from_importance_weights(
             clip_pg_rho_threshold=clip_pg_rho_threshold)
         vs, pg_advantages = vs.reshape(shape), pg_advantages.reshape(shape)
     else:
-        vs, pg_advantages = _reverse_loop(
+        vs, pg_advantages = _recurrence_path(
             log_rhos, discounts, rewards, values, bootstrap_value,
-            clip_rho_threshold, clip_pg_rho_threshold)
+            clip_rho_threshold, clip_pg_rho_threshold, scan_impl)
     return VTraceReturns(
         vs=vs, pg_advantages=pg_advantages,
         importance=(log_rhos, clip_rho_threshold, clip_pg_rho_threshold))
