@@ -53,22 +53,49 @@ a result:
 3. Train: ``driver.train`` on ``fake_benchmark`` at full width (64 actors
    in two groups of 32 on ActorPool threads, 8 env worker processes per
    group, unroll 100, 4 action repeats, LSTM 256, ``--scan_impl=pallas``,
-   the default ``compute_dtype=bfloat16``) for 4 updates into a temporary
-   ``--logdir``, with every launch counter set to 0 just before and read
-   just after: losses finite, env_frames exact, the bf16 variants of the
-   residual forward, BPTT and grad-W and V-trace launched once per
-   update, the bf16 lean forward at least 100 times per update, no float32
-   LSTM or grad-W kernel launched, metric rows written, and a checkpoint
-   whose manifest verifies.  Then ``driver.test`` (``--mode=test``) on that
+   the default ``compute_dtype=bfloat16``, and the JAX host loop's
+   defaults: ``transport=packed``, ``inflight_updates=2``,
+   ``nonfinite_tolerance=10``, ``preemption_grace_s=30``) for 4 updates
+   into a temporary ``--logdir``, with every launch counter set to 0 just
+   before and read just after: losses finite, env_frames exact, the bf16
+   variants of the residual forward, BPTT and grad-W and V-trace launched
+   once per update, the bf16 lean forward at least 100 times per update,
+   no float32 LSTM or grad-W kernel launched, one metric row per update
+   in update order with exact env_frames (each row the update retired
+   from the in-flight window), and a checkpoint whose manifest verifies.  Then ``driver.test`` (``--mode=test``) on that
    logdir for 8 episodes, a 1-update ``scan_impl=auto`` train that must
    launch no V-trace kernel, and the float32 policy's path
    (``--compute_dtype=float32``) for 2 updates, counted the same way for
    the float32 kernels.
-3b. Where the time goes: one actor unroll, the upload and one update taken
+3b. Where the time goes: one actor unroll, the upload (per_leaf, and
+   packed as pack, upload with its GB/s, and unpack) and one update taken
    apart (with torch.profiler for the update's kernels), at bf16 and at
-   float32, then the pool loop's steady state at bf16 over 10 updates (s
-   per update after the first 2, actor against learner fps,
-   ``wait_batch`` against ``update``).
+   float32, then the pool loop's steady state at bf16 over 10 updates at
+   ``inflight_updates`` 2 and 1 (s per update after the first 2, actor
+   against learner fps, ``wait_batch``, ``update`` and ``retire``).
+3d. (Run after 3b, before 3c.) The default loop's machinery, each part
+   failing the run: packed
+   bitwise equal to per_leaf for one full-width trajectory from the pool,
+   then over 30 back-to-back packed uploads on a prefetch stream, each
+   handed over by the driver's ``_adopt`` and read on the main stream
+   under a dummy update that the uploads outrun (the allocator's reuse
+   race); 4 updates at ``inflight_updates`` 2 and 1 on the same fixed
+   trajectories (the pool replaced) with bitwise-equal losses, published
+   weight snapshots and final state; the rollback drill (``nan_grad@3:4:5``,
+   tolerance 3, a checkpoint every update, 8 updates: one rollback to a
+   verified step, 3 skips) and the same run as a CLI subprocess under
+   ``--no_rollback`` exiting 71; the preemption drill (a CLI subprocess
+   with ``--chaos_spec=preempt_sigterm@12``: exit 0, a verified final
+   checkpoint at update count x frames per update, and the same command
+   resuming from exactly that step); ``actor_raise@1;worker_kill@2;
+   ckpt_save_fail@1`` in one 4-update run (one restart, one respawn, one
+   failed save) and ``ckpt_torn@1`` on a newer step on top of it (the
+   restore walks back); one update under ``remat_torso=on`` and under
+   ``fused_forward=false`` from the default update's weights and batch,
+   with the same kernels launched (the residual forward twice for the
+   two-pass update) and bitwise-equal results (the two-pass update is
+   otherwise held at rtol 1e-4 on its losses, and the difference
+   printed).
 3c. Learning: ``fake_bandit`` through the pool on the card at the default
    bf16 policy (16x16 frames,
    32 actors, batch 16, unroll 16, lr 0.002, entropy 0.003, 200 updates,
@@ -91,10 +118,13 @@ a result:
 Imports nothing of JAX or of the JAX package.
 """
 
+import contextlib
 import dataclasses
 import json
+import logging
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -125,6 +155,13 @@ VTRACE_MAX_MS = 0.0078      # V-trace device time at [100, 32]: half of the
 UPDATES = 4
 F32_UPDATES = 2             # the float32 policy's shorter path
 POOL_UPDATES = 10
+UPLOAD_REPS = 5             # uploads timed per transport (phase 3b)
+PACKED_UPLOADS = 30         # back-to-back packed uploads held (phase 3d)
+DUMMY_MATMULS = 12          # 4096^2 float32 products per upload read:
+                            # longer than a pack, so uploads run ahead
+ROLLBACK_UPDATES = 8
+PREEMPT_CYCLE = 12          # the monitor cycle (~1 s each) that SIGTERMs
+CLI_TIMEOUT_S = 300         # each driver subprocess of phase 3d
 BANDIT_UPDATES = 200
 BANDIT_RANDOM = 4.0         # fake_bandit: 16 steps, 4 actions
 BANDIT_SEEDS = tuple(range(1, 9))
@@ -868,11 +905,51 @@ def compare_agent(torch, device, compute_dtype=None):
            *err, AGENT_BF16_TOL if bf16 else AGENT_TOL)
 
 
+def upload_parts(torch, device, out, reps=UPLOAD_REPS):
+    """One trajectory's upload under each transport, host clock around
+    work that ends in a synchronize, the mean over ``reps`` after a
+    warm-up: per_leaf whole; packed as pack (host), upload (the one copy)
+    and unpack (views on the card).  Returns (per_leaf ms, (pack, upload,
+    unpack) ms, upload GB/s, the per_leaf trajectory)."""
+    from scalable_agent_tpu_torch.runtime.transport import (
+        PackedTransport,
+        PerLeafTransport,
+        host_trajectory,
+    )
+
+    host = host_trajectory(out)
+    per_leaf, packed = PerLeafTransport(device), PackedTransport(device)
+    traj, _ = per_leaf.put(host)
+    packed.put(host)  # the pinned staging buffers are made here
+    torch.cuda.synchronize()
+    per_leaf_s, parts = 0.0, [0.0, 0.0, 0.0]
+    for _ in range(reps):
+        t0 = time.monotonic()
+        per_leaf.put(host)
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        buf = packed.pack(host)
+        t2 = time.monotonic()
+        device_buf = packed.upload(buf)
+        torch.cuda.synchronize()
+        t3 = time.monotonic()
+        packed.unpack(device_buf)
+        torch.cuda.synchronize()
+        t4 = time.monotonic()
+        per_leaf_s += t1 - t0
+        for i, dt in enumerate((t2 - t1, t3 - t2, t4 - t3)):
+            parts[i] += dt
+    parts_ms = tuple(1e3 * t / reps for t in parts)
+    gbps = buf.numel() / (parts_ms[1] / 1e3) / 1e9
+    return 1e3 * per_leaf_s / reps, parts_ms, gbps, traj
+
+
 def breakdown(torch, driver, config):
     """Where one iteration of the main path spends its time: one actor
     unroll (its inference steps alone, then the rest: env steps and
-    host packing), the trajectory's upload, and one learner update, with
-    the update's device time by kernel from torch.profiler."""
+    host packing), the trajectory's upload under each transport, and one
+    learner update, with the update's device time by kernel from
+    torch.profiler."""
     from scalable_agent_tpu_torch.models import actor_step, initial_state
     from scalable_agent_tpu_torch.runtime import VectorActor
     from scalable_agent_tpu_torch.runtime.actor import to_device, to_numpy
@@ -904,10 +981,8 @@ def breakdown(torch, driver, config):
             agent_out, state = actor_step(agent, gen, *step_in, state)
             to_numpy(agent_out)
         infer_s = time.monotonic() - t0
-        t0 = time.monotonic()
-        traj = driver.to_trajectory(out, device)
-        torch.cuda.synchronize()
-        upload_ms = 1e3 * (time.monotonic() - t0)
+        per_leaf_ms, (pack_ms, copy_ms, unpack_ms), gbps, traj = (
+            upload_parts(torch, device, out))
         update_ms = _time_ms(torch, lambda: learner.update(traj), 3)
         activities = [torch.profiler.ProfilerActivity.CPU,
                       torch.profiler.ProfilerActivity.CUDA]
@@ -933,9 +1008,12 @@ def breakdown(torch, driver, config):
           f"inference {infer_s:.3f} s (per step "
           f"{1e3 * infer_s / config.unroll_length:.3f} ms) and env steps "
           f"+ packing {unroll_s - infer_s:.3f} s", flush=True)
-    print(f"  trajectory upload {upload_ms:.2f} ms; learner update "
-          f"{update_ms:.2f} ms (CUDA events), device busy {busy_ms:.2f} ms "
-          f"in the profiled update", flush=True)
+    print(f"  trajectory upload ({UPLOAD_REPS} reps): per_leaf "
+          f"{per_leaf_ms:.3f} ms; packed {pack_ms + copy_ms + unpack_ms:.3f}"
+          f" ms = pack {pack_ms:.3f} + upload {copy_ms:.3f} ({gbps:.2f} "
+          f"GB/s) + unpack {unpack_ms:.3f}", flush=True)
+    print(f"  learner update {update_ms:.2f} ms (CUDA events), device busy "
+          f"{busy_ms:.2f} ms in the profiled update", flush=True)
     for name, us in sorted(device_us.items(), key=lambda kv: -kv[1])[:12]:
         print(f"    {us / 1e3:9.3f} ms  {name[:90]}", flush=True)
     for what, names in (
@@ -958,7 +1036,7 @@ def _rows(logdir):
 def pool_steady_state(torch, driver, config, logdir):
     """The pool loop's own figures over POOL_UPDATES updates logged every
     update: s per update after the first 2, actor against learner fps,
-    and Timing's wait_batch against update over the same updates."""
+    and Timing's wait_batch, update and retire over the same updates."""
     config = dataclasses.replace(
         config, logdir=logdir, log_interval_s=0.0,
         total_environment_frames=float(
@@ -969,17 +1047,22 @@ def pool_steady_state(torch, driver, config, logdir):
     n = POOL_UPDATES - 2
     s_per_update = (last["time"] - first["time"]) / n
     # Timing keeps a moving average over the last 50 values, one value
-    # per update: differencing two rows gives the mean of updates 3..N.
-    steady = lambda key: (last[key] * POOL_UPDATES - first[key] * 2) / n
+    # per update (retire: none while the window fills): differencing two
+    # rows gives the mean of updates 3..N.
+    lag = config.inflight_updates - 1
+    steady = lambda key, lag=0: ((last[key] * (POOL_UPDATES - lag)
+                                  - first[key] * (2 - lag)) / n)
     tail = [rows[k] for k in range(3, POOL_UPDATES + 1)]
     fps = sum(r["fps"] for r in tail) / len(tail)
     actor_fps = sum(r["actor_fps"] for r in tail) / len(tail)
-    print(f"  pool loop, updates 3..{POOL_UPDATES}: {s_per_update:.4f} s per "
+    print(f"  pool loop at inflight_updates={config.inflight_updates}, "
+          f"updates 3..{POOL_UPDATES}: {s_per_update:.4f} s per "
           f"update ({config.frames_per_update() / s_per_update:.0f} env "
           f"frames/s); mean of per-update rows: learner fps {fps:.0f}, "
           f"actor fps {actor_fps:.0f}; wait_batch "
           f"{steady('timing/wait_batch'):.4f} s, update "
-          f"{steady('timing/update'):.4f} s per update", flush=True)
+          f"{steady('timing/update'):.4f} s, retire "
+          f"{steady('timing/retire', lag):.4f} s per update", flush=True)
 
 
 def _early_late(returns, random_return):
@@ -1052,6 +1135,411 @@ def learn_bandit(driver, Config, scratch):
             f"needed)")
 
 
+def _check_rows(rows, fpu, window, updates):
+    """metrics.jsonl of a run logged every update, without rollback: one
+    row per update in update order, row k carrying the update it retired
+    from the in-flight window (k - window + 1), or update 1 while none
+    has left it, with exact env_frames."""
+    steps = [r["step"] for r in rows]
+    frames = [r["env_frames"] for r in rows]
+    want = [float(max(1, k - window + 1) * fpu) for k in range(1, updates + 1)]
+    if steps != list(range(1, updates + 1)) or frames != want:
+        raise AssertionError(f"metrics.jsonl steps {steps} env_frames "
+                             f"{frames}, expected env_frames {want}")
+
+
+@contextlib.contextmanager
+def _patched(module, **attrs):
+    """Replace attributes of ``module`` for the duration of a block."""
+    saved = {name: getattr(module, name) for name in attrs}
+    for name, value in attrs.items():
+        setattr(module, name, value)
+    try:
+        yield
+    finally:
+        for name, value in saved.items():
+            setattr(module, name, value)
+
+
+def _log_messages():
+    """A handler on the port's logger that keeps its WARNING and ERROR
+    messages (the rollback, retry and respawn lines)."""
+    handler = logging.Handler(logging.WARNING)
+    handler.messages = []
+    handler.emit = lambda record: handler.messages.append(
+        record.getMessage())
+    return handler
+
+
+def pool_trajectories(torch, driver, config, count):
+    """``count`` full-width trajectories (numpy ActorOutputs) from one
+    actor group of the main path, each a fresh unroll."""
+    from scalable_agent_tpu_torch.runtime import VectorActor
+
+    obs_spec, action_space = driver.probe_env(config)
+    agent = driver.build_agent(config, obs_spec, action_space,
+                               torch.device(config.device))
+    groups = driver.make_env_groups(
+        dataclasses.replace(config, num_actors=config.batch_size),
+        obs_spec.frame)
+    actor = VectorActor(agent, groups[0], config.unroll_length,
+                        seed=config.seed)
+    try:
+        return [actor.run_unroll() for _ in range(count)]
+    finally:
+        for envs in groups:
+            envs.close()
+
+
+def _leaves_equal(torch, got, want):
+    from scalable_agent_tpu_torch.runtime.transport import tree_leaves
+
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        if (a is None) != (b is None) or (a is not None and (
+                a.dtype != b.dtype or a.shape != b.shape
+                or not torch.equal(a, b))):
+            return False
+    return True
+
+
+def compare_transports(torch, driver, device, outs):
+    """Packed against per_leaf on the card: one trajectory bitwise, then
+    PACKED_UPLOADS back-to-back packed uploads on a prefetch stream, each
+    handed to the main stream by the driver's ``_adopt`` and read there
+    by a dummy update long enough that the uploads run ahead of it (so
+    the caching allocator is tempted to hand a buffer the main stream has
+    not read yet to a later upload), each compared on the card with the
+    per_leaf copy of the same batch."""
+    from scalable_agent_tpu_torch.runtime.transport import (
+        PackedTransport,
+        PerLeafTransport,
+        host_trajectory,
+        tree_leaves,
+    )
+
+    hosts = [host_trajectory(out) for out in outs]
+    refs = [PerLeafTransport(device).put(h)[0] for h in hosts]
+    packed = PackedTransport(device)
+    got, _ = packed.put(hosts[0])
+    torch.cuda.synchronize()
+    if not _leaves_equal(torch, got, refs[0]):
+        raise AssertionError("packed trajectory differs from per_leaf")
+    del got
+    stream = torch.cuda.Stream(device)
+    work = torch.randn(4096, 4096, device=device) / 64
+    mismatches = torch.zeros((), dtype=torch.int64, device=device)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for i in range(PACKED_UPLOADS):
+        with torch.cuda.stream(stream):
+            trajectory, owners = packed.put(hosts[i % len(hosts)])
+            event = torch.cuda.Event()
+            event.record(stream)
+        trajectory = driver._adopt((trajectory, owners, event), device)
+        for _ in range(DUMMY_MATMULS):
+            work = torch.tanh(work @ work)
+        for a, b in zip(tree_leaves(trajectory),
+                        tree_leaves(refs[i % len(refs)])):
+            if a is not None:
+                mismatches += (a != b).sum()
+        del trajectory, owners
+    torch.cuda.synchronize()
+    elapsed = time.monotonic() - t0
+    if int(mismatches):
+        raise AssertionError(f"{int(mismatches)} elements of the packed "
+                             f"uploads differ from per_leaf")
+    print(f"  packed == per_leaf bitwise: 1 trajectory, then "
+          f"{PACKED_UPLOADS} back-to-back uploads read under a dummy update "
+          f"({elapsed:.2f} s); staging buffer {packed.spec.shard_nbytes} "
+          f"bytes", flush=True)
+
+
+class _FixedPool:
+    """Stands in for ``driver.ActorPool``: serves ``outs`` in order, the
+    same data for every run, and keeps every snapshot it is given to
+    publish."""
+
+    def __init__(self, outs):
+        self._outs = outs
+        self._next = 0
+        self.snapshots = []
+        self.agent_steps = 0
+
+    def __call__(self, agent, groups, unroll_length, **kwargs):
+        return self
+
+    def set_params(self, agent, version=None):
+        from scalable_agent_tpu_torch.runtime.actor import (
+            snapshot_params_for_inference,
+        )
+
+        self.snapshots.append(snapshot_params_for_inference(agent, version))
+
+    def start(self):
+        return self
+
+    def get_trajectory(self, timeout=None):
+        out = self._outs[self._next % len(self._outs)]
+        self._next += 1
+        return out
+
+    def stop(self):
+        pass
+
+    def episode_stats(self):
+        return []
+
+
+def compare_windows(torch, driver, CheckpointManager, config, outs,
+                    scratch):
+    """Two runs of UPDATES updates at full width from one seed on the
+    same trajectories, at inflight_updates 2 and 1: every update's loss,
+    every published weight snapshot and the final parameters and RMSProp
+    state must be bitwise equal."""
+    fpu = config.frames_per_update()
+    runs = {}
+    for window in (2, 1):
+        logdir = os.path.join(scratch, f"window{window}")
+        pool = _FixedPool(outs)
+        with _patched(driver, ActorPool=pool,
+                      make_env_groups=lambda config, spec: []):
+            metrics = driver.train(dataclasses.replace(
+                config, logdir=logdir, inflight_updates=window,
+                total_environment_frames=float(UPDATES * fpu)))
+        rows = _rows(logdir)
+        _check_rows(rows, fpu, window, UPDATES)
+        losses = {r["env_frames"]: r["total_loss"] for r in rows}
+        losses[metrics["env_frames"]] = metrics["total_loss"]
+        step, saved = CheckpointManager(logdir).restore()
+        runs[window] = (losses, pool.snapshots, step, saved)
+    (loss2, snaps2, step2, saved2), (loss1, snaps1, step1, saved1) = (
+        runs[2], runs[1])
+    if loss2 != loss1 or sorted(loss1) != [
+            float(k * fpu) for k in range(1, UPDATES + 1)]:
+        raise AssertionError(f"losses by env_frames differ: window 2 "
+                             f"{loss2}, window 1 {loss1}")
+    if len(snaps2) != len(snaps1) or not all(
+            torch.equal(a, b) for s2, s1 in zip(snaps2, snaps1)
+            for a, b in zip(s2.tensors, s1.tensors)):
+        raise AssertionError("published weight snapshots differ between "
+                             "windows 2 and 1")
+    if step2 != step1 or not all(
+            torch.equal(saved2[group][name], saved1[group][name])
+            for group in ("params", "opt_state") for name in saved1[group]):
+        raise AssertionError("final parameters or RMSProp state differ "
+                             "between windows 2 and 1")
+    print(f"  inflight_updates 2 == 1 bitwise over {UPDATES} updates: "
+          f"losses {[loss1[k] for k in sorted(loss1)]}, "
+          f"{len(snaps1)} weight snapshots, final params and nu", flush=True)
+
+
+def _cli(config):
+    """The driver's CLI for ``config``: a flag for every field that
+    differs from its default."""
+    default = type(config)()
+    return [sys.executable, "-m", "scalable_agent_tpu_torch.driver"] + [
+        f"--{f.name}={getattr(config, f.name)}"
+        for f in dataclasses.fields(config)
+        if getattr(config, f.name) != getattr(default, f.name)]
+
+
+def _run_cli(root, cmd, timeout):
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.monotonic()
+    proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                          text=True, timeout=timeout)
+    return proc, time.monotonic() - t0
+
+
+def rollback_drill(driver, config, scratch, root):
+    """Full width: NaN gradients on updates 3-5 with a tolerance of 3 and
+    a checkpoint every update; the run rolls back once to a verified step
+    and completes, counting 3 skips.  The same run under --no_rollback,
+    as a CLI subprocess, exits 71."""
+    fpu = config.frames_per_update()
+    spec, frames = "nan_grad@3:4:5", float(ROLLBACK_UPDATES * fpu)
+    drill = dataclasses.replace(
+        config, logdir=os.path.join(scratch, "rollback"), chaos_spec=spec,
+        nonfinite_tolerance=3, checkpoint_interval_s=0.0,
+        total_environment_frames=frames)
+    handler = _log_messages()
+    logger = logging.getLogger("scalable_agent_tpu_torch")
+    logger.addHandler(handler)
+    try:
+        metrics = driver.train(drill)
+    finally:
+        logger.removeHandler(handler)
+    rollbacks = [m for m in handler.messages if "rolled back" in m]
+    print(f"  rollback drill ({spec}, tolerance 3, {ROLLBACK_UPDATES} "
+          f"updates): {rollbacks}; final env_frames "
+          f"{metrics['env_frames']}, nonfinite_skips "
+          f"{metrics['nonfinite_skips']}, total_loss "
+          f"{metrics['total_loss']}", flush=True)
+    if (len(rollbacks) != 1 or metrics["env_frames"] != frames
+            or metrics["nonfinite_skips"] != 3.0
+            or not math.isfinite(metrics["total_loss"])):
+        raise AssertionError("the rollback drill did not roll back once "
+                             "and complete with 3 skips")
+    proc, elapsed = _run_cli(root, _cli(dataclasses.replace(
+        drill, logdir=os.path.join(scratch, "no_rollback"),
+        no_rollback=True)), CLI_TIMEOUT_S)
+    print(f"  --no_rollback: exit {proc.returncode} in {elapsed:.1f} s",
+          flush=True)
+    if proc.returncode != 71:
+        raise AssertionError(f"--no_rollback exited {proc.returncode}, not "
+                             f"71:\n{proc.stderr[-3000:]}")
+
+
+def preemption_drill(CheckpointManager, config, scratch, root):
+    """A CLI subprocess SIGTERMs itself (preempt_sigterm) with a 30 s
+    grace: exit 0 and a final checkpoint that verifies, its env_frames
+    the update count times frames per update; the same command then
+    resumes from exactly that step."""
+    fpu = config.frames_per_update()
+    logdir = os.path.join(scratch, "preempt")
+    proc, elapsed = _run_cli(root, _cli(dataclasses.replace(
+        config, logdir=logdir, chaos_spec=f"preempt_sigterm@{PREEMPT_CYCLE}",
+        preemption_grace_s=30.0, total_environment_frames=1e9)),
+        CLI_TIMEOUT_S)
+    ckpt = CheckpointManager(logdir)
+    restored = ckpt.restore() if proc.returncode == 0 else None
+    if restored is None:
+        raise AssertionError(f"the preempted run exited {proc.returncode} "
+                             f"without a checkpoint:\n{proc.stderr[-3000:]}")
+    step, saved = restored
+    ok, why = ckpt.verify(step, saved)
+    print(f"  preemption drill: exit 0 in {elapsed:.1f} s, final checkpoint "
+          f"step {step} verified {ok}, env_frames {saved['env_frames']}",
+          flush=True)
+    if not ok or step < 1 or saved["env_frames"] != step * fpu:
+        raise AssertionError(f"the preempted run's final checkpoint: step "
+                             f"{step}, verified {ok} ({why}), env_frames "
+                             f"{saved['env_frames']}")
+    target = (step + 2) * fpu
+    proc, elapsed = _run_cli(root, _cli(dataclasses.replace(
+        config, logdir=logdir, total_environment_frames=float(target))),
+        CLI_TIMEOUT_S)
+    resumed = re.search(r"restored checkpoint at update (\d+)", proc.stderr)
+    final_step, final = CheckpointManager(logdir).restore()
+    print(f"  resume: exit {proc.returncode} in {elapsed:.1f} s, restored "
+          f"update {resumed and resumed.group(1)}, final step {final_step} "
+          f"env_frames {final['env_frames']}", flush=True)
+    if (proc.returncode != 0 or not resumed or int(resumed.group(1)) != step
+            or final_step != step + 2 or final["env_frames"] != target):
+        raise AssertionError(f"the resume did not continue from step "
+                             f"{step}:\n{proc.stderr[-3000:]}")
+
+
+def fault_points(driver, faults, CheckpointManager, config, scratch):
+    """actor_raise@1, worker_kill@2 and ckpt_save_fail@1 in one run of
+    UPDATES updates: it completes, and the pool's restart count, the env
+    workers' respawn count and the checkpoint manager's save failures
+    read one each.  Then ckpt_torn@1 tears a newer step on top of that
+    run's final checkpoint, and the restore walks back to it."""
+    pools, managers = [], []
+
+    class Pool(driver.ActorPool):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            pools.append(self)
+
+    class Manager(driver.CheckpointManager):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            managers.append(self)
+
+    fpu = config.frames_per_update()
+    logdir = os.path.join(scratch, "faults")
+    spec = "actor_raise@1;worker_kill@2;ckpt_save_fail@1"
+    with _patched(driver, ActorPool=Pool, CheckpointManager=Manager):
+        metrics = driver.train(dataclasses.replace(
+            config, logdir=logdir, chaos_spec=spec,
+            total_environment_frames=float(UPDATES * fpu)))
+    restarts = pools[0].restarts
+    respawns = sum(actor.envs.total_respawns for actor in pools[0].actors)
+    failures = managers[0].save_failures
+    print(f"  fault points ({spec}): env_frames {metrics['env_frames']}, "
+          f"actor restarts {restarts}, env worker respawns {respawns}, "
+          f"checkpoint save failures {failures}", flush=True)
+    if (metrics["env_frames"] != UPDATES * fpu
+            or not math.isfinite(metrics["total_loss"])
+            or (restarts, respawns, failures) != (1, 1, 1)):
+        raise AssertionError("the fault points were not each recovered "
+                             "once")
+    ckpt = CheckpointManager(logdir)
+    step, saved = ckpt.restore()
+    faults.configure_faults("ckpt_torn@1")
+    try:
+        ckpt.maybe_save(step + 1, saved, force=True)
+    finally:
+        faults.configure_faults("")
+    walked = CheckpointManager(logdir)
+    got, _ = walked.restore()
+    print(f"  ckpt_torn@1 on step {step + 1}: restore walked back to step "
+          f"{got} ({walked.restore_fallbacks} fallback)", flush=True)
+    if got != step or walked.restore_fallbacks != 1:
+        raise AssertionError("the restore did not walk back past the torn "
+                             "step")
+
+
+def remat_and_two_pass(torch, driver, config, out, reset_counts,
+                       read_counts):
+    """One update from the same weights and batch under the default,
+    ``remat_torso=on`` and ``fused_forward=false``, launch counters read
+    around each: the same kernels (the two-pass update's residual forward
+    twice); remat bitwise equal to the default; the two-pass update
+    bitwise too, or within the learner tests' rtol 1e-4 on the losses
+    (printed)."""
+    from scalable_agent_tpu_torch.runtime.transport import (
+        PerLeafTransport,
+        host_trajectory,
+    )
+
+    device = torch.device(config.device)
+    obs_spec, action_space = driver.probe_env(config)
+    traj, _ = PerLeafTransport(device).put(host_trajectory(out))
+    results = {}
+    for name, variant in (
+            ("default", config),
+            ("remat_torso=on", dataclasses.replace(config, remat_torso="on")),
+            ("fused_forward=false",
+             dataclasses.replace(config, fused_forward=False))):
+        agent = driver.build_agent(variant, obs_spec, action_space, device)
+        learner = driver.build_learner(variant, agent)
+        reset_counts()
+        metrics = learner.update(traj)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        results[name] = ({k: float(v) for k, v in metrics.items()},
+                         [p.detach().clone() for p in agent.parameters()])
+        want = {"lstm_fwd_resid_bf16": 2 if name.startswith("fused") else 1,
+                "lstm_bptt_bf16": 1, "stem_gradw_bf16": 1, "vtrace_fused": 1,
+                "lstm_fwd_lean_bf16": 0}
+        print(f"  {name}: 1 update, total_loss {metrics['total_loss']}, "
+              f"launches {launches}", flush=True)
+        if any(launches[k] != v for k, v in want.items()):
+            raise AssertionError(f"{name} launched {launches}, expected "
+                                 f"{want}")
+    base_losses, base_params = results["default"]
+    for name in ("remat_torso=on", "fused_forward=false"):
+        losses, params = results[name]
+        bitwise = losses == base_losses and all(
+            torch.equal(a, b) for a, b in zip(params, base_params))
+        print(f"  {name} against the default update: bitwise {bitwise}",
+              flush=True)
+        if bitwise:
+            continue
+        worst = max(abs(losses[k] - base_losses[k]) / max(
+            abs(base_losses[k]), 1e-6) for k in (
+                "total_loss", "policy_gradient_loss", "baseline_loss",
+                "entropy_loss"))
+        print(f"  {name}: largest relative loss difference {worst:.3e}",
+              flush=True)
+        if name.startswith("remat") or not worst <= 1e-4:
+            raise AssertionError(f"{name} does not hold against the "
+                                 f"default update")
+
+
 def main() -> int:
     import torch
 
@@ -1070,7 +1558,10 @@ def main() -> int:
             vtrace,
             vtrace_cuda,
         )
-        from scalable_agent_tpu_torch.runtime import CheckpointManager
+        from scalable_agent_tpu_torch.runtime import (
+            CheckpointManager,
+            faults,
+        )
     except ImportError as exc:
         print(f"chip_smoke: cannot import the port ({exc}); run this from "
               f"the root of a checkout of the repository", file=sys.stderr)
@@ -1191,8 +1682,8 @@ def main() -> int:
               flush=True)
         launches = train_counted(config, UPDATES, "_bf16")
         metric_rows = _rows(logdir)
-        if [r["step"] for r in metric_rows] != list(range(1, UPDATES + 1)):
-            raise AssertionError(f"metrics.jsonl rows: {metric_rows}")
+        _check_rows(metric_rows, config.frames_per_update(),
+                    config.inflight_updates, UPDATES)
         ckpt = CheckpointManager(logdir)
         step, saved = ckpt.restore()
         ok, why = ckpt.verify(step, saved)
@@ -1244,8 +1735,26 @@ def main() -> int:
             breakdown(torch, driver, config)
             print("  the same at compute_dtype=float32:", flush=True)
             breakdown(torch, driver, f32)
-        pool_steady_state(torch, driver, config,
-                          os.path.join(scratch, "pool"))
+        for window in (2, 1):
+            pool_steady_state(torch, driver, dataclasses.replace(
+                config, inflight_updates=window),
+                os.path.join(scratch, f"pool{window}"))
+
+        print("phase 3d: the default loop's machinery on the card",
+              flush=True)
+        root = os.path.dirname(os.path.abspath(__file__))
+        outs = pool_trajectories(torch, driver, config, 4)
+        with float32_precision():
+            compare_transports(torch, driver, device, outs)
+            compare_windows(torch, driver, CheckpointManager, config, outs,
+                            scratch)
+            rollback_drill(driver, config, scratch, root)
+            preemption_drill(CheckpointManager, config, scratch, root)
+            fault_points(driver, faults, CheckpointManager, config, scratch)
+            remat_and_two_pass(torch, driver, config, outs[0], reset_counts,
+                               read_counts)
+        del outs
+        torch.cuda.empty_cache()
 
         print("phase 3c: fake_bandit learns through the pool on the card "
               "(bf16 policy)", flush=True)

@@ -23,11 +23,11 @@ from typing import Optional
 # list against the JAX Config so the two cannot drift apart.
 UNPORTED_FLAGS = (
     "benchmark_mode", "dataset_path", "renderer", "record_to",
-    "fused_forward", "remat_torso", "use_instruction",
+    "use_instruction",
     "mesh_data", "mesh_seq", "mesh_model", "distributed_coordinator",
     "distributed_num_processes", "distributed_process_id", "inference_mode",
     "accum_fused_shards", "actor", "service_max_batch", "train_backend",
-    "updates_per_dispatch", "transport", "inflight_updates", "loss",
+    "updates_per_dispatch", "loss",
     "replay_ratio", "replay_capacity", "target_update_interval",
     "impact_clip_epsilon", "profile_dir", "profile_start_update",
     "profile_num_updates", "trace",
@@ -35,10 +35,10 @@ UNPORTED_FLAGS = (
     "learn_telemetry", "health", "health_warmup_intervals",
     "health_ewma_alpha", "health_z_threshold", "health_rel_threshold",
     "health_cooldown_s", "health_max_windows", "health_window_updates",
-    "health_baseline_dir", "nonfinite_tolerance", "sentinel_interval",
-    "sentinel_rtol", "no_rollback", "chaos_spec",
+    "health_baseline_dir", "sentinel_interval",
+    "sentinel_rtol",
     "chaos_channel", "compile_cache_dir", "peer_timeout_s",
-    "preemption_grace_s", "collective_timeout_s",
+    "collective_timeout_s",
     "coordinator_init_timeout_s", "elastic", "fleet_epoch",
     "elastic_restart_budget", "elastic_stable_s", "elastic_rejoin_delay_s",
 )
@@ -136,6 +136,31 @@ class Config:
     core_matmul_dtype: str = "auto"
     conv_backend: str = "auto"
     scan_impl: str = "auto"
+    # False runs the learner's two-pass reference (a separate unroll
+    # without gradients for V-trace's comparison quantities); an A/B arm,
+    # not a production setting.
+    fused_forward: bool = True
+    # Recompute the torso in the backward pass: auto | on | off; "auto"
+    # is on only on a TPU, so off on the card (driver.resolve_remat_torso).
+    remat_torso: str = "auto"
+
+    # -- the host loop (runtime/transport.py, runtime/fleet.py)
+    # "packed": one pinned staging buffer and one copy per batch,
+    # unpacked on the card as views; "per_leaf": one upload per leaf.
+    transport: str = "packed"
+    # Updates in flight before the loop waits for the oldest one.
+    inflight_updates: int = 2
+    # This many consecutive non-finite skips roll back to the newest
+    # verified checkpoint (or exit 71 under no_rollback); 0 disables it.
+    nonfinite_tolerance: int = 10
+    no_rollback: bool = False
+    # SIGTERM drains to one verified final checkpoint and exits 0 within
+    # this many seconds (exit 72 past it); 0 keeps SIGTERM's default.
+    preemption_grace_s: float = 30.0
+    # Fault injection (runtime/faults.py): 'point@i[:j...]',
+    # 'point@t=30s' or 'point@p=0.01' entries joined by ';'.
+    chaos_spec: str = ""
+
     checkpoint_interval_s: float = 600.0  # reference: experiment.py:611-612
     checkpoint_keep: int = 5
     log_interval_s: float = 10.0

@@ -4,17 +4,26 @@ The counterpart of ``scalable_agent_tpu/driver.py``'s host backend
 (``train``, reference: experiment.py:479-672) and eval (``test``,
 experiment.py:675-708):
 
-- ``train``: save ``<logdir>/config.json``; build the agent and the
-  learner; restore the newest verified checkpoint; start the ``ActorPool``
-  (one thread per env group of ``batch_size`` envs, each group stepped by
-  ``num_env_workers_per_group`` worker processes) and the prefetch thread,
-  which uploads trajectories on its own stream and stages them one deep
-  (the reference's StagingArea +1-step policy lag, experiment.py:587-597).
-  Then, until the frame budget is spent: take the staged batch, update,
-  publish the new weights to the actors, write a metrics row at the log
-  interval and a checkpoint at the checkpoint cadence; a final checkpoint
-  is forced.  Threads and worker processes are joined in a ``finally``,
-  and an actor's terminal exception ends the run with that exception.
+- ``train``: save ``<logdir>/config.json``; arm the ``--chaos_spec`` fault
+  points and the SIGTERM preemption grace; build the agent and the
+  learner; restore the newest verified checkpoint; start the
+  ``ActorPool`` (one thread per env group of ``batch_size`` envs, each
+  group stepped by ``num_env_workers_per_group`` worker processes) and
+  the prefetch thread, which puts trajectories on the card through the
+  ``--transport`` on its own stream and stages them one deep (the
+  reference's StagingArea +1-step policy lag, experiment.py:587-597).
+  Then, until the frame budget is spent: take the staged batch, issue the
+  update and push it into the in-flight window (waiting for the oldest
+  update only when ``--inflight_updates`` are in flight), publish the new
+  weights to the actors, write a metrics row at the log interval (where
+  ``NonFiniteTracker`` reads the skip counters), then decide: a SIGTERM
+  breaks into the shutdown tail, an exhausted non-finite tolerance rolls
+  back to the newest verified checkpoint (``_rollback_or_exit``: exit 71
+  under ``--no_rollback`` or with nothing to restore), else a checkpoint
+  at the checkpoint cadence.  The tail drains the window and forces one
+  final checkpoint.  Threads and worker processes are joined in a
+  ``finally``, and an actor's terminal exception ends the run with that
+  exception.
 - ``test``: restore the newest verified checkpoint of ``--logdir`` and run
   ``test_num_episodes`` episodes of ``--level_name`` on a batched eval
   fleet.
@@ -25,9 +34,11 @@ Run:
     python -m scalable_agent_tpu_torch.driver --mode=test --logdir=/tmp/run
 
 The run happens on ``--device=cuda`` (the default) and fails when there is
-no card; ``--device=cpu`` runs every kernel's plain PyTorch version.  The
-packed transport, the in-flight window, replay, multi-task training,
-DMLab-30 suite scoring, the obs planes and the fleet layers are not ported
+no card; ``--device=cpu`` runs every kernel's plain PyTorch version.  Exit
+codes (``runtime/exit_codes.py``): 0 for a finished or a drained
+preempted run, 71 for the non-finite guard, 72 for an expired preemption
+grace, 143 for a second SIGTERM.  Replay, multi-task training, DMLab-30
+suite scoring, the obs planes and the multi-process fleet are not ported
 yet (ROADMAP.md, queue 1).
 """
 
@@ -61,13 +72,25 @@ from scalable_agent_tpu_torch.models import (
 from scalable_agent_tpu_torch.ops import float32_precision
 from scalable_agent_tpu_torch.runtime import (
     ActorPool,
+    CheckpointIntegrityError,
     CheckpointManager,
     Learner,
     LearnerHyperparams,
     Trajectory,
 )
 from scalable_agent_tpu_torch.runtime.actor import to_device
-from scalable_agent_tpu_torch.types import map_structure
+from scalable_agent_tpu_torch.runtime.exit_codes import NONFINITE_EXIT_CODE
+from scalable_agent_tpu_torch.runtime.faults import (
+    armed_points,
+    configure_faults,
+)
+from scalable_agent_tpu_torch.runtime.fleet import PreemptionMonitor
+from scalable_agent_tpu_torch.runtime.learner import NonFiniteTracker
+from scalable_agent_tpu_torch.runtime.transport import (
+    InflightWindow,
+    host_trajectory,
+    make_transport,
+)
 from scalable_agent_tpu_torch.utils.metrics import MetricsWriter
 from scalable_agent_tpu_torch.utils.timing import Timing
 
@@ -99,21 +122,42 @@ def probe_env(config: Config):
         env.close()
 
 
+def resolve_remat_torso(config: Config) -> bool:
+    """``--remat_torso`` as ``scalable_agent_tpu/driver.py:248-257``
+    resolves it: ``auto`` is on only on a TPU, so off here; a bad value
+    raises the JAX driver's error."""
+    if config.remat_torso not in ("auto", "on", "off"):
+        raise ValueError(
+            f"remat_torso must be auto, on, or off, got "
+            f"{config.remat_torso!r}")
+    return config.remat_torso == "on"
+
+
 def build_agent(config: Config, observation_spec, action_space,
                 device: torch.device) -> ImpalaAgent:
     """The agent with weights drawn from a generator seeded by
     ``config.seed``, placed on ``device``, under the configuration's dtype
     policy (``compute_dtype``, and ``core_matmul_dtype`` resolved as the
-    JAX driver resolves it)."""
+    JAX driver resolves it) and ``remat_torso``."""
     generator = torch.Generator().manual_seed(config.seed)
     return ImpalaAgent(action_space.n, observation_spec.frame.shape,
                        generator=generator,
                        compute_dtype=getattr(torch, config.compute_dtype),
-                       core_matmul_dtype=resolve_core_matmul_dtype(config)
+                       core_matmul_dtype=resolve_core_matmul_dtype(config),
+                       remat_torso=resolve_remat_torso(config)
                        ).to(device)
 
 
 def build_learner(config: Config, agent: ImpalaAgent) -> Learner:
+    """The learner, after the host loop's flags are checked as the JAX
+    driver checks them (``build_training_learner``)."""
+    if config.transport not in ("packed", "per_leaf"):
+        raise ValueError(
+            f"unknown transport {config.transport!r} (packed | per_leaf)")
+    if config.inflight_updates < 1:
+        raise ValueError(
+            f"inflight_updates must be >= 1, got "
+            f"{config.inflight_updates}")
     hp = LearnerHyperparams(
         entropy_cost=config.entropy_cost,
         baseline_cost=config.baseline_cost,
@@ -124,7 +168,8 @@ def build_learner(config: Config, agent: ImpalaAgent) -> Learner:
         rmsprop_decay=config.rmsprop_decay,
         rmsprop_epsilon=config.rmsprop_epsilon)
     return Learner(agent, hp, config.frames_per_update(),
-                   scan_impl=config.scan_impl)
+                   scan_impl=config.scan_impl,
+                   fused_forward=config.fused_forward)
 
 
 def worker_processes(requested: int, num_envs: int) -> int:
@@ -158,26 +203,26 @@ def make_env_groups(config: Config, frame_spec) -> List[MultiEnv]:
     return groups
 
 
-def to_trajectory(actor_output, device) -> Trajectory:
-    return Trajectory(
-        agent_state=to_device(actor_output.agent_state, device),
-        env_outputs=to_device(actor_output.env_outputs, device),
-        agent_outputs=to_device(actor_output.agent_outputs, device))
+def arm_faults(config: Config) -> None:
+    """Arm ``--chaos_spec`` for this run.  A point that cannot fire in
+    this configuration raises: ``preempt_sigterm`` lives in the
+    preemption monitor, which runs only with ``preemption_grace_s > 0``."""
+    if ("preempt_sigterm" in armed_points(config.chaos_spec)
+            and config.preemption_grace_s <= 0):
+        raise ValueError(
+            "chaos_spec arms preempt_sigterm, which fires from the "
+            "preemption monitor: it needs --preemption_grace_s > 0")
+    configure_faults(config.chaos_spec, seed=config.seed)
 
 
-def _leaves(tree):
-    out = []
-    map_structure(lambda t: out.append(t) if t is not None else None, tree)
-    return out
-
-
-def start_prefetch(pool: ActorPool, device: torch.device,
+def start_prefetch(pool: ActorPool, transport, device: torch.device,
                    staged: queue_lib.Queue,
                    stop: threading.Event) -> threading.Thread:
-    """Start the prefetch stage: take the pool's trajectories, upload
-    them on this thread's own stream and stage them one deep as
-    ``(trajectory, event)``.  An exception is staged in place of a
-    batch."""
+    """Start the prefetch stage: take the pool's trajectories, put them on
+    ``device`` through ``transport`` on this thread's own stream and stage
+    them one deep as ``(trajectory, owners, event)``: ``owners`` are the
+    device tensors holding the trajectory's memory, ``event`` the upload's
+    CUDA event.  An exception is staged in place of a batch."""
 
     def put(item) -> None:
         while not stop.is_set():
@@ -198,12 +243,12 @@ def start_prefetch(pool: ActorPool, device: torch.device,
                         out = pool.get_trajectory(timeout=0.5)
                     except queue_lib.Empty:
                         continue
-                    trajectory = to_trajectory(out, device)
+                    trajectory, owners = transport.put(host_trajectory(out))
                     event = None
                     if stream is not None:
                         event = torch.cuda.Event()
                         event.record(stream)
-                    put((trajectory, event))
+                    put((trajectory, owners, event))
         except Exception as exc:  # surfaces in the training loop
             put(exc)
 
@@ -214,38 +259,81 @@ def start_prefetch(pool: ActorPool, device: torch.device,
 
 
 def _adopt(staged_item, device: torch.device) -> Trajectory:
-    """A staged ``(trajectory, event)`` made safe for the current stream:
-    wait for its upload, and keep its memory from being reused by the
-    prefetch stream while this stream's work on it is pending."""
+    """A staged ``(trajectory, owners, event)`` made safe for the current
+    stream: wait for its upload, and keep its memory (every owner: the
+    leaves, or the packed buffer they are views of) from being reused by
+    the prefetch stream while this stream's work on it is pending."""
     if isinstance(staged_item, Exception):
         raise staged_item
-    trajectory, event = staged_item
+    trajectory, owners, event = staged_item
     if event is not None:
         stream = torch.cuda.current_stream(device)
         stream.wait_event(event)
-        for tensor in _leaves(trajectory):
+        for tensor in owners:
             tensor.record_stream(stream)
     return trajectory
 
 
+def _rollback_or_exit(config: Config, ckpt: CheckpointManager,
+                      learner: Learner, tracker: NonFiniteTracker) -> int:
+    """The non-finite tolerance is exhausted: restore the newest VERIFIED
+    checkpoint into ``learner`` (its streak zeroed, so the restored
+    timeline gets the full tolerance again) and return its step, or raise
+    ``SystemExit(71)`` under ``--no_rollback`` or when nothing restores
+    (``scalable_agent_tpu/driver.py:887``)."""
+    guard = "non-finite guard"
+    if config.no_rollback:
+        log.error("%s: rollback wanted and --no_rollback is set — exiting "
+                  "%d", guard, NONFINITE_EXIT_CODE)
+        raise SystemExit(NONFINITE_EXIT_CODE)
+    try:
+        restored = ckpt.restore()
+    except CheckpointIntegrityError as exc:
+        log.error("%s: %s", guard, exc)
+        restored = None
+    if restored is None:
+        log.error("%s: rollback wanted and no restorable checkpoint under "
+                  "%s — exiting %d", guard, config.logdir,
+                  NONFINITE_EXIT_CODE)
+        raise SystemExit(NONFINITE_EXIT_CODE)
+    step, saved = restored
+    saved["nonfinite_streak"] = torch.zeros_like(
+        torch.as_tensor(saved["nonfinite_streak"]))
+    # Issued on the learner's stream, so after the abandoned in-flight
+    # updates, which it overwrites.
+    learner.load_state_dict(saved)
+    tracker.rebase(float(saved["nonfinite_skips"]))
+    log.warning("%s: rolled back to checkpoint step %d (%.0f frames)",
+                guard, step, learner.state.env_frames)
+    return step
+
+
 def train(config: Config) -> Dict[str, float]:
-    """Train until ``total_environment_frames``; returns the newest
-    update's metrics as host floats (plus ``episode_return``, the mean of
-    the pool's recent finished episodes, when there are any)."""
+    """Train until ``total_environment_frames``, or until a SIGTERM drains
+    the run; returns the newest update's metrics as host floats (plus
+    ``episode_return``, the mean of the pool's recent finished episodes,
+    when there are any).  Raises ``SystemExit(71)`` when the non-finite
+    guard cannot roll back."""
     device = resolve_device(config.device)
     config.save()
     observation_spec, action_space = probe_env(config)
     groups = pool = prefetch_thread = writer = None
     prefetch_stop = threading.Event()
+    monitor = PreemptionMonitor(config.preemption_grace_s)
     metrics: Dict[str, torch.Tensor] = {}
     # Float32 convolutions and matmuls in full float32, and bf16 ones
     # summed in float32, as the JAX package runs them.  The flags are
     # process-wide: set once, before any thread starts.
     with float32_precision():
         try:
+            arm_faults(config)
+            monitor.start()
             agent = build_agent(config, observation_spec, action_space,
                                 device)
             learner = build_learner(config, agent)
+            transport = make_transport(config.transport, device)
+            window = InflightWindow(config.inflight_updates)
+            tracker = NonFiniteTracker(config.nonfinite_tolerance)
             ckpt = CheckpointManager(config.logdir,
                                      config.checkpoint_interval_s,
                                      config.checkpoint_keep)
@@ -256,6 +344,8 @@ def train(config: Config) -> Dict[str, float]:
                 learner.load_state_dict(saved)
                 log.info("restored checkpoint at update %d (%.0f frames)",
                          start_updates, learner.state.env_frames)
+            # A resumed run must not count the checkpoint's skips again.
+            tracker.rebase(float(learner.state.nonfinite_skips))
             groups = make_env_groups(config, observation_spec.frame)
             pool = ActorPool(
                 agent, groups, config.unroll_length,
@@ -264,8 +354,8 @@ def train(config: Config) -> Dict[str, float]:
             pool.set_params(agent, version=start_updates)
             pool.start()
             staged: queue_lib.Queue = queue_lib.Queue(maxsize=1)
-            prefetch_thread = start_prefetch(pool, device, staged,
-                                             prefetch_stop)
+            prefetch_thread = start_prefetch(pool, transport, device,
+                                             staged, prefetch_stop)
             writer = MetricsWriter(config.logdir)
             timing = Timing()
             updates = start_updates
@@ -273,19 +363,36 @@ def train(config: Config) -> Dict[str, float]:
             last_log = time.monotonic()
             frames_at_last_log = frames
             steps_at_last_log = pool.agent_steps
+            rollback_wanted = False
             while frames < config.total_environment_frames:
                 with timing.time_avg("wait_batch"):
                     item = staged.get()
                 trajectory = _adopt(item, device)
                 with timing.time_avg("update"):
-                    metrics = learner.update(trajectory)
+                    dispatched = learner.update(trajectory)
+                window.push(dispatched)
                 del trajectory, item
+                # The snapshot's copies are queued after this update on
+                # the same stream: they hold its weights, not the next's.
                 pool.set_params(agent, version=updates)
                 updates += 1
                 frames = learner.state.env_frames
+                if window.full:
+                    # The loop's only wait on the card: the OLDEST update
+                    # in flight, so its metrics belong to a known update.
+                    with timing.time_avg("retire"):
+                        metrics = window.retire()
                 now = time.monotonic()
                 if now - last_log >= config.log_interval_s:
+                    if not metrics:
+                        # Nothing has left the window yet: log the newest
+                        # update (its fetch waits for it).
+                        metrics = dispatched
                     row = {k: float(v) for k, v in metrics.items()}
+                    # Only record the verdict here; the rollback happens
+                    # at the decision point below.
+                    if tracker.observe(row):
+                        rollback_wanted = True
                     elapsed = max(now - last_log, 1e-9)
                     row["fps"] = (frames - frames_at_last_log) / elapsed
                     steps = pool.agent_steps
@@ -309,7 +416,33 @@ def train(config: Config) -> Dict[str, float]:
                         row.get("episode_return", float("nan")), timing)
                     last_log, frames_at_last_log = now, frames
                     steps_at_last_log = steps
+                # The decisions, at a fixed point of every iteration.
+                if monitor.preemption_requested():
+                    monitor.note_preempt_decision(updates)
+                    log.warning("preemption drain: stopping at update %d "
+                                "(%.3g frames) for the final checkpoint",
+                                updates, frames)
+                    break
+                if rollback_wanted:
+                    rollback_wanted = False
+                    updates = _rollback_or_exit(config, ckpt, learner,
+                                                tracker)
+                    frames = learner.state.env_frames
+                    # Nothing of the abandoned timeline leaks forward: its
+                    # in-flight metrics are dropped unread, and the actors
+                    # get the restored weights.
+                    window.discard()
+                    metrics = {}
+                    pool.set_params(agent, version=updates)
+                    last_log = time.monotonic()
+                    frames_at_last_log = frames
+                    steps_at_last_log = pool.agent_steps
+                    continue
                 ckpt.maybe_save(updates, learner.state_dict())
+            # The returned metrics are the newest update's.
+            drained = window.drain()
+            if drained is not None:
+                metrics = drained
             ckpt.maybe_save(updates, learner.state_dict(), force=True)
         finally:
             prefetch_stop.set()
@@ -322,6 +455,9 @@ def train(config: Config) -> Dict[str, float]:
                 prefetch_thread.join(timeout=10)
             if writer is not None:
                 writer.close()
+            configure_faults("")  # a spec must not outlive its run
+            # Last: the grace deadline covers the whole shutdown tail.
+            monitor.stop()
     result = {name: float(value) for name, value in metrics.items()}
     returns = [r for r, _ in pool.episode_stats()]
     if returns:

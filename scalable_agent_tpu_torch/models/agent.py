@@ -21,11 +21,18 @@ the loss, V-trace and the optimizer see float32 only.  The defaults,
 float32 and float32, are the JAX module's; ``driver.build_agent`` passes
 the configuration's (``compute_dtype=bfloat16`` resolves the core to
 bfloat16 operands).
+
+``remat_torso`` is the JAX module's ``nn.remat`` of the torso: where a
+gradient is taken, the torso's activations are not kept for the backward
+pass but recomputed there (``torch.utils.checkpoint``, non-reentrant, so
+the recomputation runs the same casts and kernels and the gradients are
+the same bit for bit).
 """
 
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from scalable_agent_tpu_torch.models.networks import (
@@ -79,9 +86,9 @@ class LSTMCore(nn.Module):
                                                        generator=generator)
 
     def forward(self, x, done, carry: AgentState,
-                matmul_dtype: str = "float32"):
+                matmul_dtype: str = "float32", residuals: bool = False):
         ys, (c, h) = lstm_unroll(x, done, carry.c, carry.h, self.wi,
-                                 self.wh, self.b, matmul_dtype)
+                                 self.wh, self.b, matmul_dtype, residuals)
         return ys, AgentState(c=c, h=h)
 
 
@@ -92,8 +99,10 @@ class ImpalaAgent(nn.Module):
     env_outputs.reward [T,B], done [T,B], observation.frame [T,B,H,W,C]
     uint8, returns ``((policy_logits [T,B,A], baseline [T,B]),
     new_state)``.  Weights are drawn from ``generator``.
-    ``compute_dtype`` and ``core_matmul_dtype`` are the dtype policy's
-    (module docstring).
+    ``compute_dtype`` and ``core_matmul_dtype`` are the dtype policy's,
+    ``remat_torso`` the torso's recomputation (module docstring).
+    ``residual_core=True`` makes the core run its residual forward even
+    where no gradient flows (the learner's two-pass comparison unroll).
     """
 
     def __init__(self, num_actions: int,
@@ -101,7 +110,8 @@ class ImpalaAgent(nn.Module):
                  core_size: int = CORE_SIZE,
                  generator: Optional[torch.Generator] = None,
                  compute_dtype: torch.dtype = torch.float32,
-                 core_matmul_dtype: str = "float32"):
+                 core_matmul_dtype: str = "float32",
+                 remat_torso: bool = False):
         super().__init__()
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype must be torch.float32 or "
@@ -110,6 +120,7 @@ class ImpalaAgent(nn.Module):
         self.core_size = core_size
         self.compute_dtype = compute_dtype
         self.core_matmul_dtype = core_matmul_dtype
+        self.remat_torso = remat_torso
         self.convnet = ShallowConvTorso(frame_shape, generator,
                                         compute_dtype)
         in_features = TORSO_SIZE + 1 + self.num_logits
@@ -122,13 +133,20 @@ class ImpalaAgent(nn.Module):
         return self.dist_spec.num_logits
 
     def forward(self, actions, env_outputs: StepOutput,
-                core_state: AgentState
+                core_state: AgentState, residual_core: bool = False
                 ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], AgentState]:
         unroll_len, batch = actions.shape[:2]
         reward, _, done, observation = env_outputs
         flat = lambda t: t.reshape((unroll_len * batch,) + t.shape[2:])
         dtype = self.compute_dtype
-        conv_out = self.convnet(flat(observation.frame))
+        frames = flat(observation.frame)
+        if self.remat_torso and torch.is_grad_enabled():
+            # The torso draws no random numbers: no RNG state to replay.
+            conv_out = torch.utils.checkpoint.checkpoint(
+                self.convnet, frames, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            conv_out = self.convnet(frames)
         clipped_reward = torch.clamp(flat(reward).float(), -1.0, 1.0)[:, None]
         one_hot_last_action = distributions.one_hot_actions(
             flat(actions), self.dist_spec)
@@ -139,7 +157,8 @@ class ImpalaAgent(nn.Module):
             dim=-1).to(dtype)
         core_outputs, new_state = self.core(
             torso_out.float().reshape(unroll_len, batch, -1),
-            done.float().contiguous(), core_state, self.core_matmul_dtype)
+            done.float().contiguous(), core_state, self.core_matmul_dtype,
+            residual_core)
         core_flat = core_outputs.reshape(unroll_len * batch, -1)
         policy_logits = dense_apply(self.policy_logits, core_flat,
                                     dtype).float().reshape(

@@ -472,7 +472,8 @@ class _LSTMUnroll(torch.autograd.Function):
                 grads.db, None)
 
 
-def lstm_unroll(x, done, c0, h0, wi, wh, b, matmul_dtype: str = "float32"
+def lstm_unroll(x, done, c0, h0, wi, wh, b, matmul_dtype: str = "float32",
+                residuals: bool = False
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Fused done-reset LSTM unroll, the contract of
     ``lstm_pallas.lstm_unroll`` (``matmul_dtype`` as there).
@@ -481,7 +482,10 @@ def lstm_unroll(x, done, c0, h0, wi, wh, b, matmul_dtype: str = "float32"
     step), c0/h0 [B,H], wi [D,4H], wh [H,4H], b [4H] in (i,f,g,o) order.
     Returns ``(ys [T,B,H], (cT, hT))``, differentiable in everything but
     ``done``.  Where no gradient can flow (``torch.no_grad()``, or no input
-    requires one) it runs the lean forward, which writes no residuals.
+    requires one) it runs the lean forward, which writes no residuals,
+    unless ``residuals``: then it runs the residual forward of the
+    differentiated unroll (and drops the residuals), so the values equal
+    that unroll's.
     """
     args = (x, done, c0, h0, wi, wh, b)
     _check_matmul_dtype(matmul_dtype)
@@ -489,6 +493,6 @@ def lstm_unroll(x, done, c0, h0, wi, wh, b, matmul_dtype: str = "float32"
             t.requires_grad for t in (x, c0, h0, wi, wh, b)):
         ys, c, h = _LSTMUnroll.apply(*args, matmul_dtype)
     else:
-        ys, c, h, _ = lstm_forward(*args, residuals=False,
+        ys, c, h, _ = lstm_forward(*args, residuals=residuals,
                                    matmul_dtype=matmul_dtype)
     return ys, (c, h)

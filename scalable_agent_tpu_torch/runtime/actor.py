@@ -25,6 +25,9 @@ The counterpart of ``scalable_agent_tpu/runtime/actor.py``:
 - ``run_with_retry`` gives a failing actor thread a bounded, windowed
   number of respawns with capped exponential backoff; the terminal
   exception goes through the queue and is raised by ``get_trajectory``.
+- Two fault points (``runtime/faults.py``) sit at the top of each unroll:
+  ``actor_raise`` raises into that retry, ``worker_kill`` SIGKILLs one of
+  the group's env worker processes for ``MultiEnv`` to respawn.
 
 The service, accum and native-batcher inference modes are not ported yet
 (ROADMAP.md, queue 1).
@@ -48,6 +51,7 @@ from scalable_agent_tpu_torch.models.agent import (
     actor_step,
     initial_state,
 )
+from scalable_agent_tpu_torch.runtime.faults import get_fault_injector
 from scalable_agent_tpu_torch.types import (
     ActorOutput,
     AgentOutput,
@@ -342,8 +346,23 @@ class ActorPool:
         with self._counts_lock:
             setattr(self, name, getattr(self, name) + amount)
 
+    @staticmethod
+    def _chaos_kill_worker(actor: VectorActor) -> None:
+        """``worker_kill``: SIGKILL the group's first live env worker
+        process; MultiEnv's respawn must absorb it."""
+        for proc in actor.envs._procs:
+            if proc is not None and proc.is_alive():
+                log.warning("chaos: killing env worker pid %d", proc.pid)
+                proc.kill()
+                return
+
     def _unroll_loop(self, actor: VectorActor):
         while not self._stop.is_set():
+            injector = get_fault_injector()
+            if injector.active:
+                injector.maybe_raise("actor_raise")
+                if injector.should_fire("worker_kill"):
+                    self._chaos_kill_worker(actor)
             trajectory = actor.run_unroll(self._get_params())
             if publish_trajectory(self.queue, trajectory, self._stop):
                 self._count("agent_steps", self._steps_per_trajectory)

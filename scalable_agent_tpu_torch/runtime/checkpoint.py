@@ -21,6 +21,11 @@ format instead of Orbax's:
   ``CheckpointIntegrityError`` instead of letting the run retrain from
   scratch into the same directory.
 
+Two fault points (``runtime/faults.py``) sit in ``maybe_save``:
+``ckpt_save_fail`` raises inside the save's ``try`` (the degrade path
+above), and ``ckpt_torn`` corrupts the step's file after a successful save
+(a crash mid-save, for the walk-back).
+
 Checkpoints of the two packages are not interchangeable yet (ROADMAP.md,
 queue 1); ``convert.state_dict_to_flax`` turns a restored ``params`` into
 the JAX agent's param tree.
@@ -36,6 +41,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from scalable_agent_tpu_torch.runtime.faults import get_fault_injector
 
 log = logging.getLogger("scalable_agent_tpu_torch")
 
@@ -114,6 +121,22 @@ class CheckpointManager:
             except FileNotFoundError:
                 pass
 
+    def _tear_step(self, step: int) -> None:
+        """Chaos (``ckpt_torn``): invert up to 256 bytes in the middle of
+        the step's file, a stand-in for a crash mid-save, so that either
+        ``torch.load`` raises or the manifest's crc32 catches it."""
+        path = self._path(step)
+        size = os.path.getsize(path)
+        offset = size // 2
+        span = min(256, size - offset)
+        with open(path, "r+b") as f:
+            f.seek(offset)
+            chunk = f.read(span)
+            f.seek(offset)
+            f.write(bytes(b ^ 0xFF for b in chunk))
+        log.warning("chaos: tore checkpoint step %d (%d bytes inverted)",
+                    step, span)
+
     @staticmethod
     def _write_atomic(path: str, write) -> None:
         tmp = path + ".tmp"
@@ -129,7 +152,10 @@ class CheckpointManager:
         if not (force or self._last_save is None
                 or now - self._last_save >= self._interval_s):
             return False
+        injector = get_fault_injector()
         try:
+            if injector.active:
+                injector.maybe_raise("ckpt_save_fail")
             host_state = _to_host(state)
             self._write_atomic(self._path(step),
                                lambda tmp: torch.save(host_state, tmp))
@@ -152,6 +178,8 @@ class CheckpointManager:
                       type(exc).__name__, exc)
             self._last_save = now
             return False
+        if injector.active and injector.should_fire("ckpt_torn"):
+            self._tear_step(step)
         for old in self.all_steps()[:-self._keep]:
             self._delete(old)
         self._last_save = now

@@ -17,6 +17,16 @@ experiment.py:346-427):
 - The non-finite guard: a NaN/Inf loss or gradient makes the update a
   no-op on params and ``nu`` (frames still advance), counted in
   ``nonfinite_skips``/``nonfinite_streak`` without a host sync.
+  ``NonFiniteTracker`` reads those counters from the metrics the driver
+  fetches at log time and decides when the streak calls for a rollback.
+- ``fused_forward=False`` is the JAX learner's two-pass reference: a
+  separate unroll without gradients gives the quantities V-trace compares
+  against the behaviour policy (``_comparison_forward``), the
+  differentiated one the loss.  The two are equal in value by
+  construction (the comparison unroll runs the same kernels, the core's
+  residual forward included), so both shapes give the same update.
+- The ``nan_grad`` fault point (``runtime/faults.py``) multiplies the
+  trajectory's rewards by NaN before the loss.
 
 V-trace's recurrence follows ``scan_impl`` (``ops/vtrace.py``): ``"auto"``
 resolves to ``"associative"``, as the JAX learner resolves it on a mesh
@@ -41,6 +51,7 @@ import torch
 from scalable_agent_tpu_torch.models.agent import ImpalaAgent
 from scalable_agent_tpu_torch.ops import losses as losses_lib
 from scalable_agent_tpu_torch.ops import vtrace
+from scalable_agent_tpu_torch.runtime.faults import get_fault_injector
 from scalable_agent_tpu_torch.types import AgentOutput, AgentState, StepOutput
 
 
@@ -87,7 +98,7 @@ class Learner:
 
     def __init__(self, agent: ImpalaAgent, hp: LearnerHyperparams,
                  frames_per_update: int, env_frames: float = 0.0,
-                 scan_impl: str = "auto"):
+                 scan_impl: str = "auto", fused_forward: bool = True):
         if scan_impl == "auto":
             scan_impl = "associative"
         if scan_impl not in vtrace.SCAN_IMPLS:
@@ -96,6 +107,7 @@ class Learner:
                 f"{', '.join(vtrace.SCAN_IMPLS)} (time_sharded needs a seq "
                 f"mesh axis, not ported yet: ROADMAP.md, queue 1)")
         self.scan_impl = scan_impl
+        self._fused_forward = bool(fused_forward)
         self._agent = agent
         self._hp = hp
         self._frames_per_update = float(frames_per_update)
@@ -117,28 +129,49 @@ class Learner:
             trajectory.agent_state)
         return logits, baselines
 
+    @torch.no_grad()
+    def _comparison_forward(self, trajectory: Trajectory):
+        """The two-pass reference's (``fused_forward=False``) separate
+        unroll for the quantities V-trace reads, without gradients.  The
+        core runs its residual forward here too, the kernel of the
+        differentiated unroll, so the two unrolls are equal in value."""
+        (logits, baselines), _ = self._agent(
+            trajectory.agent_outputs.action, trajectory.env_outputs,
+            trajectory.agent_state, residual_core=True)
+        return logits, baselines
+
     def _loss_vtrace(self, trajectory: Trajectory):
         hp = self._hp
         target_logits, baselines = self._forward(trajectory)
+        if self._fused_forward:
+            comparison_logits, comparison_baselines = (target_logits,
+                                                       baselines)
+        else:
+            comparison_logits, comparison_baselines = (
+                self._comparison_forward(trajectory))
         # The last baseline bootstraps; drop the last learner output and
         # the first behaviour/env entry (reference: experiment.py:368-375).
-        bootstrap_value = baselines[-1]
+        bootstrap_value = comparison_baselines[-1]
         behaviour = AgentOutput(*(t[1:] for t in trajectory.agent_outputs))
         env = trajectory.env_outputs
         target_logits = target_logits[:-1]
         baselines = baselines[:-1]
+        comparison_logits = comparison_logits[:-1]
+        comparison_baselines = comparison_baselines[:-1]
         rewards = losses_lib.clip_rewards(env.reward[1:], hp.reward_clipping)
         discounts = torch.where(
             env.done[1:], torch.zeros_like(rewards),
             torch.full_like(rewards, hp.discounting))
         dist_spec = self._agent.dist_spec
+        # V-trace reads the comparison quantities (the same tensors in the
+        # fused path); it detaches everything it returns.
         vt = vtrace.from_logits(
             behaviour_policy_logits=behaviour.policy_logits,
-            target_policy_logits=target_logits,
+            target_policy_logits=comparison_logits,
             actions=behaviour.action,
             discounts=discounts,
             rewards=rewards,
-            values=baselines,
+            values=comparison_baselines,
             bootstrap_value=bootstrap_value,
             clip_rho_threshold=hp.clip_rho_threshold,
             clip_pg_rho_threshold=hp.clip_pg_rho_threshold,
@@ -163,6 +196,13 @@ class Learner:
         """One update in place (params, ``nu``, counters); returns the
         metrics as 0-d tensors (no host sync)."""
         hp = self._hp
+        injector = get_fault_injector()
+        if injector.active and injector.should_fire("nan_grad"):
+            # Chaos: poison this batch's rewards so the loss and every
+            # gradient go NaN; the guard must absorb it as a skip.
+            env = trajectory.env_outputs
+            trajectory = trajectory._replace(env_outputs=env._replace(
+                reward=env.reward * float("nan")))
         names = list(self._params)
         params = [self._params[name] for name in names]
         total, metrics = self._loss_vtrace(trajectory)
@@ -228,3 +268,39 @@ class Learner:
         state.env_frames = float(saved["env_frames"])
         for key in ("nonfinite_skips", "nonfinite_streak"):
             getattr(state, key).copy_(torch.as_tensor(saved[key]))
+
+
+class NonFiniteTracker:
+    """The host side of the non-finite guard.
+
+    The update carries cumulative and consecutive skip counters and puts
+    them in its metrics; the driver hands this tracker the metrics it
+    fetches at log time anyway.  It counts the skips in ``skips_total``
+    and answers the one policy question: has the consecutive-skip streak
+    reached ``tolerance`` (the caller rolls back or exits)?
+    ``tolerance=0`` disables the policy; skips are still counted.  The
+    counterpart of ``scalable_agent_tpu/runtime/learner.py``'s tracker,
+    with a plain counter in place of the metrics registry's.
+    """
+
+    def __init__(self, tolerance: int):
+        self.tolerance = int(tolerance)
+        self.skips_total = 0.0
+        self._last_total = 0.0
+
+    def observe(self, host_metrics: Dict[str, float]) -> bool:
+        """Fold one fetched metrics dict in; True when the consecutive
+        streak has reached the tolerance."""
+        total = float(host_metrics.get("nonfinite_skips", 0.0))
+        streak = float(host_metrics.get("nonfinite_streak", 0.0))
+        delta = total - self._last_total
+        if delta > 0:
+            self.skips_total += delta
+        self._last_total = max(self._last_total, total)
+        return bool(self.tolerance > 0 and streak >= self.tolerance)
+
+    def rebase(self, total: float):
+        """Re-anchor after a rollback or a resume: the restored state's
+        cumulative counter is older than what was already counted, and
+        the next ``observe`` must not count the gap twice."""
+        self._last_total = float(total)

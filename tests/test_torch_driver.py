@@ -35,6 +35,10 @@ from scalable_agent_tpu_torch.envs import (
 )
 from scalable_agent_tpu_torch.models import ImpalaAgent
 from scalable_agent_tpu_torch.runtime import VectorActor
+from scalable_agent_tpu_torch.runtime.transport import (
+    PerLeafTransport,
+    host_trajectory,
+)
 
 ROOT = Path(__file__).resolve().parents[1]
 T, B, A = 4, 3, 9
@@ -92,7 +96,7 @@ def test_learner_unroll_reproduces_behaviour_outputs():
     agent, actor = _actor(1)
     for _ in range(2):
         out = actor.run_unroll()
-        traj = driver.to_trajectory(out, torch.device("cpu"))
+        traj, _ = PerLeafTransport("cpu").put(host_trajectory(out))
         with torch.no_grad():
             (logits, baseline), _ = agent(traj.agent_outputs.action,
                                           traj.env_outputs,
@@ -202,7 +206,12 @@ def test_train_writes_metric_rows_and_checkpoints(trained):
                     "timing/update", "timing/wait_batch", "time"):
             assert np.isfinite(row[key]), key
     assert any("episode_return" in r for r in rows)
-    assert rows[-1]["env_frames"] == metrics["env_frames"]
+    # The in-flight window of 2 (the default) logs the update it retired,
+    # one behind, and the newest one while none has left the window; the
+    # returned metrics are the newest update's, drained at the end.
+    fpu = config.frames_per_update()
+    assert [r["env_frames"] for r in rows] == [fpu, fpu, 2 * fpu]
+    assert metrics["env_frames"] == 3 * fpu
     steps = sorted(os.listdir(os.path.join(config.logdir, "checkpoints")))
     assert steps == ["1.pt", "3.pt", "manifests"]
     saved = Config.load(os.path.join(config.logdir, "config.json"))

@@ -101,6 +101,8 @@ def test_flag_lists_cover_the_jax_config():
 
 
 @pytest.mark.parametrize("argv", [["--record_to=/x"], ["--trace", "true"],
+                                  ["--chaos_channel=true"],
+                                  ["--replay_ratio=1"],
                                   ["--compute_dtype=float16"],
                                   ["--scan_impl=time_sharded"],
                                   ["--inference_mode=service"],
@@ -139,7 +141,15 @@ def test_library_name_follows_the_sources(monkeypatch, tmp_path):
     (["--logdir=/x"], "logdir", "/x"),
     (["--num_env_workers_per_group=2"], "num_env_workers_per_group", 2),
     (["--checkpoint_keep=2"], "checkpoint_keep", 2),
-    (["--actor_max_restarts=0"], "actor_max_restarts", 0)])
+    (["--actor_max_restarts=0"], "actor_max_restarts", 0),
+    (["--transport=per_leaf"], "transport", "per_leaf"),
+    (["--inflight_updates=1"], "inflight_updates", 1),
+    (["--nonfinite_tolerance=3"], "nonfinite_tolerance", 3),
+    (["--no_rollback=true"], "no_rollback", True),
+    (["--preemption_grace_s=0"], "preemption_grace_s", 0.0),
+    (["--chaos_spec=nan_grad@3:4"], "chaos_spec", "nan_grad@3:4"),
+    (["--remat_torso=on"], "remat_torso", "on"),
+    (["--fused_forward=false"], "fused_forward", False)])
 def test_flags_ported_for_the_pool_path(argv, field, value):
     assert getattr(Config.from_argv(argv), field) == value
 

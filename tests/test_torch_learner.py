@@ -15,13 +15,24 @@ larger), while the parameters themselves differ from their start by only
 Tolerances: float32 losses summed over T*B cells in another order, rtol
 1e-4; parameter changes rtol 1e-3 of each leaf's largest change (they
 are differences of nearly equal numbers, which costs digits).
+
+``remat_torso`` and the two-pass update (``fused_forward=False``) are
+held here too: remat changes no bit of the outputs or gradients under
+either dtype policy, and the two-pass update gives the fused one's
+result bit for bit and agrees with the live JAX
+``Learner(fused_forward=False)`` within the float32 tolerances above and
+``tests/test_torch_bf16.py``'s band at bf16.
 """
+
+import dataclasses
 
 import jax
 import numpy as np
 import pytest
 import torch
 
+from scalable_agent_tpu import driver as jax_driver
+from scalable_agent_tpu.config import Config as JaxConfig
 from scalable_agent_tpu.models import ImpalaAgent as JaxAgent
 from scalable_agent_tpu.parallel import MeshSpec, make_mesh
 from scalable_agent_tpu.runtime import Learner as JaxLearner
@@ -32,8 +43,10 @@ from scalable_agent_tpu.types import AgentState as JaxAgentState
 from scalable_agent_tpu.types import Observation as JaxObservation
 from scalable_agent_tpu.types import StepOutput as JaxStepOutput
 from scalable_agent_tpu.types import StepOutputInfo as JaxStepOutputInfo
-from scalable_agent_tpu_torch import convert
+from scalable_agent_tpu_torch import convert, driver
+from scalable_agent_tpu_torch.config import Config
 from scalable_agent_tpu_torch.models import ImpalaAgent
+from scalable_agent_tpu_torch.ops import conv_cuda
 from scalable_agent_tpu_torch.runtime import (
     Learner,
     LearnerHyperparams,
@@ -235,3 +248,129 @@ def test_nonfinite_update_is_a_counted_noop():
     assert float(metrics["update_skipped"]) == 0.0
     assert float(metrics["nonfinite_streak"]) == 0.0
     assert float(metrics["nonfinite_skips"]) == 2.0
+
+
+# -- remat_torso and the two-pass update ------------------------------------
+
+BF16 = "bfloat16"
+# tests/test_torch_bf16.py's band for the bf16 policy's agent and learner.
+BF16_BAND = dict(rtol=2e-2, atol=2e-2)
+
+
+def _agent(compute_dtype="float32", remat_torso=False, seed=3):
+    bf16 = compute_dtype == BF16
+    return ImpalaAgent(A, (16, 16, 3), core_size=H,
+                       generator=torch.Generator().manual_seed(seed),
+                       compute_dtype=getattr(torch, compute_dtype),
+                       core_matmul_dtype=BF16 if bf16 else "float32",
+                       remat_torso=remat_torso)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", BF16])
+def test_remat_torso_changes_no_bit(compute_dtype, monkeypatch):
+    """Outputs and every parameter gradient, remat on against off; the
+    stem's weight gradient still comes from the grad-W wrapper (once per
+    backward pass)."""
+    calls = []
+    gradw = conv_cuda.conv_gradw
+    monkeypatch.setattr(conv_cuda, "conv_gradw",
+                        lambda *a, **k: calls.append(1) or gradw(*a, **k))
+    traj = _torch_traj(_trajectory(5))
+    results = []
+    for remat in (False, True):
+        agent = _agent(compute_dtype, remat)
+        (logits, baseline), state = agent(
+            traj.agent_outputs.action, traj.env_outputs, traj.agent_state)
+        loss = (logits.square().sum() + baseline.sum() + state.c.sum()
+                + state.h.square().sum())
+        grads = torch.autograd.grad(loss, list(agent.parameters()))
+        results.append((logits, baseline, state.c, state.h, *grads))
+    assert calls == [1, 1]
+    for off, on in zip(*results):
+        assert torch.equal(off, on)
+
+
+def test_remat_torso_resolves_as_the_jax_driver():
+    for value in ("auto", "on", "off"):
+        assert driver.resolve_remat_torso(Config(remat_torso=value)) == (
+            jax_driver.resolve_remat_torso(JaxConfig(remat_torso=value)))
+    assert not driver.resolve_remat_torso(Config())  # auto: no TPU here
+    for resolve, config in ((driver.resolve_remat_torso, Config),
+                            (jax_driver.resolve_remat_torso, JaxConfig)):
+        with pytest.raises(ValueError,
+                           match="remat_torso must be auto, on, or off"):
+            resolve(config(remat_torso="sometimes"))
+
+
+def _two_pass_runs(compute_dtype):
+    """Two updates of the port's two-pass learner and of the JAX one on
+    the same weights and batches, and the port's fused learner's."""
+    bf16 = compute_dtype == BF16
+    batches = [_trajectory(seed) for seed in (20, 21)]
+    jax_agent = JaxAgent(num_actions=A, core_size=H, core_impl="pallas",
+                         conv_backend="pallas",
+                         compute_dtype=jax.numpy.dtype(compute_dtype),
+                         core_matmul_dtype=BF16 if bf16 else "float32")
+    mesh = make_mesh(MeshSpec(data=1), devices=jax.devices()[:1])
+    jax_learner = JaxLearner(
+        jax_agent, JaxHp(total_environment_frames=1e3), mesh,
+        FRAMES_PER_UPDATE, device_telemetry=False, learn_telemetry=False,
+        scan_impl="pallas", fused_forward=False)
+    state = jax_learner.init(jax.random.key(1), _jax_traj(batches[0]))
+    start = convert.flax_to_state_dict(
+        jax.tree_util.tree_map(np.asarray, state.params))
+    jax_losses = []
+    for d in batches:
+        state, metrics = jax_learner.update(state, _jax_traj(d))
+        jax_losses.append({k: float(metrics[k]) for k in (
+            "total_loss", "policy_gradient_loss", "baseline_loss",
+            "entropy_loss")})
+    jax_end = convert.flax_to_state_dict(
+        jax.tree_util.tree_map(np.asarray, state.params))
+    ours = {}
+    for fused in (True, False):
+        agent = _agent(compute_dtype)
+        agent.load_state_dict(start)
+        learner = Learner(agent, LearnerHyperparams(
+            total_environment_frames=1e3), FRAMES_PER_UPDATE,
+            scan_impl="pallas", fused_forward=fused)
+        losses = [{k: float(v) for k, v in learner.update(
+            _torch_traj(d)).items()} for d in batches]
+        ours[fused] = (losses, {k: v.detach().clone() for k, v in
+                                agent.state_dict().items()})
+    return start, jax_end, jax_losses, ours
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", BF16])
+def test_two_pass_update_matches_fused_and_jax(compute_dtype):
+    start, jax_end, jax_losses, ours = _two_pass_runs(compute_dtype)
+    (fused_losses, fused_params), (losses, params) = ours[True], ours[False]
+    # The two unrolls are equal in value, so the update is the same.
+    assert losses == fused_losses
+    for name, value in params.items():
+        assert torch.equal(value, fused_params[name]), name
+    if compute_dtype == BF16:
+        loss_tol, change_atol = BF16_BAND, BF16_BAND["atol"]
+    else:
+        loss_tol, change_atol = dict(rtol=1e-4, atol=1e-6), 1e-3
+    for want, got in zip(jax_losses, losses):
+        for key, value in want.items():
+            np.testing.assert_allclose(got[key], value, err_msg=key,
+                                       **loss_tol)
+    for name, begin in start.items():
+        want = (jax_end[name] - begin).numpy()
+        scale = float(np.abs(want).max())
+        np.testing.assert_allclose((params[name] - begin).numpy(), want,
+                                   rtol=0, atol=change_atol * scale,
+                                   err_msg=name)
+
+
+def test_learner_flags_are_checked_as_in_the_jax_driver():
+    agent = _agent()
+    with pytest.raises(ValueError, match="unknown transport"):
+        driver.build_learner(Config(transport="bogus"), agent)
+    with pytest.raises(ValueError, match="inflight_updates must be >= 1"):
+        driver.build_learner(Config(inflight_updates=0), agent)
+    assert not driver.build_learner(
+        dataclasses.replace(Config(), fused_forward=False),
+        agent)._fused_forward
