@@ -53,9 +53,10 @@ a result:
 3. Train: ``driver.train`` on ``fake_benchmark`` at full width (64 actors
    in two groups of 32 on ActorPool threads, 8 env worker processes per
    group, unroll 100, 4 action repeats, LSTM 256, ``--scan_impl=pallas``,
-   the default ``compute_dtype=bfloat16``, and the JAX host loop's
+   the default ``compute_dtype=bfloat16``, the JAX host loop's
    defaults: ``transport=packed``, ``inflight_updates=2``,
-   ``nonfinite_tolerance=10``, ``preemption_grace_s=30``) for 4 updates
+   ``nonfinite_tolerance=10``, ``preemption_grace_s=30``, and the obs
+   planes at their defaults plus ``--trace``) for 4 updates
    into a temporary ``--logdir``, with every launch counter set to 0 just
    before and read just after: losses finite, env_frames exact, the bf16
    variants of the residual forward, BPTT and grad-W and V-trace launched
@@ -96,6 +97,26 @@ a result:
    two-pass update) and bitwise-equal results (the two-pass update is
    otherwise held at rtol 1e-4 on its losses, and the difference
    printed).
+3e. (Run after 3d.) The obs planes on the card, each part failing the
+   run: phase 3's logdir holds ``metrics.prom`` with ``devtel/learner``,
+   ``devtel/learn``, ``ledger`` and ``stall`` families and a trace with
+   the actor, transport, ``learner/update`` and ``checkpoint/save``
+   spans; one warm update with both telemetry specs under
+   ``torch.cuda.set_sync_debug_mode("error")`` raises nothing and its
+   telemetry equals a twin learner's same update under the default mode;
+   the update alone with ``learn_telemetry`` on and off (host ms per call
+   and device ms from torch.profiler, interleaved); the pool loop's s per
+   update with the planes at their defaults plus ``--trace`` against all
+   of them off (``learn_telemetry=false``, ``watchdog_timeout_s=0``, no
+   trace), run on, off, off, on, with the stall verdicts, the ledger's
+   dominant segment, ``ledger/mfu`` and ``update_flops`` of the planes-on
+   runs; the watchdog drill (a CLI subprocess with
+   ``--chaos_spec=throughput_sag@3``, the sag ``OBS_SAG_S`` past
+   ``--watchdog_timeout_s`` ``OBS_WATCHDOG_S`` and ``--watchdog_abort``:
+   exit 70, ``flightrec.<pid>.json`` with reason ``watchdog:learner`` and a
+   non-empty ``stacks.<pid>.txt``); and a second SIGTERM to a CLI
+   subprocess as soon as it has logged the first (exit 143 and the
+   flight recorder's dump, reason ``signal:SIGTERM``).
 3c. Learning: ``fake_bandit`` through the pool on the card at the default
    bf16 policy (16x16 frames,
    32 actors, batch 16, unroll 16, lr 0.002, entropy 0.003, 200 updates,
@@ -161,7 +182,10 @@ DUMMY_MATMULS = 12          # 4096^2 float32 products per upload read:
                             # longer than a pack, so uploads run ahead
 ROLLBACK_UPDATES = 8
 PREEMPT_CYCLE = 12          # the monitor cycle (~1 s each) that SIGTERMs
-CLI_TIMEOUT_S = 300         # each driver subprocess of phase 3d
+CLI_TIMEOUT_S = 300         # each driver subprocess of phases 3d and 3e
+OBS_WATCHDOG_S = 2.0        # the watchdog drill's heartbeat deadline and
+OBS_SAG_S = 6.0             # its throughput sag, past deadline + poll
+TELEMETRY_UPDATES = 10      # updates timed per arm of the telemetry cost
 BANDIT_UPDATES = 200
 BANDIT_RANDOM = 4.0         # fake_bandit: 16 steps, 4 actions
 BANDIT_SEEDS = tuple(range(1, 9))
@@ -1028,9 +1052,19 @@ def breakdown(torch, driver, config):
               flush=True)
 
 
-def _rows(logdir):
+def _all_rows(logdir):
     with open(os.path.join(logdir, "metrics.jsonl")) as f:
         return [json.loads(line) for line in f]
+
+
+def _is_registry_row(row):
+    return any(key.startswith("obs/") for key in row)
+
+
+def _rows(logdir):
+    """metrics.jsonl's training rows (each log interval also writes the
+    registry's row, every name prefixed ``obs/``)."""
+    return [r for r in _all_rows(logdir) if not _is_registry_row(r)]
 
 
 def pool_steady_state(torch, driver, config, logdir):
@@ -1063,6 +1097,7 @@ def pool_steady_state(torch, driver, config, logdir):
           f"{steady('timing/wait_batch'):.4f} s, update "
           f"{steady('timing/update'):.4f} s, retire "
           f"{steady('timing/retire', lag):.4f} s per update", flush=True)
+    return s_per_update
 
 
 def _early_late(returns, random_return):
@@ -1343,8 +1378,8 @@ def _cli(config):
         if getattr(config, f.name) != getattr(default, f.name)]
 
 
-def _run_cli(root, cmd, timeout):
-    env = dict(os.environ, PYTHONPATH=root)
+def _run_cli(root, cmd, timeout, env=None):
+    env = dict(os.environ, PYTHONPATH=root, **(env or {}))
     t0 = time.monotonic()
     proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
                           text=True, timeout=timeout)
@@ -1540,6 +1575,244 @@ def remat_and_two_pass(torch, driver, config, out, reset_counts,
                                  f"default update")
 
 
+def obs_artifacts(logdir):
+    """Phase 3's logdir under the planes' defaults plus --trace: the
+    metrics families and the trace's spans."""
+    from scalable_agent_tpu_torch.obs import load_trace_events
+
+    with open(os.path.join(logdir, "metrics.prom")) as f:
+        families = {line.split()[2] for line in f
+                    if line.startswith("# TYPE")}
+    counts = {prefix: sum(f.startswith(prefix) for f in families)
+              for prefix in ("impala_devtel_learner_", "impala_devtel_learn_",
+                             "impala_ledger_", "impala_stall_")}
+    traces = [n for n in os.listdir(logdir) if n.startswith("trace.p0.")]
+    names = {}
+    for event in load_trace_events(os.path.join(logdir, traces[0])):
+        names[event["name"]] = names.get(event["name"], 0) + 1
+    want = ("actor/inference", "actor/env_step", "transport/pack",
+            "transport/upload", "transport/unpack", "learner/update",
+            "checkpoint/save")
+    tensorboard = os.path.isdir(os.path.join(logdir, "summaries"))
+    print(f"  phase 3's metrics.prom: {len(families)} families, by prefix "
+          f"{counts}; {traces[0]}: spans "
+          f"{ {n: names.get(n, 0) for n in want} }; TensorBoard summaries "
+          f"written (tensorboardX imports): {tensorboard}", flush=True)
+    if not all(counts.values()) or not all(names.get(n) for n in want):
+        raise AssertionError("phase 3's logdir lacks an obs family or "
+                             "span")
+
+
+def _devtel_diff(got, want):
+    """The largest scale-floored relative difference over two fetches."""
+    if got.keys() != want.keys():
+        raise AssertionError(f"telemetry keys differ: "
+                             f"{sorted(set(got) ^ set(want))}")
+    worst = 0.0
+    for key in want:
+        a, b = got[key].astype("float64"), want[key].astype("float64")
+        scale = max(float(abs(b).max()), 1e-3)
+        worst = max(worst, float(abs(a - b).max()) / scale)
+    return worst
+
+
+def telemetry_in_the_update(torch, driver, config, out):
+    """The update with both telemetry specs: a warm update under
+    set_sync_debug_mode("error") raises nothing, and its telemetry equals
+    a twin learner's same update under the default mode; then the cost
+    of the learning telemetry, the update alone with learn_telemetry on
+    and off (interleaved): host ms per call, device ms from
+    torch.profiler."""
+    from scalable_agent_tpu_torch.runtime.transport import (
+        PerLeafTransport,
+        host_trajectory,
+    )
+
+    device = torch.device(config.device)
+    obs_spec, action_space = driver.probe_env(config)
+    traj, _ = PerLeafTransport(device).put(host_trajectory(out))
+
+    def learner_for(learn):
+        variant = dataclasses.replace(config, learn_telemetry=learn)
+        agent = driver.build_agent(variant, obs_spec, action_space, device)
+        return driver.build_learner(variant, agent)
+
+    learners = {True: learner_for(True), False: learner_for(False)}
+    twin = learner_for(True)
+    for learner in (learners[True], twin):
+        learner.update(traj)  # warm: every kernel built and planned
+    twin.update(traj)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        learners[True].update(traj)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    got = learners[True].fetch_device_telemetry()
+    want = twin.fetch_device_telemetry()
+    diff = _devtel_diff(got, want)
+    bitwise = all((got[k] == want[k]).all() for k in want)
+    print(f"  sync debug mode \"error\": the warm update with both specs "
+          f"raised nothing; its {len(got)} telemetry leaves against the "
+          f"default mode's: bitwise {bitwise}, largest relative "
+          f"difference {diff:.3e}", flush=True)
+    if not diff <= 1e-6:
+        raise AssertionError("the telemetry under sync debug mode differs "
+                             "from the default mode's")
+    runs = {True: [], False: []}
+    for learn in (True, False, True, False):
+        learner = learners[learn]
+        learner.update(traj)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TELEMETRY_UPDATES):
+            learner.update(traj)
+        host_ms = 1e3 * (time.perf_counter() - t0) / TELEMETRY_UPDATES
+        torch.cuda.synchronize()
+        busy_ms = sum(_kernel_ms(torch, lambda: learner.update(traj),
+                                 3).values())
+        runs[learn].append((host_ms, busy_ms))
+    mean = lambda xs: sum(xs) / len(xs)
+    on_host, off_host = (mean([h for h, _ in runs[k]]) for k in (True,
+                                                                 False))
+    on_dev, off_dev = (mean([d for _, d in runs[k]]) for k in (True, False))
+    print(f"  the update alone, learn_telemetry on against off ("
+          f"{TELEMETRY_UPDATES} calls per arm, on/off/on/off): host "
+          f"{on_host:.3f} against {off_host:.3f} ms per call (+"
+          f"{on_host - off_host:.3f}), device {on_dev:.4f} against "
+          f"{off_dev:.4f} ms per update (+{on_dev - off_dev:.4f}); runs "
+          f"{runs}", flush=True)
+
+
+def obs_cost_in_the_loop(torch, driver, config, scratch):
+    """The pool loop's s per update with the planes at their defaults plus
+    --trace against all of them off, run on, off, off, on; then the
+    planes-on runs' stall verdicts, dominant ledger segment and live MFU
+    from their registry rows."""
+    on = dataclasses.replace(config, trace=True)
+    off = dataclasses.replace(config, learn_telemetry=False,
+                              watchdog_timeout_s=0.0)
+    s_per_update = {"on": [], "off": []}
+    readings = []
+    for name in ("on", "off", "off", "on"):
+        logdir = os.path.join(scratch, f"obs_{name}{len(s_per_update[name])}")
+        print(f"  planes {name}:", flush=True)
+        s_per_update[name].append(pool_steady_state(
+            torch, driver, on if name == "on" else off, logdir))
+        if name == "on":
+            readings.append(_registry_readings(logdir))
+    mean = lambda xs: sum(xs) / len(xs)
+    on_s, off_s = mean(s_per_update["on"]), mean(s_per_update["off"])
+    print(f"  pool loop s per update, planes on + trace against off: "
+          f"{on_s:.4f} against {off_s:.4f} ({100 * (on_s / off_s - 1):+.2f}"
+          f"%); runs {s_per_update}", flush=True)
+    return readings
+
+
+def _registry_readings(logdir):
+    """From a planes-on pool run's registry rows: the stall verdicts of
+    updates 3..N, the last interval's verdict, ledger segment shares and
+    ``ledger/mfu``."""
+    rows = [r for r in _all_rows(logdir) if _is_registry_row(r)]
+    first, last = rows[1], rows[-1]
+    verdicts = {}
+    for category in ("device_bound", "env_bound", "learner_starved",
+                     "stalled_thread"):
+        key = f"obs/stall/intervals_{category}_total"
+        verdicts[category] = last[key] - first[key]
+    latest = next(c for c in verdicts
+                  if last[f"obs/stall/is_{c}"] == 1.0)
+    shares = {k.rsplit("/", 1)[1]: v for k, v in last.items()
+              if k.startswith("obs/ledger/latency_share/")}
+    dominant = max(shares, key=shares.get)
+    return {"verdicts_of_updates_3_on": verdicts, "last_verdict": latest,
+            "wait_frac": last["obs/stall/frac_wait_batch"],
+            "dominant_segment": dominant, "shares": shares,
+            "rho": {k.rsplit("/", 1)[1]: v for k, v in last.items()
+                    if k.startswith("obs/ledger/rho/")},
+            "mfu": last["obs/ledger/mfu"],
+            "staleness_p50_s": last["obs/ledger/staleness_s/p50"]}
+
+
+def watchdog_drill(config, scratch, root):
+    """A CLI subprocess whose third update sags OBS_SAG_S, past
+    --watchdog_timeout_s, under --watchdog_abort: exit 70, the flight
+    recorder's dump with reason watchdog:learner and every thread's
+    stack."""
+    logdir = os.path.join(scratch, "watchdog")
+    cmd = _cli(dataclasses.replace(
+        config, logdir=logdir, chaos_spec="throughput_sag@3",
+        watchdog_timeout_s=OBS_WATCHDOG_S, watchdog_abort=True,
+        total_environment_frames=1e9))
+    proc, elapsed = _run_cli(root, cmd, CLI_TIMEOUT_S, env={
+        "SCALABLE_AGENT_THROUGHPUT_SAG_S": str(OBS_SAG_S)})
+    dumps = [n for n in os.listdir(logdir) if n.startswith("flightrec.")]
+    reason = (json.load(open(os.path.join(logdir, dumps[0])))["reason"]
+              if len(dumps) == 1 else None)
+    stacks = (os.path.getsize(os.path.join(logdir, dumps[0].replace(
+        "flightrec.", "stacks.").replace(".json", ".txt")))
+        if reason else 0)
+    print(f"  watchdog drill (throughput_sag@3 of {OBS_SAG_S} s, deadline "
+          f"{OBS_WATCHDOG_S} s, --watchdog_abort): exit {proc.returncode} "
+          f"in {elapsed:.1f} s, {dumps}, reason {reason!r}, stacks "
+          f"{stacks} bytes", flush=True)
+    if proc.returncode != 70 or reason != "watchdog:learner" or not stacks:
+        raise AssertionError(f"the watchdog drill:\n{proc.stderr[-3000:]}")
+
+
+def double_sigterm_drill(config, scratch, root):
+    """Two SIGTERMs to a CLI subprocess once it has logged: the first
+    starts the preemption drain, the second, sent as soon as the run has
+    logged the first (two signals that land while the main thread is in
+    one native call reach Python as one), reaches the flight recorder
+    (dump, then exit 143)."""
+    import signal
+
+    logdir = os.path.join(scratch, "sigterm")
+    os.makedirs(logdir)
+    env = dict(os.environ, PYTHONPATH=root)
+    cmd = _cli(dataclasses.replace(config, logdir=logdir,
+                                   total_environment_frames=1e9))
+    err_path = os.path.join(logdir, "stderr.txt")
+
+    def wait_for(done, what):
+        while not done():
+            if (proc.poll() is not None
+                    or time.monotonic() - t0 > CLI_TIMEOUT_S):
+                raise AssertionError(f"the SIGTERM drill's run ended or "
+                                     f"timed out before {what}")
+            time.sleep(0.01)
+
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(cmd, cwd=root, env=env,
+                                stdout=subprocess.DEVNULL, stderr=err)
+        try:
+            t0 = time.monotonic()
+            wait_for(lambda: os.path.exists(
+                os.path.join(logdir, "metrics.prom")), "its first log")
+            proc.send_signal(signal.SIGTERM)
+            wait_for(lambda: "preemption" in open(err_path).read(),
+                     "it logged the first SIGTERM")
+            proc.send_signal(signal.SIGTERM)
+            code = proc.wait(timeout=CLI_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    path = os.path.join(logdir, f"flightrec.{proc.pid}.json")
+    reason = (json.load(open(path))["reason"] if os.path.exists(path)
+              else None)
+    stacks = os.path.join(logdir, f"stacks.{proc.pid}.txt")
+    stacks = os.path.getsize(stacks) if os.path.exists(stacks) else 0
+    print(f"  two SIGTERMs: exit {code} after {time.monotonic() - t0:.1f} "
+          f"s, flight recorder reason {reason!r}, stacks {stacks} bytes",
+          flush=True)
+    if code != 143 or reason != "signal:SIGTERM" or not stacks:
+        with open(err_path) as f:
+            raise AssertionError(f"the double-SIGTERM drill:\n"
+                                 f"{f.read()[-3000:]}")
+
+
 def main() -> int:
     import torch
 
@@ -1680,7 +1953,9 @@ def main() -> int:
                         log_interval_s=0.0)
         print("phase 3: the main path, fake_benchmark at full width",
               flush=True)
-        launches = train_counted(config, UPDATES, "_bf16")
+        # The obs planes at their defaults, plus the tracer.
+        launches = train_counted(dataclasses.replace(config, trace=True),
+                                 UPDATES, "_bf16")
         metric_rows = _rows(logdir)
         _check_rows(metric_rows, config.frames_per_update(),
                     config.inflight_updates, UPDATES)
@@ -1753,8 +2028,34 @@ def main() -> int:
             fault_points(driver, faults, CheckpointManager, config, scratch)
             remat_and_two_pass(torch, driver, config, outs[0], reset_counts,
                                read_counts)
+
+        print("phase 3e: the obs planes on the card", flush=True)
+        obs_artifacts(logdir)
+        with float32_precision():
+            telemetry_in_the_update(torch, driver, config, outs[0])
         del outs
         torch.cuda.empty_cache()
+        with float32_precision():
+            readings = obs_cost_in_the_loop(torch, driver, config, scratch)
+        watchdog_drill(config, scratch, root)
+        double_sigterm_drill(config, scratch, root)
+        from scalable_agent_tpu_torch.runtime.learner import update_flops
+
+        obs_spec, action_space = driver.probe_env(config)
+        flops = update_flops(obs_spec.frame.shape, action_space.n,
+                             config.unroll_length, config.batch_size)
+        print(f"  update_flops at the main path: {flops:.6g} FLOPs per "
+              f"update (2 per multiply-add), peak 989.4e12 FLOP/s at "
+              f"bfloat16", flush=True)
+        for i, reading in enumerate(readings):
+            print(f"  planes-on pool run {i}: stall verdicts of updates "
+                  f"3..{POOL_UPDATES} {reading['verdicts_of_updates_3_on']}, "
+                  f"last {reading['last_verdict']} (wait_batch "
+                  f"{reading['wait_frac']:.3f} of the learner interval); "
+                  f"dominant ledger segment {reading['dominant_segment']} "
+                  f"(shares {reading['shares']}; rho {reading['rho']}); "
+                  f"ledger/mfu {reading['mfu']:.6g}; staleness p50 "
+                  f"{reading['staleness_p50_s']:.3f} s", flush=True)
 
         print("phase 3c: fake_bandit learns through the pool on the card "
               "(bf16 policy)", flush=True)

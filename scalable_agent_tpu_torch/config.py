@@ -29,10 +29,8 @@ UNPORTED_FLAGS = (
     "accum_fused_shards", "actor", "service_max_batch", "train_backend",
     "updates_per_dispatch", "loss",
     "replay_ratio", "replay_capacity", "target_update_interval",
-    "impact_clip_epsilon", "profile_dir", "profile_start_update",
-    "profile_num_updates", "trace",
-    "watchdog_timeout_s", "watchdog_abort", "metrics_http_port",
-    "learn_telemetry", "health", "health_warmup_intervals",
+    "impact_clip_epsilon", "metrics_http_port",
+    "health", "health_warmup_intervals",
     "health_ewma_alpha", "health_z_threshold", "health_rel_threshold",
     "health_cooldown_s", "health_max_windows", "health_window_updates",
     "health_baseline_dir", "sentinel_interval",
@@ -164,6 +162,25 @@ class Config:
     checkpoint_interval_s: float = 600.0  # reference: experiment.py:611-612
     checkpoint_keep: int = 5
     log_interval_s: float = 10.0
+    # -- observability (obs/): the registry, metrics.prom, the flight
+    # recorder, the stall attributor and the pipeline ledger are always
+    # on.  torch.profiler capture of updates [profile_start_update,
+    # +profile_num_updates), written as a Chrome trace into profile_dir.
+    profile_dir: str = ""  # empty = disabled
+    profile_start_update: int = 10
+    profile_num_updates: int = 5
+    # Host pipeline spans to <logdir>/trace.p0.<pid>.json (Chrome trace
+    # events, loadable in Perfetto), at most 2M events.
+    trace: bool = False
+    # A pipeline thread (actor, prefetch, learner) silent this long trips
+    # the stalled_thread verdict and the flight recorder's dump
+    # (flightrec.<pid>.json, stacks.<pid>.txt); 0 disables.  Above any
+    # healthy pause: a checkpoint, not a step.
+    watchdog_timeout_s: float = 300.0
+    # Exit 70 after the watchdog's dump instead of hanging.
+    watchdog_abort: bool = False
+    # The learning-dynamics telemetry (devtel/learn/*) in the update.
+    learn_telemetry: bool = True
     # Respawns of a failing actor thread (capped exponential backoff)
     # before its exception ends the run; 0 fails fast.
     actor_max_restarts: int = 3

@@ -14,6 +14,12 @@ arrays (what ``jax.device_get(params)`` gives, with or without the outer
   order; only the recurrent side carries a bias.
 
 Both directions copy exactly (no arithmetic), so a round trip is bitwise.
+
+``layer_group`` sends each port parameter to the ``LAYER_GROUPS`` bucket
+of the flax module it comes from, by the JAX learner's rule
+(``runtime/learner.py`` ``_layer_group``): ``convnet/*`` (``fc``
+included) is the torso, ``core/lstm/*`` the core, ``policy_logits`` and
+``baseline`` the heads, anything else the torso.
 """
 
 from typing import Dict, Mapping
@@ -22,6 +28,10 @@ import numpy as np
 import torch
 
 GATES = "ifgo"
+LAYER_GROUPS = ("torso", "core", "heads")
+# The port's top-level modules by the flax module each one holds.
+_MODULE_GROUPS = {"convnet": "torso", "core": "core",
+                  "policy_logits": "heads", "baseline": "heads"}
 _DENSE = ("convnet/fc", "policy_logits", "baseline")
 _CONVS = ("convnet/conv_0", "convnet/conv_1", "convnet/conv_2")
 
@@ -34,6 +44,11 @@ def _get(tree: Mapping, path: str):
 
 def _key(path: str) -> str:
     return path.replace("/", ".")
+
+
+def layer_group(name: str) -> str:
+    """The ``LAYER_GROUPS`` bucket of the port parameter ``name``."""
+    return _MODULE_GROUPS.get(name.split(".")[0], "torso")
 
 
 def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:

@@ -15,8 +15,8 @@ experiment.py:675-708):
   Then, until the frame budget is spent: take the staged batch, issue the
   update and push it into the in-flight window (waiting for the oldest
   update only when ``--inflight_updates`` are in flight), publish the new
-  weights to the actors, write a metrics row at the log interval (where
-  ``NonFiniteTracker`` reads the skip counters), then decide: a SIGTERM
+  weights to the actors, publish at the log interval (below), then
+  decide: a SIGTERM
   breaks into the shutdown tail, an exhausted non-finite tolerance rolls
   back to the newest verified checkpoint (``_rollback_or_exit``: exit 71
   under ``--no_rollback`` or with nothing to restore), else a checkpoint
@@ -24,6 +24,26 @@ experiment.py:675-708):
   final checkpoint.  Threads and worker processes are joined in a
   ``finally``, and an actor's terminal exception ends the run with that
   exception.
+- The obs producers (``obs/``), armed before anything else as the JAX
+  driver arms them (``_setup_observability``): the metrics registry with
+  its device-memory gauge, ``<logdir>/metrics.prom``, the flight recorder
+  and its crash handlers (the preemption handler is installed over them,
+  so a second SIGTERM dumps and exits 143), the watchdog
+  (``--watchdog_timeout_s``, exit 70 under ``--watchdog_abort``), the
+  tracer under ``--trace`` (``<logdir>/trace.p0.<pid>.json``), the
+  pipeline ledger with its live MFU gauge (``configure_live_mfu``), the
+  stall attributor, and the learner's device telemetry
+  (``--learn_telemetry``).  At each log interval, in the JAX order: the
+  device telemetry's one fetch, ``ledger.publish()``, the learner's
+  heartbeat, ``stall.attribute`` over the interval's ``wait_batch``,
+  ``update`` and ``retire`` sums, the metrics row (where
+  ``NonFiniteTracker`` reads the skip counters) and the registry row,
+  then ``metrics.prom``.  ``--profile_dir`` records updates
+  ``[profile_start_update, +profile_num_updates)`` with
+  ``torch.profiler`` and writes a Chrome trace there; the JAX driver's
+  kernel table (``obs/kernels.py``) is not ported yet, so none is
+  written.  The ``throughput_sag`` fault point sleeps inside the
+  update's timing.
 - ``test``: restore the newest verified checkpoint of ``--logdir`` and run
   ``test_num_episodes`` episodes of ``--level_name`` on a batched eval
   fleet.
@@ -36,9 +56,10 @@ Run:
 The run happens on ``--device=cuda`` (the default) and fails when there is
 no card; ``--device=cpu`` runs every kernel's plain PyTorch version.  Exit
 codes (``runtime/exit_codes.py``): 0 for a finished or a drained
-preempted run, 71 for the non-finite guard, 72 for an expired preemption
-grace, 143 for a second SIGTERM.  Replay, multi-task training, DMLab-30
-suite scoring, the obs planes and the multi-process fleet are not ported
+preempted run, 70 for the watchdog under ``--watchdog_abort``, 71 for the
+non-finite guard, 72 for an expired preemption grace, 143 for a second
+SIGTERM.  Replay, multi-task training, DMLab-30 suite scoring, the obs
+consumers (health, the CLIs) and the multi-process fleet are not ported
 yet (ROADMAP.md, queue 1).
 """
 
@@ -48,9 +69,10 @@ import functools
 import logging
 import os
 import queue as queue_lib
+import sys
 import threading
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -69,6 +91,23 @@ from scalable_agent_tpu_torch.models import (
     actor_step,
     initial_state,
 )
+from scalable_agent_tpu_torch.obs import (
+    MetricsRegistry,
+    MetricsWriter,
+    PrometheusExporter,
+    StallAttributor,
+    configure_flight_recorder,
+    configure_ledger,
+    configure_tracer,
+    configure_watchdog,
+    get_flight_recorder,
+    get_ledger,
+    get_registry,
+    get_tracer,
+    get_watchdog,
+    install_crash_handlers,
+)
+from scalable_agent_tpu_torch.obs.ledger import PipelineLedger, peak_flops
 from scalable_agent_tpu_torch.ops import float32_precision
 from scalable_agent_tpu_torch.runtime import (
     ActorPool,
@@ -83,15 +122,19 @@ from scalable_agent_tpu_torch.runtime.exit_codes import NONFINITE_EXIT_CODE
 from scalable_agent_tpu_torch.runtime.faults import (
     armed_points,
     configure_faults,
+    get_fault_injector,
+    throughput_sag_s,
 )
 from scalable_agent_tpu_torch.runtime.fleet import PreemptionMonitor
-from scalable_agent_tpu_torch.runtime.learner import NonFiniteTracker
+from scalable_agent_tpu_torch.runtime.learner import (
+    NonFiniteTracker,
+    update_flops,
+)
 from scalable_agent_tpu_torch.runtime.transport import (
     InflightWindow,
     host_trajectory,
     make_transport,
 )
-from scalable_agent_tpu_torch.utils.metrics import MetricsWriter
 from scalable_agent_tpu_torch.utils.timing import Timing
 
 log = logging.getLogger("scalable_agent_tpu_torch")
@@ -169,7 +212,8 @@ def build_learner(config: Config, agent: ImpalaAgent) -> Learner:
         rmsprop_epsilon=config.rmsprop_epsilon)
     return Learner(agent, hp, config.frames_per_update(),
                    scan_impl=config.scan_impl,
-                   fused_forward=config.fused_forward)
+                   fused_forward=config.fused_forward,
+                   learn_telemetry=config.learn_telemetry)
 
 
 def worker_processes(requested: int, num_envs: int) -> int:
@@ -222,10 +266,19 @@ def start_prefetch(pool: ActorPool, transport, device: torch.device,
     ``device`` through ``transport`` on this thread's own stream and stage
     them one deep as ``(trajectory, owners, event)``: ``owners`` are the
     device tensors holding the trajectory's memory, ``event`` the upload's
-    CUDA event.  An exception is staged in place of a batch."""
+    CUDA event.  The placement is the ``learner/put_trajectory`` span and
+    histogram and the ledger's ``put_done`` stamp; the staged item carries
+    the trajectory's ledger record (``bind``).  The thread touches its
+    heartbeat at every bounded wait.  An exception is staged in place of
+    a batch, after the flight recorder's dump."""
+    put_hist = get_registry().histogram(
+        "learner/put_trajectory_s",
+        "host->device trajectory placement seconds")
 
     def put(item) -> None:
+        watchdog = get_watchdog()
         while not stop.is_set():
+            watchdog.touch()
             try:
                 staged.put(item, timeout=0.5)
                 return
@@ -233,24 +286,42 @@ def start_prefetch(pool: ActorPool, transport, device: torch.device,
                 continue
 
     def prefetch_loop():
+        watchdog = get_watchdog()
         stream = torch.cuda.Stream(device) if device.type == "cuda" else None
         context = (torch.cuda.stream(stream) if stream is not None
                    else contextlib.nullcontext())
         try:
             with context:
                 while not stop.is_set():
+                    watchdog.touch()
                     try:
                         out = pool.get_trajectory(timeout=0.5)
                     except queue_lib.Empty:
                         continue
-                    trajectory, owners = transport.put(host_trajectory(out))
-                    event = None
-                    if stream is not None:
-                        event = torch.cuda.Event()
-                        event.record(stream)
-                    put((trajectory, owners, event))
+                    with get_tracer().span("learner/put_trajectory",
+                                           cat="h2d"), put_hist.time():
+                        trajectory, owners = transport.put(
+                            host_trajectory(out))
+                        event = None
+                        if stream is not None:
+                            event = torch.cuda.Event()
+                            event.record(stream)
+                    ledger = get_ledger()
+                    ledger.stamp_current("put_done")
+                    get_flight_recorder().record("queue", "put_trajectory")
+                    item = (trajectory, owners, event)
+                    tid = ledger.current()
+                    if tid is not None:
+                        ledger.bind(id(item), tid)
+                    put(item)
         except Exception as exc:  # surfaces in the training loop
+            recorder = get_flight_recorder()
+            recorder.record("exception", type(exc).__name__,
+                            {"where": "prefetch"})
+            recorder.dump_all(f"exception:{type(exc).__name__}:prefetch")
             put(exc)
+        finally:
+            watchdog.suspend()
 
     thread = threading.Thread(target=prefetch_loop, daemon=True,
                               name="prefetch")
@@ -278,16 +349,23 @@ def _rollback_or_exit(config: Config, ckpt: CheckpointManager,
                       learner: Learner, tracker: NonFiniteTracker) -> int:
     """The non-finite tolerance is exhausted: restore the newest VERIFIED
     checkpoint into ``learner`` (its streak zeroed, so the restored
-    timeline gets the full tolerance again) and return its step, or raise
+    timeline gets the full tolerance again; the learner's heartbeat
+    suspended across the read) and return its step, or raise
     ``SystemExit(71)`` under ``--no_rollback`` or when nothing restores
-    (``scalable_agent_tpu/driver.py:887``)."""
+    (``scalable_agent_tpu/driver.py:887``), after the flight recorder's
+    dump."""
     guard = "non-finite guard"
+    recorder = get_flight_recorder()
     if config.no_rollback:
         log.error("%s: rollback wanted and --no_rollback is set — exiting "
                   "%d", guard, NONFINITE_EXIT_CODE)
+        recorder.record("rollback", "disabled",
+                        {"streak": tracker.tolerance, "reason": "nonfinite"})
+        recorder.dump_all("nonfinite:no_rollback")
         raise SystemExit(NONFINITE_EXIT_CODE)
+    watchdog = get_watchdog()
     try:
-        restored = ckpt.restore()
+        restored = ckpt.restore(heartbeat="learner")
     except CheckpointIntegrityError as exc:
         log.error("%s: %s", guard, exc)
         restored = None
@@ -295,6 +373,8 @@ def _rollback_or_exit(config: Config, ckpt: CheckpointManager,
         log.error("%s: rollback wanted and no restorable checkpoint under "
                   "%s — exiting %d", guard, config.logdir,
                   NONFINITE_EXIT_CODE)
+        recorder.record("rollback", "no_checkpoint", {"reason": "nonfinite"})
+        recorder.dump_all("nonfinite:no_checkpoint")
         raise SystemExit(NONFINITE_EXIT_CODE)
     step, saved = restored
     saved["nonfinite_streak"] = torch.zeros_like(
@@ -302,10 +382,114 @@ def _rollback_or_exit(config: Config, ckpt: CheckpointManager,
     # Issued on the learner's stream, so after the abandoned in-flight
     # updates, which it overwrites.
     learner.load_state_dict(saved)
+    get_registry().counter(
+        "learner/rollbacks_total",
+        "rollbacks to the last good checkpoint after a guard's "
+        "tolerance was exhausted (non-finite streak or sentinel "
+        "breach)").inc()
+    recorder.record("rollback", "restored",
+                    {"step": step, "env_frames": learner.state.env_frames,
+                     "reason": "nonfinite"})
     tracker.rebase(float(saved["nonfinite_skips"]))
+    watchdog.touch("learner")
     log.warning("%s: rolled back to checkpoint step %d (%.0f frames)",
                 guard, step, learner.state.env_frames)
     return step
+
+
+@dataclasses.dataclass
+class _ObsHandles:
+    """What ``_setup_observability`` wires and its teardown unwinds."""
+
+    registry: MetricsRegistry
+    prom: PrometheusExporter
+    uninstall_handlers: Callable[[], None]
+
+
+def _setup_observability(config: Config) -> _ObsHandles:
+    """Arm the obs producers for one run (``driver.py:665-713``): the
+    tracer under ``--trace`` (``<logdir>/trace.p0.<pid>.json``), the
+    registry's device-memory gauge, ``<logdir>/metrics.prom``, the flight
+    recorder and its crash handlers, and the watchdog."""
+    if config.trace:
+        configure_tracer(os.path.join(
+            config.logdir, f"trace.p0.{os.getpid()}.json"))
+    registry = get_registry().install_torch_hooks()
+    prom = PrometheusExporter(
+        registry, os.path.join(config.logdir, "metrics.prom"))
+    recorder = configure_flight_recorder(config.logdir, registry=registry)
+    recorder.exporter = prom
+    uninstall = install_crash_handlers(recorder)
+    configure_watchdog(config.watchdog_timeout_s, registry=registry,
+                       abort=config.watchdog_abort,
+                       flight_recorder=recorder)
+    return _ObsHandles(registry=registry, prom=prom,
+                       uninstall_handlers=uninstall)
+
+
+def _teardown_observability(config: Config, handles: _ObsHandles):
+    """Dump the flight recorder when an exception is unwinding (or when a
+    signal handler's dump is pending), then flush the trace and the final
+    metrics snapshot and remove the crash handlers."""
+    recorder = get_flight_recorder()
+    exc = sys.exc_info()[1]
+    if exc is not None and not isinstance(exc, (SystemExit,
+                                                KeyboardInterrupt)):
+        recorder.dump_all(f"exception:{type(exc).__name__}")
+    elif recorder.pending_dump_reason:
+        recorder.dump_all(recorder.pending_dump_reason)
+    configure_watchdog(None)
+    if config.trace:
+        configure_tracer(None)  # closes and flushes the file
+    handles.prom.dump()
+    handles.uninstall_handlers()
+
+
+def configure_live_mfu(config: Config, ledger: PipelineLedger,
+                       device: torch.device, observation_spec,
+                       action_space) -> None:
+    """Arm ``ledger/mfu``: ``update_flops`` at the run's shapes against
+    the card's peak for ``compute_dtype`` (``obs/ledger.py``
+    ``PEAK_FLOPS``).  On another device, or the CPU, the gauge stays at
+    0, with one log line."""
+    flops = update_flops(observation_spec.frame.shape, action_space.n,
+                         config.unroll_length, config.batch_size)
+    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+    peak = peak_flops(name, config.compute_dtype)
+    if peak is None:
+        log.info("live MFU gauge off: no peak FLOP/s known for %s at %s "
+                 "(%.4g FLOPs per update)", name, config.compute_dtype,
+                 flops)
+        return
+    ledger.configure_mfu(flops, peak)
+    log.info("live MFU gauge armed: %.4g FLOPs per update against %.4g "
+             "peak FLOP/s (%s, %s)", flops, peak, name,
+             config.compute_dtype)
+
+
+def _start_profile(device: torch.device):
+    """A ``torch.profiler`` window over the host and, on the card, its
+    kernels; the tracer's spans open ``record_function`` ranges in it."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    profiler = torch.profiler.profile(activities=activities)
+    profiler.start()
+    get_tracer().set_annotate(True)
+    return profiler
+
+
+def _stop_profile(profiler, config: Config) -> None:
+    """End the window and write its Chrome trace into ``profile_dir``."""
+    profiler.stop()
+    get_tracer().set_annotate(False)
+    os.makedirs(config.profile_dir, exist_ok=True)
+    path = os.path.join(config.profile_dir,
+                        f"torch_profile.{os.getpid()}.json")
+    profiler.export_chrome_trace(path)
+    log.info("profiler trace written to %s (no kernel table: the JAX "
+             "driver's obs/kernels.py harvest is not ported yet)", path)
 
 
 def train(config: Config) -> Dict[str, float]:
@@ -317,23 +501,36 @@ def train(config: Config) -> Dict[str, float]:
     device = resolve_device(config.device)
     config.save()
     observation_spec, action_space = probe_env(config)
-    groups = pool = prefetch_thread = writer = None
+    groups = pool = prefetch_thread = writer = learner = None
     prefetch_stop = threading.Event()
     monitor = PreemptionMonitor(config.preemption_grace_s)
     metrics: Dict[str, torch.Tensor] = {}
+    profiler = None
+    # The obs producers come up first, so that every thread is born with
+    # the live tracer and watchdog, and the preemption handler goes over
+    # the crash handlers (a second SIGTERM reaches the flight recorder).
+    arm_faults(config)
+    obs_handles = _setup_observability(config)
+    registry, prom = obs_handles.registry, obs_handles.prom
+    ledger = configure_ledger(
+        registry=registry, frames_per_trajectory=config.frames_per_update(),
+        logdir=config.logdir)
     # Float32 convolutions and matmuls in full float32, and bf16 ones
     # summed in float32, as the JAX package runs them.  The flags are
     # process-wide: set once, before any thread starts.
     with float32_precision():
         try:
-            arm_faults(config)
             monitor.start()
             agent = build_agent(config, observation_spec, action_space,
                                 device)
             learner = build_learner(config, agent)
+            configure_live_mfu(config, ledger, device, observation_spec,
+                               action_space)
             transport = make_transport(config.transport, device)
-            window = InflightWindow(config.inflight_updates)
-            tracker = NonFiniteTracker(config.nonfinite_tolerance)
+            window = InflightWindow(config.inflight_updates,
+                                    registry=registry)
+            tracker = NonFiniteTracker(config.nonfinite_tolerance,
+                                       registry=registry)
             ckpt = CheckpointManager(config.logdir,
                                      config.checkpoint_interval_s,
                                      config.checkpoint_keep)
@@ -356,21 +553,59 @@ def train(config: Config) -> Dict[str, float]:
             staged: queue_lib.Queue = queue_lib.Queue(maxsize=1)
             prefetch_thread = start_prefetch(pool, transport, device,
                                              staged, prefetch_stop)
-            writer = MetricsWriter(config.logdir)
+            stall = StallAttributor(registry)
+            actor_fps_gauge = registry.gauge(
+                "actor/fps", "env frames/s generated by this host's actors")
+            learner_fps_gauge = registry.gauge(
+                "learner/fps", "env frames/s consumed by the learner")
+            writer = MetricsWriter(config.logdir, registry=registry)
             timing = Timing()
+            # This interval's sums, for the stall attributor.
+            interval = Timing()
+            watchdog = get_watchdog()
+            injector = get_fault_injector()
             updates = start_updates
             frames = learner.state.env_frames
             last_log = time.monotonic()
             frames_at_last_log = frames
             steps_at_last_log = pool.agent_steps
             rollback_wanted = False
+            # The first update may build the kernels: it runs with the
+            # learner's heartbeat suspended, as the JAX loop suspends it
+            # across its first compile.
+            first_dispatch = True
             while frames < config.total_environment_frames:
-                with timing.time_avg("wait_batch"):
+                if (config.profile_dir and profiler is None
+                        and updates - start_updates
+                        == config.profile_start_update):
+                    profiler = _start_profile(device)
+                    profile_stop_at = updates + config.profile_num_updates
+                # Waiting for a batch is the stall attributor's business,
+                # not a wedge: a wedged producer's own heartbeat names it.
+                watchdog.suspend("learner")
+                with timing.time_avg("wait_batch"), \
+                        interval.add_time("wait_batch"), \
+                        get_tracer().span("learner/wait_batch",
+                                          cat="learner"):
                     item = staged.get()
+                watchdog.touch("learner")
                 trajectory = _adopt(item, device)
-                with timing.time_avg("update"):
+                ledger_tid = ledger.lookup(id(item))
+                if first_dispatch:
+                    watchdog.suspend("learner")
+                    first_dispatch = False
+                with timing.time_avg("update"), \
+                        interval.add_time("update"):
                     dispatched = learner.update(trajectory)
-                window.push(dispatched)
+                    # Chaos: a mid-run slowdown, inside the update's
+                    # timing, so the stall attributor reads a slow device.
+                    if injector.active and injector.should_fire(
+                            "throughput_sag"):
+                        time.sleep(throughput_sag_s())
+                if ledger_tid is not None:
+                    ledger.stamp(ledger_tid, "dispatch")
+                window.push(dispatched, ledger_id=ledger_tid)
+                watchdog.touch("learner")
                 del trajectory, item
                 # The snapshot's copies are queued after this update on
                 # the same stream: they hold its weights, not the next's.
@@ -380,14 +615,23 @@ def train(config: Config) -> Dict[str, float]:
                 if window.full:
                     # The loop's only wait on the card: the OLDEST update
                     # in flight, so its metrics belong to a known update.
-                    with timing.time_avg("retire"):
+                    with timing.time_avg("retire"), \
+                            interval.add_time("retire"):
                         metrics = window.retire()
+                watchdog.touch("learner")
+                if profiler is not None and updates >= profile_stop_at:
+                    if device.type == "cuda":
+                        torch.cuda.synchronize(device)
+                    _stop_profile(profiler, config)
+                    profiler = None
                 now = time.monotonic()
                 if now - last_log >= config.log_interval_s:
                     if not metrics:
                         # Nothing has left the window yet: log the newest
                         # update (its fetch waits for it).
                         metrics = dispatched
+                    # The fetches below wait for the card: not a wedge.
+                    watchdog.suspend("learner")
                     row = {k: float(v) for k, v in metrics.items()}
                     # Only record the verdict here; the rollback happens
                     # at the decision point below.
@@ -399,6 +643,8 @@ def train(config: Config) -> Dict[str, float]:
                     row["actor_fps"] = ((steps - steps_at_last_log)
                                         * config.num_action_repeats
                                         / elapsed)
+                    actor_fps_gauge.set(row["actor_fps"])
+                    learner_fps_gauge.set(row["fps"])
                     stats = pool.episode_stats()
                     if stats:
                         row["episode_return"] = float(
@@ -408,12 +654,25 @@ def train(config: Config) -> Dict[str, float]:
                             * config.num_action_repeats)
                     row.update({f"timing/{k}": v
                                 for k, v in timing.summary().items()})
+                    # The obs publication, in the JAX driver's order.
+                    learner.publish_device_telemetry()
+                    ledger.publish()
+                    watchdog.touch("learner")
+                    interval_sums = interval.summary()
+                    interval.clear()
+                    category, evidence = stall.attribute(
+                        interval_sums.get("wait_batch", 0.0),
+                        interval_sums.get("update", 0.0),
+                        retire_s=interval_sums.get("retire", 0.0))
                     writer.write(updates, row)
+                    writer.write_registry(updates)
+                    prom.dump()
                     log.info(
                         "update %d frames %.3g fps %.0f (actors %.0f) "
-                        "loss %.3f return %.2f | %s", updates, frames,
+                        "loss %.3f return %.2f | %s | %s", updates, frames,
                         row["fps"], row["actor_fps"], row["total_loss"],
-                        row.get("episode_return", float("nan")), timing)
+                        row.get("episode_return", float("nan")), timing,
+                        StallAttributor.describe(category, evidence))
                     last_log, frames_at_last_log = now, frames
                     steps_at_last_log = steps
                 # The decisions, at a fixed point of every iteration.
@@ -429,22 +688,35 @@ def train(config: Config) -> Dict[str, float]:
                                                 tracker)
                     frames = learner.state.env_frames
                     # Nothing of the abandoned timeline leaks forward: its
-                    # in-flight metrics are dropped unread, and the actors
-                    # get the restored weights.
+                    # in-flight metrics are dropped unread (their ledger
+                    # records discarded), and the actors get the restored
+                    # weights.
                     window.discard()
                     metrics = {}
                     pool.set_params(agent, version=updates)
                     last_log = time.monotonic()
                     frames_at_last_log = frames
                     steps_at_last_log = pool.agent_steps
+                    interval.clear()
                     continue
-                ckpt.maybe_save(updates, learner.state_dict())
+                ckpt.maybe_save(updates, learner.state_dict(),
+                                heartbeat="learner")
+            # A slow but healthy shutdown tail is not a wedge.
+            watchdog.suspend("learner")
             # The returned metrics are the newest update's.
             drained = window.drain()
             if drained is not None:
                 metrics = drained
-            ckpt.maybe_save(updates, learner.state_dict(), force=True)
+            ckpt.maybe_save(updates, learner.state_dict(), force=True,
+                            heartbeat="learner")
         finally:
+            # No heartbeat is watched in the teardown: it must never be
+            # cut short by exit 70.
+            configure_watchdog(None)
+            configure_faults("")  # a spec must not outlive its run
+            if profiler is not None:
+                profiler.stop()
+                get_tracer().set_annotate(False)
             prefetch_stop.set()
             if pool is not None:
                 pool.stop()
@@ -453,11 +725,27 @@ def train(config: Config) -> Dict[str, float]:
                     envs.close()
             if prefetch_thread is not None:
                 prefetch_thread.join(timeout=10)
+            # After the pipeline's threads (no new stamps), before the
+            # final snapshot: records still in the pipeline close as
+            # abandoned, and ledger.p0.json is written.
+            try:
+                get_ledger().finalize()
+            except Exception:
+                log.exception("ledger finalize failed")
+            # A run shorter than the log interval still publishes its
+            # device telemetry into the final snapshot.
+            if learner is not None:
+                try:
+                    learner.publish_device_telemetry()
+                except Exception:
+                    log.exception("final device-telemetry publish failed")
             if writer is not None:
                 writer.close()
-            configure_faults("")  # a spec must not outlive its run
-            # Last: the grace deadline covers the whole shutdown tail.
+            # The grace deadline covers the shutdown tail above; the
+            # preemption handler goes before the crash handlers it was
+            # installed over.
             monitor.stop()
+            _teardown_observability(config, obs_handles)
     result = {name: float(value) for name, value in metrics.items()}
     returns = [r for r, _ in pool.episode_stats()]
     if returns:

@@ -13,7 +13,8 @@ The counterpart of ``scalable_agent_tpu/envs/vector.py::MultiEnv``
 - A worker that dies is respawned with generation-shifted seeds
   (``_reseeded``); its slice restarts from fresh episodes (done=True).
   More than ``max_respawns`` deaths of one worker within
-  ``RESPAWN_WINDOW_S`` raise ``RemoteEnvError``.
+  ``RESPAWN_WINDOW_S`` raise ``RemoteEnvError``; each respawn counts in
+  ``env/worker_respawns_total`` and the flight recorder.
 - Episode stats of the last ``STATS_EPISODES`` finished episodes go to a
   ring buffer (``episode_stats``).
 
@@ -22,7 +23,8 @@ The constructor's default ``num_workers=0`` steps the streams in the
 calling process instead (the JAX MultiEnv reads 0 as one worker per env;
 the driver's flags keep that meaning, ``driver.worker_processes``).  Only
 frame observations are carried (the fake family has no instruction or
-measurement streams).  This module imports no torch.
+measurement streams).  This module imports no torch (the obs package,
+which does, only when a worker is respawned, in the parent).
 """
 
 import functools
@@ -244,6 +246,20 @@ class MultiEnv:
         log.warning("env worker %d (envs %d:%d) died; respawning (%d in "
                     "window, %d lifetime)", w, self._slices[w].start,
                     self._slices[w].stop, len(times), self.total_respawns)
+        # Imported here: the obs package imports torch, and the env
+        # worker processes import this package without it.
+        from scalable_agent_tpu_torch.obs import (
+            get_flight_recorder,
+            get_registry,
+        )
+
+        get_registry().counter(
+            "env/worker_respawns_total",
+            "env worker processes respawned after dying").inc()
+        get_flight_recorder().record(
+            "worker_respawn", f"worker-{w}",
+            {"deaths_in_window": len(times),
+             "lifetime": self.total_respawns})
         try:
             self._conns[w].close()
         except OSError:

@@ -58,6 +58,14 @@ def entropy(logits, spec: DistributionSpec):
     return -(log_p.exp() * log_p).sum(dim=-1)
 
 
+def kl_divergence(p_logits, q_logits, spec: DistributionSpec):
+    """KL(p || q) of the categoricals given by two logits tensors."""
+    _single(p_logits, spec)
+    log_p = F.log_softmax(p_logits.float(), dim=-1)
+    log_q = F.log_softmax(q_logits.float(), dim=-1)
+    return (log_p.exp() * (log_p - log_q)).sum(dim=-1)
+
+
 def one_hot_actions(actions, spec: DistributionSpec):
     """The "last action" input of the agent: float32 one-hot [..., n]."""
     if spec.num_components != 1:

@@ -85,9 +85,15 @@ def importance_diagnostics(log_rhos,
     log_rhos = log_rhos.detach().float()
     rhos = torch.exp(log_rhos)
     zero = torch.zeros((), dtype=torch.float32, device=log_rhos.device)
-    fraction = lambda threshold: (
-        zero if threshold is None
-        else (rhos > threshold).float().mean())
+    fractions = {}  # one reduction per distinct threshold
+
+    def fraction(threshold):
+        if threshold is None:
+            return zero
+        if threshold not in fractions:
+            fractions[threshold] = (rhos > threshold).float().mean()
+        return fractions[threshold]
+
     # ESS is scale-invariant in the weights, so shift by the max log ratio
     # before exponentiating: exp(2 * log_rho) overflows float32 from
     # log_rho ~ 44.

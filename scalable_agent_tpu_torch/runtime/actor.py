@@ -28,6 +28,16 @@ The counterpart of ``scalable_agent_tpu/runtime/actor.py``:
 - Two fault points (``runtime/faults.py``) sit at the top of each unroll:
   ``actor_raise`` raises into that retry, ``worker_kill`` SIGKILLs one of
   the group's env worker processes for ``MultiEnv`` to respawn.
+- Observability (``obs/``), as in the JAX actor: each step's
+  ``actor/inference`` and ``actor/env_step`` spans and the
+  ``actor/inference_s`` and ``actor/env_step_s`` histograms (the stall
+  attributor's input), a watchdog touch per step (the actor's first
+  unroll, a first-use kernel build among it, runs with the heartbeat
+  suspended until its second step), the ``actor/unroll`` span, the queue
+  hand-off's ``batcher/queue_put``/``batcher/queue_get`` spans, the
+  pool's queue gauges and actor counters, and the pipeline ledger's
+  record of each trajectory from its birth (the unroll's start) through
+  ``unroll_done``, ``queue_put`` and ``queue_get``.
 
 The service, accum and native-batcher inference modes are not ported yet
 (ROADMAP.md, queue 1).
@@ -39,6 +49,7 @@ import logging
 import queue as queue_lib
 import threading
 import time
+import weakref
 from collections import deque
 from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
@@ -51,6 +62,14 @@ from scalable_agent_tpu_torch.models.agent import (
     actor_step,
     initial_state,
 )
+from scalable_agent_tpu_torch.obs import (
+    get_flight_recorder,
+    get_ledger,
+    get_registry,
+    get_tracer,
+    get_watchdog,
+)
+from scalable_agent_tpu_torch.obs.ledger import now_us as ledger_now_us
 from scalable_agent_tpu_torch.runtime.faults import get_fault_injector
 from scalable_agent_tpu_torch.types import (
     ActorOutput,
@@ -65,6 +84,20 @@ log = logging.getLogger("scalable_agent_tpu_torch")
 # after which a restart no longer counts against the budget.
 RESTART_BACKOFF_CAP_S = 30.0
 RESTART_WINDOW_S = 600.0
+
+
+def actor_stage_histograms(registry=None):
+    """The per-step histograms every actor feeds and the stall attributor
+    reads: (env_step_s, inference_s)."""
+    registry = registry or get_registry()
+    return (
+        registry.histogram(
+            "actor/env_step_s",
+            "seconds per vectorized env step (send+recv)"),
+        registry.histogram(
+            "actor/inference_s",
+            "seconds per batched inference step (dispatch+fetch)"),
+    )
 
 
 def to_numpy(tree):
@@ -109,24 +142,63 @@ def snapshot_params_for_inference(agent: ImpalaAgent,
     return ParamsSnapshot(version, tensors, event)
 
 
-def publish_trajectory(queue, trajectory, stop: threading.Event) -> bool:
-    """Hand one trajectory to the learner queue, re-checking ``stop``
-    while the bounded queue is full; True when delivered."""
+def publish_trajectory(queue, trajectory, stop: threading.Event, *,
+                       actor_name: str, level_name: str = "",
+                       birth_us: Optional[int] = None) -> bool:
+    """Hand one trajectory to the learner queue with its provenance: the
+    ledger record opened at the unroll's birth (its frames the ledger's
+    ``frames_per_trajectory``, env frames) and bound to the trajectory
+    object, re-touching the watchdog while the bounded queue is full
+    (backpressure is not a wedge).  A hand-off that shutdown catches
+    closes the record as ``abandoned``.  True when delivered."""
+    ledger = get_ledger()
+    watchdog = get_watchdog()
+    tid = ledger.open(actor_name, level_name or "actor", birth_us=birth_us)
+    ledger.stamp(tid, "unroll_done")
+    ledger.bind(id(trajectory), tid)
+    delivered = False
+    with get_tracer().span("batcher/queue_put", cat="queue"):
+        while not stop.is_set():
+            watchdog.touch()
+            try:
+                queue.put(trajectory, timeout=0.1)
+                delivered = True
+                break
+            except queue_lib.Full:
+                continue
+    if delivered:
+        ledger.stamp(tid, "queue_put")
+        get_flight_recorder().record("queue", "put")
+    else:
+        ledger.lookup(id(trajectory))  # drop the binding
+        ledger.close(tid, retired=False, fate="abandoned")
+    return delivered
+
+
+def deliver_error(queue, exc: Exception, stop: threading.Event) -> None:
+    """Hand a producer's terminal exception to the queue's consumer."""
     while not stop.is_set():
         try:
-            queue.put(trajectory, timeout=0.1)
-            return True
+            queue.put(exc, timeout=0.1)
+            return
         except queue_lib.Full:
             continue
-    return False
 
 
 def consume_trajectory(queue, timeout: Optional[float] = None):
-    """The learner-side half of the hand-off: pop one item and re-raise a
-    marshalled producer exception."""
-    item = queue.get(timeout=timeout)
+    """The learner-side half of the hand-off: pop one item, re-raise a
+    marshalled producer exception, and make the item's ledger record the
+    calling thread's current one (the transport stamps it)."""
+    with get_tracer().span("batcher/queue_get", cat="queue"):
+        item = queue.get(timeout=timeout)
+    get_flight_recorder().record("queue", "get")
     if isinstance(item, Exception):
         raise item
+    ledger = get_ledger()
+    tid = ledger.lookup(id(item))
+    if tid is not None:
+        ledger.stamp(tid, "queue_get")
+    ledger.set_current(tid)
     return item
 
 
@@ -151,38 +223,55 @@ def run_with_retry(loop_fn: Callable[[], None], *, stop: threading.Event,
     (isolated faults far apart age out) with exponential backoff capped at
     ``RESTART_BACKOFF_CAP_S``, ``reset()`` called before each retry; the
     terminal exception goes to ``deliver(exc)``."""
+    recorder = get_flight_recorder()
     thread_name = threading.current_thread().name
     restart_times = deque()
-    while not stop.is_set():
-        try:
-            loop_fn()
-            return  # clean stop
-        except Exception as exc:
-            if stop.is_set():
-                return  # shutdown cascade
-            now = time.monotonic()
-            while (restart_times
-                   and now - restart_times[0] > RESTART_WINDOW_S):
-                restart_times.popleft()
-            if len(restart_times) >= max_restarts:
-                deliver(exc)
-                return
-            restart_times.append(now)
-            backoff = min(RESTART_BACKOFF_CAP_S,
-                          backoff_s * 2 ** (len(restart_times) - 1))
-            if on_restart is not None:
-                on_restart()
-            log.error("actor %s failed (%s: %s); restart %d/%d in the "
-                      "%.0fs window, retrying in %.2fs", thread_name,
-                      type(exc).__name__, exc, len(restart_times),
-                      max_restarts, RESTART_WINDOW_S, backoff)
-            if reset is not None:
-                try:
-                    reset()
-                except Exception:
-                    log.exception("actor %s reset failed before retry",
-                                  thread_name)
-            stop.wait(backoff)
+    try:
+        while not stop.is_set():
+            try:
+                loop_fn()
+                return  # clean stop
+            except Exception as exc:
+                if stop.is_set():
+                    return  # shutdown cascade
+                recorder.record("exception", type(exc).__name__,
+                                {"where": thread_name})
+                now = time.monotonic()
+                while (restart_times
+                       and now - restart_times[0] > RESTART_WINDOW_S):
+                    restart_times.popleft()
+                if len(restart_times) >= max_restarts:
+                    # The dump keeps this thread's last moments even if
+                    # the driver never takes the exception.
+                    recorder.dump_all(
+                        f"exception:{type(exc).__name__}:{thread_name}")
+                    deliver(exc)
+                    return
+                restart_times.append(now)
+                backoff = min(RESTART_BACKOFF_CAP_S,
+                              backoff_s * 2 ** (len(restart_times) - 1))
+                if on_restart is not None:
+                    on_restart()
+                recorder.record(
+                    "actor_restart", thread_name,
+                    {"restart": len(restart_times), "max": max_restarts,
+                     "backoff_s": round(backoff, 3),
+                     "error": type(exc).__name__})
+                log.error("actor %s failed (%s: %s); restart %d/%d in the "
+                          "%.0fs window, retrying in %.2fs", thread_name,
+                          type(exc).__name__, exc, len(restart_times),
+                          max_restarts, RESTART_WINDOW_S, backoff)
+                # The backoff is not a wedge; the next touch re-arms.
+                get_watchdog().suspend()
+                if reset is not None:
+                    try:
+                        reset()
+                    except Exception:
+                        log.exception("actor %s reset failed before retry",
+                                      thread_name)
+                stop.wait(backoff)
+    finally:
+        get_watchdog().suspend()
 
 
 class VectorActor:
@@ -201,6 +290,11 @@ class VectorActor:
         self._last_env_output = None
         self._last_agent_output = None
         self._core_state = None
+        self._stepped = False
+        # When the newest unroll began (the ledger's clock): its
+        # trajectory's birth.
+        self.unroll_birth_us = None
+        self._h_env, self._h_infer = actor_stage_histograms()
 
     @property
     def envs(self) -> MultiEnv:
@@ -241,6 +335,13 @@ class VectorActor:
         """Generate one [T+1, B] trajectory batch (numpy), under
         ``params`` when given, else under the agent's weights as they
         are."""
+        self.unroll_birth_us = ledger_now_us()
+        tracer = get_tracer()
+        watchdog = get_watchdog()
+        if not self._stepped:
+            # Set-up, not progress: the envs' first reset and the first
+            # step, which may build the kernels.
+            watchdog.suspend()
         if params is not None:
             self.load_params(params)
         if self._last_env_output is None:
@@ -252,15 +353,25 @@ class VectorActor:
         agent_output = self._last_agent_output
         core_state = self._core_state
         for _ in range(self._unroll_length):
-            out, core_state = actor_step(
-                self._agent, self._generator,
-                torch.as_tensor(agent_output.action, device=self._device),
-                to_device(env_output, self._device), core_state)
-            agent_output = to_numpy(out)
+            if self._stepped:
+                watchdog.touch()  # per-step heartbeat: one dict store
+            t0 = time.perf_counter()
+            with tracer.span("actor/inference", cat="actor"):
+                out, core_state = actor_step(
+                    self._agent, self._generator,
+                    torch.as_tensor(agent_output.action,
+                                    device=self._device),
+                    to_device(env_output, self._device), core_state)
+                agent_output = to_numpy(out)
+            t1 = time.perf_counter()
             # Wait on the env pipes; other groups' inference runs
             # meanwhile.
-            self._envs.step_send(agent_output.action)
-            env_output = self._envs.step_recv()
+            with tracer.span("actor/env_step", cat="actor"):
+                self._envs.step_send(agent_output.action)
+                env_output = self._envs.step_recv()
+            self._h_infer.observe(t1 - t0)
+            self._h_env.observe(time.perf_counter() - t1)
+            self._stepped = True
             env_entries.append(env_output)
             agent_entries.append(agent_output)
         self._last_env_output = env_output
@@ -323,6 +434,35 @@ class ActorPool:
         self.restarts = 0
         self._steps_per_trajectory = unroll_length * (
             env_groups[0].num_envs if env_groups else 0)
+        # The gauges sample by callback and hold only weak references: the
+        # process-global registry must not keep a finished pool alive.
+        registry = get_registry()
+        queue_ref = weakref.ref(self.queue)
+        registry.gauge(
+            "actor_pool/queue_depth",
+            "trajectories staged for the learner",
+            fn=lambda: (q.qsize() if (q := queue_ref()) is not None
+                        else 0.0))
+        registry.gauge(
+            "actor_pool/queue_capacity",
+            "trajectory queue bound").set(self.queue.maxsize)
+        pool_ref = weakref.ref(self)
+        registry.gauge(
+            "actor_pool/params_version",
+            "newest published weight snapshot",
+            fn=lambda: (p._params_version if (p := pool_ref()) is not None
+                        else 0.0))
+        self._steps_counter = registry.counter(
+            "actor/agent_steps_total",
+            "agent steps generated across all groups (x action repeats "
+            "= env frames)")
+        self._trajectories_counter = registry.counter(
+            "actor/trajectories_total", "unrolls handed to the queue")
+        self._restarts_counter = registry.counter(
+            "actor/restarts_total",
+            "actor-thread respawns after a transient failure (the "
+            "per-actor detail rides the flight recorder's "
+            "actor_restart events)")
 
     @property
     def actors(self) -> Sequence[VectorActor]:
@@ -346,6 +486,10 @@ class ActorPool:
         with self._counts_lock:
             setattr(self, name, getattr(self, name) + amount)
 
+    def _note_restart(self) -> None:
+        self._count("restarts", 1)
+        self._restarts_counter.inc()
+
     @staticmethod
     def _chaos_kill_worker(actor: VectorActor) -> None:
         """``worker_kill``: SIGKILL the group's first live env worker
@@ -357,19 +501,33 @@ class ActorPool:
                 return
 
     def _unroll_loop(self, actor: VectorActor):
+        recorder = get_flight_recorder()
+        thread_name = threading.current_thread().name
         while not self._stop.is_set():
+            # Read each unroll: the driver may install a tracer or a
+            # watchdog after this thread started.
+            tracer = get_tracer()
+            get_watchdog().touch()
             injector = get_fault_injector()
             if injector.active:
                 injector.maybe_raise("actor_raise")
                 if injector.should_fire("worker_kill"):
                     self._chaos_kill_worker(actor)
-            trajectory = actor.run_unroll(self._get_params())
-            if publish_trajectory(self.queue, trajectory, self._stop):
+            with tracer.span("actor/unroll", cat="actor"):
+                trajectory = actor.run_unroll(self._get_params())
+            recorder.record("unroll", actor.level_name or "actor",
+                            {"trajectories": 1})
+            if publish_trajectory(
+                    self.queue, trajectory, self._stop,
+                    actor_name=thread_name, level_name=actor.level_name,
+                    birth_us=actor.unroll_birth_us):
                 self._count("agent_steps", self._steps_per_trajectory)
+                self._steps_counter.inc(self._steps_per_trajectory)
+                self._trajectories_counter.inc()
 
     def _actor_loop(self, actor: VectorActor, stream):
         def deliver(exc):
-            publish_trajectory(self.queue, exc, self._stop)
+            deliver_error(self.queue, exc, self._stop)
 
         context = (torch.cuda.stream(stream) if stream is not None
                    else contextlib.nullcontext())
@@ -379,7 +537,7 @@ class ActorPool:
                 deliver=deliver, reset=actor.reset,
                 max_restarts=self._max_restarts,
                 backoff_s=self._restart_backoff_s,
-                on_restart=lambda: self._count("restarts", 1))
+                on_restart=self._note_restart)
 
     def start(self) -> "ActorPool":
         if self._params is None:

@@ -26,6 +26,16 @@ Two fault points (``runtime/faults.py``) sit in ``maybe_save``:
 above), and ``ckpt_torn`` corrupts the step's file after a successful save
 (a crash mid-save, for the walk-back).
 
+Observability, as in the JAX manager: a save is the ``checkpoint/save``
+span and the ``checkpoint/save_s`` histogram, counted in
+``checkpoint/saves_total`` (failures in ``checkpoint/save_failures_total``,
+rejected steps in ``checkpoint/restore_fallbacks_total``, the restored
+step in the ``checkpoint/restored_step`` gauge), with flight-recorder
+events for failures and fallbacks.  A save or a restore suspends the
+calling thread's watchdog heartbeat (``heartbeat``, default the thread's
+name): a slow disk is not a wedge, and the caller's next touch re-arms
+it.
+
 Checkpoints of the two packages are not interchangeable yet (ROADMAP.md,
 queue 1); ``convert.state_dict_to_flax`` turns a restored ``params`` into
 the JAX agent's param tree.
@@ -42,6 +52,12 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from scalable_agent_tpu_torch.obs import (
+    get_flight_recorder,
+    get_registry,
+    get_tracer,
+    get_watchdog,
+)
 from scalable_agent_tpu_torch.runtime.faults import get_fault_injector
 
 log = logging.getLogger("scalable_agent_tpu_torch")
@@ -102,6 +118,23 @@ class CheckpointManager:
         self._last_save = None  # the first maybe_save is always due
         self.save_failures = 0
         self.restore_fallbacks = 0
+        registry = get_registry()
+        self._saves_counter = registry.counter(
+            "checkpoint/saves_total", "checkpoints written")
+        self._save_hist = registry.histogram(
+            "checkpoint/save_s", "state fetch + write seconds")
+        self._save_failures_counter = registry.counter(
+            "checkpoint/save_failures_total",
+            "non-forced checkpoint saves that failed and were degraded "
+            "to a logged retry-next-cadence")
+        self._restore_fallbacks_counter = registry.counter(
+            "checkpoint/restore_fallbacks_total",
+            "retained checkpoint steps rejected during restore (torn/"
+            "corrupt/unreadable) before an older step verified")
+        self._restored_step_gauge = registry.gauge(
+            "checkpoint/restored_step",
+            "step of the last successfully verified restore (-1 = none)")
+        self._restored_step_gauge.set(-1.0)
 
     def _path(self, step: int) -> str:
         return os.path.join(self._dir, f"{step}.pt")
@@ -145,13 +178,24 @@ class CheckpointManager:
 
     # -- save ----------------------------------------------------------------
 
-    def maybe_save(self, step: int, state: Dict, force: bool = False) -> bool:
+    def maybe_save(self, step: int, state: Dict, force: bool = False,
+                   heartbeat: Optional[str] = None) -> bool:
         """Save ``state`` (a learner ``state_dict``) as ``step`` if the
         cadence interval elapsed or ``force``; True when it saved."""
         now = time.monotonic()
         if not (force or self._last_save is None
                 or now - self._last_save >= self._interval_s):
             return False
+        get_watchdog().suspend(heartbeat)
+        with get_tracer().span("checkpoint/save", cat="checkpoint"), \
+                self._save_hist.time():
+            saved = self._save(step, state, force, now)
+        if saved:
+            self._saves_counter.inc()
+        return saved
+
+    def _save(self, step: int, state: Dict, force: bool,
+              now: float) -> bool:
         injector = get_fault_injector()
         try:
             if injector.active:
@@ -173,6 +217,9 @@ class CheckpointManager:
                 # The final save is the run's durable result.
                 raise
             self.save_failures += 1
+            self._save_failures_counter.inc()
+            get_flight_recorder().record(
+                "ckpt_save_failure", type(exc).__name__, {"step": step})
             log.error("checkpoint save at step %d failed (%s: %s); "
                       "training continues, retry next cadence", step,
                       type(exc).__name__, exc)
@@ -211,9 +258,11 @@ class CheckpointManager:
         return torch.load(self._path(step), map_location="cpu",
                           weights_only=True)
 
-    def restore(self) -> Optional[Tuple[int, Dict]]:
+    def restore(self, heartbeat: Optional[str] = None
+                ) -> Optional[Tuple[int, Dict]]:
         """Newest VERIFIED ``(step, state_dict on the CPU)``, or None when
         no step is retained."""
+        get_watchdog().suspend(heartbeat)
         steps = self.all_steps()
         if not steps:
             return None
@@ -226,6 +275,9 @@ class CheckpointManager:
                 ok, why = False, f"{type(exc).__name__}: {exc}"
             if not ok:
                 self.restore_fallbacks += 1
+                self._restore_fallbacks_counter.inc()
+                get_flight_recorder().record(
+                    "ckpt_fallback", str(step), {"why": why[:200]})
                 log.error("checkpoint step %d failed integrity/restore "
                           "(%s); falling back to the next older step",
                           step, why)
@@ -237,6 +289,7 @@ class CheckpointManager:
                 log.warning("deleting corrupt checkpoint step %d (newer "
                             "than the verified step %d)", bad, step)
                 self._delete(bad)
+            self._restored_step_gauge.set(float(step))
             return step, host_state
         raise CheckpointIntegrityError(
             f"checkpoints exist under {self._dir} but none restored and "

@@ -6,13 +6,14 @@ same number.
 
 | Code | Name | Raised by (in this package) | Meaning |
 |---|---|---|---|
-| 70 | watchdog | not ported yet | a pipeline thread missed its heartbeat deadline |
+| 70 | watchdog | obs/watchdog.py (``--watchdog_abort``) | a pipeline thread missed its heartbeat deadline |
 | 71 | non-finite | driver._rollback_or_exit | the non-finite tolerance was exhausted with ``--no_rollback`` or nothing restorable |
 | 72 | fleet | runtime/fleet.py | the preemption grace window expired before the drain finished |
 | 73 | sentinel | not ported yet | silent numeric corruption survived the degradation ladder |
 
 ``128 + signum`` (143 for a SIGTERM with ``--preemption_grace_s=0``, or
-for a second SIGTERM) keeps its POSIX meaning; 0 is a completed run,
+for a second SIGTERM, after the flight recorder's dump) keeps its POSIX
+meaning; 0 is a completed run,
 including a preempted run that drained and checkpointed inside its grace
 window.
 

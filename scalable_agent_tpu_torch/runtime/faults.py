@@ -18,6 +18,9 @@ seeded, per-point firing decisions.  The points this package places:
   step on disk (the manifest check and walk-back restore).
 - ``preempt_sigterm`` (``runtime/fleet.py``): the process SIGTERMs
   itself from the preemption monitor's cycle (the grace protocol).
+- ``throughput_sag`` (``driver.train``): the loop sleeps
+  ``throughput_sag_s()`` inside the update's timing (a mid-run slowdown
+  for the stall attributor and the watchdog).
 
 The other points of the registry belong to subsystems this package does
 not port yet (``UNPORTED_POINTS``).  Their names still parse, so a spec
@@ -35,15 +38,20 @@ The grammar is ``;``-joined entries, each one of three trigger forms:
   from a per-point RNG seeded from the injector's ``seed``.
 
 Occurrence counting is per point and process-global (thread-safe).  With
-no spec the injector is inert: a hot path pays one attribute read.
+no spec the injector is inert: a hot path pays one attribute read.  A
+fault that fires is logged, recorded in the flight recorder and counted
+in ``faults/injected_total``.
 """
 
 import logging
+import os
 import random
 import re
 import threading
 import time
 from typing import Dict, FrozenSet, List, NamedTuple, Tuple
+
+from scalable_agent_tpu_torch.obs import get_flight_recorder, get_registry
 
 log = logging.getLogger("scalable_agent_tpu_torch")
 
@@ -66,11 +74,24 @@ CHAOS_POINTS = {
     "replica_diverge": "corrupt this process's param fingerprint",
 }
 
-# Points whose subsystem (replay, the actor service, the health plane,
-# the multi-process fleet, the sentinel) is not ported yet.
+# Points whose subsystem (replay, the actor service, the multi-process
+# fleet, the sentinel) is not ported yet.
 UNPORTED_POINTS = frozenset({
-    "replay_corrupt", "service_stall", "throughput_sag", "peer_exit",
-    "peer_hang", "param_bitflip", "kernel_miscompute", "replica_diverge"})
+    "replay_corrupt", "service_stall", "peer_exit", "peer_hang",
+    "param_bitflip", "kernel_miscompute", "replica_diverge"})
+
+# How long ``throughput_sag`` sleeps when it fires, as in the JAX package.
+THROUGHPUT_SAG_S = 0.45
+
+
+def throughput_sag_s() -> float:
+    """The sag's duration: ``$SCALABLE_AGENT_THROUGHPUT_SAG_S`` when set to
+    a number (as in the JAX package), else ``THROUGHPUT_SAG_S``."""
+    try:
+        return float(os.environ.get("SCALABLE_AGENT_THROUGHPUT_SAG_S",
+                                    THROUGHPUT_SAG_S))
+    except ValueError:
+        return THROUGHPUT_SAG_S
 
 _ENTRY_RE = re.compile(r"([A-Za-z_][\w.]*)@(\d+(?::\d+)*)\Z")
 _TIME_RE = re.compile(r"([A-Za-z_][\w.]*)@t=(\d+(?:\.\d+)?)s?\Z")
@@ -201,6 +222,11 @@ class FaultInjector:
             return False
         log.warning("chaos: fault %r fired (occurrence %d, %s trigger)",
                     point, n, fired)
+        get_flight_recorder().record(
+            "fault", point, {"occurrence": n, "trigger": fired})
+        get_registry().counter(
+            "faults/injected_total",
+            "faults fired by the chaos injection registry").inc()
         return True
 
     def maybe_raise(self, point: str):

@@ -39,18 +39,46 @@ and its parameters are float32 (the dtype policy, models/agent.py).
 
 The parameters live in the agent module; ``TrainState`` holds what the JAX
 TrainState holds besides them.  ``state_dict``/``load_state_dict`` give the
-whole of it (parameters included) for checkpoints.  Device telemetry and
-the learning-dynamics metrics are not ported yet (ROADMAP.md, queue 1).
+whole of it (parameters included) for checkpoints.
+
+Device telemetry (``obs/device_telemetry.py``), as in the JAX learner:
+``learner_telemetry_spec`` (update and skip counters, the last loss, a
+grad-norm histogram) and, with ``learn_telemetry``,
+``learning_telemetry_spec`` (the learning-dynamics gauges: entropy and KL
+of the policy, V-trace's importance diagnostics, the baseline's explained
+variance, the torso's dead units, and per ``LAYER_GROUPS`` group the
+grad norm, param norm and update ratio).  Their buffers live on the
+learner's device and are updated in place inside ``update`` with no host
+sync; ``publish_device_telemetry`` copies them to the host once and folds
+them into the metrics registry as ``devtel/*``.  The learning-dynamics
+scalars also ride the metrics dict.  ``update_flops`` counts the update's
+FLOPs for the live MFU gauge (``obs/ledger.py``).
 """
 
 import dataclasses
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Sequence
 
+import numpy as np
 import torch
 
-from scalable_agent_tpu_torch.models.agent import ImpalaAgent
+from scalable_agent_tpu_torch.convert import LAYER_GROUPS, layer_group
+from scalable_agent_tpu_torch.models.agent import CORE_SIZE, ImpalaAgent
+from scalable_agent_tpu_torch.models.networks import CONV_STACK, TORSO_SIZE
+from scalable_agent_tpu_torch.obs import (
+    DeviceTelemetry,
+    TelemetryPublisher,
+    get_flight_recorder,
+    get_registry,
+    get_tracer,
+)
+from scalable_agent_tpu_torch.obs.device_telemetry import (
+    fetch_merged,
+    merge_init,
+)
+from scalable_agent_tpu_torch.ops import distributions
 from scalable_agent_tpu_torch.ops import losses as losses_lib
 from scalable_agent_tpu_torch.ops import vtrace
+from scalable_agent_tpu_torch.ops.conv_cuda import same_pads
 from scalable_agent_tpu_torch.runtime.faults import get_fault_injector
 from scalable_agent_tpu_torch.types import AgentOutput, AgentState, StepOutput
 
@@ -80,6 +108,94 @@ class LearnerHyperparams(NamedTuple):
     clip_pg_rho_threshold: float = 1.0
 
 
+def learner_telemetry_spec() -> DeviceTelemetry:
+    """The learner's device instruments: update and skip counters, the
+    newest loss, and a log-bucketed grad-norm histogram."""
+    return (
+        DeviceTelemetry("learner")
+        .counter("updates", "update steps executed on device")
+        .counter("skipped", "updates the fused non-finite guard no-op'd")
+        .gauge("loss", "total_loss of the newest accumulated update")
+        .histogram(
+            "grad_norm",
+            (0.01, 0.1, 1.0, 10.0, 100.0, 1000.0, 10000.0),
+            "global grad norm per update, log-ish buckets")
+    )
+
+
+def learning_telemetry_spec() -> DeviceTelemetry:
+    """The learning-dynamics gauges of the newest update, as the JAX
+    package declares them for ``loss="vtrace"`` (the port's only loss)."""
+    spec = DeviceTelemetry("learn")
+    for name, help_text in (
+        ("entropy_frac",
+         "policy entropy / max entropy (1.0 = uniform; ~0 = collapsed)"),
+        ("kl",
+         "KL(behaviour || learner) — how far the learner has moved off "
+         "the data-generating policy"),
+        ("ess_frac",
+         "effective sample size of the V-trace importance weights as a "
+         "fraction of the batch (1.0 = on-policy)"),
+        ("explained_variance",
+         "1 - Var(vs - baseline)/Var(vs): how much of the value target "
+         "the baseline explains (<=0 = diverging critic)"),
+        ("rho_clip_fraction",
+         "fraction of V-trace rhos cut by clip_rho_threshold"),
+        ("cs_clip_fraction",
+         "fraction of V-trace cs cut by the c-bar clip"),
+        ("pg_rho_clip_fraction",
+         "fraction of pg-rhos cut by clip_pg_rho_threshold"),
+        ("log_rho_mean",
+         "mean log importance ratio log(pi/mu) (0 = on-policy)"),
+        ("log_rho_p95",
+         "p95 log importance ratio — the off-policy tail"),
+        ("dead_torso_frac",
+         "fraction of conv-torso output units at <=0 across the whole "
+         "batch (dead ReLUs)"),
+    ):
+        spec.gauge(name, help_text)
+    for group in LAYER_GROUPS:
+        spec.gauge(f"grad_norm_{group}",
+                   f"gradient norm over the {group} param group")
+        spec.gauge(f"param_norm_{group}",
+                   f"param norm of the {group} param group")
+        spec.gauge(f"update_ratio_{group}",
+                   f"|lr-scaled update| / |param| for the {group} group "
+                   "(healthy ~1e-4..1e-2)")
+    return spec
+
+
+def update_flops(frame_shape: Sequence[int], num_actions: int,
+                 unroll_length: int, batch_size: int,
+                 core_size: int = CORE_SIZE) -> float:
+    """FLOPs of one update at 2 per multiply-add: every product and
+    convolution of the agent's forward over the [T+1, B] trajectory and
+    of its backward, elementwise work left out (as
+    ``torch.utils.flop_counter.FlopCounterMode`` counts).  The backward
+    computes each layer's weight gradient and input gradient, but the
+    stem conv's input is the frame, which takes no gradient.  Counts the
+    default update (``fused_forward``, no ``remat_torso``: recomputation
+    is not model work)."""
+    height, width, channels = frame_shape
+    forward = backward = 0
+    for i, (out_channels, kernel, stride) in enumerate(CONV_STACK):
+        height, _ = same_pads(height, kernel, stride)
+        width, _ = same_pads(width, kernel, stride)
+        macs = (height * width * out_channels * kernel * kernel
+                * channels)
+        forward += macs
+        backward += macs if i == 0 else 2 * macs
+        channels = out_channels
+    gates = 4 * core_size
+    for macs in (height * width * channels * TORSO_SIZE,       # fc
+                 (TORSO_SIZE + 1 + num_actions) * gates,       # x.Wi
+                 core_size * gates,                            # h.Wh
+                 core_size * (num_actions + 1)):               # heads
+        forward += macs
+        backward += 2 * macs
+    return 2.0 * (unroll_length + 1) * batch_size * (forward + backward)
+
+
 @dataclasses.dataclass
 class TrainState:
     """Optimizer state and counters.  ``env_frames`` is a host float: it
@@ -98,7 +214,8 @@ class Learner:
 
     def __init__(self, agent: ImpalaAgent, hp: LearnerHyperparams,
                  frames_per_update: int, env_frames: float = 0.0,
-                 scan_impl: str = "auto", fused_forward: bool = True):
+                 scan_impl: str = "auto", fused_forward: bool = True,
+                 learn_telemetry: bool = True):
         if scan_impl == "auto":
             scan_impl = "associative"
         if scan_impl not in vtrace.SCAN_IMPLS:
@@ -120,14 +237,70 @@ class Learner:
             env_frames=float(env_frames),
             nonfinite_skips=zero(),
             nonfinite_streak=zero())
+        # [groups, parameters]: 1 where the parameter is in the group, to
+        # sum per-parameter squared norms into LAYER_GROUPS groups.
+        groups = [layer_group(name) for name in self._params]
+        self._group_matrix = torch.tensor(
+            [[float(g == group) for g in groups] for group in LAYER_GROUPS],
+            device=device)
+        self._devtel_spec = learner_telemetry_spec()
+        self._learn_enabled = bool(learn_telemetry)
+        self._learn_spec = (learning_telemetry_spec()
+                            if self._learn_enabled
+                            else DeviceTelemetry("learn"))
+        # entropy_frac's normalizer: the uniform policy's entropy.
+        self._max_entropy = max(
+            float(sum(np.log(s) for s in agent.dist_spec.sizes)), 1e-6)
+        self._devtel = merge_init(self.devtel_specs, device)
+        self._devtel_publisher = TelemetryPublisher(self.devtel_specs)
+        registry = get_registry()
+        self._updates_counter = registry.counter(
+            "learner/updates_total", "update steps dispatched")
+        self._frames_counter = registry.counter(
+            "learner/env_frames_total",
+            "env frames consumed by dispatched updates")
 
-    def _forward(self, trajectory: Trajectory):
-        """The ONE whole-trajectory unroll of the update: (logits [T+1,B,A],
-        baselines [T+1,B])."""
-        (logits, baselines), _ = self._agent(
-            trajectory.agent_outputs.action, trajectory.env_outputs,
-            trajectory.agent_state)
-        return logits, baselines
+    # -- device telemetry --------------------------------------------------
+
+    @property
+    def devtel_specs(self):
+        """Every non-empty spec whose buffers the update carries."""
+        return [spec for spec in (self._devtel_spec, self._learn_spec)
+                if not spec.empty]
+
+    def fetch_device_telemetry(self) -> Dict[str, np.ndarray]:
+        """The telemetry on the host, in one device-to-host copy (which
+        waits for the updates issued so far)."""
+        return fetch_merged(self.devtel_specs, self._devtel)
+
+    def publish_device_telemetry(self) -> Dict[str, np.ndarray]:
+        """Fetch and fold into the metrics registry (``devtel/*``)."""
+        fetched = self.fetch_device_telemetry()
+        self._devtel_publisher.publish(fetched)
+        return fetched
+
+    def _forward(self, trajectory: Trajectory, capture: bool = False):
+        """The ONE whole-trajectory unroll of the update: ((logits
+        [T+1,B,A], baselines [T+1,B]), dead_torso_frac or None).
+        ``capture`` also takes the torso's output from that unroll (a
+        forward hook, as JAX's ``capture_intermediates``) for the fraction
+        of its units that are <= 0 over the whole batch."""
+        captured = []
+        handle = (self._agent.convnet.register_forward_hook(
+            lambda module, args, out: captured.append(out))
+            if capture else None)
+        try:
+            (logits, baselines), _ = self._agent(
+                trajectory.agent_outputs.action, trajectory.env_outputs,
+                trajectory.agent_state)
+        finally:
+            if handle is not None:
+                handle.remove()
+        dead = None
+        if captured:
+            conv_out = captured[0].detach().float()
+            dead = (conv_out <= 0.0).all(dim=0).float().mean()
+        return (logits, baselines), dead
 
     @torch.no_grad()
     def _comparison_forward(self, trajectory: Trajectory):
@@ -142,7 +315,8 @@ class Learner:
 
     def _loss_vtrace(self, trajectory: Trajectory):
         hp = self._hp
-        target_logits, baselines = self._forward(trajectory)
+        (target_logits, baselines), dead_torso = self._forward(
+            trajectory, capture=self._learn_enabled)
         if self._fused_forward:
             comparison_logits, comparison_baselines = (target_logits,
                                                        baselines)
@@ -190,11 +364,57 @@ class Learner:
             "baseline_loss": baseline_loss,
             "entropy_loss": entropy_loss,
         }
+        if self._learn_enabled:
+            metrics.update(self._learning_metrics(
+                vt, behaviour.policy_logits, target_logits, baselines,
+                dist_spec, dead_torso))
         return total, metrics
 
+    @torch.no_grad()
+    def _learning_metrics(self, vt, behaviour_logits, online_logits,
+                          baselines, dist_spec, dead_torso
+                          ) -> Dict[str, torch.Tensor]:
+        """The learning-dynamics scalars: V-trace's importance
+        diagnostics, the policy's entropy (absolute and normalized), KL
+        from the behaviour policy, the baseline's explained variance and
+        the torso's dead units.  Observation only: detached from the
+        loss."""
+        diag = vt.diagnostics
+        online = online_logits.detach()
+        entropy = distributions.entropy(online, dist_spec).mean()
+        kl = distributions.kl_divergence(
+            behaviour_logits.detach(), online, dist_spec).mean()
+        vs = vt.vs
+        explained_variance = 1.0 - (
+            torch.var(vs - baselines.detach(), unbiased=False)
+            / torch.clamp(torch.var(vs, unbiased=False), min=1e-8))
+        return {
+            "policy_entropy": entropy,
+            "entropy_frac": entropy / self._max_entropy,
+            "behaviour_kl": kl,
+            "explained_variance": explained_variance,
+            "rho_clip_fraction": diag.rho_clip_fraction,
+            "cs_clip_fraction": diag.cs_clip_fraction,
+            "pg_rho_clip_fraction": diag.pg_rho_clip_fraction,
+            "log_rho_mean": diag.log_rho_mean,
+            "log_rho_p95": diag.log_rho_p95,
+            "ess_frac": diag.ess_frac,
+            "dead_torso_frac": dead_torso,
+        }
+
     def update(self, trajectory: Trajectory) -> Dict[str, torch.Tensor]:
-        """One update in place (params, ``nu``, counters); returns the
-        metrics as 0-d tensors (no host sync)."""
+        """One update in place (params, ``nu``, counters, telemetry);
+        returns the metrics as 0-d tensors (no host sync)."""
+        with get_tracer().span("learner/update", cat="learner"):
+            metrics = self._update(trajectory)
+        self._updates_counter.inc()
+        self._frames_counter.inc(self._frames_per_update)
+        get_flight_recorder().record(
+            "update", "learner",
+            {"update": int(self._updates_counter.value)})
+        return metrics
+
+    def _update(self, trajectory: Trajectory) -> Dict[str, torch.Tensor]:
         hp = self._hp
         injector = get_fault_injector()
         if injector.active and injector.should_fire("nan_grad"):
@@ -211,6 +431,9 @@ class Learner:
         frames = state.env_frames
         lr = hp.learning_rate * max(
             0.0, 1.0 - frames / hp.total_environment_frames)
+        # The lr-scaled updates, taken whether or not the guard keeps
+        # them (as in JAX), for the update ratios.
+        steps = []
         with torch.no_grad():
             finite = torch.isfinite(total)
             for grad in grads:
@@ -219,15 +442,18 @@ class Learner:
             for name, param, grad in zip(names, params, grads):
                 nu = state.opt_state[name]
                 new_nu = decay * nu + (1.0 - decay) * grad * grad
-                new_param = param - lr * (grad * torch.rsqrt(new_nu + eps))
+                step = lr * (grad * torch.rsqrt(new_nu + eps))
+                new_param = param - step
                 param.copy_(torch.where(finite, new_param, param))
                 nu.copy_(torch.where(finite, new_nu, nu))
+                steps.append(step)
             skipped = 1.0 - finite.float()
             state.nonfinite_skips = state.nonfinite_skips + skipped
             state.nonfinite_streak = torch.where(
                 finite, torch.zeros_like(skipped),
                 state.nonfinite_streak + 1.0)
-            grad_norm = torch.sqrt(sum(grad.square().sum() for grad in grads))
+            grad_sq = self._group_sq(grads)
+            grad_norm = torch.sqrt(grad_sq.sum())
         state.env_frames = frames + self._frames_per_update
         metrics = {name: value.detach() for name, value in metrics.items()}
         metrics.update(
@@ -237,7 +463,44 @@ class Learner:
             nonfinite_skips=state.nonfinite_skips,
             nonfinite_streak=state.nonfinite_streak,
             env_frames=torch.tensor(state.env_frames, dtype=torch.float64))
+        self._accumulate_telemetry(metrics, grad_sq, steps, params)
         return metrics
+
+    def _group_sq(self, tensors) -> torch.Tensor:
+        """Squared L2 norms summed per LAYER_GROUPS group, [groups]: the
+        per-tensor norms in one multi-tensor launch, then one weighted
+        sum."""
+        norms = torch.stack(torch._foreach_norm(list(tensors)))
+        return (self._group_matrix * norms.square()).sum(dim=1)
+
+    @torch.no_grad()
+    def _accumulate_telemetry(self, metrics, grad_sq, steps,
+                              params) -> None:
+        """Fold this update into the device telemetry, in place on the
+        learner's stream (no host sync).  A non-finite grad norm stays
+        out of the histogram: its sum is cumulative."""
+        spec, tel = self._devtel_spec, self._devtel
+        spec.inc(tel, "updates")
+        spec.set(tel, "loss", metrics["total_loss"])
+        grad_norm = metrics["grad_norm"]
+        spec.observe(tel, "grad_norm", grad_norm,
+                     where=torch.isfinite(grad_norm))
+        spec.inc(tel, "skipped", metrics["update_skipped"])
+        if not self._learn_enabled:
+            return
+        gauges = {name: metrics[name] for name in (
+            "entropy_frac", "ess_frac", "explained_variance",
+            "rho_clip_fraction", "cs_clip_fraction", "pg_rho_clip_fraction",
+            "log_rho_mean", "log_rho_p95", "dead_torso_frac")}
+        gauges["kl"] = metrics["behaviour_kl"]
+        grad_norms = grad_sq.sqrt()
+        param_norms = self._group_sq(params).sqrt()
+        ratios = self._group_sq(steps).sqrt() / (param_norms + 1e-8)
+        for i, group in enumerate(LAYER_GROUPS):
+            gauges[f"grad_norm_{group}"] = grad_norms[i]
+            gauges[f"param_norm_{group}"] = param_norms[i]
+            gauges[f"update_ratio_{group}"] = ratios[i]
+        self._learn_spec.set_many(tel, gauges)
 
     def state_dict(self) -> Dict[str, object]:
         """Everything a checkpoint holds: parameters, RMSProp ``nu`` (both
@@ -275,18 +538,22 @@ class NonFiniteTracker:
 
     The update carries cumulative and consecutive skip counters and puts
     them in its metrics; the driver hands this tracker the metrics it
-    fetches at log time anyway.  It counts the skips in ``skips_total``
+    fetches at log time anyway.  It counts the skips (``skips_total``, the
+    registry's ``learner/nonfinite_skips_total``, a flight-recorder event)
     and answers the one policy question: has the consecutive-skip streak
     reached ``tolerance`` (the caller rolls back or exits)?
     ``tolerance=0`` disables the policy; skips are still counted.  The
-    counterpart of ``scalable_agent_tpu/runtime/learner.py``'s tracker,
-    with a plain counter in place of the metrics registry's.
+    counterpart of ``scalable_agent_tpu/runtime/learner.py``'s tracker.
     """
 
-    def __init__(self, tolerance: int):
+    def __init__(self, tolerance: int, registry=None):
         self.tolerance = int(tolerance)
         self.skips_total = 0.0
         self._last_total = 0.0
+        self._counter = (registry or get_registry()).counter(
+            "learner/nonfinite_skips_total",
+            "updates skipped by the non-finite guard (params/opt_state "
+            "held, env frames still retired)")
 
     def observe(self, host_metrics: Dict[str, float]) -> bool:
         """Fold one fetched metrics dict in; True when the consecutive
@@ -296,6 +563,10 @@ class NonFiniteTracker:
         delta = total - self._last_total
         if delta > 0:
             self.skips_total += delta
+            self._counter.inc(delta)
+            get_flight_recorder().record(
+                "nonfinite_skip", "learner",
+                {"skips_total": total, "streak": streak})
         self._last_total = max(self._last_total, total)
         return bool(self.tolerance > 0 and streak >= self.tolerance)
 

@@ -21,6 +21,16 @@ card:
   (``retire``) on the oldest one only when the window is full, so the
   metrics come back in update order with exact ``env_frames``.
 
+Observability, as in the JAX transport: the packed path's
+``transport/pack``, ``transport/upload`` (its byte count in ``args`` and
+``transport/h2d_bytes_total``) and ``transport/unpack`` spans and
+``_s`` histograms on the prefetch thread, each stamping the thread's
+current ledger record; the window's ``learner/retire`` span and
+``learner/retire_s`` histogram, the ``learner/inflight_depth`` gauge, and
+the end of each trajectory's ledger record: ``retire`` closes it
+retired, ``discard`` (the rollback) closes it discarded, its frames
+counted in ``ledger/frames_discarded_total``.
+
 A placed trajectory is returned with the device tensors that hold its
 memory (the leaves, or the one packed buffer that the leaves alias): a
 consumer on another stream must ``record_stream`` those, so the caching
@@ -28,12 +38,14 @@ allocator cannot hand the memory to a later upload while the consumer's
 work on it is pending.
 """
 
+import weakref
 from collections import deque
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from scalable_agent_tpu_torch.obs import get_ledger, get_registry, get_tracer
 from scalable_agent_tpu_torch.runtime.actor import to_device
 from scalable_agent_tpu_torch.runtime.learner import Trajectory
 from scalable_agent_tpu_torch.types import map_structure
@@ -230,6 +242,17 @@ class PackedTransport:
         # until it completes, so a pack into the buffer waits on it.
         self._upload_done: List[Optional[torch.cuda.Event]] = [None, None]
         self._slot = 0
+        registry = get_registry()
+        self._h_pack = registry.histogram(
+            "transport/pack_s", "host pack into the staging buffer")
+        self._h_upload = registry.histogram(
+            "transport/upload_s", "single-copy H2D dispatch seconds")
+        self._h_unpack = registry.histogram(
+            "transport/unpack_s", "on-device unpack dispatch seconds")
+        self._bytes_counter = registry.counter(
+            "transport/h2d_bytes_total",
+            "host->device bytes staged by the transport layer (packed "
+            "trajectory batches + accum per-step uploads)")
 
     def _ensure_spec(self, trajectory) -> PackedSpec:
         if self.spec is None:
@@ -276,8 +299,23 @@ class PackedTransport:
         return self.spec.unpack(device_buf)
 
     def put(self, trajectory: Trajectory) -> Placed:
-        device_buf = self.upload(self.pack(trajectory))
-        return self.unpack(device_buf), (device_buf,)
+        tracer = get_tracer()
+        ledger = get_ledger()
+        with tracer.span("transport/pack", cat="h2d"), \
+                self._h_pack.time():
+            buf = self.pack(trajectory)
+        ledger.stamp_current("transport_pack")
+        with tracer.span("transport/upload", cat="h2d",
+                         args={"bytes": int(buf.nbytes)}), \
+                self._h_upload.time():
+            device_buf = self.upload(buf)
+        self._bytes_counter.inc(buf.nbytes)
+        ledger.stamp_current("transport_upload")
+        with tracer.span("transport/unpack", cat="h2d"), \
+                self._h_unpack.time():
+            result = self.unpack(device_buf)
+        ledger.stamp_current("transport_unpack")
+        return result, (device_buf,)
 
 
 def make_transport(name: str, device):
@@ -301,11 +339,21 @@ class InflightWindow:
     update returns, and ``retire`` returns at once.
     """
 
-    def __init__(self, window: int):
+    def __init__(self, window: int, registry=None):
         if window < 1:
             raise ValueError(f"inflight window must be >= 1, got {window}")
         self.window = int(window)
         self._pending = deque()
+        registry = registry or get_registry()
+        pending_ref = weakref.ref(self._pending)
+        registry.gauge(
+            "learner/inflight_depth",
+            "dispatched updates whose outputs are not yet materialized",
+            fn=lambda: (len(p) if (p := pending_ref()) is not None
+                        else 0.0))
+        self._h_retire = registry.histogram(
+            "learner/retire_s",
+            "seconds blocked materializing the oldest in-flight update")
 
     @property
     def depth(self) -> int:
@@ -315,21 +363,31 @@ class InflightWindow:
     def full(self) -> bool:
         return len(self._pending) >= self.window
 
-    def push(self, metrics: Dict[str, torch.Tensor]) -> None:
+    def push(self, metrics: Dict[str, torch.Tensor],
+             ledger_id: Optional[int] = None) -> None:
+        """Take an issued update's metrics and its trajectory's ledger
+        record (None: no record)."""
         event = None
         device = next((t.device for t in metrics.values() if t.is_cuda),
                       None)
         if device is not None:
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(device))
-        self._pending.append((metrics, event))
+        self._pending.append((metrics, event, ledger_id))
 
     def retire(self) -> Dict[str, torch.Tensor]:
         """Wait for the oldest in-flight update and return its metrics
-        (ready to read without a further wait)."""
-        metrics, event = self._pending.popleft()
-        if event is not None:
-            event.synchronize()
+        (ready to read without a further wait); its ledger record closes
+        retired."""
+        metrics, event, tid = self._pending.popleft()
+        with get_tracer().span("learner/retire", cat="learner"), \
+                self._h_retire.time():
+            if event is not None:
+                event.synchronize()
+        if tid is not None:
+            ledger = get_ledger()
+            ledger.stamp(tid, "retire")
+            ledger.close(tid, retired=True)
         return metrics
 
     def drain(self) -> Optional[Dict[str, torch.Tensor]]:
@@ -343,7 +401,12 @@ class InflightWindow:
     def discard(self) -> int:
         """Drop every in-flight metrics dict without waiting for it (the
         rollback path: the pending updates belong to the abandoned
-        timeline).  Returns how many were dropped."""
+        timeline); their ledger records close discarded.  Returns how
+        many were dropped."""
         dropped = len(self._pending)
+        ledger = get_ledger()
+        for _, _, tid in self._pending:
+            if tid is not None:
+                ledger.close(tid, retired=False, fate="discarded")
         self._pending.clear()
         return dropped

@@ -10,6 +10,13 @@
   ``driver.test`` evaluates the newest checkpoint.
 - The env worker flags keep the JAX meaning (0 is one worker per env), and
   the CLI's spawned workers never import torch.
+- The obs producers a run arms: a two-update run with ``--trace`` and a
+  ``--profile_dir`` window writes ``metrics.prom`` with every family the
+  ported JAX producers register on a fresh registry (built live here,
+  less a stated list), a trace and a profiler trace that parse, and a
+  ledger artifact with no open record; ``throughput_sag`` longer than
+  ``--watchdog_timeout_s`` trips the watchdog on the learner; a second
+  SIGTERM of a CLI run dumps the flight recorder and exits 143.
 - A torch twin of ``tests/test_learning.py::test_host_driver_learns_bandit``
   (slow, like its original).
 """
@@ -17,16 +24,24 @@
 import functools
 import json
 import os
+import signal
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from scalable_agent_tpu import obs as jax_obs
 from scalable_agent_tpu.envs import make_impala_stream as jax_stream
-from scalable_agent_tpu_torch import driver
+from scalable_agent_tpu.obs import ledger as jax_ledger
+from scalable_agent_tpu.runtime import actor as jax_actor
+from scalable_agent_tpu.runtime import learner as jax_learner
+from scalable_agent_tpu.runtime import transport as jax_transport
+from scalable_agent_tpu_torch import driver, obs
+from scalable_agent_tpu_torch.obs import registry as registry_lib
 from scalable_agent_tpu_torch.config import Config
 from scalable_agent_tpu_torch.envs import (
     MultiEnv,
@@ -178,8 +193,11 @@ def test_cli_env_workers_never_import_torch(tmp_path):
 
 
 def _rows(logdir):
+    """The training rows of metrics.jsonl (each log interval also writes
+    a registry row, whose names all start with ``obs/``)."""
     with open(os.path.join(logdir, "metrics.jsonl")) as f:
-        return [json.loads(line) for line in f]
+        rows = [json.loads(line) for line in f]
+    return [r for r in rows if not any(k.startswith("obs/") for k in r)]
 
 
 @pytest.fixture(scope="module")
@@ -261,6 +279,157 @@ def test_actor_failure_ends_the_run(tmp_path, monkeypatch):
                     num_env_workers_per_group=0, actor_max_restarts=0)
     with pytest.raises(RuntimeError, match="simulator crashed"):
         driver.train(config)
+
+
+def _jax_producer_names():
+    """Every name the JAX producers this package ports register on a
+    fresh registry, built live: the registry's hooks, the stall
+    attributor, the watchdog, the ledger, the learner's two telemetry
+    specs' publisher, the in-flight window, the actor histograms and the
+    non-finite tracker."""
+    registry = jax_obs.MetricsRegistry()
+    registry.install_jax_hooks()
+    jax_obs.StallAttributor(registry)
+    jax_obs.Watchdog(1.0, registry=registry,
+                     flight_recorder=jax_obs.FlightRecorder())
+    jax_obs.PipelineLedger(registry=registry)
+    jax_obs.TelemetryPublisher(
+        [jax_learner.learner_telemetry_spec(),
+         jax_learner.learning_telemetry_spec("vtrace")], registry=registry)
+    jax_transport.InflightWindow(2, registry=registry)
+    jax_actor.actor_stage_histograms(registry)
+    jax_learner.NonFiniteTracker(10, registry=registry)
+    return {i.name for i in registry.instruments()}
+
+
+# The JAX names the port does not register: XLA's compile counters (the
+# port compiles nothing per step) and the ledger's service and replay
+# stages (subsystems not ported).  The health and sentinel families are
+# not among the producers above.
+NOT_PORTED = ({"jax/compile_count", "jax/compile_time_s",
+               "ledger/staleness_replayed_s"}
+              | {f"ledger/{kind}/{stage}{suffix}"
+                 for stage in jax_ledger.SERVICE_STAGES
+                 for kind, suffix in (("rate", "_per_s"), ("rho", ""))})
+# Names the JAX runtime registers around the producers, which a run of
+# the port registers too.
+RUNTIME_NAMES = {
+    "actor/agent_steps_total", "actor/trajectories_total",
+    "actor/restarts_total", "actor_pool/queue_depth",
+    "actor_pool/queue_capacity", "actor_pool/params_version",
+    "actor/fps", "learner/fps", "learner/updates_total",
+    "learner/env_frames_total", "learner/put_trajectory_s",
+    "transport/pack_s", "transport/upload_s", "transport/unpack_s",
+    "transport/h2d_bytes_total", "checkpoint/saves_total",
+    "checkpoint/save_s", "checkpoint/save_failures_total",
+    "checkpoint/restore_fallbacks_total", "checkpoint/restored_step"}
+
+
+def _obs_config(logdir, **overrides):
+    base = dict(device="cpu", level_name="fake_small", height=16, width=16,
+                num_actors=4, batch_size=2, unroll_length=3,
+                num_action_repeats=4, log_interval_s=0.0,
+                total_environment_frames=2 * 24, logdir=str(logdir),
+                num_env_workers_per_group=1, scan_impl="pallas")
+    base.update(overrides)
+    return Config(**base)
+
+
+def test_traced_run_writes_every_producer_family(tmp_path, monkeypatch):
+    registry = obs.MetricsRegistry()
+    monkeypatch.setattr(registry_lib, "_registry", registry)
+    profile_dir = tmp_path / "profile"
+    driver.train(_obs_config(tmp_path, trace=True,
+                             profile_dir=str(profile_dir),
+                             profile_start_update=0, profile_num_updates=1))
+    prom = (tmp_path / "metrics.prom").read_text()
+    families = {line.split()[2] for line in prom.splitlines()
+                if line.startswith("# TYPE")}
+    want = (_jax_producer_names() - NOT_PORTED) | RUNTIME_NAMES
+    missing = {name for name in want
+               if jax_obs.exporters._prom_name(name) not in families}
+    assert not missing, sorted(missing)
+    snap = registry.snapshot()
+    assert snap["devtel/learner/updates"] == 2.0
+    assert snap["ledger/trajectories_retired_total"] == 2.0
+    assert snap["ledger/open_records"] == 0.0
+    assert sum(snap[f"stall/is_{c}"] for c in obs.CATEGORIES) == 1.0
+    (trace,) = tmp_path.glob("trace.p0.*.json")
+    names = {e["name"] for e in obs.load_trace_events(str(trace))}
+    assert {"actor/inference", "actor/env_step", "actor/unroll",
+            "batcher/queue_put", "batcher/queue_get", "transport/pack",
+            "transport/upload", "transport/unpack",
+            "learner/put_trajectory", "learner/wait_batch",
+            "learner/update", "learner/retire",
+            "checkpoint/save"} <= names
+    raw = trace.read_text()
+    json.loads(raw.rstrip().rstrip(",") + "]")
+    (profile,) = profile_dir.glob("torch_profile.*.json")
+    assert "learner/update" in profile.read_text()
+    artifact = json.loads((tmp_path / "ledger.p0.json").read_text())
+    assert artifact["open_records"] == []
+    registry_rows = [r for r in map(json.loads, open(
+        tmp_path / "metrics.jsonl")) if "obs/ledger/mfu" in r]
+    assert [r["step"] for r in registry_rows] == [1, 2]
+    assert not list(tmp_path.glob("flightrec.*.json"))  # nothing failed
+
+
+def test_throughput_sag_trips_the_watchdog_on_the_learner(tmp_path,
+                                                          monkeypatch):
+    registry = obs.MetricsRegistry()
+    monkeypatch.setattr(registry_lib, "_registry", registry)
+    monkeypatch.setenv("SCALABLE_AGENT_THROUGHPUT_SAG_S", "1.5")
+    metrics = driver.train(_obs_config(
+        tmp_path, chaos_spec="throughput_sag@2", watchdog_timeout_s=0.75,
+        total_environment_frames=3 * 24))
+    assert metrics["env_frames"] == 3 * 24
+    snap = registry.snapshot()
+    assert snap["faults/injected_total"] == 1.0
+    assert snap["watchdog/stalls_total"] >= 1.0
+    (dump,) = tmp_path.glob("flightrec.*.json")
+    events = json.loads(dump.read_text())["events"]
+    stalled = [e["name"] for e in events if e["kind"] == "stalled_thread"]
+    assert any("learner" in name.split(",") for name in stalled), stalled
+    assert (tmp_path / f"stacks.{dump.name.split('.')[1]}.txt").stat(
+    ).st_size > 0
+
+
+def test_second_sigterm_dumps_and_exits_143(tmp_path):
+    """A CLI run: the first SIGTERM starts the preemption drain, the
+    second, sent once the run has logged the first, chains to the flight
+    recorder (dump, then exit 143).  (Two signals that land while the
+    main thread is inside one native call reach Python as one.)"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    log_path = tmp_path / "stderr.txt"
+    with open(log_path, "w") as log_file:
+        proc = subprocess.Popen([
+            sys.executable, "-m", "scalable_agent_tpu_torch.driver",
+            "--device=cpu", "--level_name=fake_small", "--height=16",
+            "--width=16", "--num_actors=2", "--batch_size=2",
+            "--unroll_length=2", "--total_environment_frames=1e9",
+            f"--logdir={tmp_path}", "--num_env_workers_per_group=1",
+            "--log_interval_s=0"], env=env, cwd=str(tmp_path),
+            stdout=subprocess.DEVNULL, stderr=log_file)
+        try:
+            deadline = time.monotonic() + 120
+            while not (tmp_path / "metrics.prom").exists():
+                assert proc.poll() is None and time.monotonic() < deadline
+                time.sleep(0.1)
+            proc.send_signal(signal.SIGTERM)
+            while "preemption" not in log_path.read_text():
+                assert proc.poll() is None and time.monotonic() < deadline
+                time.sleep(0.01)
+            proc.send_signal(signal.SIGTERM)
+            proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    stderr = log_path.read_text()
+    assert proc.returncode == 143, stderr[-3000:]
+    dump = json.loads((tmp_path / f"flightrec.{proc.pid}.json").read_text())
+    assert dump["reason"] == "signal:SIGTERM"
+    assert (tmp_path / f"stacks.{proc.pid}.txt").stat().st_size > 0
 
 
 def _bandit_config(logdir, **overrides):

@@ -100,7 +100,7 @@ def test_flag_lists_cover_the_jax_config():
             assert f.default == getattr(jax_config.Config(), f.name), f.name
 
 
-@pytest.mark.parametrize("argv", [["--record_to=/x"], ["--trace", "true"],
+@pytest.mark.parametrize("argv", [["--record_to=/x"], ["--health", "true"],
                                   ["--chaos_channel=true"],
                                   ["--replay_ratio=1"],
                                   ["--compute_dtype=float16"],
@@ -110,6 +110,22 @@ def test_flag_lists_cover_the_jax_config():
 def test_unported_flags_and_values_raise(argv):
     with pytest.raises(ValueError, match="ROADMAP.md"):
         Config.from_argv(argv)
+
+
+def test_obs_ports_the_jax_producers_only():
+    """obs/ holds copies of the JAX producers (each checked above for
+    imports); the consumers and their flags stay unported and raise."""
+    ported = {p.stem for p in (PACKAGE / "obs").glob("*.py")}
+    assert ported == {"__init__", "registry", "exporters", "flightrec",
+                      "trace", "stall", "watchdog", "ledger",
+                      "device_telemetry"}
+    jax_obs = ROOT / "scalable_agent_tpu" / "obs"
+    assert ported <= {p.stem for p in jax_obs.glob("*.py")}
+    for flag in ("health", "health_max_windows", "metrics_http_port",
+                 "sentinel_interval", "sentinel_rtol"):
+        assert flag in UNPORTED_FLAGS
+        with pytest.raises(ValueError, match="ROADMAP.md"):
+            Config.from_argv([f"--{flag}=1"])
 
 
 def test_unknown_flags_still_fail():
@@ -149,7 +165,14 @@ def test_library_name_follows_the_sources(monkeypatch, tmp_path):
     (["--preemption_grace_s=0"], "preemption_grace_s", 0.0),
     (["--chaos_spec=nan_grad@3:4"], "chaos_spec", "nan_grad@3:4"),
     (["--remat_torso=on"], "remat_torso", "on"),
-    (["--fused_forward=false"], "fused_forward", False)])
+    (["--fused_forward=false"], "fused_forward", False),
+    (["--trace=true"], "trace", True),
+    (["--profile_dir=/p"], "profile_dir", "/p"),
+    (["--profile_start_update=2"], "profile_start_update", 2),
+    (["--profile_num_updates=3"], "profile_num_updates", 3),
+    (["--watchdog_timeout_s=0.5"], "watchdog_timeout_s", 0.5),
+    (["--watchdog_abort=true"], "watchdog_abort", True),
+    (["--learn_telemetry=false"], "learn_telemetry", False)])
 def test_flags_ported_for_the_pool_path(argv, field, value):
     assert getattr(Config.from_argv(argv), field) == value
 
