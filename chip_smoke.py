@@ -71,9 +71,10 @@ a result:
 3b. Where the time goes: one actor unroll, the upload (per_leaf, and
    packed as pack, upload with its GB/s, and unpack) and one update taken
    apart (with torch.profiler for the update's kernels), at bf16 and at
-   float32, then the pool loop's steady state at bf16 over 10 updates at
-   ``inflight_updates`` 2 and 1 (s per update after the first 2, actor
-   against learner fps, ``wait_batch``, ``update`` and ``retire``).
+   float32, then the pool loop's steady state at bf16 over
+   ``POOL_UPDATES`` (8) updates at ``inflight_updates`` 2 and 1 (s per
+   update after the first 2, actor against learner fps, ``wait_batch``,
+   ``update`` and ``retire``).
 3d. (Run after 3b, before 3c.) The default loop's machinery, each part
    failing the run: packed
    bitwise equal to per_leaf for one full-width trajectory from the pool,
@@ -117,6 +118,23 @@ a result:
    non-empty ``stacks.<pid>.txt``); and a second SIGTERM to a CLI
    subprocess as soon as it has logged the first (exit 143 and the
    flight recorder's dump, reason ``signal:SIGTERM``).
+3f. (Run after 3e.) The run-health plane (``--health``, on in every
+   phase as it is by default; phase 3 and each 3c run print their anomaly
+   records): the main path's configuration for ``HEALTH_UPDATES`` updates
+   with a ``--profile_dir`` window tabling updates 1-2 (the baseline), a
+   warm-up of 3 intervals, one window of 2 updates, the detectors' z path
+   off and their relative threshold at ``HEALTH_REL``, and a
+   ``HEALTH_SAG_S`` ``throughput_sag`` at update ``HEALTH_SAG_AT``: a
+   ``throughput`` record of that interval whose window finished, one
+   trip's pinned flight-recorder dump, exactly one ``health_profile.*``
+   directory, and ``kernels.json`` and ``kernels.<id>.json`` each naming
+   every hand-written kernel of the bf16 update (``TABLE_KERNELS``) with
+   a finite time, printed per call beside PERF.md section 6's, with the
+   tables' ``matched_time_frac``, dominant and worst kernels and the
+   largest ``aten::convolution`` kernel's input shapes; then
+   ``health.step``'s host ms per call and the registry snapshot's, per
+   interval against the JAX budget (0.5% of a 10 s interval), and the
+   harvests' seconds.
 3c. Learning: ``fake_bandit`` through the pool on the card at the default
    bf16 policy (16x16 frames,
    32 actors, batch 16, unroll 16, lr 0.002, entropy 0.003, 200 updates,
@@ -175,7 +193,7 @@ VTRACE_MAX_MS = 0.0078      # V-trace device time at [100, 32]: half of the
                             # one-thread-per-column walk's 0.0156 ms
 UPDATES = 4
 F32_UPDATES = 2             # the float32 policy's shorter path
-POOL_UPDATES = 10
+POOL_UPDATES = 8             # 2 to fill the window, 6 measured
 UPLOAD_REPS = 5             # uploads timed per transport (phase 3b)
 PACKED_UPLOADS = 30         # back-to-back packed uploads held (phase 3d)
 DUMMY_MATMULS = 12          # 4096^2 float32 products per upload read:
@@ -191,6 +209,37 @@ BANDIT_RANDOM = 4.0         # fake_bandit: 16 steps, 4 actions
 BANDIT_SEEDS = tuple(range(1, 9))
 BANDIT_RISE = 2.5           # every run rises at least this above early
 BANDIT_FULL = 2             # runs that must meet the full curve
+HEALTH_UPDATES = 10         # phase 3f's sag drill: the window closes
+                            # after update HEALTH_SAG_AT + 3
+HEALTH_SAG_AT = 6           # the sagging update: after the 3 warm-up
+                            # intervals, before the detectors that arm at
+                            # twice the warm-up
+HEALTH_SAG_S = 10.0         # ~30x an update's share of the loop
+# The drill's detectors trip on a relative drop past 90% (or a 3x rise)
+# only: logged every update, an actor-bound loop's learner fps is bimodal
+# (the next batch staged or not) and drops by 60-70% without a sag.
+HEALTH_REL = 0.9
+HEALTH_Z_OFF = 1e9
+HEALTH_BUDGET_FRAC = 0.005  # the JAX bench's budget for the plane (of the
+HEALTH_LOG_INTERVAL_S = 10.0  # update stage, at the default log interval)
+# The hand-written kernels of the bf16 update, as the kernel table names
+# them (a prefix and a part of the name), and the device ms per call of
+# each group in PERF.md section 6's table.
+TABLE_KERNELS = (
+    ("residual forward GEMM", "sgemm_kernel<true", "__nv_bfloat16"),
+    ("residual recurrence", "lstm_resid_kernel<", "__nv_bfloat16"),
+    ("BPTT chain", "bptt_chain_kernel<", "__nv_bfloat16"),
+    ("BPTT products", "bptt_dx_kernel", ""),
+    ("BPTT products", "bptt_dw_kernel", ""),
+    ("BPTT reduction", "bptt_reduce_kernel", ""),
+    ("grad-W", "conv_gradw_band_kernel<__nv_bfloat16", ""),
+    ("grad-W", "reduce_partials_kernel", ""),
+    ("V-trace", "vtrace_chunked_kernel<", ""),
+)
+SECTION6_MS = {"residual forward GEMM": 0.1415,
+               "residual recurrence": 0.2452, "BPTT chain": 0.324,
+               "BPTT products": 0.078, "BPTT reduction": 0.005,
+               "grad-W": 0.7041, "V-trace": 0.0034}
 
 
 def _nvidia_smi() -> str:
@@ -1147,6 +1196,7 @@ def learn_bandit(driver, Config, scratch):
         driver.train(config)
         print(f"  seed {seed}: {BANDIT_UPDATES} updates in "
               f"{time.monotonic() - t0:.1f} s", flush=True)
+        _print_anomalies(logdir, f"seed {seed}")
         early, late = _early_late([r["episode_return"] for r in _rows(logdir)
                                    if "episode_return" in r], BANDIT_RANDOM)
         failure = _learned(early, late, BANDIT_RANDOM)
@@ -1734,6 +1784,167 @@ def _registry_readings(logdir):
             "staleness_p50_s": last["obs/ledger/staleness_s/p50"]}
 
 
+def _print_anomalies(logdir, label):
+    """Each anomaly record of a run's anomalies.jsonl, one line each."""
+    from scalable_agent_tpu_torch.obs import read_anomalies
+
+    records = read_anomalies(logdir)
+    print(f"  {label}: {len(records)} anomaly records", flush=True)
+    for r in records:
+        window = r.get("window") or {}
+        print(f"    {r['id']} update {r.get('update')} observed "
+              f"{r.get('observed')} baseline {r.get('baseline')} rel "
+              f"{r.get('rel')} verdict {r.get('verdict')} pinned "
+              f"{(r.get('flightrec') or {}).get('pinned')} window "
+              f"{window.get('status')}", flush=True)
+    return records
+
+
+def _check_table(path, executions):
+    """A kernel table of the bf16 update: every row's time is finite and
+    every hand-written kernel of TABLE_KERNELS is a row; prints each
+    one's ms per call beside PERF.md section 6's, and the table's verdicts
+    and its dominant cuDNN convolution."""
+    table = json.load(open(path))
+    rows = table["kernels"]
+    bad = [r["name"] for r in rows + table["unmatched_events"]
+           if not math.isfinite(r["time_us"])]
+    if bad:
+        raise AssertionError(f"{os.path.basename(path)}: time_us not "
+                             f"finite for {bad}")
+    print(f"  {os.path.basename(path)}: {len(rows)} costed rows, "
+          f"matched_time_frac {table['matched_time_frac']:.4f}, "
+          f"executions {table['executions']}, flops_scale "
+          f"{table['flops_scale']:.6g}; dominant {table['dominant_kernel']}"
+          f" ({table['dominant_time_share']:.3f} of matched time); worst "
+          f"{table['worst_kernel']} (mfu {table['worst_kernel_mfu']}); "
+          f"scopes {table['scope_time_shares']}", flush=True)
+    groups = {}
+    for label, prefix, part in TABLE_KERNELS:
+        found = [r for r in rows
+                 if r["name"].startswith(prefix) and part in r["name"]]
+        if not found:
+            raise AssertionError(f"{os.path.basename(path)} has no row "
+                                 f"{prefix}...{part}")
+        for row in found:
+            ms = row["time_us"] / row["calls"] / 1e3
+            groups[label] = groups.get(label, 0.0) + ms
+            print(f"    {row['name']}: {row['calls']} calls, {ms:.4f} ms "
+                  f"per call, mfu {row['mfu']:.4g}, {row['op']}",
+                  flush=True)
+            if row["calls"] != executions:
+                print(f"    ({row['calls']} calls in {executions} "
+                      f"updates)", flush=True)
+    for label, ms in groups.items():
+        print(f"    {label}: {ms:.4f} ms per update here, "
+              f"{SECTION6_MS[label]:.4f} in PERF.md section 6", flush=True)
+    convs = [r for r in rows if r["op"] == "aten::convolution"]
+    if convs:
+        top = convs[0]
+        print(f"    largest aten::convolution kernel: {top['name'][:100]}"
+              f" {top['time_us'] / top['calls'] / 1e3:.4f} ms per call "
+              f"({top['calls']} calls), input dims {top.get('input_dims')}",
+              flush=True)
+    for row in rows[:6]:
+        print(f"    top: {row['time_us'] / 1e3 / executions:.4f} ms per "
+              f"update, {row['op']}, {row['name'][:90]}", flush=True)
+    print(f"    unmatched: {table['unmatched_events'][:4]}", flush=True)
+    return table
+
+
+def health_drill(torch, driver, config, scratch):
+    """Phase 3f: the run-health plane on the main path.  A profile
+    window tabling updates 1-2 (the baseline), a warm-up of 3 intervals, one
+    sag at HEALTH_SAG_AT: a throughput record whose window finished, a
+    pinned flight-recorder dump, one health_profile.* directory, and
+    kernels.json and kernels.<id>.json naming every hand-written kernel
+    of the bf16 update.  Prints the plane's host cost."""
+    logdir = os.path.join(scratch, "health")
+    sag = dataclasses.replace(
+        config, logdir=logdir,
+        total_environment_frames=float(
+            HEALTH_UPDATES * config.frames_per_update()),
+        chaos_spec=f"throughput_sag@{HEALTH_SAG_AT}",
+        # The z path off and the relative threshold at HEALTH_REL: only
+        # the sag may claim the one window.
+        health_z_threshold=HEALTH_Z_OFF, health_rel_threshold=HEALTH_REL,
+        health_warmup_intervals=3, health_max_windows=1,
+        health_window_updates=2,
+        profile_dir=os.path.join(logdir, "profile"),
+        profile_start_update=0, profile_num_updates=2)
+    step_ms, snapshot_ms, harvest_s = [], [], []
+    plane_step = driver._HealthPlane.step
+    harvest = driver._harvest_kernel_ledger
+
+    def timed_step(self, metrics, *args, **kwargs):
+        t0 = time.perf_counter()
+        plane_step(self, metrics, *args, **kwargs)
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        driver.get_registry().snapshot()
+        snapshot_ms.append(1e3 * (time.perf_counter() - t0))
+
+    def timed_harvest(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return harvest(*args, **kwargs)
+        finally:
+            harvest_s.append(time.perf_counter() - t0)
+
+    os.environ["SCALABLE_AGENT_THROUGHPUT_SAG_S"] = str(HEALTH_SAG_S)
+    t0 = time.monotonic()
+    try:
+        with _patched(driver._HealthPlane, step=timed_step), \
+                _patched(driver, _harvest_kernel_ledger=timed_harvest):
+            metrics = driver.train(sag)
+    finally:
+        del os.environ["SCALABLE_AGENT_THROUGHPUT_SAG_S"]
+    print(f"  {HEALTH_UPDATES} updates with a {HEALTH_SAG_S} s sag at "
+          f"update {HEALTH_SAG_AT} in {time.monotonic() - t0:.1f} s; "
+          f"env_frames {metrics['env_frames']}", flush=True)
+    records = _print_anomalies(logdir, "sag drill")
+    throughput = [r for r in records if r["detector"] == "throughput"]
+    if (len(throughput) != 1 or throughput[0]["update"] != HEALTH_SAG_AT
+            or throughput[0]["window"]["status"] != "done"):
+        raise AssertionError(f"no throughput record of the sag's interval "
+                             f"with a finished window: {records}")
+    record = throughput[0]
+    # The first trip pins the flight recorder; every later dump keeps it.
+    pinned = [r for r in records if r["flightrec"]["pinned"]]
+    dumps = [n for n in os.listdir(logdir) if n.startswith("flightrec.")]
+    reason = json.load(open(os.path.join(logdir, dumps[0])))["reason"] if (
+        dumps) else None
+    windows = [n for n in os.listdir(logdir)
+               if n.startswith("health_profile.")]
+    print(f"  window {record['window']}; flight recorder {dumps} reason "
+          f"{reason}, pinned by {[r['id'] for r in pinned]}; profile "
+          f"windows {windows}", flush=True)
+    if not (len(pinned) == 1 and reason == f"health:{pinned[0]['id']}"
+            and len(windows) == 1):
+        raise AssertionError("no trip pinned the flight recorder's dump, "
+                             "or not exactly one window opened")
+    for name, executions in (("kernels.json", sag.profile_num_updates),
+                             (f"kernels.{record['id']}.json",
+                              sag.health_window_updates)):
+        _check_table(os.path.join(logdir, name), executions)
+    update_s = [r["timing/update"] for r in _rows(logdir)
+                if r["step"] < HEALTH_SAG_AT][-1]
+    per_interval_ms = (sum(step_ms) + sum(snapshot_ms)) / len(step_ms)
+    print(f"  health.step: {len(step_ms)} calls, "
+          f"{sum(step_ms) / len(step_ms):.3f} ms per call (median "
+          f"{sorted(step_ms)[len(step_ms) // 2]:.3f}, max "
+          f"{max(step_ms):.3f}: the trips' dumps included), "
+          f"registry snapshot {sum(snapshot_ms) / len(snapshot_ms):.3f} ms; "
+          f"per interval {per_interval_ms:.3f} ms = "
+          f"{per_interval_ms / 1e3 / HEALTH_LOG_INTERVAL_S:.5%} of a "
+          f"{HEALTH_LOG_INTERVAL_S:.0f} s log interval (the JAX budget: "
+          f"{HEALTH_BUDGET_FRAC:.1%}), {per_interval_ms / 1e3 / update_s:.4%}"
+          f" of the update stage ({update_s:.4f} s, the mean of updates "
+          f"1-{HEALTH_SAG_AT - 1}) at one interval per update; harvests "
+          f"{[round(h, 3) for h in harvest_s]} s",
+          flush=True)
+
+
 def watchdog_drill(config, scratch, root):
     """A CLI subprocess whose third update sags OBS_SAG_S, past
     --watchdog_timeout_s, under --watchdog_abort: exit 70, the flight
@@ -1850,6 +2061,12 @@ def main() -> int:
         return {k: v for launches in counters for k, v in launches.items()}
 
     # -- phase 1: the card and the build
+    started = time.monotonic()
+
+    def phase(title):
+        print(f"{title} [{time.monotonic() - started:.0f} s in]",
+              flush=True)
+
     card = _nvidia_smi()
     print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
@@ -1865,8 +2082,8 @@ def main() -> int:
 
     with float32_precision():
         # -- phase 2: every kernel against its plain version
-        print("phase 2: kernels vs plain versions (float32 with TF32 off, "
-              "then the bf16-operand variants; sums in float32)", flush=True)
+        phase("phase 2: kernels vs plain versions (float32 with TF32 off, "
+              "then the bf16-operand variants; sums in float32)")
         rows = []
         for matmul_dtype, dtype in (("float32", torch.float32),
                                     ("bfloat16", torch.bfloat16)):
@@ -1951,11 +2168,11 @@ def main() -> int:
                         total_environment_frames=float(
                             UPDATES * Config().frames_per_update()),
                         log_interval_s=0.0)
-        print("phase 3: the main path, fake_benchmark at full width",
-              flush=True)
+        phase("phase 3: the main path, fake_benchmark at full width")
         # The obs planes at their defaults, plus the tracer.
         launches = train_counted(dataclasses.replace(config, trace=True),
                                  UPDATES, "_bf16")
+        _print_anomalies(logdir, "phase 3 (health at its default, on)")
         metric_rows = _rows(logdir)
         _check_rows(metric_rows, config.frames_per_update(),
                     config.inflight_updates, UPDATES)
@@ -2004,8 +2221,8 @@ def main() -> int:
                 F32_UPDATES * config.frames_per_update()))
         f32_launches = train_counted(f32, F32_UPDATES, "")
 
-        print("phase 3b: where one iteration of the main path spends its "
-              "time", flush=True)
+        phase("phase 3b: where one iteration of the main path spends its "
+              "time")
         with float32_precision():
             breakdown(torch, driver, config)
             print("  the same at compute_dtype=float32:", flush=True)
@@ -2015,8 +2232,7 @@ def main() -> int:
                 config, inflight_updates=window),
                 os.path.join(scratch, f"pool{window}"))
 
-        print("phase 3d: the default loop's machinery on the card",
-              flush=True)
+        phase("phase 3d: the default loop's machinery on the card")
         root = os.path.dirname(os.path.abspath(__file__))
         outs = pool_trajectories(torch, driver, config, 4)
         with float32_precision():
@@ -2029,7 +2245,7 @@ def main() -> int:
             remat_and_two_pass(torch, driver, config, outs[0], reset_counts,
                                read_counts)
 
-        print("phase 3e: the obs planes on the card", flush=True)
+        phase("phase 3e: the obs planes on the card")
         obs_artifacts(logdir)
         with float32_precision():
             telemetry_in_the_update(torch, driver, config, outs[0])
@@ -2057,9 +2273,14 @@ def main() -> int:
                   f"ledger/mfu {reading['mfu']:.6g}; staleness p50 "
                   f"{reading['staleness_p50_s']:.3f} s", flush=True)
 
-        print("phase 3c: fake_bandit learns through the pool on the card "
-              "(bf16 policy)", flush=True)
+        phase("phase 3f: the run-health plane")
+        with float32_precision():
+            health_drill(torch, driver, config, scratch)
+
+        phase("phase 3c: fake_bandit learns through the pool on the card "
+              "(bf16 policy)")
         learn_bandit(driver, Config, scratch)
+        phase("phase 4: the report")
 
     # -- phase 4: the report.  Launches: the bf16 variants' (and V-trace's)
     # from the main path, the float32 variants' from the float32 path.

@@ -29,11 +29,7 @@ UNPORTED_FLAGS = (
     "accum_fused_shards", "actor", "service_max_batch", "train_backend",
     "updates_per_dispatch", "loss",
     "replay_ratio", "replay_capacity", "target_update_interval",
-    "impact_clip_epsilon", "metrics_http_port",
-    "health", "health_warmup_intervals",
-    "health_ewma_alpha", "health_z_threshold", "health_rel_threshold",
-    "health_cooldown_s", "health_max_windows", "health_window_updates",
-    "health_baseline_dir", "sentinel_interval",
+    "impact_clip_epsilon", "metrics_http_port", "sentinel_interval",
     "sentinel_rtol",
     "chaos_channel", "compile_cache_dir", "peer_timeout_s",
     "collective_timeout_s",
@@ -52,12 +48,17 @@ SUPPORTED_VALUES = {
     # resolve_core_matmul_dtype.)
     "core_impl": ("auto", "pallas"),
     "conv_backend": ("auto", "pallas"),
-    # associative/sequential run the recurrence as a plain reverse loop,
-    # pallas as the fused CUDA kernel; auto resolves to associative
-    # (runtime/learner.py).  time_sharded needs a seq mesh axis.
+    # associative is the JAX log-depth reverse scan over compose_affine,
+    # sequential the plain reverse loop, pallas the fused CUDA kernel;
+    # auto resolves to associative (runtime/learner.py).  time_sharded
+    # needs a seq mesh axis.
     "scan_impl": ("auto", "associative", "sequential", "pallas"),
     "rmsprop_momentum": (0.0,),
     "reward_clipping": ("abs_one", "soft_asymmetric", "none"),
+    # "auto" primes the health detectors from the committed BENCH_r*.json,
+    # which are TPU rounds, and a directory needs the JAX package's
+    # obs/rounds.py: both wait for the port's own rounds.
+    "health_baseline_dir": ("",),
 }
 
 
@@ -164,8 +165,9 @@ class Config:
     log_interval_s: float = 10.0
     # -- observability (obs/): the registry, metrics.prom, the flight
     # recorder, the stall attributor and the pipeline ledger are always
-    # on.  torch.profiler capture of updates [profile_start_update,
-    # +profile_num_updates), written as a Chrome trace into profile_dir.
+    # on.  torch.profiler capture from update profile_start_update, written
+    # as a Chrome trace into profile_dir: one warm-up update, then the
+    # profile_num_updates that <logdir>/kernels.json tables.
     profile_dir: str = ""  # empty = disabled
     profile_start_update: int = 10
     profile_num_updates: int = 5
@@ -184,6 +186,30 @@ class Config:
     # Respawns of a failing actor thread (capped exponential backoff)
     # before its exception ends the run; 0 fails fast.
     actor_max_restarts: int = 3
+
+    # -- the run-health plane (obs/health.py): detectors at log cadence
+    # over the registry stream and the interval's metrics.  A trip appends
+    # <logdir>/anomalies.jsonl, pins and dumps the flight recorder, and
+    # may open a profile window of health_window_updates updates into
+    # <logdir>/health_profile.<id>/, harvested into
+    # <logdir>/kernels.<id>.json.
+    health: bool = True
+    # Log intervals before a detector arms.
+    health_warmup_intervals: int = 8
+    # EWMA smoothing of the detector baselines (mean and variance).
+    health_ewma_alpha: float = 0.35
+    # The z-score a deviation needs (with a material relative one); a
+    # relative drop or rise past health_rel_threshold trips on its own.
+    health_z_threshold: float = 4.0
+    health_rel_threshold: float = 0.6
+    # Per-detector re-trip cooldown, and the least gap between windows.
+    health_cooldown_s: float = 120.0
+    # Profile windows for the whole run (0: records and dumps only).
+    health_max_windows: int = 2
+    # Updates one anomaly window tables (after one warm-up update).
+    health_window_updates: int = 5
+    # Detector priming from committed rounds: only "" (off) here.
+    health_baseline_dir: str = ""
 
     # -- the port's own: "cuda" (default), "cuda:N" or "cpu".
     device: str = "cuda"

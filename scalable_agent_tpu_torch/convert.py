@@ -27,8 +27,9 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from scalable_agent_tpu_torch.obs.learning import LAYER_GROUPS
+
 GATES = "ifgo"
-LAYER_GROUPS = ("torso", "core", "heads")
 # The port's top-level modules by the flax module each one holds.
 _MODULE_GROUPS = {"convnet": "torso", "core": "core",
                   "policy_logits": "heads", "baseline": "heads"}

@@ -38,12 +38,24 @@ experiment.py:675-708):
   heartbeat, ``stall.attribute`` over the interval's ``wait_batch``,
   ``update`` and ``retire`` sums, the metrics row (where
   ``NonFiniteTracker`` reads the skip counters) and the registry row,
-  then ``metrics.prom``.  ``--profile_dir`` records updates
-  ``[profile_start_update, +profile_num_updates)`` with
-  ``torch.profiler`` and writes a Chrome trace there; the JAX driver's
-  kernel table (``obs/kernels.py``) is not ported yet, so none is
-  written.  The ``throughput_sag`` fault point sleeps inside the
-  update's timing.
+  then ``metrics.prom``.  ``--profile_dir`` records updates from
+  ``profile_start_update`` on with ``torch.profiler`` (``record_shapes``)
+  and writes its Chrome trace there: one warm-up update
+  (``PROFILE_WARMUP_UPDATES``), then the ``profile_num_updates`` updates
+  its kernel table counts (``obs/kernels.py``: the learner's kernels
+  joined to ``update_flops`` and the hand-written kernels' costs), which
+  goes to ``<logdir>/kernels.json`` and the ``kernel/*`` gauges.  The
+  ``throughput_sag`` fault point sleeps inside the update's timing.
+- The run-health plane (``--health``, on by default as in the JAX
+  package; ``_HealthPlane``): after the stall attribution of each log
+  interval, the detectors of ``obs/health.py`` read the registry snapshot
+  and the interval's metrics.  A trip appends ``<logdir>/anomalies.jsonl``,
+  pins and dumps the flight recorder, and may open a profile window of
+  ``--health_window_updates`` updates into
+  ``<logdir>/health_profile.<id>/`` (only while no scheduled window
+  records, and the scheduled window waits for it: ``torch.profiler``
+  records one window at a time), whose table becomes
+  ``<logdir>/kernels.<id>.json`` and the anomaly record's final state.
 - ``test``: restore the newest verified checkpoint of ``--logdir`` and run
   ``test_num_episodes`` episodes of ``--level_name`` on a batched eval
   fleet.
@@ -59,8 +71,8 @@ codes (``runtime/exit_codes.py``): 0 for a finished or a drained
 preempted run, 70 for the watchdog under ``--watchdog_abort``, 71 for the
 non-finite guard, 72 for an expired preemption grace, 143 for a second
 SIGTERM.  Replay, multi-task training, DMLab-30 suite scoring, the obs
-consumers (health, the CLIs) and the multi-process fleet are not ported
-yet (ROADMAP.md, queue 1).
+CLIs and the multi-process fleet are not ported yet (ROADMAP.md, queue
+1).
 """
 
 import contextlib
@@ -106,6 +118,11 @@ from scalable_agent_tpu_torch.obs import (
     get_tracer,
     get_watchdog,
     install_crash_handlers,
+)
+from scalable_agent_tpu_torch.obs import kernels as kernels_lib
+from scalable_agent_tpu_torch.obs.health import (
+    HealthMonitor,
+    default_detectors,
 )
 from scalable_agent_tpu_torch.obs.ledger import PipelineLedger, peak_flops
 from scalable_agent_tpu_torch.ops import float32_precision
@@ -445,51 +462,273 @@ def _teardown_observability(config: Config, handles: _ObsHandles):
     handles.uninstall_handlers()
 
 
-def configure_live_mfu(config: Config, ledger: PipelineLedger,
-                       device: torch.device, observation_spec,
-                       action_space) -> None:
-    """Arm ``ledger/mfu``: ``update_flops`` at the run's shapes against
-    the card's peak for ``compute_dtype`` (``obs/ledger.py``
-    ``PEAK_FLOPS``).  On another device, or the CPU, the gauge stays at
-    0, with one log line."""
-    flops = update_flops(observation_spec.frame.shape, action_space.n,
-                         config.unroll_length, config.batch_size)
-    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+def _resolve_roofline_peak(device_kind: str,
+                           compute_dtype: str) -> Optional[float]:
+    """The card's peak for ``compute_dtype`` (``obs/ledger.py``
+    ``PEAK_FLOPS``), overridden by ``$SCALABLE_AGENT_LEDGER_MFU_PEAK`` (as
+    the JAX driver's ``_resolve_roofline_peak``), which lets the MFU and
+    kernel-table path run on the CPU.  None when neither knows one."""
+    peak = peak_flops(device_kind, compute_dtype)
+    override = os.environ.get("SCALABLE_AGENT_LEDGER_MFU_PEAK")
+    if override:
+        try:
+            peak = float(override)
+        except ValueError:
+            pass
+    return peak
+
+
+@dataclasses.dataclass
+class KernelCosts:
+    """What a profile window's kernel table is joined against: the
+    update's FLOPs (``update_flops``, the ``ledger/mfu`` numerator), the
+    hand-written kernels' per-call costs at the run's shapes, the peak."""
+
+    device: torch.device
+    flops: float
+    handwritten: dict
+    peak: Optional[float]
+    device_kind: str
+
+
+def kernel_costs(config: Config, device: torch.device, observation_spec,
+                 action_space) -> KernelCosts:
+    """``KernelCosts`` at the run's shapes and dtype policy."""
+    shapes = (observation_spec.frame.shape, action_space.n,
+              config.unroll_length, config.batch_size)
+    kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
-    peak = peak_flops(name, config.compute_dtype)
-    if peak is None:
+    sm_count = (torch.cuda.get_device_properties(device).multi_processor_count
+                if device.type == "cuda" else 1)
+    return KernelCosts(
+        device=device, flops=update_flops(*shapes),
+        handwritten=kernels_lib.handwritten_costs(
+            *shapes, compute_dtype=config.compute_dtype,
+            matmul_dtype=resolve_core_matmul_dtype(config),
+            sm_count=sm_count),
+        peak=_resolve_roofline_peak(kind, config.compute_dtype),
+        device_kind=kind)
+
+
+def configure_live_mfu(config: Config, ledger: PipelineLedger,
+                       costs: KernelCosts) -> None:
+    """Arm ``ledger/mfu``: ``update_flops`` at the run's shapes against
+    the card's peak for ``compute_dtype`` (``_resolve_roofline_peak``).
+    Without a peak the gauge stays at 0, with one log line."""
+    if costs.peak is None:
         log.info("live MFU gauge off: no peak FLOP/s known for %s at %s "
-                 "(%.4g FLOPs per update)", name, config.compute_dtype,
-                 flops)
+                 "(%.4g FLOPs per update)", costs.device_kind,
+                 config.compute_dtype, costs.flops)
         return
-    ledger.configure_mfu(flops, peak)
+    ledger.configure_mfu(costs.flops, costs.peak)
     log.info("live MFU gauge armed: %.4g FLOPs per update against %.4g "
-             "peak FLOP/s (%s, %s)", flops, peak, name,
-             config.compute_dtype)
+             "peak FLOP/s (%s, %s)", costs.flops, costs.peak,
+             costs.device_kind, config.compute_dtype)
+
+
+# Updates a profile window records before the ones its kernel table
+# counts: on the card, launches made just after torch.profiler starts have
+# gone missing from the trace (the first update's stem convolution, or
+# its whole torso forward, in 2 of 5 anomaly windows).
+PROFILE_WARMUP_UPDATES = 1
 
 
 def _start_profile(device: torch.device):
     """A ``torch.profiler`` window over the host and, on the card, its
-    kernels; the tracer's spans open ``record_function`` ranges in it."""
+    kernels, with the ops' input shapes (the kernel table's costs: the
+    Chrome trace carries no FLOP counts, so ``with_flops`` would add
+    nothing to it); the tracer's spans open ``record_function`` ranges in
+    it."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
-    profiler = torch.profiler.profile(activities=activities)
+    profiler = torch.profiler.profile(activities=activities,
+                                      record_shapes=True)
     profiler.start()
     get_tracer().set_annotate(True)
     return profiler
 
 
-def _stop_profile(profiler, config: Config) -> None:
-    """End the window and write its Chrome trace into ``profile_dir``."""
+def _stop_profile(profiler, device: torch.device, trace_dir: str) -> str:
+    """End the window once the card has run what it launched, and write
+    its Chrome trace into ``trace_dir``; returns the path."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
     profiler.stop()
     get_tracer().set_annotate(False)
-    os.makedirs(config.profile_dir, exist_ok=True)
-    path = os.path.join(config.profile_dir,
-                        f"torch_profile.{os.getpid()}.json")
+    os.makedirs(trace_dir, exist_ok=True)
+    path = os.path.join(trace_dir, f"torch_profile.{os.getpid()}.json")
     profiler.export_chrome_trace(path)
-    log.info("profiler trace written to %s (no kernel table: the JAX "
-             "driver's obs/kernels.py harvest is not ported yet)", path)
+    return path
+
+
+def _harvest_kernel_ledger(config: Config, costs: KernelCosts,
+                           executions: int,
+                           profile_dir: Optional[str] = None,
+                           out_name: Optional[str] = None
+                           ) -> Optional[dict]:
+    """The kernel table of a finished window (``obs/kernels.py``):
+    ``<logdir>/<out_name>`` and the ``kernel/*`` gauges (the worst kernel
+    also feeds the stall line).  Defaults serve the scheduled
+    ``--profile_dir`` window (``kernels.json``); the health plane passes
+    its window's directory and ``kernels.<anomaly_id>.json``.  Never
+    raises: the table is forensics, not the training path.  Returns the
+    table (None on any failure)."""
+    profile_dir = profile_dir or config.profile_dir
+    out_name = out_name or kernels_lib.KERNELS_JSON_NAME
+    try:
+        table = kernels_lib.harvest(
+            profile_dir, costs.device.type, costs.flops, costs.peak,
+            config.logdir, registry=get_registry(), executions=executions,
+            handwritten=costs.handwritten,
+            extra={"device_kind": costs.device_kind,
+                   "logdir": config.logdir},
+            out_name=out_name)
+    except Exception:
+        log.exception("kernel table harvest failed")
+        return None
+    if table is None:
+        log.warning("kernel table: no learner kernels in a trace under %s",
+                    profile_dir)
+        return None
+    log.info(
+        "kernel table: %d kernels costed (%.0f%% of the learner's kernel "
+        "time), dominant %s (%.0f%% of it), worst %s (mfu %s) — %s/%s",
+        len(table["kernels"]), 100 * table["matched_time_frac"],
+        table.get("dominant_kernel"),
+        100 * (table.get("dominant_time_share") or 0.0),
+        table.get("worst_kernel"),
+        (f"{table['worst_kernel_mfu']:.3g}"
+         if table.get("worst_kernel_mfu") is not None else "n/a"),
+        config.logdir, out_name)
+    return table
+
+
+class _HealthPlane:
+    """The driver's side of the run-health plane (``obs/health.py``): the
+    ``HealthMonitor`` and the one anomaly-triggered profile window in
+    flight (the JAX driver's ``_HealthPlane`` with ``torch.profiler`` in
+    place of ``jax.profiler``).  The monitor arbitrates (budget, cooldown,
+    one window at a time); this class opens and closes the window and
+    harvests it into ``kernels.<anomaly_id>.json``.  Every method is a
+    no-op under ``--health=false``."""
+
+    def __init__(self, config: Config, device: torch.device):
+        self.monitor = None
+        self.window_id: Optional[str] = None
+        self.window_dir: Optional[str] = None
+        self.window_stop_at: Optional[int] = None
+        self._profiler = None
+        self._config = config
+        self._device = device
+        if not config.health:
+            return
+        self.monitor = HealthMonitor(
+            default_detectors(
+                backend="host",
+                warmup=config.health_warmup_intervals,
+                alpha=config.health_ewma_alpha,
+                z_threshold=config.health_z_threshold,
+                rel_threshold=config.health_rel_threshold),
+            logdir=config.logdir,
+            registry=get_registry(),
+            cooldown_s=config.health_cooldown_s,
+            max_windows=config.health_max_windows)
+
+    @property
+    def active(self) -> bool:
+        return self.monitor is not None
+
+    @property
+    def window_open(self) -> bool:
+        return self.window_stop_at is not None
+
+    def step(self, metrics, update: int, verdict=None, evidence=None):
+        """One detector pass at log cadence.  Never raises."""
+        if self.monitor is None:
+            return
+        try:
+            self.monitor.step(metrics=metrics, update=update,
+                              verdict=verdict, evidence=evidence)
+        except Exception:
+            log.exception("health detector step failed")
+
+    def maybe_open_window(self, updates: int) -> bool:
+        """Open the pending anomaly's window, if any: its own trace
+        directory under the logdir, closing ``health_window_updates``
+        updates from now."""
+        if self.monitor is None or self.window_open:
+            return False
+        anomaly_id = self.monitor.poll_window()
+        if anomaly_id is None:
+            return False
+        trace_dir = os.path.join(self._config.logdir,
+                                 f"health_profile.{anomaly_id}")
+        try:
+            os.makedirs(trace_dir, exist_ok=True)
+            self._profiler = _start_profile(self._device)
+        except Exception:
+            log.exception("health profile window failed to start")
+            return False
+        self.window_id = anomaly_id
+        self.window_dir = trace_dir
+        self.window_stop_at = (updates + PROFILE_WARMUP_UPDATES
+                               + self._config.health_window_updates)
+        self.monitor.note_window_open(anomaly_id, trace_dir)
+        log.info("health: profile window %s open through update %d (%s)",
+                 anomaly_id, self.window_stop_at, trace_dir)
+        return True
+
+    def close_window(self, costs: KernelCosts,
+                     executions: Optional[int] = None):
+        """Stop the window and harvest its kernel table into
+        ``kernels.<anomaly_id>.json``, finalizing the anomaly record with
+        the worst kernel's delta against the run's scheduled window."""
+        if self.monitor is None or not self.window_open:
+            return
+        anomaly_id, trace_dir = self.window_id, self.window_dir
+        self.window_id = self.window_dir = self.window_stop_at = None
+        profiler, self._profiler = self._profiler, None
+        try:
+            _stop_profile(profiler, self._device, trace_dir)
+        except Exception:
+            log.exception("health profile window failed to stop")
+            get_tracer().set_annotate(False)
+        out_name = f"kernels.{anomaly_id}.json"
+        table = _harvest_kernel_ledger(
+            self._config, costs,
+            executions=(executions if executions is not None
+                        else self._config.health_window_updates),
+            profile_dir=trace_dir, out_name=out_name)
+        self.monitor.note_window_result(
+            anomaly_id, table,
+            kernels_json=(os.path.join(self._config.logdir, out_name)
+                          if table else None))
+
+    def note_baseline(self, table: Optional[dict]):
+        """The scheduled ``--profile_dir`` window's table: the reference
+        of the anomaly windows' deltas."""
+        if self.monitor is not None and table:
+            self.monitor.note_baseline_kernels(table)
+
+    def finalize(self):
+        """Teardown: stop a still-open window (no harvest: the run is
+        ending) and flush the open anomaly records."""
+        if self.monitor is None:
+            return
+        if self.window_open:
+            self.window_id = self.window_dir = None
+            self.window_stop_at = None
+            profiler, self._profiler = self._profiler, None
+            try:
+                profiler.stop()
+            except Exception:
+                pass
+            get_tracer().set_annotate(False)
+        try:
+            self.monitor.flush()
+        except Exception:
+            log.exception("health flush failed")
 
 
 def train(config: Config) -> Dict[str, float]:
@@ -515,6 +754,9 @@ def train(config: Config) -> Dict[str, float]:
     ledger = configure_ledger(
         registry=registry, frames_per_trajectory=config.frames_per_update(),
         logdir=config.logdir)
+    # The run-health plane; built before the try, so that the finally's
+    # flush always sees it.
+    health = _HealthPlane(config, device)
     # Float32 convolutions and matmuls in full float32, and bf16 ones
     # summed in float32, as the JAX package runs them.  The flags are
     # process-wide: set once, before any thread starts.
@@ -524,8 +766,9 @@ def train(config: Config) -> Dict[str, float]:
             agent = build_agent(config, observation_spec, action_space,
                                 device)
             learner = build_learner(config, agent)
-            configure_live_mfu(config, ledger, device, observation_spec,
-                               action_space)
+            costs = kernel_costs(config, device, observation_spec,
+                                 action_space)
+            configure_live_mfu(config, ledger, costs)
             transport = make_transport(config.transport, device)
             window = InflightWindow(config.inflight_updates,
                                     registry=registry)
@@ -576,10 +819,12 @@ def train(config: Config) -> Dict[str, float]:
             first_dispatch = True
             while frames < config.total_environment_frames:
                 if (config.profile_dir and profiler is None
+                        and not health.window_open
                         and updates - start_updates
                         == config.profile_start_update):
                     profiler = _start_profile(device)
-                    profile_stop_at = updates + config.profile_num_updates
+                    profile_stop_at = (updates + PROFILE_WARMUP_UPDATES
+                                       + config.profile_num_updates)
                 # Waiting for a batch is the stall attributor's business,
                 # not a wedge: a wedged producer's own heartbeat names it.
                 watchdog.suspend("learner")
@@ -620,10 +865,23 @@ def train(config: Config) -> Dict[str, float]:
                         metrics = window.retire()
                 watchdog.touch("learner")
                 if profiler is not None and updates >= profile_stop_at:
-                    if device.type == "cuda":
-                        torch.cuda.synchronize(device)
-                    _stop_profile(profiler, config)
+                    path = _stop_profile(profiler, device,
+                                         config.profile_dir)
                     profiler = None
+                    log.info("profiler trace written to %s", path)
+                    # The harvest reads the trace on this thread: a
+                    # healthy pause.
+                    watchdog.suspend("learner")
+                    table = _harvest_kernel_ledger(
+                        config, costs, config.profile_num_updates)
+                    # The scheduled window is the health plane's
+                    # baseline for the anomaly windows' deltas.
+                    health.note_baseline(table)
+                if health.window_open and updates >= health.window_stop_at:
+                    # An anomaly window is complete: the same stop and
+                    # harvest, into kernels.<anomaly_id>.json.
+                    watchdog.suspend("learner")
+                    health.close_window(costs)
                 now = time.monotonic()
                 if now - last_log >= config.log_interval_s:
                     if not metrics:
@@ -664,6 +922,15 @@ def train(config: Config) -> Dict[str, float]:
                         interval_sums.get("wait_batch", 0.0),
                         interval_sums.get("update", 0.0),
                         retire_s=interval_sums.get("retire", 0.0))
+                    # The detectors over the registry stream and this
+                    # interval's metrics; a trip may arm a window, opened
+                    # here unless the scheduled one records.
+                    if health.active:
+                        health.step({**registry.snapshot(), **row},
+                                    update=updates, verdict=category,
+                                    evidence=evidence)
+                        if profiler is None:
+                            health.maybe_open_window(updates)
                     writer.write(updates, row)
                     writer.write_registry(updates)
                     prom.dump()
@@ -717,6 +984,9 @@ def train(config: Config) -> Dict[str, float]:
             if profiler is not None:
                 profiler.stop()
                 get_tracer().set_annotate(False)
+            # Before the obs teardown's final snapshot, so the health/*
+            # counters land in it.
+            health.finalize()
             prefetch_stop.set()
             if pool is not None:
                 pool.stop()

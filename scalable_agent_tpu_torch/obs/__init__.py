@@ -13,9 +13,11 @@ exporters write the registry as ``metrics.prom`` and as rows of
 bottleneck; ``device_telemetry`` keeps the learner's instruments on the
 card.
 
-The consumers (``health``, ``learning``, the ``aggregate``, ``report``,
-``diagnose`` and ``watch`` CLIs, ``MetricsHTTPServer``) and the kernel
-ledger (``kernels``) are not ported yet (ROADMAP.md, queue 1).
+The run-health plane (``health``, with the verdict rules of ``learning``)
+reads that stream at log cadence, and ``kernels`` turns a profile window
+into a per-kernel table.  The ``aggregate``, ``report``, ``diagnose`` and
+``watch`` CLIs and ``MetricsHTTPServer`` are not ported yet (ROADMAP.md,
+queue 1).
 """
 
 from scalable_agent_tpu_torch.obs.device_telemetry import (
@@ -32,6 +34,19 @@ from scalable_agent_tpu_torch.obs.flightrec import (
     configure_flight_recorder,
     get_flight_recorder,
     install_crash_handlers,
+)
+from scalable_agent_tpu_torch.obs.health import (
+    ANOMALIES_JSONL,
+    DetectorSpec,
+    HealthMonitor,
+    default_detectors,
+    read_anomalies,
+)
+from scalable_agent_tpu_torch.obs.kernels import (
+    KERNELS_JSON_NAME,
+    build_kernel_table,
+    publish_kernel_metrics,
+    write_kernels_json,
 )
 from scalable_agent_tpu_torch.obs.ledger import (
     PipelineLedger,
@@ -60,12 +75,16 @@ from scalable_agent_tpu_torch.obs.watchdog import (
 )
 
 __all__ = [
+    "ANOMALIES_JSONL",
     "CATEGORIES",
     "Counter",
+    "DetectorSpec",
     "DeviceTelemetry",
     "FlightRecorder",
     "Gauge",
+    "HealthMonitor",
     "Histogram",
+    "KERNELS_JSON_NAME",
     "MetricsRegistry",
     "MetricsWriter",
     "PipelineLedger",
@@ -74,10 +93,12 @@ __all__ = [
     "TelemetryPublisher",
     "Tracer",
     "Watchdog",
+    "build_kernel_table",
     "configure_flight_recorder",
     "configure_ledger",
     "configure_tracer",
     "configure_watchdog",
+    "default_detectors",
     "get_flight_recorder",
     "get_ledger",
     "get_registry",
@@ -85,6 +106,9 @@ __all__ = [
     "get_watchdog",
     "install_crash_handlers",
     "load_trace_events",
+    "publish_kernel_metrics",
+    "read_anomalies",
     "render_prometheus",
     "span",
+    "write_kernels_json",
 ]

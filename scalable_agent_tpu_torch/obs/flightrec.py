@@ -13,6 +13,11 @@ recording takes no lock.  ``dump_all`` writes what a post-mortem needs:
 - a final ``metrics.prom`` through the attached exporter, and the
   tracer's buffered tail.
 
+``reason_pin`` keeps the root cause on top: once a verdict sets it (the
+health plane's trip, ``obs/health.py``), every later dump still rewrites
+the file with the newer events but keeps the pinned reason, and its own
+becomes ``secondary_reason``.
+
 ``install_crash_handlers`` wires the dump to SIGTERM/SIGINT (dump, then
 ``SystemExit(128 + signum)`` / ``KeyboardInterrupt``, so the driver's
 ``finally`` still runs), to ``sys.excepthook`` and to
@@ -68,6 +73,9 @@ class FlightRecorder:
         # stack) can complete the dump when the handler's own attempt was
         # abandoned.
         self.pending_dump_reason: Optional[str] = None
+        # The root cause's reason, kept by every later dump (None: each
+        # dump states its own).
+        self.reason_pin: Optional[str] = None
 
     # -- recording (hot path) ----------------------------------------------
 
@@ -113,16 +121,19 @@ class FlightRecorder:
 
     def dump(self, reason: str, path: Optional[str] = None
              ) -> Optional[str]:
-        """Write the recorder's JSON atomically; the path, or None without
-        a logdir.  A dump already in progress (a signal landing mid-dump
-        on the same thread) makes this one a no-op instead of a
-        deadlock."""
+        """Write the recorder's JSON atomically, under ``reason_pin`` when
+        one is set; the path, or None without a logdir.  A dump already
+        in progress (a signal landing mid-dump on the same thread) makes
+        this one a no-op instead of a deadlock."""
         path = path or self.dump_path()
         if path is None:
             return None
         if not self._dump_lock.acquire(blocking=False):
             return None
         try:
+            secondary = None
+            if self.reason_pin is not None and reason != self.reason_pin:
+                secondary, reason = reason, self.reason_pin
             self.dump_count += 1
             self.last_dump_reason = reason
             try:
@@ -132,6 +143,7 @@ class FlightRecorder:
             payload = {
                 "schema_version": _SCHEMA_VERSION,
                 "reason": reason,
+                **({"secondary_reason": secondary} if secondary else {}),
                 "pid": os.getpid(),
                 "process_index": 0,
                 "dump_count": self.dump_count,

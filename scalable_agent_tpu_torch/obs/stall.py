@@ -20,8 +20,9 @@ seconds, and the actors' ``actor/env_step_s`` and ``actor/inference_s``
 histograms, whose cumulative sums are differenced per interval.  When
 the pipeline ledger (``obs/ledger.py``) of the same registry has
 published latency shares, the verdict also names the segment that holds
-the most frame latency.  The JAX package's worst-kernel attribution
-(``obs/kernels.py``) is not ported yet (ROADMAP.md, queue 1).
+the most frame latency; a ``device_bound`` verdict names the worst kernel
+of the last kernel table published against the same registry
+(``obs/kernels.py``).
 """
 
 from typing import Dict, Optional, Tuple
@@ -133,6 +134,15 @@ class StallAttributor:
             if dominant is not None:
                 evidence["ledger_dominant"] = dominant[0]
                 evidence["ledger_dominant_share"] = dominant[1]
+        if category == "device_bound":
+            # The next step of a device-bound verdict is a kernel: the
+            # worst of the last table a profile window published here.
+            from scalable_agent_tpu_torch.obs import kernels as kernels_lib
+
+            worst = kernels_lib.last_worst(self._registry)
+            if worst is not None:
+                evidence["kernel_worst"] = worst[0]
+                evidence["kernel_worst_mfu"] = worst[1]
         return category, evidence
 
     def report_stalled(self, stalled: Dict[str, float],
@@ -167,6 +177,11 @@ class StallAttributor:
             ledger_part = (
                 f"; {share:.0%} of frame latency in "
                 f"{SEGMENT_LABELS.get(dominant, dominant)}")
+        worst_kernel = fractions.get("kernel_worst")
+        if worst_kernel:
+            ledger_part += (
+                f"; worst kernel {worst_kernel} mfu "
+                f"{fractions.get('kernel_worst_mfu', 0.0):.3f}")
         return (f"pipeline {category} "
                 f"(wait_batch {fractions['wait_frac']:.0%} of learner "
                 f"interval; actor env share "

@@ -13,9 +13,13 @@ While a ``--profile_dir`` window records, the driver turns on
 ``torch.profiler.record_function`` range of the same name, so the
 profiler's timeline shows the host spans beside the kernels they
 launched (the JAX package opens a ``jax.profiler.TraceAnnotation``).  The
-range costs far more than the span, so it is off otherwise.
+ranges open whether or not the tracer writes a file: the kernel table
+(``obs/kernels.py``) finds the learner's update by its
+``learner/update`` range, where the JAX table reads the update's HLO
+module.  The range costs far more than the span, so it is off otherwise.
 
-A disabled tracer's ``span()`` returns one shared no-op context manager.
+A disabled tracer's ``span()`` returns one shared no-op context manager
+(a range only, while it annotates).
 The file's first line is ``[`` and every event line ends with a comma:
 the Trace Event format allows the unclosed array, so the file is
 appendable and still loadable after a crash.  At most ``max_events``
@@ -91,9 +95,10 @@ class _Span:
         end_us = time.perf_counter_ns() // 1000
         if self._annotation is not None:
             self._annotation.__exit__(*exc_info)
-        self._tracer._complete(
-            self._name, self._cat, self._start_us,
-            end_us - self._start_us, self._args)
+        if self._tracer.enabled:
+            self._tracer._complete(
+                self._name, self._cat, self._start_us,
+                end_us - self._start_us, self._args)
         return False
 
 
@@ -133,8 +138,8 @@ class Tracer:
 
     def set_annotate(self, flag: bool):
         """Open a ``torch.profiler.record_function`` range per span (on
-        only while a profiler window records)."""
-        self._annotate = bool(flag) and self.enabled
+        only while a profiler window records), with or without a file."""
+        self._annotate = bool(flag)
 
     # -- recording ---------------------------------------------------------
 
@@ -142,7 +147,8 @@ class Tracer:
              args: Optional[dict] = None):
         """Context manager timing one nested span."""
         if not self.enabled:
-            return _NULL_SPAN
+            return _Span(self, name, cat, args) if self._annotate else (
+                _NULL_SPAN)
         return _Span(self, name, cat, args)
 
     def instant(self, name: str, cat: str = "pipeline",
@@ -210,7 +216,6 @@ class Tracer:
                     "pid": self._pid, "tid": 0,
                     "args": {"reason": "max_events budget exhausted"}}))
                 self.enabled = False
-                self._annotate = False
             if len(self._events) >= FLUSH_EVERY_EVENTS:
                 self._flush_locked()
 

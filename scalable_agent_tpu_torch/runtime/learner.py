@@ -61,7 +61,7 @@ from typing import Dict, NamedTuple, Sequence
 import numpy as np
 import torch
 
-from scalable_agent_tpu_torch.convert import LAYER_GROUPS, layer_group
+from scalable_agent_tpu_torch.convert import layer_group
 from scalable_agent_tpu_torch.models.agent import CORE_SIZE, ImpalaAgent
 from scalable_agent_tpu_torch.models.networks import CONV_STACK, TORSO_SIZE
 from scalable_agent_tpu_torch.obs import (
@@ -75,6 +75,7 @@ from scalable_agent_tpu_torch.obs.device_telemetry import (
     fetch_merged,
     merge_init,
 )
+from scalable_agent_tpu_torch.obs.learning import LAYER_GROUPS
 from scalable_agent_tpu_torch.ops import distributions
 from scalable_agent_tpu_torch.ops import losses as losses_lib
 from scalable_agent_tpu_torch.ops import vtrace

@@ -100,7 +100,8 @@ def test_flag_lists_cover_the_jax_config():
             assert f.default == getattr(jax_config.Config(), f.name), f.name
 
 
-@pytest.mark.parametrize("argv", [["--record_to=/x"], ["--health", "true"],
+@pytest.mark.parametrize("argv", [["--record_to=/x"],
+                                  ["--health_baseline_dir", "auto"],
                                   ["--chaos_channel=true"],
                                   ["--replay_ratio=1"],
                                   ["--compute_dtype=float16"],
@@ -113,16 +114,21 @@ def test_unported_flags_and_values_raise(argv):
 
 
 def test_obs_ports_the_jax_producers_only():
-    """obs/ holds copies of the JAX producers (each checked above for
-    imports); the consumers and their flags stay unported and raise."""
+    """obs/ holds copies of the JAX producers and of the run-health plane
+    with the two modules it stands on (each checked above for imports);
+    the CLIs, the HTTP endpoint and the sentinel, and their flags, stay
+    unported and raise."""
     ported = {p.stem for p in (PACKAGE / "obs").glob("*.py")}
     assert ported == {"__init__", "registry", "exporters", "flightrec",
                       "trace", "stall", "watchdog", "ledger",
-                      "device_telemetry"}
+                      "device_telemetry", "learning", "kernels", "health"}
     jax_obs = ROOT / "scalable_agent_tpu" / "obs"
     assert ported <= {p.stem for p in jax_obs.glob("*.py")}
-    for flag in ("health", "health_max_windows", "metrics_http_port",
-                 "sentinel_interval", "sentinel_rtol"):
+    health_flags = {f.name for f in dataclasses.fields(Config)
+                    if f.name.startswith("health")}
+    assert len(health_flags) == 9 and health_flags.isdisjoint(
+        UNPORTED_FLAGS)
+    for flag in ("metrics_http_port", "sentinel_interval", "sentinel_rtol"):
         assert flag in UNPORTED_FLAGS
         with pytest.raises(ValueError, match="ROADMAP.md"):
             Config.from_argv([f"--{flag}=1"])
@@ -172,7 +178,16 @@ def test_library_name_follows_the_sources(monkeypatch, tmp_path):
     (["--profile_num_updates=3"], "profile_num_updates", 3),
     (["--watchdog_timeout_s=0.5"], "watchdog_timeout_s", 0.5),
     (["--watchdog_abort=true"], "watchdog_abort", True),
-    (["--learn_telemetry=false"], "learn_telemetry", False)])
+    (["--learn_telemetry=false"], "learn_telemetry", False),
+    (["--health=false"], "health", False),
+    (["--health_warmup_intervals=3"], "health_warmup_intervals", 3),
+    (["--health_ewma_alpha=0.5"], "health_ewma_alpha", 0.5),
+    (["--health_z_threshold=6"], "health_z_threshold", 6.0),
+    (["--health_rel_threshold=0.4"], "health_rel_threshold", 0.4),
+    (["--health_cooldown_s=30"], "health_cooldown_s", 30.0),
+    (["--health_max_windows=0"], "health_max_windows", 0),
+    (["--health_window_updates=2"], "health_window_updates", 2),
+    (["--health_baseline_dir="], "health_baseline_dir", "")])
 def test_flags_ported_for_the_pool_path(argv, field, value):
     assert getattr(Config.from_argv(argv), field) == value
 
