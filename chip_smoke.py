@@ -135,6 +135,25 @@ a result:
    ``health.step``'s host ms per call and the registry snapshot's, per
    interval against the JAX budget (0.5% of a 10 s interval), and the
    harvests' seconds.
+3g. (Run after 3f.) The obs consumers, each part failing the run: the
+   four CLIs (``python -m scalable_agent_tpu_torch.obs.<cli>``) as
+   subprocesses on phase 3's logdir (``--trace``) and on phase 3f's (its
+   kernel tables and anomaly records): ``report --json`` (its stage table,
+   dominant stage, stall verdict, MFU and worst kernels printed),
+   ``diagnose --json``, ``watch --once --json`` and ``aggregate``, none
+   exiting 2, the report's dominant stage the largest
+   ``ledger/latency_share/*`` of ``metrics.prom``, its kernels section
+   naming every hand-written kernel of ``kernels.json``, and the
+   one-process fold of ``metrics.fleet.prom`` equal to every series of
+   ``metrics.prom``; each CLI's wall seconds printed.  Then the main path
+   for ``LIVE_UPDATES`` (6) updates as a driver subprocess with
+   ``--metrics_http_port``, scraped every ``SCRAPE_EVERY_S``: every
+   scrape answered 200 (``/health`` 503 only before the first snapshot),
+   the last ``/metrics`` carrying every family prefix of the final
+   ``metrics.prom``, the last ``/health`` equal to ``watch --once
+   --json`` on the same files, exit 0 and the port closed; the scrapes'
+   round-trip ms and the run's s per update (beside 3b's) printed, not
+   gated.
 3c. Learning: ``fake_bandit`` through the pool on the card at the default
    bf16 policy (16x16 frames,
    32 actors, batch 16, unroll 16, lr 0.002, entropy 0.003, 200 updates,
@@ -220,6 +239,8 @@ HEALTH_SAG_S = 10.0         # ~30x an update's share of the loop
 # (the next batch staged or not) and drops by 60-70% without a sag.
 HEALTH_REL = 0.9
 HEALTH_Z_OFF = 1e9
+LIVE_UPDATES = 6            # phase 3g's run beside the live endpoint
+SCRAPE_EVERY_S = 1.0        # its scrape cadence
 HEALTH_BUDGET_FRAC = 0.005  # the JAX bench's budget for the plane (of the
 HEALTH_LOG_INTERVAL_S = 10.0  # update stage, at the default log interval)
 # The hand-written kernels of the bf16 update, as the kernel table names
@@ -1943,6 +1964,294 @@ def health_drill(torch, driver, config, scratch):
           f"1-{HEALTH_SAG_AT - 1}) at one interval per update; harvests "
           f"{[round(h, 3) for h in harvest_s]} s",
           flush=True)
+    return logdir
+
+
+def _same_value(a, b):
+    return a == b or (a != a and b != b)
+
+
+def read_logdir(root, logdir, label):
+    """Phase 3g: the four obs CLIs as subprocesses on a logdir the card
+    wrote (report, diagnose and watch before aggregate, whose
+    metrics.fleet.prom the others would read instead).  None may exit 2
+    (diagnose exits 1 when a verdict fired); the report's dominant stage
+    is the largest ledger/latency_share/* of metrics.prom; its kernels
+    section names every hand-written kernel of kernels.json; the
+    one-process fold of metrics.fleet.prom equals every series of
+    metrics.prom.  Returns each CLI's wall seconds."""
+    from scalable_agent_tpu_torch.obs.aggregate import (
+        FLEET_PROM_NAME,
+        MERGED_TRACE_NAME,
+        parse_prometheus,
+    )
+    from scalable_agent_tpu_torch.obs.ledger import SEGMENTS
+
+    outs, seconds = {}, {}
+    for name, args in (("report", ["--json", logdir]),
+                       ("diagnose", ["--json", logdir]),
+                       ("watch", [logdir, "--once", "--json"]),
+                       ("aggregate", [logdir])):
+        proc, seconds[name] = _run_cli(root, [
+            sys.executable, "-m", f"scalable_agent_tpu_torch.obs.{name}",
+            *args], CLI_TIMEOUT_S)
+        if proc.returncode not in ((0, 1) if name == "diagnose" else (0,)):
+            raise AssertionError(f"obs.{name} on {label}'s logdir exited "
+                                 f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+        outs[name] = proc
+    print(f"  {label}: CLI wall seconds "
+          f"{ {k: round(v, 3) for k, v in seconds.items()} }", flush=True)
+
+    report = json.loads(outs["report"].stdout)
+    for name, _, _ in SEGMENTS:
+        stage = report["stages"][name]
+        print(f"    {name:<13} rate/s {stage['rate_per_s']} rho "
+              f"{stage['rho']} mean_s {stage['mean_s']} p95_s "
+              f"{stage['p95_s']} share {stage['latency_share']}",
+              flush=True)
+    kernels = report["kernels"] or {}
+    print(f"    report: dominant_stage {report['dominant_stage']}, "
+          f"stall_verdict {report['stall_verdict']}, mfu {report['mfu']}; "
+          f"kernels dominant {kernels.get('dominant')}, worst "
+          f"{kernels.get('worst')} (mfu {kernels.get('worst_mfu')})",
+          flush=True)
+    with open(os.path.join(logdir, "metrics.prom")) as f:
+        families = parse_prometheus(f.read())
+    shares = {}
+    for name, _, _ in SEGMENTS:
+        family = f"impala_ledger_latency_share_{name}"
+        if family in families:
+            shares[name] = families[family]["series"][(family, ())]
+    largest = max(shares, key=shares.get) if shares else None
+    if (report["dominant_stage"] or {}).get("name") != largest:
+        raise AssertionError(f"the report's dominant stage "
+                             f"{report['dominant_stage']} is not the largest "
+                             f"latency share of metrics.prom {shares}")
+    path = os.path.join(logdir, "kernels.json")
+    if os.path.exists(path):
+        with open(path) as f:
+            handwritten = {r["name"] for r in json.load(f)["kernels"]
+                           if str(r.get("op", "")).startswith("csrc/")}
+        missing = handwritten - {r["name"] for r in kernels["rows"]}
+        print(f"    kernels.json: {len(handwritten)} hand-written kernels, "
+              f"all in the report's kernels section: {not missing}",
+              flush=True)
+        if not handwritten or missing:
+            raise AssertionError(f"the report's kernels section lacks "
+                                 f"{sorted(missing)} (of {handwritten})")
+
+    diagnosis = json.loads(outs["diagnose"].stdout)
+    print(f"    diagnose: exit {outs['diagnose'].returncode}, verdicts "
+          f"{[v['name'] for v in diagnosis['verdicts']]}", flush=True)
+    payload = json.loads(outs["watch"].stdout)
+    print(f"    watch: verdict {payload['verdict']['category']}, dominant "
+          f"segment {payload['verdict']['dominant_segment']}, anomalies "
+          f"{payload['health']['anomalies']}", flush=True)
+
+    with open(os.path.join(logdir, FLEET_PROM_NAME)) as f:
+        fleet = parse_prometheus(f.read())
+    bad = []
+    for family, data in families.items():
+        series = fleet.get(family, {"series": {}})["series"]
+        for (metric, labels), value in data["series"].items():
+            folded = [v for (m, ls), v in series.items()
+                      if m == metric and dict(ls).get("process", "0") == "0"
+                      and tuple(kv for kv in ls
+                                if kv[0] not in ("process", "fold"))
+                      == labels]
+            if len(folded) != 2 or not all(_same_value(v, value)
+                                           for v in folded):
+                bad.append((metric, labels, value, folded))
+    merged = os.path.join(logdir, MERGED_TRACE_NAME)
+    if os.path.exists(merged):
+        with open(merged) as f:
+            events = len(json.load(f))
+        trace = (f"{MERGED_TRACE_NAME} {events} events, aligned "
+                 f"{'UNALIGNED' not in outs['aggregate'].stdout}")
+    else:
+        trace = "no trace"
+    print(f"    aggregate: {trace}; {FLEET_PROM_NAME}: the one-process fold "
+          f"of {sum(len(d['series']) for d in families.values())} series "
+          f"in {len(families)} families equals metrics.prom: {not bad}",
+          flush=True)
+    if bad:
+        raise AssertionError(f"metrics.fleet.prom differs from metrics.prom "
+                             f"for {bad[:5]}")
+    return seconds
+
+
+def _scrape(port, route):
+    """(status, round-trip ms, body) of one GET; (None, None, None) when
+    nothing listens."""
+    import urllib.error
+    import urllib.request
+
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}",
+                                    timeout=30) as reply:
+            status, body = reply.status, reply.read()
+    except urllib.error.HTTPError as exc:
+        status, body = exc.code, b""
+    except OSError:
+        return None, None, None
+    return status, 1e3 * (time.perf_counter() - t0), body
+
+
+# What obs.watch reads of a logdir.
+WATCHED = ("metrics.prom", "anomalies.jsonl", "fleet_epochs.jsonl")
+
+
+def _watched_stat(logdir):
+    stats = []
+    for name in WATCHED:
+        try:
+            st = os.stat(os.path.join(logdir, name))
+        except FileNotFoundError:
+            continue
+        stats.append((name, st.st_ino, st.st_mtime_ns, st.st_size))
+    return stats
+
+
+def live_endpoint(root, config, scratch, pool_s):
+    """Phase 3g: the main path for LIVE_UPDATES updates as a driver
+    subprocess with --metrics_http_port, scraped every SCRAPE_EVERY_S:
+    /metrics from the start, /health and /anomalies once metrics.prom
+    exists.  Every answer is 200 (nothing listens before the server starts
+    or after it closes, and no scrape in between goes unanswered); the
+    last /metrics parses and carries every family prefix of the final
+    metrics.prom; the last /health whose files stayed unchanged across it
+    equals obs.watch --once --json on a copy of those files, but for
+    logdir and generated_unix; the run exits 0 and its port is closed."""
+    import shutil
+    import socket
+
+    from scalable_agent_tpu_torch.obs.aggregate import parse_prometheus
+
+    logdir = os.path.join(scratch, "live")
+    kept = os.path.join(scratch, "live_health_files")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    cmd = _cli(dataclasses.replace(
+        config, logdir=logdir, metrics_http_port=port,
+        total_environment_frames=float(
+            LIVE_UPDATES * config.frames_per_update())))
+    answers = {"/metrics": [], "/health": [], "/anomalies": []}
+    answered, kept_body = [], None
+    os.makedirs(logdir)
+    err_path = os.path.join(scratch, "live_stderr.txt")
+    t0 = time.monotonic()
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(cmd, cwd=root,
+                                env=dict(os.environ, PYTHONPATH=root),
+                                stdout=subprocess.DEVNULL, stderr=err)
+        try:
+            while proc.poll() is None:
+                if time.monotonic() - t0 > CLI_TIMEOUT_S:
+                    raise AssertionError("the live run timed out")
+                cycle = time.monotonic()
+                routes = ["/metrics"]
+                if os.path.exists(os.path.join(logdir, "metrics.prom")):
+                    routes += ["/health", "/anomalies"]
+                for route in routes:
+                    before = _watched_stat(logdir)
+                    status, ms, body = _scrape(port, route)
+                    answered.append(status is not None)
+                    if status is None:
+                        continue
+                    answers[route].append((status, ms, body))
+                    if route == "/health" and status == 200:
+                        copy = kept + ".new"
+                        os.makedirs(copy)
+                        for name, *_ in before:
+                            shutil.copy2(os.path.join(logdir, name), copy)
+                        if _watched_stat(logdir) == before:
+                            shutil.rmtree(kept, ignore_errors=True)
+                            os.rename(copy, kept)
+                            kept_body = body
+                        else:
+                            shutil.rmtree(copy)
+                time.sleep(max(0.0, SCRAPE_EVERY_S
+                               - (time.monotonic() - cycle)))
+            code = proc.wait()
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    elapsed = time.monotonic() - t0
+    closed = _scrape(port, "/metrics")[0] is None
+    while answered and not answered[-1]:
+        answered.pop()
+    while answered and not answered[0]:
+        answered.pop(0)
+    statuses = {route: sorted({a[0] for a in got})
+                for route, got in answers.items()}
+    print(f"  live run: exit {code} in {elapsed:.1f} s, port closed after "
+          f"it {closed}; scrapes answered "
+          f"{ {r: len(a) for r, a in answers.items()} }, statuses "
+          f"{statuses}, unanswered between answers "
+          f"{answered.count(False)}", flush=True)
+    if code != 0:
+        with open(err_path) as f:
+            raise AssertionError(f"the live run exited {code}:\n"
+                                 f"{f.read()[-3000:]}")
+    # /health may answer 503 until the first snapshot, and 200 after it.
+    health = [a[0] for a in answers["/health"]]
+    first = health.index(200) if 200 in health else len(health)
+    if (not closed or False in answered or not answers["/metrics"]
+            or first == len(health) or set(health[:first]) - {503}
+            or set(health[first:]) != {200}
+            or {a[0] for a in answers["/metrics"] + answers["/anomalies"]}
+            != {200}):
+        raise AssertionError(f"the endpoint did not answer every scrape: "
+                             f"{statuses}, answered {answered}")
+    for route in ("/metrics", "/health"):
+        ms = sorted(a[1] for a in answers[route] if a[0] == 200)
+        print(f"    {route}: {len(ms)} answers at 200, round trip median "
+              f"{ms[len(ms) // 2]:.3f} ms, max {ms[-1]:.3f} ms "
+              f"({len(answers[route][-1][2])} bytes last)", flush=True)
+    anomaly_lines = answers["/anomalies"][-1][2].decode().splitlines() if (
+        answers["/anomalies"]) else []
+    print(f"    /anomalies: {len(anomaly_lines)} lines in the last answer",
+          flush=True)
+
+    with open(os.path.join(logdir, "metrics.prom")) as f:
+        final = parse_prometheus(f.read())
+    scraped = parse_prometheus(answers["/metrics"][-1][2].decode())
+    prefix = lambda names: {n.split("_")[1] for n in names}
+    missing = prefix(final) - prefix(scraped)
+    print(f"    the last /metrics: {len(scraped)} families, prefixes "
+          f"{sorted(prefix(scraped))}; missing of the final metrics.prom's: "
+          f"{sorted(missing)}", flush=True)
+    if missing:
+        raise AssertionError(f"the last /metrics lacks {sorted(missing)}")
+
+    if kept_body is None:
+        raise AssertionError("no /health answer had its files unchanged "
+                             "across it")
+    proc, _ = _run_cli(root, [
+        sys.executable, "-m", "scalable_agent_tpu_torch.obs.watch", kept,
+        "--once", "--json"], CLI_TIMEOUT_S)
+    moving = ("logdir", "generated_unix")
+    served = {k: v for k, v in json.loads(kept_body).items()
+              if k not in moving}
+    watched = {k: v for k, v in json.loads(proc.stdout).items()
+               if k not in moving}
+    print(f"    the last stable /health equals watch --once --json on its "
+          f"files (but for {moving}): {served == watched}; verdict "
+          f"{served['verdict']}", flush=True)
+    if proc.returncode != 0 or served != watched:
+        raise AssertionError(f"/health {served} != watch {watched}\n"
+                             f"{proc.stderr[-2000:]}")
+
+    rows = {r["step"]: r for r in _rows(logdir)}
+    s_per_update = ((rows[LIVE_UPDATES]["time"] - rows[2]["time"])
+                    / (LIVE_UPDATES - 2))
+    print(f"    the live run's s per update, updates 3..{LIVE_UPDATES}: "
+          f"{s_per_update:.4f} (phase 3b's pool loop at the same window: "
+          f"{pool_s:.4f}; single runs spread, nothing is gated on it)",
+          flush=True)
 
 
 def watchdog_drill(config, scratch, root):
@@ -2227,10 +2536,11 @@ def main() -> int:
             breakdown(torch, driver, config)
             print("  the same at compute_dtype=float32:", flush=True)
             breakdown(torch, driver, f32)
-        for window in (2, 1):
-            pool_steady_state(torch, driver, dataclasses.replace(
-                config, inflight_updates=window),
-                os.path.join(scratch, f"pool{window}"))
+        pool_s = {window: pool_steady_state(
+            torch, driver, dataclasses.replace(config,
+                                               inflight_updates=window),
+            os.path.join(scratch, f"pool{window}"))
+            for window in (2, 1)}
 
         phase("phase 3d: the default loop's machinery on the card")
         root = os.path.dirname(os.path.abspath(__file__))
@@ -2275,7 +2585,13 @@ def main() -> int:
 
         phase("phase 3f: the run-health plane")
         with float32_precision():
-            health_drill(torch, driver, config, scratch)
+            health_logdir = health_drill(torch, driver, config, scratch)
+
+        phase("phase 3g: the obs consumers on the card's logdirs")
+        read_logdir(root, logdir, "phase 3 (--trace)")
+        read_logdir(root, health_logdir, "phase 3f (kernel tables)")
+        live_endpoint(root, config, scratch,
+                      pool_s[config.inflight_updates])
 
         phase("phase 3c: fake_bandit learns through the pool on the card "
               "(bf16 policy)")

@@ -29,7 +29,7 @@ UNPORTED_FLAGS = (
     "accum_fused_shards", "actor", "service_max_batch", "train_backend",
     "updates_per_dispatch", "loss",
     "replay_ratio", "replay_capacity", "target_update_interval",
-    "impact_clip_epsilon", "metrics_http_port", "sentinel_interval",
+    "impact_clip_epsilon", "sentinel_interval",
     "sentinel_rtol",
     "chaos_channel", "compile_cache_dir", "peer_timeout_s",
     "collective_timeout_s",
@@ -181,6 +181,10 @@ class Config:
     watchdog_timeout_s: float = 300.0
     # Exit 70 after the watchdog's dump instead of hanging.
     watchdog_abort: bool = False
+    # Serve the registry's live Prometheus text at this port (0: off):
+    # /metrics, plus /anomalies and /health (obs.watch's payload) over
+    # the logdir (obs/exporters.py MetricsHTTPServer).
+    metrics_http_port: int = 0
     # The learning-dynamics telemetry (devtel/learn/*) in the update.
     learn_telemetry: bool = True
     # Respawns of a failing actor thread (capped exponential backoff)

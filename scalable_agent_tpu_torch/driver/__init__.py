@@ -33,10 +33,12 @@ experiment.py:675-708):
   tracer under ``--trace`` (``<logdir>/trace.p0.<pid>.json``), the
   pipeline ledger with its live MFU gauge (``configure_live_mfu``), the
   stall attributor, and the learner's device telemetry
-  (``--learn_telemetry``).  At each log interval, in the JAX order: the
-  device telemetry's one fetch, ``ledger.publish()``, the learner's
-  heartbeat, ``stall.attribute`` over the interval's ``wait_batch``,
-  ``update`` and ``retire`` sums, the metrics row (where
+  (``--learn_telemetry``), and under ``--metrics_http_port`` the scrape
+  endpoint (``MetricsHTTPServer``: ``/metrics``, ``/anomalies``,
+  ``/health``) for the length of the run.  At each log interval, in the
+  JAX order: the device telemetry's one fetch, ``ledger.publish()``, the
+  learner's heartbeat, ``stall.attribute`` over the interval's
+  ``wait_batch``, ``update`` and ``retire`` sums, the metrics row (where
   ``NonFiniteTracker`` reads the skip counters) and the registry row,
   then ``metrics.prom``.  ``--profile_dir`` records updates from
   ``profile_start_update`` on with ``torch.profiler`` (``record_shapes``)
@@ -70,9 +72,10 @@ no card; ``--device=cpu`` runs every kernel's plain PyTorch version.  Exit
 codes (``runtime/exit_codes.py``): 0 for a finished or a drained
 preempted run, 70 for the watchdog under ``--watchdog_abort``, 71 for the
 non-finite guard, 72 for an expired preemption grace, 143 for a second
-SIGTERM.  Replay, multi-task training, DMLab-30 suite scoring, the obs
-CLIs and the multi-process fleet are not ported yet (ROADMAP.md, queue
-1).
+SIGTERM.  The obs CLIs read a run's logdir (``python -m
+scalable_agent_tpu_torch.obs.report <logdir>``; ``obs/__init__.py``).
+Replay, multi-task training, DMLab-30 suite scoring and the multi-process
+fleet are not ported yet (ROADMAP.md, queue 1).
 """
 
 import contextlib
@@ -104,6 +107,7 @@ from scalable_agent_tpu_torch.models import (
     initial_state,
 )
 from scalable_agent_tpu_torch.obs import (
+    MetricsHTTPServer,
     MetricsRegistry,
     MetricsWriter,
     PrometheusExporter,
@@ -421,13 +425,17 @@ class _ObsHandles:
     registry: MetricsRegistry
     prom: PrometheusExporter
     uninstall_handlers: Callable[[], None]
+    http: Optional[MetricsHTTPServer] = None
 
 
 def _setup_observability(config: Config) -> _ObsHandles:
     """Arm the obs producers for one run (``driver.py:665-713``): the
     tracer under ``--trace`` (``<logdir>/trace.p0.<pid>.json``), the
     registry's device-memory gauge, ``<logdir>/metrics.prom``, the flight
-    recorder and its crash handlers, and the watchdog."""
+    recorder and its crash handlers, the watchdog, and the scrape
+    endpoint under ``--metrics_http_port`` (at that port plus the process
+    index, 0 here; a port that is taken logs an error and the run goes
+    on)."""
     if config.trace:
         configure_tracer(os.path.join(
             config.logdir, f"trace.p0.{os.getpid()}.json"))
@@ -440,7 +448,17 @@ def _setup_observability(config: Config) -> _ObsHandles:
     configure_watchdog(config.watchdog_timeout_s, registry=registry,
                        abort=config.watchdog_abort,
                        flight_recorder=recorder)
-    return _ObsHandles(registry=registry, prom=prom,
+    http = None
+    if config.metrics_http_port:
+        try:
+            http = MetricsHTTPServer(registry, config.metrics_http_port,
+                                     logdir=config.logdir)
+            log.info("serving Prometheus metrics on :%d/metrics "
+                     "(+ /anomalies, /health)", http.port)
+        except OSError as exc:  # a taken port must not kill training
+            log.error("metrics HTTP endpoint unavailable on port %d: %s",
+                      config.metrics_http_port, exc)
+    return _ObsHandles(registry=registry, prom=prom, http=http,
                        uninstall_handlers=uninstall)
 
 
@@ -456,6 +474,8 @@ def _teardown_observability(config: Config, handles: _ObsHandles):
     elif recorder.pending_dump_reason:
         recorder.dump_all(recorder.pending_dump_reason)
     configure_watchdog(None)
+    if handles.http is not None:
+        handles.http.close()
     if config.trace:
         configure_tracer(None)  # closes and flushes the file
     handles.prom.dump()

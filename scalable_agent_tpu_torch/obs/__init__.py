@@ -15,9 +15,15 @@ card.
 
 The run-health plane (``health``, with the verdict rules of ``learning``)
 reads that stream at log cadence, and ``kernels`` turns a profile window
-into a per-kernel table.  The ``aggregate``, ``report``, ``diagnose`` and
-``watch`` CLIs and ``MetricsHTTPServer`` are not ported yet (ROADMAP.md,
-queue 1).
+into a per-kernel table.  Four CLIs read a run's logdir off disk:
+``aggregate`` (folds traces and Prometheus snapshots), ``report`` (the
+stage table, staleness, MFU, the worst kernels), ``diagnose`` (the
+learning-dynamics verdict) and ``watch`` (the run-health console), each
+``python -m scalable_agent_tpu_torch.obs.<cli> <logdir>``;
+``MetricsHTTPServer`` (``--metrics_http_port``) serves the registry and
+``watch``'s payload live.  This package and its CLIs import neither torch
+nor jax: only the device-side methods of ``device_telemetry`` import
+torch, when they run.
 """
 
 from scalable_agent_tpu_torch.obs.device_telemetry import (
@@ -25,6 +31,7 @@ from scalable_agent_tpu_torch.obs.device_telemetry import (
     TelemetryPublisher,
 )
 from scalable_agent_tpu_torch.obs.exporters import (
+    MetricsHTTPServer,
     MetricsWriter,
     PrometheusExporter,
     render_prometheus,
@@ -85,6 +92,7 @@ __all__ = [
     "HealthMonitor",
     "Histogram",
     "KERNELS_JSON_NAME",
+    "MetricsHTTPServer",
     "MetricsRegistry",
     "MetricsWriter",
     "PipelineLedger",

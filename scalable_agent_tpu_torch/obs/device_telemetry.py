@@ -22,12 +22,18 @@ tensors:
   registry under ``devtel/<namespace>/...`` names.
 
 Counts are float32, exact to 2**24.
+
+``torch`` is imported inside the methods that touch a tensor: this module
+rides the ``obs`` package's init, which the report, aggregate, diagnose
+and watch CLIs import, and they run without torch against logdirs copied
+off the card.
 """
+
+from __future__ import annotations
 
 from typing import Dict, Iterable, List, Sequence, Tuple, Union
 
 import numpy as np
-import torch
 
 __all__ = [
     "DeviceTelemetry",
@@ -111,6 +117,8 @@ class DeviceTelemetry:
 
     def init(self, device=None) -> Dict[str, torch.Tensor]:
         """Fresh zeroed buffers on ``device``, one tensor per leaf."""
+        import torch
+
         zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32,
                                            device=device)
         tel: Dict[str, torch.Tensor] = {}
@@ -138,6 +146,8 @@ class DeviceTelemetry:
         """Gauge ``name`` = ``value``."""
         if name not in self._gauges:
             raise KeyError(f"unknown telemetry gauge {name!r}")
+        import torch
+
         buf = tel[self._key(_GAUGE, name)]
         if isinstance(value, torch.Tensor):
             buf.copy_(value.reshape(()))
@@ -149,6 +159,8 @@ class DeviceTelemetry:
         """Gauge ``name`` = ``values[name]`` for every name, the values
         tensors on the buffers' device, in one multi-tensor copy (one
         launch where ``set`` takes one per gauge)."""
+        import torch
+
         for name in values:
             if name not in self._gauges:
                 raise KeyError(f"unknown telemetry gauge {name!r}")
@@ -160,6 +172,8 @@ class DeviceTelemetry:
     def _edges(self, name: str, device) -> torch.Tensor:
         """The declared edges of ``name`` as a tensor on ``device``, made
         once (a host-to-device copy per update would be a new transfer)."""
+        import torch
+
         key = (name, torch.device(device))
         edges = self._edge_tensors.get(key)
         if edges is None:
@@ -174,6 +188,8 @@ class DeviceTelemetry:
         ``where`` (broadcast against ``values``; None: all) is true."""
         if name not in self._hists:
             raise KeyError(f"unknown telemetry histogram {name!r}")
+        import torch
+
         base = self._key(_HIST, name)
         buckets = tel[base + ":buckets"]
         raw = torch.as_tensor(values, dtype=torch.float32,
@@ -247,6 +263,8 @@ def _materialize_leaves(mine: Dict) -> Dict[str, np.ndarray]:
     are concatenated on their device, copied, and split on the host."""
     if not mine:
         return {}
+    import torch
+
     flat = torch.cat([v.detach().reshape(-1) for v in mine.values()]
                      ).cpu().numpy()
     out = {}

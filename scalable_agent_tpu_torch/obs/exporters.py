@@ -15,14 +15,17 @@ The part of ``scalable_agent_tpu/obs/exporters.py`` a run arms:
   ``write_registry`` appends the registry snapshot as one more row, its
   names prefixed ``obs/``.
 
-``MetricsHTTPServer`` (``--metrics_http_port``) is not ported yet: its
-``/health`` route serves ``obs.watch``'s payload, which comes with the
-obs consumers (ROADMAP.md, queue 1).
+- ``MetricsHTTPServer`` (``--metrics_http_port``): the registry's live
+  exposition text on ``/metrics``, and, with a logdir, the tail of
+  ``anomalies.jsonl`` on ``/anomalies`` and ``obs.watch``'s payload on
+  ``/health``, beside the ``aggregate``, ``report``, ``diagnose`` and
+  ``watch`` CLIs that read the same files off disk.
 """
 
 import json
 import os
 import re
+import threading
 import time
 from typing import Dict, Optional
 
@@ -33,7 +36,8 @@ from scalable_agent_tpu_torch.obs.registry import (
     MetricsRegistry,
 )
 
-__all__ = ["MetricsWriter", "PrometheusExporter", "render_prometheus"]
+__all__ = ["MetricsHTTPServer", "MetricsWriter", "PrometheusExporter",
+           "render_prometheus"]
 
 _NAME_RE = re.compile(r"[^a-zA-Z0-9_:]")
 _PREFIX = "impala_"
@@ -96,6 +100,118 @@ class PrometheusExporter:
             f.write(text)
         os.replace(tmp, self.path)
         return text
+
+
+class MetricsHTTPServer:
+    """A stdlib Prometheus scrape endpoint (``--metrics_http_port``).
+
+    Serves the registry's CURRENT exposition text on ``/metrics`` (and
+    ``/``) so scrapers don't have to poll ``<logdir>/metrics.prom`` off
+    disk.  With a ``logdir``, two run-health routes ride the same
+    already-open port so a remote rig needs no extra listener:
+    ``/anomalies`` (the tail of ``anomalies.jsonl``, NDJSON — empty
+    200 when the run has none) and ``/health`` (the ``obs.watch
+    --once --json`` payload; 503 until the first prom snapshot lands).
+    ``http.server.ThreadingHTTPServer`` on a daemon thread — rendering
+    happens per request, never on the training hot path.  ``port=0``
+    binds an ephemeral port (tests); read ``.port`` for the bound
+    value.
+    """
+
+    ANOMALIES_TAIL_LINES = 64
+
+    def __init__(self, registry: MetricsRegistry, port: int,
+                 host: str = "0.0.0.0", logdir: str = ""):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        outer = self
+
+        class _Handler(BaseHTTPRequestHandler):
+            def do_GET(self):
+                route = self.path.split("?")[0]
+                if route == "/anomalies" and outer._logdir:
+                    self._send(outer._anomalies_body(),
+                               "application/x-ndjson")
+                    return
+                if route == "/health" and outer._logdir:
+                    try:
+                        payload = outer._health_payload()
+                    except FileNotFoundError as exc:
+                        # Detail goes in the body: the status line is
+                        # latin-1 only and the diagnosis may not be.
+                        self.send_error(503, "no metrics snapshot yet",
+                                        str(exc))
+                        return
+                    except Exception as exc:
+                        self.send_error(500, "health payload failed",
+                                        str(exc))
+                        return
+                    self._send(json.dumps(payload).encode() + b"\n",
+                               "application/json")
+                    return
+                if route not in ("/", "/metrics"):
+                    self.send_error(404)
+                    return
+                try:
+                    body = render_prometheus(outer._registry).encode()
+                except Exception as exc:  # a dying gauge must 500, not die
+                    self.send_error(500, str(exc))
+                    return
+                self._send(
+                    body, "text/plain; version=0.0.4; charset=utf-8")
+
+            def _send(self, body: bytes, content_type: str):
+                self.send_response(200)
+                self.send_header("Content-Type", content_type)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *args):  # no per-scrape stdout spam
+                pass
+
+        self._registry = registry
+        self._logdir = logdir
+        self._server = ThreadingHTTPServer((host, port), _Handler)
+        self._server.daemon_threads = True
+        self.port = self._server.server_address[1]
+        self._thread = threading.Thread(
+            target=self._server.serve_forever, daemon=True,
+            name="metrics-http")
+        self._thread.start()
+
+    def _anomalies_body(self) -> bytes:
+        """The anomalies.jsonl tail as NDJSON; an absent file is an
+        empty (valid) stream, not an error — the run has no anomalies
+        yet."""
+        from scalable_agent_tpu_torch.obs.health import ANOMALIES_JSONL
+
+        path = os.path.join(self._logdir, ANOMALIES_JSONL)
+        try:
+            lines = open(path).read().splitlines()
+        except OSError:
+            return b""
+        tail = lines[-self.ANOMALIES_TAIL_LINES:]
+        return ("\n".join(tail) + "\n").encode() if tail else b""
+
+    def _health_payload(self) -> dict:
+        # Lazy import: watch pulls the report's parsing, none of which
+        # belongs on the exporter's import path for plain scrapes.
+        from scalable_agent_tpu_torch.obs.watch import build_payload
+
+        return build_payload(self._logdir)
+
+    def close(self):
+        self._server.shutdown()
+        self._server.server_close()
+        self._thread.join(timeout=5)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc_info):
+        self.close()
+        return False
 
 
 class MetricsWriter:

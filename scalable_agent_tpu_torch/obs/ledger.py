@@ -36,8 +36,9 @@ at trajectory cadence, and the derivation runs at the log interval.
 
 The JAX ledger's service and replay stages (``note_service``,
 ``ledger/staleness_replayed_s``) belong to subsystems not ported yet
-(ROADMAP.md, queues 6 and 7), and its ``PEAK_FLOPS`` table lists TPU
-peaks only, none of which applies here.
+(ROADMAP.md, queues 6 and 7): their names (``SERVICE_STAGES``) are here
+for ``obs/report.py``, and nothing publishes them.  Its ``PEAK_FLOPS``
+table lists TPU peaks only, none of which applies here.
 """
 
 import json
@@ -52,6 +53,8 @@ __all__ = [
     "PEAK_FLOPS",
     "SEGMENT_LABELS",
     "SEGMENTS",
+    "SERVICE_STAGES",
+    "SERVICE_UTILIZATION_STAGES",
     "STAGES",
     "PipelineLedger",
     "configure_ledger",
@@ -93,6 +96,14 @@ SEGMENTS = (
     ("device", "dispatch", "retire"),
 )
 
+# The JAX ledger's stages beside the trajectory path, fed by its inference
+# services and replay slab (not ported): the report reads their rate and
+# rho when a run publishes them.  SERVICE_UTILIZATION_STAGES are those
+# whose rho is one server's utilization in [0, 1].
+SERVICE_STAGES = ("inference_service", "service_wait", "service_batch",
+                  "replay_insert", "replay_sample")
+SERVICE_UTILIZATION_STAGES = ("inference_service", "service_batch")
+
 SEGMENT_LABELS = {
     "unroll": "actor unroll (env stepping + inference)",
     "backpressure": "actor backpressure (trajectory queue full)",
@@ -100,6 +111,11 @@ SEGMENT_LABELS = {
     "transport": "host->device transport",
     "staged_wait": "staging wait (learner busy)",
     "device": "device execution (in-flight window)",
+    "inference_service": "dynamic-batching inference service",
+    "service_wait": "actor-service request wait (batch formation)",
+    "service_batch": "actor-service batched inference execution",
+    "replay_insert": "replay slab insert dispatch (device-side write)",
+    "replay_sample": "replay slab sample dispatch (gather + unpack)",
 }
 
 # Peak dense FLOP/s of the cards the live MFU gauge knows, by

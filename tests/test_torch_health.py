@@ -16,11 +16,12 @@ pin, ``driver._HealthPlane``) held against the live JAX package.
 - Driver runs on the CPU (chaos): ``throughput_sag`` drives the whole
   anomaly protocol (record, pinned dump, exactly one profile window with
   its ``kernels.<id>.json``) and the same run without chaos stays
-  anomaly-free, as ``tests/test_health.py``'s acceptance pair (without
-  the CLIs, not ported); an oversized learning rate with an inverted
-  entropy bonus trips ``entropy_collapse`` with a pinned dump and the sane
-  twin stays clean (``tests/test_learning_dynamics.py``'s
-  ``TestChaosEntropyCollapse``, without ``diagnose``).
+  anomaly-free, as ``tests/test_health.py``'s acceptance pair, and the
+  port's ``obs.watch --once --json`` and ``obs.report --json`` surface
+  both alike; an oversized learning rate with an inverted entropy bonus
+  trips ``entropy_collapse`` with a pinned dump that ``obs.diagnose``
+  names (exit 1), and the sane twin stays clean (exit 0)
+  (``tests/test_learning_dynamics.py``'s ``TestChaosEntropyCollapse``).
 """
 
 import copy
@@ -35,7 +36,13 @@ from scalable_agent_tpu.obs import health as jax_health
 from scalable_agent_tpu.obs.registry import MetricsRegistry as JaxRegistry
 from scalable_agent_tpu_torch import driver
 from scalable_agent_tpu_torch.config import Config
-from scalable_agent_tpu_torch.obs import flightrec, health
+from scalable_agent_tpu_torch.obs import (
+    diagnose,
+    flightrec,
+    health,
+    report,
+    watch,
+)
 from scalable_agent_tpu_torch.obs import registry as registry_lib
 from scalable_agent_tpu_torch.obs.registry import MetricsRegistry
 from scalable_agent_tpu_torch.runtime.faults import configure_faults
@@ -576,9 +583,18 @@ def registry(monkeypatch):
     configure_faults("")
 
 
+def _consoles(capsys, logdir):
+    """``obs.watch --once --json`` and ``obs.report --json`` on a run's
+    logdir, in process: (payload, report), both exiting 0."""
+    assert watch.main([logdir, "--once", "--json"]) == 0
+    payload = json.loads(capsys.readouterr().out)
+    assert report.main(["--json", logdir]) == 0
+    return payload, json.loads(capsys.readouterr().out)
+
+
 @pytest.mark.chaos
 def test_throughput_sag_drives_the_full_anomaly_protocol(
-        tmp_path, monkeypatch, registry):
+        tmp_path, monkeypatch, registry, capsys):
     monkeypatch.setenv("SCALABLE_AGENT_LEDGER_MFU_PEAK", "1e12")
     config = _health_config(tmp_path, chaos_spec="throughput_sag@8:11")
     metrics = driver.train(config)
@@ -615,23 +631,36 @@ def test_throughput_sag_drives_the_full_anomaly_protocol(
     assert registry.snapshot()["health/profile_windows_total"] == 1.0
     assert registry.snapshot()["health/suppressed_total"] >= 1.0
 
+    payload, machine = _consoles(capsys, config.logdir)
+    assert payload["health"]["anomalies"] >= 1
+    assert any(r["detector"] == "throughput"
+               for r in payload["health"]["recent"])
+    assert machine["anomalies"] is not None
+    assert any(a["id"] == record["id"] for a in machine["anomalies"])
+
 
 @pytest.mark.chaos
-def test_clean_run_stays_anomaly_free(tmp_path, registry):
+def test_clean_run_stays_anomaly_free(tmp_path, registry, capsys):
     metrics = driver.train(_health_config(tmp_path))
     assert metrics["env_frames"] == 96
     assert health.read_anomalies(str(tmp_path / "run")) == []
     prom = (tmp_path / "run" / "metrics.prom").read_text()
     assert "impala_health_anomalies_total 0.0" in prom
     assert not glob.glob(str(tmp_path / "run" / "health_profile.*"))
+    payload, machine = _consoles(capsys, str(tmp_path / "run"))
+    assert payload["health"]["anomalies"] == 0
+    assert payload["health"]["recent"] == []
+    assert machine["anomalies"] is None
 
 
 @pytest.mark.chaos
 def test_oversized_lr_trips_entropy_collapse_sane_twin_clean(tmp_path,
-                                                              registry):
+                                                              registry,
+                                                              capsys):
     """A divergence-scale lr with an inverted entropy bonus collapses the
     policy: an ``entropy_collapse`` record with a pinned flight-recorder
-    dump; the identical sane config writes no learning anomaly."""
+    dump, which ``obs.diagnose`` names (exit 1); the identical sane config
+    writes no learning anomaly and diagnoses clean (exit 0)."""
     common = dict(total_environment_frames=80, checkpoint_interval_s=0.0,
                   health_warmup_intervals=8, health_z_threshold=4.0,
                   health_max_windows=2, health_window_updates=5)
@@ -643,11 +672,22 @@ def test_oversized_lr_trips_entropy_collapse_sane_twin_clean(tmp_path,
     assert collapse, [r["detector"] for r in records]
     assert collapse[-1]["flightrec"]["dump"]
     assert collapse[-1]["observed"] < 0.05
+    diagnosis = diagnose.build_diagnosis(bad.logdir)
+    names = [v["name"] for v in diagnosis["verdicts"]]
+    assert "entropy_collapse" in names
+    verdict = diagnosis["verdicts"][names.index("entropy_collapse")]
+    assert any(a.get("flightrec", {}).get("dump")
+               for a in verdict["anomalies"])
+    assert diagnose.main([bad.logdir]) == 1
 
     sane = _health_config(tmp_path / "sane", **common)
     driver.train(sane)
+    sane_diagnosis = diagnose.build_diagnosis(sane.logdir)
+    assert sane_diagnosis["clean"], sane_diagnosis["verdicts"]
     assert not [r for r in health.read_anomalies(sane.logdir)
                 if r["detector"] in ("entropy_collapse", "clip_saturation")]
+    assert diagnose.main([sane.logdir]) == 0
+    capsys.readouterr()
 
 
 def test_health_off_arms_nothing(tmp_path, registry):

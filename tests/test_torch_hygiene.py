@@ -60,6 +60,25 @@ def test_importing_every_module_leaves_jax_out():
                    cwd=str(ROOT), timeout=120)
 
 
+OBS_CLIS = ("aggregate", "report", "diagnose", "watch")
+
+
+def test_importing_obs_and_its_clis_leaves_torch_and_jax_out():
+    """The obs package and its four CLIs run on a laptop against logdirs
+    copied off the card: importing them loads neither torch nor jax."""
+    modules = ["scalable_agent_tpu_torch.obs"] + [
+        f"scalable_agent_tpu_torch.obs.{name}" for name in OBS_CLIS]
+    code = ("import importlib, sys\n"
+            f"for name in {modules!r}:\n"
+            "    importlib.import_module(name)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'jax', 'jaxlib'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   cwd=str(ROOT), timeout=120)
+
+
 def test_cuda_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
@@ -114,21 +133,26 @@ def test_unported_flags_and_values_raise(argv):
 
 
 def test_obs_ports_the_jax_producers_only():
-    """obs/ holds copies of the JAX producers and of the run-health plane
-    with the two modules it stands on (each checked above for imports);
-    the CLIs, the HTTP endpoint and the sentinel, and their flags, stay
-    unported and raise."""
+    """obs/ holds copies of the JAX producers, of the run-health plane
+    with the two modules it stands on, and of the four CLIs that read a
+    logdir (each checked above for imports); --metrics_http_port is
+    ported with them.  The sentinel and the rounds CLI, and the
+    sentinel's flags, stay unported and raise."""
     ported = {p.stem for p in (PACKAGE / "obs").glob("*.py")}
     assert ported == {"__init__", "registry", "exporters", "flightrec",
                       "trace", "stall", "watchdog", "ledger",
-                      "device_telemetry", "learning", "kernels", "health"}
+                      "device_telemetry", "learning", "kernels", "health",
+                      *OBS_CLIS}
     jax_obs = ROOT / "scalable_agent_tpu" / "obs"
     assert ported <= {p.stem for p in jax_obs.glob("*.py")}
     health_flags = {f.name for f in dataclasses.fields(Config)
                     if f.name.startswith("health")}
     assert len(health_flags) == 9 and health_flags.isdisjoint(
         UNPORTED_FLAGS)
-    for flag in ("metrics_http_port", "sentinel_interval", "sentinel_rtol"):
+    assert "metrics_http_port" not in UNPORTED_FLAGS
+    assert Config.from_argv(["--metrics_http_port=1"]).metrics_http_port \
+        == 1
+    for flag in ("sentinel_interval", "sentinel_rtol"):
         assert flag in UNPORTED_FLAGS
         with pytest.raises(ValueError, match="ROADMAP.md"):
             Config.from_argv([f"--{flag}=1"])
@@ -178,6 +202,7 @@ def test_library_name_follows_the_sources(monkeypatch, tmp_path):
     (["--profile_num_updates=3"], "profile_num_updates", 3),
     (["--watchdog_timeout_s=0.5"], "watchdog_timeout_s", 0.5),
     (["--watchdog_abort=true"], "watchdog_abort", True),
+    (["--metrics_http_port=9417"], "metrics_http_port", 9417),
     (["--learn_telemetry=false"], "learn_telemetry", False),
     (["--health=false"], "health", False),
     (["--health_warmup_intervals=3"], "health_warmup_intervals", 3),
