@@ -68,6 +68,29 @@ a result:
    launch no V-trace kernel, and the float32 policy's path
    (``--compute_dtype=float32``) for 2 updates, counted the same way for
    the float32 kernels.
+3h. (Run after 3.) The deep agent, ``--torso_type=resnet
+   --use_instruction=true``: the ResNet stem's grad-W kernel (3x3, stride
+   1, 3 channels into 16 features) against its plain version at N=3232
+   frames of 72x96, float32 and with bf16 x and g, in both layouts, at
+   N=3233, N=1 and 64 frames of 17x23 in both layouts, two calls bitwise
+   equal, its device time beside cuDNN's ``conv2d_weight``; the lean,
+   residual and BPTT LSTM kernels at the deep core's D=330, each variant
+   against its plain version with two calls bitwise equal, its device
+   time, its wrapper's and plain version's time and its bound; the deep
+   agent's forward and every parameter gradient on the card against the
+   CPU under both policies (float32 at ``AGENT_TOL``; bf16: every leaf
+   outside the convnet at ``AGENT_BF16_TOL``, the convnet's within
+   ``DEEP_BF16_FRACTION`` of the bf16 policy's own distance from float32,
+   the card's bf16 within ``DEEP_BF16_WITNESS`` of that distance, the
+   stem's gradient from the card's own cotangent within one bf16 rounding
+   of the plain version's, and the relu and max-pool decisions on which
+   card and CPU part ways, counted); then the command itself on the
+   main path's configuration (``scan_impl`` at its default) for 4 bf16
+   updates counted as in phase 3 (the ResNet stem's bf16 grad-W once an
+   update, every LSTM kernel, the shallow stem's never), its s per update,
+   env frames/s and ``ledger/mfu``, ``--mode=test`` on its checkpoint
+   (adopting the architecture from ``config.json``), 2 float32 updates
+   counted, and one iteration taken apart as in 3b.
 3b. Where the time goes: one actor unroll, the upload (per_leaf, and
    packed as pack, upload with its GB/s, and unpack) and one update taken
    apart (with torch.profiler for the update's kernels), at bf16 and at
@@ -170,7 +193,8 @@ a result:
    at a one-in-two stall rate, 0.6% at one in three).
 4. A ``{"kernels": [...]}`` line (the float32 kernels with their launches
    on the float32 path, the bf16 variants and V-trace with theirs on the
-   main path), the card's line, then as the last line
+   main path; the ResNet stem's from 3h's float32 and bf16 runs), the
+   card's line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
@@ -201,6 +225,18 @@ LSTM_TOL = 1e-4             # scale-relative; f32 sums in another order
 LSTM_BF16_SHORT_T = 10
 LSTM_BF16_LONG_TOL = 3e-3
 AGENT_BF16_TOL = 2e-2       # the CPU tests' band for the bf16 policy
+# The deep agent at bf16 on the card against the CPU: every leaf outside
+# the convnet within AGENT_BF16_TOL; the convnet's gradients within this
+# fraction of the bf16 policy's own distance from float32 (the same
+# weights and inputs on the CPU, in the same run), the card's bf16 no
+# further from float32 than DEEP_BF16_WITNESS times the CPU's bf16, and
+# the stem's gradient from the card's own cotangent within one bf16
+# rounding of the plain version's.  Through 15 bf16 convs and 3 max-pools
+# two bf16 implementations of the same math take different relu and pool
+# decisions; the run prints how many (PERF.md, section 6).
+DEEP_BF16_FRACTION = 0.5
+DEEP_BF16_WITNESS = 1.1
+BF16_ROUNDING_TOL = 2.0 ** -7  # one bf16 ulp of the element, at most
 RESID_MAX_MS = 5.9          # residual forward device time: half of the
                             # one-block-per-row loop's 11.94 ms (PERF.md)
 BPTT_MAX_MS = 2.27          # BPTT device time, every kernel: half of the
@@ -368,6 +404,24 @@ def _lstm_tol(matmul_dtype, steps):
     return LSTM_TOL
 
 
+def _lstm_costs(T, B, D, H):
+    """(bytes, operations) of the lean step at T=1, the residual forward
+    and the BPTT at T steps: each input read once, each output written
+    once (float32: the kernels read float32 in both variants)."""
+    f4 = 4
+    lean = (f4 * (B * D + B + 2 * B * H + (D + H + 1) * 4 * H + 2 * B * H),
+            2 * B * (D + H) * 4 * H + 12 * B * H)
+    resid = (f4 * (T * B * D + T * B + 2 * B * H + (D + H + 1) * 4 * H
+                   + T * B * H * 8 + 2 * B * H),
+             T * (2 * B * (D + H) * 4 * H + 12 * B * H))
+    bptt = (f4 * (T * B * H + 2 * B * H + T * B * D + T * B
+                  + T * B * 4 * H + 3 * T * B * H + (D + H) * 4 * H
+                  + T * B * D + (D + H + 1) * 4 * H + 2 * B * H),
+            (2 * T * B * 4 * H * (H + D + D + H) + T * B * 4 * H
+             + 20 * T * B * H))
+    return {"lean": lean, "resid": resid, "bptt": bptt}
+
+
 def compare_lstm(torch, lstm_cuda, device, matmul_dtype="float32"):
     """Lean forward (T=1), residual forward and BPTT (T=101) vs plain, at
     the products' operand type ``matmul_dtype``."""
@@ -384,7 +438,7 @@ def compare_lstm(torch, lstm_cuda, device, matmul_dtype="float32"):
     wi, wh = rand(D, 4 * H, scale=D ** -0.5), rand(H, 4 * H, scale=H ** -0.5)
     b = rand(4 * H, scale=0.1)
     rows = []
-    f4 = 4  # bytes per float32: the kernels read float32 in both variants
+    costs = _lstm_costs(T, B, D, H)
     md = dict(matmul_dtype=matmul_dtype)
 
     # Lean forward: the step kernel at the actor's T=1 for several batch
@@ -425,8 +479,7 @@ def compare_lstm(torch, lstm_cuda, device, matmul_dtype="float32"):
     cell_err = _errors([(cell_h.float(), plain.h), (cell_c.float(), plain.c)])
     print(f"  (torch.lstm_cell{tag} after the reset against the same plain "
           f"version: max_rel_err {cell_err[1]:.3e})", flush=True)
-    nbytes = f4 * (B * D + B + 2 * B * H + (D + H + 1) * 4 * H + 2 * B * H)
-    flops = 2 * B * (D + H) * 4 * H + 12 * B * H
+    nbytes, flops = costs["lean"]
     device_ms = _device_ms(torch, lambda: lean(*args1), "lstm_step_kernel",
                            50)
     cell_device_ms = _device_ms(torch, cell, None, 50)
@@ -467,9 +520,7 @@ def compare_lstm(torch, lstm_cuda, device, matmul_dtype="float32"):
     print(f"  lstm_fwd_resid{tag}: two calls bitwise equal", flush=True)
     compare_resid_shapes(torch, lstm_cuda, device, gen, wi, b, matmul_dtype)
     fwd_ms = resid_device_ms(torch, lstm_cuda, args, matmul_dtype)
-    nbytes = f4 * (T * B * D + T * B + 2 * B * H + (D + H + 1) * 4 * H
-                   + T * B * H * 8 + 2 * B * H)
-    flops = T * (2 * B * (D + H) * 4 * H + 12 * B * H)
+    nbytes, flops = costs["resid"]
     if not fwd_ms < RESID_MAX_MS:
         raise AssertionError(f"the residual forward's device time "
                              f"{fwd_ms:.4f} ms is not below {RESID_MAX_MS} "
@@ -510,11 +561,7 @@ def compare_lstm(torch, lstm_cuda, device, matmul_dtype="float32"):
     if not bptt_ms < BPTT_MAX_MS:
         raise AssertionError(f"the BPTT's device time {bptt_ms:.4f} ms is "
                              f"not below {BPTT_MAX_MS} ms")
-    nbytes = f4 * (T * B * H + 2 * B * H + T * B * D + T * B
-                   + T * B * 4 * H + 3 * T * B * H + (D + H) * 4 * H
-                   + T * B * D + (D + H + 1) * 4 * H + 2 * B * H)
-    flops = (2 * T * B * 4 * H * (H + D + D + H) + T * B * 4 * H
-             + 20 * T * B * H)
+    nbytes, flops = costs["bptt"]
     rows.append((_variant("lstm_bptt", matmul_dtype), "lstm.cu",
                  "lstm_pallas.py:123", err,
                  lambda: lstm_cuda.lstm_backward(*bargs),
@@ -821,6 +868,182 @@ def compare_gradw(torch, conv_cuda, device, N=101 * 32, dtype=None):
              library, nbytes, flops, bf16, device_ms)]
 
 
+def compare_resnet_gradw(torch, conv_cuda, device, N=101 * 32, dtype=None):
+    """The ResNet stem's grad-W (3x3, stride 1, 3 channels into 16
+    features) at the learner's merged batch N = 101 * 32 of 72x96 frames,
+    in both layouts, then at an uneven N, one image and an odd frame, with
+    x and g of ``dtype`` (float32, or bfloat16 for the bf16-operand
+    variant); two calls bitwise equal; device ms against cuDNN's."""
+    dtype = dtype or torch.float32
+    bf16 = dtype == torch.bfloat16
+    tag = " bf16" if bf16 else ""
+    name = "resnet_stem_gradw" + ("_bf16" if bf16 else "")
+    gen = torch.Generator().manual_seed(8765)
+    Hh, W, C, K, Fo = 72, 96, 3, 3, 16
+    frames = lambda *shape: (torch.randint(
+        0, 256, shape, generator=gen, dtype=torch.uint8).to(device).to(dtype)
+        / 255.0)
+    cotangent = lambda *shape: torch.randn(shape, generator=gen).to(
+        device).to(dtype)
+    planar = lambda t: t.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    x = frames(N, Hh, W, C)
+    g = cotangent(N, Hh, W, Fo)
+    kern = conv_cuda.conv_gradw(x, g, K, 1)
+    plain = conv_cuda.conv_gradw_plain(x, g, K, 1)
+    again = conv_cuda.conv_gradw(x, g, K, 1)
+    x_nchw, g_nchw = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+    library = lambda: torch.nn.grad.conv2d_weight(
+        x_nchw, (Fo, C, K, K), g_nchw, 1, 1)
+    lib_dw = library().permute(2, 3, 1, 0).float()
+    torch.cuda.synchronize()
+    err = _errors([(kern, plain)])
+    _check(name, *err, GRADW_TOL)
+    if not torch.equal(kern, again):
+        raise AssertionError(f"{name}: two calls gave different dW")
+    print(f"  {name}: two calls bitwise equal", flush=True)
+    print(f"  (cuDNN's conv2d_weight{tag} against the same plain version: "
+          f"max_rel_err {_errors([(lib_dw, plain)])[1]:.3e})", flush=True)
+    for layout, xx, gg in (("x NCHW-planar, g NHWC", planar(x), g),
+                           ("x NHWC, g NCHW-planar", x, planar(g))):
+        _check(f"{name}, {layout}",
+               *_errors([(conv_cuda.conv_gradw(xx, gg, K, 1), plain)]),
+               GRADW_TOL)
+        del xx, gg
+    for n, hh, ww in ((N + 1, 72, 96), (1, 72, 96), (64, 17, 23)):
+        xs, gs = frames(n, hh, ww, C), cotangent(n, hh, ww, Fo)
+        want = conv_cuda.conv_gradw_plain(xs, gs, K, 1)
+        for xx, gg, layout in ((xs, gs, "NHWC"),
+                               (planar(xs), planar(gs), "NCHW-planar")):
+            _check(f"{name} N={n} {hh}x{ww} {layout}",
+                   *_errors([(conv_cuda.conv_gradw(xx, gg, K, 1), want)]),
+                   GRADW_TOL)
+        del xs, gs
+    device_ms = _device_ms(
+        torch, lambda: conv_cuda.conv_gradw(x, g, K, 1),
+        ("resnet_stem_gradw_kernel", "reduce_partials_kernel"), 10)
+    lib_device_ms = _device_ms(torch, library, None, 10)
+    plan = conv_cuda.resnet_gradw_plan(N, Hh, W, x.element_size(),
+                                       conv_cuda._sm_count(0))
+    print(f"  {name}: kernels' device time {device_ms:.4f} ms, cuDNN "
+          f"conv2d_weight{tag} {lib_device_ms:.4f} ms (torch.profiler); "
+          f"plan {plan.units} units over {plan.blocks} blocks, "
+          f"{plan.smem_bytes} bytes of shared memory a block", flush=True)
+    width = x.element_size()
+    nbytes = width * (N * Hh * W * C + N * Hh * W * Fo) + 4 * K * K * C * Fo
+    flops = 2 * N * Hh * W * K * K * C * Fo
+    return [(name, "conv.cu", "conv_pallas.py:86", err,
+             lambda: conv_cuda.conv_gradw(x, g, K, 1),
+             lambda: conv_cuda.conv_gradw_plain(x, g, K, 1),
+             library, nbytes, flops, bf16, device_ms)]
+
+
+def compare_lstm_wide(torch, lstm_cuda, device, matmul_dtype="float32"):
+    """The three LSTM kernels at the deep agent's core input D = 256 + 1 +
+    9 + 64 = 330 (the instruction's 64 features), T=101 and B=32, H=256,
+    against their plain versions: the lean step at T=1 and T=5, the
+    residual forward and the BPTT with two calls bitwise equal; each one's
+    device time (torch.profiler), its wrapper's and its plain version's
+    time (CUDA events) and its bound; these by part."""
+    bf16 = matmul_dtype == "bfloat16"
+    tag = " bf16" if bf16 else ""
+    gen = torch.Generator().manual_seed(3300)
+    T, B, D, H = 101, 32, 330, 256
+    rand = lambda *shape, scale=1.0: (
+        torch.randn(shape, generator=gen) * scale).to(device)
+    x = rand(T, B, D)
+    done = (torch.rand((T, B), generator=gen) < 0.05).float().to(device)
+    c0, h0 = rand(B, H, scale=0.5), torch.tanh(rand(B, H))
+    wi, wh = rand(D, 4 * H, scale=D ** -0.5), rand(H, 4 * H, scale=H ** -0.5)
+    b = rand(4 * H, scale=0.1)
+    md = dict(matmul_dtype=matmul_dtype)
+    ms = {}
+    for steps in (1, 5):
+        args = (x[:steps].contiguous(), done[:steps].contiguous(), c0, h0,
+                wi, wh, b)
+        kern = lstm_cuda.lstm_forward(*args, residuals=False, **md)
+        plain = lstm_cuda.lstm_forward_plain(*args, residuals=False, **md)
+        _check(f"lstm_fwd_lean{tag} [{steps},{B},{D}]",
+               *_errors(zip(kern[:3], plain[:3])), LSTM_TOL)
+    args1 = (x[:1].contiguous(), done[:1].contiguous(), c0, h0, wi, wh, b)
+    ms["lean"] = _device_ms(
+        torch, lambda: lstm_cuda.lstm_forward(*args1, residuals=False, **md),
+        "lstm_step_kernel", 50)
+    args = (x, done, c0, h0, wi, wh, b)
+    kern = lstm_cuda.lstm_forward(*args, residuals=True, **md)
+    plain = lstm_cuda.lstm_forward_plain(*args, residuals=True, **md)
+    again = lstm_cuda.lstm_forward(*args, residuals=True, **md)
+    torch.cuda.synchronize()
+    tol = _lstm_tol(matmul_dtype, T)
+    _check(f"lstm_fwd_resid{tag} [{T},{B},{D}]",
+           *_errors(zip(_resid_outputs(kern), _resid_outputs(plain))), tol)
+    if not all(torch.equal(p, q) for p, q in zip(_resid_outputs(kern),
+                                                   _resid_outputs(again))):
+        raise AssertionError(f"lstm_fwd_resid{tag} D={D}: two calls gave "
+                             f"different outputs")
+    ms["resid"] = resid_device_ms(torch, lstm_cuda, args, matmul_dtype)
+    bargs = (rand(T, B, H), rand(B, H), rand(B, H), x, done, wi, wh,
+             plain.residuals, matmul_dtype)
+    kern = lstm_cuda.lstm_backward(*bargs)
+    again = lstm_cuda.lstm_backward(*bargs)
+    _check(f"lstm_bptt{tag} [{T},{B},{D}]", *_errors(zip(
+        kern, lstm_cuda.lstm_backward_plain(*bargs))), tol)
+    if not all(torch.equal(p, q) for p, q in zip(kern, again)):
+        raise AssertionError(f"lstm_bptt{tag} D={D}: two calls gave "
+                             f"different gradients")
+    ms["bptt"] = bptt_device_ms(torch, lstm_cuda, bargs)
+    calls = {
+        "lean": (lambda: lstm_cuda.lstm_forward(*args1, residuals=False,
+                                                **md),
+                 lambda: lstm_cuda.lstm_forward_plain(
+                     *args1, residuals=False, **md), 50),
+        "resid": (lambda: lstm_cuda.lstm_forward(*args, residuals=True,
+                                                 **md),
+                  lambda: lstm_cuda.lstm_forward_plain(
+                      *args, residuals=True, **md), 10),
+        "bptt": (lambda: lstm_cuda.lstm_backward(*bargs),
+                 lambda: lstm_cuda.lstm_backward_plain(*bargs), 10)}
+    costs = _lstm_costs(T, B, D, H)
+    print(f"  LSTM kernels{tag} at D={D}: two calls bitwise equal", flush=True)
+    for part, (kern_fn, plain_fn, iters) in calls.items():
+        bound, bound_by = _bound_ms(*costs[part], bf16)
+        times = dict(device_ms=ms[part],
+                     ms=_time_ms(torch, kern_fn, iters),
+                     plain_ms=_time_ms(torch, plain_fn, max(3, iters // 5)),
+                     bound_ms=bound, bound_by=bound_by)
+        ms[part] = times
+        print(f"    {part}: ms {times['ms']:.4f}, device ms "
+              f"{times['device_ms']:.4f}, bound {bound:.4f} ms "
+              f"({bound_by}), plain ms {times['plain_ms']:.4f}", flush=True)
+    return ms
+
+
+def time_rows(torch, rows):
+    """Each phase-2 row timed on the card: the kernel's wrapper, its plain
+    version and the library call (CUDA events), beside its bound; the
+    kernels line's fields by kernel name."""
+    timed = {}
+    for (name, src, replaces, err, kern_fn, plain_fn, lib_fn, nbytes,
+         flops, bf16, device_ms) in rows:
+        iters = 50 if name.startswith(("lstm_fwd_lean",
+                                       "vtrace_fused")) else 10
+        ms = _time_ms(torch, kern_fn, iters)
+        plain_ms = _time_ms(torch, plain_fn, max(3, iters // 5))
+        lib_ms = _time_ms(torch, lib_fn, iters) if lib_fn else None
+        bound_ms, bound_by = _bound_ms(nbytes, flops, bf16)
+        timed[name] = dict(
+            name=name, route="cuda",
+            source=f"scalable_agent_tpu_torch/csrc/{src}",
+            replaces=f"scalable_agent_tpu/ops/{replaces}",
+            max_abs_err=err[0], ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+            device_ms=device_ms)
+        print(f"  {name}: kernel {ms:.4f} ms, device {device_ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, library "
+              f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+    return timed
+
+
 def _vtrace_errors(torch, pairs):
     """``_errors`` over the entries finite in the plain version; a NaN, +inf
     or -inf must sit at the same places in the kernel's output."""
@@ -946,12 +1169,14 @@ def compare_vtrace(torch, vtrace_cuda, vtrace, device):
     return rows
 
 
-def compare_agent(torch, device, compute_dtype=None):
+def compare_agent(torch, device, compute_dtype=None, torso_type="shallow",
+                  use_instruction=False):
     """Forward and every parameter gradient of the whole agent on the card
     against the same weights on the CPU (plain versions, CPU convs), at
     full width and a short unroll, under the dtype policy of
     ``compute_dtype`` (the core's operands follow it, as ``auto``
-    resolves)."""
+    resolves); ``torso_type`` and ``use_instruction`` pick the agent (the
+    deep one's instructions hold full, partial and all-padding rows)."""
     compute_dtype = compute_dtype or torch.float32
     bf16 = compute_dtype == torch.bfloat16
     import copy
@@ -968,7 +1193,8 @@ def compare_agent(torch, device, compute_dtype=None):
     T, B = 5, 4
     agent_cpu = ImpalaAgent(
         9, (72, 96, 3), generator=gen, compute_dtype=compute_dtype,
-        core_matmul_dtype="bfloat16" if bf16 else "float32")
+        core_matmul_dtype="bfloat16" if bf16 else "float32",
+        torso_type=torso_type, use_instruction=use_instruction)
     agent_gpu = copy.deepcopy(agent_cpu).to(device)
 
     def inputs(dev):
@@ -982,21 +1208,133 @@ def compare_agent(torch, device, compute_dtype=None):
             c=(torch.randn((B, 256), generator=g) * 0.5).to(dev),
             h=torch.tanh(torch.randn((B, 256), generator=g)).to(dev))
         zeros = torch.zeros((T, B), device=dev)
+        instruction = None
+        if use_instruction:
+            ids = torch.randint(1, 1001, (T, B, 16), generator=g)
+            length = torch.randint(0, 17, (T, B, 1), generator=g)
+            instruction = torch.where(torch.arange(16) < length, ids,
+                                      0).int().to(dev)
         env = StepOutput(reward, StepOutputInfo(zeros, zeros), done,
-                         Observation(frame=frame))
+                         Observation(frame=frame, instruction=instruction))
         return actions, env, state
 
-    results = []
-    for agent, dev in ((agent_gpu, device), (agent_cpu, torch.device("cpu"))):
-        (logits, baseline), state = agent(*inputs(dev))
+    def run(agent, dev, record=None):
+        with record or contextlib.nullcontext():
+            (logits, baseline), state = agent(*inputs(dev))
         loss = (logits.square().sum() + baseline.sum()
                 + state.c.sum() + state.h.square().sum())
         grads = torch.autograd.grad(loss, list(agent.parameters()))
-        results.append([t.detach().cpu() for t in
-                        (logits, baseline, state.c, state.h, *grads)])
-    err = _errors(zip(*results))
-    _check(f"agent forward + parameter gradients{' (bf16 policy)' * bf16}",
-           *err, AGENT_BF16_TOL if bf16 else AGENT_TOL)
+        return [t.detach().float().cpu() for t in
+                (logits, baseline, state.c, state.h, *grads)]
+
+    deep = torso_type == "resnet"
+    what = "deep agent" if deep else "agent"
+    name = f"{what} forward + parameter gradients{' (bf16 policy)' * bf16}"
+    cpu = torch.device("cpu")
+    if not (deep and bf16):
+        card, plain = run(agent_gpu, device), run(agent_cpu, cpu)
+        _check(name, *_errors(zip(card, plain)),
+               AGENT_BF16_TOL if bf16 else AGENT_TOL)
+        return
+    # The deep agent at bf16 (see DEEP_BF16_FRACTION): each side's relu
+    # and max-pool inputs and the stem's own cotangent are recorded.
+    records = {side: _recorder(torch) for side in ("card", "cpu", "f32")}
+    card = run(agent_gpu, device, records["card"])
+    plain = run(agent_cpu, cpu, records["cpu"])
+    agent_f32 = ImpalaAgent(9, (72, 96, 3), torso_type=torso_type,
+                            use_instruction=use_instruction)
+    agent_f32.load_state_dict(agent_cpu.state_dict())
+    f32 = run(agent_f32, cpu, records["f32"])
+    leaves = ["logits", "baseline", "state.c", "state.h"] + [
+        n for n, _ in agent_cpu.named_parameters()]
+
+    def worst(pairs):
+        """The leaf furthest apart, and its scale-relative distance."""
+        return max(((_errors([pair])[1], leaf) for leaf, pair in pairs),
+                   default=(0.0, "none"))
+
+    convnet = [i for i, leaf in enumerate(leaves)
+               if leaf.startswith("convnet.")]
+    rest = [i for i in range(len(leaves)) if i not in convnet]
+    pick = lambda idx, a, b: [(leaves[i], (a[i], b[i])) for i in idx]
+    rest_err = worst(pick(rest, card, plain))
+    print(f"  ({name}, outside the convnet: furthest leaf {rest_err[1]} "
+          f"at {rest_err[0]:.3e})", flush=True)
+    _check(f"{name}, outside the convnet",
+           *_errors(pair for _, pair in pick(rest, card, plain)),
+           AGENT_BF16_TOL)
+    # The stem's gradient from the card's own input and cotangent, by the
+    # plain version: only the summation order and one bf16 rounding apart.
+    x = (inputs(cpu)[1].observation.frame.reshape(T * B, 72, 96, 3)
+         .bfloat16() / 255.0)
+    g = records["card"].stem_g[0].permute(0, 2, 3, 1).cpu()
+    from scalable_agent_tpu_torch.ops.conv_cuda import conv_gradw_plain
+    stem = conv_gradw_plain(x, g, 3, 1).permute(3, 2, 0, 1)
+    _check(f"{name}, the stem's weight gradient against the plain version "
+           f"on the card's own cotangent",
+           *_errors([(card[leaves.index("convnet.downscale_0.weight")],
+                      stem)]), BF16_ROUNDING_TOL)
+    net_err = worst(pick(convnet, card, plain))
+    policy = worst(pick(range(len(leaves)), plain, f32))
+    witness = worst(pick(range(len(leaves)), card, f32))
+    flips = _flips(torch, records["card"], records["cpu"])
+    policy_flips = _flips(torch, records["cpu"], records["f32"])
+    print(f"  ({name}, the convnet: furthest leaf {net_err[1]} at "
+          f"{net_err[0]:.3e}; the bf16 policy against float32 on the CPU "
+          f"{policy[0]:.3e} ({policy[1]}), the card's bf16 against it "
+          f"{witness[0]:.3e} ({witness[1]}); relu sign and max-pool argmax "
+          f"flips, card against CPU: {flips}, bf16 against float32 on the "
+          f"CPU: {policy_flips})", flush=True)
+    _check(f"{name}, the convnet", *_errors(
+        pair for _, pair in pick(convnet, card, plain)),
+        DEEP_BF16_FRACTION * policy[0])
+    if not witness[0] <= DEEP_BF16_WITNESS * policy[0]:
+        raise AssertionError(
+            f"{name}: the card's bf16 is {witness[0]:.3e} from float32, "
+            f"more than {DEEP_BF16_WITNESS} x the CPU's bf16 "
+            f"({policy[0]:.3e})")
+
+
+def _recorder(torch):
+    """A torch function mode that records, in call order, the input of
+    every relu and max-pool and the cotangent at the ResNet stem's output
+    (the first pad's input: the stem conv plus its bias, before the
+    pool)."""
+    import torch.nn.functional as F
+    from torch.overrides import TorchFunctionMode
+
+    class Record(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.relu, self.pool, self.stem_g = [], [], []
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if func is torch.relu:
+                self.relu.append(args[0].detach().cpu())
+            elif func is F.max_pool2d:
+                self.pool.append(args[0].detach().cpu())
+            elif (func is F.pad and not self.pool
+                  and args[0].requires_grad):
+                args[0].register_hook(self.stem_g.append)
+            return func(*args, **kwargs)
+
+    return Record()
+
+
+def _flips(torch, a, b):
+    """Where two recorded runs of one model part ways: relu inputs of
+    opposite sign, and max-pool windows whose argmax differs (each taken
+    on the CPU from the recorded inputs), as "n of total" counts."""
+    import torch.nn.functional as F
+
+    relu = sum(int(((p > 0) != (q > 0)).sum()) for p, q in zip(a.relu, b.relu))
+    relu_all = sum(p.numel() for p in a.relu)
+    index = lambda t: F.max_pool2d(t.float(), 3, 2, return_indices=True)[1]
+    pool = sum(int((index(p) != index(q)).sum())
+               for p, q in zip(a.pool, b.pool))
+    pool_all = sum(index(p).numel() for p in a.pool)
+    return f"relu {relu} of {relu_all}, max-pool {pool} of {pool_all}"
 
 
 def upload_parts(torch, device, out, reps=UPLOAD_REPS):
@@ -1120,6 +1458,55 @@ def breakdown(torch, driver, config):
         print(f"  {what} in the update: {sum(ms for _, ms in parts):.3f} ms "
               f"({', '.join(f'{n} {ms:.3f}' for n, ms in parts)})",
               flush=True)
+
+
+def deep_path(torch, driver, config, scratch, train_counted, reset_counts,
+              read_counts):
+    """``--torso_type=resnet --use_instruction=true`` on the main path's
+    configuration (``scan_impl`` at its default, as the command a user
+    types): 4 bf16 updates counted (the ResNet stem's bf16 grad-W once an
+    update, every LSTM kernel at D=330), s per update after the first 2,
+    env frames/s and ``ledger/mfu``; ``--mode=test`` on its checkpoint
+    with the default architecture's flags (the checkpoint's wins); 2
+    float32 updates counted; then the bf16 path's iteration taken apart
+    (``breakdown``: the update's device ms by kernel).  Returns the bf16
+    and float32 runs' launch counts."""
+    deep = dataclasses.replace(
+        config, torso_type="resnet", use_instruction=True, scan_impl="auto",
+        trace=False, logdir=os.path.join(scratch, "deep"))
+    launches = train_counted(deep, UPDATES, "_bf16", "resnet_stem_gradw")
+    rows = {r["step"]: r for r in _rows(deep.logdir)}
+    s_per_update = (rows[UPDATES]["time"] - rows[2]["time"]) / (UPDATES - 2)
+    registry = [r for r in _all_rows(deep.logdir) if _is_registry_row(r)]
+    tail = [rows[k] for k in range(3, UPDATES + 1)]
+    print(f"  deep path, updates 3..{UPDATES}: {s_per_update:.4f} s per "
+          f"update ({deep.frames_per_update() / s_per_update:.0f} env "
+          f"frames/s; mean of per-update rows: learner fps "
+          f"{sum(r['fps'] for r in tail) / len(tail):.0f}, actor fps "
+          f"{sum(r['actor_fps'] for r in tail) / len(tail):.0f}); "
+          f"ledger/mfu {registry[-1]['obs/ledger/mfu']:.6g}", flush=True)
+    reset_counts()
+    t0 = time.monotonic()
+    returns = driver.test(dataclasses.replace(
+        deep, mode="test", torso_type="shallow", use_instruction=False,
+        test_num_episodes=8))[deep.level_name]
+    test_launches = read_counts()
+    print(f"  deep --mode=test: {len(returns)} returns in "
+          f"{time.monotonic() - t0:.1f} s; launches {test_launches}",
+          flush=True)
+    if len(returns) != 8 or test_launches["lstm_fwd_lean_bf16"] == 0:
+        raise AssertionError("the deep path's --mode=test did not run 8 "
+                             "episodes through the bf16 lean LSTM kernel")
+    f32 = dataclasses.replace(
+        deep, logdir=os.path.join(scratch, "deep_f32"),
+        compute_dtype="float32", total_environment_frames=float(
+            F32_UPDATES * deep.frames_per_update()))
+    f32_launches = train_counted(f32, F32_UPDATES, "", "resnet_stem_gradw")
+    from scalable_agent_tpu_torch.ops import float32_precision
+
+    with float32_precision():
+        breakdown(torch, driver, deep)
+    return launches, f32_launches
 
 
 def _all_rows(logdir):
@@ -2399,38 +2786,21 @@ def main() -> int:
             rows += compare_lstm(torch, lstm_cuda, device, matmul_dtype)
             rows += compare_gradw(torch, conv_cuda, device, dtype=dtype)
         rows += compare_vtrace(torch, vtrace_cuda, vtrace, device)
-        timed = {}
-        for (name, src, replaces, err, kern_fn, plain_fn, lib_fn, nbytes,
-             flops, bf16, device_ms) in rows:
-            iters = 50 if name.startswith(("lstm_fwd_lean",
-                                           "vtrace_fused")) else 10
-            ms = _time_ms(torch, kern_fn, iters)
-            plain_ms = _time_ms(torch, plain_fn, max(3, iters // 5))
-            lib_ms = _time_ms(torch, lib_fn, iters) if lib_fn else None
-            bound_ms, bound_by = _bound_ms(nbytes, flops, bf16)
-            timed[name] = dict(
-                name=name, route="cuda",
-                source=f"scalable_agent_tpu_torch/csrc/{src}",
-                replaces=f"scalable_agent_tpu/ops/{replaces}",
-                max_abs_err=err[0], ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
-                device_ms=device_ms)
-            print(f"  {name}: kernel {ms:.4f} ms, device {device_ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms, library "
-                  f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms, "
-                  f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
-            if name == "stem_gradw" and not ms < lib_ms:
-                raise AssertionError("stem_gradw is not faster than "
-                                     "cuDNN's conv2d_weight")
+        timed = time_rows(torch, rows)
+        if not timed["stem_gradw"]["ms"] < timed["stem_gradw"]["library_ms"]:
+            raise AssertionError("stem_gradw is not faster than cuDNN's "
+                                 "conv2d_weight")
         del rows
         compare_agent(torch, device)
         compare_agent(torch, device, torch.bfloat16)
         torch.cuda.empty_cache()
 
-    def train_counted(config, updates, suffix):
+    def train_counted(config, updates, suffix, stem="stem_gradw"):
         """driver.train with every count set to 0 just before and read just
         after; the kernels of the variant ``suffix`` launched as the path
-        runs them, the other variant's never."""
+        runs them (the torso's ``stem`` grad-W, V-trace's kernel under
+        ``scan_impl=pallas``), the other variant's and the other stem's
+        never."""
         reset_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.monotonic()
@@ -2456,10 +2826,13 @@ def main() -> int:
         expected = {"lstm_fwd_lean" + suffix: updates * config.unroll_length,
                     "lstm_fwd_resid" + suffix: updates,
                     "lstm_bptt" + suffix: updates,
-                    "stem_gradw" + suffix: updates,
-                    "vtrace_fused": updates,
+                    "vtrace_fused": (updates if config.scan_impl == "pallas"
+                                     else 0),
                     "lstm_fwd_lean" + other: 0, "lstm_fwd_resid" + other: 0,
-                    "lstm_bptt" + other: 0, "stem_gradw" + other: 0}
+                    "lstm_bptt" + other: 0}
+        for name in ("stem_gradw", "resnet_stem_gradw"):
+            expected[name + suffix] = updates if name == stem else 0
+            expected[name + other] = 0
         for name, want in expected.items():
             ok = (launches[name] >= want if name == "lstm_fwd_lean" + suffix
                   else launches[name] == want)
@@ -2529,6 +2902,25 @@ def main() -> int:
             total_environment_frames=float(
                 F32_UPDATES * config.frames_per_update()))
         f32_launches = train_counted(f32, F32_UPDATES, "")
+
+        phase("phase 3h: the deep agent (ResNet torso and instruction "
+              "encoder)")
+        with float32_precision():
+            deep_rows = []
+            for dtype in (torch.float32, torch.bfloat16):
+                deep_rows += compare_resnet_gradw(torch, conv_cuda, device,
+                                                  dtype=dtype)
+            timed.update(time_rows(torch, deep_rows))
+            del deep_rows
+            torch.cuda.empty_cache()
+            for matmul_dtype in ("float32", "bfloat16"):
+                compare_lstm_wide(torch, lstm_cuda, device, matmul_dtype)
+            for dtype in (torch.float32, torch.bfloat16):
+                compare_agent(torch, device, dtype, "resnet", True)
+            torch.cuda.empty_cache()
+        deep_launches, deep_f32_launches = deep_path(
+            torch, driver, config, scratch, train_counted, reset_counts,
+            read_counts)
 
         phase("phase 3b: where one iteration of the main path spends its "
               "time")
@@ -2600,14 +2992,18 @@ def main() -> int:
 
     # -- phase 4: the report.  Launches: the bf16 variants' (and V-trace's)
     # from the main path, the float32 variants' from the float32 path.
-    counts = dict(f32_launches, **{k: v for k, v in launches.items()
-                                   if k.endswith("_bf16")},
-                  vtrace_fused=launches["vtrace_fused"])
+    counts = dict(f32_launches)
+    counts.update({k: v for k, v in launches.items() if k.endswith("_bf16")})
+    counts.update(vtrace_fused=launches["vtrace_fused"],
+                  resnet_stem_gradw=deep_f32_launches["resnet_stem_gradw"],
+                  resnet_stem_gradw_bf16=deep_launches[
+                      "resnet_stem_gradw_bf16"])
     kernels = [dict(timed[name], launches=counts[name])
                for name in ("lstm_fwd_lean", "lstm_fwd_resid", "lstm_bptt",
                             "stem_gradw", "lstm_fwd_lean_bf16",
                             "lstm_fwd_resid_bf16", "lstm_bptt_bf16",
-                            "stem_gradw_bf16", "vtrace_fused")]
+                            "stem_gradw_bf16", "vtrace_fused",
+                            "resnet_stem_gradw", "resnet_stem_gradw_bf16")]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,7 +23,6 @@ from typing import Optional
 # list against the JAX Config so the two cannot drift apart.
 UNPORTED_FLAGS = (
     "benchmark_mode", "dataset_path", "renderer", "record_to",
-    "use_instruction",
     "mesh_data", "mesh_seq", "mesh_model", "distributed_coordinator",
     "distributed_num_processes", "distributed_process_id", "inference_mode",
     "accum_fused_shards", "actor", "service_max_batch", "train_backend",
@@ -40,7 +39,7 @@ UNPORTED_FLAGS = (
 # Ported flags that take only some of the JAX package's values here.
 SUPPORTED_VALUES = {
     "mode": ("train", "test"),
-    "torso_type": ("shallow",),
+    "torso_type": ("shallow", "resnet"),
     "compute_dtype": ("bfloat16", "float32"),
     # "pallas" names the fused done-reset core; its counterpart here is
     # the hand-written CUDA kernel, which "auto" also resolves to.
@@ -127,7 +126,10 @@ class Config:
     test_num_workers: int = 2
 
     # -- model and kernels
-    torso_type: str = "shallow"
+    torso_type: str = "shallow"  # shallow | resnet
+    # The language LSTM over the observation's instruction (the envs
+    # carry one: FakeEnv's with_instruction).
+    use_instruction: bool = False
     # The one dtype policy (models/agent.py): torso, concat and heads at
     # compute_dtype; params, loss, V-trace and optimizer in float32.
     compute_dtype: str = "bfloat16"

@@ -3,15 +3,21 @@
 ``flax_to_state_dict`` takes the JAX ``ImpalaAgent``'s params as numpy
 arrays (what ``jax.device_get(params)`` gives, with or without the outer
 ``{"params": ...}``) and returns a ``state_dict`` for
-``models.agent.ImpalaAgent``; ``state_dict_to_flax`` goes back.  The maps:
+``models.agent.ImpalaAgent``; ``state_dict_to_flax`` goes back.  Module
+paths are the same, ``/`` for ``.`` (``convnet/residual_1_0/conv_0`` is
+``convnet.residual_1_0.conv_0``).  The maps:
 
-- conv kernels HWIO <-> OIHW;
+- conv kernels HWIO <-> OIHW (every 4-D ``kernel`` of ``convnet``: the
+  shallow torso's three, the ResNet torso's fifteen);
 - Dense kernels [in, out] <-> Linear weights [out, in];
-- ``fc``: the port flattens the conv stack in NHWC order like the JAX
-  torso, so its rows need no reordering;
+- ``fc``: the port flattens the last activations in NHWC order like the
+  JAX torsos, so its rows need no reordering;
 - the eight ``core/lstm/{ii,if,ig,io,hi,hf,hg,ho}`` gate params <->
   ``core.wi [D,4H]``, ``core.wh [H,4H]``, ``core.b [4H]`` in (i, f, g, o)
-  order; only the recurrent side carries a bias.
+  order; only the recurrent side carries a bias.  The instruction
+  encoder's ``instruction/language_lstm/cell/*`` <-> ``instruction.wi``,
+  ``.wh``, ``.b`` by the same map, and ``instruction/embed/embedding``
+  <-> ``instruction.embed.weight`` as it is.
 
 Both directions copy exactly (no arithmetic), so a round trip is bitwise.
 
@@ -19,7 +25,8 @@ Both directions copy exactly (no arithmetic), so a round trip is bitwise.
 of the flax module it comes from, by the JAX learner's rule
 (``runtime/learner.py`` ``_layer_group``): ``convnet/*`` (``fc``
 included) is the torso, ``core/lstm/*`` the core, ``policy_logits`` and
-``baseline`` the heads, anything else the torso.
+``baseline`` the heads, anything else (the instruction encoder) the
+torso.
 """
 
 from typing import Dict, Mapping
@@ -33,8 +40,11 @@ GATES = "ifgo"
 # The port's top-level modules by the flax module each one holds.
 _MODULE_GROUPS = {"convnet": "torso", "core": "core",
                   "policy_logits": "heads", "baseline": "heads"}
-_DENSE = ("convnet/fc", "policy_logits", "baseline")
-_CONVS = ("convnet/conv_0", "convnet/conv_1", "convnet/conv_2")
+# Modules whose leaves are conv and Dense kernels with their biases.
+_LAYERS = ("convnet", "policy_logits", "baseline")
+# The done-reset LSTMs: the port's module, and the flax cell's path.
+_LSTMS = {"core": "core/lstm", "instruction": "instruction/language_lstm/cell"}
+_EMBED = ("instruction.embed.weight", "instruction/embed/embedding")
 
 
 def _get(tree: Mapping, path: str):
@@ -55,21 +65,33 @@ def layer_group(name: str) -> str:
 def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     tree = params.get("params", params)
     arrays = {}
-    for path in _CONVS:
-        arrays[_key(path) + ".weight"] = np.transpose(
-            np.asarray(_get(tree, path + "/kernel")), (3, 2, 0, 1))
-        arrays[_key(path) + ".bias"] = np.asarray(_get(tree, path + "/bias"))
-    for path in _DENSE:
-        arrays[_key(path) + ".weight"] = np.asarray(
-            _get(tree, path + "/kernel")).T
-        arrays[_key(path) + ".bias"] = np.asarray(_get(tree, path + "/bias"))
-    lstm = tree["core"]["lstm"]
-    arrays["core.wi"] = np.concatenate(
-        [np.asarray(lstm["i" + g]["kernel"]) for g in GATES], axis=-1)
-    arrays["core.wh"] = np.concatenate(
-        [np.asarray(lstm["h" + g]["kernel"]) for g in GATES], axis=-1)
-    arrays["core.b"] = np.concatenate(
-        [np.asarray(lstm["h" + g]["bias"]) for g in GATES], axis=-1)
+
+    def layers(node, path):
+        if "kernel" in node:
+            kernel = np.asarray(node["kernel"])
+            arrays[_key(path) + ".weight"] = (
+                np.transpose(kernel, (3, 2, 0, 1)) if kernel.ndim == 4
+                else kernel.T)
+            arrays[_key(path) + ".bias"] = np.asarray(node["bias"])
+            return
+        for name, child in node.items():
+            layers(child, f"{path}/{name}")
+
+    for module in _LAYERS:
+        if module in tree:
+            layers(tree[module], module)
+    for module, path in _LSTMS.items():
+        if module not in tree:
+            continue
+        cell = _get(tree, path)
+        arrays[module + ".wi"] = np.concatenate(
+            [np.asarray(cell["i" + g]["kernel"]) for g in GATES], axis=-1)
+        arrays[module + ".wh"] = np.concatenate(
+            [np.asarray(cell["h" + g]["kernel"]) for g in GATES], axis=-1)
+        arrays[module + ".b"] = np.concatenate(
+            [np.asarray(cell["h" + g]["bias"]) for g in GATES], axis=-1)
+    if "instruction" in tree:
+        arrays[_EMBED[0]] = np.asarray(_get(tree, _EMBED[1]))
     return {name: torch.from_numpy(np.array(a, np.float32))
             for name, a in arrays.items()}
 
@@ -84,17 +106,26 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
             node = node.setdefault(key, {})
         node[leaf] = np.ascontiguousarray(value)
 
-    for path in _CONVS:
-        put(path, "kernel", np.transpose(sd[_key(path) + ".weight"],
-                                         (2, 3, 1, 0)))
-        put(path, "bias", sd[_key(path) + ".bias"])
-    for path in _DENSE:
-        put(path, "kernel", sd[_key(path) + ".weight"].T)
-        put(path, "bias", sd[_key(path) + ".bias"])
-    hidden = sd["core.wh"].shape[0]
-    for n, g in enumerate(GATES):
-        cols = slice(n * hidden, (n + 1) * hidden)
-        put("core/lstm/i" + g, "kernel", sd["core.wi"][:, cols])
-        put("core/lstm/h" + g, "kernel", sd["core.wh"][:, cols])
-        put("core/lstm/h" + g, "bias", sd["core.b"][cols])
+    for name, value in sd.items():
+        module, _, leaf = name.rpartition(".")
+        if module.split(".")[0] not in _LAYERS:
+            continue
+        path = module.replace(".", "/")
+        if leaf == "weight":
+            put(path, "kernel", np.transpose(value, (2, 3, 1, 0))
+                if value.ndim == 4 else value.T)
+        else:
+            put(path, "bias", value)
+    for module, path in _LSTMS.items():
+        if module + ".wh" not in sd:
+            continue
+        hidden = sd[module + ".wh"].shape[0]
+        for n, g in enumerate(GATES):
+            cols = slice(n * hidden, (n + 1) * hidden)
+            put(f"{path}/i{g}", "kernel", sd[module + ".wi"][:, cols])
+            put(f"{path}/h{g}", "kernel", sd[module + ".wh"][:, cols])
+            put(f"{path}/h{g}", "bias", sd[module + ".b"][cols])
+    if _EMBED[0] in sd:
+        path, _, leaf = _EMBED[1].rpartition("/")
+        put(path, leaf, sd[_EMBED[0]])
     return {"params": tree}

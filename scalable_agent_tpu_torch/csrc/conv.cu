@@ -1,6 +1,8 @@
-// Hand-written Hopper (sm_90a) kernel for the weight gradient of the
-// torso's SAME-padded 8x8 / stride-4 stem conv (3-channel frames into 32
-// features).
+// Hand-written Hopper (sm_90a) kernels for the weight gradient of the
+// torsos' stem convs: the shallow torso's SAME-padded 8x8 / stride-4 stem
+// (3-channel frames into 32 features), described here, and the ResNet
+// torso's 3x3 / stride-1 stem (3 channels into 16 features), described
+// above resnet_stem_gradw_kernel below.
 //
 // Replaces scalable_agent_tpu/ops/conv_pallas.py::_gradw_kernel.  The TPU
 // kernel re-lays the padded input out by space-to-depth, gathers the taps
@@ -434,6 +436,382 @@ int gradw(const T* x, const T* g, float* partial, float* dw, int H, int W,
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// The ResNet torso's stem (downscale_0): SAME 3x3 / stride 1, 3 channels
+// into 16 features, at the frame's full resolution.
+//
+// Replaces scalable_agent_tpu/ops/conv_pallas.py::_gradw_kernel at
+// (K, S, C, F) = (3, 1, 3, 16), where its space-to-depth is the identity
+// (depth 3) and its contraction has 27 rows:
+//
+//   dW[kh, kw, c, f] = sum_{n, oh, ow} x[n, oh + kh - 1, ow + kw - 1, c]
+//                                      * g[n, oh, ow, f]
+//
+// i.e. dW[27, 16] over N*OH*OW = 22.3 M pixels at the main path's N=3232
+// frames of 72x96.  What bounds it on this card: the bytes.  g has 16
+// channels at full resolution and is 84% of the 1.70 GB read in float32
+// (0.85 GB with bf16 x and g), against 19.3 GFLOP of FMA: 0.507 ms of bytes
+// against 0.288 ms of float32 FFMA at 67 TFLOP/s; 0.253 ms of bytes at bf16.
+//
+// Design (a simple kernel: float32 FFMA, no tensor cores, no TMA):
+// * Bands of kResRows = 8 whole output rows of one image.  A block stages a
+//   band's 10 input rows (the halo included) and its 8 cotangent rows in
+//   shared memory, in the operand type and in one layout whatever the
+//   tensors' (pixels in order, channels innermost, the SAME column pads in
+//   place and zero), double-buffered: the next band is in flight while
+//   this one is contracted.  Contiguous NHWC rows go by cp.async as wide as
+//   their alignment allows; an NHWC view of NCHW memory, and rows that are
+//   not 4-byte aligned (bf16 at an odd width), are copied synchronously,
+//   transposed on the way.  Rows above or below the image are zeroed per
+//   band, so the inner loop has no bounds checks.
+// * Sliding windows along a row.  Warp w takes the w-th eighth of the
+//   columns of each of the band's 8 rows (lane = 4 * row + feature
+//   quarter).  A thread holds all 27 patch rows for 4 features (108
+//   accumulators) and walks its columns left to right, so each step reads
+//   the new column's 9 inputs (3 kh x 3 c) and one vector of 4 cotangent
+//   values from shared memory for 108 FMAs.  The staged rows' strides put
+//   the 8 rows a warp reads on distinct banks (conv_cuda.resnet_gradw_plan).
+// * Deterministic: the 8 rows of a warp are summed by a fixed butterfly of
+//   shuffles, the warps in index order through shared memory, and the
+//   blocks' partials by reduce_partials_kernel in block order (block b owns
+//   the (image, band) units [b*U/B, (b+1)*U/B) in order): two calls give
+//   bitwise-equal dW.  bf16 values are converted to float as they are read
+//   (exact), so products are exact and sums float32, as _gradw_kernel's at
+//   matmul_dtype="bfloat16".  Entry points: sat_resnet_stem_gradw and
+//   sat_resnet_stem_gradw_bf16.
+
+constexpr int kResK = 3;
+constexpr int kResC = 3;
+constexpr int kResF = 16;
+constexpr int kResTaps = kResK * kResK * kResC;  // 27 rows of dW
+constexpr int kResOut = kResTaps * kResF;        // 432
+constexpr int kResRows = 8;                      // output rows per band
+constexpr int kResFeat = 4;                      // features per thread
+constexpr int kResWarps = 8;                     // column eighths
+constexpr int kResThreads = 32 * kResWarps;
+static_assert(kResRows * (kResF / kResFeat) == 32,
+              "a warp is the band's 8 rows x 4 feature quarters");
+
+struct ResGeometry {
+  int H, W, bands;   // OH = H and OW = W (stride 1, SAME)
+  int xrs, grs;      // row strides of the staged x and g, elements
+  int x_elems;       // staged x region (kResRows + 2 rows), elements
+  int stage_elems;   // one stage: x region + g region
+};
+
+__device__ __forceinline__ float res_float(float v) { return v; }
+__device__ __forceinline__ float res_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+__device__ __forceinline__ void res_load4(const float* p, float* out) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  out[0] = v.x;
+  out[1] = v.y;
+  out[2] = v.z;
+  out[3] = v.w;
+}
+
+__device__ __forceinline__ void res_load4(const __nv_bfloat16* p,
+                                          float* out) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+  out[0] = lo.x;
+  out[1] = lo.y;
+  out[2] = hi.x;
+  out[3] = hi.y;
+}
+
+template <int BYTES, typename T>
+__device__ __forceinline__ void res_copy_rows_vec(T* dst, int dst_stride,
+                                                  const T* src,
+                                                  long long src_stride,
+                                                  int rows, int len) {
+  constexpr int kPer = BYTES / static_cast<int>(sizeof(T));
+  const int chunks = len / kPer;
+  for (int i = threadIdx.x; i < rows * chunks; i += kResThreads) {
+    const int r = i / chunks;
+    const int v = (i - r * chunks) * kPer;
+    cp_async<BYTES>(reinterpret_cast<float*>(dst + r * dst_stride + v),
+                    reinterpret_cast<const float*>(src + r * src_stride + v));
+  }
+}
+
+// Copies `rows` rows of `len` elements, row r from src + r*src_stride to
+// dst + r*dst_stride, spread over the block: by cp.async of 16, 8 or 4
+// bytes as every row's alignment allows, else element by element.
+template <typename T>
+__device__ __forceinline__ void res_copy_rows(T* dst, int dst_stride,
+                                              const T* src,
+                                              long long src_stride, int rows,
+                                              int len) {
+  const unsigned long long bits =
+      reinterpret_cast<unsigned long long>(src) | smem_addr(dst) |
+      static_cast<unsigned long long>(src_stride * sizeof(T)) |
+      static_cast<unsigned>(dst_stride * sizeof(T)) |
+      static_cast<unsigned>(len * sizeof(T));
+  if ((bits & 15) == 0) {
+    res_copy_rows_vec<16>(dst, dst_stride, src, src_stride, rows, len);
+  } else if ((bits & 7) == 0) {
+    res_copy_rows_vec<8>(dst, dst_stride, src, src_stride, rows, len);
+  } else if ((bits & 3) == 0) {
+    res_copy_rows_vec<4>(dst, dst_stride, src, src_stride, rows, len);
+  } else {
+    for (int i = threadIdx.x; i < rows * len; i += kResThreads) {
+      const int r = i / len;
+      const int v = i - r * len;
+      dst[r * dst_stride + v] = src[r * src_stride + v];
+    }
+  }
+}
+
+// The same rows from P planes `plane` elements apart (an NHWC view of NCHW
+// memory), transposed: dst[r*dst_stride + col*P + p] = src[p*plane +
+// r*len + col].  Synchronous; consecutive threads read consecutive
+// elements.
+template <int P, typename T>
+__device__ __forceinline__ void res_copy_planes(T* dst, int dst_stride,
+                                                const T* src, long long plane,
+                                                int rows, int len) {
+  const int per_plane = rows * len;
+  for (int i = threadIdx.x; i < P * per_plane; i += kResThreads) {
+    const int p = i / per_plane;
+    const int rem = i - p * per_plane;
+    const int r = rem / len;
+    dst[r * dst_stride + (rem - r * len) * P + p] = src[p * plane + rem];
+  }
+}
+
+// Zeroes rows [r0, r1) of `stride` elements (stride * sizeof(T) a multiple
+// of 16 bytes) at dst.
+template <typename T>
+__device__ __forceinline__ void res_zero_rows(T* dst, int stride, int r0,
+                                              int r1) {
+  const int per_row = stride * static_cast<int>(sizeof(T)) / 16;
+  uint4* d = reinterpret_cast<uint4*>(dst + r0 * stride);
+  for (int i = threadIdx.x; i < (r1 - r0) * per_row; i += kResThreads)
+    d[i] = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// Issues the copies of unit u = (image, band) into the stage at `xs`.  In
+// a staged x row, padded column pc (pc = 0 the left pad) starts at element
+// xo + 3*pc with xo = 16 / sizeof(T) - 3, so the data (pc = 1) starts
+// 16-byte aligned.
+template <typename T, bool XCHW, bool GCHW>
+__device__ __forceinline__ void res_stage_unit(T* xs, const T* x, const T* g,
+                                               long long u,
+                                               const ResGeometry& q) {
+  constexpr int xo = 16 / static_cast<int>(sizeof(T)) - kResC;
+  const long long n = u / q.bands;
+  const int oh0 = static_cast<int>(u - n * q.bands) * kResRows;
+  const int rows = min(kResRows, q.H - oh0);
+  const int xr = rows + kResK - 1;  // input rows of the band, halo included
+  const int ih0 = oh0 - 1;
+  const int lo = max(0, -ih0);      // first band row inside the image
+  const int hi = min(xr, q.H - ih0);  // one past the last
+  const long long plane = static_cast<long long>(q.H) * q.W;
+  res_zero_rows(xs, q.xrs, 0, lo);
+  res_zero_rows(xs, q.xrs, hi, xr);
+  T* xdst = xs + lo * q.xrs + xo + kResC;
+  const T* ximg = x + n * plane * kResC;
+  if (XCHW)
+    res_copy_planes<kResC>(xdst, q.xrs,
+                           ximg + static_cast<long long>(ih0 + lo) * q.W,
+                           plane, hi - lo, q.W);
+  else
+    res_copy_rows(xdst, q.xrs,
+                  ximg + static_cast<long long>(ih0 + lo) * q.W * kResC,
+                  static_cast<long long>(q.W) * kResC, hi - lo, q.W * kResC);
+  T* gs = xs + q.x_elems;
+  const T* gimg = g + n * plane * kResF;
+  if (GCHW)
+    res_copy_planes<kResF>(gs, q.grs,
+                           gimg + static_cast<long long>(oh0) * q.W, plane,
+                           rows, q.W);
+  else
+    res_copy_rows(gs, q.grs, gimg + static_cast<long long>(oh0) * q.W * kResF,
+                  static_cast<long long>(q.W) * kResF, rows, q.W * kResF);
+}
+
+template <typename T, bool XCHW, bool GCHW>
+__global__ void __launch_bounds__(kResThreads, 1)
+    resnet_stem_gradw_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                             float* __restrict__ partial, ResGeometry q,
+                             long long units) {
+  extern __shared__ float4 res_smem4[];
+  T* smem = reinterpret_cast<T*>(res_smem4);
+  constexpr int xo = 16 / static_cast<int>(sizeof(T)) - kResC;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int row = lane >> 2;  // this thread's row of each band
+  const int fq = lane & 3;    // its features: 4*fq .. 4*fq+3
+  const int seg = (q.W + kResWarps - 1) / kResWarps;
+  const int ow_begin = warp * seg;
+  const int ow_end = min(q.W, ow_begin + seg);
+  const long long u_begin = blockIdx.x * units / gridDim.x;
+  const long long u_end = (blockIdx.x + 1) * units / gridDim.x;
+
+  // Zero both stages once: the copies write only the interior columns, so
+  // the SAME column pads stay zero.
+  {
+    uint4* s16 = reinterpret_cast<uint4*>(res_smem4);
+    const int n16 = 2 * q.stage_elems * static_cast<int>(sizeof(T)) / 16;
+    for (int i = tid; i < n16; i += kResThreads)
+      s16[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  __syncthreads();
+
+  float acc[kResTaps][kResFeat];
+#pragma unroll
+  for (int i = 0; i < kResTaps; ++i)
+#pragma unroll
+    for (int j = 0; j < kResFeat; ++j) acc[i][j] = 0.f;
+
+  if (u_begin < u_end) res_stage_unit<T, XCHW, GCHW>(smem, x, g, u_begin, q);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  for (long long u = u_begin; u < u_end; ++u) {
+    const int buf = static_cast<int>(u - u_begin) & 1;
+    if (u + 1 < u_end)
+      res_stage_unit<T, XCHW, GCHW>(smem + (buf ^ 1) * q.stage_elems, x, g,
+                                    u + 1, q);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    __syncthreads();
+
+    const T* xs = smem + buf * q.stage_elems;
+    const long long n = u / q.bands;
+    const int oh0 = static_cast<int>(u - n * q.bands) * kResRows;
+    if (row < min(kResRows, q.H - oh0) && ow_begin < ow_end) {
+      // Padded column 0 of this row's first input row (kh = 0).
+      const T* xr = xs + row * q.xrs + xo;
+      const T* gr = xs + q.x_elems + row * q.grs + kResFeat * fq;
+      float w0[kResK][kResC], w1[kResK][kResC];
+#pragma unroll
+      for (int kh = 0; kh < kResK; ++kh)
+#pragma unroll
+        for (int c = 0; c < kResC; ++c) {
+          w0[kh][c] = res_float(xr[kh * q.xrs + kResC * ow_begin + c]);
+          w1[kh][c] = res_float(xr[kh * q.xrs + kResC * (ow_begin + 1) + c]);
+        }
+#pragma unroll 2
+      for (int ow = ow_begin; ow < ow_end; ++ow) {
+        float w2[kResK][kResC];
+#pragma unroll
+        for (int kh = 0; kh < kResK; ++kh)
+#pragma unroll
+          for (int c = 0; c < kResC; ++c)
+            w2[kh][c] = res_float(xr[kh * q.xrs + kResC * (ow + 2) + c]);
+        float gv[kResFeat];
+        res_load4(gr + ow * kResF, gv);
+#pragma unroll
+        for (int kh = 0; kh < kResK; ++kh)
+#pragma unroll
+          for (int c = 0; c < kResC; ++c)
+#pragma unroll
+            for (int j = 0; j < kResFeat; ++j) {
+              acc[(kh * kResK + 0) * kResC + c][j] =
+                  fmaf(w0[kh][c], gv[j], acc[(kh * kResK + 0) * kResC + c][j]);
+              acc[(kh * kResK + 1) * kResC + c][j] =
+                  fmaf(w1[kh][c], gv[j], acc[(kh * kResK + 1) * kResC + c][j]);
+              acc[(kh * kResK + 2) * kResC + c][j] =
+                  fmaf(w2[kh][c], gv[j], acc[(kh * kResK + 2) * kResC + c][j]);
+            }
+#pragma unroll
+        for (int kh = 0; kh < kResK; ++kh)
+#pragma unroll
+          for (int c = 0; c < kResC; ++c) {
+            w0[kh][c] = w1[kh][c];
+            w1[kh][c] = w2[kh][c];
+          }
+      }
+    }
+    __syncthreads();  // the next iteration refills this stage
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  // The warp's 8 rows (lanes 4*row + fq) by a fixed butterfly, then the
+  // warps in index order through shared memory (the stages are free now).
+#pragma unroll
+  for (int i = 0; i < kResTaps; ++i)
+#pragma unroll
+    for (int j = 0; j < kResFeat; ++j) {
+      float v = acc[i][j];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      acc[i][j] = v;
+    }
+  float* red = reinterpret_cast<float*>(res_smem4);
+  if (row == 0) {
+#pragma unroll
+    for (int i = 0; i < kResTaps; ++i)
+#pragma unroll
+      for (int j = 0; j < kResFeat; ++j)
+        red[warp * kResOut + i * kResF + kResFeat * fq + j] = acc[i][j];
+  }
+  __syncthreads();
+  for (int o = tid; o < kResOut; o += kResThreads) {
+    float v = 0.f;
+    for (int w = 0; w < kResWarps; ++w) v += red[w * kResOut + o];
+    partial[static_cast<size_t>(blockIdx.x) * kResOut + o] = v;
+  }
+}
+
+template <typename T, bool XCHW, bool GCHW>
+cudaError_t launch_resnet(const T* x, const T* g, float* partial,
+                          const ResGeometry& q, long long units,
+                          int num_blocks, int smem_bytes, cudaStream_t s) {
+  auto kernel = resnet_stem_gradw_kernel<T, XCHW, GCHW>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<num_blocks, kResThreads, smem_bytes, s>>>(x, g, partial, q, units);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int resnet_gradw(const T* x, const T* g, float* partial, float* dw, int H,
+                 int W, int bands, int xrs, int grs, int x_elems,
+                 int stage_elems, int smem_bytes, int x_chw, int g_chw,
+                 long long units, int num_blocks, void* stream) {
+  constexpr int item = static_cast<int>(sizeof(T));
+  // The layout the kernel addresses: aligned rows holding the padded
+  // band, two stages and the warps' final sums in the allocation.
+  if (H < 1 || W < 1 || bands != (H + kResRows - 1) / kResRows ||
+      (xrs * item) % 16 || (grs * item) % 16 ||
+      xrs < 16 / item + kResC * (W + 1) || grs < kResF * W ||
+      x_elems < (kResRows + kResK - 1) * xrs || (x_elems * item) % 16 ||
+      stage_elems < x_elems + kResRows * grs || (stage_elems * item) % 16 ||
+      smem_bytes < 2 * stage_elems * item ||
+      smem_bytes < kResWarps * kResOut * static_cast<int>(sizeof(float)) ||
+      num_blocks < 1 || units < num_blocks)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const ResGeometry q{H, W, bands, xrs, grs, x_elems, stage_elems};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (x_chw && g_chw)
+    err = launch_resnet<T, true, true>(x, g, partial, q, units, num_blocks,
+                                       smem_bytes, s);
+  else if (x_chw)
+    err = launch_resnet<T, true, false>(x, g, partial, q, units, num_blocks,
+                                        smem_bytes, s);
+  else if (g_chw)
+    err = launch_resnet<T, false, true>(x, g, partial, q, units, num_blocks,
+                                        smem_bytes, s);
+  else
+    err = launch_resnet<T, false, false>(x, g, partial, q, units, num_blocks,
+                                         smem_bytes, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  reduce_partials_kernel<<<(kResOut + 255) / 256, 256, 0, s>>>(
+      partial, dw, kResOut, num_blocks);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -459,6 +837,28 @@ int sat_conv_gradw_bf16(const __nv_bfloat16* x, const __nv_bfloat16* g,
                               band_rows, bands, xrs, x_floats, gps,
                               stage_floats, smem_bytes, x_chw, g_chw, units,
                               num_blocks, stream);
+}
+
+int sat_resnet_stem_gradw(const float* x, const float* g, float* partial,
+                          float* dw, int H, int W, int bands, int xrs,
+                          int grs, int x_elems, int stage_elems,
+                          int smem_bytes, int x_chw, int g_chw,
+                          long long units, int num_blocks, void* stream) {
+  return resnet_gradw<float>(x, g, partial, dw, H, W, bands, xrs, grs,
+                             x_elems, stage_elems, smem_bytes, x_chw, g_chw,
+                             units, num_blocks, stream);
+}
+
+int sat_resnet_stem_gradw_bf16(const __nv_bfloat16* x,
+                               const __nv_bfloat16* g, float* partial,
+                               float* dw, int H, int W, int bands, int xrs,
+                               int grs, int x_elems, int stage_elems,
+                               int smem_bytes, int x_chw, int g_chw,
+                               long long units, int num_blocks,
+                               void* stream) {
+  return resnet_gradw<__nv_bfloat16>(x, g, partial, dw, H, W, bands, xrs,
+                                     grs, x_elems, stage_elems, smem_bytes,
+                                     x_chw, g_chw, units, num_blocks, stream);
 }
 
 }  // extern "C"

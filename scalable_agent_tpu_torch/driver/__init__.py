@@ -174,7 +174,10 @@ def resolve_device(device: str) -> torch.device:
 
 
 def env_kwargs(config: Config) -> dict:
-    return {"height": config.height, "width": config.width}
+    """The fake family's constructor kwargs, as
+    ``scalable_agent_tpu/driver.py:160-170`` passes them."""
+    return {"height": config.height, "width": config.width,
+            "with_instruction": config.use_instruction}
 
 
 def probe_env(config: Config):
@@ -208,7 +211,9 @@ def build_agent(config: Config, observation_spec, action_space,
                        generator=generator,
                        compute_dtype=getattr(torch, config.compute_dtype),
                        core_matmul_dtype=resolve_core_matmul_dtype(config),
-                       remat_torso=resolve_remat_torso(config)
+                       remat_torso=resolve_remat_torso(config),
+                       torso_type=config.torso_type,
+                       use_instruction=config.use_instruction
                        ).to(device)
 
 
@@ -516,16 +521,18 @@ def kernel_costs(config: Config, device: torch.device, observation_spec,
     """``KernelCosts`` at the run's shapes and dtype policy."""
     shapes = (observation_spec.frame.shape, action_space.n,
               config.unroll_length, config.batch_size)
+    model = dict(torso_type=config.torso_type,
+                 use_instruction=config.use_instruction)
     kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     sm_count = (torch.cuda.get_device_properties(device).multi_processor_count
                 if device.type == "cuda" else 1)
     return KernelCosts(
-        device=device, flops=update_flops(*shapes),
+        device=device, flops=update_flops(*shapes, **model),
         handwritten=kernels_lib.handwritten_costs(
             *shapes, compute_dtype=config.compute_dtype,
             matmul_dtype=resolve_core_matmul_dtype(config),
-            sm_count=sm_count),
+            sm_count=sm_count, **model),
         peak=_resolve_roofline_peak(kind, config.compute_dtype),
         device_kind=kind)
 
@@ -1095,11 +1102,14 @@ def test(config: Config) -> Dict[str, List[float]]:
     """Evaluate the newest verified checkpoint of ``config.logdir``:
     ``test_num_episodes`` returns of ``level_name``."""
     device = resolve_device(config.device)
-    # The architecture belongs to the checkpoint, not to the eval flags.
+    # The architecture belongs to the checkpoint, not to the eval flags:
+    # the fields that shape the parameter tree are the trained run's.
     saved_path = os.path.join(config.logdir, "config.json")
     if os.path.exists(saved_path):
         saved = Config.load(saved_path)
-        config = dataclasses.replace(config, torso_type=saved.torso_type)
+        config = dataclasses.replace(
+            config, torso_type=saved.torso_type,
+            use_instruction=saved.use_instruction)
     observation_spec, action_space = probe_env(config)
     restored = CheckpointManager(config.logdir).restore()
     if restored is None:

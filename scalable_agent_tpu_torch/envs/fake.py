@@ -10,6 +10,9 @@ transitions are a pure function of (seed, episode, step); frames encode
   earns +1.
 - ``"memory"``: the cue is shown only in an episode's first frame, so the
   LSTM must latch it (the red test for the done-reset).
+
+``with_instruction`` adds an int32 [instruction_len] instruction to every
+observation: token 0 is ``1 + episode % 100``, the rest padding (0).
 """
 
 from typing import Optional, Tuple
@@ -34,6 +37,8 @@ class FakeEnv(Environment):
         episode_length: int = 10,
         length_jitter: int = 0,
         seed: int = 0,
+        with_instruction: bool = False,
+        instruction_len: int = 16,
         num_action_repeats: int = 1,
         reward_mode: str = "schedule",
     ):
@@ -51,8 +56,13 @@ class FakeEnv(Environment):
         self._seed = seed
         self._episode = -1
         self._step = 0
+        self._with_instruction = with_instruction
+        self._instruction_len = instruction_len
         self.observation_spec = Observation(
-            frame=TensorSpec((height, width, channels), np.uint8, "frame"))
+            frame=TensorSpec((height, width, channels), np.uint8, "frame"),
+            instruction=(TensorSpec((instruction_len,), np.int32,
+                                    "instruction")
+                         if with_instruction else None))
 
     def seed(self, seed: Optional[int]):
         if seed is not None:
@@ -91,10 +101,17 @@ class FakeEnv(Environment):
         frame[0, 2, 0] = action % 256
         return frame
 
+    def _observation(self, action: int) -> Observation:
+        instruction = None
+        if self._with_instruction:
+            instruction = np.zeros((self._instruction_len,), np.int32)
+            instruction[0] = 1 + (self._episode % 100)
+        return make_observation(self._frame(action), instruction)
+
     def reset(self):
         self._episode += 1
         self._step = 0
-        return make_observation(self._frame(action=0))
+        return self._observation(action=0)
 
     def step(self, action) -> Tuple[Observation, float, bool, dict]:
         action = int(np.asarray(action))
@@ -114,5 +131,4 @@ class FakeEnv(Environment):
                 reward += 0.1 * (self._step % 3) + (1.0 if done else 0.0)
             if done:
                 break
-        return (make_observation(self._frame(action)), np.float32(reward),
-                done, {})
+        return self._observation(action), np.float32(reward), done, {}

@@ -7,7 +7,8 @@ The counterpart of ``scalable_agent_tpu/envs/vector.py::MultiEnv``
   split) and steps them one after the other; the parent scatters actions
   and gathers batched ``StepOutput``s.
 - All frames land in ONE shared-memory slab laid out [N, H, W, C]; only
-  the small fields cross the pipes.
+  the small fields cross the pipes, the instructions among them (int32
+  [k, L] per worker when the envs' observations carry one).
 - ``step_send``/``step_recv`` let an actor thread wait on the pipes while
   other threads run inference.
 - A worker that dies is respawned with generation-shifted seeds
@@ -21,9 +22,10 @@ The counterpart of ``scalable_agent_tpu/envs/vector.py::MultiEnv``
 Workers start with ``spawn``: the parent holds a CUDA context and threads.
 The constructor's default ``num_workers=0`` steps the streams in the
 calling process instead (the JAX MultiEnv reads 0 as one worker per env;
-the driver's flags keep that meaning, ``driver.worker_processes``).  Only
-frame observations are carried (the fake family has no instruction or
-measurement streams).  This module imports no torch (the obs package,
+the driver's flags keep that meaning, ``driver.worker_processes``).  The
+observation's frame and instruction are carried (``FakeEnv`` has an
+instruction stream with ``with_instruction``); no ported env has a
+measurement stream.  This module imports no torch (the obs package,
 which does, only when a worker is respawned, in the parent).
 """
 
@@ -78,14 +80,22 @@ def _reseeded(make_stream_fns, generation: int):
     return out
 
 
+def _maybe_stack(items):
+    if not items or items[0] is None:
+        return None
+    return np.stack(items)
+
+
 def _run_all(streams, slab, first_index: int, step_of_stream):
     """Apply ``step_of_stream(i, stream)`` to each stream; frames go to
-    ``slab[first_index + i]``, the small fields come back as arrays."""
+    ``slab[first_index + i]``, the small fields (the instructions [k, L]
+    or None among them) come back as arrays."""
     k = len(streams)
     rewards = np.zeros((k,), np.float32)
     dones = np.zeros((k,), bool)
     returns = np.zeros((k,), np.float32)
     steps = np.zeros((k,), np.int32)
+    instructions = []
     for i, stream in enumerate(streams):
         out = step_of_stream(i, stream)
         rewards[i] = out.reward
@@ -93,7 +103,8 @@ def _run_all(streams, slab, first_index: int, step_of_stream):
         returns[i] = out.info.episode_return
         steps[i] = out.info.episode_step
         slab[first_index + i] = out.observation.frame
-    return rewards, dones, returns, steps
+        instructions.append(out.observation.instruction)
+    return rewards, dones, returns, steps, _maybe_stack(instructions)
 
 
 def _vec_worker_main(conn, make_streams_pickled: bytes, shm_name: str,
@@ -303,7 +314,8 @@ class MultiEnv:
 
     # -- protocol ------------------------------------------------------------
 
-    def _output(self, rewards, dones, returns, steps) -> StepOutput:
+    def _output(self, rewards, dones, returns, steps,
+                instructions) -> StepOutput:
         for i in np.nonzero(dones)[0]:
             if steps[i] > 0:  # initial() marks done without an episode
                 self.episode_stats.append((float(returns[i]), int(steps[i])))
@@ -311,13 +323,14 @@ class MultiEnv:
             reward=rewards,
             info=StepOutputInfo(episode_return=returns, episode_step=steps),
             done=dones,
-            observation=Observation(frame=self._slab.copy()))
+            observation=Observation(frame=self._slab.copy(),
+                                    instruction=instructions))
 
     def _gather(self) -> StepOutput:
-        fields = (np.zeros((self.num_envs,), np.float32),
+        fields = [np.zeros((self.num_envs,), np.float32),
                   np.zeros((self.num_envs,), bool),
                   np.zeros((self.num_envs,), np.float32),
-                  np.zeros((self.num_envs,), np.int32))
+                  np.zeros((self.num_envs,), np.int32), None]
         errors = []
         for w, sl in enumerate(self._slices):
             payload, error = self._recv(w)
@@ -326,8 +339,15 @@ class MultiEnv:
                 # aligned; the first error surfaces after the sweep.
                 errors.append(error)
                 continue
-            for field, part in zip(fields, payload):
+            *small, instructions = payload
+            for field, part in zip(fields, small):
                 field[sl] = part
+            if instructions is not None:
+                if fields[-1] is None:
+                    fields[-1] = np.zeros(
+                        (self.num_envs,) + instructions.shape[1:],
+                        instructions.dtype)
+                fields[-1][sl] = instructions
         if errors:
             raise errors[0]
         return self._output(*fields)

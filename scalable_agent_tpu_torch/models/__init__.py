@@ -4,4 +4,8 @@ from scalable_agent_tpu_torch.models.agent import (
     actor_step,
     initial_state,
 )
-from scalable_agent_tpu_torch.models.networks import ShallowConvTorso
+from scalable_agent_tpu_torch.models.instruction import InstructionEncoder
+from scalable_agent_tpu_torch.models.networks import (
+    ResNetTorso,
+    ShallowConvTorso,
+)

@@ -1,20 +1,24 @@
-"""The IMPALA agent: conv torso + LSTM core + policy/baseline heads.
+"""The IMPALA agent: conv torso + optional language LSTM + LSTM core +
+policy/baseline heads.
 
 The counterpart of ``scalable_agent_tpu/models/agent.py`` (reference:
 experiment.py:109-237) with ``core_impl="pallas"`` and
-``conv_backend="pallas"``: the torso runs over the merged [T*B] batch, the
-clipped reward and the one-hot last action are concatenated to its output,
-the done-reset LSTM core (``ops/lstm_cuda.lstm_unroll``) runs over T, and
-the heads run over the merged batch again.  ``forward`` is the whole
-trajectory unroll, shared by actor inference (T=1) and the learner
-(T=unroll_length+1).
+``conv_backend="pallas"``: the torso (``torso_type``: ``shallow`` or
+``resnet``) runs over the merged [T*B] batch, the clipped reward, the
+one-hot last action and, with ``use_instruction``, the instruction
+encoder's output are concatenated to its output, the done-reset LSTM core
+(``ops/lstm_cuda.lstm_unroll``) runs over T, and the heads run over the
+merged batch again.  ``forward`` is the whole trajectory unroll, shared
+by actor inference (T=1) and the learner (T=unroll_length+1).
 
 The one compute-dtype policy is the JAX agent's
 (``scalable_agent_tpu/models/agent.py``), by explicit casts: parameters
 stay float32; the torso runs at ``compute_dtype``; its output, the clipped
-reward and the one-hot action are concatenated in float32 and cast to
-``compute_dtype``; the core takes that as float32 (``jnp.asarray(x,
-float32)``) with its float32 weights and rounds its products' operands to
+reward, the one-hot action and the instruction encoding (float32 under
+both policies, as flax's undtyped ``Embed`` and cell compute it) are
+concatenated in float32 and cast to ``compute_dtype``; the core takes
+that as float32 (``jnp.asarray(x, float32)``) with its float32 weights
+and rounds its products' operands to
 ``core_matmul_dtype``, its carries, outputs and residuals float32; the
 heads run at ``compute_dtype`` and their outputs are cast to float32, so
 the loss, V-trace and the optimizer see float32 only.  The defaults,
@@ -35,12 +39,16 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from scalable_agent_tpu_torch.models.instruction import (
+    LSTM_SIZE,
+    InstructionEncoder,
+)
 from scalable_agent_tpu_torch.models.networks import (
     TORSO_SIZE,
-    ShallowConvTorso,
+    TORSOS,
     dense,
     dense_apply,
-    lecun_normal_,
+    init_lstm_,
 )
 from scalable_agent_tpu_torch.ops import distributions
 from scalable_agent_tpu_torch.ops.lstm_cuda import lstm_unroll
@@ -75,15 +83,7 @@ class LSTMCore(nn.Module):
         self.wi = nn.Parameter(torch.empty(in_features, 4 * hidden))
         self.wh = nn.Parameter(torch.empty(hidden, 4 * hidden))
         self.b = nn.Parameter(torch.zeros(4 * hidden))
-        with torch.no_grad():
-            for gate in range(4):
-                cols = slice(gate * hidden, (gate + 1) * hidden)
-                block = torch.empty(in_features, hidden)
-                self.wi[:, cols] = lecun_normal_(block, in_features,
-                                                 generator)
-                block = torch.empty(hidden, hidden)
-                self.wh[:, cols] = nn.init.orthogonal_(block,
-                                                       generator=generator)
+        init_lstm_(self.wi, self.wh, generator)
 
     def forward(self, x, done, carry: AgentState,
                 matmul_dtype: str = "float32", residuals: bool = False):
@@ -93,11 +93,13 @@ class LSTMCore(nn.Module):
 
 
 class ImpalaAgent(nn.Module):
-    """ShallowConvTorso + LSTM(core_size) core + policy/baseline heads.
+    """Torso + optional instruction encoder + LSTM(core_size) core +
+    policy/baseline heads.
 
     ``forward(actions [T,B] int, env_outputs, core_state)`` with
     env_outputs.reward [T,B], done [T,B], observation.frame [T,B,H,W,C]
-    uint8, returns ``((policy_logits [T,B,A], baseline [T,B]),
+    uint8 and, with ``use_instruction``, observation.instruction [T,B,L]
+    int token ids, returns ``((policy_logits [T,B,A], baseline [T,B]),
     new_state)``.  Weights are drawn from ``generator``.
     ``compute_dtype`` and ``core_matmul_dtype`` are the dtype policy's,
     ``remat_torso`` the torso's recomputation (module docstring).
@@ -111,19 +113,28 @@ class ImpalaAgent(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  compute_dtype: torch.dtype = torch.float32,
                  core_matmul_dtype: str = "float32",
-                 remat_torso: bool = False):
+                 remat_torso: bool = False,
+                 torso_type: str = "shallow",
+                 use_instruction: bool = False):
         super().__init__()
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype must be torch.float32 or "
                              f"torch.bfloat16, got {compute_dtype}")
+        if torso_type not in TORSOS:
+            raise ValueError(f"unknown torso_type {torso_type!r} "
+                             f"(choices: {sorted(TORSOS)})")
         self.dist_spec = distributions.DistributionSpec(sizes=(num_actions,))
         self.core_size = core_size
         self.compute_dtype = compute_dtype
         self.core_matmul_dtype = core_matmul_dtype
         self.remat_torso = remat_torso
-        self.convnet = ShallowConvTorso(frame_shape, generator,
-                                        compute_dtype)
+        self.use_instruction = use_instruction
+        self.convnet = TORSOS[torso_type](frame_shape, generator,
+                                          compute_dtype)
         in_features = TORSO_SIZE + 1 + self.num_logits
+        if use_instruction:
+            self.instruction = InstructionEncoder(generator=generator)
+            in_features += LSTM_SIZE
         self.core = LSTMCore(in_features, core_size, generator)
         self.policy_logits = dense(core_size, self.num_logits, generator)
         self.baseline = dense(core_size, 1, generator)
@@ -150,11 +161,12 @@ class ImpalaAgent(nn.Module):
         clipped_reward = torch.clamp(flat(reward).float(), -1.0, 1.0)[:, None]
         one_hot_last_action = distributions.one_hot_actions(
             flat(actions), self.dist_spec)
+        parts = [conv_out.float(), clipped_reward, one_hot_last_action]
+        if self.use_instruction:
+            parts.append(self.instruction(flat(observation.instruction)))
         # Concatenated in float32, then the policy's cast (identities under
         # float32); the core takes the compute-dtype values as float32.
-        torso_out = torch.cat(
-            [conv_out.float(), clipped_reward, one_hot_last_action],
-            dim=-1).to(dtype)
+        torso_out = torch.cat(parts, dim=-1).to(dtype)
         core_outputs, new_state = self.core(
             torso_out.float().reshape(unroll_len, batch, -1),
             done.float().contiguous(), core_state, self.core_matmul_dtype,

@@ -122,7 +122,8 @@ def handwritten_costs(frame_shape, num_actions: int, unroll_length: int,
                       batch_size: int, core_size: Optional[int] = None,
                       compute_dtype: str = "bfloat16",
                       matmul_dtype: Optional[str] = None,
-                      sm_count: int = 132) -> Dict[str, dict]:
+                      sm_count: int = 132, torso_type: str = "shallow",
+                      use_instruction: bool = False) -> Dict[str, dict]:
     """Per-call ``{"flops_est", "bytes", "op", "calls"}`` of each
     hand-written kernel one update launches (``calls`` per update), keyed
     by the start of its ``kernel_name``.  FLOPs count the products at 2
@@ -131,12 +132,14 @@ def handwritten_costs(frame_shape, num_actions: int, unroll_length: int,
     width the kernel reads (the LSTM kernels read float32 in both
     variants; the bf16 variant's dgates, grad-W x and g are bf16).
     ``matmul_dtype`` is the LSTM products' operand type (default: as
-    ``compute_dtype``); ``sm_count`` sizes grad-W's partial sums."""
+    ``compute_dtype``); ``sm_count`` sizes grad-W's partial sums;
+    ``torso_type`` picks the stem's grad-W kernel and ``use_instruction``
+    widens the core's input by the instruction encoding."""
     from scalable_agent_tpu_torch.models.agent import CORE_SIZE
+    from scalable_agent_tpu_torch.models.instruction import LSTM_SIZE
     from scalable_agent_tpu_torch.models.networks import (
-        CONV_STACK,
         TORSO_SIZE,
-        same_pads,
+        conv_shapes,
     )
     from scalable_agent_tpu_torch.ops import conv_cuda, lstm_cuda
 
@@ -145,18 +148,21 @@ def handwritten_costs(frame_shape, num_actions: int, unroll_length: int,
     s = unroll_length + 1
     b = batch_size
     m = s * b
-    d = TORSO_SIZE + 1 + num_actions
+    d = TORSO_SIZE + 1 + num_actions + (LSTM_SIZE if use_instruction else 0)
     h = hidden
     g = 4 * h
     op_bytes = 2 if matmul_dtype == "bfloat16" else 4
     x_bytes = 2 if compute_dtype == "bfloat16" else 4
-    height, width, channels = frame_shape
-    filters, kernel, stride = CONV_STACK[0]
-    out_h, _ = same_pads(height, kernel, stride)
-    out_w, _ = same_pads(width, kernel, stride)
-    taps = kernel * kernel * channels * filters
-    blocks = conv_cuda.gradw_plan(m, out_h, out_w, False, False,
-                                  sm_count).blocks
+    stem = conv_shapes(torso_type, frame_shape)[0][0]
+    taps = stem.kernel * stem.kernel * stem.in_channels * stem.out_channels
+    if torso_type == "resnet":
+        gradw = "resnet_stem_gradw_kernel"
+        blocks = conv_cuda.resnet_gradw_plan(
+            m, stem.in_height, stem.in_width, x_bytes, sm_count).blocks
+    else:
+        gradw = "conv_gradw_band_kernel"
+        blocks = conv_cuda.gradw_plan(m, stem.out_height, stem.out_width,
+                                      False, False, sm_count).blocks
 
     def entry(source, calls, flops, nbytes):
         return {"flops_est": float(flops) / calls,
@@ -175,10 +181,11 @@ def handwritten_costs(frame_shape, num_actions: int, unroll_length: int,
             lstm, 1, 2 * m * g * h,
             4 * (m * h + m + m * g + 2 * m * h + h * g + 2 * b * h
                  + b * g + 2 * b * h) + op_bytes * m * g),
-        "conv_gradw_band_kernel": entry(
-            conv, 1, 2 * m * out_h * out_w * taps,
-            x_bytes * m * (height * width * channels
-                           + out_h * out_w * filters) + 4 * blocks * taps),
+        gradw: entry(
+            conv, 1, 2 * m * stem.out_height * stem.out_width * taps,
+            x_bytes * m * (stem.in_height * stem.in_width * stem.in_channels
+                           + stem.out_height * stem.out_width
+                           * stem.out_channels) + 4 * blocks * taps),
         "reduce_partials_kernel": entry(conv, 1, 0, 4 * (blocks + 1) * taps),
         "vtrace_chunked_kernel": entry(
             "csrc/vtrace.cu", 1, 0, 4 * (6 * unroll_length * b + b)),

@@ -1,4 +1,4 @@
-"""Stem-conv weight gradient: a hand-written Hopper kernel and its plain
+"""Stem-conv weight gradients: hand-written Hopper kernels and their plain
 PyTorch version.
 
 The counterpart of ``scalable_agent_tpu/ops/conv_pallas.py``.
@@ -6,25 +6,37 @@ The counterpart of ``scalable_agent_tpu/ops/conv_pallas.py``.
 ``g``, HWIO ``dW``) so the tests compare like with like; ``stem_conv`` is
 the torso-facing op in PyTorch's layout (NCHW input, OIHW weight).
 
-Kernel (``csrc/conv.cu``), launch counters ``LAUNCHES["stem_gradw"]``
-and, for its bf16-operand variant, ``LAUNCHES["stem_gradw_bf16"]``:
-replaces ``conv_pallas.py::_gradw_kernel`` (via ``conv_gradw``).  The
-variant follows the operands' dtype: float32 ``x`` and ``g`` take the
-float32 kernel, bfloat16 ones (the stem under ``compute_dtype=bfloat16``,
-``matmul_dtype="bfloat16"`` in the JAX package) the bf16 kernel, which
-reads half the bytes and sums the exact products in float32; ``dW`` is
-float32 from both.  The float32 kernel is bound by float32 FMA (17 GFLOP
-at the main path's shape).  Each block
-stages bands of whole images -- input rows with their halo and the band's
-cotangent rows -- in shared memory with double-buffered ``cp.async``
-copies, forms every patch value there by space-to-depth addressing, and
-accumulates 12x8 register tiles in six row groups; a second pass sums the
-per-block partials in a fixed order (``gradw_plan`` below sizes the bands
-and assigns the image bands to blocks).  The source's header comment has
-the design and PERF.md its times.  The kernel is built for the stem's geometry
-(``STEM``: 8x8, stride 4, 3 channels into 32 features) and takes ``x``
-and ``g`` each either as contiguous NHWC or as an NHWC view of contiguous
-NCHW memory (``tensor_layout``); anything else raises.
+Kernels (``csrc/conv.cu``), both replacing ``conv_pallas.py::
+_gradw_kernel`` (via ``conv_gradw``), one for each stem geometry the
+torsos have; ``conv_gradw`` dispatches on (K, S, C, F):
+
+- ``STEM`` (8x8, stride 4, 3 channels into 32 features; the shallow
+  torso's ``conv_0``): ``conv_gradw_band_kernel``, launch counters
+  ``LAUNCHES["stem_gradw"]`` and, for its bf16-operand variant,
+  ``LAUNCHES["stem_gradw_bf16"]``.  The float32 kernel is bound by float32
+  FMA (17 GFLOP at the main path's shape).  Each block stages bands of
+  whole images -- input rows with their halo and the band's cotangent rows
+  -- in shared memory with double-buffered ``cp.async`` copies, forms every
+  patch value there by space-to-depth addressing, and accumulates 12x8
+  register tiles in six row groups (``gradw_plan`` sizes the bands and
+  assigns the image bands to blocks).
+- ``RESNET_STEM`` (3x3, stride 1, 3 channels into 16 features; the ResNet
+  torso's ``downscale_0``): ``resnet_stem_gradw_kernel``, launch counters
+  ``LAUNCHES["resnet_stem_gradw"]`` and ``LAUNCHES["resnet_stem_gradw_bf16"]``.
+  Its work is bound by the bytes of the full-resolution 16-channel
+  cotangent; this first kernel is slower than that.  Each block stages bands of 8 output rows (x with its halo, g) double-buffered
+  and walks each row with a sliding 3x3x3 window, a thread holding the 27
+  patch rows for 4 features (``resnet_gradw_plan`` sizes the staged rows).
+
+Both take x and g as float32 or as bfloat16 (the torso under
+``compute_dtype=bfloat16``, ``matmul_dtype="bfloat16"`` in the JAX
+package), the bf16 variant reading half the bytes and summing the exact
+products in float32; ``dW`` is float32 from both.  Both take ``x`` and
+``g`` each either as contiguous NHWC or as an NHWC view of contiguous NCHW
+memory (``tensor_layout``); anything else raises, and so does any other
+geometry.  Both sum their per-block partials in a fixed order: two calls
+give bitwise-equal dW.  The source's comments have the designs and PERF.md
+their times.
 
 As in ``conv_pallas.py``, a kernel/stride pair with ``K % S != 0`` takes
 the library's weight gradient instead (``torch.nn.grad.conv2d_weight``).
@@ -40,13 +52,23 @@ import torch.nn.functional as F
 
 from scalable_agent_tpu_torch.ops import _build
 
-LAUNCHES = {"stem_gradw": 0, "stem_gradw_bf16": 0}
-# Operand dtypes the kernel takes: its C entry point and launch counter.
-_VARIANTS = {torch.float32: ("sat_conv_gradw", "stem_gradw"),
-             torch.bfloat16: ("sat_conv_gradw_bf16", "stem_gradw_bf16")}
-
-# (K, S, C, F) that csrc/conv.cu is built for: the torso's stem.
+LAUNCHES = {"stem_gradw": 0, "stem_gradw_bf16": 0,
+            "resnet_stem_gradw": 0, "resnet_stem_gradw_bf16": 0}
+# (K, S, C, F) that csrc/conv.cu's kernels are built for: the shallow
+# torso's stem and the ResNet torso's.
 STEM = (8, 4, 3, 32)
+RESNET_STEM = (3, 1, 3, 16)
+# Per geometry and operand dtype: the C entry point and launch counter.
+_VARIANTS = {
+    STEM: {torch.float32: ("sat_conv_gradw", "stem_gradw"),
+           torch.bfloat16: ("sat_conv_gradw_bf16", "stem_gradw_bf16")},
+    RESNET_STEM: {
+        torch.float32: ("sat_resnet_stem_gradw", "resnet_stem_gradw"),
+        torch.bfloat16: ("sat_resnet_stem_gradw_bf16",
+                         "resnet_stem_gradw_bf16")},
+}
+_DTYPES = (torch.float32, torch.bfloat16)
+
 # Two stages of a band must fit in a block's shared memory (227 KB on an
 # H100), and so must the final sum of the other five row groups' [K*K*C, F]
 # tiles.
@@ -168,11 +190,63 @@ def gradw_plan(n: int, out_h: int, out_w: int, x_chw: bool, g_chw: bool,
                      min(units, sm_count))
 
 
-def block_units(plan: GradWPlan, block: int) -> range:
+def block_units(plan, block: int) -> range:
     """The (image, band) units block ``block`` contracts, in order (unit
     u is image u // bands, band u % bands): csrc/conv.cu's split."""
     return range(block * plan.units // plan.blocks,
                  (block + 1) * plan.units // plan.blocks)
+
+
+# The ResNet stem kernel's output rows per band and its block's size
+# (csrc/conv.cu kResRows, kResWarps); a block's dynamic shared memory
+# must fit the H100's 227 KB.
+RESNET_ROWS = 8
+RESNET_WARPS = 8
+SMEM_LIMIT = 227 * 1024
+
+
+class ResnetGradWPlan(NamedTuple):
+    """Launch geometry of the ResNet stem's grad-W kernel; sizes in
+    elements of the operand type."""
+
+    bands: int         # bands of RESNET_ROWS output rows per image
+    xrs: int           # row stride of a staged input band
+    grs: int           # row stride of a staged cotangent band
+    x_elems: int       # staged input band (RESNET_ROWS + 2 rows)
+    stage_elems: int   # one stage: input band + cotangent band
+    smem_bytes: int    # dynamic shared memory per block
+    units: int         # (image, band) pairs
+    blocks: int
+
+
+def _at_least(n: int, residue: int, modulus: int) -> int:
+    """The smallest m >= n with m % modulus == residue."""
+    return n + (residue - n) % modulus
+
+
+def resnet_gradw_plan(n: int, height: int, width: int, itemsize: int,
+                      sm_count: int) -> ResnetGradWPlan:
+    """Staged rows padded so that the 8 rows a warp reads fall on distinct
+    banks: input rows 16 bytes apart (mod 128), cotangent rows 64 bytes
+    apart for float32's 16-byte reads (a quarter warp is two rows) and 32
+    bytes for bf16's 8-byte reads (a half warp is four rows).  An input
+    row's data starts 16-byte aligned after the 3-element left pad.
+    Blocks: one per SM (at most one per unit); block b owns the units
+    ``block_units(plan, b)``, in order."""
+    k, _, c, f = RESNET_STEM
+    per16 = 16 // itemsize
+    xrs = _at_least(per16 + c * (width + 1), per16, 8 * per16)
+    grs = _at_least(f * width, 16, 128 // itemsize)
+    x_elems = (RESNET_ROWS + k - 1) * xrs
+    stage = x_elems + RESNET_ROWS * grs
+    smem = max(2 * stage * itemsize, 4 * RESNET_WARPS * k * k * c * f)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"a {width}-wide frame does not fit the ResNet "
+                         f"stem grad-W kernel's shared memory")
+    bands = -(-height // RESNET_ROWS)
+    units = n * bands
+    return ResnetGradWPlan(bands, xrs, grs, x_elems, stage, smem, units,
+                           min(units, sm_count))
 
 
 @functools.lru_cache(maxsize=None)
@@ -188,7 +262,7 @@ def conv_gradw(x, g, kernel_size: int, stride: int):
     contiguous NCHW (as the stem's backward hands them over)."""
     k, s = int(kernel_size), int(stride)
     n, height, width, c = x.shape
-    if g.shape[0] != n or x.dtype not in _VARIANTS or g.dtype != x.dtype:
+    if g.shape[0] != n or x.dtype not in _DTYPES or g.dtype != x.dtype:
         raise ValueError(f"need x [N,H,W,C] and g [N,OH,OW,F] both float32 "
                          f"or both bfloat16, got {x.dtype} {tuple(x.shape)} "
                          f"and {g.dtype} {tuple(g.shape)}")
@@ -202,24 +276,37 @@ def conv_gradw(x, g, kernel_size: int, stride: int):
     if _build.on_cpu("grad-W", x, g):
         return conv_gradw_plain(x, g, k, s)
     f = g.shape[-1]
-    if (k, s, c, f) != STEM:
-        raise ValueError(f"the grad-W kernel is built for the stem's "
-                         f"(K, S, C, F) = {STEM}, got {(k, s, c, f)}")
+    geometry = (k, s, c, f)
+    if geometry not in _VARIANTS:
+        raise ValueError(f"the grad-W kernels are built for the stems' "
+                         f"(K, S, C, F) = {STEM} and {RESNET_STEM}, got "
+                         f"{geometry}")
     x_chw = tensor_layout(x) == "chw"
     g_chw = tensor_layout(g) == "chw"
     dw = torch.empty((k, k, c, f), dtype=torch.float32, device=x.device)
-    plan = gradw_plan(n, out_h, out_w, x_chw, g_chw,
-                      _sm_count(x.device.index))
-    partial = torch.empty((plan.blocks, k * k * c * f), dtype=torch.float32,
-                          device=x.device)
-    entry, counter = _VARIANTS[x.dtype]
-    code = getattr(_build.library(), entry)(
-        x.data_ptr(), g.data_ptr(), partial.data_ptr(), dw.data_ptr(),
-        height, width, out_h, out_w, top, left, plan.band_rows, plan.bands,
-        plan.xrs, plan.x_floats, plan.gps, plan.stage_floats,
-        plan.smem_bytes, int(x_chw), int(g_chw), plan.units, plan.blocks,
-        torch.cuda.current_stream().cuda_stream)
-    _build.check(code, "stem grad-W kernel")
+    sm_count = _sm_count(x.device.index)
+    stream = torch.cuda.current_stream().cuda_stream
+    entry, counter = _VARIANTS[geometry][x.dtype]
+    fn = getattr(_build.library(), entry)
+    if geometry == STEM:
+        plan = gradw_plan(n, out_h, out_w, x_chw, g_chw, sm_count)
+        partial = torch.empty((plan.blocks, k * k * c * f),
+                              dtype=torch.float32, device=x.device)
+        code = fn(x.data_ptr(), g.data_ptr(), partial.data_ptr(),
+                  dw.data_ptr(), height, width, out_h, out_w, top, left,
+                  plan.band_rows, plan.bands, plan.xrs, plan.x_floats,
+                  plan.gps, plan.stage_floats, plan.smem_bytes, int(x_chw),
+                  int(g_chw), plan.units, plan.blocks, stream)
+    else:
+        plan = resnet_gradw_plan(n, height, width, x.element_size(),
+                                 sm_count)
+        partial = torch.empty((plan.blocks, k * k * c * f),
+                              dtype=torch.float32, device=x.device)
+        code = fn(x.data_ptr(), g.data_ptr(), partial.data_ptr(),
+                  dw.data_ptr(), height, width, plan.bands, plan.xrs,
+                  plan.grs, plan.x_elems, plan.stage_elems, plan.smem_bytes,
+                  int(x_chw), int(g_chw), plan.units, plan.blocks, stream)
+    _build.check(code, f"grad-W kernel {entry}")
     _build.count_launch(LAUNCHES, counter)
     return dw
 

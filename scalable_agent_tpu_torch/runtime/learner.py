@@ -63,7 +63,11 @@ import torch
 
 from scalable_agent_tpu_torch.convert import layer_group
 from scalable_agent_tpu_torch.models.agent import CORE_SIZE, ImpalaAgent
-from scalable_agent_tpu_torch.models.networks import CONV_STACK, TORSO_SIZE
+from scalable_agent_tpu_torch.models.instruction import (
+    EMBEDDING_SIZE,
+    LSTM_SIZE,
+)
+from scalable_agent_tpu_torch.models.networks import TORSO_SIZE, conv_shapes
 from scalable_agent_tpu_torch.obs import (
     DeviceTelemetry,
     TelemetryPublisher,
@@ -79,9 +83,9 @@ from scalable_agent_tpu_torch.obs.learning import LAYER_GROUPS
 from scalable_agent_tpu_torch.ops import distributions
 from scalable_agent_tpu_torch.ops import losses as losses_lib
 from scalable_agent_tpu_torch.ops import vtrace
-from scalable_agent_tpu_torch.ops.conv_cuda import same_pads
 from scalable_agent_tpu_torch.runtime.faults import get_fault_injector
 from scalable_agent_tpu_torch.types import AgentOutput, AgentState, StepOutput
+from scalable_agent_tpu_torch.utils.text import MAX_INSTRUCTION_LEN
 
 
 class Trajectory(NamedTuple):
@@ -168,30 +172,37 @@ def learning_telemetry_spec() -> DeviceTelemetry:
 
 def update_flops(frame_shape: Sequence[int], num_actions: int,
                  unroll_length: int, batch_size: int,
-                 core_size: int = CORE_SIZE) -> float:
+                 core_size: int = CORE_SIZE, torso_type: str = "shallow",
+                 use_instruction: bool = False) -> float:
     """FLOPs of one update at 2 per multiply-add: every product and
     convolution of the agent's forward over the [T+1, B] trajectory and
     of its backward, elementwise work left out (as
     ``torch.utils.flop_counter.FlopCounterMode`` counts).  The backward
     computes each layer's weight gradient and input gradient, but the
-    stem conv's input is the frame, which takes no gradient.  Counts the
-    default update (``fused_forward``, no ``remat_torso``: recomputation
-    is not model work)."""
-    height, width, channels = frame_shape
+    stem conv's input is the frame, which takes no gradient.  With
+    ``use_instruction`` the instruction encoder's products count too: one
+    input projection over every token and a recurrent product at every
+    token but the first (whose carry is zero).  Counts the default update
+    (``fused_forward``, no ``remat_torso``: recomputation is not model
+    work)."""
+    convs, flat = conv_shapes(torso_type, frame_shape)
     forward = backward = 0
-    for i, (out_channels, kernel, stride) in enumerate(CONV_STACK):
-        height, _ = same_pads(height, kernel, stride)
-        width, _ = same_pads(width, kernel, stride)
-        macs = (height * width * out_channels * kernel * kernel
-                * channels)
+    for i, conv in enumerate(convs):
+        macs = (conv.out_height * conv.out_width * conv.out_channels
+                * conv.kernel * conv.kernel * conv.in_channels)
         forward += macs
         backward += macs if i == 0 else 2 * macs
-        channels = out_channels
     gates = 4 * core_size
-    for macs in (height * width * channels * TORSO_SIZE,       # fc
-                 (TORSO_SIZE + 1 + num_actions) * gates,       # x.Wi
-                 core_size * gates,                            # h.Wh
-                 core_size * (num_actions + 1)):               # heads
+    in_features = TORSO_SIZE + 1 + num_actions
+    layers = [flat * TORSO_SIZE]                                # fc
+    if use_instruction:
+        in_features += LSTM_SIZE
+        layers += [MAX_INSTRUCTION_LEN * EMBEDDING_SIZE * 4 * LSTM_SIZE,
+                   (MAX_INSTRUCTION_LEN - 1) * LSTM_SIZE * 4 * LSTM_SIZE]
+    layers += [in_features * gates,                            # x.Wi
+               core_size * gates,                              # h.Wh
+               core_size * (num_actions + 1)]                  # heads
+    for macs in layers:
         forward += macs
         backward += 2 * macs
     return 2.0 * (unroll_length + 1) * batch_size * (forward + backward)

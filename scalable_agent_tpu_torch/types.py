@@ -17,8 +17,8 @@ class StepOutputInfo(NamedTuple):
 
 class Observation(NamedTuple):
     """What the env shows the agent each step: ``frame`` is HWC uint8;
-    ``instruction`` and ``measurements`` are None on the levels this
-    package runs so far."""
+    ``instruction`` int32 [L] hashed token ids (0 = padding) or None;
+    ``measurements`` is None on the levels this package runs so far."""
 
     frame: Any
     instruction: Optional[Any] = None

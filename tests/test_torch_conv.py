@@ -183,8 +183,129 @@ def test_other_strides_raise_on_the_kernel_route(monkeypatch, which):
 def test_other_geometries_raise_on_the_kernel_route(monkeypatch):
     monkeypatch.setattr(_build, "on_cpu", lambda *_: False)
     x, g = (torch.tensor(a) for a in _case(4, 2, 16, 16, 1, 32, 4))
-    with pytest.raises(ValueError, match="built for the stem"):
+    with pytest.raises(ValueError, match="built for the stems'"):
         conv_cuda.conv_gradw(x, g, 8, 4)
+
+
+# -- the ResNet stem: 3x3, stride 1, 3 channels into 16 features -------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,h,w", [(3, 16, 16), (2, 17, 23), (1, 72, 96)])
+def test_resnet_stem_gradw_plain_matches_pallas(n, h, w, dtype):
+    """conv_gradw at (K, S, C, F) = (3, 1, 3, 16) -- on the CPU its plain
+    version, the ResNet kernel's -- against the Pallas kernel in interpret
+    mode, float32 and with bf16 x and g (matmul_dtype="bfloat16": exact
+    products summed in float32).  Each dW entry sums n*h*w products of
+    standard normals in another order, so the tolerance is taken relative
+    to max |dW|: 2e-6 of it."""
+    x, g = _case(h * w + n, n, h, w, 3, 16, 1)
+    jdtype = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    want = np.asarray(conv_pallas.conv_gradw(
+        jnp.asarray(x, jdtype), jnp.asarray(g, jdtype), 3, 1,
+        interpret=True, matmul_dtype=dtype))
+    tdtype = getattr(torch, dtype)
+    got = conv_cuda.conv_gradw(torch.tensor(x).to(tdtype),
+                               torch.tensor(g).to(tdtype), 3, 1)
+    assert got.dtype == torch.float32 and got.shape == (3, 3, 3, 16)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5,
+                               atol=2e-6 * np.abs(want).max())
+
+
+RESNET_PLAN_CASES = [
+    # (N, frame H, W, item size, SMs): the main path at float32 and bf16,
+    # an uneven split, an odd frame, one image, few SMs.
+    (3232, 72, 96, 4, 132),
+    (3232, 72, 96, 2, 132),
+    (3233, 72, 96, 4, 132),
+    (64, 17, 23, 2, 132),
+    (1, 72, 96, 4, 132),
+    (5, 16, 16, 4, 7),
+]
+
+
+@pytest.mark.parametrize("n,h,w,item,sms", RESNET_PLAN_CASES)
+def test_resnet_gradw_plan_fits_and_splits_in_order(n, h, w, item, sms):
+    plan = conv_cuda.resnet_gradw_plan(n, h, w, item, sms)
+    rows = conv_cuda.RESNET_ROWS
+    assert plan.bands == -(-h // rows) and plan.units == n * plan.bands
+    assert plan.blocks == min(plan.units, sms)
+    units = [list(conv_cuda.block_units(plan, b))
+             for b in range(plan.blocks)]
+    assert all(units) and max(map(len, units)) - min(map(len, units)) <= 1
+    assert [u for block in units for u in block] == list(range(plan.units))
+    # Rows hold the band with its pads, 16-byte aligned, on the banks the
+    # kernel's reads need (a warp reads 8 rows: x rows 16 bytes apart mod
+    # 128; g rows 64 bytes apart at float32, 32 at bf16).
+    per16 = 16 // item
+    assert plan.xrs >= per16 + 3 * (w + 1) and plan.grs >= 16 * w
+    assert (plan.xrs * item) % 128 == 16
+    assert (plan.grs * item) % 128 == (64 if item == 4 else 32)
+    assert plan.x_elems == (rows + 2) * plan.xrs
+    assert plan.stage_elems == plan.x_elems + rows * plan.grs
+    assert (plan.stage_elems * item) % 16 == 0
+    assert 2 * plan.stage_elems * item <= plan.smem_bytes
+    assert plan.smem_bytes >= 4 * conv_cuda.RESNET_WARPS * 27 * 16
+    assert plan.smem_bytes <= conv_cuda.SMEM_LIMIT
+
+
+def test_resnet_gradw_plan_of_the_main_path():
+    """72x96 frames: 9 bands of 8 rows per image, 29,088 units over 132
+    blocks; a float32 stage of 10 x rows and 8 g rows, two in 125 KB."""
+    plan = conv_cuda.resnet_gradw_plan(3232, 72, 96, 4, 132)
+    assert (plan.bands, plan.units, plan.blocks) == (9, 29088, 132)
+    assert (plan.xrs, plan.grs) == (324, 1552)
+    assert plan.smem_bytes == 2 * 4 * (10 * 324 + 8 * 1552)
+
+
+def test_resnet_gradw_plan_refuses_a_frame_too_wide():
+    with pytest.raises(ValueError, match="does not fit"):
+        conv_cuda.resnet_gradw_plan(8, 16, 400, 4, 132)
+
+
+class _Recorder:
+    """A stand-in kernel library recording each launch's entry point and
+    arguments; every launch succeeds."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.startswith("sat_"):
+            raise AttributeError(name)
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+@pytest.mark.parametrize("dtype,suffix", [(torch.float32, ""),
+                                          (torch.bfloat16, "_bf16")])
+@pytest.mark.parametrize("layout", ["hwc", "chw"])
+def test_resnet_geometry_takes_its_kernel_on_the_card(monkeypatch, dtype,
+                                                      suffix, layout):
+    """On the kernel route (x and g on the card, here a stand-in library)
+    (3, 1, 3, 16) launches the ResNet stem kernel of the operand type with
+    its plan and counts it there, and never the plain version."""
+    library = _Recorder()
+    monkeypatch.setattr(_build, "on_cpu", lambda *_: False)
+    monkeypatch.setattr(_build, "library", lambda: library)
+    monkeypatch.setattr(conv_cuda, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(conv_cuda.torch.cuda, "current_stream",
+                        lambda: type("S", (), {"cuda_stream": 7})())
+    monkeypatch.setattr(conv_cuda, "conv_gradw_plain", lambda *a: pytest.fail(
+        "the kernel route ran the plain version"))
+    x, g = (torch.tensor(a).to(dtype) for a in _case(6, 2, 17, 23, 3, 16, 1))
+    x, g = _layouts(x, g)[layout]
+    before = dict(conv_cuda.LAUNCHES)
+    conv_cuda.conv_gradw(x, g, 3, 1)
+    (name, args), = library.calls
+    assert name == "sat_resnet_stem_gradw" + suffix
+    plan = conv_cuda.resnet_gradw_plan(2, 17, 23, x.element_size(), 132)
+    assert args[4:] == (17, 23, plan.bands, plan.xrs, plan.grs,
+                        plan.x_elems, plan.stage_elems, plan.smem_bytes,
+                        int(layout == "chw"), int(layout == "chw"),
+                        plan.units, plan.blocks, 7)
+    grown = {k: v - before[k] for k, v in conv_cuda.LAUNCHES.items()
+             if v != before[k]}
+    assert grown == {"resnet_stem_gradw" + suffix: 1}
 
 
 PLAN_CASES = [

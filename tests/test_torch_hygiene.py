@@ -126,7 +126,7 @@ def test_flag_lists_cover_the_jax_config():
                                   ["--compute_dtype=float16"],
                                   ["--scan_impl=time_sharded"],
                                   ["--inference_mode=service"],
-                                  ["--torso_type=resnet"]])
+                                  ["--rmsprop_momentum=0.9"]])
 def test_unported_flags_and_values_raise(argv):
     with pytest.raises(ValueError, match="ROADMAP.md"):
         Config.from_argv(argv)
