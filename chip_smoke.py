@@ -27,7 +27,8 @@ a result:
    residual forward must be clearly closer to its plain version than to
    the float32 one).  The lean step kernel is also held at
    T=1 for B in {1, 8, 32, 64}, at T=5 (five launches), and from two
-   threads on two streams at once; its float32 device time
+   threads on two streams at once, two calls must be bitwise equal, and
+   its float32 device time
    (torch.profiler) must not exceed ``torch.lstm_cell``'s.  The residual
    forward (input-projection GEMM + recurrence kernel) is also held, on
    all seven outputs, at B in
@@ -73,10 +74,12 @@ a result:
    1, 3 channels into 16 features) against its plain version at N=3232
    frames of 72x96, float32 and with bf16 x and g, in both layouts, at
    N=3233, N=1 and 64 frames of 17x23 in both layouts, two calls bitwise
-   equal, its device time beside cuDNN's ``conv2d_weight``; the lean,
+   equal, its device time in both layouts as a multiple of its bound,
+   beside cuDNN's ``conv2d_weight``; the lean,
    residual and BPTT LSTM kernels at the deep core's D=330, each variant
    against its plain version with two calls bitwise equal, its device
-   time, its wrapper's and plain version's time and its bound; the deep
+   time, its wrapper's and plain version's time and its bound, and
+   ``torch.lstm_cell`` after the reset beside the lean step; the deep
    agent's forward and every parameter gradient on the card against the
    CPU under both policies (float32 at ``AGENT_TOL``; bf16: every leaf
    outside the convnet at ``AGENT_BF16_TOL``, the convnet's within
@@ -87,10 +90,15 @@ a result:
    card and CPU part ways, counted); then the command itself on the
    main path's configuration (``scan_impl`` at its default) for 4 bf16
    updates counted as in phase 3 (the ResNet stem's bf16 grad-W once an
-   update, every LSTM kernel, the shallow stem's never), its s per update,
-   env frames/s and ``ledger/mfu``, ``--mode=test`` on its checkpoint
+   update, every LSTM kernel, the shallow stem's never) with the layouts
+   of the x and g its backward hands ``conv_gradw`` printed, its s per
+   update, env frames/s and ``ledger/mfu``, ``--mode=test`` on its checkpoint
    (adopting the architecture from ``config.json``), 2 float32 updates
-   counted, and one iteration taken apart as in 3b.
+   counted, and one iteration taken apart as in 3b; then the bf16 ResNet
+   stem grad-W's ms per call (CUDA events) at N=3232 in the layouts the
+   deep path handed over, which must be within ``RESNET_BF16_MAX_MS``
+   (twice its byte bound), beside its bound, its device time, cuDNN's
+   and the card's line.
 3b. Where the time goes: one actor unroll, the upload (per_leaf, and
    packed as pack, upload with its GB/s, and unpack) and one update taken
    apart (with torch.profiler for the update's kernels), at bf16 and at
@@ -246,6 +254,8 @@ AGENT_TOL = 1e-3            # whole model: cuDNN convs vs CPU convs
 VTRACE_TOL = 1e-5           # scale-relative; FMA contraction on the card
 VTRACE_MAX_MS = 0.0078      # V-trace device time at [100, 32]: half of the
                             # one-thread-per-column walk's 0.0156 ms
+RESNET_BF16_MAX_MS = 0.507  # the bf16 ResNet stem grad-W's ms per call at
+                            # N=3232: twice its 0.2534 ms byte bound
 UPDATES = 4
 F32_UPDATES = 2             # the float32 policy's shorter path
 POOL_UPDATES = 8             # 2 to fill the window, 6 measured
@@ -324,8 +334,13 @@ def _time_ms(torch, fn, iters):
 
 def _kernel_ms(torch, fn, iters):
     """Mean device milliseconds per call of each kernel ``fn`` launches,
-    by kernel name, from torch.profiler: the kernels' own time, without
-    the host's launch overhead that a loop of small launches is bound by."""
+    by kernel name, from torch.profiler over ``iters`` calls (after one to
+    warm up): the kernels' own time, without the host's launch overhead
+    that a loop of small launches is bound by.  The profiler can drop a
+    kernel's records (8 of 10 launches recorded on the card; PERF.md,
+    section 6), so a kernel's ms per recorded launch is multiplied by its
+    launches per call, the recorded count over ``iters`` rounded; a count
+    that is not a multiple of ``iters`` is printed."""
     fn()
     torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CPU,
@@ -336,10 +351,16 @@ def _kernel_ms(torch, fn, iters):
         torch.cuda.synchronize()
     ms = {}
     for evt in prof.key_averages():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
+        if evt.device_type == torch.autograd.DeviceType.CUDA and evt.count:
             us = getattr(evt, "self_device_time_total", None) or getattr(
                 evt, "self_cuda_time_total", 0.0)
-            ms[evt.key] = ms.get(evt.key, 0.0) + us / 1e3 / iters
+            if evt.count % iters:
+                print(f"  (torch.profiler recorded {evt.count} launches of "
+                      f"{_kernel_name(evt.key)} in {iters} calls)",
+                      flush=True)
+            per_call = max(1, round(evt.count / iters))
+            ms[evt.key] = ms.get(evt.key, 0.0) + (
+                us / 1e3 / evt.count * per_call)
     return ms
 
 
@@ -352,8 +373,13 @@ def _matching(ms, kernel):
 
 
 def _kernel_name(key):
-    """A profiler key without its namespace and argument list."""
-    return key.split("::")[-1].split("(")[0]
+    """A profiler key without its namespace, return type and argument
+    list."""
+    name = key.replace("(anonymous namespace)::", "").split("(")[0]
+    head, bracket, args = name.partition("<")
+    head = head.split("::")[-1]
+    head = head[len("void "):] if head.startswith("void ") else head
+    return head + bracket + args
 
 
 def _device_ms(torch, fn, kernel, iters):
@@ -389,6 +415,16 @@ def _check(name, err_abs, err_rel, tol):
           f"(tolerance {tol:.0e})", flush=True)
     if not err_rel <= tol:
         raise AssertionError(f"{name} disagrees with its plain version")
+
+
+def _bitwise(torch, name, first, second):
+    """Two calls' outputs must be bitwise equal; else the largest
+    difference is printed and the run fails."""
+    diff = max(float((p - q).abs().max()) for p, q in zip(first, second))
+    if not all(torch.equal(p, q) for p, q in zip(first, second)):
+        raise AssertionError(f"{name}: two calls gave different outputs "
+                             f"(max abs difference {diff:.3e})")
+    print(f"  {name}: two calls bitwise equal", flush=True)
 
 
 def _variant(name, matmul_dtype):
@@ -462,9 +498,11 @@ def compare_lstm(torch, lstm_cuda, device, matmul_dtype="float32"):
     args1 = (x[:1].contiguous(), done[:1].contiguous(), c0, h0, wi, wh, b)
     kern = lean(*args1)
     plain = lean_plain(*args1)
+    again = lean(*args1)
     torch.cuda.synchronize()
     err = _errors(zip(kern[:3], plain[:3]))
     _check(f"lstm_fwd_lean{tag}", *err, short_tol)
+    _bitwise(torch, f"lstm_fwd_lean{tag}", kern[:3], again[:3])
     # The library yardstick: torch.lstm_cell after the done-reset computes
     # the same function (gate order i, f, g, o; its CUDA path needs both
     # biases, so the second is zero), in bf16 for the bf16 variant.
@@ -873,7 +911,8 @@ def compare_resnet_gradw(torch, conv_cuda, device, N=101 * 32, dtype=None):
     features) at the learner's merged batch N = 101 * 32 of 72x96 frames,
     in both layouts, then at an uneven N, one image and an odd frame, with
     x and g of ``dtype`` (float32, or bfloat16 for the bf16-operand
-    variant); two calls bitwise equal; device ms against cuDNN's."""
+    variant); two calls bitwise equal; device ms in both layouts against
+    its bound and cuDNN's."""
     dtype = dtype or torch.float32
     bf16 = dtype == torch.bfloat16
     tag = " bf16" if bf16 else ""
@@ -918,23 +957,81 @@ def compare_resnet_gradw(torch, conv_cuda, device, N=101 * 32, dtype=None):
                    *_errors([(conv_cuda.conv_gradw(xx, gg, K, 1), want)]),
                    GRADW_TOL)
         del xs, gs
-    device_ms = _device_ms(
-        torch, lambda: conv_cuda.conv_gradw(x, g, K, 1),
-        ("resnet_stem_gradw_kernel", "reduce_partials_kernel"), 10)
-    lib_device_ms = _device_ms(torch, library, None, 10)
-    plan = conv_cuda.resnet_gradw_plan(N, Hh, W, x.element_size(),
-                                       conv_cuda._sm_count(0))
-    print(f"  {name}: kernels' device time {device_ms:.4f} ms, cuDNN "
-          f"conv2d_weight{tag} {lib_device_ms:.4f} ms (torch.profiler); "
-          f"plan {plan.units} units over {plan.blocks} blocks, "
-          f"{plan.smem_bytes} bytes of shared memory a block", flush=True)
     width = x.element_size()
     nbytes = width * (N * Hh * W * C + N * Hh * W * Fo) + 4 * K * K * C * Fo
     flops = 2 * N * Hh * W * K * K * C * Fo
+    bound, bound_by = _bound_ms(nbytes, flops, bf16)
+    lib_device_ms = _device_ms(torch, library, None, 10)
+    device_ms = {}
+    for layout, xx, gg in (("x and g NHWC", x, g),
+                           ("x and g NCHW-planar", planar(x), planar(g))):
+        device_ms[layout] = _resnet_device_ms(torch, conv_cuda, xx, gg)
+        plan = conv_cuda.resnet_gradw_plan(
+            N, Hh, W, width, conv_cuda._sm_count(0),
+            conv_cuda.tensor_layout(xx) == "chw",
+            conv_cuda.tensor_layout(gg) == "chw")
+        print(f"  {name}, {layout}: kernels' device time "
+              f"{device_ms[layout]:.4f} ms, {device_ms[layout] / bound:.2f}x "
+              f"its bound {bound:.4f} ms "
+              f"({bound_by}); cuDNN conv2d_weight{tag} {lib_device_ms:.4f} "
+              f"ms (torch.profiler); plan {plan.units} units over "
+              f"{plan.blocks} blocks, {plan.stages} stages, "
+              f"{plan.smem_bytes} bytes of shared memory a block",
+              flush=True)
+        del xx, gg
     return [(name, "conv.cu", "conv_pallas.py:86", err,
              lambda: conv_cuda.conv_gradw(x, g, K, 1),
              lambda: conv_cuda.conv_gradw_plain(x, g, K, 1),
-             library, nbytes, flops, bf16, device_ms)]
+             library, nbytes, flops, bf16, device_ms["x and g NHWC"])]
+
+
+def _resnet_device_ms(torch, conv_cuda, x, g):
+    """The ResNet stem grad-W's device ms per call (its kernel and the
+    fixed-order reduce), torch.profiler over 10 calls."""
+    return _device_ms(
+        torch, lambda: conv_cuda.conv_gradw(x, g, 3, 1),
+        ("resnet_stem_gradw_kernel", "reduce_partials_kernel"), 10)
+
+
+def resnet_gradw_in_layout(torch, conv_cuda, device, layouts, card,
+                           N=101 * 32):
+    """The bf16 ResNet stem grad-W's time at the learner's N=3232 frames of
+    72x96 in each (x, g) layout the deep path's backward handed to
+    ``conv_gradw`` (``tensor_layout`` names), against its byte bound and
+    cuDNN's bf16 ``conv2d_weight``: its ms per call over 20 back-to-back
+    calls from CUDA events (the card, not the host, sets their pace; both
+    kernels and the gaps between them) must be within 2x its bound
+    (``RESNET_BF16_MAX_MS``), and its device time from torch.profiler is
+    printed beside it (the profiler can drop or shorten records late in a
+    long process: PERF.md, section 6)."""
+    gen = torch.Generator().manual_seed(8766)
+    Hh, W, C, Fo = 72, 96, 3, 16
+    x = (torch.randint(0, 256, (N, Hh, W, C), generator=gen,
+                       dtype=torch.uint8).to(device).bfloat16() / 255.0)
+    g = torch.randn((N, Hh, W, Fo), generator=gen).to(device).bfloat16()
+    planar = lambda t: t.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    bound, bound_by = _bound_ms(2 * N * Hh * W * (C + Fo) + 4 * 27 * Fo,
+                                2 * N * Hh * W * 27 * Fo, True)
+    lib_ms = _device_ms(torch, lambda: torch.nn.grad.conv2d_weight(
+        x.permute(0, 3, 1, 2), (Fo, C, 3, 3), g.permute(0, 3, 1, 2), 1, 1),
+        None, 10)
+    for x_layout, g_layout in sorted(layouts):
+        xx = planar(x) if x_layout == "chw" else x
+        gg = planar(g) if g_layout == "chw" else g
+        call_ms = _time_ms(torch, lambda: conv_cuda.conv_gradw(xx, gg, 3, 1),
+                           20)
+        device_ms = _resnet_device_ms(torch, conv_cuda, xx, gg)
+        print(f"  resnet_stem_gradw_bf16 in the deep path's layout (x "
+              f"{x_layout}, g {g_layout}): {call_ms:.4f} ms per call (CUDA "
+              f"events), {call_ms / bound:.2f}x its bound {bound:.4f} ms "
+              f"({bound_by}); device time {device_ms:.4f} ms "
+              f"(torch.profiler); cuDNN bf16 conv2d_weight {lib_ms:.4f} ms; "
+              f"{card}", flush=True)
+        if not call_ms <= RESNET_BF16_MAX_MS:
+            raise AssertionError(
+                f"the bf16 ResNet stem grad-W's {call_ms:.4f} ms per call "
+                f"exceeds {RESNET_BF16_MAX_MS} ms")
+        del xx, gg
 
 
 def compare_lstm_wide(torch, lstm_cuda, device, matmul_dtype="float32"):
@@ -965,9 +1062,23 @@ def compare_lstm_wide(torch, lstm_cuda, device, matmul_dtype="float32"):
         _check(f"lstm_fwd_lean{tag} [{steps},{B},{D}]",
                *_errors(zip(kern[:3], plain[:3])), LSTM_TOL)
     args1 = (x[:1].contiguous(), done[:1].contiguous(), c0, h0, wi, wh, b)
-    ms["lean"] = _device_ms(
-        torch, lambda: lstm_cuda.lstm_forward(*args1, residuals=False, **md),
-        "lstm_step_kernel", 50)
+    lean = lambda: lstm_cuda.lstm_forward(*args1, residuals=False, **md)
+    _bitwise(torch, f"lstm_fwd_lean{tag} D={D}", lean()[:3], lean()[:3])
+    ms["lean"] = _device_ms(torch, lean, "lstm_step_kernel", 50)
+    # The library yardstick, as compare_lstm's: torch.lstm_cell after the
+    # done-reset (a zero second bias), in bf16 for the bf16 variant.
+    keep = (1.0 - args1[1][0])[:, None]
+    cast = (lambda t: t.bfloat16()) if bf16 else (lambda t: t)
+    cell_args = tuple(cast(t) for t in (
+        args1[0][0], h0 * keep, c0 * keep, wi.t(), wh.t(), b,
+        torch.zeros_like(b)))
+    cell = lambda: torch.lstm_cell(cell_args[0], cell_args[1:3],
+                                   *cell_args[3:])
+    library = dict(ms=_time_ms(torch, cell, 50),
+                   device_ms=_device_ms(torch, cell, None, 50))
+    print(f"  torch.lstm_cell{tag} after the reset at D={D}: "
+          f"{library['ms']:.4f} ms, device {library['device_ms']:.4f} ms",
+          flush=True)
     args = (x, done, c0, h0, wi, wh, b)
     kern = lstm_cuda.lstm_forward(*args, residuals=True, **md)
     plain = lstm_cuda.lstm_forward_plain(*args, residuals=True, **md)
@@ -1004,6 +1115,7 @@ def compare_lstm_wide(torch, lstm_cuda, device, matmul_dtype="float32"):
                  lambda: lstm_cuda.lstm_backward_plain(*bargs), 10)}
     costs = _lstm_costs(T, B, D, H)
     print(f"  LSTM kernels{tag} at D={D}: two calls bitwise equal", flush=True)
+    ms["lean_library"] = library
     for part, (kern_fn, plain_fn, iters) in calls.items():
         bound, bound_by = _bound_ms(*costs[part], bf16)
         times = dict(device_ms=ms[part],
@@ -1416,24 +1528,12 @@ def breakdown(torch, driver, config):
         per_leaf_ms, (pack_ms, copy_ms, unpack_ms), gbps, traj = (
             upload_parts(torch, device, out))
         update_ms = _time_ms(torch, lambda: learner.update(traj), 3)
-        activities = [torch.profiler.ProfilerActivity.CPU,
-                      torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=activities) as prof:
-            learner.update(traj)
-            torch.cuda.synchronize()
+        # Kernels only: an operator's row repeats its kernels' time.
+        device_us = {key: 1e3 * ms for key, ms in _kernel_ms(
+            torch, lambda: learner.update(traj), 1).items() if ms > 0}
     finally:
         for envs in groups:
             envs.close()
-    device_us = {}
-    for evt in prof.key_averages():
-        # Kernels only: an operator's row repeats its kernels' time.
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = getattr(evt, "self_cuda_time_total", 0.0)
-        if us > 0:
-            device_us[evt.key] = us
     busy_ms = sum(device_us.values()) / 1e3
     print(f"  actor unroll ({config.unroll_length} steps x "
           f"{config.batch_size} envs): {unroll_s:.3f} s, of which "
@@ -1451,7 +1551,10 @@ def breakdown(torch, driver, config):
     for what, names in (
             ("residual LSTM forward", ("sgemm_kernel<true",
                                        "lstm_resid_kernel")),
-            ("LSTM BPTT", (BPTT_CHAIN, BPTT_REDUCE) + BPTT_GEMMS)):
+            ("LSTM BPTT", (BPTT_CHAIN, BPTT_REDUCE) + BPTT_GEMMS),
+            ("stem grad-W", ("conv_gradw_band_kernel",
+                             "resnet_stem_gradw_kernel",
+                             "reduce_partials_kernel"))):
         parts = [(_kernel_name(name), us / 1e3)
                  for name, us in device_us.items()
                  if any(n in name for n in names)]
@@ -1470,11 +1573,25 @@ def deep_path(torch, driver, config, scratch, train_counted, reset_counts,
     with the default architecture's flags (the checkpoint's wins); 2
     float32 updates counted; then the bf16 path's iteration taken apart
     (``breakdown``: the update's device ms by kernel).  Returns the bf16
-    and float32 runs' launch counts."""
+    and float32 runs' launch counts and the (x, g) layouts (``tensor_layout``
+    names) that the bf16 run's backward handed ``conv_gradw``."""
+    from scalable_agent_tpu_torch.ops import conv_cuda
+
     deep = dataclasses.replace(
         config, torso_type="resnet", use_instruction=True, scan_impl="auto",
         trace=False, logdir=os.path.join(scratch, "deep"))
-    launches = train_counted(deep, UPDATES, "_bf16", "resnet_stem_gradw")
+    layouts = set()
+    conv_gradw = conv_cuda.conv_gradw
+
+    def recording(x, g, kernel_size, stride):
+        layouts.add((conv_cuda.tensor_layout(x), conv_cuda.tensor_layout(g)))
+        return conv_gradw(x, g, kernel_size, stride)
+
+    with _patched(conv_cuda, conv_gradw=recording):
+        launches = train_counted(deep, UPDATES, "_bf16", "resnet_stem_gradw")
+    print(f"  the deep path's backward handed conv_gradw (x, g) in the "
+          f"layouts {sorted(layouts)} (tensor_layout: hwc contiguous NHWC, "
+          f"chw an NHWC view of NCHW)", flush=True)
     rows = {r["step"]: r for r in _rows(deep.logdir)}
     s_per_update = (rows[UPDATES]["time"] - rows[2]["time"]) / (UPDATES - 2)
     registry = [r for r in _all_rows(deep.logdir) if _is_registry_row(r)]
@@ -1506,7 +1623,7 @@ def deep_path(torch, driver, config, scratch, train_counted, reset_counts,
 
     with float32_precision():
         breakdown(torch, driver, deep)
-    return launches, f32_launches
+    return launches, f32_launches, layouts
 
 
 def _all_rows(logdir):
@@ -2918,9 +3035,11 @@ def main() -> int:
             for dtype in (torch.float32, torch.bfloat16):
                 compare_agent(torch, device, dtype, "resnet", True)
             torch.cuda.empty_cache()
-        deep_launches, deep_f32_launches = deep_path(
+        deep_launches, deep_f32_launches, deep_layouts = deep_path(
             torch, driver, config, scratch, train_counted, reset_counts,
             read_counts)
+        resnet_gradw_in_layout(torch, conv_cuda, device, deep_layouts, card)
+        torch.cuda.empty_cache()
 
         phase("phase 3b: where one iteration of the main path spends its "
               "time")

@@ -74,6 +74,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kK = 8;                      // kernel size
@@ -452,17 +454,24 @@ int gradw(const T* x, const T* g, float* partial, float* dw, int H, int W,
 // frames of 72x96.  What bounds it on this card: the bytes.  g has 16
 // channels at full resolution and is 84% of the 1.70 GB read in float32
 // (0.85 GB with bf16 x and g), against 19.3 GFLOP of FMA: 0.507 ms of bytes
-// against 0.288 ms of float32 FFMA at 67 TFLOP/s; 0.253 ms of bytes at bf16.
+// against 0.288 ms of float32 FFMA at 67 TFLOP/s; 0.253 ms of bytes at bf16
+// against 0.02 ms on bf16 tensor cores.  One template,
+// resnet_stem_gradw_kernel<T, XCHW, GCHW>, has a body for each operand
+// type; both work on bands of kResRows = 8 whole output rows of one image
+// and are deterministic the same way: block b owns the (image, band) units
+// [b*U/B, (b+1)*U/B) in order, each warp sums in a fixed order, the warps
+// are summed in index order through shared memory, and the blocks'
+// partials by reduce_partials_kernel in block order, so two calls give
+// bitwise-equal dW.  Entry points: sat_resnet_stem_gradw and
+// sat_resnet_stem_gradw_bf16.
 //
-// Design (a simple kernel: float32 FFMA, no tensor cores, no TMA):
-// * Bands of kResRows = 8 whole output rows of one image.  A block stages a
-//   band's 10 input rows (the halo included) and its 8 cotangent rows in
-//   shared memory, in the operand type and in one layout whatever the
-//   tensors' (pixels in order, channels innermost, the SAME column pads in
-//   place and zero), double-buffered: the next band is in flight while
-//   this one is contracted.  Contiguous NHWC rows go by cp.async as wide as
-//   their alignment allows; an NHWC view of NCHW memory, and rows that are
-//   not 4-byte aligned (bf16 at an odd width), are copied synchronously,
+// float32 (a simple kernel: FFMA, no tensor cores, no TMA):
+// * A block stages a band's 10 input rows (the halo included) and its 8
+//   cotangent rows in shared memory in one layout whatever the tensors'
+//   (pixels in order, channels innermost, the SAME column pads in place
+//   and zero), double-buffered: the next band is in flight while this one
+//   is contracted.  Contiguous NHWC rows go by cp.async as wide as their
+//   alignment allows; an NHWC view of NCHW memory is copied synchronously,
 //   transposed on the way.  Rows above or below the image are zeroed per
 //   band, so the inner loop has no bounds checks.
 // * Sliding windows along a row.  Warp w takes the w-th eighth of the
@@ -472,14 +481,51 @@ int gradw(const T* x, const T* g, float* partial, float* dw, int H, int W,
 //   the new column's 9 inputs (3 kh x 3 c) and one vector of 4 cotangent
 //   values from shared memory for 108 FMAs.  The staged rows' strides put
 //   the 8 rows a warp reads on distinct banks (conv_cuda.resnet_gradw_plan).
-// * Deterministic: the 8 rows of a warp are summed by a fixed butterfly of
-//   shuffles, the warps in index order through shared memory, and the
-//   blocks' partials by reduce_partials_kernel in block order (block b owns
-//   the (image, band) units [b*U/B, (b+1)*U/B) in order): two calls give
-//   bitwise-equal dW.  bf16 values are converted to float as they are read
-//   (exact), so products are exact and sums float32, as _gradw_kernel's at
-//   matmul_dtype="bfloat16".  Entry points: sat_resnet_stem_gradw and
-//   sat_resnet_stem_gradw_bf16.
+//   The 8 rows of a warp are summed by a fixed butterfly of shuffles.
+//
+// bf16 (tensor cores; res_mma_body): at half the bytes an FFMA loop like
+// the float32 one was the limit (0.64 ms against 0.25 ms of bytes), so the
+// contraction runs on mma.sync.m16n8k16 bf16 with float32 accumulators:
+//   dW^T[16 features, 32 columns] += G^T[16, 16 pixels] . P[16 pixels, 32]
+// M the 16 features (one m16 tile), N the 27 taps padded to 32 (four n8
+// tiles), K 16 pixels of one output row: 4 mma.sync per 16 pixels and 16
+// float32 accumulators a thread.  (wgmma's 64-row tiles would be three
+// quarters idle here, and at mma.sync's rate the 19.3 GFLOP take ~0.04 ms,
+// under the bytes.)  The products are exact and the sums float32, as
+// _gradw_kernel's at matmul_dtype="bfloat16".
+// * Staging.  Both layouts are staged raw, as they lie in memory, by
+//   cp.async of 16 bytes where the rows' alignment allows (always for NHWC
+//   g; planar rows and NHWC x rows at an even width; 8 or 4 bytes, else
+//   element by element, as alignment falls), in a ring of q.stages stages
+//   (3), two blocks an SM: while each contracts one band, 4 more (~30 KB
+//   each at 72x96) are in flight on the SM.  (On an H100 one block of 2
+//   to 6 stages read 0.40-0.42 ms at N=3232, two blocks 0.30: PERF.md.)
+//   A staged output row is padded to q.wp, a
+//   multiple of 16 pixels; the pad pixels of g, the SAME column pads of x
+//   and the columns past them are zeroed once, before the ring starts, and
+//   never written again, and rows above or below the image are zeroed per
+//   band: every value the contraction reads is finite, and every pad
+//   product is zero.
+// * A (G^T) by ldmatrix.x4 from the staged g: NHWC g is a [pixel][16]
+//   row of 32 bytes per pixel, read with .trans, its two 16-byte halves
+//   swapped at pixels with bit 2 set so that the 8 pixel rows of one 8x8
+//   load fall on distinct banks; planar g is [feature][pixels], read
+//   without .trans, features q.grs apart (16 bytes mod 128).
+// * B (patches) from the staged x band by 16-bit loads.  Column (j, i) of
+//   n8 tile j < 3 is tap (kh, kw, c) = (i / 3, j, i % 3); tile 3 holds the
+//   ninth (kh, c) = (2, 2) at kw = i for i < 3, and its columns 3-7 hold
+//   finite staged values whose outputs are never written.  A lane's three
+//   kw of one (kh, c) at pixels (p, p+1) need x at padded columns p .. p+3,
+//   so 4 loads build 3 registers: 12 loads and 8 packs per 16 pixels, for
+//   either layout (NHWC a column is 3 elements wide, planar 1).  Planar x
+//   could use 32-bit loads from a second copy shifted by one element; at
+//   14% of the bytes, one code path and one staged copy were kept.
+//   conv_cuda.resnet_gradw_plan picks row strides that keep these loads
+//   within 1.33 shared-memory wavefronts on average (NHWC) or 1 (planar).
+// * Warp w contracts output row w of each band (a band of the last rows
+//   may have fewer), its 16-pixel chunks in order into a fresh accumulator
+//   that is added to the running float32 sums at the end of the band, so no
+//   tensor-core accumulation runs longer than one row.
 
 constexpr int kResK = 3;
 constexpr int kResC = 3;
@@ -495,15 +541,16 @@ static_assert(kResRows * (kResF / kResFeat) == 32,
 
 struct ResGeometry {
   int H, W, bands;   // OH = H and OW = W (stride 1, SAME)
-  int xrs, grs;      // row strides of the staged x and g, elements
+  int xrs, grs;      // row strides of the staged x and g, elements (bf16
+                     // planar g: a feature's plane stride)
   int x_elems;       // staged x region (kResRows + 2 rows), elements
   int stage_elems;   // one stage: x region + g region
+  int stages;        // stages of the ring (float32: 2)
+  int xplane;        // bf16 planar x: a channel's plane stride
+  int wp;            // bf16: pixels of a staged output row (W up to 16s)
 };
 
 __device__ __forceinline__ float res_float(float v) { return v; }
-__device__ __forceinline__ float res_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 __device__ __forceinline__ void res_load4(const float* p, float* out) {
   const float4 v = *reinterpret_cast<const float4*>(p);
@@ -511,19 +558,6 @@ __device__ __forceinline__ void res_load4(const float* p, float* out) {
   out[1] = v.y;
   out[2] = v.z;
   out[3] = v.w;
-}
-
-__device__ __forceinline__ void res_load4(const __nv_bfloat16* p,
-                                          float* out) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  const float2 lo =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
-  const float2 hi =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
-  out[0] = lo.x;
-  out[1] = lo.y;
-  out[2] = hi.x;
-  out[3] = hi.y;
 }
 
 template <int BYTES, typename T>
@@ -637,11 +671,342 @@ __device__ __forceinline__ void res_stage_unit(T* xs, const T* x, const T* g,
                   static_cast<long long>(q.W) * kResF, rows, q.W * kResF);
 }
 
+// ---- the bf16 body ---------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kResPix = 16;     // pixels of one mma.sync step (its K)
+constexpr int kResXoHwc = 5;    // element of padded column 0 in a staged
+constexpr int kResXoChw = 7;    // x row: data (column 1) 16-byte aligned
+constexpr int kResMaxStages = 8;
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// cp.async.wait_group takes an immediate: waits until at most `pending`
+// of this thread's groups are in flight.
+__device__ __forceinline__ void res_wait_pending(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
+    case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
+  }
+}
+
+template <int BYTES>
+__device__ __forceinline__ void res_runs_vec(bf16* dst, int dpl, int drow,
+                                             const bf16* src, long long spl,
+                                             long long srow, int planes,
+                                             int rows, int len) {
+  constexpr int kPer = BYTES / 2;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int i = warp; i < planes * rows; i += kResWarps) {
+    const int p = i / rows, r = i - p * rows;
+    bf16* d = dst + p * dpl + r * drow;
+    const bf16* s = src + p * spl + r * srow;
+    for (int v = lane * kPer; v < len; v += 32 * kPer) {
+      if (BYTES == 16)
+        cp_async16(d + v, s + v);
+      else
+        cp_async<BYTES>(reinterpret_cast<float*>(d + v),
+                        reinterpret_cast<const float*>(s + v));
+    }
+  }
+}
+
+// Copies planes x rows runs of `len` elements, run (p, r) from
+// src + p*spl + r*srow to dst + p*dpl + r*drow, one warp a run: by cp.async
+// of 16, 8 or 4 bytes as every run's alignment allows, else element by
+// element.
+__device__ __forceinline__ void res_runs(bf16* dst, int dpl, int drow,
+                                         const bf16* src, long long spl,
+                                         long long srow, int planes,
+                                         int rows, int len) {
+  const unsigned long long bits =
+      reinterpret_cast<unsigned long long>(src) | smem_addr(dst) |
+      static_cast<unsigned long long>(spl * 2) |
+      static_cast<unsigned long long>(srow * 2) |
+      static_cast<unsigned>(dpl * 2) | static_cast<unsigned>(drow * 2) |
+      static_cast<unsigned>(len * 2);
+  if ((bits & 15) == 0) {
+    res_runs_vec<16>(dst, dpl, drow, src, spl, srow, planes, rows, len);
+  } else if ((bits & 7) == 0) {
+    res_runs_vec<8>(dst, dpl, drow, src, spl, srow, planes, rows, len);
+  } else if ((bits & 3) == 0) {
+    res_runs_vec<4>(dst, dpl, drow, src, spl, srow, planes, rows, len);
+  } else {
+    for (int i = threadIdx.x; i < planes * rows * len; i += kResThreads) {
+      const int run = i / len, v = i - run * len;
+      const int p = run / rows, r = run - p * rows;
+      dst[p * dpl + r * drow + v] = src[p * spl + r * srow + v];
+    }
+  }
+}
+
+// Zeroes rows [r0, r1) of `drow` elements (a multiple of 8) in each of
+// `planes` planes `dpl` elements apart (a multiple of 8).
+__device__ __forceinline__ void res_zero_runs(bf16* dst, int dpl, int drow,
+                                              int planes, int r0, int r1) {
+  const int n = (r1 - r0) * (drow / 8);
+  for (int i = threadIdx.x; i < planes * n; i += kResThreads) {
+    const int p = i / n;
+    reinterpret_cast<uint4*>(dst + p * dpl + r0 * drow)[i - p * n] =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// NHWC g rows (32 bytes a pixel) into [pixel][16] rows of wp pixels, the
+// two 16-byte halves of pixel p swapped when bit 2 of p is set.
+__device__ __forceinline__ void res_stage_g_hwc(bf16* gs, int wp,
+                                                const bf16* src, int W,
+                                                int rows) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if ((reinterpret_cast<unsigned long long>(src) & 15) == 0) {
+    for (int r = warp; r < rows; r += kResWarps) {
+      const bf16* s = src + static_cast<long long>(r) * W * kResF;
+      bf16* d = gs + r * wp * kResF;
+      for (int k = lane; k < 2 * W; k += 32) {
+        const int p = k >> 1;
+        cp_async16(d + p * kResF + 8 * ((k & 1) ^ ((p >> 2) & 1)), s + 8 * k);
+      }
+    }
+  } else {
+    const int per_row = W * kResF;
+    for (int i = threadIdx.x; i < rows * per_row; i += kResThreads) {
+      const int r = i / per_row, e = i - r * per_row;
+      const int p = e >> 4, f = e & 15;
+      gs[(r * wp + p) * kResF + 8 * ((f >> 3) ^ ((p >> 2) & 1)) + (f & 7)] =
+          src[i];
+    }
+  }
+}
+
+// Issues the copies (and zeroes the out-of-image rows) of image n's band
+// `band` into the stage at xs.  Staged x: padded column pc of row r (row
+// 0 the band's first output row - 1), channel c, at element
+// r*xrs + xo + 3*pc + c (NHWC) or c*xplane + r*xrs + xo + pc (planar).
+// Staged g, from xs + x_elems: output row r, pixel p, feature f at
+// (r*wp + p)*16 + (f ^ (8 * bit 2 of p)) (NHWC) or f*grs + r*wp + p.
+template <bool XCHW, bool GCHW>
+__device__ __forceinline__ void res_mma_stage(bf16* xs, const bf16* x,
+                                              const bf16* g, long long n,
+                                              int band,
+                                              const ResGeometry& q) {
+  const int oh0 = band * kResRows;
+  const int rows = min(kResRows, q.H - oh0);
+  const int xr = rows + kResK - 1;  // input rows of the band, halo included
+  const int ih0 = oh0 - 1;
+  const int lo = max(0, -ih0);      // first band row inside the image
+  const int hi = min(xr, q.H - ih0);  // one past the last
+  const long long plane = static_cast<long long>(q.H) * q.W;
+  if (XCHW) {
+    res_zero_runs(xs, q.xplane, q.xrs, kResC, 0, lo);
+    res_zero_runs(xs, q.xplane, q.xrs, kResC, hi, xr);
+    res_runs(xs + lo * q.xrs + kResXoChw + 1, q.xplane, q.xrs,
+             x + n * kResC * plane + static_cast<long long>(ih0 + lo) * q.W,
+             plane, q.W, kResC, hi - lo, q.W);
+  } else {
+    res_zero_runs(xs, 0, q.xrs, 1, 0, lo);
+    res_zero_runs(xs, 0, q.xrs, 1, hi, xr);
+    res_runs(xs + lo * q.xrs + kResXoHwc + kResC, 0, q.xrs,
+             x + (n * plane + static_cast<long long>(ih0 + lo) * q.W) * kResC,
+             0, static_cast<long long>(q.W) * kResC, 1, hi - lo,
+             q.W * kResC);
+  }
+  bf16* gs = xs + q.x_elems;
+  if (GCHW) {
+    const bf16* s = g + n * kResF * plane + static_cast<long long>(oh0) * q.W;
+    if (q.wp == q.W)  // the band's rows are one run per feature
+      res_runs(gs, q.grs, 0, s, plane, 0, kResF, 1, rows * q.W);
+    else
+      res_runs(gs, q.grs, q.wp, s, plane, q.W, kResF, rows, q.W);
+  } else {
+    res_stage_g_hwc(gs, q.wp,
+                    g + (n * plane + static_cast<long long>(oh0) * q.W) *
+                            kResF,
+                    q.W, rows);
+  }
+}
+
+template <bool TRANS>
+__device__ __forceinline__ void res_ldmatrix_x4(unsigned (&r)[4],
+                                                const bf16* p) {
+  if constexpr (TRANS) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+        "[%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_addr(p)));
+  } else {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_addr(p)));
+  }
+}
+
+__device__ __forceinline__ void res_mma(float (&c)[4], const unsigned (&a)[4],
+                                        unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The dW row (tap (kh*3 + kw)*3 + c) of column i of n8 tile j, or -1.
+__device__ __forceinline__ int res_column_tap(int j, int i) {
+  if (j < 3) return ((i / kResC) * kResK + j) * kResC + i % kResC;
+  return i < kResK ? ((kResK - 1) * kResK + i) * kResC + kResC - 1 : -1;
+}
+
+template <bool XCHW, bool GCHW>
+__device__ __forceinline__ void res_mma_body(const bf16* __restrict__ x,
+                                             const bf16* __restrict__ g,
+                                             float* __restrict__ partial,
+                                             const ResGeometry& q,
+                                             long long units) {
+  extern __shared__ float4 res_smem4[];
+  bf16* smem = reinterpret_cast<bf16*>(res_smem4);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, t = lane & 3;
+  const int S = q.stages;
+  const long long u_begin = blockIdx.x * units / gridDim.x;
+  const long long u_end = (blockIdx.x + 1) * units / gridDim.x;
+
+  // Zero every stage once: the copies never write the pads.
+  {
+    uint4* s16 = reinterpret_cast<uint4*>(res_smem4);
+    const int n16 = S * q.stage_elems / 8;
+    for (int i = tid; i < n16; i += kResThreads)
+      s16[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  __syncthreads();
+
+  // This lane's operands, relative to a chunk's staged x (padded column =
+  // the chunk's first pixel) and g.  B: the lane's (kh, c) = (gid / 3,
+  // gid % 3) at pixel 2t and its tile-3 value (2, 2) at kw = min(gid, 2).
+  constexpr int px = XCHW ? 1 : kResC;  // elements per padded column
+  const int cs = XCHW ? q.xplane : 1;   // elements per channel
+  const int xo = XCHW ? kResXoChw : kResXoHwc;
+  const int off_a =
+      (gid / kResC) * q.xrs + (gid % kResC) * cs + xo + 2 * t * px;
+  const int off_b =
+      (kResK - 1) * (q.xrs + cs) + xo + (2 * t + min(gid, 2)) * px;
+  // A: lane l addresses row l % 8 of the 8x8 matrix l / 8, the matrices
+  // (features 0-7 | 8-15) x (pixels 0-7 | 8-15) in the order a0..a3.
+  const int mat = lane >> 3, r8 = lane & 7;
+  const int g_off =
+      GCHW ? (r8 + 8 * (mat & 1)) * q.grs + 8 * (mat >> 1)
+           : (r8 + 8 * (mat >> 1)) * kResF + 8 * ((mat & 1) ^ (r8 >> 2));
+  const int g_row = GCHW ? q.wp : q.wp * kResF;  // elements per output row
+  const int g_chunk = GCHW ? kResPix : kResPix * kResF;
+  const int chunks = q.wp / kResPix;
+
+  float acc[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+
+  // The next unit to stage: its (image, band) and ring slot; the band and
+  // slot of the unit contracted.
+  long long n_in = u_begin / q.bands;
+  int band_in = static_cast<int>(u_begin - n_in * q.bands);
+  int band_cur = band_in, slot_in = 0, slot_cur = 0;
+  auto stage_next = [&](long long u) {
+    if (u < u_end)
+      res_mma_stage<XCHW, GCHW>(smem + slot_in * q.stage_elems, x, g, n_in,
+                                band_in, q);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    if (++band_in == q.bands) {
+      band_in = 0;
+      ++n_in;
+    }
+    if (++slot_in == S) slot_in = 0;
+  };
+  for (int s = 0; s < S - 1; ++s) stage_next(u_begin + s);
+  for (long long u = u_begin; u < u_end; ++u) {
+    res_wait_pending(S - 2);  // this unit's copies have landed
+    __syncthreads();          // ... every thread's, and the last stage is free
+    stage_next(u + S - 1);
+    const bf16* xs = smem + slot_cur * q.stage_elems;
+    if (++slot_cur == S) slot_cur = 0;
+    if (warp < min(kResRows, q.H - band_cur * kResRows)) {
+      const unsigned short* xa =
+          reinterpret_cast<const unsigned short*>(xs + warp * q.xrs) + off_a;
+      const unsigned short* xb =
+          reinterpret_cast<const unsigned short*>(xs + warp * q.xrs) + off_b;
+      const bf16* ga = xs + q.x_elems + warp * g_row + g_off;
+      float part[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) part[j][i] = 0.f;
+#pragma unroll 2
+      for (int cb = 0; cb < chunks; ++cb) {
+        unsigned a[4];
+        res_ldmatrix_x4<!GCHW>(a, ga + cb * g_chunk);
+        unsigned b[4][2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int o = (cb * kResPix + 8 * h) * px;
+          const unsigned v0 = xa[o], v1 = xa[o + px], v2 = xa[o + 2 * px],
+                         v3 = xa[o + 3 * px];
+          const unsigned w0 = xb[o], w1 = xb[o + px];
+          b[0][h] = v0 | (v1 << 16);
+          b[1][h] = v1 | (v2 << 16);
+          b[2][h] = v2 | (v3 << 16);
+          b[3][h] = w0 | (w1 << 16);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) res_mma(part[j], a, b[j][0], b[j][1]);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[j][i] += part[j][i];
+    }
+    if (++band_cur == q.bands) band_cur = 0;
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  // Accumulator i of tile j is feature gid + 8*(i/2), column 2t + i%2.
+  float* red = reinterpret_cast<float*>(res_smem4);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int tap = res_column_tap(j, 2 * t + (i & 1));
+      if (tap >= 0)
+        red[warp * kResOut + tap * kResF + gid + 8 * (i >> 1)] = acc[j][i];
+    }
+  __syncthreads();
+  for (int o = tid; o < kResOut; o += kResThreads) {
+    float v = 0.f;
+    for (int w = 0; w < kResWarps; ++w) v += red[w * kResOut + o];
+    partial[static_cast<size_t>(blockIdx.x) * kResOut + o] = v;
+  }
+}
+
+// ---- the float32 body -------------------------------------------------------
+
 template <typename T, bool XCHW, bool GCHW>
-__global__ void __launch_bounds__(kResThreads, 1)
-    resnet_stem_gradw_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                             float* __restrict__ partial, ResGeometry q,
-                             long long units) {
+__device__ __forceinline__ void res_ffma_body(const T* __restrict__ x,
+                                              const T* __restrict__ g,
+                                              float* __restrict__ partial,
+                                              const ResGeometry& q,
+                                              long long units) {
   extern __shared__ float4 res_smem4[];
   T* smem = reinterpret_cast<T*>(res_smem4);
   constexpr int xo = 16 / static_cast<int>(sizeof(T)) - kResC;
@@ -763,6 +1128,17 @@ __global__ void __launch_bounds__(kResThreads, 1)
 }
 
 template <typename T, bool XCHW, bool GCHW>
+__global__ void __launch_bounds__(kResThreads, 1)
+    resnet_stem_gradw_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                             float* __restrict__ partial, ResGeometry q,
+                             long long units) {
+  if constexpr (std::is_same_v<T, bf16>)
+    res_mma_body<XCHW, GCHW>(x, g, partial, q, units);
+  else
+    res_ffma_body<T, XCHW, GCHW>(x, g, partial, q, units);
+}
+
+template <typename T, bool XCHW, bool GCHW>
 cudaError_t launch_resnet(const T* x, const T* g, float* partial,
                           const ResGeometry& q, long long units,
                           int num_blocks, int smem_bytes, cudaStream_t s) {
@@ -774,24 +1150,51 @@ cudaError_t launch_resnet(const T* x, const T* g, float* partial,
   return cudaGetLastError();
 }
 
+// Whether (xrs, grs, x_elems, stage_elems, stages, xplane, wp) describe
+// the staged band the body of the operand type T addresses (see
+// conv_cuda.resnet_gradw_plan), with a ring of `stages` stages and the
+// warps' final sums fitting in smem_bytes.
+template <typename T>
+bool resnet_layout_ok(int W, int xrs, int grs, int x_elems, int stage_elems,
+                      int stages, int xplane, int wp, int smem_bytes,
+                      bool x_chw, bool g_chw) {
+  constexpr int item = static_cast<int>(sizeof(T));
+  if ((xrs * item) % 16 || (grs * item) % 16 || (x_elems * item) % 16 ||
+      (stage_elems * item) % 16 ||
+      smem_bytes < stages * stage_elems * item ||
+      smem_bytes < kResWarps * kResOut * static_cast<int>(sizeof(float)))
+    return false;
+  const int x_rows = kResRows + kResK - 1;
+  if (!std::is_same_v<T, bf16>)
+    return stages == 2 && xrs >= 16 / item + kResC * (W + 1) &&
+           grs >= kResF * W && x_elems >= x_rows * xrs &&
+           stage_elems >= x_elems + kResRows * grs;
+  if (stages < 2 || stages > kResMaxStages || wp < W || wp % kResPix)
+    return false;
+  const bool x_ok =
+      x_chw ? xrs >= kResXoChw + wp + 2 && (xplane * item) % 16 == 0 &&
+                  xplane >= x_rows * xrs && x_elems >= kResC * xplane
+            : xrs >= kResXoHwc + kResC * (wp + 2) && x_elems >= x_rows * xrs;
+  const bool g_ok = g_chw ? grs >= kResRows * wp &&
+                                stage_elems >= x_elems + kResF * grs
+                          : grs == kResF * wp &&
+                                stage_elems >= x_elems + kResRows * grs;
+  return x_ok && g_ok;
+}
+
 template <typename T>
 int resnet_gradw(const T* x, const T* g, float* partial, float* dw, int H,
                  int W, int bands, int xrs, int grs, int x_elems,
-                 int stage_elems, int smem_bytes, int x_chw, int g_chw,
-                 long long units, int num_blocks, void* stream) {
-  constexpr int item = static_cast<int>(sizeof(T));
-  // The layout the kernel addresses: aligned rows holding the padded
-  // band, two stages and the warps' final sums in the allocation.
+                 int stage_elems, int stages, int xplane, int wp,
+                 int smem_bytes, int x_chw, int g_chw, long long units,
+                 int num_blocks, void* stream) {
   if (H < 1 || W < 1 || bands != (H + kResRows - 1) / kResRows ||
-      (xrs * item) % 16 || (grs * item) % 16 ||
-      xrs < 16 / item + kResC * (W + 1) || grs < kResF * W ||
-      x_elems < (kResRows + kResK - 1) * xrs || (x_elems * item) % 16 ||
-      stage_elems < x_elems + kResRows * grs || (stage_elems * item) % 16 ||
-      smem_bytes < 2 * stage_elems * item ||
-      smem_bytes < kResWarps * kResOut * static_cast<int>(sizeof(float)) ||
-      num_blocks < 1 || units < num_blocks)
+      num_blocks < 1 || units < num_blocks ||
+      !resnet_layout_ok<T>(W, xrs, grs, x_elems, stage_elems, stages, xplane,
+                           wp, smem_bytes, x_chw, g_chw))
     return static_cast<int>(cudaErrorInvalidValue);
-  const ResGeometry q{H, W, bands, xrs, grs, x_elems, stage_elems};
+  const ResGeometry q{H,           W,      bands,  xrs, grs, x_elems,
+                      stage_elems, stages, xplane, wp};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (x_chw && g_chw)
@@ -841,24 +1244,27 @@ int sat_conv_gradw_bf16(const __nv_bfloat16* x, const __nv_bfloat16* g,
 
 int sat_resnet_stem_gradw(const float* x, const float* g, float* partial,
                           float* dw, int H, int W, int bands, int xrs,
-                          int grs, int x_elems, int stage_elems,
-                          int smem_bytes, int x_chw, int g_chw,
-                          long long units, int num_blocks, void* stream) {
+                          int grs, int x_elems, int stage_elems, int stages,
+                          int xplane, int wp, int smem_bytes, int x_chw,
+                          int g_chw, long long units, int num_blocks,
+                          void* stream) {
   return resnet_gradw<float>(x, g, partial, dw, H, W, bands, xrs, grs,
-                             x_elems, stage_elems, smem_bytes, x_chw, g_chw,
-                             units, num_blocks, stream);
+                             x_elems, stage_elems, stages, xplane, wp,
+                             smem_bytes, x_chw, g_chw, units, num_blocks,
+                             stream);
 }
 
 int sat_resnet_stem_gradw_bf16(const __nv_bfloat16* x,
                                const __nv_bfloat16* g, float* partial,
                                float* dw, int H, int W, int bands, int xrs,
                                int grs, int x_elems, int stage_elems,
-                               int smem_bytes, int x_chw, int g_chw,
-                               long long units, int num_blocks,
-                               void* stream) {
+                               int stages, int xplane, int wp, int smem_bytes,
+                               int x_chw, int g_chw, long long units,
+                               int num_blocks, void* stream) {
   return resnet_gradw<__nv_bfloat16>(x, g, partial, dw, H, W, bands, xrs,
-                                     grs, x_elems, stage_elems, smem_bytes,
-                                     x_chw, g_chw, units, num_blocks, stream);
+                                     grs, x_elems, stage_elems, stages,
+                                     xplane, wp, smem_bytes, x_chw, g_chw,
+                                     units, num_blocks, stream);
 }
 
 }  // extern "C"

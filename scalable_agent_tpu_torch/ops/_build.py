@@ -50,7 +50,7 @@ for _name, _signature in {
         "sat_lstm_step": ([_P] * 9 + [_I] * 3 + [_P], _I),
         "sat_lstm_backward": ([_P] * 20 + [_I] * 8 + [_P], _I),
         "sat_conv_gradw": ([_P] * 4 + [_I] * 15 + [_L, _I, _P], _I),
-        "sat_resnet_stem_gradw": ([_P] * 4 + [_I] * 10 + [_L, _I, _P],
+        "sat_resnet_stem_gradw": ([_P] * 4 + [_I] * 13 + [_L, _I, _P],
                                   _I)}.items():
     _SIGNATURES[_name] = _SIGNATURES[_name + "_bf16"] = _signature
 

@@ -24,13 +24,19 @@ torsos have; ``conv_gradw`` dispatches on (K, S, C, F):
   torso's ``downscale_0``): ``resnet_stem_gradw_kernel``, launch counters
   ``LAUNCHES["resnet_stem_gradw"]`` and ``LAUNCHES["resnet_stem_gradw_bf16"]``.
   Its work is bound by the bytes of the full-resolution 16-channel
-  cotangent; this first kernel is slower than that.  Each block stages bands of 8 output rows (x with its halo, g) double-buffered
-  and walks each row with a sliding 3x3x3 window, a thread holding the 27
-  patch rows for 4 features (``resnet_gradw_plan`` sizes the staged rows).
+  cotangent.  Each block stages bands of 8 output rows (x with its halo,
+  g) in shared memory.  The float32 body (FFMA) stages them double-buffered
+  in one layout and walks each row with a sliding 3x3x3 window, a thread
+  holding the 27 patch rows for 4 features.  The bf16 body (tensor cores)
+  stages each tensor raw, in its own layout, by ``cp.async`` in a ring of
+  up to ``RESNET_STAGES`` bands, and contracts 16 pixels of a row at a time
+  with ``mma.sync`` m16n8k16: the 16 features by the 27 taps (padded to
+  32), g's fragment by ``ldmatrix``, the patches' by 16-bit loads.
+  ``resnet_gradw_plan`` sizes the staged rows and the ring.
 
 Both take x and g as float32 or as bfloat16 (the torso under
 ``compute_dtype=bfloat16``, ``matmul_dtype="bfloat16"`` in the JAX
-package), the bf16 variant reading half the bytes and summing the exact
+package), the bf16 variants reading half the bytes and summing the exact
 products in float32; ``dW`` is float32 from both.  Both take ``x`` and
 ``g`` each either as contiguous NHWC or as an NHWC view of contiguous NCHW
 memory (``tensor_layout``); anything else raises, and so does any other
@@ -69,9 +75,9 @@ _VARIANTS = {
 }
 _DTYPES = (torch.float32, torch.bfloat16)
 
-# Two stages of a band must fit in a block's shared memory (227 KB on an
-# H100), and so must the final sum of the other five row groups' [K*K*C, F]
-# tiles.
+# The stages of the blocks on one SM must fit this (an H100 SM has 228
+# KB), and so must the shallow stem's final sum of the other five row
+# groups' [K*K*C, F] tiles.
 SMEM_BUDGET = 200 * 1024
 _REDUCE_FLOATS = 5 * STEM[0] * STEM[0] * STEM[2] * STEM[3]
 
@@ -203,6 +209,18 @@ def block_units(plan, block: int) -> range:
 RESNET_ROWS = 8
 RESNET_WARPS = 8
 SMEM_LIMIT = 227 * 1024
+# The bf16 body (csrc/conv.cu res_mma_body): pixels of one mma.sync step,
+# to which a staged output row is padded (kResPix); the element of padded
+# column 0 in a staged x row, NHWC and planar (kResXoHwc, kResXoChw: the
+# data, column 1, then starts 16-byte aligned); its blocks per SM and its
+# ring's stages, as many as fit the SM's SMEM_BUDGET up to RESNET_STAGES
+# (the kernel takes at most kResMaxStages = 8).  On an H100 two blocks of
+# 3 stages read 0.30 ms at the main path's N=3232 where one block of 2, 3,
+# 4 or 6 read 0.40-0.42 (PERF.md, section 6).
+RESNET_PIXELS = 16
+RESNET_XO = {False: 5, True: 7}
+RESNET_BLOCKS_PER_SM = 2
+RESNET_STAGES = 3
 
 
 class ResnetGradWPlan(NamedTuple):
@@ -211,9 +229,13 @@ class ResnetGradWPlan(NamedTuple):
 
     bands: int         # bands of RESNET_ROWS output rows per image
     xrs: int           # row stride of a staged input band
-    grs: int           # row stride of a staged cotangent band
+    grs: int           # row stride of a staged cotangent band (bf16
+                       # planar g: one feature's plane)
     x_elems: int       # staged input band (RESNET_ROWS + 2 rows)
     stage_elems: int   # one stage: input band + cotangent band
+    stages: int        # stages of the ring (float32: 2)
+    xplane: int        # bf16 planar x: one channel's plane, else 0
+    wp: int            # bf16: pixels of a staged output row, else width
     smem_bytes: int    # dynamic shared memory per block
     units: int         # (image, band) pairs
     blocks: int
@@ -225,28 +247,63 @@ def _at_least(n: int, residue: int, modulus: int) -> int:
 
 
 def resnet_gradw_plan(n: int, height: int, width: int, itemsize: int,
-                      sm_count: int) -> ResnetGradWPlan:
-    """Staged rows padded so that the 8 rows a warp reads fall on distinct
-    banks: input rows 16 bytes apart (mod 128), cotangent rows 64 bytes
-    apart for float32's 16-byte reads (a quarter warp is two rows) and 32
-    bytes for bf16's 8-byte reads (a half warp is four rows).  An input
-    row's data starts 16-byte aligned after the 3-element left pad.
-    Blocks: one per SM (at most one per unit); block b owns the units
-    ``block_units(plan, b)``, in order."""
+                      sm_count: int, x_chw: bool = False,
+                      g_chw: bool = False) -> ResnetGradWPlan:
+    """Blocks: one per SM for float32, RESNET_BLOCKS_PER_SM for bf16 (at
+    most one per unit); block b owns the units ``block_units(plan, b)``,
+    in order.
+
+    float32 (the FFMA body; one layout whatever the tensors'): staged rows
+    padded so that the 8 rows a warp reads fall on distinct banks: input
+    rows 16 bytes apart (mod 128), cotangent rows 64 bytes apart for its
+    16-byte reads (a quarter warp is two rows); an input row's data starts
+    16-byte aligned after the 3-element left pad; two stages.
+
+    bf16 (the mma.sync body; each tensor staged in its own layout, ``x_chw``
+    and ``g_chw``): output rows padded to ``wp`` pixels, a multiple of
+    RESNET_PIXELS.  Strides in elements, chosen for the shared-memory banks
+    of the kernel's reads: NHWC x rows 40 (mod 64) apart (its 12 operand
+    loads take 1.33 wavefronts on average); planar x rows 8 and planes 24
+    (mod 64) apart (one wavefront each); NHWC g rows 32 bytes a pixel,
+    whose halves the kernel swaps at pixels with bit 2 set; planar g
+    planes 16 bytes (mod 128) apart, so the 8 rows of one ldmatrix fall on
+    distinct banks.  Every row starts 16-byte aligned.  As many stages as
+    fit the SM's SMEM_BUDGET, up to RESNET_STAGES."""
     k, _, c, f = RESNET_STEM
-    per16 = 16 // itemsize
-    xrs = _at_least(per16 + c * (width + 1), per16, 8 * per16)
-    grs = _at_least(f * width, 16, 128 // itemsize)
-    x_elems = (RESNET_ROWS + k - 1) * xrs
-    stage = x_elems + RESNET_ROWS * grs
-    smem = max(2 * stage * itemsize, 4 * RESNET_WARPS * k * k * c * f)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"a {width}-wide frame does not fit the ResNet "
-                         f"stem grad-W kernel's shared memory")
     bands = -(-height // RESNET_ROWS)
     units = n * bands
-    return ResnetGradWPlan(bands, xrs, grs, x_elems, stage, smem, units,
-                           min(units, sm_count))
+    x_rows = RESNET_ROWS + k - 1
+    if itemsize == 4:
+        xrs = _at_least(4 + c * (width + 1), 4, 32)
+        grs = _at_least(f * width, 16, 32)
+        x_elems = x_rows * xrs
+        stage, stages, xplane, wp = x_elems + RESNET_ROWS * grs, 2, 0, width
+        per_sm = 1
+    else:
+        wp = -(-width // RESNET_PIXELS) * RESNET_PIXELS
+        xo = RESNET_XO[x_chw]
+        if x_chw:
+            xrs = _at_least(xo + wp + 2, 8, 64)
+            xplane = _at_least(x_rows * xrs, 24, 64)
+            x_elems = c * xplane
+        else:
+            xrs = _at_least(xo + c * (wp + 2), 40, 64)
+            xplane, x_elems = 0, x_rows * xrs
+        if g_chw:
+            grs = _at_least(RESNET_ROWS * wp, 8, 64)
+            stage = x_elems + f * grs
+        else:
+            grs = f * wp
+            stage = x_elems + RESNET_ROWS * grs
+        per_sm = RESNET_BLOCKS_PER_SM
+        stages = min(RESNET_STAGES,
+                     SMEM_BUDGET // (per_sm * stage * itemsize))
+    smem = max(stages * stage * itemsize, 4 * RESNET_WARPS * k * k * c * f)
+    if stages < 2 or smem > SMEM_LIMIT:
+        raise ValueError(f"a {width}-wide frame does not fit the ResNet "
+                         f"stem grad-W kernel's shared memory")
+    return ResnetGradWPlan(bands, xrs, grs, x_elems, stage, stages, xplane,
+                           wp, smem, units, min(units, per_sm * sm_count))
 
 
 @functools.lru_cache(maxsize=None)
@@ -299,13 +356,14 @@ def conv_gradw(x, g, kernel_size: int, stride: int):
                   int(g_chw), plan.units, plan.blocks, stream)
     else:
         plan = resnet_gradw_plan(n, height, width, x.element_size(),
-                                 sm_count)
+                                 sm_count, x_chw, g_chw)
         partial = torch.empty((plan.blocks, k * k * c * f),
                               dtype=torch.float32, device=x.device)
         code = fn(x.data_ptr(), g.data_ptr(), partial.data_ptr(),
                   dw.data_ptr(), height, width, plan.bands, plan.xrs,
-                  plan.grs, plan.x_elems, plan.stage_elems, plan.smem_bytes,
-                  int(x_chw), int(g_chw), plan.units, plan.blocks, stream)
+                  plan.grs, plan.x_elems, plan.stage_elems, plan.stages,
+                  plan.xplane, plan.wp, plan.smem_bytes, int(x_chw),
+                  int(g_chw), plan.units, plan.blocks, stream)
     _build.check(code, f"grad-W kernel {entry}")
     _build.count_launch(LAUNCHES, counter)
     return dw

@@ -224,43 +224,347 @@ RESNET_PLAN_CASES = [
 ]
 
 
+def _bank_wavefronts(addresses):
+    """Shared-memory wavefronts of one warp-wide access: the most distinct
+    4-byte words that fall on one of the 32 banks (byte addresses)."""
+    banks = {}
+    for word in {a // 4 for a in addresses}:
+        banks.setdefault(word % 32, set()).add(word)
+    return max(map(len, banks.values()))
+
+
 @pytest.mark.parametrize("n,h,w,item,sms", RESNET_PLAN_CASES)
 def test_resnet_gradw_plan_fits_and_splits_in_order(n, h, w, item, sms):
-    plan = conv_cuda.resnet_gradw_plan(n, h, w, item, sms)
     rows = conv_cuda.RESNET_ROWS
-    assert plan.bands == -(-h // rows) and plan.units == n * plan.bands
-    assert plan.blocks == min(plan.units, sms)
-    units = [list(conv_cuda.block_units(plan, b))
-             for b in range(plan.blocks)]
-    assert all(units) and max(map(len, units)) - min(map(len, units)) <= 1
-    assert [u for block in units for u in block] == list(range(plan.units))
-    # Rows hold the band with its pads, 16-byte aligned, on the banks the
-    # kernel's reads need (a warp reads 8 rows: x rows 16 bytes apart mod
-    # 128; g rows 64 bytes apart at float32, 32 at bf16).
-    per16 = 16 // item
-    assert plan.xrs >= per16 + 3 * (w + 1) and plan.grs >= 16 * w
-    assert (plan.xrs * item) % 128 == 16
-    assert (plan.grs * item) % 128 == (64 if item == 4 else 32)
-    assert plan.x_elems == (rows + 2) * plan.xrs
-    assert plan.stage_elems == plan.x_elems + rows * plan.grs
-    assert (plan.stage_elems * item) % 16 == 0
-    assert 2 * plan.stage_elems * item <= plan.smem_bytes
-    assert plan.smem_bytes >= 4 * conv_cuda.RESNET_WARPS * 27 * 16
-    assert plan.smem_bytes <= conv_cuda.SMEM_LIMIT
+    # float32 stages one layout whatever the tensors'; bf16 each its own.
+    layouts = [(False, False)] if item == 4 else [
+        (False, False), (True, True), (True, False), (False, True)]
+    for x_chw, g_chw in layouts:
+        plan = conv_cuda.resnet_gradw_plan(n, h, w, item, sms, x_chw, g_chw)
+        per_sm = 1 if item == 4 else conv_cuda.RESNET_BLOCKS_PER_SM
+        assert plan.bands == -(-h // rows) and plan.units == n * plan.bands
+        assert plan.blocks == min(plan.units, per_sm * sms)
+        units = [list(conv_cuda.block_units(plan, b))
+                 for b in range(plan.blocks)]
+        assert all(units) and max(map(len, units)) - min(map(len, units)) <= 1
+        assert [u for block in units for u in block] == list(
+            range(plan.units))
+        # Every row of a stage 16-byte aligned; the stages and the warps'
+        # final sums fit.
+        for stride in (plan.xrs, plan.grs, plan.x_elems, plan.stage_elems,
+                       plan.xplane):
+            assert (stride * item) % 16 == 0
+        assert plan.stages * plan.stage_elems * item <= plan.smem_bytes
+        assert plan.smem_bytes >= 4 * conv_cuda.RESNET_WARPS * 27 * 16
+        assert plan.smem_bytes <= conv_cuda.SMEM_LIMIT
+        if item == 4:
+            # The FFMA body's reads: a warp reads 8 rows, x rows 16 bytes
+            # apart mod 128, g rows 64 bytes apart.
+            assert plan.stages == 2
+            assert plan.xrs >= 4 + 3 * (w + 1) and plan.grs >= 16 * w
+            assert plan.x_elems == (rows + 2) * plan.xrs
+            assert plan.stage_elems == plan.x_elems + rows * plan.grs
+            assert (plan.xrs * item) % 128 == 16
+            assert (plan.grs * item) % 128 == 64
+            continue
+        # bf16: a ring of at least 3 stages, the SM's blocks' within the
+        # budget; output rows
+        # padded with zeros to 16 pixels (the wp - w pad pixels and the x
+        # columns past the right pad are never written); the data of an x
+        # row (padded column 1) 16-byte aligned.
+        assert plan.stages == conv_cuda.RESNET_STAGES >= 3
+        assert (per_sm * plan.stages * plan.stage_elems * item
+                <= conv_cuda.SMEM_BUDGET)
+        assert plan.wp % 16 == 0 and w <= plan.wp < w + 16
+        xo, px = conv_cuda.RESNET_XO[x_chw], (1 if x_chw else 3)
+        assert ((xo + px) * item) % 16 == 0
+        assert plan.xrs >= xo + px * (plan.wp + 2)
+        if x_chw:
+            assert plan.xplane >= (rows + 2) * plan.xrs
+            assert plan.x_elems == 3 * plan.xplane
+        else:
+            assert plan.x_elems == (rows + 2) * plan.xrs
+        g_plane = 16 * plan.grs if g_chw else rows * plan.grs
+        assert plan.grs >= (rows * plan.wp if g_chw else 16 * plan.wp)
+        assert plan.stage_elems == plan.x_elems + g_plane
+        # The 8 rows of each 8x8 ldmatrix of g fall on distinct banks, and
+        # the patch loads take at most 2 wavefronts (1 for planar x).
+        for mat in range(4):
+            rows_at = [2 * _a_row(plan, g_chw, 8 * mat + r)
+                       for r in range(8)]
+            assert len({(a // 16) % 8 for a in rows_at}) == 8
+        worst = max(_bank_wavefronts([2 * (base + a) for a in lane_elems])
+                    for base in range(0, 64, 8)
+                    for lane_elems in _b_loads(plan, x_chw))
+        assert worst == (1 if x_chw else 2)
 
 
 def test_resnet_gradw_plan_of_the_main_path():
-    """72x96 frames: 9 bands of 8 rows per image, 29,088 units over 132
-    blocks; a float32 stage of 10 x rows and 8 g rows, two in 125 KB."""
+    """72x96 frames: 9 bands of 8 rows per image, 29,088 units; float32:
+    over 132 blocks, a stage of 10 x rows and 8 g rows, two in 125 KB;
+    bf16: over 264 blocks (two an SM), a stage of NHWC x and g 31 KB,
+    three in 93 KB."""
     plan = conv_cuda.resnet_gradw_plan(3232, 72, 96, 4, 132)
     assert (plan.bands, plan.units, plan.blocks) == (9, 29088, 132)
     assert (plan.xrs, plan.grs) == (324, 1552)
     assert plan.smem_bytes == 2 * 4 * (10 * 324 + 8 * 1552)
+    plan = conv_cuda.resnet_gradw_plan(3232, 72, 96, 2, 132)
+    assert (plan.bands, plan.units, plan.blocks) == (9, 29088, 264)
+    assert (plan.wp, plan.xrs, plan.grs, plan.stages) == (96, 360, 1536, 3)
+    assert plan.smem_bytes == 3 * 2 * (10 * 360 + 8 * 1536)
 
 
 def test_resnet_gradw_plan_refuses_a_frame_too_wide():
     with pytest.raises(ValueError, match="does not fit"):
         conv_cuda.resnet_gradw_plan(8, 16, 400, 4, 132)
+    with pytest.raises(ValueError, match="does not fit"):
+        conv_cuda.resnet_gradw_plan(8, 16, 1600, 2, 132)
+
+
+# -- the bf16 body's addressing, mirrored from csrc/conv.cu res_mma_body ------
+#
+# A staged band is built as the kernel's copies build it (the same runs of
+# raw memory, the same zeroing, the same ring of stages), and each lane's
+# ldmatrix and 16-bit loads read it at the kernel's offsets; the fragments
+# are then laid out as mma.sync m16n8k16 defines them.  Change these with
+# the kernel.
+
+
+def _b_offsets(plan, x_chw, lane):
+    """A lane's off_a, off_b and elements per padded column."""
+    gid, t = lane >> 2, lane & 3
+    px = 1 if x_chw else 3
+    cs = plan.xplane if x_chw else 1
+    xo = conv_cuda.RESNET_XO[x_chw]
+    off_a = (gid // 3) * plan.xrs + (gid % 3) * cs + xo + 2 * t * px
+    off_b = 2 * (plan.xrs + cs) + xo + (2 * t + min(gid, 2)) * px
+    return off_a, off_b, px
+
+
+def _b_loads(plan, x_chw):
+    """The 12 16-bit loads of one chunk's patches (per half: v0..v3 then
+    w0, w1), each the 32 lanes' elements relative to the chunk's first
+    pixel in the warp's staged x row."""
+    loads = []
+    for h in range(2):
+        for which, count in ((0, 4), (1, 2)):
+            for d in range(count):
+                loads.append([])
+                for lane in range(32):
+                    off_a, off_b, px = _b_offsets(plan, x_chw, lane)
+                    loads[-1].append((off_a, off_b)[which] + (8 * h + d) * px)
+    return loads
+
+
+def _a_row(plan, g_chw, lane):
+    """The row lane ``lane`` addresses in a chunk's ldmatrix.x4 of g."""
+    mat, r8 = lane >> 3, lane & 7
+    if g_chw:
+        return (r8 + 8 * (mat & 1)) * plan.grs + 8 * (mat >> 1)
+    return (r8 + 8 * (mat >> 1)) * 16 + 8 * ((mat & 1) ^ (r8 >> 2))
+
+
+def _column_tap(j, i):
+    """res_column_tap: dW row (kh*3 + kw)*3 + c of column i of tile j."""
+    if j < 3:
+        return ((i // 3) * 3 + j) * 3 + i % 3
+    return (6 + i) * 3 + 2 if i < 3 else -1
+
+
+def _runs(buf, dst, dpl, drow, mem, src, spl, srow, planes, rows, length):
+    for p in range(planes):
+        for r in range(rows):
+            d, s_ = dst + p * dpl + r * drow, src + p * spl + r * srow
+            buf[d:d + length] = mem[s_:s_ + length]
+
+
+def _zero_runs(buf, dst, dpl, drow, planes, r0, r1):
+    for p in range(planes):
+        buf[dst + p * dpl + r0 * drow:dst + p * dpl + r1 * drow] = 0
+
+
+def _stage(buf, plan, x_chw, g_chw, xm, gm, n, band, h, w):
+    """res_mma_stage: image n's band into the stage ``buf``."""
+    oh0 = band * 8
+    rows = min(8, h - oh0)
+    xr, ih0 = rows + 2, oh0 - 1
+    lo, hi = max(0, -ih0), min(xr, h - ih0)
+    plane = h * w
+    xo = conv_cuda.RESNET_XO[x_chw]
+    if x_chw:
+        _zero_runs(buf, 0, plan.xplane, plan.xrs, 3, 0, lo)
+        _zero_runs(buf, 0, plan.xplane, plan.xrs, 3, hi, xr)
+        _runs(buf, lo * plan.xrs + xo + 1, plan.xplane, plan.xrs, xm,
+              n * 3 * plane + (ih0 + lo) * w, plane, w, 3, hi - lo, w)
+    else:
+        _zero_runs(buf, 0, 0, plan.xrs, 1, 0, lo)
+        _zero_runs(buf, 0, 0, plan.xrs, 1, hi, xr)
+        _runs(buf, lo * plan.xrs + xo + 3, 0, plan.xrs, xm,
+              (n * plane + (ih0 + lo) * w) * 3, 0, w * 3, 1, hi - lo, w * 3)
+    gs = plan.x_elems
+    src = n * 16 * plane + oh0 * w
+    if g_chw and plan.wp == w:
+        _runs(buf, gs, plan.grs, 0, gm, src, plane, 0, 16, 1, rows * w)
+    elif g_chw:
+        _runs(buf, gs, plan.grs, plan.wp, gm, src, plane, w, 16, rows, w)
+    else:
+        src = (n * plane + oh0 * w) * 16
+        for r in range(rows):
+            for k in range(2 * w):
+                p = k >> 1
+                half = (k & 1) ^ ((p >> 2) & 1)
+                d = gs + (r * plan.wp + p) * 16 + 8 * half
+                buf[d:d + 8] = gm[src + r * w * 16 + 8 * k:][:8]
+
+
+def _ldmatrix_x4(buf, rows_at, trans):
+    """Thread T's 4 registers (2 values each) of ldmatrix.x4 whose lane l
+    addresses row l % 8 of matrix l // 8."""
+    regs = np.empty((32, 4, 2))
+    for i in range(4):
+        m = np.stack([buf[a:a + 8] for a in rows_at[8 * i:8 * i + 8]])
+        for lane in range(32):
+            gid, t = lane >> 2, lane & 3
+            regs[lane, i] = (m[2 * t:2 * t + 2, gid] if trans
+                             else m[gid, 2 * t:2 * t + 2])
+    return regs
+
+
+def _fragments(buf, plan, x_chw, g_chw, warp, cb):
+    """The matrices a warp's 4 mma.sync multiply for chunk cb of its row:
+    A [16 features, 16 pixels] and B [16 pixels, 32 columns], and every
+    element the lanes read (to hold them inside their regions)."""
+    x_row = warp * plan.xrs + cb * 16 * (1 if x_chw else 3)
+    g_chunk = plan.x_elems + warp * plan.wp * (1 if g_chw else 16) + (
+        cb * 16 * (1 if g_chw else 16))
+    rows_at = [g_chunk + _a_row(plan, g_chw, lane) for lane in range(32)]
+    regs = _ldmatrix_x4(buf, rows_at, trans=not g_chw)
+    a_mat = np.empty((16, 16))
+    b_mat = np.empty((16, 32))
+    loads = np.array(_b_loads(plan, x_chw)) + x_row  # [12, 32]
+    values = buf[loads]
+    for lane in range(32):
+        gid, t = lane >> 2, lane & 3
+        for i in range(4):
+            a_mat[gid + 8 * (i & 1), 2 * t + 8 * (i >> 1):][:2] = regs[lane, i]
+        for h in range(2):
+            v = values[6 * h:6 * h + 4, lane]
+            w0, w1 = values[6 * h + 4:6 * h + 6, lane]
+            for j, pair in enumerate(((v[0], v[1]), (v[1], v[2]),
+                                      (v[2], v[3]), (w0, w1))):
+                b_mat[2 * t + 8 * h:2 * t + 8 * h + 2, 8 * j + gid] = pair
+    return a_mat, b_mat, rows_at, loads
+
+
+def _emulate_resnet_bf16(x, g, x_chw, g_chw, sm_count, check=None):
+    """csrc/conv.cu's bf16 body on numpy [N, H, W, 3] x and [N, H, W, 16]
+    g: every block's ring, staging and mma fragments, summed in the
+    kernel's order (chunks into a band's float32 accumulator, bands into
+    the running sums, warps, then blocks); dW [3, 3, 3, 16].
+    ``check(n, oh0, warp, cb, a_mat, b_mat)`` sees every chunk's
+    matrices."""
+    n_img, h, w, _ = x.shape
+    plan = conv_cuda.resnet_gradw_plan(n_img, h, w, 2, sm_count, x_chw,
+                                       g_chw)
+    xm = np.ascontiguousarray(x.transpose(0, 3, 1, 2) if x_chw else x).ravel()
+    gm = np.ascontiguousarray(g.transpose(0, 3, 1, 2) if g_chw else g).ravel()
+    partials = []
+    for block in range(plan.blocks):
+        ring = np.zeros((plan.stages, plan.stage_elems))
+        acc = np.zeros((8, 16, 32), np.float32)
+        for i, u in enumerate(conv_cuda.block_units(plan, block)):
+            n, band = divmod(u, plan.bands)
+            buf = ring[i % plan.stages]
+            _stage(buf, plan, x_chw, g_chw, xm, gm, n, band, h, w)
+            for warp in range(min(8, h - band * 8)):
+                part = np.zeros((16, 32), np.float32)
+                for cb in range(plan.wp // 16):
+                    a_mat, b_mat, rows_at, loads = _fragments(
+                        buf, plan, x_chw, g_chw, warp, cb)
+                    assert plan.x_elems <= min(rows_at)
+                    assert max(rows_at) + 8 <= plan.stage_elems
+                    assert 0 <= loads.min() and loads.max() < plan.x_elems
+                    if check:
+                        check(n, band * 8, warp, cb, a_mat, b_mat)
+                    part += (a_mat @ b_mat).astype(np.float32)
+                acc[warp] += part
+        dw = np.zeros((27, 16), np.float32)
+        for warp in range(8):
+            for col in range(32):
+                tap = _column_tap(col // 8, col % 8)
+                if tap >= 0:
+                    dw[tap] += acc[warp, :, col]
+        partials.append(dw)
+    return np.sum(partials, axis=0, dtype=np.float32).reshape(3, 3, 3, 16)
+
+
+RESNET_BF16_CASES = [(1, 72, 96), (3, 17, 23)]
+LAYOUT_PAIRS = [(False, False), (True, True), (True, False), (False, True)]
+
+
+@pytest.mark.parametrize("x_chw,g_chw", LAYOUT_PAIRS)
+@pytest.mark.parametrize("n,h,w", RESNET_BF16_CASES)
+def test_resnet_bf16_fragments_hold_the_right_taps_and_pixels(n, h, w, x_chw,
+                                                               g_chw):
+    """Index level: with every x and g element replaced by its own number
+    (1, 2, ...; the pads 0), each chunk's A holds g[n, oh, 16cb + k, f] at
+    (f, k) and its B holds x[n, oh + kh - 1, 16cb + k + kw - 1, c] at (k,
+    column of tap (kh, kw, c)), zero outside the image and past the row's
+    W pixels; the 5 unused columns hold staged (finite) values."""
+    x_id = 1.0 + np.arange(n * h * w * 3, dtype=np.float64).reshape(
+        n, h, w, 3)
+    g_id = 1.0 + np.arange(n * h * w * 16, dtype=np.float64).reshape(
+        n, h, w, 16)
+    xp = np.pad(x_id, ((0, 0), (1, 1), (1, 1), (0, 0)))
+    seen = []
+
+    def check(img, oh0, warp, cb, a_mat, b_mat):
+        oh = oh0 + warp
+        ow = 16 * cb + np.arange(16)
+        inside = ow < w
+        want_a = np.where(inside[None, :],
+                          g_id[img, oh, np.minimum(ow, w - 1), :].T, 0.0)
+        np.testing.assert_array_equal(a_mat, want_a)
+        for col in range(32):
+            tap = _column_tap(col // 8, col % 8)
+            if tap < 0:
+                assert np.isfinite(b_mat[:, col]).all()
+                continue
+            kh, kw, c = tap // 9, (tap // 3) % 3, tap % 3
+            pc = ow + kw
+            want = np.where(pc < w + 2,
+                            xp[img, oh + kh, np.minimum(pc, w + 1), c], 0.0)
+            np.testing.assert_array_equal(b_mat[:, col], want)
+        seen.append((img, oh, cb))
+
+    _emulate_resnet_bf16(x_id, g_id, x_chw, g_chw, sm_count=2, check=check)
+    wp = -(-w // 16) * 16
+    assert sorted(seen) == [(i, oh, cb) for i in range(n) for oh in range(h)
+                            for cb in range(wp // 16)]
+
+
+@pytest.mark.parametrize("x_chw,g_chw", LAYOUT_PAIRS)
+@pytest.mark.parametrize("n,h,w", RESNET_BF16_CASES)
+def test_resnet_bf16_fragment_sums_match_plain_and_pallas(n, h, w, x_chw,
+                                                          g_chw):
+    """The products those fragments pair, summed in the kernel's order,
+    against conv_gradw_plain's im2col contraction and the Pallas kernel
+    (interpret mode, matmul_dtype="bfloat16") on bf16-exact x and g, at
+    the tolerance of test_resnet_stem_gradw_plain_matches_pallas."""
+    x, g = _case(h * w + 7 * n, n, h, w, 3, 16, 1)
+    x = torch.tensor(x).bfloat16()
+    g = torch.tensor(g).bfloat16()
+    got = _emulate_resnet_bf16(x.float().numpy().astype(np.float64),
+                               g.float().numpy().astype(np.float64),
+                               x_chw, g_chw, sm_count=2)
+    plain = conv_cuda.conv_gradw_plain(x, g, 3, 1).numpy()
+    want = np.asarray(conv_pallas.conv_gradw(
+        jnp.asarray(x.float().numpy(), jnp.bfloat16),
+        jnp.asarray(g.float().numpy(), jnp.bfloat16), 3, 1, interpret=True,
+        matmul_dtype="bfloat16"))
+    for reference in (plain, want):
+        np.testing.assert_allclose(got, reference, rtol=2e-5,
+                                   atol=2e-6 * np.abs(reference).max())
 
 
 class _Recorder:
@@ -298,11 +602,13 @@ def test_resnet_geometry_takes_its_kernel_on_the_card(monkeypatch, dtype,
     conv_cuda.conv_gradw(x, g, 3, 1)
     (name, args), = library.calls
     assert name == "sat_resnet_stem_gradw" + suffix
-    plan = conv_cuda.resnet_gradw_plan(2, 17, 23, x.element_size(), 132)
+    chw = layout == "chw"
+    plan = conv_cuda.resnet_gradw_plan(2, 17, 23, x.element_size(), 132,
+                                       chw, chw)
     assert args[4:] == (17, 23, plan.bands, plan.xrs, plan.grs,
-                        plan.x_elems, plan.stage_elems, plan.smem_bytes,
-                        int(layout == "chw"), int(layout == "chw"),
-                        plan.units, plan.blocks, 7)
+                        plan.x_elems, plan.stage_elems, plan.stages,
+                        plan.xplane, plan.wp, plan.smem_bytes, int(chw),
+                        int(chw), plan.units, plan.blocks, 7)
     grown = {k: v - before[k] for k, v in conv_cuda.LAUNCHES.items()
              if v != before[k]}
     assert grown == {"resnet_stem_gradw" + suffix: 1}
