@@ -50,7 +50,14 @@ a result:
    must give bitwise-equal dW, and its float32 time must be below
    cuDNN's.
    Then the whole agent, forward and every parameter gradient, on the card
-   against the same weights on the CPU, under each dtype policy.
+   against the same weights on the CPU, under each dtype policy.  Then the
+   composite policies' geometry: the lean, residual and BPTT LSTM kernels
+   at D=265 (``fake_tuple``: 256 + 1 + 3 + 5, odd) and D=296 (Doom's full
+   discretized space) in both types, as at D=330 below (a bf16 lean unroll
+   of T > 1 held step by step from the kernel's own carry, and
+   free-running at LSTM_TOL unless flips of the bf16 rounding of h are
+   counted), and the stem grad-W at 3232 frames of 16x16 in both types,
+   with two calls bitwise equal, against cuDNN's.
 3. Train: ``driver.train`` on ``fake_benchmark`` at full width (64 actors
    in two groups of 32 on ActorPool threads, 8 env worker processes per
    group, unroll 100, 4 action repeats, LSTM 256, ``--scan_impl=pallas``,
@@ -99,6 +106,19 @@ a result:
    deep path handed over, which must be within ``RESNET_BF16_MAX_MS``
    (twice its byte bound), beside its bound, its device time, cuDNN's
    and the card's line.
+3i. (Run after 3h.) Composite policies: ``--level_name=fake_tuple``
+   (Tuple(Discrete(3), Discretized(5, -1, 1)), 16x16 frames) at the main
+   path's layout, bf16, ``--scan_impl=pallas`` and
+   ``--rmsprop_momentum=0.9`` for 4 updates counted as in phase 3, the
+   checkpoint's momentum trace verified, ``--mode=test`` for 8 episodes,
+   a resume for 2 more updates whose env frames and checkpoint step are
+   exact and whose restored trace equals the saved one bit for bit, 2
+   float32 updates counted; then one pool trajectory: its [T+1, B, 2]
+   actions inside their components' ranges, the env's frames encoding
+   component 0, and the composite agent's logits, joint log-probs and
+   parameter gradients on it on the card against the CPU under both
+   policies (AGENT_TOL, AGENT_BF16_TOL); s per update and env frames/s
+   printed, not gated.
 3b. Where the time goes: one actor unroll, the upload (per_leaf, and
    packed as pack, upload with its GB/s, and unpack) and one update taken
    apart (with torch.profiler for the update's kernels), at bf16 and at
@@ -106,6 +126,12 @@ a result:
    ``POOL_UPDATES`` (8) updates at ``inflight_updates`` 2 and 1 (s per
    update after the first 2, actor against learner fps, ``wait_batch``,
    ``update`` and ``retire``).
+3j. (Run after 3b.) ``--benchmark_mode=true`` on the main path, 4 bf16
+   updates counted, its s per update and env frames/s beside 3b's (not
+   gated); then one pool trajectory whose env outputs, frames included,
+   equal bit for bit those of host ``BenchmarkStream``s seeded as the
+   driver seeds the envs, while the agent's recorded actions differ from
+   the env's.
 3d. (Run after 3b, before 3c.) The default loop's machinery, each part
    failing the run: packed
    bitwise equal to per_leaf for one full-width trajectory from the pool,
@@ -906,6 +932,46 @@ def compare_gradw(torch, conv_cuda, device, N=101 * 32, dtype=None):
              library, nbytes, flops, bf16, device_ms)]
 
 
+def compare_gradw_frame(torch, conv_cuda, device, hh, ww, N=101 * 32,
+                        dtype=None):
+    """The shallow stem's grad-W at another frame size, N frames of
+    ``hh`` x ``ww`` (``fake_tuple``'s and the small fake levels' 16x16
+    take 4x4 outputs: the learner's merged batch N = 101 * 32), with x
+    and g of ``dtype``: against its plain version, two calls bitwise
+    equal, its device time and wrapper time against its bound, its plain
+    version's and cuDNN's."""
+    dtype = dtype or torch.float32
+    bf16 = dtype == torch.bfloat16
+    name = f"stem_gradw{'_bf16' if bf16 else ''} [{N},{hh},{ww},3]"
+    gen = torch.Generator().manual_seed(hh * 1000 + ww)
+    C, K, S, Fo = 3, 8, 4, 32
+    OH, OW = -(-hh // S), -(-ww // S)
+    x = (torch.randint(0, 256, (N, hh, ww, C), generator=gen,
+                       dtype=torch.uint8).to(device).to(dtype) / 255.0)
+    g = torch.randn((N, OH, OW, Fo), generator=gen).to(device).to(dtype)
+    kern = lambda: conv_cuda.conv_gradw(x, g, K, S)
+    plain = lambda: conv_cuda.conv_gradw_plain(x, g, K, S)
+    _, (pad, _) = conv_cuda.same_pads(hh, K, S)
+    library = lambda: torch.nn.grad.conv2d_weight(
+        x.permute(0, 3, 1, 2), (Fo, C, K, K), g.permute(0, 3, 1, 2), S, pad)
+    first, want, again = kern(), plain(), kern()
+    torch.cuda.synchronize()
+    err = _errors([(first, want)])
+    _check(name, *err, GRADW_TOL)
+    _bitwise(torch, name, [first], [again])
+    nbytes = (x.element_size() * (N * hh * ww * C + N * OH * OW * Fo)
+              + 4 * K * K * C * Fo)
+    bound, bound_by = _bound_ms(nbytes, 2 * N * OH * OW * K * K * C * Fo,
+                                bf16)
+    device_ms = _device_ms(
+        torch, kern, ("conv_gradw_band_kernel", "reduce_partials_kernel"), 10)
+    print(f"  {name}: ms {_time_ms(torch, kern, 10):.4f}, device ms "
+          f"{device_ms:.4f}, bound {bound:.4f} ms ({bound_by}), plain ms "
+          f"{_time_ms(torch, plain, 3):.4f}, cuDNN conv2d_weight ms "
+          f"{_time_ms(torch, library, 10):.4f}, device "
+          f"{_device_ms(torch, library, None, 10):.4f}", flush=True)
+
+
 def compare_resnet_gradw(torch, conv_cuda, device, N=101 * 32, dtype=None):
     """The ResNet stem's grad-W (3x3, stride 1, 3 channels into 16
     features) at the learner's merged batch N = 101 * 32 of 72x96 frames,
@@ -1034,17 +1100,76 @@ def resnet_gradw_in_layout(torch, conv_cuda, device, layouts, card,
         del xx, gg
 
 
-def compare_lstm_wide(torch, lstm_cuda, device, matmul_dtype="float32"):
-    """The three LSTM kernels at the deep agent's core input D = 256 + 1 +
-    9 + 64 = 330 (the instruction's 64 features), T=101 and B=32, H=256,
-    against their plain versions: the lean step at T=1 and T=5, the
-    residual forward and the BPTT with two calls bitwise equal; each one's
-    device time (torch.profiler), its wrapper's and its plain version's
-    time (CUDA events) and its bound; these by part."""
+def _lean_unroll_check(torch, lstm_cuda, name, args, matmul_dtype,
+                       flipped_tol=LSTM_TOL):
+    """The lean step kernel over an unroll of ``args`` (one launch a step)
+    against its plain version at LSTM_TOL.  With bf16 operands each step
+    rounds the float32 carry h of the step before to bf16, and where the
+    kernel's h and the plain version's differ in the last float32 bits
+    (their sums run in other orders) that rounding can flip, 2**-8 of the
+    operand, and the flip travels down its batch row and seeds more.  So a
+    bf16 unroll is also held step by step, each step's kernel launch and
+    plain step fed the same carry (the kernel's own) at LSTM_TOL; the
+    flips of h's rounding between the two free-running unrolls are
+    counted by batch row; every row without one is held free-running at
+    LSTM_TOL, and the whole unroll at LSTM_TOL where no row flipped, at
+    ``flipped_tol`` where one did.  ``flipped_tol`` is LSTM_TOL unless the
+    caller names another: at B=32, H=256 over T=5 the card counted 4 flips
+    at D=330, within LSTM_TOL, and 79 at D=265 and 19 at D=296, beyond it
+    (PERF.md, section 6)."""
+    md = dict(matmul_dtype=matmul_dtype)
+    kern = lstm_cuda.lstm_forward(*args, residuals=False, **md)
+    plain = lstm_cuda.lstm_forward_plain(*args, residuals=False, **md)
+    err = _errors(zip(kern[:3], plain[:3]))
+    x, done, c, h, wi, wh, b = args
+    steps = x.shape[0]
+    if matmul_dtype != "bfloat16" or steps == 1:
+        _check(name, *err, LSTM_TOL)
+        return
+    worst = (0.0, 0.0)
+    for t in range(steps):
+        step = (x[t:t + 1], done[t:t + 1], c, h, wi, wh, b)
+        k = lstm_cuda.lstm_forward(*step, residuals=False, **md)
+        p = lstm_cuda.lstm_forward_plain(*step, residuals=False, **md)
+        worst = max(worst, _errors(zip(k[:3], p[:3])), key=lambda e: e[1])
+        c, h = k.c, k.h
+    _check(f"{name} step by step from the kernel's own carry", *worst,
+           LSTM_TOL)
+    keep = (1.0 - done[1:])[..., None]
+    flipped = ((keep * kern.ys[:-1]).bfloat16()
+               != (keep * plain.ys[:-1]).bfloat16())
+    flips = int(flipped.sum())
+    clean = ~flipped.any(dim=2).any(dim=0)
+    print(f"  ({name}: {flips} flips of the bf16 rounding of h between the "
+          f"kernel's and the plain version's free-running unrolls, in "
+          f"{int((~clean).sum())} of {clean.numel()} batch rows)", flush=True)
+    if bool(clean.any()):
+        _check(f"{name} free-running, the {int(clean.sum())} rows without "
+               f"a flip", *_errors(zip(
+                   (kern.ys[:, clean], kern.c[clean], kern.h[clean]),
+                   (plain.ys[:, clean], plain.c[clean], plain.h[clean]))),
+               LSTM_TOL)
+    _check(f"{name} free-running", *err, flipped_tol if flips else LSTM_TOL)
+
+
+def compare_lstm_wide(torch, lstm_cuda, device, matmul_dtype="float32",
+                      D=330, flipped_tol=LSTM_TOL):
+    """The three LSTM kernels at a core input width D other than the main
+    path's 266, T=101 and B=32, H=256, against their plain versions: the
+    lean step at T=1 and T=5, the residual forward and the BPTT with two
+    calls bitwise equal; each one's device time (torch.profiler), its
+    wrapper's and its plain version's time (CUDA events), its bound, and
+    the library's time (``torch.lstm_cell`` after the reset beside the
+    lean step, cuBLAS's for the BPTT's products); these by part.  The
+    widths: the deep agent's D = 256 + 1 + 9 + 64 = 330 (the
+    instruction's 64 features), ``fake_tuple``'s D = 256 + 1 + (3 + 5) =
+    265 (odd: the x rows lose their 8-byte alignment), Doom's full
+    discretized space's D = 256 + 1 + 39 = 296.  ``flipped_tol`` is the
+    lean unroll's (``_lean_unroll_check``)."""
     bf16 = matmul_dtype == "bfloat16"
     tag = " bf16" if bf16 else ""
-    gen = torch.Generator().manual_seed(3300)
-    T, B, D, H = 101, 32, 330, 256
+    gen = torch.Generator().manual_seed(10 * D)
+    T, B, H = 101, 32, 256
     rand = lambda *shape, scale=1.0: (
         torch.randn(shape, generator=gen) * scale).to(device)
     x = rand(T, B, D)
@@ -1057,10 +1182,9 @@ def compare_lstm_wide(torch, lstm_cuda, device, matmul_dtype="float32"):
     for steps in (1, 5):
         args = (x[:steps].contiguous(), done[:steps].contiguous(), c0, h0,
                 wi, wh, b)
-        kern = lstm_cuda.lstm_forward(*args, residuals=False, **md)
-        plain = lstm_cuda.lstm_forward_plain(*args, residuals=False, **md)
-        _check(f"lstm_fwd_lean{tag} [{steps},{B},{D}]",
-               *_errors(zip(kern[:3], plain[:3])), LSTM_TOL)
+        _lean_unroll_check(torch, lstm_cuda, f"lstm_fwd_lean{tag} "
+                           f"[{steps},{B},{D}]", args, matmul_dtype,
+                           flipped_tol)
     args1 = (x[:1].contiguous(), done[:1].contiguous(), c0, h0, wi, wh, b)
     lean = lambda: lstm_cuda.lstm_forward(*args1, residuals=False, **md)
     _bitwise(torch, f"lstm_fwd_lean{tag} D={D}", lean()[:3], lean()[:3])
@@ -1624,6 +1748,207 @@ def deep_path(torch, driver, config, scratch, train_counted, reset_counts,
     with float32_precision():
         breakdown(torch, driver, deep)
     return launches, f32_launches, layouts
+
+
+def _loop_rate(config, label):
+    """Print s per update over updates 3..UPDATES of a run logged every
+    update, and its env frames/s (not gated)."""
+    rows = {r["step"]: r for r in _rows(config.logdir)}
+    s_per_update = (rows[UPDATES]["time"] - rows[2]["time"]) / (UPDATES - 2)
+    print(f"  {label}, updates 3..{UPDATES}: {s_per_update:.4f} s per update "
+          f"({config.frames_per_update() / s_per_update:.0f} env frames/s)",
+          flush=True)
+
+
+def composite_agent_on_one_trajectory(torch, driver, config, out):
+    """The composite agent's logits, baseline, joint log-probs of the
+    recorded actions, final carry and every parameter gradient on the card
+    against the same weights on the CPU (plain versions), on one
+    full-width trajectory of the pool, under each dtype policy (float32 at
+    AGENT_TOL, bf16 at AGENT_BF16_TOL, as ``compare_agent``)."""
+    import copy
+
+    from scalable_agent_tpu_torch.ops import distributions
+    from scalable_agent_tpu_torch.runtime.actor import to_device
+    from scalable_agent_tpu_torch.runtime.transport import host_trajectory
+
+    traj = host_trajectory(out)
+    obs_spec, space = driver.probe_env(config)
+
+    def run(agent, device):
+        t = to_device(traj, device)
+        actions = t.agent_outputs.action
+        (logits, baseline), state = agent(actions, t.env_outputs,
+                                          t.agent_state)
+        log_probs = distributions.log_prob(logits, actions, agent.dist_spec)
+        loss = (logits.square().sum() + baseline.sum() + log_probs.sum()
+                + state.c.sum() + state.h.square().sum())
+        grads = torch.autograd.grad(loss, list(agent.parameters()))
+        return [x.detach().float().cpu() for x in
+                (logits, baseline, log_probs, state.c, state.h, *grads)]
+
+    for compute_dtype, tol in (("float32", AGENT_TOL),
+                               ("bfloat16", AGENT_BF16_TOL)):
+        policy = dataclasses.replace(config, compute_dtype=compute_dtype)
+        card = driver.build_agent(policy, obs_spec, space,
+                                  torch.device(config.device))
+        cpu = copy.deepcopy(card).cpu()
+        _check(f"composite agent ({space}) logits, joint log-probs and "
+               f"parameter gradients at {compute_dtype}, one trajectory "
+               f"{list(out.agent_outputs.action.shape)}",
+               *_errors(zip(run(card, torch.device(config.device)),
+                            run(cpu, torch.device("cpu")))), tol)
+
+
+def composite_path(torch, driver, CheckpointManager, config, scratch,
+                   train_counted, reset_counts, read_counts):
+    """Phase 3i: ``--level_name=fake_tuple`` (Tuple(Discrete(3),
+    Discretized(5)), 16x16 frames, core input D=265) at the main path's
+    layout, bf16, ``--scan_impl=pallas`` and ``--rmsprop_momentum=0.9``:
+    UPDATES updates counted; the checkpoint holds the momentum trace and
+    verifies; ``--mode=test``; a resume for 2 more updates that is
+    frame-exact and restores the trace bit for bit; F32_UPDATES float32
+    updates counted; every recorded action inside its component's range
+    and the env's frames encoding the first component; the composite
+    agent against the CPU on one trajectory."""
+    import numpy as np
+
+    from scalable_agent_tpu_torch.runtime import Learner
+
+    tup = dataclasses.replace(
+        config, level_name="fake_tuple", height=16, width=16,
+        rmsprop_momentum=0.9, logdir=os.path.join(scratch, "tuple"))
+    fpu = tup.frames_per_update()
+    tup = dataclasses.replace(tup, total_environment_frames=float(
+        UPDATES * fpu))
+    train_counted(tup, UPDATES, "_bf16")
+    _loop_rate(tup, "fake_tuple, bf16, rmsprop_momentum=0.9")
+    ckpt = CheckpointManager(tup.logdir)
+    step, saved = ckpt.restore()
+    ok, why = ckpt.verify(step, saved)
+    if step != UPDATES or not ok or sorted(saved.get("momentum", ())) != (
+            sorted(saved["params"])):
+        raise AssertionError(f"fake_tuple checkpoint step {step} verified "
+                             f"{ok} ({why}), groups {sorted(saved)}")
+    reset_counts()
+    returns = driver.test(dataclasses.replace(
+        tup, mode="test", test_num_episodes=8))["fake_tuple"]
+    test_launches = read_counts()
+    print(f"  fake_tuple --mode=test: {len(returns)} returns {returns}; "
+          f"lean bf16 launches {test_launches['lstm_fwd_lean_bf16']}",
+          flush=True)
+    if len(returns) != 8 or test_launches["lstm_fwd_lean_bf16"] == 0:
+        raise AssertionError("fake_tuple --mode=test did not run 8 "
+                             "episodes through the bf16 lean LSTM kernel")
+
+    restored = []
+    load = Learner.load_state_dict
+
+    def recording(self, state):
+        load(self, state)
+        restored.append({k: v.detach().cpu().clone()
+                         for k, v in self.state.momentum.items()})
+
+    resumed = dataclasses.replace(
+        tup, total_environment_frames=float((UPDATES + 2) * fpu))
+    reset_counts()
+    with _patched(Learner, load_state_dict=recording):
+        metrics = driver.train(resumed)
+    resume_launches = read_counts()
+    step, again = ckpt.restore()
+    if (metrics["env_frames"] != (UPDATES + 2) * fpu or step != UPDATES + 2
+            or again["env_frames"] != (UPDATES + 2) * fpu
+            or resume_launches["lstm_fwd_resid_bf16"] != 2):
+        raise AssertionError(
+            f"the fake_tuple resume is not frame-exact: env_frames "
+            f"{metrics['env_frames']}, checkpoint step {step} at "
+            f"{again['env_frames']}, launches {resume_launches}")
+    if len(restored) != 1 or not all(
+            torch.equal(restored[0][k], v)
+            for k, v in saved["momentum"].items()):
+        raise AssertionError("the restored momentum trace is not the saved "
+                             "one bit for bit")
+    print(f"  fake_tuple resume: 2 more updates, env_frames "
+          f"{metrics['env_frames']:.0f} = {UPDATES + 2} x {fpu}, checkpoint "
+          f"step {step}; the restored momentum trace ({len(restored[0])} "
+          f"tensors) equals the saved one bit for bit", flush=True)
+    f32 = dataclasses.replace(
+        tup, logdir=os.path.join(scratch, "tuple_f32"),
+        compute_dtype="float32",
+        total_environment_frames=float(F32_UPDATES * fpu))
+    train_counted(f32, F32_UPDATES, "")
+
+    out = pool_trajectories(torch, driver, tup, 1)[0]
+    action = out.agent_outputs.action
+    if action.shape != (tup.unroll_length + 1, tup.batch_size, 2):
+        raise AssertionError(f"fake_tuple actions of shape {action.shape}")
+    for i, n in enumerate((3, 5)):
+        if not (0 <= action[..., i].min() and action[..., i].max() < n):
+            raise AssertionError(f"fake_tuple action component {i} leaves "
+                                 f"[0, {n}): {action[..., i].min()}.."
+                                 f"{action[..., i].max()}")
+    live = ~out.env_outputs.done[1:]
+    frames = out.env_outputs.observation.frame[1:, :, 0, 2, 0]
+    if not (frames[live] == action[1:, :, 0][live]).all():
+        raise AssertionError("fake_tuple frames do not encode the agent's "
+                             "first action component")
+    counts = [np.bincount(action[..., i].ravel(), minlength=n).tolist()
+              for i, n in enumerate((3, 5))]
+    print(f"  fake_tuple trajectory: actions {list(action.shape)}, every "
+          f"component in range (counts {counts}), the env's frames encode "
+          f"component 0", flush=True)
+    composite_agent_on_one_trajectory(torch, driver, tup, out)
+
+
+def benchmark_path(torch, driver, config, scratch, train_counted, pool_s):
+    """Phase 3j: ``--benchmark_mode=true`` on the main path (bf16, UPDATES
+    updates counted): s per update and env frames/s beside 3b's pool
+    loop (not gated); then one pool trajectory whose env outputs, frames
+    included, equal bit for bit those of host streams seeded as the
+    driver seeds group 0's envs, stepped with zero actions (the envs took
+    their BenchmarkStream's own draws), while the agent's recorded
+    actions differ from the env's."""
+    import numpy as np
+
+    from scalable_agent_tpu_torch.envs import make_impala_stream
+
+    bench = dataclasses.replace(
+        config, benchmark_mode=True, logdir=os.path.join(scratch, "bench"),
+        total_environment_frames=float(UPDATES * config.frames_per_update()))
+    train_counted(bench, UPDATES, "_bf16")
+    _loop_rate(bench, "--benchmark_mode=true")
+    print(f"  beside phase 3b's pool loop at the same layout: "
+          f"{pool_s:.4f} s per update "
+          f"({config.frames_per_update() / pool_s:.0f} env frames/s)",
+          flush=True)
+    out = pool_trajectories(torch, driver, bench, 1)[0]
+    env = out.env_outputs
+    differ = 0
+    for i in range(bench.batch_size):
+        stream = make_impala_stream(
+            bench.level_name, seed=bench.seed * 100000 + i,
+            benchmark_mode=True, num_action_repeats=bench.num_action_repeats,
+            **driver.env_kwargs(bench))
+        host = [stream.initial()] + [stream.step(0) for _ in range(
+            bench.unroll_length)]
+        for t, want in enumerate(host):
+            if not (np.array_equal(env.observation.frame[t, i],
+                                   want.observation.frame)
+                    and env.reward[t, i] == want.reward
+                    and env.done[t, i] == want.done):
+                raise AssertionError(
+                    f"benchmark_mode: env {i} step {t} differs from a host "
+                    f"BenchmarkStream seeded the same way")
+        live = ~env.done[1:, i]
+        differ += int((env.observation.frame[1:, i, 0, 2, 0][live]
+                       != out.agent_outputs.action[1:, i][live]).sum())
+    if differ == 0:
+        raise AssertionError("benchmark_mode: the env's actions are the "
+                             "agent's")
+    print(f"  benchmark_mode: {bench.batch_size} envs x "
+          f"{bench.unroll_length} steps equal host BenchmarkStreams seeded "
+          f"the same way bit for bit; the env's action differs from the "
+          f"agent's at {differ} of them", flush=True)
 
 
 def _all_rows(logdir):
@@ -2911,6 +3236,17 @@ def main() -> int:
         compare_agent(torch, device)
         compare_agent(torch, device, torch.bfloat16)
         torch.cuda.empty_cache()
+        # The composite policies' core widths (fake_tuple's D=265, odd,
+        # and Doom's full discretized space's D=296) and fake_tuple's
+        # 16x16 frames at the learner's merged batch (phase 3i).
+        for width in (265, 296):
+            for matmul_dtype in ("float32", "bfloat16"):
+                compare_lstm_wide(torch, lstm_cuda, device, matmul_dtype,
+                                  D=width, flipped_tol=LSTM_BF16_LONG_TOL)
+        for dtype in (torch.float32, torch.bfloat16):
+            compare_gradw_frame(torch, conv_cuda, device, 16, 16,
+                                dtype=dtype)
+        torch.cuda.empty_cache()
 
     def train_counted(config, updates, suffix, stem="stem_gradw"):
         """driver.train with every count set to 0 just before and read just
@@ -3041,6 +3377,13 @@ def main() -> int:
         resnet_gradw_in_layout(torch, conv_cuda, device, deep_layouts, card)
         torch.cuda.empty_cache()
 
+        phase("phase 3i: composite policies, fake_tuple with "
+              "--rmsprop_momentum=0.9")
+        with float32_precision():
+            composite_path(torch, driver, CheckpointManager, config, scratch,
+                           train_counted, reset_counts, read_counts)
+        torch.cuda.empty_cache()
+
         phase("phase 3b: where one iteration of the main path spends its "
               "time")
         with float32_precision():
@@ -3052,6 +3395,10 @@ def main() -> int:
                                                inflight_updates=window),
             os.path.join(scratch, f"pool{window}"))
             for window in (2, 1)}
+
+        phase("phase 3j: --benchmark_mode=true on the main path")
+        benchmark_path(torch, driver, config, scratch, train_counted,
+                       pool_s[config.inflight_updates])
 
         phase("phase 3d: the default loop's machinery on the card")
         root = os.path.dirname(os.path.abspath(__file__))
@@ -3076,10 +3423,13 @@ def main() -> int:
             readings = obs_cost_in_the_loop(torch, driver, config, scratch)
         watchdog_drill(config, scratch, root)
         double_sigterm_drill(config, scratch, root)
+        from scalable_agent_tpu_torch.ops.distributions import (
+            spec_for_space)
         from scalable_agent_tpu_torch.runtime.learner import update_flops
 
         obs_spec, action_space = driver.probe_env(config)
-        flops = update_flops(obs_spec.frame.shape, action_space.n,
+        flops = update_flops(obs_spec.frame.shape,
+                             spec_for_space(action_space).num_logits,
                              config.unroll_length, config.batch_size)
         print(f"  update_flops at the main path: {flops:.6g} FLOPs per "
               f"update (2 per multiply-add), peak 989.4e12 FLOP/s at "

@@ -22,7 +22,7 @@ from typing import Optional
 # port yet (ROADMAP.md, queue 1).  tests/test_torch_hygiene.py holds this
 # list against the JAX Config so the two cannot drift apart.
 UNPORTED_FLAGS = (
-    "benchmark_mode", "dataset_path", "renderer", "record_to",
+    "dataset_path", "renderer", "record_to",
     "mesh_data", "mesh_seq", "mesh_model", "distributed_coordinator",
     "distributed_num_processes", "distributed_process_id", "inference_mode",
     "accum_fused_shards", "actor", "service_max_batch", "train_backend",
@@ -52,7 +52,6 @@ SUPPORTED_VALUES = {
     # auto resolves to associative (runtime/learner.py).  time_sharded
     # needs a seq mesh axis.
     "scan_impl": ("auto", "associative", "sequential", "pallas"),
-    "rmsprop_momentum": (0.0,),
     "reward_clipping": ("abs_one", "soft_asymmetric", "none"),
     # "auto" primes the health detectors from the committed BENCH_r*.json,
     # which are TPU rounds, and a directory needs the JAX package's
@@ -118,6 +117,9 @@ class Config:
     # Env worker processes per actor group; 0 means one per env, as in
     # the JAX package (driver.worker_processes).
     num_env_workers_per_group: int = 8
+    # Step every env with a random action of its own in place of the
+    # agent's (envs/core.py BenchmarkStream): fps free of the policy.
+    benchmark_mode: bool = False
 
     # -- eval (reference: experiment.py:57-58)
     test_num_episodes: int = 10
@@ -257,7 +259,11 @@ class Config:
     def from_argv(cls, argv=None, description=None) -> "Config":
         """Parse ``--<field>=value`` flags (the JAX driver's flag names).
         A JAX flag that is not ported raises instead of being ignored."""
-        parser = argparse.ArgumentParser(description=description)
+        # No abbreviations: an unported JAX flag that is a prefix of a
+        # ported one (--actor of --actor_max_restarts) must raise, not
+        # set the other flag.
+        parser = argparse.ArgumentParser(description=description,
+                                         allow_abbrev=False)
         for field in dataclasses.fields(cls):
             arg_type = type(field.default)
             if arg_type is bool:

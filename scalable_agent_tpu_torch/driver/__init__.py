@@ -129,7 +129,7 @@ from scalable_agent_tpu_torch.obs.health import (
     default_detectors,
 )
 from scalable_agent_tpu_torch.obs.ledger import PipelineLedger, peak_flops
-from scalable_agent_tpu_torch.ops import float32_precision
+from scalable_agent_tpu_torch.ops import distributions, float32_precision
 from scalable_agent_tpu_torch.runtime import (
     ActorPool,
     CheckpointIntegrityError,
@@ -202,12 +202,15 @@ def resolve_remat_torso(config: Config) -> bool:
 
 def build_agent(config: Config, observation_spec, action_space,
                 device: torch.device) -> ImpalaAgent:
-    """The agent with weights drawn from a generator seeded by
-    ``config.seed``, placed on ``device``, under the configuration's dtype
+    """The agent with its policy over the probed ``action_space`` (one
+    Discrete head or a composite tuple-categorical one) and weights drawn
+    from a generator seeded by ``config.seed``, placed on ``device``,
+    under the configuration's dtype
     policy (``compute_dtype``, and ``core_matmul_dtype`` resolved as the
     JAX driver resolves it) and ``remat_torso``."""
     generator = torch.Generator().manual_seed(config.seed)
-    return ImpalaAgent(action_space.n, observation_spec.frame.shape,
+    return ImpalaAgent(frame_shape=observation_spec.frame.shape,
+                       action_space=action_space,
                        generator=generator,
                        compute_dtype=getattr(torch, config.compute_dtype),
                        core_matmul_dtype=resolve_core_matmul_dtype(config),
@@ -235,6 +238,7 @@ def build_learner(config: Config, agent: ImpalaAgent) -> Learner:
         learning_rate=config.learning_rate,
         total_environment_frames=config.total_environment_frames,
         rmsprop_decay=config.rmsprop_decay,
+        rmsprop_momentum=config.rmsprop_momentum,
         rmsprop_epsilon=config.rmsprop_epsilon)
     return Learner(agent, hp, config.frames_per_update(),
                    scan_impl=config.scan_impl,
@@ -252,7 +256,9 @@ def worker_processes(requested: int, num_envs: int) -> int:
 def make_env_groups(config: Config, frame_spec) -> List[MultiEnv]:
     """num_actors envs as groups of batch_size (each group is one learner
     batch), seeded as the JAX driver seeds them, each group stepped by
-    ``num_env_workers_per_group`` worker processes (0: one per env)."""
+    ``num_env_workers_per_group`` worker processes (0: one per env); under
+    ``benchmark_mode`` each env takes its ``BenchmarkStream``'s random
+    actions, drawn from the env's own seed."""
     num_groups = max(1, config.num_actors // config.batch_size)
     groups = []
     try:
@@ -261,6 +267,7 @@ def make_env_groups(config: Config, frame_spec) -> List[MultiEnv]:
                 functools.partial(
                     make_impala_stream, config.level_name,
                     seed=config.seed * 100000 + g * 1000 + i,
+                    benchmark_mode=config.benchmark_mode,
                     num_action_repeats=config.num_action_repeats,
                     **env_kwargs(config))
                 for i in range(config.batch_size)
@@ -518,8 +525,10 @@ class KernelCosts:
 
 def kernel_costs(config: Config, device: torch.device, observation_spec,
                  action_space) -> KernelCosts:
-    """``KernelCosts`` at the run's shapes and dtype policy."""
-    shapes = (observation_spec.frame.shape, action_space.n,
+    """``KernelCosts`` at the run's shapes and dtype policy (the policy's
+    logit count from ``action_space``)."""
+    shapes = (observation_spec.frame.shape,
+              distributions.spec_for_space(action_space).num_logits,
               config.unroll_length, config.batch_size)
     model = dict(torso_type=config.torso_type,
                  use_instruction=config.use_instruction)
@@ -1065,7 +1074,7 @@ def _eval_loop(envs: MultiEnv, config: Config, agent: ImpalaAgent,
     try:
         output = envs.initial()
         core_state = initial_state(batch, agent.core_size, device)
-        action = np.zeros((batch,), np.int64)
+        action = agent.zero_actions(batch).numpy()
         while len(returns) < num_episodes:
             agent_out, core_state = actor_step(
                 agent, generator, torch.as_tensor(action, device=device),

@@ -1,4 +1,5 @@
 from scalable_agent_tpu_torch.envs.core import (
+    BenchmarkStream,
     Environment,
     ImpalaStream,
     StreamAdapter,
@@ -10,11 +11,16 @@ from scalable_agent_tpu_torch.envs.vector import MultiEnv
 
 
 def make_impala_stream(env_name: str, seed: int = 0,
+                       benchmark_mode: bool = False,
                        num_action_repeats: int = 1, **kwargs):
     """Name -> seeded ImpalaStream (the counterpart of
     ``scalable_agent_tpu.envs.make_impala_stream``).  The fake family
-    applies action repeats natively."""
+    applies action repeats natively.  ``benchmark_mode`` steps the env
+    with a ``BenchmarkStream``'s random actions, seeded with ``seed``."""
     env = create_env(env_name, num_action_repeats=num_action_repeats,
                      **kwargs)
     env.seed(seed)
-    return ImpalaStream(StreamAdapter(env))
+    stream = StreamAdapter(env)
+    if benchmark_mode:
+        stream = BenchmarkStream(stream, seed=seed)
+    return ImpalaStream(stream)

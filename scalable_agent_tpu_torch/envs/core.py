@@ -9,8 +9,8 @@ environments.py:103-233):
 3. ``ImpalaStream`` — adds episode_return/episode_step accounting and emits
    ``StepOutput`` tuples.
 
-The random-action ``BenchmarkStream`` (``--benchmark_mode``) is not ported
-yet (ROADMAP.md, queue 1).
+``BenchmarkStream`` (``--benchmark_mode``) sits between the two: it steps
+the env with its own random actions, whatever the agent chose.
 """
 
 from typing import Any, Dict, Optional, Tuple
@@ -72,6 +72,35 @@ class StreamAdapter:
 
     def close(self):
         self._env.close()
+
+
+class BenchmarkStream:
+    """Random-policy stream for throughput measurement: every step takes
+    ``action_space.sample`` from ``np.random.default_rng(seed)`` in place
+    of the agent's action, so the measured fps does not depend on the
+    policy (reference: environments.py:104-110, experiment.py:88
+    ``benchmark_mode``)."""
+
+    def __init__(self, stream: StreamAdapter, seed: int = 0):
+        self._stream = stream
+        self._rng = np.random.default_rng(seed)
+
+    @property
+    def observation_spec(self):
+        return self._stream.observation_spec
+
+    @property
+    def action_space(self):
+        return self._stream.action_space
+
+    def initial(self):
+        return self._stream.initial()
+
+    def step(self, action):
+        return self._stream.step(self.action_space.sample(self._rng))
+
+    def close(self):
+        self._stream.close()
 
 
 class ImpalaStream:

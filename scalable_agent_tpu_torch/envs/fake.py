@@ -1,8 +1,8 @@
 """Deterministic fake environment for hermetic tests and benchmarks.
 
-A copy of ``scalable_agent_tpu/envs/fake.py`` for Discrete action spaces:
-transitions are a pure function of (seed, episode, step); frames encode
-(episode, step, action) in their first pixels.  Three reward modes:
+A copy of ``scalable_agent_tpu/envs/fake.py``: transitions are a pure
+function of (seed, episode, step); frames encode (episode, step, action)
+in their first pixels.  Three reward modes:
 
 - ``"schedule"`` (default): reward at step t (1-based) is ``0.1 * (t % 3)``
   plus 1 on the terminal step; not learnable.
@@ -13,6 +13,11 @@ transitions are a pure function of (seed, episode, step); frames encode
 
 ``with_instruction`` adds an int32 [instruction_len] instruction to every
 observation: token 0 is ``1 + episode % 100``, the rest padding (0).
+
+``action_space`` takes a composite ``TupleSpace`` (the hermetic stand-in
+for Doom's composite spaces) under the ``"schedule"`` mode only: its
+``step`` takes one index per component and encodes the first component
+in the frame.
 """
 
 from typing import Optional, Tuple
@@ -20,7 +25,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from scalable_agent_tpu_torch.envs.core import Environment, make_observation
-from scalable_agent_tpu_torch.envs.spaces import Discrete
+from scalable_agent_tpu_torch.envs.spaces import Discrete, Space
 from scalable_agent_tpu_torch.envs.spec import TensorSpec
 from scalable_agent_tpu_torch.types import Observation
 
@@ -39,6 +44,7 @@ class FakeEnv(Environment):
         seed: int = 0,
         with_instruction: bool = False,
         instruction_len: int = 16,
+        action_space: Optional[Space] = None,
         num_action_repeats: int = 1,
         reward_mode: str = "schedule",
     ):
@@ -46,11 +52,19 @@ class FakeEnv(Environment):
         # Native action repeats: one ``step`` advances the simulator this
         # many sub-steps with summed rewards and early stop on done.
         self.native_action_repeats = max(1, int(num_action_repeats))
-        self.action_space = Discrete(num_actions)
+        self.action_space = action_space or Discrete(num_actions)
         if reward_mode not in ("schedule", "bandit", "memory"):
             raise ValueError(f"unknown reward_mode {reward_mode!r}")
+        if reward_mode != "schedule" and not isinstance(
+                self.action_space, Discrete):
+            raise ValueError(
+                f"reward_mode {reward_mode!r} needs a Discrete action "
+                f"space (the cue is an action index)")
         self._reward_mode = reward_mode
-        self._num_actions = num_actions
+        # Cues index the action space the env really has.
+        self._num_actions = (self.action_space.n
+                             if isinstance(self.action_space, Discrete)
+                             else num_actions)
         self._episode_length = episode_length
         self._length_jitter = length_jitter
         self._seed = seed
@@ -114,9 +128,15 @@ class FakeEnv(Environment):
         return self._observation(action=0)
 
     def step(self, action) -> Tuple[Observation, float, bool, dict]:
-        action = int(np.asarray(action))
+        arr = np.asarray(action)
+        if arr.ndim == 0:
+            action = int(arr)
+        else:  # composite: one index per subspace
+            action = tuple(int(a) for a in arr)
         if not self.action_space.contains(action):
             raise ValueError(f"action {action} outside {self.action_space}")
+        if isinstance(action, tuple):
+            action = action[0]  # the frame encodes the first component
         reward = 0.0
         done = False
         episode_len = self._episode_len()

@@ -2,13 +2,19 @@
 
 The counterpart of ``scalable_agent_tpu/envs/registry.py``.  The fake-level
 defaults are copied from the ``fake_*`` rows of
-``scalable_agent_tpu/envs/device/protocol.py``; the simulator families
+``scalable_agent_tpu/envs/device/protocol.py``, ``fake_tuple``'s from
+``scalable_agent_tpu/envs/registry.py``; the simulator families
 (``doom_``, ``atari_``, ``dmlab_``, ``gym_``, ``device_``) are not ported
 yet (ROADMAP.md, queue 1).
 """
 
 from scalable_agent_tpu_torch.envs.core import Environment
 from scalable_agent_tpu_torch.envs.fake import FakeEnv
+from scalable_agent_tpu_torch.envs.spaces import (
+    Discrete,
+    Discretized,
+    TupleSpace,
+)
 
 FAKE_LEVELS = {
     # zero-simulator-cost throughput benchmark fake
@@ -23,6 +29,12 @@ FAKE_LEVELS = {
     # learnable only through the LSTM's memory (done-reset red test)
     "fake_memory": dict(height=16, width=16, episode_length=8,
                         num_actions=4, reward_mode="memory"),
+    # composite action space Tuple(Discrete, Discretized): the hermetic
+    # stand-in for Doom's composite spaces
+    # (reference: envs/doom/action_space.py:13-138)
+    "fake_tuple": dict(height=16, width=16, episode_length=10,
+                       action_space=TupleSpace(
+                           [Discrete(3), Discretized(5, -1.0, 1.0)])),
 }
 
 

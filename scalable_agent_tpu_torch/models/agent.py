@@ -39,6 +39,7 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from scalable_agent_tpu_torch.envs.spaces import Space
 from scalable_agent_tpu_torch.models.instruction import (
     LSTM_SIZE,
     InstructionEncoder,
@@ -100,14 +101,18 @@ class ImpalaAgent(nn.Module):
     env_outputs.reward [T,B], done [T,B], observation.frame [T,B,H,W,C]
     uint8 and, with ``use_instruction``, observation.instruction [T,B,L]
     int token ids, returns ``((policy_logits [T,B,A], baseline [T,B]),
-    new_state)``.  Weights are drawn from ``generator``.
+    new_state)``.  The policy is one Discrete(``num_actions``) head, or,
+    given ``action_space``, the tuple-categorical policy over it
+    (``ops/distributions.spec_for_space``): A is its ``num_logits``, and
+    a composite space's actions carry a component axis, [T,B,K].
+    Weights are drawn from ``generator``.
     ``compute_dtype`` and ``core_matmul_dtype`` are the dtype policy's,
     ``remat_torso`` the torso's recomputation (module docstring).
     ``residual_core=True`` makes the core run its residual forward even
     where no gradient flows (the learner's two-pass comparison unroll).
     """
 
-    def __init__(self, num_actions: int,
+    def __init__(self, num_actions: int = 0,
                  frame_shape: Sequence[int] = (72, 96, 3),
                  core_size: int = CORE_SIZE,
                  generator: Optional[torch.Generator] = None,
@@ -115,7 +120,8 @@ class ImpalaAgent(nn.Module):
                  core_matmul_dtype: str = "float32",
                  remat_torso: bool = False,
                  torso_type: str = "shallow",
-                 use_instruction: bool = False):
+                 use_instruction: bool = False,
+                 action_space: Optional[Space] = None):
         super().__init__()
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype must be torch.float32 or "
@@ -123,7 +129,13 @@ class ImpalaAgent(nn.Module):
         if torso_type not in TORSOS:
             raise ValueError(f"unknown torso_type {torso_type!r} "
                              f"(choices: {sorted(TORSOS)})")
-        self.dist_spec = distributions.DistributionSpec(sizes=(num_actions,))
+        self.dist_spec = (
+            distributions.spec_for_space(action_space)
+            if action_space is not None
+            else distributions.DistributionSpec(sizes=(num_actions,)))
+        if self.num_logits <= 0:
+            raise ValueError("ImpalaAgent needs num_actions > 0 or an "
+                             "action_space")
         self.core_size = core_size
         self.compute_dtype = compute_dtype
         self.core_matmul_dtype = core_matmul_dtype
@@ -142,6 +154,17 @@ class ImpalaAgent(nn.Module):
     @property
     def num_logits(self) -> int:
         return self.dist_spec.num_logits
+
+    @property
+    def num_action_components(self) -> int:
+        return self.dist_spec.num_components
+
+    def zero_actions(self, batch: int) -> torch.Tensor:
+        """All-zeros last-action input at the agent's action layout: [B]
+        for one Discrete head, [B, K] for a composite policy."""
+        k = self.num_action_components
+        shape = (batch,) if k == 1 else (batch, k)
+        return torch.zeros(shape, dtype=torch.int64)
 
     def forward(self, actions, env_outputs: StepOutput,
                 core_state: AgentState, residual_core: bool = False
@@ -186,7 +209,8 @@ def actor_step(agent: ImpalaAgent, generator: torch.Generator, last_action,
                ) -> Tuple[AgentOutput, AgentState]:
     """One batched inference step: unroll T=1 (under ``no_grad``, so the
     core runs its lean kernel) and sample an action from ``generator``.
-    last_action [B], env_output [B, ...] tensors on the agent's device."""
+    last_action [B] ([B, K] for a composite policy, and so is the sampled
+    action), env_output [B, ...] tensors on the agent's device."""
     expand = lambda t: None if t is None else t[None]
     (policy_logits, baseline), new_state = agent(
         last_action[None], map_structure(expand, env_output), core_state)

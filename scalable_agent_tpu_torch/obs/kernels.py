@@ -118,7 +118,7 @@ def kernel_name(raw: str) -> str:
 # -- the hand-written kernels' costs -----------------------------------------
 
 
-def handwritten_costs(frame_shape, num_actions: int, unroll_length: int,
+def handwritten_costs(frame_shape, num_logits: int, unroll_length: int,
                       batch_size: int, core_size: Optional[int] = None,
                       compute_dtype: str = "bfloat16",
                       matmul_dtype: Optional[str] = None,
@@ -134,7 +134,8 @@ def handwritten_costs(frame_shape, num_actions: int, unroll_length: int,
     ``matmul_dtype`` is the LSTM products' operand type (default: as
     ``compute_dtype``); ``sm_count`` sizes grad-W's partial sums;
     ``torso_type`` picks the stem's grad-W kernel and ``use_instruction``
-    widens the core's input by the instruction encoding."""
+    widens the core's input by the instruction encoding; ``num_logits``,
+    the policy's logit count, is the one-hot last action's width."""
     from scalable_agent_tpu_torch.models.agent import CORE_SIZE
     from scalable_agent_tpu_torch.models.instruction import LSTM_SIZE
     from scalable_agent_tpu_torch.models.networks import (
@@ -148,7 +149,7 @@ def handwritten_costs(frame_shape, num_actions: int, unroll_length: int,
     s = unroll_length + 1
     b = batch_size
     m = s * b
-    d = TORSO_SIZE + 1 + num_actions + (LSTM_SIZE if use_instruction else 0)
+    d = TORSO_SIZE + 1 + num_logits + (LSTM_SIZE if use_instruction else 0)
     h = hidden
     g = 4 * h
     op_bytes = 2 if matmul_dtype == "bfloat16" else 4

@@ -27,9 +27,8 @@ caller does not.
 from typing import NamedTuple, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
-from scalable_agent_tpu_torch.ops import vtrace_cuda
+from scalable_agent_tpu_torch.ops import distributions, vtrace_cuda
 
 SCAN_IMPLS = ("associative", "sequential", "pallas")
 
@@ -109,12 +108,6 @@ def importance_diagnostics(log_rhos,
         log_rho_mean=log_rhos.mean(),
         log_rho_p95=torch.quantile(log_rhos.reshape(-1), 0.95),
         ess_frac=ess_frac)
-
-
-def log_probs_from_logits_and_actions(policy_logits, actions):
-    """log softmax(policy_logits)[actions]: [T, B, A] x [T, B] -> [T, B]."""
-    log_pi = F.log_softmax(policy_logits.float(), dim=-1)
-    return log_pi.gather(-1, actions.long()[..., None])[..., 0]
 
 
 def compose_affine(later, earlier):
@@ -234,18 +227,27 @@ def from_logits(
     clip_rho_threshold: Optional[float] = 1.0,
     clip_pg_rho_threshold: Optional[float] = 1.0,
     scan_impl: str = "associative",
+    dist_spec=None,
 ) -> VTraceFromLogitsReturns:
-    """V-trace for softmax policies: logits [T, B, A], actions [T, B],
+    """V-trace for softmax policies: logits [T, B, NUM_LOGITS], actions
+    [T, B] ([T, B, K] for a composite policy given by ``dist_spec``, an
+    ``ops/distributions.DistributionSpec``: the log-rhos are then joint,
+    summed component log-prob ratios, as
+    ``scalable_agent_tpu/ops/vtrace.py:326-339`` computes them),
     discounts/rewards/values [T, B], bootstrap_value [B]."""
     if behaviour_policy_logits.dim() != 3 or target_policy_logits.dim() != 3:
         raise ValueError("policy logits must be rank 3 [T, B, NUM_LOGITS]")
-    if actions.dim() != 2:
+    spec = dist_spec or distributions.DistributionSpec(
+        (behaviour_policy_logits.shape[-1],))
+    if spec.num_components > 1 and actions.dim() != 3:
+        raise ValueError("composite actions must be rank 3 [T, B, K]")
+    if spec.num_components == 1 and actions.dim() != 2:
         raise ValueError("actions must be rank 2 [T, B]")
     with torch.no_grad():
-        behaviour_log_probs = log_probs_from_logits_and_actions(
-            behaviour_policy_logits, actions)
-        target_log_probs = log_probs_from_logits_and_actions(
-            target_policy_logits, actions)
+        behaviour_log_probs = distributions.log_prob(
+            behaviour_policy_logits, actions, spec)
+        target_log_probs = distributions.log_prob(
+            target_policy_logits, actions, spec)
         log_rhos = target_log_probs - behaviour_log_probs
     returns = from_importance_weights(
         log_rhos, discounts, rewards, values, bootstrap_value,

@@ -6,7 +6,8 @@ The counterpart of ``scalable_agent_tpu/runtime/actor.py``:
 - ``VectorActor`` drives one env group.  Each unroll starts with the
   previous unroll's last entry (the T+1 overlap, reference:
   experiment.py:311-321), and the first-ever unroll bootstraps from a zero
-  action and a zero agent output (experiment.py:243-251).  Inference runs
+  action (``ImpalaAgent.zero_actions``: [B], or [B, K] for a composite
+  policy) and a zero agent output (experiment.py:243-251).  Inference runs
   ``actor_step`` under ``torch.no_grad()``, so the LSTM core takes its
   lean kernel.  The agent's dtype policy holds here as in the learner:
   at ``compute_dtype=bfloat16`` the torso and heads cast their float32
@@ -325,7 +326,7 @@ class VectorActor:
         self._core_state = initial_state(batch, self._agent.core_size,
                                          self._device)
         self._last_agent_output = AgentOutput(
-            action=np.zeros((batch,), np.int64),
+            action=self._agent.zero_actions(batch).numpy(),
             policy_logits=np.zeros((batch, self._agent.num_logits),
                                    np.float32),
             baseline=np.zeros((batch,), np.float32))

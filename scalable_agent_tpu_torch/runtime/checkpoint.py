@@ -5,8 +5,9 @@ The counterpart of ``scalable_agent_tpu/runtime/checkpoint.py``'s
 format instead of Orbax's:
 
 - ``checkpoints/<step>.pt``: one ``torch.save`` of the learner's
-  ``state_dict`` (params and RMSProp ``nu`` by parameter name,
-  ``env_frames``, the non-finite counters), copied to the CPU first and
+  ``state_dict`` (params, RMSProp ``nu`` and, at ``rmsprop_momentum !=
+  0``, the momentum trace, each by parameter name; ``env_frames``, the
+  non-finite counters), copied to the CPU first and
   read back with ``torch.load(..., weights_only=True)``.  It is written to
   a temporary name and renamed, so a crash mid-save leaves no half step.
 - ``checkpoints/manifests/<step>.json``: the per-leaf integrity manifest
@@ -70,22 +71,28 @@ class CheckpointIntegrityError(RuntimeError):
     """Retained checkpoint steps exist but NONE restored and verified."""
 
 
+def _groups(state: Dict) -> Tuple[str, ...]:
+    """The state's groups of tensors by parameter name, in a fixed order:
+    the momentum trace only where the run keeps one."""
+    return ("params", "opt_state") + (
+        ("momentum",) if "momentum" in state else ())
+
+
 def _to_host(state: Dict) -> Dict:
     """A learner ``state_dict`` as CPU copies and host floats."""
     copy = lambda t: t.detach().to("cpu", copy=True)
-    return {
-        "params": {k: copy(t) for k, t in state["params"].items()},
-        "opt_state": {k: copy(t) for k, t in state["opt_state"].items()},
-        "env_frames": float(state["env_frames"]),
-        "nonfinite_skips": copy(torch.as_tensor(state["nonfinite_skips"])),
-        "nonfinite_streak": copy(torch.as_tensor(
-            state["nonfinite_streak"])),
-    }
+    host = {group: {k: copy(t) for k, t in state[group].items()}
+            for group in _groups(state)}
+    host.update(
+        env_frames=float(state["env_frames"]),
+        nonfinite_skips=copy(torch.as_tensor(state["nonfinite_skips"])),
+        nonfinite_streak=copy(torch.as_tensor(state["nonfinite_streak"])))
+    return host
 
 
 def _leaves(host_state: Dict) -> List[np.ndarray]:
     """The state's leaves as numpy arrays, in a fixed order."""
-    out = [t.numpy() for group in ("params", "opt_state")
+    out = [t.numpy() for group in _groups(host_state)
            for t in host_state[group].values()]
     out.append(np.asarray(host_state["env_frames"], np.float64))
     out += [torch.as_tensor(host_state[key]).numpy()

@@ -14,9 +14,17 @@ experiment.py:346-427):
 - The learning rate ``lr0 * max(0, 1 - frames/total)`` multiplies the
   update after the optimizer, keyed on env frames (reference:
   experiment.py:409-420).
+- ``rmsprop_momentum != 0`` adds optax's ``trace`` after the scaling, as
+  ``optax.rmsprop(momentum=...)`` chains it: ``m = -g/sqrt(nu + eps) +
+  momentum * m`` from m = 0, then ``param += lr * m``.  The trace holds
+  steps before the lr multiplies them; TF accumulates lr-scaled steps, so
+  the two differ while the lr changes (the JAX learner warns of it, and
+  so does this one, once, at construction).  At momentum 0 there is no
+  trace at all and the update is the plain one above.
 - The non-finite guard: a NaN/Inf loss or gradient makes the update a
-  no-op on params and ``nu`` (frames still advance), counted in
-  ``nonfinite_skips``/``nonfinite_streak`` without a host sync.
+  no-op on params, ``nu`` and the momentum trace (frames still advance),
+  counted in ``nonfinite_skips``/``nonfinite_streak`` without a host
+  sync.
   ``NonFiniteTracker`` reads those counters from the metrics the driver
   fetches at log time and decides when the streak calls for a rollback.
 - ``fused_forward=False`` is the JAX learner's two-pass reference: a
@@ -56,7 +64,8 @@ FLOPs for the live MFU gauge (``obs/ledger.py``).
 """
 
 import dataclasses
-from typing import Dict, NamedTuple, Sequence
+import warnings
+from typing import Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -108,6 +117,7 @@ class LearnerHyperparams(NamedTuple):
     learning_rate: float = 0.00048
     total_environment_frames: float = 1e9
     rmsprop_decay: float = 0.99
+    rmsprop_momentum: float = 0.0
     rmsprop_epsilon: float = 0.1
     clip_rho_threshold: float = 1.0
     clip_pg_rho_threshold: float = 1.0
@@ -170,7 +180,7 @@ def learning_telemetry_spec() -> DeviceTelemetry:
     return spec
 
 
-def update_flops(frame_shape: Sequence[int], num_actions: int,
+def update_flops(frame_shape: Sequence[int], num_logits: int,
                  unroll_length: int, batch_size: int,
                  core_size: int = CORE_SIZE, torso_type: str = "shallow",
                  use_instruction: bool = False) -> float:
@@ -184,7 +194,9 @@ def update_flops(frame_shape: Sequence[int], num_actions: int,
     input projection over every token and a recurrent product at every
     token but the first (whose carry is zero).  Counts the default update
     (``fused_forward``, no ``remat_torso``: recomputation is not model
-    work)."""
+    work).  ``num_logits`` is the policy's logit count (the one-hot last
+    action's width and the policy head's), the action count of a
+    Discrete space."""
     convs, flat = conv_shapes(torso_type, frame_shape)
     forward = backward = 0
     for i, conv in enumerate(convs):
@@ -193,7 +205,7 @@ def update_flops(frame_shape: Sequence[int], num_actions: int,
         forward += macs
         backward += macs if i == 0 else 2 * macs
     gates = 4 * core_size
-    in_features = TORSO_SIZE + 1 + num_actions
+    in_features = TORSO_SIZE + 1 + num_logits
     layers = [flat * TORSO_SIZE]                                # fc
     if use_instruction:
         in_features += LSTM_SIZE
@@ -201,7 +213,7 @@ def update_flops(frame_shape: Sequence[int], num_actions: int,
                    (MAX_INSTRUCTION_LEN - 1) * LSTM_SIZE * 4 * LSTM_SIZE]
     layers += [in_features * gates,                            # x.Wi
                core_size * gates,                              # h.Wh
-               core_size * (num_actions + 1)]                  # heads
+               core_size * (num_logits + 1)]                   # heads
     for macs in layers:
         forward += macs
         backward += 2 * macs
@@ -218,6 +230,8 @@ class TrainState:
     env_frames: float
     nonfinite_skips: torch.Tensor  # f32 scalars on the params' device
     nonfinite_streak: torch.Tensor
+    # The momentum trace by parameter name; None at rmsprop_momentum 0.
+    momentum: Optional[Dict[str, torch.Tensor]] = None
 
 
 class Learner:
@@ -248,7 +262,16 @@ class Learner:
                        for name, p in self._params.items()},
             env_frames=float(env_frames),
             nonfinite_skips=zero(),
-            nonfinite_streak=zero())
+            nonfinite_streak=zero(),
+            momentum=({name: torch.zeros_like(p)
+                       for name, p in self._params.items()}
+                      if hp.rmsprop_momentum else None))
+        if hp.rmsprop_momentum:
+            warnings.warn(
+                "rmsprop_momentum != 0: the momentum trace accumulates "
+                "un-lr-scaled steps (TF accumulates lr-scaled steps), so "
+                "updates diverge from the reference while the decayed lr "
+                "changes between steps", stacklevel=2)
         # [groups, parameters]: 1 where the parameter is in the group, to
         # sum per-parameter squared norms into LAYER_GROUPS groups.
         groups = [layer_group(name) for name in self._params]
@@ -361,7 +384,8 @@ class Learner:
             bootstrap_value=bootstrap_value,
             clip_rho_threshold=hp.clip_rho_threshold,
             clip_pg_rho_threshold=hp.clip_pg_rho_threshold,
-            scan_impl=self.scan_impl)
+            scan_impl=self.scan_impl,
+            dist_spec=dist_spec)
         pg_loss = losses_lib.compute_policy_gradient_loss(
             target_logits, behaviour.action, vt.pg_advantages,
             dist_spec=dist_spec)
@@ -443,19 +467,28 @@ class Learner:
         frames = state.env_frames
         lr = hp.learning_rate * max(
             0.0, 1.0 - frames / hp.total_environment_frames)
-        # The lr-scaled updates, taken whether or not the guard keeps
-        # them (as in JAX), for the update ratios.
+        # The lr-scaled updates as applied, taken whether or not the
+        # guard keeps them (as in JAX), for the update ratios.
         steps = []
         with torch.no_grad():
             finite = torch.isfinite(total)
             for grad in grads:
                 finite = finite & torch.isfinite(grad).all()
             decay, eps = hp.rmsprop_decay, hp.rmsprop_epsilon
+            momentum = hp.rmsprop_momentum
             for name, param, grad in zip(names, params, grads):
                 nu = state.opt_state[name]
                 new_nu = decay * nu + (1.0 - decay) * grad * grad
-                step = lr * (grad * torch.rsqrt(new_nu + eps))
-                new_param = param - step
+                if momentum:
+                    trace = state.momentum[name]
+                    new_trace = (-(grad * torch.rsqrt(new_nu + eps))
+                                 + momentum * trace)
+                    step = lr * new_trace
+                    new_param = param + step
+                    trace.copy_(torch.where(finite, new_trace, trace))
+                else:
+                    step = lr * (grad * torch.rsqrt(new_nu + eps))
+                    new_param = param - step
                 param.copy_(torch.where(finite, new_param, param))
                 nu.copy_(torch.where(finite, new_nu, nu))
                 steps.append(step)
@@ -515,29 +548,43 @@ class Learner:
         self._learn_spec.set_many(tel, gauges)
 
     def state_dict(self) -> Dict[str, object]:
-        """Everything a checkpoint holds: parameters, RMSProp ``nu`` (both
-        by parameter name), ``env_frames`` and the non-finite counters.
-        The tensors are the live ones, not copies."""
+        """Everything a checkpoint holds: parameters, RMSProp ``nu`` and,
+        at ``rmsprop_momentum != 0``, the momentum trace (each by
+        parameter name), ``env_frames`` and the non-finite counters.  The
+        tensors are the live ones, not copies."""
         state = self.state
-        return {
+        saved = {
             "params": dict(self._params),
             "opt_state": dict(state.opt_state),
             "env_frames": state.env_frames,
             "nonfinite_skips": state.nonfinite_skips,
             "nonfinite_streak": state.nonfinite_streak,
         }
+        if state.momentum is not None:
+            saved["momentum"] = dict(state.momentum)
+        return saved
 
     @torch.no_grad()
     def load_state_dict(self, saved: Dict[str, object]) -> None:
-        """Copy a ``state_dict`` (on any device) into this learner."""
-        for group in ("params", "opt_state"):
-            ours = (self._params if group == "params"
-                    else self.state.opt_state)
-            if set(saved[group]) != set(ours):
+        """Copy a ``state_dict`` (on any device) into this learner.  A
+        momentum trace saved and none wanted, or the other way round,
+        raises: a resume never drops a trace or starts a fresh one."""
+        theirs, ours = "momentum" in saved, self.state.momentum is not None
+        if theirs != ours:
+            raise ValueError(
+                f"checkpoint holds {'a' if theirs else 'no'} RMSProp "
+                f"momentum trace but this run has rmsprop_momentum="
+                f"{self._hp.rmsprop_momentum}: resume with the "
+                f"rmsprop_momentum the checkpoint was trained with")
+        groups = {"params": self._params, "opt_state": self.state.opt_state}
+        if ours:
+            groups["momentum"] = self.state.momentum
+        for group, tensors in groups.items():
+            if set(saved[group]) != set(tensors):
                 raise ValueError(
                     f"checkpoint {group} names differ from the agent's: "
-                    f"{sorted(set(saved[group]) ^ set(ours))}")
-            for name, tensor in ours.items():
+                    f"{sorted(set(saved[group]) ^ set(tensors))}")
+            for name, tensor in tensors.items():
                 tensor.copy_(saved[group][name])
         state = self.state
         state.env_frames = float(saved["env_frames"])

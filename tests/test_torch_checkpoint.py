@@ -87,6 +87,35 @@ def test_round_trip_is_exact(tmp_path):
     assert set(manifest["leaves"][0]) == {"shape", "dtype", "crc32"}
 
 
+@pytest.mark.filterwarnings("ignore:rmsprop_momentum")
+def test_momentum_trace_round_trips_under_the_manifest(tmp_path):
+    """At rmsprop_momentum != 0 the trace is one more group of leaves by
+    parameter name, under the crc32 manifest, restored bit for bit; a
+    checkpoint of either kind refuses the other kind of learner."""
+    agent = ImpalaAgent(A, (16, 16, 3), core_size=H,
+                        generator=torch.Generator().manual_seed(0))
+    learner = Learner(agent, LearnerHyperparams(rmsprop_momentum=0.9), 48)
+    with torch.no_grad():
+        for trace in learner.state.momentum.values():
+            trace.normal_(generator=torch.Generator().manual_seed(2))
+    ckpt = CheckpointManager(str(tmp_path), interval_s=0.0)
+    assert ckpt.maybe_save(1, learner.state_dict())
+    step, saved = CheckpointManager(str(tmp_path)).restore()
+    n_params = len(saved["params"])
+    manifest = json.load(open(tmp_path / "checkpoints" / "manifests"
+                              / "1.json"))
+    assert len(manifest["leaves"]) == 3 * n_params + 3
+    other = Learner(ImpalaAgent(A, (16, 16, 3), core_size=H),
+                    LearnerHyperparams(rmsprop_momentum=0.5), 48)
+    other.load_state_dict(saved)
+    for name, trace in learner.state.momentum.items():
+        assert torch.equal(other.state.momentum[name], trace), name
+    with pytest.raises(ValueError, match="holds a RMSProp momentum trace"):
+        _learner().load_state_dict(saved)
+    with pytest.raises(ValueError, match="holds no RMSProp momentum trace"):
+        other.load_state_dict(_learner().state_dict())
+
+
 def test_walk_back_past_a_torn_step(tmp_path):
     learner = _learner()
     ckpt = CheckpointManager(str(tmp_path), interval_s=0.0)

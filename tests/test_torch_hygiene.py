@@ -15,7 +15,11 @@ import torch
 
 from scalable_agent_tpu import config as jax_config
 from scalable_agent_tpu_torch import driver
-from scalable_agent_tpu_torch.config import UNPORTED_FLAGS, Config
+from scalable_agent_tpu_torch.config import (
+    SUPPORTED_VALUES,
+    UNPORTED_FLAGS,
+    Config,
+)
 from scalable_agent_tpu_torch.ops import _build, conv_cuda, vtrace_cuda
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -126,10 +130,23 @@ def test_flag_lists_cover_the_jax_config():
                                   ["--compute_dtype=float16"],
                                   ["--scan_impl=time_sharded"],
                                   ["--inference_mode=service"],
-                                  ["--rmsprop_momentum=0.9"]])
+                                  ["--loss=impact"]])
 def test_unported_flags_and_values_raise(argv):
     with pytest.raises(ValueError, match="ROADMAP.md"):
         Config.from_argv(argv)
+
+
+def test_benchmark_mode_and_rmsprop_momentum_parse():
+    """Both are ported: they parse, and every flag still unported raises
+    with its pointer to ROADMAP.md."""
+    assert Config.from_argv(["--benchmark_mode=true"]).benchmark_mode
+    assert Config.from_argv(
+        ["--rmsprop_momentum=0.9"]).rmsprop_momentum == 0.9
+    assert "benchmark_mode" not in UNPORTED_FLAGS
+    assert "rmsprop_momentum" not in SUPPORTED_VALUES
+    for flag in UNPORTED_FLAGS:
+        with pytest.raises(ValueError, match="ROADMAP.md"):
+            Config.from_argv([f"--{flag}=1"])
 
 
 def test_obs_ports_the_jax_producers_only():

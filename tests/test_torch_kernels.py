@@ -198,7 +198,8 @@ def _library_ops(frame, num_actions, t, b, hidden):
 @pytest.mark.parametrize("compute_dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("frame,num_actions,t,b,hidden", [
     ((72, 96, 3), 9, 100, 32, 256),   # the main path
-    ((16, 16, 3), 4, 16, 16, 256)])   # the bandit
+    ((16, 16, 3), 4, 16, 16, 256),    # the bandit
+    ((16, 16, 3), 8, 100, 32, 256)])  # fake_tuple: 3 + 5 logits, D=265
 def test_costs_at_the_path_shapes_sum_to_update_flops(
         compute_dtype, frame, num_actions, t, b, hidden):
     costs = kernels.handwritten_costs(frame, num_actions, t, b,

@@ -152,6 +152,19 @@ def test_sample_follows_the_softmax():
 
 
 def test_composite_spaces_are_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        distributions.log_prob(torch.zeros(2, 5), torch.zeros(2, 2),
-                               distributions.DistributionSpec((2, 3)))
+    """Composite policies are ported (tests/test_torch_composite.py holds
+    them): a (2, 3) spec gives JAX's joint log-prob; what is refused now
+    is an action layout whose component axis does not match the spec."""
+    rng = np.random.default_rng(4)
+    logits = rng.standard_normal((2, 5)).astype(np.float32)
+    actions = np.array([[1, 2], [0, 1]])
+    spec = distributions.DistributionSpec((2, 3))
+    np.testing.assert_allclose(
+        distributions.log_prob(torch.tensor(logits), torch.tensor(actions),
+                               spec).numpy(),
+        np.asarray(dist_j.log_prob(jnp.asarray(logits), jnp.asarray(actions),
+                                   dist_j.DistributionSpec((2, 3)))),
+        rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError, match="2 components"):
+        distributions.log_prob(torch.tensor(logits),
+                               torch.zeros(2, 3, dtype=torch.long), spec)
