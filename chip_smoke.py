@@ -57,7 +57,9 @@ a result:
    of T > 1 held step by step from the kernel's own carry, and
    free-running at LSTM_TOL unless flips of the bf16 rounding of h are
    counted), and the stem grad-W at 3232 frames of 16x16 in both types,
-   with two calls bitwise equal, against cuDNN's.
+   with two calls bitwise equal, against cuDNN's.  The same at
+   ``doom_duel``'s D=298 (256 + 1 + 41) and for the stem grad-W at Doom's
+   72x128 frames (18x32 outputs).
 3. Train: ``driver.train`` on ``fake_benchmark`` at full width (64 actors
    in two groups of 32 on ActorPool threads, 8 env worker processes per
    group, unroll 100, 4 action repeats, LSTM 256, ``--scan_impl=pallas``,
@@ -132,6 +134,30 @@ a result:
    equal bit for bit those of host ``BenchmarkStream``s seeded as the
    driver seeds the envs, while the agent's recorded actions differ from
    the env's.
+3k. (Run after 3j.) The library routes: ``--core_impl=xla`` (the
+   per-step LSTM in torch ops) and ``--conv_backend=xla`` (cuDNN's wgrad
+   for the stem) each on the main path's configuration for 4 bf16
+   updates, counted: no launch of a kernel the route replaces (every
+   LSTM counter at 0 under the xla core, the actors' steps included;
+   every grad-W counter at 0 under the xla stem), the others as in
+   phase 3; s per update (not gated); the update alone on one
+   trajectory for the kernels arm and both library arms in turns (CUDA
+   events) with each arm's kernel table (torch.profiler), where no
+   replaced kernel may appear.  Then ``fake_tuple`` with
+   ``--conv_backend=xla`` for 2 bf16 updates counted the same way, and
+   its update alone against the kernels' on one of its trajectories.
+3l. (Run after 3k.) The ``doom_`` family under the fake VizDoom of
+   ``tests/fakes/vizdoom.py`` with generated scenario files (the fake's
+   step cost, not VizDoom's): the resize path the env workers take
+   printed; ``doom_benchmark`` at the main path's layout and Doom's
+   72x128 frames, bf16, ``--scan_impl=pallas``, 4 updates counted as in
+   phase 3, s per update and env frames/s (not gated); ``doom_duel`` at
+   batch 32 (16 matches x 2 agents a group, 2 groups), 2 bf16 updates
+   counted (the LSTM kernels at D=298), the second update's s;
+   ``--mode=test --record_to`` on its
+   checkpoint for 8 episodes over 4 matches, each match's
+   ``player_00``/``player_01`` holding episode directories with
+   ``frames.npy`` and ``episode.json``.
 3d. (Run after 3b, before 3c.) The default loop's machinery, each part
    failing the run: packed
    bitwise equal to per_leaf for one full-width trajectory from the pool,
@@ -936,8 +962,9 @@ def compare_gradw_frame(torch, conv_cuda, device, hh, ww, N=101 * 32,
                         dtype=None):
     """The shallow stem's grad-W at another frame size, N frames of
     ``hh`` x ``ww`` (``fake_tuple``'s and the small fake levels' 16x16
-    take 4x4 outputs: the learner's merged batch N = 101 * 32), with x
-    and g of ``dtype``: against its plain version, two calls bitwise
+    take 4x4 outputs, Doom's 72x128 18x32: the learner's merged batch
+    N = 101 * 32; ``gradw_plan`` sizes the bands from the output width),
+    with x and g of ``dtype``: against its plain version, two calls bitwise
     equal, its device time and wrapper time against its bound, its plain
     version's and cuDNN's."""
     dtype = dtype or torch.float32
@@ -1624,7 +1651,7 @@ def breakdown(torch, driver, config):
     from scalable_agent_tpu_torch.types import map_structure
 
     device = torch.device(config.device)
-    obs_spec, action_space = driver.probe_env(config)
+    obs_spec, action_space, _ = driver.probe_env(config)
     agent = driver.build_agent(config, obs_spec, action_space, device)
     learner = driver.build_learner(config, agent)
     groups = driver.make_env_groups(
@@ -1750,14 +1777,17 @@ def deep_path(torch, driver, config, scratch, train_counted, reset_counts,
     return launches, f32_launches, layouts
 
 
-def _loop_rate(config, label):
-    """Print s per update over updates 3..UPDATES of a run logged every
-    update, and its env frames/s (not gated)."""
+def _loop_rate(config, label, updates=UPDATES):
+    """Print s per update over updates 3..``updates`` of a run logged every
+    update (update 2 alone for a 2-update run), and its env frames/s (not
+    gated)."""
     rows = {r["step"]: r for r in _rows(config.logdir)}
-    s_per_update = (rows[UPDATES]["time"] - rows[2]["time"]) / (UPDATES - 2)
-    print(f"  {label}, updates 3..{UPDATES}: {s_per_update:.4f} s per update "
-          f"({config.frames_per_update() / s_per_update:.0f} env frames/s)",
-          flush=True)
+    first = min(2, updates - 1)
+    s_per_update = ((rows[updates]["time"] - rows[first]["time"])
+                    / (updates - first))
+    print(f"  {label}, updates {first + 1}..{updates}: {s_per_update:.4f} s "
+          f"per update ({config.frames_per_update() / s_per_update:.0f} env "
+          f"frames/s)", flush=True)
 
 
 def composite_agent_on_one_trajectory(torch, driver, config, out):
@@ -1773,7 +1803,7 @@ def composite_agent_on_one_trajectory(torch, driver, config, out):
     from scalable_agent_tpu_torch.runtime.transport import host_trajectory
 
     traj = host_trajectory(out)
-    obs_spec, space = driver.probe_env(config)
+    obs_spec, space, _ = driver.probe_env(config)
 
     def run(agent, device):
         t = to_device(traj, device)
@@ -1951,6 +1981,239 @@ def benchmark_path(torch, driver, config, scratch, train_counted, pool_s):
           f"agent's at {differ} of them", flush=True)
 
 
+# The launch counters of the kernels each library route replaces.
+LSTM_COUNTERS = tuple(f"lstm_{part}{suffix}" for part in (
+    "fwd_lean", "fwd_resid", "bptt") for suffix in ("", "_bf16"))
+GRADW_COUNTERS = tuple(f"{stem}{suffix}" for stem in (
+    "stem_gradw", "resnet_stem_gradw") for suffix in ("", "_bf16"))
+ROUTE_UPDATES = 2            # phase 3k's fake_tuple run, 3l's doom_duel run
+DUEL_BATCH = 32              # 16 matches x 2 agents a group
+
+
+def _expect_launches(label, launches, expected):
+    """Fail unless every counter of ``expected`` reads its count (a
+    ``(least, None)`` pair: at least that many)."""
+    for name, want in expected.items():
+        least = want[0] if isinstance(want, tuple) else want
+        ok = (launches[name] >= least if isinstance(want, tuple)
+              else launches[name] == want)
+        if not ok:
+            raise AssertionError(f"{label}: {name} launched "
+                                 f"{launches[name]} times on the path, "
+                                 f"expected {want}")
+
+
+def route_tables(torch, driver, arms, out, rounds=2):
+    """The update alone on one trajectory (``out``, a numpy ActorOutput)
+    for each ``(label, config)`` arm, in turns (A, B, ..., B, A): ms per
+    update from CUDA events (mean of its turns), and the device ms by
+    kernel of one profiled update; the tables printed side by side, top
+    rows first.  Returns {label: (update ms, {kernel: device ms})}."""
+    from scalable_agent_tpu_torch.runtime.actor import to_device
+    from scalable_agent_tpu_torch.runtime.transport import host_trajectory
+
+    device = torch.device(arms[0][1].device)
+    traj = to_device(host_trajectory(out), device)
+    obs_spec, space, _ = driver.probe_env(arms[0][1])
+    learners = {}
+    for label, config in arms:
+        agent = driver.build_agent(config, obs_spec, space, device)
+        learners[label] = driver.build_learner(config, agent)
+    order = [label for label, _ in arms]
+    order = (order + order[::-1]) * (rounds // 2)
+    times = {label: [] for label in learners}
+    for label in order:
+        learner = learners[label]
+        times[label].append(_time_ms(torch, lambda: learner.update(traj), 3))
+    result = {}
+    for label, learner in learners.items():
+        table = {_kernel_name(k): v for k, v in _kernel_ms(
+            torch, lambda: learner.update(traj), 1).items() if v > 0}
+        result[label] = (sum(times[label]) / len(times[label]), table)
+    for label, (ms, table) in result.items():
+        print(f"  {label}: update {ms:.2f} ms (CUDA events, turns "
+              f"{', '.join(f'{t:.2f}' for t in times[label])}), device "
+              f"busy {sum(table.values()):.2f} ms; by kernel:", flush=True)
+        for name, t in sorted(table.items(), key=lambda kv: -kv[1])[:10]:
+            print(f"    {t:9.3f} ms  {name[:90]}", flush=True)
+    return result
+
+
+def library_routes(torch, driver, config, scratch, train_counted):
+    """Phase 3k: the library routes.  ``--core_impl=xla`` and
+    ``--conv_backend=xla`` each on the main path's configuration for
+    UPDATES bf16 updates: no launch of a kernel the route replaces (the
+    LSTM counters at 0 under the xla core, the actors' steps included; the
+    grad-W counters at 0 under the xla stem), the other kernels as in
+    phase 3 (``train_counted``); s per update; then the update alone on
+    one main-path trajectory for the kernels arm and both library arms in
+    turns, with
+    each arm's kernel table, where no replaced kernel may appear.  Then
+    ``fake_tuple`` with ``--conv_backend=xla`` for ROUTE_UPDATES bf16
+    updates counted the same way, and its update alone against the
+    kernels' on one ``fake_tuple`` trajectory of the pool: what
+    cuDNN's faster bf16 wgrad at 16x16 frames is worth in a whole
+    update."""
+    fpu = config.frames_per_update()
+    main = dataclasses.replace(config, trace=False, total_environment_frames=
+                               float(UPDATES * fpu))
+    core = dataclasses.replace(main, core_impl="xla",
+                               logdir=os.path.join(scratch, "core_xla"))
+    conv = dataclasses.replace(main, conv_backend="xla",
+                               logdir=os.path.join(scratch, "conv_xla"))
+    common = {"vtrace_fused": UPDATES, "stem_gradw": 0,
+              "resnet_stem_gradw": 0, "resnet_stem_gradw_bf16": 0}
+    train_counted(core, UPDATES, "_bf16", expected=dict(
+        common, stem_gradw_bf16=UPDATES, **{c: 0 for c in LSTM_COUNTERS}))
+    _loop_rate(core, "--core_impl=xla, bf16")
+    train_counted(conv, UPDATES, "_bf16", expected=dict(
+        common, lstm_fwd_lean=0, lstm_fwd_resid=0, lstm_bptt=0,
+        lstm_fwd_lean_bf16=(UPDATES * config.unroll_length, None),
+        lstm_fwd_resid_bf16=UPDATES, lstm_bptt_bf16=UPDATES,
+        **{c: 0 for c in GRADW_COUNTERS}))
+    _loop_rate(conv, "--conv_backend=xla, bf16")
+    out = pool_trajectories(torch, driver, main, 1)[0]
+    tables = route_tables(torch, driver, [
+        ("kernels (auto)", main), ("--core_impl=xla", core),
+        ("--conv_backend=xla", conv)], out)
+    from scalable_agent_tpu_torch.obs.kernels import LIBRARY_ROUTES
+
+    for label, route in (("--core_impl=xla", "core_impl"),
+                         ("--conv_backend=xla", "conv_backend")):
+        bad = [k for k in tables[label][1]
+               if k.startswith(LIBRARY_ROUTES[route])]
+        if bad:
+            raise AssertionError(f"{label} launched {bad} in the update")
+
+    tup = dataclasses.replace(
+        main, level_name="fake_tuple", height=16, width=16,
+        conv_backend="xla", logdir=os.path.join(scratch, "tuple_conv_xla"),
+        total_environment_frames=float(ROUTE_UPDATES * fpu))
+    train_counted(tup, ROUTE_UPDATES, "_bf16", expected=dict(
+        common, vtrace_fused=ROUTE_UPDATES, lstm_fwd_lean=0,
+        lstm_fwd_resid=0, lstm_bptt=0,
+        lstm_fwd_lean_bf16=(ROUTE_UPDATES * config.unroll_length, None),
+        lstm_fwd_resid_bf16=ROUTE_UPDATES, lstm_bptt_bf16=ROUTE_UPDATES,
+        **{c: 0 for c in GRADW_COUNTERS}))
+    kernels = dataclasses.replace(tup, conv_backend="auto")
+    tables = route_tables(torch, driver, [
+        ("fake_tuple, kernels", kernels),
+        ("fake_tuple, --conv_backend=xla", tup)],
+        pool_trajectories(torch, driver, kernels, 1)[0])
+    (kern_ms, kern), (xla_ms, xla) = tables.values()
+    busy = [sum(table.values()) for table in (kern, xla)]
+    print(f"  fake_tuple's update alone: the stem grad-W kernel "
+          f"{kern_ms:.2f} ms, cuDNN's wgrad {xla_ms:.2f} ms "
+          f"({xla_ms - kern_ms:+.2f} ms); device busy {busy[0]:.3f} against "
+          f"{busy[1]:.3f} ms ({busy[1] - busy[0]:+.3f} ms)", flush=True)
+
+
+def doom_scenarios(root, scratch):
+    """The fake VizDoom (``tests/fakes/vizdoom.py``) on ``sys.path`` and
+    generated scenario ``.cfg`` files under ``$DOOM_SCENARIOS_DIR``, as
+    ``tests/test_doom.py``'s fixture sets them up (the env worker
+    processes inherit both).  No simulator, ``.wad`` or scenario asset
+    is used."""
+    scenarios = os.path.join(scratch, "doom_scenarios")
+    os.makedirs(scenarios, exist_ok=True)
+    single = ("HEALTH ARMOR SELECTED_WEAPON SELECTED_WEAPON_AMMO "
+              "FRAGCOUNT DEATHCOUNT HITCOUNT DAMAGECOUNT DEAD "
+              "POSITION_X POSITION_Y")
+    multi = (single + " PLAYER_NUM PLAYER_COUNT PLAYER1_FRAGCOUNT "
+             "PLAYER2_FRAGCOUNT")
+    for name, variables in (("battle.cfg", single), ("ssl2.cfg", multi)):
+        with open(os.path.join(scenarios, name), "w") as f:
+            f.write(f"doom_scenario_path = {name.replace('.cfg', '.wad')}\n"
+                    f"available_game_variables = {{ {variables} }}\n")
+    fakes = os.path.join(root, "tests", "fakes")
+    if fakes not in sys.path:
+        sys.path.insert(0, fakes)
+    os.environ["DOOM_SCENARIOS_DIR"] = scenarios
+    import vizdoom
+
+    if os.path.dirname(os.path.abspath(vizdoom.__file__)) != fakes:
+        raise AssertionError(f"vizdoom imports from {vizdoom.__file__}, "
+                             f"not the fake")
+
+
+def doom_path(torch, driver, config, scratch, root, train_counted,
+              reset_counts, read_counts):
+    """Phase 3l: the ``doom_`` family under the fake VizDoom
+    (``doom_scenarios``): it measures the fake simulator's step cost, not
+    VizDoom's.  ``doom_benchmark`` (Discrete(9), D=266) at the main path's
+    layout and Doom's 72x128 frames (the family's defaults), bf16,
+    ``--scan_impl=pallas``, UPDATES updates counted as in phase 3, with s
+    per update and env frames/s; then ``doom_duel`` (two agents a match,
+    the full discretized space with use: 41 logits, D=298, 23
+    measurements) at batch DUEL_BATCH (16 matches x 2 agents a group, 2
+    groups), ROUTE_UPDATES bf16 updates counted, the second's s; ``--mode=test
+    --record_to`` on its checkpoint, which must write
+    ``match_*/player_*/episode_*`` files (frames and episode.json) for
+    every match and both players.  Returns the duel run's launches."""
+    from scalable_agent_tpu_torch.envs.wrappers import resize_backend
+
+    doom_scenarios(root, scratch)
+    print(f"  frames resized by {resize_backend()} (envs/wrappers.py "
+          f"_resize_frame: cv2 INTER_AREA where cv2 imports, else the "
+          f"nearest-neighbour numpy path)", flush=True)
+    bench = dataclasses.replace(
+        config, level_name="doom_benchmark", trace=False,
+        logdir=os.path.join(scratch, "doom_benchmark"))
+    frame = driver.probe_env(driver.apply_env_overrides(bench))[0].frame
+    if tuple(frame.shape) != (72, 128, 3):
+        raise AssertionError(f"doom_benchmark frames {frame.shape}")
+    bench = dataclasses.replace(bench, total_environment_frames=float(
+        UPDATES * bench.frames_per_update()))
+    train_counted(bench, UPDATES, "_bf16")
+    _loop_rate(bench, "doom_benchmark (fake VizDoom), bf16, 72x128")
+
+    duel = dataclasses.replace(
+        config, level_name="doom_duel", trace=False, batch_size=DUEL_BATCH,
+        num_actors=2 * DUEL_BATCH, logdir=os.path.join(scratch, "doom_duel"))
+    duel = dataclasses.replace(duel, total_environment_frames=float(
+        ROUTE_UPDATES * duel.frames_per_update()))
+    launches = train_counted(duel, ROUTE_UPDATES, "_bf16")
+    _loop_rate(duel, "doom_duel (fake VizDoom), bf16, 32 agent slots a "
+               "group", ROUTE_UPDATES)
+    record = os.path.join(scratch, "doom_records")
+    reset_counts()
+    t0 = time.monotonic()
+    returns = driver.test(dataclasses.replace(
+        duel, mode="test", test_num_episodes=8, test_batch_size=8,
+        record_to=record))["doom_duel"]
+    test_launches = read_counts()
+    matches = sorted(os.listdir(os.path.join(record, "doom_duel")))
+    files = 0
+    for match in matches:
+        players = sorted(os.listdir(os.path.join(record, "doom_duel",
+                                                 match)))
+        if players != ["player_00", "player_01"]:
+            raise AssertionError(f"{match} recorded players {players}")
+        for player in players:
+            where = os.path.join(record, "doom_duel", match, player)
+            episodes = [e for e in sorted(os.listdir(where))
+                        if e.startswith("episode_")]
+            for episode in episodes:
+                for name in ("frames.npy", "episode.json"):
+                    if not os.path.isfile(os.path.join(where, episode,
+                                                       name)):
+                        raise AssertionError(f"{where}/{episode} lacks "
+                                             f"{name}")
+                files += 2
+            if not episodes:
+                raise AssertionError(f"no episode recorded in {where}")
+    print(f"  doom_duel --mode=test --record_to: {len(returns)} returns "
+          f"{returns} in {time.monotonic() - t0:.1f} s; {len(matches)} "
+          f"matches x 2 players, {files} episode files; lean bf16 launches "
+          f"{test_launches['lstm_fwd_lean_bf16']}", flush=True)
+    if (len(returns) != 8 or matches != [f"match_{m:02d}" for m in range(4)]
+            or test_launches["lstm_fwd_lean_bf16"] == 0):
+        raise AssertionError("doom_duel --mode=test did not run 8 episodes "
+                             "over 4 recorded matches through the bf16 "
+                             "lean LSTM kernel")
+    return launches
+
+
 def _all_rows(logdir):
     with open(os.path.join(logdir, "metrics.jsonl")) as f:
         return [json.loads(line) for line in f]
@@ -2111,7 +2374,7 @@ def pool_trajectories(torch, driver, config, count):
     actor group of the main path, each a fresh unroll."""
     from scalable_agent_tpu_torch.runtime import VectorActor
 
-    obs_spec, action_space = driver.probe_env(config)
+    obs_spec, action_space, _ = driver.probe_env(config)
     agent = driver.build_agent(config, obs_spec, action_space,
                                torch.device(config.device))
     groups = driver.make_env_groups(
@@ -2237,7 +2500,7 @@ def compare_windows(torch, driver, CheckpointManager, config, outs,
         logdir = os.path.join(scratch, f"window{window}")
         pool = _FixedPool(outs)
         with _patched(driver, ActorPool=pool,
-                      make_env_groups=lambda config, spec: []):
+                      make_env_groups=lambda config, spec, agents: []):
             metrics = driver.train(dataclasses.replace(
                 config, logdir=logdir, inflight_updates=window,
                 total_environment_frames=float(UPDATES * fpu)))
@@ -2431,7 +2694,7 @@ def remat_and_two_pass(torch, driver, config, out, reset_counts,
     )
 
     device = torch.device(config.device)
-    obs_spec, action_space = driver.probe_env(config)
+    obs_spec, action_space, _ = driver.probe_env(config)
     traj, _ = PerLeafTransport(device).put(host_trajectory(out))
     results = {}
     for name, variant in (
@@ -2529,7 +2792,7 @@ def telemetry_in_the_update(torch, driver, config, out):
     )
 
     device = torch.device(config.device)
-    obs_spec, action_space = driver.probe_env(config)
+    obs_spec, action_space, _ = driver.probe_env(config)
     traj, _ = PerLeafTransport(device).put(host_trajectory(out))
 
     def learner_for(learn):
@@ -3237,23 +3500,27 @@ def main() -> int:
         compare_agent(torch, device, torch.bfloat16)
         torch.cuda.empty_cache()
         # The composite policies' core widths (fake_tuple's D=265, odd,
-        # and Doom's full discretized space's D=296) and fake_tuple's
-        # 16x16 frames at the learner's merged batch (phase 3i).
-        for width in (265, 296):
+        # Doom's full discretized space's D=296 and doom_duel's D=298,
+        # the same space with use), fake_tuple's 16x16 frames and Doom's
+        # 72x128 at the learner's merged batch (phases 3i and 3l).
+        for width in (265, 296, 298):
             for matmul_dtype in ("float32", "bfloat16"):
                 compare_lstm_wide(torch, lstm_cuda, device, matmul_dtype,
                                   D=width, flipped_tol=LSTM_BF16_LONG_TOL)
-        for dtype in (torch.float32, torch.bfloat16):
-            compare_gradw_frame(torch, conv_cuda, device, 16, 16,
-                                dtype=dtype)
+        for hh, ww in ((16, 16), (72, 128)):
+            for dtype in (torch.float32, torch.bfloat16):
+                compare_gradw_frame(torch, conv_cuda, device, hh, ww,
+                                    dtype=dtype)
         torch.cuda.empty_cache()
 
-    def train_counted(config, updates, suffix, stem="stem_gradw"):
+    def train_counted(config, updates, suffix, stem="stem_gradw",
+                      expected=None):
         """driver.train with every count set to 0 just before and read just
         after; the kernels of the variant ``suffix`` launched as the path
         runs them (the torso's ``stem`` grad-W, V-trace's kernel under
         ``scan_impl=pallas``), the other variant's and the other stem's
-        never."""
+        never; or, given ``expected``, the counts it names
+        (``_expect_launches``)."""
         reset_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.monotonic()
@@ -3275,24 +3542,21 @@ def main() -> int:
         if metrics["env_frames"] != updates * config.frames_per_update():
             raise AssertionError(f"env_frames {metrics['env_frames']} != "
                                  f"{updates} x {config.frames_per_update()}")
-        other = "" if suffix else "_bf16"
-        expected = {"lstm_fwd_lean" + suffix: updates * config.unroll_length,
-                    "lstm_fwd_resid" + suffix: updates,
-                    "lstm_bptt" + suffix: updates,
-                    "vtrace_fused": (updates if config.scan_impl == "pallas"
-                                     else 0),
-                    "lstm_fwd_lean" + other: 0, "lstm_fwd_resid" + other: 0,
-                    "lstm_bptt" + other: 0}
-        for name in ("stem_gradw", "resnet_stem_gradw"):
-            expected[name + suffix] = updates if name == stem else 0
-            expected[name + other] = 0
-        for name, want in expected.items():
-            ok = (launches[name] >= want if name == "lstm_fwd_lean" + suffix
-                  else launches[name] == want)
-            if not ok:
-                raise AssertionError(
-                    f"{name} launched {launches[name]} times on the path, "
-                    f"expected {want}")
+        if expected is None:
+            other = "" if suffix else "_bf16"
+            expected = {
+                "lstm_fwd_lean" + suffix: (updates * config.unroll_length,
+                                           None),
+                "lstm_fwd_resid" + suffix: updates,
+                "lstm_bptt" + suffix: updates,
+                "vtrace_fused": (updates if config.scan_impl == "pallas"
+                                 else 0),
+                "lstm_fwd_lean" + other: 0, "lstm_fwd_resid" + other: 0,
+                "lstm_bptt" + other: 0}
+            for name in ("stem_gradw", "resnet_stem_gradw"):
+                expected[name + suffix] = updates if name == stem else 0
+                expected[name + other] = 0
+        _expect_launches(config.level_name, launches, expected)
         return launches
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as scratch:
@@ -3400,8 +3664,19 @@ def main() -> int:
         benchmark_path(torch, driver, config, scratch, train_counted,
                        pool_s[config.inflight_updates])
 
-        phase("phase 3d: the default loop's machinery on the card")
+        phase("phase 3k: the library routes, --core_impl=xla and "
+              "--conv_backend=xla")
+        with float32_precision():
+            library_routes(torch, driver, config, scratch, train_counted)
+        torch.cuda.empty_cache()
+
+        phase("phase 3l: the doom_ family under the fake VizDoom")
         root = os.path.dirname(os.path.abspath(__file__))
+        doom_path(torch, driver, config, scratch, root, train_counted,
+                  reset_counts, read_counts)
+        torch.cuda.empty_cache()
+
+        phase("phase 3d: the default loop's machinery on the card")
         outs = pool_trajectories(torch, driver, config, 4)
         with float32_precision():
             compare_transports(torch, driver, device, outs)
@@ -3427,7 +3702,7 @@ def main() -> int:
             spec_for_space)
         from scalable_agent_tpu_torch.runtime.learner import update_flops
 
-        obs_spec, action_space = driver.probe_env(config)
+        obs_spec, action_space, _ = driver.probe_env(config)
         flops = update_flops(obs_spec.frame.shape,
                              spec_for_space(action_space).num_logits,
                              config.unroll_length, config.batch_size)

@@ -22,7 +22,7 @@ from typing import Optional
 # port yet (ROADMAP.md, queue 1).  tests/test_torch_hygiene.py holds this
 # list against the JAX Config so the two cannot drift apart.
 UNPORTED_FLAGS = (
-    "dataset_path", "renderer", "record_to",
+    "dataset_path", "renderer",
     "mesh_data", "mesh_seq", "mesh_model", "distributed_coordinator",
     "distributed_num_processes", "distributed_process_id", "inference_mode",
     "accum_fused_shards", "actor", "service_max_batch", "train_backend",
@@ -41,12 +41,13 @@ SUPPORTED_VALUES = {
     "mode": ("train", "test"),
     "torso_type": ("shallow", "resnet"),
     "compute_dtype": ("bfloat16", "float32"),
-    # "pallas" names the fused done-reset core; its counterpart here is
-    # the hand-written CUDA kernel, which "auto" also resolves to.
+    # "pallas" names the hand-written CUDA kernels (the fused done-reset
+    # core, the stem's grad-W), which "auto" also resolves to; "xla" the
+    # library routes (resolve_core_impl, resolve_conv_backend).
     # (core_matmul_dtype is checked as the JAX driver checks it:
     # resolve_core_matmul_dtype.)
-    "core_impl": ("auto", "pallas"),
-    "conv_backend": ("auto", "pallas"),
+    "core_impl": ("auto", "pallas", "xla"),
+    "conv_backend": ("auto", "pallas", "xla"),
     # associative is the JAX log-depth reverse scan over compose_affine,
     # sequential the plain reverse loop, pallas the fused CUDA kernel;
     # auto resolves to associative (runtime/learner.py).  time_sharded
@@ -60,22 +61,69 @@ SUPPORTED_VALUES = {
 }
 
 
-def resolve_core_matmul_dtype(config: "Config") -> str:
-    """The operand type of the LSTM kernels' products, as
+def resolve_core_impl(config: "Config") -> str:
+    """The LSTM core's route, as ``scalable_agent_tpu/driver.py:208-217``
+    resolves it: ``pallas`` is the fused done-reset core, here the
+    hand-written kernels of ``ops/lstm_cuda.py``; ``xla`` the per-step
+    LSTM in torch ops under autograd (``models/agent.LSTMCore``).  ``auto``
+    is the kernels, as the JAX driver's is on its accelerator: on the card
+    they launch, on the CPU their plain versions run.  Only the flag
+    selects ``xla``."""
+    return "pallas" if config.core_impl == "auto" else config.core_impl
+
+
+def resolve_conv_backend(config: "Config") -> str:
+    """The stem conv's weight-gradient route, as
+    ``scalable_agent_tpu/driver.py:220-231`` resolves it: ``pallas`` is the
+    hand-written grad-W kernel (``ops/conv_cuda.stem_conv``), ``xla`` the
+    library convolution under autograd (cuDNN's wgrad on the card).
+    ``auto`` is the kernel, as the JAX driver's is on its accelerator; only
+    the flag selects ``xla``."""
+    return "pallas" if config.conv_backend == "auto" else config.conv_backend
+
+
+def resolve_core_matmul_dtype(config: "Config",
+                              core_impl: Optional[str] = None) -> str:
+    """The operand type of the core's products, as
     ``scalable_agent_tpu/driver.py:234-246`` resolves it and ``:264-268``
-    checks it: ``auto`` follows ``compute_dtype`` for the fused core (the
-    port's only core, so the JAX xla-core branch never applies here);
-    ``float32`` and ``bfloat16`` are taken as given; anything else raises
-    the JAX driver's error."""
+    checks it: ``auto`` follows ``compute_dtype`` for the fused core and
+    is ``float32`` for the ``xla`` core, which trains at the float32
+    params' precision (``core_impl`` defaults to the configuration's,
+    ``resolve_core_impl``); ``float32`` and ``bfloat16`` are taken as
+    given; anything else raises the JAX driver's error."""
     dtype = config.core_matmul_dtype
     if dtype == "auto":
+        core_impl = core_impl or resolve_core_impl(config)
         dtype = ("bfloat16" if config.compute_dtype == "bfloat16"
-                 else "float32")
+                 and core_impl == "pallas" else "float32")
     if dtype not in ("float32", "bfloat16"):
         raise ValueError(
             f"core_matmul_dtype must be auto, float32, or bfloat16, "
             f"got {dtype!r}")
     return dtype
+
+
+# Family defaults a run takes unless its flags set them
+# (scalable_agent_tpu/config.py:491-500, the ported families' rows).
+_ENV_OVERRIDES = {
+    "doom_": {"width": 128, "height": 72, "num_action_repeats": 4},
+}
+
+
+def apply_env_overrides(config: "Config") -> "Config":
+    """The level family's defaults over the fields the caller left at
+    ``Config``'s defaults (``scalable_agent_tpu/config.py:503-513``):
+    Doom's 72x128 frames and 4 repeats."""
+    for prefix, overrides in _ENV_OVERRIDES.items():
+        if config.level_name.startswith(prefix):
+            defaults = Config()
+            fields = {
+                k: v for k, v in overrides.items()
+                # Values set on the command line win over the family's.
+                if getattr(config, k) == getattr(defaults, k)
+            }
+            return dataclasses.replace(config, **fields)
+    return config
 
 
 def _not_ported(what: str) -> ValueError:
@@ -126,6 +174,11 @@ class Config:
     test_batch_size: int = 8  # parallel eval envs
     # Env worker processes of the eval fleet; 0 means one per env.
     test_num_workers: int = 2
+    # Record the eval episodes (frames.npy and episode.json per episode)
+    # under <record_to>/<level>/env_NN, or per match and player
+    # (<level>/match_NN/player_NN) on a multi-agent level; "" records
+    # nothing.  Test mode only.
+    record_to: str = ""
 
     # -- model and kernels
     torso_type: str = "shallow"  # shallow | resnet

@@ -60,7 +60,13 @@ experiment.py:675-708):
   ``<logdir>/kernels.<id>.json`` and the anomaly record's final state.
 - ``test``: restore the newest verified checkpoint of ``--logdir`` and run
   ``test_num_episodes`` episodes of ``--level_name`` on a batched eval
-  fleet.
+  fleet (self-play over lockstep matches on a multi-agent level),
+  recorded under ``--record_to`` when it is set.
+- A multi-agent level (``doom_duel``: ``probe_env``'s ``num_agents`` > 1)
+  trains on groups of ``batch_size / num_agents`` lockstep matches, each
+  agent one batch slot (``make_env_groups``).  A level family's defaults
+  (Doom's 72x128 frames) apply where the flags leave Config's
+  (``config.apply_env_overrides``).
 
 Run:
     python -m scalable_agent_tpu_torch.driver --mode=train \\
@@ -94,6 +100,9 @@ import torch
 
 from scalable_agent_tpu_torch.config import (
     Config,
+    apply_env_overrides,
+    resolve_conv_backend,
+    resolve_core_impl,
     resolve_core_matmul_dtype,
 )
 from scalable_agent_tpu_torch.envs import (
@@ -174,17 +183,25 @@ def resolve_device(device: str) -> torch.device:
 
 
 def env_kwargs(config: Config) -> dict:
-    """The fake family's constructor kwargs, as
-    ``scalable_agent_tpu/driver.py:160-170`` passes them."""
-    return {"height": config.height, "width": config.width,
-            "with_instruction": config.use_instruction}
+    """The level family's constructor kwargs, as
+    ``scalable_agent_tpu/driver.py:160-176`` passes them: the frame size,
+    and for the fake family the instruction stream."""
+    if config.level_name.startswith("fake_"):
+        return {"height": config.height, "width": config.width,
+                "with_instruction": config.use_instruction}
+    if config.level_name.startswith("doom_"):
+        return {"height": config.height, "width": config.width}
+    return {}
 
 
 def probe_env(config: Config):
-    """Open one env to read (observation_spec, action_space)."""
+    """Open one env to read (observation_spec, action_space, num_agents),
+    then tear it down.  num_agents > 1 marks a lockstep multi-agent level
+    (``create_env`` returns a ``MultiAgentEnv`` there)."""
     env = create_env(config.level_name, **env_kwargs(config))
     try:
-        return env.observation_spec, env.action_space
+        return (env.observation_spec, env.action_space,
+                getattr(env, "num_agents", 1))
     finally:
         env.close()
 
@@ -205,18 +222,33 @@ def build_agent(config: Config, observation_spec, action_space,
     """The agent with its policy over the probed ``action_space`` (one
     Discrete head or a composite tuple-categorical one) and weights drawn
     from a generator seeded by ``config.seed``, placed on ``device``,
-    under the configuration's dtype
-    policy (``compute_dtype``, and ``core_matmul_dtype`` resolved as the
-    JAX driver resolves it) and ``remat_torso``."""
+    under the configuration's routes (``core_impl``, ``conv_backend``),
+    dtype policy (``compute_dtype``, and ``core_matmul_dtype``), all
+    resolved as the JAX driver resolves them, and ``remat_torso``.  A
+    ``core_matmul_dtype`` other than float32 on the ``xla`` core warns as
+    the JAX driver warns (``scalable_agent_tpu/driver.py:259-270``): that
+    core trains at float32."""
+    core_impl = resolve_core_impl(config)
+    core_matmul_dtype = resolve_core_matmul_dtype(config, core_impl)
+    if core_matmul_dtype != "float32" and core_impl != "pallas":
+        import warnings
+
+        warnings.warn(
+            f"core_matmul_dtype={core_matmul_dtype!r} only "
+            f"affects the pallas core; this run resolves to "
+            f"core_impl={core_impl!r} and trains at float32",
+            stacklevel=2)
     generator = torch.Generator().manual_seed(config.seed)
     return ImpalaAgent(frame_shape=observation_spec.frame.shape,
                        action_space=action_space,
                        generator=generator,
                        compute_dtype=getattr(torch, config.compute_dtype),
-                       core_matmul_dtype=resolve_core_matmul_dtype(config),
+                       core_matmul_dtype=core_matmul_dtype,
                        remat_torso=resolve_remat_torso(config),
                        torso_type=config.torso_type,
-                       use_instruction=config.use_instruction
+                       use_instruction=config.use_instruction,
+                       core_impl=core_impl,
+                       conv_backend=resolve_conv_backend(config)
                        ).to(device)
 
 
@@ -253,13 +285,84 @@ def worker_processes(requested: int, num_envs: int) -> int:
     return min(requested or num_envs, num_envs)
 
 
-def make_env_groups(config: Config, frame_spec) -> List[MultiEnv]:
+def match_port_scheme(total_matches: int) -> int:
+    """The UDP port scheme of every set of concurrent matches (training
+    groups and eval fleets), as ``scalable_agent_tpu/driver.py:351-371``:
+    match ``i`` probes from ``DEFAULT_UDP_PORT + stride * i`` in steps of
+    ``stride * total_matches``, so no two matches race for a port, with
+    at least 2 probes each under 65536.  Returns ``stride``; raises when
+    ``total_matches`` do not fit."""
+    from scalable_agent_tpu_torch.envs.doom.multiplayer import (
+        DEFAULT_UDP_PORT,
+    )
+
+    stride = max(1, min(1000, 25000 // max(1, 8 * total_matches)))
+    retries = (65536 - DEFAULT_UDP_PORT - stride * total_matches) // (
+        stride * total_matches)
+    if retries < 2:
+        raise ValueError(
+            f"{total_matches} concurrent matches do not fit the UDP "
+            f"port space above {DEFAULT_UDP_PORT} with retry headroom; "
+            f"reduce the fleet or lower DOOM_DEFAULT_UDP_PORT")
+    return stride
+
+
+def _multi_agent_groups(config: Config, num_groups: int,
+                        num_agents: int) -> List:
+    """The multi-agent branch of ``make_env_groups``
+    (``scalable_agent_tpu/driver.py:392-442``): each group is a
+    ``MultiAgentVectorEnv`` of batch_size / num_agents lockstep matches,
+    each agent one batch slot; match ``i`` (over all groups) is seeded
+    ``seed * total + i`` and probes its own port residue class.  This
+    package runs one process: the JAX ``process_index()`` is 0 and
+    ``process_count()`` 1."""
+    if config.benchmark_mode:
+        raise ValueError(
+            "benchmark_mode is not supported for multi-agent levels")
+    if config.batch_size % num_agents:
+        raise ValueError(
+            f"batch_size {config.batch_size} must be a multiple of the "
+            f"level's num_agents ({num_agents})")
+    from scalable_agent_tpu_torch.envs.doom.multiplayer import (
+        DEFAULT_UDP_PORT,
+        MultiAgentVectorEnv,
+    )
+
+    matches = config.batch_size // num_agents
+    total = num_groups * matches
+    stride = match_port_scheme(total)
+    groups = []
+    try:
+        for g in range(num_groups):
+            groups.append(MultiAgentVectorEnv([
+                functools.partial(
+                    create_env, config.level_name,
+                    num_action_repeats=config.num_action_repeats,
+                    seed=config.seed * total + g * matches + m,
+                    port_base=DEFAULT_UDP_PORT + stride * (
+                        g * matches + m),
+                    port_increment=stride * total,
+                    **env_kwargs(config))
+                for m in range(matches)]))
+    except BaseException:
+        for envs in groups:
+            envs.close()
+        raise
+    return groups
+
+
+def make_env_groups(config: Config, frame_spec,
+                    num_agents: int = 1) -> List[MultiEnv]:
     """num_actors envs as groups of batch_size (each group is one learner
     batch), seeded as the JAX driver seeds them, each group stepped by
     ``num_env_workers_per_group`` worker processes (0: one per env); under
     ``benchmark_mode`` each env takes its ``BenchmarkStream``'s random
-    actions, drawn from the env's own seed."""
+    actions, drawn from the env's own seed.  A multi-agent level
+    (``num_agents > 1``, from ``probe_env``) takes groups of lockstep
+    matches instead (``_multi_agent_groups``)."""
     num_groups = max(1, config.num_actors // config.batch_size)
+    if num_agents > 1:
+        return _multi_agent_groups(config, num_groups, num_agents)
     groups = []
     try:
         for g in range(num_groups):
@@ -541,7 +644,8 @@ def kernel_costs(config: Config, device: torch.device, observation_spec,
         handwritten=kernels_lib.handwritten_costs(
             *shapes, compute_dtype=config.compute_dtype,
             matmul_dtype=resolve_core_matmul_dtype(config),
-            sm_count=sm_count, **model),
+            sm_count=sm_count, core_impl=resolve_core_impl(config),
+            conv_backend=resolve_conv_backend(config), **model),
         peak=_resolve_roofline_peak(kind, config.compute_dtype),
         device_kind=kind)
 
@@ -774,8 +878,9 @@ def train(config: Config) -> Dict[str, float]:
     when there are any).  Raises ``SystemExit(71)`` when the non-finite
     guard cannot roll back."""
     device = resolve_device(config.device)
+    config = apply_env_overrides(config)
     config.save()
-    observation_spec, action_space = probe_env(config)
+    observation_spec, action_space, num_agents = probe_env(config)
     groups = pool = prefetch_thread = writer = learner = None
     prefetch_stop = threading.Event()
     monitor = PreemptionMonitor(config.preemption_grace_s)
@@ -822,7 +927,8 @@ def train(config: Config) -> Dict[str, float]:
                          start_updates, learner.state.env_frames)
             # A resumed run must not count the checkpoint's skips again.
             tracker.rebase(float(learner.state.nonfinite_skips))
-            groups = make_env_groups(config, observation_spec.frame)
+            groups = make_env_groups(config, observation_spec.frame,
+                                     num_agents)
             pool = ActorPool(
                 agent, groups, config.unroll_length,
                 level_name=config.level_name, seed=config.seed,
@@ -1059,10 +1165,11 @@ def train(config: Config) -> Dict[str, float]:
     return result
 
 
-def _eval_loop(envs: MultiEnv, config: Config, agent: ImpalaAgent,
+def _eval_loop(envs, config: Config, agent: ImpalaAgent,
                num_episodes: int) -> List[float]:
-    """Drive an eval fleet under batched inference until ``num_episodes``
-    episodes complete.  Each env slot contributes at most
+    """Drive an eval fleet (a ``MultiEnv`` or a ``MultiAgentVectorEnv``)
+    under batched inference until ``num_episodes`` episodes complete.
+    Each env slot contributes at most
     ceil(num_episodes / B) episodes: taking the first N completions
     overall would over-represent short episodes."""
     device = next(agent.parameters()).device
@@ -1094,12 +1201,19 @@ def _eval_level(config: Config, agent: ImpalaAgent, level_name: str,
                 frame_spec, num_episodes: int) -> List[float]:
     """``num_episodes`` returns from a fleet of ``test_batch_size`` envs
     (seeded ``seed * 977 + 131 * i``, apart from every training seed)
-    stepped under one batched inference call."""
+    stepped under one batched inference call; under ``record_to`` env
+    ``i`` records into ``<record_to>/<level>/env_NN``."""
     batch = max(1, min(num_episodes, config.test_batch_size))
-    fns = [functools.partial(make_impala_stream, level_name,
-                             seed=config.seed * 977 + 131 * i,
-                             num_action_repeats=config.num_action_repeats,
-                             **env_kwargs(config))
+    fns = [functools.partial(
+               make_impala_stream, level_name,
+               seed=config.seed * 977 + 131 * i,
+               num_action_repeats=config.num_action_repeats,
+               # One directory per (level, env slot): recorders never
+               # interleave episode numbers.
+               record_to=(os.path.join(config.record_to, level_name,
+                                       f"env_{i:02d}")
+                          if config.record_to else ""),
+               **env_kwargs(config))
            for i in range(batch)]
     envs = MultiEnv(fns, frame_spec,
                     num_workers=worker_processes(config.test_num_workers,
@@ -1107,10 +1221,52 @@ def _eval_level(config: Config, agent: ImpalaAgent, level_name: str,
     return _eval_loop(envs, config, agent, num_episodes)
 
 
+def _eval_multi_agent(config: Config, agent: ImpalaAgent, num_agents: int,
+                      num_episodes: int) -> List[float]:
+    """Self-play eval of a lockstep multi-agent level
+    (``scalable_agent_tpu/driver.py:2568-2616``): test_batch_size /
+    num_agents matches (rounded down, with a log line, when it is not a
+    multiple), every slot driven by the same policy under one batched
+    call, each slot's episode returns pooled.  Match ``m`` is seeded
+    ``seed * 977 + 131 * m`` and probes its own port residue class; under
+    ``record_to`` it records into ``<record_to>/<level>/match_NN``, one
+    ``player_NN`` directory per agent."""
+    from scalable_agent_tpu_torch.envs.doom.multiplayer import (
+        DEFAULT_UDP_PORT,
+        MultiAgentVectorEnv,
+    )
+
+    matches = max(1, config.test_batch_size // num_agents)
+    if matches * num_agents != config.test_batch_size:
+        log.info(
+            "test_batch_size %d is not a multiple of num_agents %d; "
+            "evaluating %d matches (%d agent slots)",
+            config.test_batch_size, num_agents, matches,
+            matches * num_agents)
+    stride = match_port_scheme(matches)
+    envs = MultiAgentVectorEnv([
+        functools.partial(
+            create_env, config.level_name,
+            num_action_repeats=config.num_action_repeats,
+            seed=config.seed * 977 + 131 * m,
+            port_base=DEFAULT_UDP_PORT + stride * m,
+            port_increment=stride * matches,
+            record_to=(os.path.join(config.record_to, config.level_name,
+                                    f"match_{m:02d}")
+                       if config.record_to else None),
+            **env_kwargs(config))
+        for m in range(matches)
+    ])
+    return _eval_loop(envs, config, agent, num_episodes)
+
+
 def test(config: Config) -> Dict[str, List[float]]:
     """Evaluate the newest verified checkpoint of ``config.logdir``:
-    ``test_num_episodes`` returns of ``level_name``."""
+    ``test_num_episodes`` returns of ``level_name`` (self-play over
+    lockstep matches on a multi-agent level), recorded under
+    ``record_to`` when it is set."""
     device = resolve_device(config.device)
+    config = apply_env_overrides(config)
     # The architecture belongs to the checkpoint, not to the eval flags:
     # the fields that shape the parameter tree are the trained run's.
     saved_path = os.path.join(config.logdir, "config.json")
@@ -1119,7 +1275,7 @@ def test(config: Config) -> Dict[str, List[float]]:
         config = dataclasses.replace(
             config, torso_type=saved.torso_type,
             use_instruction=saved.use_instruction)
-    observation_spec, action_space = probe_env(config)
+    observation_spec, action_space, num_agents = probe_env(config)
     restored = CheckpointManager(config.logdir).restore()
     if restored is None:
         raise FileNotFoundError(
@@ -1128,9 +1284,13 @@ def test(config: Config) -> Dict[str, List[float]]:
     with float32_precision():
         agent = build_agent(config, observation_spec, action_space, device)
         agent.load_state_dict(saved_state["params"])
-        returns = _eval_level(config, agent, config.level_name,
-                              observation_spec.frame,
-                              config.test_num_episodes)
+        if num_agents > 1:
+            returns = _eval_multi_agent(config, agent, num_agents,
+                                        config.test_num_episodes)
+        else:
+            returns = _eval_level(config, agent, config.level_name,
+                                  observation_spec.frame,
+                                  config.test_num_episodes)
     log.info("level %s: mean return %.2f over %d episodes (checkpoint "
              "step %d)", config.level_name, float(np.mean(returns)),
              len(returns), step)

@@ -3,7 +3,8 @@
 A copy of ``scalable_agent_tpu/envs/core.py`` (reference:
 environments.py:103-233):
 
-1. ``Environment`` — the gym-like simulator API (reset/step/close).
+1. ``Environment`` — the gym-like simulator API (reset/step/close), and
+   ``Wrapper``, the pass-through base that env wrappers compose over.
 2. ``StreamAdapter`` — auto-reset stream: after a done, the observation is
    the first one of the next episode.
 3. ``ImpalaStream`` — adds episode_return/episode_step accounting and emits
@@ -41,8 +42,45 @@ class Environment:
     def step(self, action) -> Tuple[Any, float, bool, Dict]:
         raise NotImplementedError
 
+    def render(self, mode: str = "rgb_array"):
+        raise NotImplementedError
+
     def close(self) -> None:
         pass
+
+
+class Wrapper(Environment):
+    """Pass-through base for env wrappers."""
+
+    def __init__(self, env: Environment):
+        self.env = env
+
+    @property
+    def action_space(self):
+        return self.env.action_space
+
+    @property
+    def observation_spec(self):
+        return self.env.observation_spec
+
+    @property
+    def unwrapped(self):
+        return getattr(self.env, "unwrapped", self.env)
+
+    def seed(self, seed):
+        return self.env.seed(seed)
+
+    def reset(self):
+        return self.env.reset()
+
+    def step(self, action):
+        return self.env.step(action)
+
+    def render(self, mode: str = "rgb_array"):
+        return self.env.render(mode)
+
+    def close(self):
+        return self.env.close()
 
 
 class StreamAdapter:

@@ -1,12 +1,17 @@
-"""Env construction by name, for the ``fake_`` family.
+"""Env construction by name, with name-prefix family dispatch.
 
-The counterpart of ``scalable_agent_tpu/envs/registry.py``.  The fake-level
-defaults are copied from the ``fake_*`` rows of
+The counterpart of ``scalable_agent_tpu/envs/registry.py`` (reference:
+envs/create_env.py:1-19): families register a factory under a name prefix
+(``register_family``), and the simulator families import their modules
+lazily, so that a missing simulator package fails only when its family is
+asked for.  The fake-level defaults are copied from the ``fake_*`` rows of
 ``scalable_agent_tpu/envs/device/protocol.py``, ``fake_tuple``'s from
-``scalable_agent_tpu/envs/registry.py``; the simulator families
-(``doom_``, ``atari_``, ``dmlab_``, ``gym_``, ``device_``) are not ported
-yet (ROADMAP.md, queue 1).
+``scalable_agent_tpu/envs/registry.py``.  The ``doom_`` family
+(``envs/doom/``) is ported; ``atari_``, ``dmlab_``, ``gym_`` and
+``device_`` are not yet (ROADMAP.md, queue 1) and raise.
 """
+
+from typing import Callable, Dict, Tuple
 
 from scalable_agent_tpu_torch.envs.core import Environment
 from scalable_agent_tpu_torch.envs.fake import FakeEnv
@@ -37,14 +42,74 @@ FAKE_LEVELS = {
                            [Discrete(3), Discretized(5, -1.0, 1.0)])),
 }
 
+# The JAX package's simulator families this package does not port yet.
+UNPORTED_FAMILIES = ("atari_", "dmlab_", "gym_", "device_")
+
+_FACTORIES: Dict[str, Tuple[Callable[..., Environment], bool]] = {}
+
+
+def register_family(prefix: str, factory: Callable[..., Environment],
+                    consumes_action_repeats: bool = False):
+    """Register ``factory(full_name, **kwargs)`` for env names ``prefix*``.
+
+    ``consumes_action_repeats``: the family applies action repeats
+    natively and takes a ``num_action_repeats`` kwarg; the others are
+    wrapped by ``make_impala_stream`` instead and never see it."""
+    _FACTORIES[prefix] = (factory, consumes_action_repeats)
+
+
+def _lookup(full_env_name: str):
+    for prefix, entry in sorted(
+            _FACTORIES.items(), key=lambda kv: -len(kv[0])):
+        if full_env_name.startswith(prefix):
+            return entry
+    if full_env_name.startswith(UNPORTED_FAMILIES):
+        raise ValueError(
+            f"env {full_env_name!r}: its family is not ported to "
+            f"scalable_agent_tpu_torch yet (see ROADMAP.md, queue 1)")
+    raise ValueError(
+        f"unknown env name {full_env_name!r}; registered prefixes: "
+        f"{sorted(_FACTORIES)}")
+
+
+def family_consumes_repeats(full_env_name: str) -> bool:
+    return _lookup(full_env_name)[1]
+
 
 def create_env(full_env_name: str, **kwargs) -> Environment:
-    """Instantiate an env by name; the level's defaults fill whatever the
-    caller did not pass."""
-    if not full_env_name.startswith("fake_"):
-        raise ValueError(
-            f"env {full_env_name!r}: only the fake_ family is ported to "
-            f"scalable_agent_tpu_torch so far (see ROADMAP.md, queue 1)")
+    """Instantiate an env by its prefix-dispatched name."""
+    return _lookup(full_env_name)[0](full_env_name, **kwargs)
+
+
+def _make_fake(full_env_name: str, **kwargs) -> Environment:
+    """A fake level; the level's defaults fill whatever the caller did not
+    pass."""
     for key, value in FAKE_LEVELS.get(full_env_name, {}).items():
         kwargs.setdefault(key, value)
     return FakeEnv(**kwargs)
+
+
+def _lazy_family(family: str, module: str, attr: str):
+    """A factory that imports its simulator module on first use and turns
+    a missing module or package into a clear error."""
+
+    def factory(full_env_name: str, **kwargs) -> Environment:
+        import importlib
+
+        try:
+            mod = importlib.import_module(module)
+        except ImportError as exc:
+            raise ValueError(
+                f"env family {family!r} is not available here: importing "
+                f"{module} failed ({exc}).  Its simulator package is an "
+                f"optional dependency.") from exc
+        return getattr(mod, attr)(full_env_name, **kwargs)
+
+    return factory
+
+
+_make_doom = _lazy_family(
+    "doom_", "scalable_agent_tpu_torch.envs.doom.factory", "make_doom_env")
+
+register_family("fake_", _make_fake, consumes_action_repeats=True)
+register_family("doom_", _make_doom, consumes_action_repeats=True)

@@ -7,8 +7,9 @@ The counterpart of ``scalable_agent_tpu/envs/vector.py::MultiEnv``
   split) and steps them one after the other; the parent scatters actions
   and gathers batched ``StepOutput``s.
 - All frames land in ONE shared-memory slab laid out [N, H, W, C]; only
-  the small fields cross the pipes, the instructions among them (int32
-  [k, L] per worker when the envs' observations carry one).
+  the small fields cross the pipes, the instructions and measurements
+  among them (int32 [k, L] and float32 [k, M] per worker when the envs'
+  observations carry them).
 - ``step_send``/``step_recv`` let an actor thread wait on the pipes while
   other threads run inference.
 - A worker that dies is respawned with generation-shifted seeds
@@ -23,9 +24,10 @@ Workers start with ``spawn``: the parent holds a CUDA context and threads.
 The constructor's default ``num_workers=0`` steps the streams in the
 calling process instead (the JAX MultiEnv reads 0 as one worker per env;
 the driver's flags keep that meaning, ``driver.worker_processes``).  The
-observation's frame and instruction are carried (``FakeEnv`` has an
-instruction stream with ``with_instruction``); no ported env has a
-measurement stream.  This module imports no torch (the obs package,
+observation's frame, instruction and measurements are carried
+(``FakeEnv`` has an instruction stream with ``with_instruction``, the Doom
+levels with ``DoomAdditionalInput`` a measurement vector, which the agent
+does not read).  This module imports no torch (the obs package,
 which does, only when a worker is respawned, in the parent).
 """
 
@@ -89,13 +91,15 @@ def _maybe_stack(items):
 def _run_all(streams, slab, first_index: int, step_of_stream):
     """Apply ``step_of_stream(i, stream)`` to each stream; frames go to
     ``slab[first_index + i]``, the small fields (the instructions [k, L]
-    or None among them) come back as arrays."""
+    and the measurements [k, M], each or None, among them) come back as
+    arrays."""
     k = len(streams)
     rewards = np.zeros((k,), np.float32)
     dones = np.zeros((k,), bool)
     returns = np.zeros((k,), np.float32)
     steps = np.zeros((k,), np.int32)
     instructions = []
+    measurements = []
     for i, stream in enumerate(streams):
         out = step_of_stream(i, stream)
         rewards[i] = out.reward
@@ -104,7 +108,9 @@ def _run_all(streams, slab, first_index: int, step_of_stream):
         steps[i] = out.info.episode_step
         slab[first_index + i] = out.observation.frame
         instructions.append(out.observation.instruction)
-    return rewards, dones, returns, steps, _maybe_stack(instructions)
+        measurements.append(out.observation.measurements)
+    return (rewards, dones, returns, steps, _maybe_stack(instructions),
+            _maybe_stack(measurements))
 
 
 def _vec_worker_main(conn, make_streams_pickled: bytes, shm_name: str,
@@ -314,8 +320,8 @@ class MultiEnv:
 
     # -- protocol ------------------------------------------------------------
 
-    def _output(self, rewards, dones, returns, steps,
-                instructions) -> StepOutput:
+    def _output(self, rewards, dones, returns, steps, instructions,
+                measurements) -> StepOutput:
         for i in np.nonzero(dones)[0]:
             if steps[i] > 0:  # initial() marks done without an episode
                 self.episode_stats.append((float(returns[i]), int(steps[i])))
@@ -324,13 +330,14 @@ class MultiEnv:
             info=StepOutputInfo(episode_return=returns, episode_step=steps),
             done=dones,
             observation=Observation(frame=self._slab.copy(),
-                                    instruction=instructions))
+                                    instruction=instructions,
+                                    measurements=measurements))
 
     def _gather(self) -> StepOutput:
         fields = [np.zeros((self.num_envs,), np.float32),
                   np.zeros((self.num_envs,), bool),
                   np.zeros((self.num_envs,), np.float32),
-                  np.zeros((self.num_envs,), np.int32), None]
+                  np.zeros((self.num_envs,), np.int32), None, None]
         errors = []
         for w, sl in enumerate(self._slices):
             payload, error = self._recv(w)
@@ -339,15 +346,15 @@ class MultiEnv:
                 # aligned; the first error surfaces after the sweep.
                 errors.append(error)
                 continue
-            *small, instructions = payload
-            for field, part in zip(fields, small):
-                field[sl] = part
-            if instructions is not None:
-                if fields[-1] is None:
-                    fields[-1] = np.zeros(
-                        (self.num_envs,) + instructions.shape[1:],
-                        instructions.dtype)
-                fields[-1][sl] = instructions
+            for i, part in enumerate(payload):
+                if i < 4:
+                    fields[i][sl] = part
+                elif part is not None:
+                    # the instructions [k, L], the measurements [k, M]
+                    if fields[i] is None:
+                        fields[i] = np.zeros(
+                            (self.num_envs,) + part.shape[1:], part.dtype)
+                    fields[i][sl] = part
         if errors:
             raise errors[0]
         return self._output(*fields)

@@ -2,14 +2,23 @@
 policy/baseline heads.
 
 The counterpart of ``scalable_agent_tpu/models/agent.py`` (reference:
-experiment.py:109-237) with ``core_impl="pallas"`` and
-``conv_backend="pallas"``: the torso (``torso_type``: ``shallow`` or
+experiment.py:109-237): the torso (``torso_type``: ``shallow`` or
 ``resnet``) runs over the merged [T*B] batch, the clipped reward, the
 one-hot last action and, with ``use_instruction``, the instruction
 encoder's output are concatenated to its output, the done-reset LSTM core
-(``ops/lstm_cuda.lstm_unroll``) runs over T, and the heads run over the
-merged batch again.  ``forward`` is the whole trajectory unroll, shared
-by actor inference (T=1) and the learner (T=unroll_length+1).
+runs over T, and the heads run over the merged batch again.  ``forward``
+is the whole trajectory unroll, shared by actor inference (T=1) and the
+learner (T=unroll_length+1).
+
+Two routes, chosen only by their flags (``config.resolve_core_impl``,
+``resolve_conv_backend``): ``core_impl="pallas"`` (the default) is the
+hand-written core (``ops/lstm_cuda.lstm_unroll``), ``"xla"`` a per-step
+done-reset LSTM in torch ops under autograd, flax ``OptimizedLSTMCell``'s
+math over the same ``wi``/``wh``/``b`` (the JAX ``nn.scan(_CoreStep)``,
+``scalable_agent_tpu/models/agent.py:49-66,263-272``), its products at the
+float32 params' precision; ``conv_backend`` picks the stem's weight
+gradient (``models/networks.py``).  Both routes share one parameter tree,
+so checkpoints and ``convert.py`` serve either.
 
 The one compute-dtype policy is the JAX agent's
 (``scalable_agent_tpu/models/agent.py``), by explicit casts: parameters
@@ -71,16 +80,46 @@ def initial_state(batch_size: int, core_size: int = CORE_SIZE,
     return AgentState(c=zeros(), h=zeros())
 
 
+CORE_IMPLS = ("xla", "pallas")
+
+
+def xla_core(x, done, carry: AgentState, wi, wh, b):
+    """The ``xla`` core: x [T,B,D] float32, done [T,B] -> (ys [T,B,H],
+    final carry), one step at a time under autograd.  Each step resets the
+    carry where ``done`` (before the cell, as ``_CoreStep``), then runs
+    flax ``OptimizedLSTMCell``: gates (h·Wh + b) + x·Wi in (i, f, g, o),
+    c' = sigmoid(f)·c + sigmoid(i)·tanh(g), h' = sigmoid(o)·tanh(c').  The
+    input products of every step are one product over [T·B, D]."""
+    steps, batch = x.shape[:2]
+    xw = (x.reshape(steps * batch, -1) @ wi).reshape(steps, batch, -1)
+    keep = (1.0 - done)[..., None]
+    c, h = carry.c, carry.h
+    ys = []
+    for t in range(steps):
+        c, h = keep[t] * c, keep[t] * h
+        i, f, g, o = ((h @ wh + b) + xw[t]).chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        ys.append(h)
+    return torch.stack(ys), AgentState(c=c, h=h)
+
+
 class LSTMCore(nn.Module):
     """The done-reset LSTM's parameters in the kernel's layout: ``wi
     [D,4H]``, ``wh [H,4H]``, ``b [4H]``, gates (i, f, g, o).  Initialized
     like flax's OptimizedLSTMCell gate by gate: lecun_normal input
     kernels, orthogonal recurrent kernels, zero bias (only the recurrent
-    side has one)."""
+    side has one).  ``core_impl`` is the route: the hand-written kernels
+    (``pallas``) or ``xla_core``."""
 
     def __init__(self, in_features: int, hidden: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 core_impl: str = "pallas"):
         super().__init__()
+        if core_impl not in CORE_IMPLS:
+            raise ValueError(f"unknown core_impl: {core_impl!r} "
+                             f"(choices: {CORE_IMPLS})")
+        self.core_impl = core_impl
         self.wi = nn.Parameter(torch.empty(in_features, 4 * hidden))
         self.wh = nn.Parameter(torch.empty(hidden, 4 * hidden))
         self.b = nn.Parameter(torch.zeros(4 * hidden))
@@ -88,6 +127,8 @@ class LSTMCore(nn.Module):
 
     def forward(self, x, done, carry: AgentState,
                 matmul_dtype: str = "float32", residuals: bool = False):
+        if self.core_impl == "xla":
+            return xla_core(x, done, carry, self.wi, self.wh, self.b)
         ys, (c, h) = lstm_unroll(x, done, carry.c, carry.h, self.wi,
                                  self.wh, self.b, matmul_dtype, residuals)
         return ys, AgentState(c=c, h=h)
@@ -107,7 +148,9 @@ class ImpalaAgent(nn.Module):
     a composite space's actions carry a component axis, [T,B,K].
     Weights are drawn from ``generator``.
     ``compute_dtype`` and ``core_matmul_dtype`` are the dtype policy's,
-    ``remat_torso`` the torso's recomputation (module docstring).
+    ``remat_torso`` the torso's recomputation, ``core_impl`` and
+    ``conv_backend`` the routes (module docstring; both default to the
+    kernels).
     ``residual_core=True`` makes the core run its residual forward even
     where no gradient flows (the learner's two-pass comparison unroll).
     """
@@ -121,7 +164,9 @@ class ImpalaAgent(nn.Module):
                  remat_torso: bool = False,
                  torso_type: str = "shallow",
                  use_instruction: bool = False,
-                 action_space: Optional[Space] = None):
+                 action_space: Optional[Space] = None,
+                 core_impl: str = "pallas",
+                 conv_backend: str = "pallas"):
         super().__init__()
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype must be torch.float32 or "
@@ -142,12 +187,12 @@ class ImpalaAgent(nn.Module):
         self.remat_torso = remat_torso
         self.use_instruction = use_instruction
         self.convnet = TORSOS[torso_type](frame_shape, generator,
-                                          compute_dtype)
+                                          compute_dtype, conv_backend)
         in_features = TORSO_SIZE + 1 + self.num_logits
         if use_instruction:
             self.instruction = InstructionEncoder(generator=generator)
             in_features += LSTM_SIZE
-        self.core = LSTMCore(in_features, core_size, generator)
+        self.core = LSTMCore(in_features, core_size, generator, core_impl)
         self.policy_logits = dense(core_size, self.num_logits, generator)
         self.baseline = dense(core_size, 1, generator)
 

@@ -11,9 +11,13 @@ The counterparts of ``scalable_agent_tpu/models/networks.py``:
   Linear(256) -> ReLU.
 
 The stem conv's weight gradient (``conv_0``, ``downscale_0``) is the
-hand-written kernel (``ops/conv_cuda.stem_conv``); every other conv is the
-library's (``conv2d_same``), as XLA computes them outside any Pallas
-kernel in the JAX package.
+hand-written kernel (``ops/conv_cuda.stem_conv``) under ``conv_backend=
+"pallas"`` (the default); every other conv is the library's
+(``conv2d_same``), as XLA computes them outside any Pallas kernel in the
+JAX package.  ``conv_backend="xla"`` takes the stem through
+``conv2d_same`` under autograd too, so its weight gradient is the
+library's (cuDNN's wgrad on the card), as the JAX torsos' ``nn.Conv``
+stem (``scalable_agent_tpu/models/networks.py:152-157,177-181,240-244``).
 
 Layouts follow PyTorch (NCHW activations, OIHW conv weights, [out, in]
 linear weights); ``convert.py`` maps the flax tree onto them, module names
@@ -45,6 +49,9 @@ from scalable_agent_tpu_torch.ops.conv_cuda import (
 
 # (out_channels, kernel, stride) of the shallow torso's three convs.
 CONV_STACK = ((32, 8, 4), (64, 4, 2), (128, 3, 2))
+# The stem conv's weight-gradient routes: the hand-written kernel, or the
+# library's under autograd (scalable_agent_tpu/models/networks.py:32).
+CONV_BACKENDS = ("xla", "pallas")
 # (channels, residual blocks) of the ResNet torso's three sections.
 RESNET_STACK = ((16, 2), (32, 2), (32, 2))
 TORSO_SIZE = 256
@@ -104,13 +111,16 @@ def _conv(in_channels: int, out_channels: int, kernel: int,
 
 
 class ShallowConvTorso(nn.Module):
-    """Input uint8 frames [N, H, W, C]; output [N, 256] of ``dtype``."""
+    """Input uint8 frames [N, H, W, C]; output [N, 256] of ``dtype``; the
+    stem's weight gradient by ``conv_backend``'s route."""
 
     def __init__(self, frame_shape: Sequence[int],
                  generator: Optional[torch.Generator] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 conv_backend: str = "pallas"):
         super().__init__()
         self.dtype = dtype
+        self.stem_op = stem_op(conv_backend)
         height, width, channels = frame_shape
         layers = []
         for out_channels, kernel, stride in CONV_STACK:
@@ -127,7 +137,7 @@ class ShallowConvTorso(nn.Module):
         x = (frame.to(dtype) / 255.0).permute(0, 3, 1, 2)
         for i, (conv, (_, _, stride)) in enumerate(zip(
                 (self.conv_0, self.conv_1, self.conv_2), CONV_STACK)):
-            op = stem_conv if i == 0 else conv2d_same
+            op = self.stem_op if i == 0 else conv2d_same
             x = torch.relu(_conv_apply(conv, x, dtype, op, stride))
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
         return torch.relu(dense_apply(self.fc, x, dtype))
@@ -162,6 +172,15 @@ class _ResidualBlock(nn.Module):
         return y + x
 
 
+def stem_op(conv_backend: str):
+    """The stem conv's op for ``conv_backend``: ``stem_conv`` (the grad-W
+    kernel) for ``pallas``, ``conv2d_same`` for ``xla``."""
+    if conv_backend not in CONV_BACKENDS:
+        raise ValueError(f"unknown conv_backend: {conv_backend!r} "
+                         f"(choices: {CONV_BACKENDS})")
+    return stem_conv if conv_backend == "pallas" else conv2d_same
+
+
 def _conv_apply(conv: nn.Conv2d, x, dtype, op, stride):
     """flax ``Conv(dtype=dtype)``: kernel and bias cast to ``dtype``, the
     conv, then the bias."""
@@ -170,13 +189,16 @@ def _conv_apply(conv: nn.Conv2d, x, dtype, op, stride):
 
 
 class ResNetTorso(nn.Module):
-    """Input uint8 frames [N, H, W, C]; output [N, 256] of ``dtype``."""
+    """Input uint8 frames [N, H, W, C]; output [N, 256] of ``dtype``; the
+    stem's weight gradient by ``conv_backend``'s route."""
 
     def __init__(self, frame_shape: Sequence[int],
                  generator: Optional[torch.Generator] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 conv_backend: str = "pallas"):
         super().__init__()
         self.dtype = dtype
+        self.stem_op = stem_op(conv_backend)
         channels = frame_shape[2]
         for i, (out_channels, blocks) in enumerate(RESNET_STACK):
             self.add_module(f"downscale_{i}",
@@ -194,7 +216,7 @@ class ResNetTorso(nn.Module):
         x = (frame.to(dtype) / 255.0).permute(0, 3, 1, 2)
         for i, (_, blocks) in enumerate(RESNET_STACK):
             x = _conv_apply(getattr(self, f"downscale_{i}"), x, dtype,
-                            stem_conv if i == 0 else conv2d_same, 1)
+                            self.stem_op if i == 0 else conv2d_same, 1)
             x = max_pool_same(x)
             for j in range(blocks):
                 x = getattr(self, f"residual_{i}_{j}")(x, dtype)

@@ -57,6 +57,7 @@ from typing import Dict, List, Mapping, Optional, Tuple
 
 __all__ = [
     "KERNELS_JSON_NAME",
+    "LIBRARY_ROUTES",
     "UPDATE_RANGE",
     "build_kernel_table",
     "find_profiler_trace",
@@ -118,12 +119,24 @@ def kernel_name(raw: str) -> str:
 # -- the hand-written kernels' costs -----------------------------------------
 
 
+# The hand-written kernels each library route leaves out (by name prefix):
+# core_impl=xla the LSTM kernels (csrc/lstm.cu), conv_backend=xla the
+# stems' grad-W kernels and their reduce (csrc/conv.cu).
+LIBRARY_ROUTES = {
+    "core_impl": ("sgemm_kernel", "lstm_", "bptt_"),
+    "conv_backend": ("conv_gradw_band_kernel", "resnet_stem_gradw_kernel",
+                     "reduce_partials_kernel"),
+}
+
+
 def handwritten_costs(frame_shape, num_logits: int, unroll_length: int,
                       batch_size: int, core_size: Optional[int] = None,
                       compute_dtype: str = "bfloat16",
                       matmul_dtype: Optional[str] = None,
                       sm_count: int = 132, torso_type: str = "shallow",
-                      use_instruction: bool = False) -> Dict[str, dict]:
+                      use_instruction: bool = False,
+                      core_impl: str = "pallas",
+                      conv_backend: str = "pallas") -> Dict[str, dict]:
     """Per-call ``{"flops_est", "bytes", "op", "calls"}`` of each
     hand-written kernel one update launches (``calls`` per update), keyed
     by the start of its ``kernel_name``.  FLOPs count the products at 2
@@ -135,7 +148,12 @@ def handwritten_costs(frame_shape, num_logits: int, unroll_length: int,
     ``compute_dtype``); ``sm_count`` sizes grad-W's partial sums;
     ``torso_type`` picks the stem's grad-W kernel and ``use_instruction``
     widens the core's input by the instruction encoding; ``num_logits``,
-    the policy's logit count, is the one-hot last action's width."""
+    the policy's logit count, is the one-hot last action's width.
+    ``core_impl="xla"`` leaves the LSTM kernels out and
+    ``conv_backend="xla"`` the grad-W kernels (``LIBRARY_ROUTES``): the
+    library kernels those routes launch in their place are costed from
+    their aten ops like every other library kernel, so a library arm's
+    table names them and the two arms' tables compare row by row."""
     from scalable_agent_tpu_torch.models.agent import CORE_SIZE
     from scalable_agent_tpu_torch.models.instruction import LSTM_SIZE
     from scalable_agent_tpu_torch.models.networks import (
@@ -206,6 +224,12 @@ def handwritten_costs(frame_shape, num_logits: int, unroll_length: int,
             lstm, 3, 2 * m * g * (d + d + h),
             4 * (3 * m * g + 2 * (d * g + m * d) + m * h + h * g))
         costs["bptt_reduce_kernel"] = entry(lstm, 1, 0, 4 * (b * g + g))
+    for route, value in (("core_impl", core_impl),
+                         ("conv_backend", conv_backend)):
+        if value == "xla":
+            for key in [k for k in costs
+                        if k.startswith(LIBRARY_ROUTES[route])]:
+                del costs[key]
     return costs
 
 

@@ -18,7 +18,9 @@ class StepOutputInfo(NamedTuple):
 class Observation(NamedTuple):
     """What the env shows the agent each step: ``frame`` is HWC uint8;
     ``instruction`` int32 [L] hashed token ids (0 = padding) or None;
-    ``measurements`` is None on the levels this package runs so far."""
+    ``measurements`` f32 [M] game-state scalars on the Doom levels with
+    ``DoomAdditionalInput`` (M=23; the agent does not read them), else
+    None."""
 
     frame: Any
     instruction: Optional[Any] = None

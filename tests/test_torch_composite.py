@@ -364,10 +364,11 @@ def test_tuple_space_comes_back_from_a_worker_and_the_probe():
     assert space == want
     config = Config(level_name="fake_tuple", height=16, width=16,
                     device="cpu")
-    obs_spec, probed = driver.probe_env(config)
+    obs_spec, probed, num_agents = driver.probe_env(config)
     jax_obs, jax_space, _ = jax_driver.probe_env(JaxConfig(
         level_name="fake_tuple", height=16, width=16))
     assert probed == want == port_space(jax_space)
+    assert num_agents == 1
     assert tuple(obs_spec.frame.shape) == tuple(jax_obs.frame.shape)
 
 

@@ -467,7 +467,7 @@ def test_pool_stores_the_instruction_and_both_transports_carry_it():
     config = Config(device="cpu", level_name="fake_small", height=16,
                     width=16, num_actors=2, batch_size=2, unroll_length=4,
                     torso_type="resnet", use_instruction=True)
-    spec, space = driver.probe_env(config)
+    spec, space, _ = driver.probe_env(config)
     agent = driver.build_agent(config, spec, space, torch.device("cpu"))
     fns = [functools.partial(make_impala_stream, "fake_small", seed=i,
                              **driver.env_kwargs(config)) for i in range(2)]

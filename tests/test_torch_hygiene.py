@@ -83,6 +83,81 @@ def test_importing_obs_and_its_clis_leaves_torch_and_jax_out():
                    cwd=str(ROOT), timeout=120)
 
 
+# The modules an env worker process imports to host a Doom stream.
+ENV_WORKER_MODULES = sorted(
+    ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(
+        ".__init__")
+    for p in [*(PACKAGE / "envs" / "doom").glob("*.py"),
+              PACKAGE / "envs" / "wrappers.py", PACKAGE / "utils" / "net.py"])
+
+
+def _doom_scenarios(tmp_path):
+    """Scenario .cfg files for the fake VizDoom (``tests/fakes``)."""
+    for name in ("battle.cfg", "ssl2.cfg"):
+        (tmp_path / name).write_text(
+            "available_game_variables = { HEALTH ARMOR FRAGCOUNT "
+            "DEATHCOUNT PLAYER_NUM PLAYER_COUNT PLAYER1_FRAGCOUNT "
+            "PLAYER2_FRAGCOUNT }\n")
+    return dict(os.environ, DOOM_SCENARIOS_DIR=str(tmp_path),
+                PYTHONPATH=os.pathsep.join(
+                    [str(ROOT), str(ROOT / "tests" / "fakes")]))
+
+
+def test_env_worker_modules_leave_torch_and_jax_out(tmp_path):
+    """What an env worker imports for the Doom family (``envs/doom/*``,
+    ``envs/wrappers.py``, ``utils/net.py``), and a Doom stream with
+    recording and a lockstep match built and stepped in that process,
+    load neither torch nor jax."""
+    code = ("import importlib, sys\n"
+            f"for name in {ENV_WORKER_MODULES!r}:\n"
+            "    importlib.import_module(name)\n"
+            "from scalable_agent_tpu_torch.envs import create_env, "
+            "make_impala_stream\n"
+            "s = make_impala_stream('doom_benchmark', num_action_repeats=4, "
+            f"record_to={str(tmp_path / 'rec')!r})\n"
+            "s.initial(); s.step(1); s.close()\n"
+            "m = create_env('doom_duel', num_action_repeats=4)\n"
+            "m.reset(); m.step([(0,) * 7] * 2); m.close()\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'jax', 'jaxlib', 'scalable_agent_tpu'))\n"
+            "assert not bad, bad\n")
+    assert len(ENV_WORKER_MODULES) == 9
+    subprocess.run([sys.executable, "-c", code], check=True,
+                   env=_doom_scenarios(tmp_path), cwd=str(ROOT),
+                   timeout=120)
+
+
+def test_doom_cli_env_workers_never_import_torch(tmp_path):
+    """``python -m scalable_agent_tpu_torch.driver
+    --level_name=doom_benchmark`` with 2 env worker processes: torch is
+    imported once, by the driver's own process (as
+    ``tests/test_torch_driver.py::test_cli_env_workers_never_import_torch``
+    counts it for the fake family)."""
+    env = dict(_doom_scenarios(tmp_path), PYTHONPROFILEIMPORTTIME="1")
+    proc = subprocess.run([
+        sys.executable, "-m", "scalable_agent_tpu_torch.driver",
+        "--device=cpu", "--level_name=doom_benchmark", "--num_actors=2",
+        "--batch_size=2", "--unroll_length=2",
+        "--total_environment_frames=16", f"--logdir={tmp_path / 'run'}",
+        "--num_env_workers_per_group=2", "--compute_dtype=float32"],
+        env=env, cwd=str(tmp_path), capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    imported = [line.rsplit("|", 1)[-1].strip()
+                for line in proc.stderr.splitlines()
+                if line.startswith("import time:")]
+    assert imported.count("numpy") >= 3  # the driver and its 2 workers
+    assert imported.count("torch") == 1
+    assert imported.count(
+        "scalable_agent_tpu_torch.envs.doom.core") >= 3
+
+
+def test_record_to_is_ported():
+    """``--record_to`` parses and is no longer in ``UNPORTED_FLAGS``."""
+    assert "record_to" not in UNPORTED_FLAGS
+    assert Config.from_argv(["--record_to=/x"]).record_to == "/x"
+
+
 def test_cuda_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
@@ -123,7 +198,7 @@ def test_flag_lists_cover_the_jax_config():
             assert f.default == getattr(jax_config.Config(), f.name), f.name
 
 
-@pytest.mark.parametrize("argv", [["--record_to=/x"],
+@pytest.mark.parametrize("argv", [["--renderer=software"],
                                   ["--health_baseline_dir", "auto"],
                                   ["--chaos_channel=true"],
                                   ["--replay_ratio=1"],
