@@ -59,7 +59,13 @@ a result:
    counted), and the stem grad-W at 3232 frames of 16x16 in both types,
    with two calls bitwise equal, against cuDNN's.  The same at
    ``doom_duel``'s D=298 (256 + 1 + 41) and for the stem grad-W at Doom's
-   72x128 frames (18x32 outputs).
+   72x128 frames (18x32 outputs).  The same at CartPole's D=259 (256 + 1
+   + 2) and the Atari stand-in's D=261 (Breakout's 4 actions), and the
+   stem grad-W's C=4 instantiation (``stem_gradw_c4``, Atari's grayscale
+   stack of 4) at N=3232 frames of 84x84x4 as the 72x96x3 one above: both
+   types, every layout, N=1, N=3233 and 17x23, two calls bitwise equal,
+   device time beside cuDNN's, timed into the kernels line (no gate
+   against cuDNN).
 3. Train: ``driver.train`` on ``fake_benchmark`` at full width (64 actors
    in two groups of 32 on ActorPool threads, 8 env worker processes per
    group, unroll 100, 4 action repeats, LSTM 256, ``--scan_impl=pallas``,
@@ -158,6 +164,22 @@ a result:
    checkpoint for 8 episodes over 4 matches, each match's
    ``player_00``/``player_01`` holding episode directories with
    ``frames.npy`` and ``episode.json``.
+3m. (Run after 3l.) The ``dmlab_`` family under the fake DeepMind Lab of
+   ``tests/fakes/deepmind_lab.py`` (its step cost, not DMLab's):
+   ``--level_name=dmlab30`` multi-task training at the main path's layout
+   (64 actors over the 30 train levels, the instruction stream on: D=330),
+   bf16, 2 updates counted as in phase 3, every train level's
+   ``<level>/episode_return`` and the ``dmlab30/training_no_cap`` and
+   ``training_cap_100`` scores in the metrics rows, s per update; then
+   ``--mode=test --level_name=dmlab30 --test_num_episodes=1``: 30 levels
+   through the bf16 lean kernel into ``eval_scores.json``.
+3n. (Run after 3m.) The ``atari_`` and ``gym_`` families under a stand-in
+   ``gymnasium`` written into the scratch directory (``GYMNASIUM_STANDIN``:
+   its step cost, not ALE's): ``atari_breakout`` at [84, 84, 4] frames for
+   3 bf16 updates counted (the C=4 bf16 grad-W once an update, no C=3
+   grad-W), s per update, 2 float32 updates counted for the float32 C=4
+   kernel; ``gym_CartPole-v1`` (rendered frames resized to 72x96) for 2
+   bf16 updates counted as in phase 3.
 3d. (Run after 3b, before 3c.) The default loop's machinery, each part
    failing the run: packed
    bitwise equal to per_leaf for one full-width trajectory from the pool,
@@ -253,8 +275,8 @@ a result:
    at a one-in-two stall rate, 0.6% at one in three).
 4. A ``{"kernels": [...]}`` line (the float32 kernels with their launches
    on the float32 path, the bf16 variants and V-trace with theirs on the
-   main path; the ResNet stem's from 3h's float32 and bf16 runs), the
-   card's line, then as the last line
+   main path; the ResNet stem's from 3h's float32 and bf16 runs, the C=4
+   stem's from 3n's Atari runs), the card's line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
@@ -881,15 +903,20 @@ def compare_lean_streams(torch, lstm_cuda, device, wi, wh, b,
                LSTM_TOL)
 
 
-def compare_gradw(torch, conv_cuda, device, N=101 * 32, dtype=None):
-    """The stem grad-W at the learner's merged batch N = 101 * 32, then at
-    other image counts, frame sizes and layouts, with x and g of ``dtype``
-    (float32, or bfloat16 for the bf16-operand variant)."""
+def compare_gradw(torch, conv_cuda, device, N=101 * 32, dtype=None,
+                  frame=(72, 96, 3)):
+    """The stem grad-W at the learner's merged batch N = 101 * 32 of
+    ``frame`` frames (DMLab's 72x96x3, or Atari's 84x84x4, the kernel's C=4
+    instantiation ``stem_gradw_c4``), then at other image counts, frame
+    sizes and layouts, with x and g of ``dtype`` (float32, or bfloat16 for
+    the bf16-operand variant)."""
     dtype = dtype or torch.float32
     bf16 = dtype == torch.bfloat16
-    tag = " bf16" if bf16 else ""
-    gen = torch.Generator().manual_seed(4321)
-    Hh, W, C, K, S, Fo = 72, 96, 3, 8, 4, 32
+    Hh, W, C = frame
+    K, S, Fo = 8, 4, 32
+    stem = "stem_gradw" if C == 3 else f"stem_gradw_c{C}"
+    tag = (f"_c{C}" if C != 3 else "") + (" bf16" if bf16 else "")
+    gen = torch.Generator().manual_seed(4321 if C == 3 else 4321 + C)
     OH, OW = -(-Hh // S), -(-W // S)
     # x as the torso makes it (uint8 / 255 in dtype), g a cotangent.
     frames = lambda *shape: (torch.randint(
@@ -915,7 +942,8 @@ def compare_gradw(torch, conv_cuda, device, N=101 * 32, dtype=None):
                              f"dW")
     print(f"  stem_gradw{tag}: two calls bitwise equal", flush=True)
     lib_err = _errors([(lib_dw, plain)])
-    print(f"  (cuDNN's conv2d_weight{tag} against the same plain version: "
+    print(f"  (cuDNN's conv2d_weight{' bf16' if bf16 else ''} against the "
+          f"same plain version at C={C}: "
           f"max_rel_err {lib_err[1]:.3e})", flush=True)
 
     # Both layouts the torso can hand over, for each of x and g: contiguous
@@ -930,7 +958,7 @@ def compare_gradw(torch, conv_cuda, device, N=101 * 32, dtype=None):
         del xx, gg
     # Image counts that split unevenly or not at all, and an odd frame size
     # (asymmetric SAME pads) in both layouts.
-    for n, hh, ww in ((1, 72, 96), (N + 1, 72, 96), (64, 17, 23)):
+    for n, hh, ww in ((1, Hh, W), (N + 1, Hh, W), (64, 17, 23)):
         xs = frames(n, hh, ww, C)
         gs = cotangent(n, -(-hh // S), -(-ww // S), Fo)
         want = conv_cuda.conv_gradw_plain(xs, gs, K, S)
@@ -946,12 +974,12 @@ def compare_gradw(torch, conv_cuda, device, N=101 * 32, dtype=None):
         ("conv_gradw_band_kernel", "reduce_partials_kernel"), 10)
     lib_device_ms = _device_ms(torch, library, None, 10)
     print(f"  stem_gradw{tag}: kernels' device time {device_ms:.4f} ms, "
-          f"cuDNN conv2d_weight{tag} {lib_device_ms:.4f} ms "
+          f"cuDNN conv2d_weight {lib_device_ms:.4f} ms "
           f"(torch.profiler)", flush=True)
     width = x.element_size()
     nbytes = width * (N * Hh * W * C + N * OH * OW * Fo) + 4 * K * K * C * Fo
     flops = 2 * N * OH * OW * K * K * C * Fo
-    return [("stem_gradw" + ("_bf16" if bf16 else ""), "conv.cu",
+    return [(stem + ("_bf16" if bf16 else ""), "conv.cu",
              "conv_pallas.py:86", err,
              lambda: conv_cuda.conv_gradw(x, g, K, S),
              lambda: conv_cuda.conv_gradw_plain(x, g, K, S),
@@ -1985,7 +2013,8 @@ def benchmark_path(torch, driver, config, scratch, train_counted, pool_s):
 LSTM_COUNTERS = tuple(f"lstm_{part}{suffix}" for part in (
     "fwd_lean", "fwd_resid", "bptt") for suffix in ("", "_bf16"))
 GRADW_COUNTERS = tuple(f"{stem}{suffix}" for stem in (
-    "stem_gradw", "resnet_stem_gradw") for suffix in ("", "_bf16"))
+    "stem_gradw", "stem_gradw_c4", "resnet_stem_gradw")
+    for suffix in ("", "_bf16"))
 ROUTE_UPDATES = 2            # phase 3k's fake_tuple run, 3l's doom_duel run
 DUEL_BATCH = 32              # 16 matches x 2 agents a group
 
@@ -2212,6 +2241,313 @@ def doom_path(torch, driver, config, scratch, root, train_counted,
                              "over 4 recorded matches through the bf16 "
                              "lean LSTM kernel")
     return launches
+
+
+DMLAB_UPDATES = 4           # phase 3m's dmlab30 run
+ATARI_UPDATES = 4           # phase 3n's atari_breakout run (bf16)
+# A stand-in for the gymnasium package, which the card's machine lacks: a
+# NoFrameskip ALE game (210x160x3 uint8 frames, Breakout's 4 actions) and a
+# vector-observation game whose render() gives RGB frames, behind
+# gymnasium.make; with spaces.Box, spaces.Discrete and error.Error, the
+# part of gymnasium the port's atari_ and gym_ families use.  Its steps
+# cost what drawing a frame costs, not what ALE's emulation costs.
+GYMNASIUM_STANDIN = '''"""A stand-in for gymnasium, written by chip_smoke.py.
+
+BreakoutNoFrameskip-v4: 210x160x3 uint8 frames of a paddle and a ball, 4
+actions (NOOP, FIRE, RIGHT, LEFT), a reward when the ball reaches the
+paddle's row over the paddle, an episode of 400 raw frames.
+CartPole-v1: a 4-float state, 2 actions, render() of a 400x600x3 frame
+with the cart, an episode of at most 60 steps.
+"""
+import types
+
+import numpy as np
+
+
+class Error(Exception):
+    pass
+
+
+error = types.SimpleNamespace(Error=Error)
+
+
+class Box:
+    def __init__(self, low, high, shape, dtype):
+        self.low, self.high = low, high
+        self.shape = tuple(shape)
+        self.dtype = np.dtype(dtype)
+
+
+class Discrete:
+    def __init__(self, n):
+        self.n = int(n)
+
+
+spaces = types.SimpleNamespace(Box=Box, Discrete=Discrete)
+
+
+class Breakout:
+    FRAMES = 400
+
+    def __init__(self):
+        self.observation_space = Box(0, 255, (210, 160, 3), np.uint8)
+        self.action_space = Discrete(4)
+        self._rng = np.random.default_rng(0)
+        self._reset_state()
+
+    def _reset_state(self):
+        self._t = 0
+        self._paddle = int(self._rng.integers(8, 144))
+        self._ball = [int(self._rng.integers(40, 120)), 30, 3, 2]
+
+    def _frame(self):
+        frame = np.zeros((210, 160, 3), np.uint8)
+        frame[:8] = 142
+        frame[190:194, self._paddle:self._paddle + 16] = (200, 72, 72)
+        x, y = self._ball[:2]
+        frame[y:y + 4, x:x + 2] = 236
+        return frame
+
+    def reset(self, seed=None, options=None):
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        self._reset_state()
+        return self._frame(), {}
+
+    def step(self, action):
+        self._t += 1
+        move = {2: 4, 3: -4}.get(int(action), 0)
+        self._paddle = min(144, max(0, self._paddle + move))
+        x, y, dx, dy = self._ball
+        x, y = x + dx, y + dy
+        if not 0 <= x <= 158:
+            dx, x = -dx, min(158, max(0, x))
+        reward = 0.0
+        if y >= 186:
+            reward = float(self._paddle <= x < self._paddle + 16)
+            dy, y = -dy, 186
+        elif y <= 8:
+            dy, y = -dy, 8
+        self._ball = [x, y, dx, dy]
+        return (self._frame(), reward, self._t >= self.FRAMES, False,
+                {"lives": 5})
+
+    def render(self):
+        return self._frame()
+
+    def close(self):
+        pass
+
+
+class CartPole:
+    STEPS = 60
+
+    def __init__(self):
+        self.observation_space = Box(-np.inf, np.inf, (4,), np.float32)
+        self.action_space = Discrete(2)
+        self._rng = np.random.default_rng(0)
+        self._state = np.zeros(4)
+        self._t = 0
+
+    def reset(self, seed=None, options=None):
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        self._state = self._rng.uniform(-0.05, 0.05, 4)
+        self._t = 0
+        return self._state.astype(np.float32), {}
+
+    def step(self, action):
+        self._t += 1
+        x, v, a, w = self._state
+        force = 10.0 if int(action) == 1 else -10.0
+        w = w + 0.02 * (9.8 * np.sin(a) - 0.1 * force * np.cos(a))
+        v = v + 0.02 * force / 1.1
+        self._state = np.array([x + 0.02 * v, v, a + 0.02 * w, w])
+        terminated = bool(abs(self._state[0]) > 2.4
+                          or abs(self._state[2]) > 0.21
+                          or self._t >= self.STEPS)
+        return self._state.astype(np.float32), 1.0, terminated, False, {}
+
+    def render(self):
+        frame = np.full((400, 600, 3), 255, np.uint8)
+        cart = min(575, max(25, int(300 + 100 * self._state[0])))
+        frame[300:330, cart - 25:cart + 25] = 0
+        tip = min(599, max(0, int(cart + 100 * np.sin(self._state[2]))))
+        lo, hi = sorted((cart, tip))
+        frame[200:300, lo:hi + 4] = (202, 152, 101)
+        return frame
+
+    def close(self):
+        pass
+
+
+_GAMES = {"BreakoutNoFrameskip-v4": Breakout, "CartPole-v1": CartPole}
+
+
+def make(env_id, **kwargs):
+    if env_id not in _GAMES:
+        raise Error(f"no stand-in for {env_id!r}")
+    return _GAMES[env_id]()
+'''
+
+
+def write_gymnasium_standin(scratch):
+    """Write ``GYMNASIUM_STANDIN`` as ``<scratch>/gym_standin/gymnasium.py``;
+    returns the directory."""
+    where = os.path.join(scratch, "gym_standin")
+    os.makedirs(where, exist_ok=True)
+    with open(os.path.join(where, "gymnasium.py"), "w") as f:
+        f.write(GYMNASIUM_STANDIN)
+    return where
+
+
+def gymnasium_standin(scratch):
+    """``write_gymnasium_standin`` and its directory first on ``sys.path``
+    (the env worker processes, started by spawn, inherit it); fail unless
+    ``gymnasium`` then imports from there."""
+    where = write_gymnasium_standin(scratch)
+    if where not in sys.path:
+        sys.path.insert(0, where)
+    sys.modules.pop("gymnasium", None)
+    import gymnasium
+
+    if os.path.dirname(os.path.abspath(gymnasium.__file__)) != where:
+        raise AssertionError(f"gymnasium imports from {gymnasium.__file__}, "
+                             f"not the stand-in")
+    return where
+
+
+def dmlab_path(driver, config, scratch, root, train_counted, reset_counts,
+               read_counts):
+    """Phase 3m: the ``dmlab_`` family under the fake DeepMind Lab of
+    ``tests/fakes/deepmind_lab.py`` (its step cost, not DMLab's):
+    ``--level_name=dmlab30`` multi-task training at the main path's layout
+    (64 actors over the 30 train levels, slot e on level e mod 30; the
+    instruction stream on, so the core's D=330), bf16,
+    ``--scan_impl=pallas``, DMLAB_UPDATES updates counted as in phase 3,
+    the ``dmlab30/training_*`` scores in the metrics rows and every train
+    level's ``<level>/episode_return`` among them; s per update; then
+    ``--mode=test --level_name=dmlab30 --test_num_episodes=1`` on its
+    checkpoint: one return for each of the 30 test levels through the bf16
+    lean LSTM kernel, and ``eval_scores.json`` with the 30 levels and
+    finite scores."""
+    fakes = os.path.join(root, "tests", "fakes")
+    if fakes not in sys.path:
+        sys.path.insert(0, fakes)
+    import deepmind_lab
+
+    if os.path.dirname(os.path.abspath(deepmind_lab.__file__)) != fakes:
+        raise AssertionError(f"deepmind_lab imports from "
+                             f"{deepmind_lab.__file__}, not the fake")
+    from scalable_agent_tpu_torch.envs import dmlab30
+
+    suite = dataclasses.replace(
+        config, level_name="dmlab30", trace=False,
+        logdir=os.path.join(scratch, "dmlab30"),
+        total_environment_frames=float(DMLAB_UPDATES
+                                       * config.frames_per_update()))
+    launches = train_counted(suite, DMLAB_UPDATES, "_bf16")
+    _loop_rate(suite, f"dmlab30 (fake DMLab), bf16, {suite.num_actors} "
+               f"actors over 30 levels", DMLAB_UPDATES)
+    rows = _rows(suite.logdir)
+    levels = {k.split("/")[0] for r in rows for k in r
+              if k.endswith("/episode_return")}
+    want = {f"dmlab_{name}" for name in dmlab30.TRAIN_LEVELS}
+    keys = ("dmlab30/training_no_cap", "dmlab30/training_cap_100")
+    scored = [r for r in rows if all(k in r for k in keys)]
+    print(f"  dmlab30: {len(levels & want)} of 30 train levels reported "
+          f"returns over {len(rows)} rows; training scores in "
+          f"{len(scored)} rows, the last "
+          f"{[scored[-1][k] for k in keys] if scored else None}",
+          flush=True)
+    if levels != want or not scored or not all(
+            math.isfinite(r[k]) for r in scored for k in keys):
+        raise AssertionError("dmlab30 training did not report every train "
+                             "level and finite training scores")
+    reset_counts()
+    t0 = time.monotonic()
+    returns = driver.test(dataclasses.replace(
+        suite, mode="test", test_num_episodes=1))
+    test_launches = read_counts()
+    with open(os.path.join(suite.logdir, "eval_scores.json")) as f:
+        scores = json.load(f)
+    print(f"  dmlab30 --mode=test: {len(returns)} levels in "
+          f"{time.monotonic() - t0:.1f} s; human-normalized no_cap "
+          f"{scores['human_normalized_no_cap']:.4f} cap_100 "
+          f"{scores['human_normalized_cap_100']:.4f}; lean bf16 launches "
+          f"{test_launches['lstm_fwd_lean_bf16']}", flush=True)
+    if (sorted(returns) != sorted(f"dmlab_{n}" for n in dmlab30.TEST_LEVELS)
+            or any(len(r) != 1 for r in returns.values())
+            or len(scores["mean_returns"]) != 30
+            or scores["episodes_per_level"] != 1
+            or not all(math.isfinite(scores[k]) for k in (
+                "human_normalized_no_cap", "human_normalized_cap_100"))
+            or test_launches["lstm_fwd_lean_bf16"] == 0):
+        raise AssertionError("dmlab30 --mode=test did not evaluate the 30 "
+                             "test levels into eval_scores.json through "
+                             "the bf16 lean LSTM kernel")
+    return launches
+
+
+def atari_gym_path(driver, config, scratch, train_counted):
+    """Phase 3n: the ``atari_`` and ``gym_`` families under the stand-in
+    ``gymnasium`` (``gymnasium_standin``: the stand-in's step cost, not
+    ALE's).  ``atari_breakout`` at the main path's layout and the family's
+    [84, 84, 4] grayscale stack (4 actions, D=261), bf16,
+    ``--scan_impl=pallas``, ATARI_UPDATES updates counted as in phase 3
+    but with the stem grad-W's C=4 bf16 kernel once an update and no C=3
+    grad-W, s per update; F32_UPDATES float32 updates counted the same way
+    for the float32 C=4 kernel; then ``gym_CartPole-v1`` (rendered 72x96
+    RGB frames, 2 actions, D=259) for ROUTE_UPDATES bf16 updates counted
+    as in phase 3.  Returns the Atari runs' launches (bf16, float32)."""
+    where = gymnasium_standin(scratch)
+    print(f"  gymnasium: the stand-in at {where}", flush=True)
+    atari = dataclasses.replace(
+        config, level_name="atari_breakout", trace=False,
+        logdir=os.path.join(scratch, "atari"))
+    frame = driver.probe_env(driver.apply_env_overrides(atari))[0].frame
+    if tuple(frame.shape) != (84, 84, 4):
+        raise AssertionError(f"atari_breakout frames {frame.shape}")
+    atari = dataclasses.replace(atari, total_environment_frames=float(
+        ATARI_UPDATES * atari.frames_per_update()))
+
+    def expected(updates, suffix):
+        other = "" if suffix else "_bf16"
+        counts = {c: 0 for c in GRADW_COUNTERS}
+        counts.update({f"lstm_{part}{other}": 0
+                       for part in ("fwd_lean", "fwd_resid", "bptt")})
+        counts.update({
+            "lstm_fwd_lean" + suffix: (updates * config.unroll_length,
+                                       None),
+            "lstm_fwd_resid" + suffix: updates,
+            "lstm_bptt" + suffix: updates, "vtrace_fused": updates,
+            "stem_gradw_c4" + suffix: updates, "stem_gradw_c4" + other: 0})
+        return counts
+
+    launches = train_counted(atari, ATARI_UPDATES, "_bf16",
+                             expected=expected(ATARI_UPDATES, "_bf16"))
+    _loop_rate(atari, "atari_breakout (stand-in ALE), bf16, 84x84x4",
+               ATARI_UPDATES)
+    f32 = dataclasses.replace(
+        atari, compute_dtype="float32",
+        logdir=os.path.join(scratch, "atari_f32"),
+        total_environment_frames=float(F32_UPDATES
+                                       * atari.frames_per_update()))
+    f32_launches = train_counted(f32, F32_UPDATES, "",
+                                 expected=expected(F32_UPDATES, ""))
+
+    gym = dataclasses.replace(
+        config, level_name="gym_CartPole-v1", trace=False,
+        logdir=os.path.join(scratch, "gym"),
+        total_environment_frames=float(ROUTE_UPDATES
+                                       * config.frames_per_update()))
+    frame = driver.probe_env(driver.apply_env_overrides(gym))[0].frame
+    if tuple(frame.shape) != (72, 96, 3):
+        raise AssertionError(f"gym_CartPole-v1 frames {frame.shape}")
+    train_counted(gym, ROUTE_UPDATES, "_bf16")
+    _loop_rate(gym, "gym_CartPole-v1 (stand-in), bf16, 72x96",
+               ROUTE_UPDATES)
+    return launches, f32_launches
 
 
 def _all_rows(logdir):
@@ -2487,6 +2823,9 @@ class _FixedPool:
     def episode_stats(self):
         return []
 
+    def drain_level_stats(self):
+        return {}
+
 
 def compare_windows(torch, driver, CheckpointManager, config, outs,
                     scratch):
@@ -2500,7 +2839,7 @@ def compare_windows(torch, driver, CheckpointManager, config, outs,
         logdir = os.path.join(scratch, f"window{window}")
         pool = _FixedPool(outs)
         with _patched(driver, ActorPool=pool,
-                      make_env_groups=lambda config, spec, agents: []):
+                      make_env_groups=lambda config, spec, *rest: []):
             metrics = driver.train(dataclasses.replace(
                 config, logdir=logdir, inflight_updates=window,
                 total_environment_frames=float(UPDATES * fpu)))
@@ -3499,11 +3838,12 @@ def main() -> int:
         compare_agent(torch, device)
         compare_agent(torch, device, torch.bfloat16)
         torch.cuda.empty_cache()
-        # The composite policies' core widths (fake_tuple's D=265, odd,
-        # Doom's full discretized space's D=296 and doom_duel's D=298,
-        # the same space with use), fake_tuple's 16x16 frames and Doom's
-        # 72x128 at the learner's merged batch (phases 3i and 3l).
-        for width in (265, 296, 298):
+        # The core widths of the other levels (CartPole's D=259, the Atari
+        # stand-in's D=261, fake_tuple's D=265, odd, Doom's full
+        # discretized space's D=296 and doom_duel's D=298, the same space
+        # with use), fake_tuple's 16x16 frames and Doom's 72x128 at the
+        # learner's merged batch (phases 3i, 3l and 3n).
+        for width in (259, 261, 265, 296, 298):
             for matmul_dtype in ("float32", "bfloat16"):
                 compare_lstm_wide(torch, lstm_cuda, device, matmul_dtype,
                                   D=width, flipped_tol=LSTM_BF16_LONG_TOL)
@@ -3511,6 +3851,15 @@ def main() -> int:
             for dtype in (torch.float32, torch.bfloat16):
                 compare_gradw_frame(torch, conv_cuda, device, hh, ww,
                                     dtype=dtype)
+        torch.cuda.empty_cache()
+        # Atari's grayscale stack of 4 at 84x84 (phase 3n): the stem
+        # grad-W's C=4 instantiation, held as the C=3 one above.
+        rows = []
+        for dtype in (torch.float32, torch.bfloat16):
+            rows += compare_gradw(torch, conv_cuda, device, dtype=dtype,
+                                  frame=(84, 84, 4))
+        timed.update(time_rows(torch, rows))
+        del rows
         torch.cuda.empty_cache()
 
     def train_counted(config, updates, suffix, stem="stem_gradw",
@@ -3553,7 +3902,8 @@ def main() -> int:
                                  else 0),
                 "lstm_fwd_lean" + other: 0, "lstm_fwd_resid" + other: 0,
                 "lstm_bptt" + other: 0}
-            for name in ("stem_gradw", "resnet_stem_gradw"):
+            for name in ("stem_gradw", "stem_gradw_c4",
+                         "resnet_stem_gradw"):
                 expected[name + suffix] = updates if name == stem else 0
                 expected[name + other] = 0
         _expect_launches(config.level_name, launches, expected)
@@ -3676,6 +4026,18 @@ def main() -> int:
                   reset_counts, read_counts)
         torch.cuda.empty_cache()
 
+        phase("phase 3m: the dmlab_ family, DMLab-30 multi-task training "
+              "and suite eval, under the fake DeepMind Lab")
+        dmlab_path(driver, config, scratch, root, train_counted,
+                   reset_counts, read_counts)
+        torch.cuda.empty_cache()
+
+        phase("phase 3n: the atari_ and gym_ families under a stand-in "
+              "gymnasium")
+        atari_launches, atari_f32_launches = atari_gym_path(
+            driver, config, scratch, train_counted)
+        torch.cuda.empty_cache()
+
         phase("phase 3d: the default loop's machinery on the card")
         outs = pool_trajectories(torch, driver, config, 4)
         with float32_precision():
@@ -3741,13 +4103,16 @@ def main() -> int:
     counts.update(vtrace_fused=launches["vtrace_fused"],
                   resnet_stem_gradw=deep_f32_launches["resnet_stem_gradw"],
                   resnet_stem_gradw_bf16=deep_launches[
-                      "resnet_stem_gradw_bf16"])
+                      "resnet_stem_gradw_bf16"],
+                  stem_gradw_c4=atari_f32_launches["stem_gradw_c4"],
+                  stem_gradw_c4_bf16=atari_launches["stem_gradw_c4_bf16"])
     kernels = [dict(timed[name], launches=counts[name])
                for name in ("lstm_fwd_lean", "lstm_fwd_resid", "lstm_bptt",
                             "stem_gradw", "lstm_fwd_lean_bf16",
                             "lstm_fwd_resid_bf16", "lstm_bptt_bf16",
                             "stem_gradw_bf16", "vtrace_fused",
-                            "resnet_stem_gradw", "resnet_stem_gradw_bf16")]
+                            "resnet_stem_gradw", "resnet_stem_gradw_bf16",
+                            "stem_gradw_c4", "stem_gradw_c4_bf16")]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -22,7 +22,6 @@ from typing import Optional
 # port yet (ROADMAP.md, queue 1).  tests/test_torch_hygiene.py holds this
 # list against the JAX Config so the two cannot drift apart.
 UNPORTED_FLAGS = (
-    "dataset_path", "renderer",
     "mesh_data", "mesh_seq", "mesh_model", "distributed_coordinator",
     "distributed_num_processes", "distributed_process_id", "inference_mode",
     "accum_fused_shards", "actor", "service_max_batch", "train_backend",
@@ -104,16 +103,24 @@ def resolve_core_matmul_dtype(config: "Config",
 
 
 # Family defaults a run takes unless its flags set them
-# (scalable_agent_tpu/config.py:491-500, the ported families' rows).
+# (scalable_agent_tpu/config.py:491-500).
 _ENV_OVERRIDES = {
     "doom_": {"width": 128, "height": 72, "num_action_repeats": 4},
+    "atari_": {"width": 84, "height": 84, "num_action_repeats": 4},
+    "dmlab_": {"width": 96, "height": 72, "num_action_repeats": 4},
+    # The full suite: DMLab defaults + instruction observations (the
+    # language levels need them; the reference's dmlab30 agent always
+    # consumes INSTR, experiment.py:179-189).
+    "dmlab30": {"width": 96, "height": 72, "num_action_repeats": 4,
+                "use_instruction": True},
 }
 
 
 def apply_env_overrides(config: "Config") -> "Config":
     """The level family's defaults over the fields the caller left at
     ``Config``'s defaults (``scalable_agent_tpu/config.py:503-513``):
-    Doom's 72x128 frames and 4 repeats."""
+    Doom's 72x128 frames, Atari's 84x84, and ``dmlab30``'s instruction
+    stream."""
     for prefix, overrides in _ENV_OVERRIDES.items():
         if config.level_name.startswith(prefix):
             defaults = Config()
@@ -168,6 +175,11 @@ class Config:
     # Step every env with a random action of its own in place of the
     # agent's (envs/core.py BenchmarkStream): fps free of the policy.
     benchmark_mode: bool = False
+    # DMLab-only: psychlab dataset location and renderer backend
+    # (reference: experiment.py:77-87 dataset_path/renderer flags;
+    # software is the run-anywhere default, hardware needs EGL).
+    dataset_path: str = ""
+    renderer: str = "software"
 
     # -- eval (reference: experiment.py:57-58)
     test_num_episodes: int = 10

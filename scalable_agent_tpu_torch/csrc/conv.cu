@@ -1,8 +1,9 @@
 // Hand-written Hopper (sm_90a) kernels for the weight gradient of the
 // torsos' stem convs: the shallow torso's SAME-padded 8x8 / stride-4 stem
-// (3-channel frames into 32 features), described here, and the ResNet
-// torso's 3x3 / stride-1 stem (3 channels into 16 features), described
-// above resnet_stem_gradw_kernel below.
+// (3-channel frames into 32 features, or Atari's grayscale stack of 4
+// frames: C = 4), described here, and the ResNet torso's 3x3 / stride-1
+// stem (3 channels into 16 features), described above
+// resnet_stem_gradw_kernel below.
 //
 // Replaces scalable_agent_tpu/ops/conv_pallas.py::_gradw_kernel.  The TPU
 // kernel re-lays the padded input out by space-to-depth, gathers the taps
@@ -69,6 +70,14 @@
 //   cp.async cannot convert; a band is still loaded while the other stage
 //   is contracted by the other warps.  dW is float32 in both.  Entry
 //   points: sat_conv_gradw and sat_conv_gradw_bf16.
+// * Channels.  The band kernel, its staging and its fixed-order reduce are
+//   templates on C (the 3 above; 4 for Atari's [84, 84, 4] frames, where
+//   dW is [256, 32] and P = 1.43 M at N=3232), and on CT, the channels of
+//   one thread's tile (TileChannels<C>): C = 3 keeps the layout above, and
+//   C = 4 gives a thread 2 channels (4 kw x 2 c x 8 f accumulators), so a
+//   row group is 128 threads and a block has three.  In NHWC a tile's two
+//   channels of each tap are one 8-byte load.  The C = 4 entry points are
+//   sat_conv_gradw_c4 and sat_conv_gradw_c4_bf16.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,17 +89,47 @@ namespace {
 
 constexpr int kK = 8;                      // kernel size
 constexpr int kS = 4;                      // stride
-constexpr int kC = 3;                      // input channels
 constexpr int kF = 32;                     // output features
-constexpr int kR = kK * kK * kC;           // 192 rows of dW
-constexpr int kTileR = kS * kC;            // dW rows per thread: 4 kw x 3 c
 constexpr int kTileF = 8;                  // dW columns per thread
-constexpr int kRTiles = kK * (kK / kS);    // (kh, kw quad): 16
 constexpr int kFTiles = kF / kTileF;       // 4
-constexpr int kGroupThreads = kRTiles * kFTiles;  // 64
-constexpr int kGroups = 6;
-constexpr int kThreads = kGroupThreads * kGroups;  // 384
+constexpr int kQuads = kK / kS;            // kw quads: 2
+constexpr int kThreads = 384;
 constexpr int kWarps = kThreads / 32;
+
+// The band kernel's layout at C input channels, CT of them in one thread's
+// tile: a thread holds (kh, kw quad, channel slice) x (8 features), i.e.
+// kS * CT rows of dW by kTileF columns; a row group of threads covers the
+// [K*K*C, 32] output once, and the block's row groups take interleaved
+// output columns of the band.
+template <int C, int CT>
+struct Band {
+  static_assert(C % CT == 0, "CT must divide C");
+  static constexpr int kR = kK * kK * C;          // rows of dW
+  static constexpr int kTileR = kS * CT;          // dW rows per thread
+  static constexpr int kSlices = C / CT;          // channel slices
+  static constexpr int kGroupThreads = kK * kQuads * kSlices * kFTiles;
+  static constexpr int kGroups = kThreads / kGroupThreads;
+  static_assert(kGroups * kGroupThreads == kThreads,
+                "row groups must fill the block");
+};
+
+// The channels of one thread's tile at each channel count the kernel is
+// built for (ops/conv_cuda.py GRADW_GROUPS holds the row groups that
+// follow from it).  At C = 4 a whole-channel tile (16 x 8 accumulators)
+// spilled 12-52 bytes at the 168 registers of 384 threads a block; two
+// channels a thread (8 x 8, three row groups of 128 threads) spill nothing
+// and ran as fast or up to 6% faster on an H100 (tools/gradw_c4_tile.py;
+// PERF.md, section 6).
+template <int C>
+struct TileChannels;
+template <>
+struct TileChannels<3> {
+  static constexpr int kCT = 3;
+};
+template <>
+struct TileChannels<4> {
+  static constexpr int kCT = 2;
+};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -206,7 +245,7 @@ struct Geometry {
 };
 
 // Issues the copies of unit u = (image, band) into the stage at `xs`.
-template <typename T, bool XCHW, bool GCHW>
+template <typename T, int C, bool XCHW, bool GCHW>
 __device__ __forceinline__ void stage_unit(float* xs, const T* x, const T* g,
                                            long long u, const Geometry& q) {
   const long long n = u / q.bands;
@@ -217,9 +256,9 @@ __device__ __forceinline__ void stage_unit(float* xs, const T* x, const T* g,
   const int ih0 = oh0 * kS - q.pad_h;
   const int lo = max(0, -ih0);          // first band row inside the image
   const int hi = min(xr, q.H - ih0);    // one past the last
-  const T* ximg = x + n * q.H * q.W * kC;
+  const T* ximg = x + n * q.H * q.W * C;
   if (XCHW) {
-    for (int c = 0; c < kC; ++c) {
+    for (int c = 0; c < C; ++c) {
       float* plane = xs + c * q.xplane;
       zero_rows(plane, q.xrs, 0, lo);
       zero_rows(plane, q.xrs, hi, xr);
@@ -230,9 +269,9 @@ __device__ __forceinline__ void stage_unit(float* xs, const T* x, const T* g,
   } else {
     zero_rows(xs, q.xrs, 0, lo);
     zero_rows(xs, q.xrs, hi, xr);
-    copy_rows(xs + lo * q.xrs + q.pad_w * kC, q.xrs,
-              ximg + (ih0 + lo) * static_cast<long long>(q.W * kC),
-              q.W * kC, hi - lo, q.W * kC);
+    copy_rows(xs + lo * q.xrs + q.pad_w * C, q.xrs,
+              ximg + (ih0 + lo) * static_cast<long long>(q.W * C),
+              q.W * C, hi - lo, q.W * C);
   }
   float* gs = xs + q.x_floats;
   const T* gimg = g + n * q.OH * q.OW * kF;
@@ -243,20 +282,24 @@ __device__ __forceinline__ void stage_unit(float* xs, const T* x, const T* g,
               q.OW * kF);
 }
 
-template <typename T, bool XCHW, bool GCHW>
+template <typename T, int C, int CT, bool XCHW, bool GCHW>
 __global__ void __launch_bounds__(kThreads, 1)
     conv_gradw_band_kernel(const T* __restrict__ x, const T* __restrict__ g,
                            float* __restrict__ partial, Geometry q,
                            long long units) {
+  using L = Band<C, CT>;
+  static_assert(XCHW || CT == C || CT % 2 == 0,
+                "an NHWC tile of part of the channels loads them in pairs");
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int tid = threadIdx.x;
-  const int rg = tid / kGroupThreads;  // row group
-  const int t = tid % kGroupThreads;
+  const int rg = tid / L::kGroupThreads;  // row group
+  const int t = tid % L::kGroupThreads;
   const int ft = t % kFTiles;
   const int rt = t / kFTiles;
-  const int kh = rt / (kK / kS);
-  const int kq = rt % (kK / kS);       // kw quad: kw = 4*kq .. 4*kq+3
+  const int c0 = (rt % L::kSlices) * CT;  // this thread's first channel
+  const int kq = (rt / L::kSlices) % kQuads;  // kw = 4*kq .. 4*kq+3
+  const int kh = rt / (L::kSlices * kQuads);
   const long long u_begin = blockIdx.x * units / gridDim.x;
   const long long u_end = (blockIdx.x + 1) * units / gridDim.x;
 
@@ -266,24 +309,24 @@ __global__ void __launch_bounds__(kThreads, 1)
     smem4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   __syncthreads();
 
-  float acc[kTileR][kTileF];
+  float acc[L::kTileR][kTileF];
 #pragma unroll
-  for (int i = 0; i < kTileR; ++i)
+  for (int i = 0; i < L::kTileR; ++i)
 #pragma unroll
     for (int f = 0; f < kTileF; ++f) acc[i][f] = 0.f;
 
   // This thread's first patch value within a staged band, and its g column.
-  const int x_off = XCHW ? kh * q.xrs + kq * kS
-                         : kh * q.xrs + kq * kS * kC;
+  const int x_off = XCHW ? kh * q.xrs + kq * kS + c0 * q.xplane
+                         : kh * q.xrs + kq * kS * C + c0;
   const int g_off = GCHW ? ft * kTileF * q.gps : ft * kTileF;
 
-  if (u_begin < u_end) stage_unit<T, XCHW, GCHW>(smem, x, g, u_begin, q);
+  if (u_begin < u_end) stage_unit<T, C, XCHW, GCHW>(smem, x, g, u_begin, q);
   asm volatile("cp.async.commit_group;\n" ::: "memory");
   for (long long u = u_begin; u < u_end; ++u) {
     const int buf = static_cast<int>(u - u_begin) & 1;
     if (u + 1 < u_end)
-      stage_unit<T, XCHW, GCHW>(smem + (buf ^ 1) * q.stage_floats, x, g,
-                                u + 1, q);
+      stage_unit<T, C, XCHW, GCHW>(smem + (buf ^ 1) * q.stage_floats, x, g,
+                                   u + 1, q);
     asm volatile("cp.async.commit_group;\n" ::: "memory");
     asm volatile("cp.async.wait_group 1;\n" ::: "memory");
     __syncthreads();
@@ -297,12 +340,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       const float* xrow = xs + x_off + ohl * kS * q.xrs;
       const float* grow = gs + g_off + ohl * q.OW * (GCHW ? 1 : kF);
 #pragma unroll 2
-      for (int ow = rg; ow < q.OW; ow += kGroups) {
-        float xv[kTileR];
+      for (int ow = rg; ow < q.OW; ow += L::kGroups) {
+        float xv[L::kTileR];
         float gv[kTileF];
-        if (XCHW) {
+        if constexpr (XCHW) {
+          // xv[c * 4 + kw]: the 4 taps of each channel are contiguous.
 #pragma unroll
-          for (int c = 0; c < kC; ++c) {
+          for (int c = 0; c < CT; ++c) {
             const float4 v = *reinterpret_cast<const float4*>(
                 xrow + c * q.xplane + ow * kS);
             xv[c * 4 + 0] = v.x;
@@ -310,16 +354,28 @@ __global__ void __launch_bounds__(kThreads, 1)
             xv[c * 4 + 2] = v.z;
             xv[c * 4 + 3] = v.w;
           }
-        } else {
+        } else if constexpr (CT == C) {
+          // xv[kw * C + c]: the whole 4 x C patch row is contiguous.
 #pragma unroll
-          for (int j = 0; j < kTileR / 4; ++j) {
+          for (int j = 0; j < L::kTileR / 4; ++j) {
             const float4 v = *reinterpret_cast<const float4*>(
-                xrow + ow * kS * kC + 4 * j);
+                xrow + ow * kS * C + 4 * j);
             xv[4 * j + 0] = v.x;
             xv[4 * j + 1] = v.y;
             xv[4 * j + 2] = v.z;
             xv[4 * j + 3] = v.w;
           }
+        } else {
+          // xv[kw * CT + c]: CT of each tap's C channels, in pairs.
+#pragma unroll
+          for (int kw = 0; kw < kS; ++kw)
+#pragma unroll
+            for (int c = 0; c < CT; c += 2) {
+              const float2 v = *reinterpret_cast<const float2*>(
+                  xrow + (ow * kS + kw) * C + c);
+              xv[kw * CT + c] = v.x;
+              xv[kw * CT + c + 1] = v.y;
+            }
         }
         if (GCHW) {
 #pragma unroll
@@ -336,7 +392,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           }
         }
 #pragma unroll
-        for (int i = 0; i < kTileR; ++i)
+        for (int i = 0; i < L::kTileR; ++i)
 #pragma unroll
           for (int f = 0; f < kTileF; ++f)
             acc[i][f] = fmaf(xv[i], gv[f], acc[i][f]);
@@ -349,31 +405,32 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // Sum the row groups in a fixed order through shared memory (the stages
   // are free now; the wrapper sizes them to hold kGroups-1 tiles of
-  // 192 x 32).
+  // [K*K*C, 32]).
   auto out_row = [&](int i) {
-    const int kw = kq * kS + (XCHW ? i % 4 : i / kC);
-    const int c = XCHW ? i / 4 : i % kC;
-    return (kh * kK + kw) * kC + c;
+    const int kw = kq * kS + (XCHW ? i % 4 : i / CT);
+    const int c = c0 + (XCHW ? i / 4 : i % CT);
+    return (kh * kK + kw) * C + c;
   };
   if (rg > 0) {
-    float* red = smem + (rg - 1) * kR * kF;
+    float* red = smem + (rg - 1) * L::kR * kF;
 #pragma unroll
-    for (int i = 0; i < kTileR; ++i)
+    for (int i = 0; i < L::kTileR; ++i)
 #pragma unroll
       for (int f = 0; f < kTileF; ++f)
         red[out_row(i) * kF + ft * kTileF + f] = acc[i][f];
   }
   __syncthreads();
   if (rg == 0) {
-    float* out = partial + static_cast<size_t>(blockIdx.x) * kR * kF;
+    float* out = partial + static_cast<size_t>(blockIdx.x) * L::kR * kF;
 #pragma unroll
-    for (int i = 0; i < kTileR; ++i) {
+    for (int i = 0; i < L::kTileR; ++i) {
 #pragma unroll
       for (int f = 0; f < kTileF; ++f) {
         const int o = out_row(i) * kF + ft * kTileF + f;
         float v = acc[i][f];
 #pragma unroll
-        for (int r = 0; r < kGroups - 1; ++r) v += smem[r * kR * kF + o];
+        for (int r = 0; r < L::kGroups - 1; ++r)
+          v += smem[r * L::kR * kF + o];
         out[o] = v;
       }
     }
@@ -391,11 +448,12 @@ __global__ void reduce_partials_kernel(const float* __restrict__ partial,
   dw[o] = s;
 }
 
-template <typename T, bool XCHW, bool GCHW>
+template <typename T, int C, bool XCHW, bool GCHW>
 cudaError_t launch_band(const T* x, const T* g, float* partial,
                         const Geometry& q, long long units, int num_blocks,
                         int smem_bytes, cudaStream_t s) {
-  auto kernel = conv_gradw_band_kernel<T, XCHW, GCHW>;
+  auto kernel =
+      conv_gradw_band_kernel<T, C, TileChannels<C>::kCT, XCHW, GCHW>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return err;
@@ -403,15 +461,16 @@ cudaError_t launch_band(const T* x, const T* g, float* partial,
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int C>
 int gradw(const T* x, const T* g, float* partial, float* dw, int H, int W,
           int OH, int OW, int pad_h, int pad_w, int band_rows, int bands,
           int xrs, int x_floats, int gps, int stage_floats, int smem_bytes,
           int x_chw, int g_chw, long long units, int num_blocks,
           void* stream) {
+  using L = Band<C, TileChannels<C>::kCT>;
   // The stages and the final sum of the other row groups must fit.
   if (smem_bytes < 2 * stage_floats * (int)sizeof(float) ||
-      smem_bytes < (kGroups - 1) * kR * kF * (int)sizeof(float))
+      smem_bytes < (L::kGroups - 1) * L::kR * kF * (int)sizeof(float))
     return (int)cudaErrorInvalidValue;
   const Geometry q{H,         W,     OH,  OW,
                    pad_h,     pad_w, band_rows,
@@ -420,19 +479,19 @@ int gradw(const T* x, const T* g, float* partial, float* dw, int H, int W,
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
   if (x_chw && g_chw)
-    err = launch_band<T, true, true>(x, g, partial, q, units, num_blocks,
-                                     smem_bytes, s);
+    err = launch_band<T, C, true, true>(x, g, partial, q, units, num_blocks,
+                                        smem_bytes, s);
   else if (x_chw)
-    err = launch_band<T, true, false>(x, g, partial, q, units, num_blocks,
-                                      smem_bytes, s);
+    err = launch_band<T, C, true, false>(x, g, partial, q, units,
+                                         num_blocks, smem_bytes, s);
   else if (g_chw)
-    err = launch_band<T, false, true>(x, g, partial, q, units, num_blocks,
-                                      smem_bytes, s);
+    err = launch_band<T, C, false, true>(x, g, partial, q, units,
+                                         num_blocks, smem_bytes, s);
   else
-    err = launch_band<T, false, false>(x, g, partial, q, units, num_blocks,
-                                       smem_bytes, s);
+    err = launch_band<T, C, false, false>(x, g, partial, q, units,
+                                          num_blocks, smem_bytes, s);
   if (err != cudaSuccess) return (int)err;
-  const int outputs = kR * kF;
+  const int outputs = L::kR * kF;
   reduce_partials_kernel<<<(outputs + 255) / 256, 256, 0, s>>>(
       partial, dw, outputs, num_blocks);
   return (int)cudaGetLastError();
@@ -1219,27 +1278,46 @@ int resnet_gradw(const T* x, const T* g, float* partial, float* dw, int H,
 
 extern "C" {
 
-int sat_conv_gradw(const float* x, const float* g, float* partial, float* dw,
-                   int H, int W, int OH, int OW, int pad_h, int pad_w,
-                   int band_rows, int bands, int xrs, int x_floats, int gps,
-                   int stage_floats, int smem_bytes, int x_chw, int g_chw,
-                   long long units, int num_blocks, void* stream) {
-  return gradw<float>(x, g, partial, dw, H, W, OH, OW, pad_h, pad_w,
-                      band_rows, bands, xrs, x_floats, gps, stage_floats,
-                      smem_bytes, x_chw, g_chw, units, num_blocks, stream);
+// The shallow stem's grad-W at 3 input channels (RGB frames: DMLab, the
+// fake and gym levels, Doom) and at 4 (Atari's grayscale stack of 4).
+int sat_conv_gradw(const float* x, const float* g,
+    float* partial, float* dw, int H, int W, int OH, int OW, int pad_h,
+    int pad_w, int band_rows, int bands, int xrs, int x_floats, int gps,
+    int stage_floats, int smem_bytes, int x_chw, int g_chw, long long units,
+    int num_blocks, void* stream) {
+  return gradw<float, 3>(x, g, partial, dw, H, W, OH, OW, pad_h, pad_w,
+      band_rows, bands, xrs, x_floats, gps, stage_floats, smem_bytes, x_chw,
+      g_chw, units, num_blocks, stream);
 }
 
 int sat_conv_gradw_bf16(const __nv_bfloat16* x, const __nv_bfloat16* g,
-                        float* partial, float* dw, int H, int W, int OH,
-                        int OW, int pad_h, int pad_w, int band_rows,
-                        int bands, int xrs, int x_floats, int gps,
-                        int stage_floats, int smem_bytes, int x_chw,
-                        int g_chw, long long units, int num_blocks,
-                        void* stream) {
-  return gradw<__nv_bfloat16>(x, g, partial, dw, H, W, OH, OW, pad_h, pad_w,
-                              band_rows, bands, xrs, x_floats, gps,
-                              stage_floats, smem_bytes, x_chw, g_chw, units,
-                              num_blocks, stream);
+    float* partial, float* dw, int H, int W, int OH, int OW, int pad_h,
+    int pad_w, int band_rows, int bands, int xrs, int x_floats, int gps,
+    int stage_floats, int smem_bytes, int x_chw, int g_chw, long long units,
+    int num_blocks, void* stream) {
+  return gradw<__nv_bfloat16, 3>(x, g, partial, dw, H, W, OH, OW, pad_h, pad_w,
+      band_rows, bands, xrs, x_floats, gps, stage_floats, smem_bytes, x_chw,
+      g_chw, units, num_blocks, stream);
+}
+
+int sat_conv_gradw_c4(const float* x, const float* g,
+    float* partial, float* dw, int H, int W, int OH, int OW, int pad_h,
+    int pad_w, int band_rows, int bands, int xrs, int x_floats, int gps,
+    int stage_floats, int smem_bytes, int x_chw, int g_chw, long long units,
+    int num_blocks, void* stream) {
+  return gradw<float, 4>(x, g, partial, dw, H, W, OH, OW, pad_h, pad_w,
+      band_rows, bands, xrs, x_floats, gps, stage_floats, smem_bytes, x_chw,
+      g_chw, units, num_blocks, stream);
+}
+
+int sat_conv_gradw_c4_bf16(const __nv_bfloat16* x, const __nv_bfloat16* g,
+    float* partial, float* dw, int H, int W, int OH, int OW, int pad_h,
+    int pad_w, int band_rows, int bands, int xrs, int x_floats, int gps,
+    int stage_floats, int smem_bytes, int x_chw, int g_chw, long long units,
+    int num_blocks, void* stream) {
+  return gradw<__nv_bfloat16, 4>(x, g, partial, dw, H, W, OH, OW, pad_h, pad_w,
+      band_rows, bands, xrs, x_floats, gps, stage_floats, smem_bytes, x_chw,
+      g_chw, units, num_blocks, stream);
 }
 
 int sat_resnet_stem_gradw(const float* x, const float* g, float* partial,

@@ -58,10 +58,20 @@ experiment.py:675-708):
   records, and the scheduled window waits for it: ``torch.profiler``
   records one window at a time), whose table becomes
   ``<logdir>/kernels.<id>.json`` and the anomaly record's final state.
+- Multi-task training (``--level_name=dmlab30``): env slot ``e`` (over all
+  groups) runs DMLab-30 train level ``e % 30`` (``training_level_names``,
+  ``make_env_groups``); the metrics rows carry each level's
+  ``<level>/episode_return`` and ``<level>/episode_frames`` over the
+  interval, and once every train level has reported, the human-normalized
+  ``dmlab30/training_no_cap`` and ``dmlab30/training_cap_100`` scores
+  (``envs/dmlab30.py``), after which the per-level returns start over.
 - ``test``: restore the newest verified checkpoint of ``--logdir`` and run
   ``test_num_episodes`` episodes of ``--level_name`` on a batched eval
   fleet (self-play over lockstep matches on a multi-agent level),
-  recorded under ``--record_to`` when it is set.
+  recorded under ``--record_to`` when it is set.  ``--level_name=dmlab30``
+  evaluates every DMLab-30 test level and writes the suite's
+  human-normalized scores to ``<logdir>/eval_scores.json``; a single
+  DMLab-30 level logs its own normalized score.
 - A multi-agent level (``doom_duel``: ``probe_env``'s ``num_agents`` > 1)
   trains on groups of ``batch_size / num_agents`` lockstep matches, each
   agent one batch slot (``make_env_groups``).  A level family's defaults
@@ -80,13 +90,16 @@ preempted run, 70 for the watchdog under ``--watchdog_abort``, 71 for the
 non-finite guard, 72 for an expired preemption grace, 143 for a second
 SIGTERM.  The obs CLIs read a run's logdir (``python -m
 scalable_agent_tpu_torch.obs.report <logdir>``; ``obs/__init__.py``).
-Replay, multi-task training, DMLab-30 suite scoring and the multi-process
-fleet are not ported yet (ROADMAP.md, queue 1).
+The level families are those of the JAX package but for ``device_``:
+``fake_``, ``doom_``, ``dmlab_``, ``atari_`` and ``gym_``
+(``envs/registry.py``).  Replay, the in-graph backend and the
+multi-process fleet are not ported yet (ROADMAP.md, queue 1).
 """
 
 import contextlib
 import dataclasses
 import functools
+import json
 import logging
 import os
 import queue as queue_lib
@@ -108,6 +121,7 @@ from scalable_agent_tpu_torch.config import (
 from scalable_agent_tpu_torch.envs import (
     MultiEnv,
     create_env,
+    dmlab30,
     make_impala_stream,
 )
 from scalable_agent_tpu_torch.models import (
@@ -182,16 +196,33 @@ def resolve_device(device: str) -> torch.device:
     return resolved
 
 
-def env_kwargs(config: Config) -> dict:
-    """The level family's constructor kwargs, as
-    ``scalable_agent_tpu/driver.py:160-176`` passes them: the frame size,
-    and for the fake family the instruction stream."""
-    if config.level_name.startswith("fake_"):
-        return {"height": config.height, "width": config.width,
-                "with_instruction": config.use_instruction}
-    if config.level_name.startswith("doom_"):
+def env_kwargs(config: Config, name: Optional[str] = None) -> dict:
+    """The level family's constructor kwargs for level ``name`` (default
+    ``config.level_name``), as ``scalable_agent_tpu/driver.py:160-175``
+    passes them: the frame size; for the fake and DMLab families the
+    instruction stream, and for DMLab ``dataset_path`` and ``renderer``."""
+    name = name or config.level_name
+    if name.startswith(("fake_", "dmlab_")):
+        kwargs = {"height": config.height, "width": config.width,
+                  "with_instruction": config.use_instruction}
+        if name.startswith("dmlab_"):
+            kwargs.update(dataset_path=config.dataset_path,
+                          renderer=config.renderer)
+        return kwargs
+    if name.startswith(("atari_", "gym_", "doom_")):
         return {"height": config.height, "width": config.width}
     return {}
+
+
+def training_level_names(config: Config) -> List[str]:
+    """The levels training spreads its env slots over
+    (``scalable_agent_tpu/driver.py:289-299``): ``--level_name=dmlab30``
+    trains on every DMLab-30 train level (slot ``e`` runs level ``e % 30``,
+    as the reference assigns actor ``i`` level ``level_names[i % len]``,
+    experiment.py:552-555); any other name is one level."""
+    if config.level_name == "dmlab30":
+        return [f"dmlab_{name}" for name in dmlab30.TRAIN_LEVELS]
+    return [config.level_name]
 
 
 def probe_env(config: Config):
@@ -351,31 +382,45 @@ def _multi_agent_groups(config: Config, num_groups: int,
     return groups
 
 
-def make_env_groups(config: Config, frame_spec,
-                    num_agents: int = 1) -> List[MultiEnv]:
+def make_env_groups(config: Config, frame_spec, num_agents: int = 1,
+                    level_names: Optional[Sequence[str]] = None
+                    ) -> List[MultiEnv]:
     """num_actors envs as groups of batch_size (each group is one learner
     batch), seeded as the JAX driver seeds them, each group stepped by
     ``num_env_workers_per_group`` worker processes (0: one per env); under
     ``benchmark_mode`` each env takes its ``BenchmarkStream``'s random
-    actions, drawn from the env's own seed.  A multi-agent level
+    actions, drawn from the env's own seed.  ``level_names`` (default:
+    ``config.level_name``) are dealt round-robin over the global env slots
+    (slot ``g * batch_size + i`` runs ``level_names[slot % len]``, as
+    ``scalable_agent_tpu/driver.py:440-460``), and each group's
+    ``MultiEnv`` labels its slots with their levels.  A multi-agent level
     (``num_agents > 1``, from ``probe_env``) takes groups of lockstep
-    matches instead (``_multi_agent_groups``)."""
+    matches instead (``_multi_agent_groups``), and only one level."""
     num_groups = max(1, config.num_actors // config.batch_size)
+    level_names = list(level_names or [config.level_name])
     if num_agents > 1:
+        if len(level_names) > 1:
+            raise ValueError(
+                "multi-task training is not supported for multi-agent "
+                "levels")
         return _multi_agent_groups(config, num_groups, num_agents)
     groups = []
     try:
         for g in range(num_groups):
+            labels = [level_names[(g * config.batch_size + i)
+                                  % len(level_names)]
+                      for i in range(config.batch_size)]
             groups.append(MultiEnv([
                 functools.partial(
-                    make_impala_stream, config.level_name,
+                    make_impala_stream, labels[i],
                     seed=config.seed * 100000 + g * 1000 + i,
                     benchmark_mode=config.benchmark_mode,
                     num_action_repeats=config.num_action_repeats,
-                    **env_kwargs(config))
+                    **env_kwargs(config, labels[i]))
                 for i in range(config.batch_size)
             ], frame_spec, num_workers=worker_processes(
-                config.num_env_workers_per_group, config.batch_size)))
+                config.num_env_workers_per_group, config.batch_size),
+                env_labels=labels))
     except BaseException:
         for envs in groups:
             envs.close()
@@ -871,6 +916,46 @@ class _HealthPlane:
             log.exception("health flush failed")
 
 
+def _bare_level(name: str) -> str:
+    """A registry name without its ``dmlab_`` prefix: the score tables of
+    ``envs/dmlab30.py`` hold bare level names."""
+    return name[len("dmlab_"):] if name.startswith("dmlab_") else name
+
+
+def _level_metrics(row: Dict[str, float], by_level,
+                   num_action_repeats: int,
+                   suite_returns: Dict[str, List[float]]) -> None:
+    """Add the interval's per-level means to ``row`` (``by_level``, from
+    ``ActorPool.drain_level_stats``: ``<level>/episode_return`` and
+    ``<level>/episode_frames``, the reference's per-episode scalars,
+    experiment.py:634-650, as interval means); in multi-task training
+    (``suite_returns`` holds a list per DMLab-30 train level) collect the
+    returns, and once every level has one, add the human-normalized
+    ``dmlab30/training_no_cap`` and ``dmlab30/training_cap_100`` scores
+    and start the lists over (``scalable_agent_tpu/driver.py:1513-1543``).
+    """
+    for level, entries in by_level.items():
+        row[f"{level}/episode_return"] = float(
+            np.mean([r for r, _ in entries]))
+        row[f"{level}/episode_frames"] = float(
+            np.mean([n for _, n in entries]) * num_action_repeats)
+        bare = _bare_level(level)
+        if bare in suite_returns:
+            suite_returns[bare].extend(r for r, _ in entries)
+    if suite_returns and min(len(v) for v in suite_returns.values()) >= 1:
+        row["dmlab30/training_no_cap"] = (
+            dmlab30.compute_human_normalized_score(
+                suite_returns, per_level_cap=None))
+        row["dmlab30/training_cap_100"] = (
+            dmlab30.compute_human_normalized_score(
+                suite_returns, per_level_cap=100.0))
+        log.info("dmlab30 training score — no cap: %.2f cap 100: %.2f",
+                 row["dmlab30/training_no_cap"],
+                 row["dmlab30/training_cap_100"])
+        for returns in suite_returns.values():
+            returns.clear()
+
+
 def train(config: Config) -> Dict[str, float]:
     """Train until ``total_environment_frames``, or until a SIGTERM drains
     the run; returns the newest update's metrics as host floats (plus
@@ -880,7 +965,12 @@ def train(config: Config) -> Dict[str, float]:
     device = resolve_device(config.device)
     config = apply_env_overrides(config)
     config.save()
-    observation_spec, action_space, num_agents = probe_env(config)
+    # Multi-task (dmlab30): the first level's env stands for them all.
+    level_names = training_level_names(config)
+    multi_task = len(level_names) > 1
+    observation_spec, action_space, num_agents = probe_env(
+        dataclasses.replace(config, level_name=level_names[0])
+        if multi_task else config)
     groups = pool = prefetch_thread = writer = learner = None
     prefetch_stop = threading.Event()
     monitor = PreemptionMonitor(config.preemption_grace_s)
@@ -928,7 +1018,7 @@ def train(config: Config) -> Dict[str, float]:
             # A resumed run must not count the checkpoint's skips again.
             tracker.rebase(float(learner.state.nonfinite_skips))
             groups = make_env_groups(config, observation_spec.frame,
-                                     num_agents)
+                                     num_agents, level_names)
             pool = ActorPool(
                 agent, groups, config.unroll_length,
                 level_name=config.level_name, seed=config.seed,
@@ -954,6 +1044,11 @@ def train(config: Config) -> Dict[str, float]:
             last_log = time.monotonic()
             frames_at_last_log = frames
             steps_at_last_log = pool.agent_steps
+            # Multi-task: each train level's returns since the last
+            # training score (reference: experiment.py:652-667).
+            suite_returns: Dict[str, List[float]] = (
+                {name: [] for name in dmlab30.TRAIN_LEVELS}
+                if multi_task else {})
             rollback_wanted = False
             # The first update may build the kernels: it runs with the
             # learner's heartbeat suspended, as the JAX loop suspends it
@@ -1052,6 +1147,9 @@ def train(config: Config) -> Dict[str, float]:
                         row["episode_frames"] = float(
                             np.mean([n for _, n in stats])
                             * config.num_action_repeats)
+                    _level_metrics(row, pool.drain_level_stats(),
+                                   config.num_action_repeats,
+                                   suite_returns)
                     row.update({f"timing/{k}": v
                                 for k, v in timing.summary().items()})
                     # The obs publication, in the JAX driver's order.
@@ -1213,7 +1311,7 @@ def _eval_level(config: Config, agent: ImpalaAgent, level_name: str,
                record_to=(os.path.join(config.record_to, level_name,
                                        f"env_{i:02d}")
                           if config.record_to else ""),
-               **env_kwargs(config))
+               **env_kwargs(config, level_name))
            for i in range(batch)]
     envs = MultiEnv(fns, frame_spec,
                     num_workers=worker_processes(config.test_num_workers,
@@ -1260,11 +1358,43 @@ def _eval_multi_agent(config: Config, agent: ImpalaAgent, num_agents: int,
     return _eval_loop(envs, config, agent, num_episodes)
 
 
+def _write_suite_scores(config: Config,
+                       level_returns: Dict[str, List[float]]) -> dict:
+    """The DMLab-30 suite scores of an eval over every test level
+    (``level_returns`` by registry name), logged and written to
+    ``<logdir>/eval_scores.json`` under the JAX keys
+    (``scalable_agent_tpu/driver.py:2691-2716``); returns them."""
+    by_level = {_bare_level(name): r for name, r in level_returns.items()}
+    scores = {
+        "human_normalized_no_cap": dmlab30.compute_human_normalized_score(
+            by_level, per_level_cap=None),
+        "human_normalized_cap_100": dmlab30.compute_human_normalized_score(
+            by_level, per_level_cap=100.0),
+        "episodes_per_level": config.test_num_episodes,
+        "mean_returns": {k: float(np.mean(v)) for k, v in by_level.items()},
+    }
+    log.info("suite score — no cap: %.2f  cap 100: %.2f",
+             scores["human_normalized_no_cap"],
+             scores["human_normalized_cap_100"])
+    path = os.path.join(config.logdir, "eval_scores.json")
+    os.makedirs(config.logdir, exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(scores, f, indent=2)
+    log.info("suite scores written to %s", path)
+    return scores
+
+
 def test(config: Config) -> Dict[str, List[float]]:
     """Evaluate the newest verified checkpoint of ``config.logdir``:
     ``test_num_episodes`` returns of ``level_name`` (self-play over
     lockstep matches on a multi-agent level), recorded under
-    ``record_to`` when it is set."""
+    ``record_to`` when it is set.  ``--level_name=dmlab30`` evaluates every
+    DMLab-30 test level (the first one's env probed for them all) and
+    writes the suite scores (``_write_suite_scores``); a single DMLab-30
+    level logs its human-normalized score.  The checkpoint's
+    ``torso_type`` and ``use_instruction`` win over the flags and the
+    family's defaults, so a checkpoint without an instruction evaluates
+    under ``dmlab30`` too."""
     device = resolve_device(config.device)
     config = apply_env_overrides(config)
     # The architecture belongs to the checkpoint, not to the eval flags:
@@ -1275,26 +1405,44 @@ def test(config: Config) -> Dict[str, List[float]]:
         config = dataclasses.replace(
             config, torso_type=saved.torso_type,
             use_instruction=saved.use_instruction)
-    observation_spec, action_space, num_agents = probe_env(config)
+    suite = config.level_name == "dmlab30"
+    level_names = ([f"dmlab_{name}" for name in dmlab30.TEST_LEVELS]
+                   if suite else [config.level_name])
+    observation_spec, action_space, num_agents = probe_env(
+        dataclasses.replace(config, level_name=level_names[0])
+        if suite else config)
     restored = CheckpointManager(config.logdir).restore()
     if restored is None:
         raise FileNotFoundError(
             f"no checkpoint under {config.logdir}/checkpoints")
     step, saved_state = restored
+    level_returns: Dict[str, List[float]] = {}
     with float32_precision():
         agent = build_agent(config, observation_spec, action_space, device)
         agent.load_state_dict(saved_state["params"])
         if num_agents > 1:
-            returns = _eval_multi_agent(config, agent, num_agents,
-                                        config.test_num_episodes)
+            level_returns[config.level_name] = _eval_multi_agent(
+                config, agent, num_agents, config.test_num_episodes)
         else:
-            returns = _eval_level(config, agent, config.level_name,
-                                  observation_spec.frame,
-                                  config.test_num_episodes)
-    log.info("level %s: mean return %.2f over %d episodes (checkpoint "
-             "step %d)", config.level_name, float(np.mean(returns)),
-             len(returns), step)
-    return {config.level_name: returns}
+            for level_name in level_names:
+                level_returns[level_name] = _eval_level(
+                    config, agent, level_name, observation_spec.frame,
+                    config.test_num_episodes)
+    for level_name, returns in level_returns.items():
+        log.info("level %s: mean return %.2f over %d episodes (checkpoint "
+                 "step %d)", level_name, float(np.mean(returns)),
+                 len(returns), step)
+    if suite:
+        _write_suite_scores(config, level_returns)
+    else:
+        bare = _bare_level(config.level_name)
+        record = dmlab30.LEVELS.get(bare, dmlab30._BY_TEST_NAME.get(bare))
+        if record is not None:
+            returns = level_returns[config.level_name]
+            log.info("human-normalized: %.2f%%",
+                     (np.mean(returns) - record.random)
+                     / (record.human - record.random) * 100.0)
+    return level_returns
 
 
 def main(argv: Optional[Sequence[str]] = None):

@@ -22,7 +22,8 @@ def make_impala_stream(env_name: str, seed: int = 0,
                        record_to: str = "", **kwargs):
     """Name -> seeded ImpalaStream (the counterpart of
     ``scalable_agent_tpu.envs.make_impala_stream``).  A family that
-    consumes ``num_action_repeats`` (fake, Doom) applies them natively;
+    consumes ``num_action_repeats`` (fake, Doom, DMLab, Atari) applies
+    them natively;
     any other env gets a ``SkipFramesWrapper``, unless it already repeats
     natively.  ``record_to`` wraps the env in a ``RecordingWrapper``
     (episodes as ``<record_to>/episode_NNNNN/``).  ``benchmark_mode`` steps

@@ -6,9 +6,10 @@ envs/create_env.py:1-19): families register a factory under a name prefix
 lazily, so that a missing simulator package fails only when its family is
 asked for.  The fake-level defaults are copied from the ``fake_*`` rows of
 ``scalable_agent_tpu/envs/device/protocol.py``, ``fake_tuple``'s from
-``scalable_agent_tpu/envs/registry.py``.  The ``doom_`` family
-(``envs/doom/``) is ported; ``atari_``, ``dmlab_``, ``gym_`` and
-``device_`` are not yet (ROADMAP.md, queue 1) and raise.
+``scalable_agent_tpu/envs/registry.py``.  The ``doom_`` (``envs/doom/``),
+``dmlab_`` (``envs/dmlab/``), ``atari_`` (``envs/atari/``) and ``gym_``
+(``envs/gym_adapter.py``) families are ported; ``device_`` is not yet
+(ROADMAP.md, queue 1, item 8) and raises.
 """
 
 from typing import Callable, Dict, Tuple
@@ -43,7 +44,7 @@ FAKE_LEVELS = {
 }
 
 # The JAX package's simulator families this package does not port yet.
-UNPORTED_FAMILIES = ("atari_", "dmlab_", "gym_", "device_")
+UNPORTED_FAMILIES = ("device_",)
 
 _FACTORIES: Dict[str, Tuple[Callable[..., Environment], bool]] = {}
 
@@ -110,6 +111,15 @@ def _lazy_family(family: str, module: str, attr: str):
 
 _make_doom = _lazy_family(
     "doom_", "scalable_agent_tpu_torch.envs.doom.factory", "make_doom_env")
+_make_atari = _lazy_family(
+    "atari_", "scalable_agent_tpu_torch.envs.atari", "make_atari_env")
+_make_dmlab = _lazy_family(
+    "dmlab_", "scalable_agent_tpu_torch.envs.dmlab", "make_dmlab_env")
+_make_gym = _lazy_family(
+    "gym_", "scalable_agent_tpu_torch.envs.gym_adapter", "make_gym_env")
 
 register_family("fake_", _make_fake, consumes_action_repeats=True)
 register_family("doom_", _make_doom, consumes_action_repeats=True)
+register_family("atari_", _make_atari, consumes_action_repeats=True)
+register_family("dmlab_", _make_dmlab, consumes_action_repeats=True)
+register_family("gym_", _make_gym)

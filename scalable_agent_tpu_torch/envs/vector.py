@@ -18,7 +18,11 @@ The counterpart of ``scalable_agent_tpu/envs/vector.py::MultiEnv``
   ``RESPAWN_WINDOW_S`` raise ``RemoteEnvError``; each respawn counts in
   ``env/worker_respawns_total`` and the flight recorder.
 - Episode stats of the last ``STATS_EPISODES`` finished episodes go to a
-  ring buffer (``episode_stats``).
+  ring buffer (``episode_stats``).  With ``env_labels`` (one level name
+  per env slot: multi-task training) every finished episode is also
+  queued as ``(label, return, length)`` in ``level_episode_stats``, which
+  its consumer drains (``runtime/actor.drain_level_stats``); the label is
+  the slot's, whichever worker process hosts it.
 
 Workers start with ``spawn``: the parent holds a CUDA context and threads.
 The constructor's default ``num_workers=0`` steps the streams in the
@@ -38,7 +42,7 @@ import pickle
 import time
 from collections import deque
 from multiprocessing import shared_memory
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 
@@ -64,6 +68,8 @@ RESEED_STRIDE = 90001
 RESPAWN_WINDOW_S = 600.0
 # Finished episodes kept in MultiEnv.episode_stats.
 STATS_EPISODES = 100
+# Level-attributed episodes held until drained.
+LEVEL_STATS_EPISODES = 1000
 
 
 def _reseeded(make_stream_fns, generation: int):
@@ -176,8 +182,17 @@ class MultiEnv:
     """
 
     def __init__(self, make_stream_fns: Sequence[Callable], frame_spec,
-                 num_workers: int = 0, max_respawns: int = 16):
+                 num_workers: int = 0, max_respawns: int = 16,
+                 env_labels: Optional[Sequence[str]] = None):
         self.num_envs = len(make_stream_fns)
+        if env_labels is not None and len(env_labels) != self.num_envs:
+            raise ValueError(
+                f"{len(env_labels)} env_labels for {self.num_envs} envs")
+        self.env_labels = list(env_labels) if env_labels else None
+        # (label, episode_return, episode_length), fed only with
+        # env_labels; drained by the consumer, so every finished episode
+        # is attributed once.
+        self.level_episode_stats = deque(maxlen=LEVEL_STATS_EPISODES)
         self._frame_spec = frame_spec
         self._slab_shape = (self.num_envs,) + tuple(frame_spec.shape)
         self.max_respawns = max_respawns
@@ -325,6 +340,10 @@ class MultiEnv:
         for i in np.nonzero(dones)[0]:
             if steps[i] > 0:  # initial() marks done without an episode
                 self.episode_stats.append((float(returns[i]), int(steps[i])))
+                if self.env_labels is not None:
+                    self.level_episode_stats.append(
+                        (self.env_labels[i], float(returns[i]),
+                         int(steps[i])))
         return StepOutput(
             reward=rewards,
             info=StepOutputInfo(episode_return=returns, episode_step=steps),

@@ -1,10 +1,13 @@
-"""The generic env wrappers the Doom pipeline and episode recording need.
+"""The generic env wrappers the Doom and Atari pipelines, the gym levels and
+episode recording need.
 
 Copies of ``scalable_agent_tpu/envs/wrappers.py``'s ``_resize_frame``,
-``ObservationWrapper``, ``ResizeWrapper``, ``SkipFramesWrapper``,
-``RewardScalingWrapper``, ``TimeLimitWrapper`` and ``RecordingWrapper``
-(reference: envs/env_wrappers.py — resize :208-267, skip :118-142, reward
-scaling :293-300, time limit :303-334, episode recording :433-497).  They
+``ObservationWrapper``, ``ResizeWrapper``, ``FrameStackWrapper``,
+``SkipFramesWrapper``, ``SkipAndStackWrapper``, ``RewardScalingWrapper``,
+``TimeLimitWrapper`` and ``RecordingWrapper`` (reference:
+envs/env_wrappers.py — resize :208-267, frame stack :58-115, skip
+:118-142, skip+stack :145-166, reward scaling :293-300, time limit
+:303-334, episode recording :433-497).  They
 act on the ``Observation`` tuple (frame plus optional instruction and
 measurements), frames stay HWC, and a ``None`` observation (a lockstep
 multiplayer tick that renders nothing) passes through untouched.
@@ -17,6 +20,7 @@ module imports no torch: env worker processes import it.
 
 import json
 import os
+from collections import deque
 
 import numpy as np
 
@@ -105,6 +109,45 @@ class ResizeWrapper(ObservationWrapper):
         return observation._replace(frame=frame)
 
 
+class FrameStackWrapper(Wrapper):
+    """Stack the last k frames along the channel axis.
+
+    (reference: envs/env_wrappers.py:58-115; channel-stacking instead of a
+    list so the conv torso sees one [H, W, C*k] tensor)
+    """
+
+    def __init__(self, env: Environment, stack: int):
+        super().__init__(env)
+        self._stack = stack
+        self._frames = deque(maxlen=stack)
+        frame_spec = env.observation_spec.frame
+        h, w, c = frame_spec.shape
+        self._spec = env.observation_spec._replace(
+            frame=TensorSpec((h, w, c * stack), frame_spec.dtype,
+                             frame_spec.name))
+
+    @property
+    def observation_spec(self):
+        return self._spec
+
+    def _emit(self, observation):
+        return observation._replace(
+            frame=np.concatenate(list(self._frames), axis=-1))
+
+    def reset(self):
+        observation = self.env.reset()
+        for _ in range(self._stack):
+            self._frames.append(observation.frame)
+        return self._emit(observation)
+
+    def step(self, action):
+        obs, reward, done, info = self.env.step(action)
+        if obs is None:  # lockstep multiplayer non-update tick
+            return obs, reward, done, info
+        self._frames.append(obs.frame)
+        return self._emit(obs), reward, done, info
+
+
 class SkipFramesWrapper(Wrapper):
     """Repeat each action k times, summing rewards.
 
@@ -126,6 +169,16 @@ class SkipFramesWrapper(Wrapper):
             if done:
                 break
         return obs, np.float32(total_reward), done, info
+
+
+class SkipAndStackWrapper(Wrapper):
+    """Frameskip + stack combined.
+    (reference: envs/env_wrappers.py:145-166)"""
+
+    def __init__(self, env: Environment, skip_frames: int = 4,
+                 stack_frames: int = 3):
+        super().__init__(FrameStackWrapper(
+            SkipFramesWrapper(env, skip_frames), stack_frames))
 
 
 class RewardScalingWrapper(Wrapper):

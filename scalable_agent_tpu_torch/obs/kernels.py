@@ -145,7 +145,8 @@ def handwritten_costs(frame_shape, num_logits: int, unroll_length: int,
     width the kernel reads (the LSTM kernels read float32 in both
     variants; the bf16 variant's dgates, grad-W x and g are bf16).
     ``matmul_dtype`` is the LSTM products' operand type (default: as
-    ``compute_dtype``); ``sm_count`` sizes grad-W's partial sums;
+    ``compute_dtype``); ``sm_count`` sizes grad-W's partial sums, and the
+    frame's channel count (3, or Atari's stack of 4) its taps and plan;
     ``torso_type`` picks the stem's grad-W kernel and ``use_instruction``
     widens the core's input by the instruction encoding; ``num_logits``,
     the policy's logit count, is the one-hot last action's width.
@@ -174,14 +175,20 @@ def handwritten_costs(frame_shape, num_logits: int, unroll_length: int,
     x_bytes = 2 if compute_dtype == "bfloat16" else 4
     stem = conv_shapes(torso_type, frame_shape)[0][0]
     taps = stem.kernel * stem.kernel * stem.in_channels * stem.out_channels
+    built = True
     if torso_type == "resnet":
         gradw = "resnet_stem_gradw_kernel"
         blocks = conv_cuda.resnet_gradw_plan(
             m, stem.in_height, stem.in_width, x_bytes, sm_count).blocks
     else:
         gradw = "conv_gradw_band_kernel"
-        blocks = conv_cuda.gradw_plan(m, stem.out_height, stem.out_width,
-                                      False, False, sm_count).blocks
+        # A channel count the kernel is not built for has no cost entry:
+        # on the card its grad-W raises.
+        built = stem.in_channels in conv_cuda.GRADW_GROUPS
+        blocks = (conv_cuda.gradw_plan(m, stem.out_height, stem.out_width,
+                                       False, False, sm_count,
+                                       stem.in_channels).blocks
+                  if built else 0)
 
     def entry(source, calls, flops, nbytes):
         return {"flops_est": float(flops) / calls,
@@ -224,6 +231,8 @@ def handwritten_costs(frame_shape, num_logits: int, unroll_length: int,
             lstm, 3, 2 * m * g * (d + d + h),
             4 * (3 * m * g + 2 * (d * g + m * d) + m * h + h * g))
         costs["bptt_reduce_kernel"] = entry(lstm, 1, 0, 4 * (b * g + g))
+    if not built:
+        del costs[gradw], costs["reduce_partials_kernel"]
     for route, value in (("core_impl", core_impl),
                          ("conv_backend", conv_backend)):
         if value == "xla":

@@ -13,7 +13,10 @@ torsos have; ``conv_gradw`` dispatches on (K, S, C, F):
 - ``STEM`` (8x8, stride 4, 3 channels into 32 features; the shallow
   torso's ``conv_0``): ``conv_gradw_band_kernel``, launch counters
   ``LAUNCHES["stem_gradw"]`` and, for its bf16-operand variant,
-  ``LAUNCHES["stem_gradw_bf16"]``.  The float32 kernel is bound by float32
+  ``LAUNCHES["stem_gradw_bf16"]``.  ``STEM_C4`` (the same stem on
+  Atari's grayscale stack of 4 frames) is the same kernel built for
+  C = 4 (``sat_conv_gradw_c4``, counters ``stem_gradw_c4`` and
+  ``stem_gradw_c4_bf16``), with ``GRADW_GROUPS[4]`` row groups.  The float32 kernel is bound by float32
   FMA (17 GFLOP at the main path's shape).  Each block stages bands of
   whole images -- input rows with their halo and the band's cotangent rows
   -- in shared memory with double-buffered ``cp.async`` copies, forms every
@@ -40,7 +43,8 @@ package), the bf16 variants reading half the bytes and summing the exact
 products in float32; ``dW`` is float32 from both.  Both take ``x`` and
 ``g`` each either as contiguous NHWC or as an NHWC view of contiguous NCHW
 memory (``tensor_layout``); anything else raises, and so does any other
-geometry.  Both sum their per-block partials in a fixed order: two calls
+geometry (one-channel frames and the ResNet stem at C = 4 among them:
+ROADMAP.md, queue 2).  Both sum their per-block partials in a fixed order: two calls
 give bitwise-equal dW.  The source's comments have the designs and PERF.md
 their times.
 
@@ -59,15 +63,21 @@ import torch.nn.functional as F
 from scalable_agent_tpu_torch.ops import _build
 
 LAUNCHES = {"stem_gradw": 0, "stem_gradw_bf16": 0,
+            "stem_gradw_c4": 0, "stem_gradw_c4_bf16": 0,
             "resnet_stem_gradw": 0, "resnet_stem_gradw_bf16": 0}
 # (K, S, C, F) that csrc/conv.cu's kernels are built for: the shallow
-# torso's stem and the ResNet torso's.
+# torso's stem on RGB frames and on Atari's grayscale stack of 4, and the
+# ResNet torso's.
 STEM = (8, 4, 3, 32)
+STEM_C4 = (8, 4, 4, 32)
 RESNET_STEM = (3, 1, 3, 16)
 # Per geometry and operand dtype: the C entry point and launch counter.
 _VARIANTS = {
     STEM: {torch.float32: ("sat_conv_gradw", "stem_gradw"),
            torch.bfloat16: ("sat_conv_gradw_bf16", "stem_gradw_bf16")},
+    STEM_C4: {torch.float32: ("sat_conv_gradw_c4", "stem_gradw_c4"),
+              torch.bfloat16: ("sat_conv_gradw_c4_bf16",
+                               "stem_gradw_c4_bf16")},
     RESNET_STEM: {
         torch.float32: ("sat_resnet_stem_gradw", "resnet_stem_gradw"),
         torch.bfloat16: ("sat_resnet_stem_gradw_bf16",
@@ -76,10 +86,12 @@ _VARIANTS = {
 _DTYPES = (torch.float32, torch.bfloat16)
 
 # The stages of the blocks on one SM must fit this (an H100 SM has 228
-# KB), and so must the shallow stem's final sum of the other five row
-# groups' [K*K*C, F] tiles.
+# KB), and so must the shallow stem's final sum of the other row groups'
+# [K*K*C, F] tiles.
 SMEM_BUDGET = 200 * 1024
-_REDUCE_FLOATS = 5 * STEM[0] * STEM[0] * STEM[2] * STEM[3]
+# The shallow stem kernel's row groups at each channel count
+# (csrc/conv.cu Band<C, TileChannels<C>::kCT>::kGroups).
+GRADW_GROUPS = {3: 6, 4: 3}
 
 
 def same_pads(size: int, k: int, s: int) -> Tuple[int, Tuple[int, int]]:
@@ -163,36 +175,42 @@ def _round4(n: int) -> int:
     return -(-n // 4) * 4
 
 
-def _stage(rows: int, out_w: int, x_chw: bool, g_chw: bool):
+def _stage(rows: int, out_w: int, x_chw: bool, g_chw: bool,
+           channels: int = 3):
     """(xrs, x_floats, gps, stage_floats) of a band of ``rows`` output rows.
     Row strides are 8 (mod 32) floats, so the 8 patch chunks a warp reads
     fall on distinct banks; the NCHW cotangent's plane stride is odd."""
-    k, s, c, f = STEM
+    k, s, _, f = STEM
     padded_w = (out_w - 1) * s + k
-    width = padded_w if x_chw else padded_w * c
+    width = padded_w if x_chw else padded_w * channels
     xrs = width + (8 - width) % 32
-    x_floats = _round4(((rows - 1) * s + k) * xrs * (c if x_chw else 1))
+    x_floats = _round4(((rows - 1) * s + k) * xrs
+                       * (channels if x_chw else 1))
     gps = rows * out_w | 1
     g_floats = _round4(f * gps if g_chw else rows * out_w * f)
     return xrs, x_floats, gps, x_floats + g_floats
 
 
 def gradw_plan(n: int, out_h: int, out_w: int, x_chw: bool, g_chw: bool,
-               sm_count: int) -> GradWPlan:
+               sm_count: int, channels: int = 3) -> GradWPlan:
     """Bands: the fewest whose two stages fit ``SMEM_BUDGET``, of equal
     height.  Blocks: one per SM (at most one per unit); block b owns the
-    units ``block_units(plan, b)``, in order."""
+    units ``block_units(plan, b)``, in order.  ``channels`` is the
+    frames' C (3, or Atari's 4: ``GRADW_GROUPS``)."""
     fits = [r for r in range(1, out_h + 1)
-            if 8 * _stage(r, out_w, x_chw, g_chw)[3] <= SMEM_BUDGET]
+            if 8 * _stage(r, out_w, x_chw, g_chw, channels)[3]
+            <= SMEM_BUDGET]
     if not fits:
         raise ValueError(f"a {out_w}-wide output row does not fit the "
                          f"grad-W kernel's shared memory")
     bands = -(-out_h // fits[-1])
     rows = -(-out_h // bands)
-    xrs, x_floats, gps, stage = _stage(rows, out_w, x_chw, g_chw)
+    xrs, x_floats, gps, stage = _stage(rows, out_w, x_chw, g_chw, channels)
     units = n * bands
+    k, _, _, f = STEM
+    reduce_floats = (GRADW_GROUPS[channels] - 1) * k * k * channels * f
     return GradWPlan(rows, bands, xrs, x_floats, gps, stage,
-                     4 * max(2 * stage, _REDUCE_FLOATS), units,
+                     4 * max(2 * stage, reduce_floats), units,
                      min(units, sm_count))
 
 
@@ -336,8 +354,8 @@ def conv_gradw(x, g, kernel_size: int, stride: int):
     geometry = (k, s, c, f)
     if geometry not in _VARIANTS:
         raise ValueError(f"the grad-W kernels are built for the stems' "
-                         f"(K, S, C, F) = {STEM} and {RESNET_STEM}, got "
-                         f"{geometry}")
+                         f"(K, S, C, F) = {STEM}, {STEM_C4} and "
+                         f"{RESNET_STEM}, got {geometry}")
     x_chw = tensor_layout(x) == "chw"
     g_chw = tensor_layout(g) == "chw"
     dw = torch.empty((k, k, c, f), dtype=torch.float32, device=x.device)
@@ -345,8 +363,8 @@ def conv_gradw(x, g, kernel_size: int, stride: int):
     stream = torch.cuda.current_stream().cuda_stream
     entry, counter = _VARIANTS[geometry][x.dtype]
     fn = getattr(_build.library(), entry)
-    if geometry == STEM:
-        plan = gradw_plan(n, out_h, out_w, x_chw, g_chw, sm_count)
+    if geometry != RESNET_STEM:
+        plan = gradw_plan(n, out_h, out_w, x_chw, g_chw, sm_count, c)
         partial = torch.empty((plan.blocks, k * k * c * f),
                               dtype=torch.float32, device=x.device)
         code = fn(x.data_ptr(), g.data_ptr(), partial.data_ptr(),

@@ -23,6 +23,10 @@ The counterpart of ``scalable_agent_tpu/runtime/actor.py``:
   snapshot at the start of each unroll, makes its stream wait on the
   event, and copies the snapshot into its private agent, so it never
   reads weights the learner is updating in place.
+- ``ActorPool.drain_level_stats`` (``drain_level_stats``) hands over the
+  episodes its groups' ``MultiEnv``s attributed to their slots' levels
+  since the last drain: multi-task training's per-level metrics and
+  DMLab-30 training scores (``driver._level_metrics``).
 - ``run_with_retry`` gives a failing actor thread a bounded, windowed
   number of respawns with capped exponential backoff; the terminal
   exception goes through the queue and is raised by ``get_trajectory``.
@@ -210,6 +214,29 @@ def merged_episode_stats(envs_iter):
     for envs in envs_iter:
         stats.extend(envs.episode_stats)
     return stats
+
+
+def drain_level_stats(envs_iter):
+    """Pop every level-attributed episode finished since the last drain:
+    {level_name: [(episode_return, episode_length), ...]}, from each
+    ``MultiEnv``'s ``level_episode_stats`` (fed when it has
+    ``env_labels``).  It feeds multi-task training's per-level metrics
+    and the DMLab-30 training score (reference: experiment.py:634-667,
+    which clears its per-level lists after each score: draining counts
+    each episode once).  ``popleft`` is atomic, so actor threads may go on
+    appending during the drain."""
+    by_level = {}
+    for envs in envs_iter:
+        queue = getattr(envs, "level_episode_stats", None)
+        if not queue:
+            continue
+        while True:
+            try:
+                level, ret, length = queue.popleft()
+            except IndexError:
+                break
+            by_level.setdefault(level, []).append((ret, length))
+    return by_level
 
 
 def run_with_retry(loop_fn: Callable[[], None], *, stop: threading.Event,
@@ -575,3 +602,8 @@ class ActorPool:
     def episode_stats(self):
         """Merged completed-episode (return, length) ring buffers."""
         return merged_episode_stats(actor.envs for actor in self._actors)
+
+    def drain_level_stats(self):
+        """Level-attributed episodes finished since the last drain
+        (``drain_level_stats``)."""
+        return drain_level_stats(actor.envs for actor in self._actors)

@@ -662,3 +662,126 @@ def test_gradw_plan_of_the_main_path():
     assert (plan.band_rows, plan.bands, plan.units, plan.blocks) == (
         9, 2, 6464, 132)
     assert plan.xrs == 328  # 100 padded columns x 3 channels, to 8 mod 32
+
+
+# -- the shallow stem on Atari's grayscale stack of 4: (8, 4, 4, 32) ----------
+
+
+@pytest.fixture(scope="module")
+def atari_gradw_case():
+    """Frames of 84x84 (21x21 outputs, pads (2, 2)) and 17x23 (asymmetric
+    pads) with 4 channels, and the Pallas kernel's dW on them in interpret
+    mode, float32 and at matmul_dtype="bfloat16": computed once."""
+    cases = {}
+    for n, h, w in ((2, 84, 84), (3, 17, 23)):
+        x, g = _case(h * w, n, h, w, 4, 32, 4)
+        want = {dtype: np.asarray(conv_pallas.conv_gradw(
+            jnp.asarray(x, dtype), jnp.asarray(g, dtype), 8, 4,
+            interpret=True, matmul_dtype=name))
+            for name, dtype in (("float32", jnp.float32),
+                                ("bfloat16", jnp.bfloat16))}
+        cases[(h, w)] = (x, g, want)
+    return cases
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hw", [(84, 84), (17, 23)])
+def test_c4_gradw_plain_matches_pallas(atari_gradw_case, hw, dtype):
+    """conv_gradw at (K, S, C, F) = (8, 4, 4, 32) -- on the CPU its plain
+    version -- against the Pallas kernel, float32 and with bf16 x and g
+    (exact products, float32 sums), in both layouts the stem's backward
+    hands over: rtol 1e-5, and an absolute tolerance of 2e-6 of max |dW|
+    (each entry sums up to 882 products of standard normals in another
+    order, as test_stem_geometry_matches_pallas)."""
+    x, g, want = atari_gradw_case[hw]
+    want = want[jnp.bfloat16 if dtype == "bfloat16" else jnp.float32]
+    tdtype = getattr(torch, dtype)
+    for xt, gt in _layouts(torch.tensor(x).to(tdtype),
+                           torch.tensor(g).to(tdtype)).values():
+        got = conv_cuda.conv_gradw(xt, gt, 8, 4)
+        assert got.dtype == torch.float32 and got.shape == (8, 8, 4, 32)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                                   atol=2e-6 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("dtype,suffix", [(torch.float32, ""),
+                                          (torch.bfloat16, "_bf16")])
+@pytest.mark.parametrize("layout", ["hwc", "chw"])
+def test_c4_geometry_takes_its_kernel_on_the_card(monkeypatch, dtype,
+                                                  suffix, layout):
+    """On the kernel route (x and g on the card, here a stand-in library)
+    (8, 4, 4, 32) launches the C = 4 band kernel of the operand type with
+    its plan and counts it there, and never the plain version."""
+    library = _Recorder()
+    monkeypatch.setattr(_build, "on_cpu", lambda *_: False)
+    monkeypatch.setattr(_build, "library", lambda: library)
+    monkeypatch.setattr(conv_cuda, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(conv_cuda.torch.cuda, "current_stream",
+                        lambda: type("S", (), {"cuda_stream": 7})())
+    monkeypatch.setattr(conv_cuda, "conv_gradw_plain", lambda *a: pytest.fail(
+        "the kernel route ran the plain version"))
+    x, g = (torch.tensor(a).to(dtype) for a in _case(8, 2, 84, 84, 4, 32, 4))
+    x, g = _layouts(x, g)[layout]
+    before = dict(conv_cuda.LAUNCHES)
+    conv_cuda.conv_gradw(x, g, 8, 4)
+    (name, args), = library.calls
+    assert name == "sat_conv_gradw_c4" + suffix
+    chw = layout == "chw"
+    plan = conv_cuda.gradw_plan(2, 21, 21, chw, chw, 132, 4)
+    assert args[4:] == (84, 84, 21, 21, 2, 2, plan.band_rows, plan.bands,
+                        plan.xrs, plan.x_floats, plan.gps,
+                        plan.stage_floats, plan.smem_bytes, int(chw),
+                        int(chw), plan.units, plan.blocks, 7)
+    grown = {k: v - before[k] for k, v in conv_cuda.LAUNCHES.items()
+             if v != before[k]}
+    assert grown == {"stem_gradw_c4" + suffix: 1}
+
+
+@pytest.mark.parametrize("n,h,w,x_chw,g_chw,sms", [
+    (3232, 84, 84, False, False, 132),
+    (3233, 84, 84, True, True, 132),
+    (1, 84, 84, False, True, 132),
+    (64, 17, 23, True, False, 132),
+    (5, 84, 84, False, False, 7),
+])
+def test_c4_gradw_plan_takes_every_image_band_once_in_order(n, h, w, x_chw,
+                                                            g_chw, sms):
+    """At C = 4: equal bands covering the output rows, every (image, band)
+    unit once and in order, two stages within the budget, and room for the
+    final sum of the other two row groups' [256, 32] tiles."""
+    out_h, _ = conv_cuda.same_pads(h, 8, 4)
+    out_w, _ = conv_cuda.same_pads(w, 8, 4)
+    plan = conv_cuda.gradw_plan(n, out_h, out_w, x_chw, g_chw, sms, 4)
+    assert plan.units == n * plan.bands
+    assert plan.bands * plan.band_rows >= out_h
+    assert (plan.bands - 1) * plan.band_rows < out_h
+    units = [list(conv_cuda.block_units(plan, b))
+             for b in range(plan.blocks)]
+    assert [u for block in units for u in block] == list(range(plan.units))
+    assert 8 * plan.stage_floats <= conv_cuda.SMEM_BUDGET
+    assert conv_cuda.GRADW_GROUPS[4] == 3
+    assert plan.smem_bytes >= 4 * 2 * 256 * 32
+    assert plan.smem_bytes <= 227 * 1024
+    assert plan.xrs % 32 == 8 and plan.gps % 2 == 1
+    assert plan.x_floats % 4 == 0 and plan.stage_floats % 4 == 0
+
+
+def test_c4_gradw_plan_of_the_atari_path():
+    """84x84x4 frames (21x21 outputs): two bands of 11 and 10 output rows
+    (44 and 40 input rows with the halo), 88 padded columns x 4 channels
+    to a row stride of 360 floats."""
+    plan = conv_cuda.gradw_plan(3232, 21, 21, False, False, 132, 4)
+    assert (plan.band_rows, plan.bands, plan.units, plan.blocks) == (
+        11, 2, 6464, 132)
+    assert plan.xrs == 360
+
+
+def test_one_channel_and_resnet_c4_still_raise(monkeypatch):
+    """The geometries left to port (ROADMAP.md, queue 2) raise on the
+    kernel route: a one-channel image through the shallow stem, and the
+    ResNet stem on 4 channels."""
+    monkeypatch.setattr(_build, "on_cpu", lambda *_: False)
+    for (k, s, c, f) in ((8, 4, 1, 32), (3, 1, 4, 16)):
+        x, g = (torch.tensor(a) for a in _case(5, 2, 16, 16, c, f, s))
+        with pytest.raises(ValueError, match="built for the stems'"):
+            conv_cuda.conv_gradw(x, g, k, s)

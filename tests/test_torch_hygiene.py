@@ -83,11 +83,16 @@ def test_importing_obs_and_its_clis_leaves_torch_and_jax_out():
                    cwd=str(ROOT), timeout=120)
 
 
-# The modules an env worker process imports to host a Doom stream.
+# The modules an env worker process imports to host a Doom, DMLab, Atari
+# or gym stream.
 ENV_WORKER_MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(
         ".__init__")
     for p in [*(PACKAGE / "envs" / "doom").glob("*.py"),
+              *(PACKAGE / "envs" / "dmlab").glob("*.py"),
+              *(PACKAGE / "envs" / "atari").glob("*.py"),
+              PACKAGE / "envs" / "dmlab30.py",
+              PACKAGE / "envs" / "gym_adapter.py",
               PACKAGE / "envs" / "wrappers.py", PACKAGE / "utils" / "net.py"])
 
 
@@ -105,9 +110,18 @@ def _doom_scenarios(tmp_path):
 
 def test_env_worker_modules_leave_torch_and_jax_out(tmp_path):
     """What an env worker imports for the Doom family (``envs/doom/*``,
-    ``envs/wrappers.py``, ``utils/net.py``), and a Doom stream with
-    recording and a lockstep match built and stepped in that process,
-    load neither torch nor jax."""
+    ``envs/wrappers.py``, ``utils/net.py``), the DMLab family
+    (``envs/dmlab/*``, ``envs/dmlab30.py``) and the Atari and gym families
+    (``envs/atari/*``, ``envs/gym_adapter.py``), and a Doom stream with
+    recording, a lockstep match, a DMLab stream (the fake DeepMind Lab),
+    an Atari and a gym stream (``chip_smoke.py``'s stand-in gymnasium)
+    built and stepped in that process, load neither torch nor jax."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    standin = chip_smoke.write_gymnasium_standin(str(tmp_path))
     code = ("import importlib, sys\n"
             f"for name in {ENV_WORKER_MODULES!r}:\n"
             "    importlib.import_module(name)\n"
@@ -118,13 +132,20 @@ def test_env_worker_modules_leave_torch_and_jax_out(tmp_path):
             "s.initial(); s.step(1); s.close()\n"
             "m = create_env('doom_duel', num_action_repeats=4)\n"
             "m.reset(); m.step([(0,) * 7] * 2); m.close()\n"
+            "for name, kwargs in (('dmlab_rooms_watermaze', dict(width=16, "
+            "height=16)), ('atari_breakout', {}), ('gym_CartPole-v1', "
+            "dict(width=16, height=16))):\n"
+            "    s = make_impala_stream(name, num_action_repeats=4, "
+            "**kwargs)\n"
+            "    s.initial(); s.step(1); s.close()\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('torch', 'jax', 'jaxlib', 'scalable_agent_tpu'))\n"
             "assert not bad, bad\n")
-    assert len(ENV_WORKER_MODULES) == 9
-    subprocess.run([sys.executable, "-c", code], check=True,
-                   env=_doom_scenarios(tmp_path), cwd=str(ROOT),
-                   timeout=120)
+    assert len(ENV_WORKER_MODULES) == 14
+    env = _doom_scenarios(tmp_path)
+    env["PYTHONPATH"] = os.pathsep.join([standin, env["PYTHONPATH"]])
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   cwd=str(ROOT), timeout=120)
 
 
 def test_doom_cli_env_workers_never_import_torch(tmp_path):
@@ -198,7 +219,7 @@ def test_flag_lists_cover_the_jax_config():
             assert f.default == getattr(jax_config.Config(), f.name), f.name
 
 
-@pytest.mark.parametrize("argv", [["--renderer=software"],
+@pytest.mark.parametrize("argv", [["--mesh_data=2"],
                                   ["--health_baseline_dir", "auto"],
                                   ["--chaos_channel=true"],
                                   ["--replay_ratio=1"],
@@ -209,6 +230,18 @@ def test_flag_lists_cover_the_jax_config():
 def test_unported_flags_and_values_raise(argv):
     with pytest.raises(ValueError, match="ROADMAP.md"):
         Config.from_argv(argv)
+
+
+def test_dataset_path_and_renderer_are_ported():
+    """The DMLab flags parse, with the JAX defaults, and are no longer in
+    ``UNPORTED_FLAGS``."""
+    assert {"dataset_path", "renderer"}.isdisjoint(UNPORTED_FLAGS)
+    config = Config.from_argv(["--dataset_path=/data/brady",
+                               "--renderer=hardware"])
+    assert (config.dataset_path, config.renderer) == ("/data/brady",
+                                                      "hardware")
+    assert (Config().dataset_path, Config().renderer) == (
+        jax_config.Config().dataset_path, jax_config.Config().renderer)
 
 
 def test_benchmark_mode_and_rmsprop_momentum_parse():
