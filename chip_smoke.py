@@ -65,7 +65,11 @@ a result:
    stack of 4) at N=3232 frames of 84x84x4 as the 72x96x3 one above: both
    types, every layout, N=1, N=3233 and 17x23, two calls bitwise equal,
    device time beside cuDNN's, timed into the kernels line (no gate
-   against cuDNN).
+   against cuDNN).  The same for the last two geometries: the 8x8 stem at
+   one channel (``stem_gradw_c1``, 72x96x1) and the ResNet stem on
+   Atari's stack (``resnet_stem_gradw_c4``, 84x84x4).  Every bf16 8x8 row
+   (72x96, 72x128, 16x16, 84x84x4, 72x96x1) is the mma.sync kernel, held
+   in both layouts with two calls bitwise equal in each.
 3. Train: ``driver.train`` on ``fake_benchmark`` at full width (64 actors
    in two groups of 32 on ActorPool threads, 8 env worker processes per
    group, unroll 100, 4 action repeats, LSTM 256, ``--scan_impl=pallas``,
@@ -179,7 +183,14 @@ a result:
    3 bf16 updates counted (the C=4 bf16 grad-W once an update, no C=3
    grad-W), s per update, 2 float32 updates counted for the float32 C=4
    kernel; ``gym_CartPole-v1`` (rendered frames resized to 72x96) for 2
-   bf16 updates counted as in phase 3.
+   bf16 updates counted as in phase 3; then the last two grad-W
+   geometries on their paths, NEW_PATH_UPDATES bf16 and 2 float32
+   updates each counted with its kernels once an update and every other
+   stem's never: ``gym_BreakoutGray-v0`` (the stand-in's one-channel
+   Breakout resized to [72, 96, 1]) and ``--torso_type=resnet`` on
+   ``atari_breakout`` ([84, 84, 4]), then ``--mode=test`` on the deep
+   Atari checkpoint (2 episodes through the bf16 lean kernel, no grad-W
+   launched).
 3d. (Run after 3b, before 3c.) The default loop's machinery, each part
    failing the run: packed
    bitwise equal to per_leaf for one full-width trajectory from the pool,
@@ -276,8 +287,9 @@ a result:
 4. A ``{"kernels": [...]}`` line (the float32 kernels with their launches
    on the float32 path, the bf16 variants and V-trace with theirs on the
    main path; the ResNet stem's from 3h's float32 and bf16 runs, the C=4
-   stem's from 3n's Atari runs), the card's line, then as the last line
-   ``{"ok": true, "device": {...}}``.
+   stem's from 3n's Atari runs, the C=1 and ResNet C=4 kernels' from 3n's
+   one-channel gym and deep Atari runs), the card's line, then as the last
+   line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -373,14 +385,14 @@ TABLE_KERNELS = (
     ("BPTT products", "bptt_dx_kernel", ""),
     ("BPTT products", "bptt_dw_kernel", ""),
     ("BPTT reduction", "bptt_reduce_kernel", ""),
-    ("grad-W", "conv_gradw_band_kernel<__nv_bfloat16", ""),
+    ("grad-W", "conv_gradw_mma_kernel<", ""),
     ("grad-W", "reduce_partials_kernel", ""),
     ("V-trace", "vtrace_chunked_kernel<", ""),
 )
 SECTION6_MS = {"residual forward GEMM": 0.1415,
                "residual recurrence": 0.2452, "BPTT chain": 0.324,
                "BPTT products": 0.078, "BPTT reduction": 0.005,
-               "grad-W": 0.7041, "V-trace": 0.0034}
+               "grad-W": 0.1747, "V-trace": 0.0034}
 
 
 def _nvidia_smi() -> str:
@@ -903,27 +915,44 @@ def compare_lean_streams(torch, lstm_cuda, device, wi, wh, b,
                LSTM_TOL)
 
 
+def _device_generator(torch, device, seed):
+    """A generator on ``device`` seeded with ``seed``: the grad-W checks
+    draw their frames and cotangents (up to 365 M values) where they are
+    used."""
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+# The kernels one grad-W call launches: the float32 band kernel or the
+# bf16 mma.sync kernel of the shallow stem, the ResNet stem's, and the
+# fixed-order reduce.
+GRADW_KERNELS = ("conv_gradw_band_kernel", "conv_gradw_mma_kernel",
+                 "reduce_partials_kernel")
+RESNET_KERNELS = ("resnet_stem_gradw_kernel", "reduce_partials_kernel")
+
+
 def compare_gradw(torch, conv_cuda, device, N=101 * 32, dtype=None,
                   frame=(72, 96, 3)):
     """The stem grad-W at the learner's merged batch N = 101 * 32 of
-    ``frame`` frames (DMLab's 72x96x3, or Atari's 84x84x4, the kernel's C=4
-    instantiation ``stem_gradw_c4``), then at other image counts, frame
-    sizes and layouts, with x and g of ``dtype`` (float32, or bfloat16 for
-    the bf16-operand variant)."""
+    ``frame`` frames (DMLab's 72x96x3; Atari's 84x84x4, the C=4 kernels
+    ``stem_gradw_c4``; a one-channel gym level's 72x96x1, the C=1 kernels
+    ``stem_gradw_c1``), then at other image counts, frame sizes and
+    layouts, with x and g of ``dtype`` (float32, the band kernel, or
+    bfloat16, the mma.sync kernel); two calls bitwise equal in every
+    layout."""
     dtype = dtype or torch.float32
     bf16 = dtype == torch.bfloat16
     Hh, W, C = frame
     K, S, Fo = 8, 4, 32
     stem = "stem_gradw" if C == 3 else f"stem_gradw_c{C}"
     tag = (f"_c{C}" if C != 3 else "") + (" bf16" if bf16 else "")
-    gen = torch.Generator().manual_seed(4321 if C == 3 else 4321 + C)
+    gen = _device_generator(torch, device, 4321 if C == 3 else 4321 + C)
     OH, OW = -(-Hh // S), -(-W // S)
     # x as the torso makes it (uint8 / 255 in dtype), g a cotangent.
     frames = lambda *shape: (torch.randint(
-        0, 256, shape, generator=gen, dtype=torch.uint8).to(device).to(dtype)
-        / 255.0)
-    cotangent = lambda *shape: torch.randn(shape, generator=gen).to(
-        device).to(dtype)
+        0, 256, shape, generator=gen, dtype=torch.uint8,
+        device=device).to(dtype) / 255.0)
+    cotangent = lambda *shape: torch.randn(
+        shape, generator=gen, device=device).to(dtype)
     x = frames(N, Hh, W, C)
     g = cotangent(N, OH, OW, Fo)
     kern = conv_cuda.conv_gradw(x, g, K, S)
@@ -955,6 +984,8 @@ def compare_gradw(torch, conv_cuda, device, N=101 * 32, dtype=None,
         got = conv_cuda.conv_gradw(xx, gg, K, S)
         _check(f"stem_gradw{tag}, {name}", *_errors([(got, plain)]),
                GRADW_TOL)
+        _bitwise(torch, f"stem_gradw{tag}, {name}", [got],
+                 [conv_cuda.conv_gradw(xx, gg, K, S)])
         del xx, gg
     # Image counts that split unevenly or not at all, and an odd frame size
     # (asymmetric SAME pads) in both layouts.
@@ -970,8 +1001,7 @@ def compare_gradw(torch, conv_cuda, device, N=101 * 32, dtype=None,
                    *_errors([(got, want)]), GRADW_TOL)
         del xs, gs
     device_ms = _device_ms(
-        torch, lambda: conv_cuda.conv_gradw(x, g, K, S),
-        ("conv_gradw_band_kernel", "reduce_partials_kernel"), 10)
+        torch, lambda: conv_cuda.conv_gradw(x, g, K, S), GRADW_KERNELS, 10)
     lib_device_ms = _device_ms(torch, library, None, 10)
     print(f"  stem_gradw{tag}: kernels' device time {device_ms:.4f} ms, "
           f"cuDNN conv2d_weight {lib_device_ms:.4f} ms "
@@ -979,7 +1009,8 @@ def compare_gradw(torch, conv_cuda, device, N=101 * 32, dtype=None,
     width = x.element_size()
     nbytes = width * (N * Hh * W * C + N * OH * OW * Fo) + 4 * K * K * C * Fo
     flops = 2 * N * OH * OW * K * K * C * Fo
-    return [(stem + ("_bf16" if bf16 else ""), "conv.cu",
+    return [(stem + ("_bf16" if bf16 else ""),
+             "conv_mma.cu" if bf16 else "conv.cu",
              "conv_pallas.py:86", err,
              lambda: conv_cuda.conv_gradw(x, g, K, S),
              lambda: conv_cuda.conv_gradw_plain(x, g, K, S),
@@ -998,12 +1029,13 @@ def compare_gradw_frame(torch, conv_cuda, device, hh, ww, N=101 * 32,
     dtype = dtype or torch.float32
     bf16 = dtype == torch.bfloat16
     name = f"stem_gradw{'_bf16' if bf16 else ''} [{N},{hh},{ww},3]"
-    gen = torch.Generator().manual_seed(hh * 1000 + ww)
+    planar = lambda t: t.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    gen = _device_generator(torch, device, hh * 1000 + ww)
     C, K, S, Fo = 3, 8, 4, 32
     OH, OW = -(-hh // S), -(-ww // S)
     x = (torch.randint(0, 256, (N, hh, ww, C), generator=gen,
-                       dtype=torch.uint8).to(device).to(dtype) / 255.0)
-    g = torch.randn((N, OH, OW, Fo), generator=gen).to(device).to(dtype)
+                       dtype=torch.uint8, device=device).to(dtype) / 255.0)
+    g = torch.randn((N, OH, OW, Fo), generator=gen, device=device).to(dtype)
     kern = lambda: conv_cuda.conv_gradw(x, g, K, S)
     plain = lambda: conv_cuda.conv_gradw_plain(x, g, K, S)
     _, (pad, _) = conv_cuda.same_pads(hh, K, S)
@@ -1014,12 +1046,18 @@ def compare_gradw_frame(torch, conv_cuda, device, hh, ww, N=101 * 32,
     err = _errors([(first, want)])
     _check(name, *err, GRADW_TOL)
     _bitwise(torch, name, [first], [again])
+    xx, gg = planar(x), planar(g)
+    first = conv_cuda.conv_gradw(xx, gg, K, S)
+    _check(f"{name}, x and g NCHW-planar", *_errors([(first, want)]),
+           GRADW_TOL)
+    _bitwise(torch, f"{name}, x and g NCHW-planar", [first],
+             [conv_cuda.conv_gradw(xx, gg, K, S)])
+    del xx, gg
     nbytes = (x.element_size() * (N * hh * ww * C + N * OH * OW * Fo)
               + 4 * K * K * C * Fo)
     bound, bound_by = _bound_ms(nbytes, 2 * N * OH * OW * K * K * C * Fo,
                                 bf16)
-    device_ms = _device_ms(
-        torch, kern, ("conv_gradw_band_kernel", "reduce_partials_kernel"), 10)
+    device_ms = _device_ms(torch, kern, GRADW_KERNELS, 10)
     print(f"  {name}: ms {_time_ms(torch, kern, 10):.4f}, device ms "
           f"{device_ms:.4f}, bound {bound:.4f} ms ({bound_by}), plain ms "
           f"{_time_ms(torch, plain, 3):.4f}, cuDNN conv2d_weight ms "
@@ -1027,24 +1065,29 @@ def compare_gradw_frame(torch, conv_cuda, device, hh, ww, N=101 * 32,
           f"{_device_ms(torch, library, None, 10):.4f}", flush=True)
 
 
-def compare_resnet_gradw(torch, conv_cuda, device, N=101 * 32, dtype=None):
-    """The ResNet stem's grad-W (3x3, stride 1, 3 channels into 16
-    features) at the learner's merged batch N = 101 * 32 of 72x96 frames,
-    in both layouts, then at an uneven N, one image and an odd frame, with
-    x and g of ``dtype`` (float32, or bfloat16 for the bf16-operand
-    variant); two calls bitwise equal; device ms in both layouts against
-    its bound and cuDNN's."""
+def compare_resnet_gradw(torch, conv_cuda, device, N=101 * 32, dtype=None,
+                         frame=(72, 96, 3)):
+    """The ResNet stem's grad-W (3x3, stride 1, C channels into 16
+    features) at the learner's merged batch N = 101 * 32 of ``frame``
+    frames (72x96x3, or Atari's 84x84x4: the C=4 kernels
+    ``resnet_stem_gradw_c4``), in both layouts, then at an uneven N, one
+    image and an odd frame, with x and g of ``dtype`` (float32, or
+    bfloat16 for the bf16-operand variant); two calls bitwise equal in
+    every layout; device ms in both layouts against its bound and
+    cuDNN's."""
     dtype = dtype or torch.float32
     bf16 = dtype == torch.bfloat16
     tag = " bf16" if bf16 else ""
-    name = "resnet_stem_gradw" + ("_bf16" if bf16 else "")
-    gen = torch.Generator().manual_seed(8765)
-    Hh, W, C, K, Fo = 72, 96, 3, 3, 16
+    Hh, W, C = frame
+    K, Fo = 3, 16
+    name = ("resnet_stem_gradw" + (f"_c{C}" if C != 3 else "")
+            + ("_bf16" if bf16 else ""))
+    gen = _device_generator(torch, device, 8765 + C - 3)
     frames = lambda *shape: (torch.randint(
-        0, 256, shape, generator=gen, dtype=torch.uint8).to(device).to(dtype)
-        / 255.0)
-    cotangent = lambda *shape: torch.randn(shape, generator=gen).to(
-        device).to(dtype)
+        0, 256, shape, generator=gen, dtype=torch.uint8,
+        device=device).to(dtype) / 255.0)
+    cotangent = lambda *shape: torch.randn(
+        shape, generator=gen, device=device).to(dtype)
     planar = lambda t: t.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
     x = frames(N, Hh, W, C)
     g = cotangent(N, Hh, W, Fo)
@@ -1064,12 +1107,14 @@ def compare_resnet_gradw(torch, conv_cuda, device, N=101 * 32, dtype=None):
     print(f"  (cuDNN's conv2d_weight{tag} against the same plain version: "
           f"max_rel_err {_errors([(lib_dw, plain)])[1]:.3e})", flush=True)
     for layout, xx, gg in (("x NCHW-planar, g NHWC", planar(x), g),
-                           ("x NHWC, g NCHW-planar", x, planar(g))):
-        _check(f"{name}, {layout}",
-               *_errors([(conv_cuda.conv_gradw(xx, gg, K, 1), plain)]),
-               GRADW_TOL)
+                           ("x NHWC, g NCHW-planar", x, planar(g)),
+                           ("x and g NCHW-planar", planar(x), planar(g))):
+        got = conv_cuda.conv_gradw(xx, gg, K, 1)
+        _check(f"{name}, {layout}", *_errors([(got, plain)]), GRADW_TOL)
+        _bitwise(torch, f"{name}, {layout}", [got],
+                 [conv_cuda.conv_gradw(xx, gg, K, 1)])
         del xx, gg
-    for n, hh, ww in ((N + 1, 72, 96), (1, 72, 96), (64, 17, 23)):
+    for n, hh, ww in ((N + 1, Hh, W), (1, Hh, W), (64, 17, 23)):
         xs, gs = frames(n, hh, ww, C), cotangent(n, hh, ww, Fo)
         want = conv_cuda.conv_gradw_plain(xs, gs, K, 1)
         for xx, gg, layout in ((xs, gs, "NHWC"),
@@ -1090,7 +1135,7 @@ def compare_resnet_gradw(torch, conv_cuda, device, N=101 * 32, dtype=None):
         plan = conv_cuda.resnet_gradw_plan(
             N, Hh, W, width, conv_cuda._sm_count(0),
             conv_cuda.tensor_layout(xx) == "chw",
-            conv_cuda.tensor_layout(gg) == "chw")
+            conv_cuda.tensor_layout(gg) == "chw", C)
         print(f"  {name}, {layout}: kernels' device time "
               f"{device_ms[layout]:.4f} ms, {device_ms[layout] / bound:.2f}x "
               f"its bound {bound:.4f} ms "
@@ -1100,7 +1145,7 @@ def compare_resnet_gradw(torch, conv_cuda, device, N=101 * 32, dtype=None):
               f"{plan.smem_bytes} bytes of shared memory a block",
               flush=True)
         del xx, gg
-    return [(name, "conv.cu", "conv_pallas.py:86", err,
+    return [(name, "conv_resnet.cu", "conv_pallas.py:86", err,
              lambda: conv_cuda.conv_gradw(x, g, K, 1),
              lambda: conv_cuda.conv_gradw_plain(x, g, K, 1),
              library, nbytes, flops, bf16, device_ms["x and g NHWC"])]
@@ -1110,8 +1155,7 @@ def _resnet_device_ms(torch, conv_cuda, x, g):
     """The ResNet stem grad-W's device ms per call (its kernel and the
     fixed-order reduce), torch.profiler over 10 calls."""
     return _device_ms(
-        torch, lambda: conv_cuda.conv_gradw(x, g, 3, 1),
-        ("resnet_stem_gradw_kernel", "reduce_partials_kernel"), 10)
+        torch, lambda: conv_cuda.conv_gradw(x, g, 3, 1), RESNET_KERNELS, 10)
 
 
 def resnet_gradw_in_layout(torch, conv_cuda, device, layouts, card,
@@ -1125,11 +1169,11 @@ def resnet_gradw_in_layout(torch, conv_cuda, device, layouts, card,
     (``RESNET_BF16_MAX_MS``), and its device time from torch.profiler is
     printed beside it (the profiler can drop or shorten records late in a
     long process: PERF.md, section 6)."""
-    gen = torch.Generator().manual_seed(8766)
+    gen = _device_generator(torch, device, 8766)
     Hh, W, C, Fo = 72, 96, 3, 16
     x = (torch.randint(0, 256, (N, Hh, W, C), generator=gen,
-                       dtype=torch.uint8).to(device).bfloat16() / 255.0)
-    g = torch.randn((N, Hh, W, Fo), generator=gen).to(device).bfloat16()
+                       dtype=torch.uint8, device=device).bfloat16() / 255.0)
+    g = torch.randn((N, Hh, W, Fo), generator=gen, device=device).bfloat16()
     planar = lambda t: t.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
     bound, bound_by = _bound_ms(2 * N * Hh * W * (C + Fo) + 4 * 27 * Fo,
                                 2 * N * Hh * W * 27 * Fo, True)
@@ -1731,9 +1775,7 @@ def breakdown(torch, driver, config):
             ("residual LSTM forward", ("sgemm_kernel<true",
                                        "lstm_resid_kernel")),
             ("LSTM BPTT", (BPTT_CHAIN, BPTT_REDUCE) + BPTT_GEMMS),
-            ("stem grad-W", ("conv_gradw_band_kernel",
-                             "resnet_stem_gradw_kernel",
-                             "reduce_partials_kernel"))):
+            ("stem grad-W", GRADW_KERNELS + RESNET_KERNELS)):
         parts = [(_kernel_name(name), us / 1e3)
                  for name, us in device_us.items()
                  if any(n in name for n in names)]
@@ -2012,9 +2054,11 @@ def benchmark_path(torch, driver, config, scratch, train_counted, pool_s):
 # The launch counters of the kernels each library route replaces.
 LSTM_COUNTERS = tuple(f"lstm_{part}{suffix}" for part in (
     "fwd_lean", "fwd_resid", "bptt") for suffix in ("", "_bf16"))
-GRADW_COUNTERS = tuple(f"{stem}{suffix}" for stem in (
-    "stem_gradw", "stem_gradw_c4", "resnet_stem_gradw")
-    for suffix in ("", "_bf16"))
+# The stems' grad-W launch counters without their dtype suffix.
+STEMS = ("stem_gradw", "stem_gradw_c4", "stem_gradw_c1",
+         "resnet_stem_gradw", "resnet_stem_gradw_c4")
+GRADW_COUNTERS = tuple(f"{stem}{suffix}" for stem in STEMS
+                       for suffix in ("", "_bf16"))
 ROUTE_UPDATES = 2            # phase 3k's fake_tuple run, 3l's doom_duel run
 DUEL_BATCH = 32              # 16 matches x 2 agents a group
 
@@ -2245,8 +2289,11 @@ def doom_path(torch, driver, config, scratch, root, train_counted,
 
 DMLAB_UPDATES = 4           # phase 3m's dmlab30 run
 ATARI_UPDATES = 4           # phase 3n's atari_breakout run (bf16)
+NEW_PATH_UPDATES = 2        # phase 3n's one-channel gym and deep Atari
+                            # runs (bf16; and F32_UPDATES float32)
 # A stand-in for the gymnasium package, which the card's machine lacks: a
-# NoFrameskip ALE game (210x160x3 uint8 frames, Breakout's 4 actions) and a
+# NoFrameskip ALE game (210x160x3 uint8 frames, Breakout's 4 actions), the
+# same game observed as one luminance channel (210x160x1) and a
 # vector-observation game whose render() gives RGB frames, behind
 # gymnasium.make; with spaces.Box, spaces.Discrete and error.Error, the
 # part of gymnasium the port's atari_ and gym_ families use.  Its steps
@@ -2256,6 +2303,8 @@ GYMNASIUM_STANDIN = '''"""A stand-in for gymnasium, written by chip_smoke.py.
 BreakoutNoFrameskip-v4: 210x160x3 uint8 frames of a paddle and a ball, 4
 actions (NOOP, FIRE, RIGHT, LEFT), a reward when the ball reaches the
 paddle's row over the paddle, an episode of 400 raw frames.
+BreakoutGray-v0: the same game observed as one luminance channel,
+210x160x1 uint8 frames.
 CartPole-v1: a 4-float state, 2 actions, render() of a 400x600x3 frame
 with the cart, an episode of at most 60 steps.
 """
@@ -2339,6 +2388,17 @@ class Breakout:
         pass
 
 
+class BreakoutGray(Breakout):
+    def __init__(self):
+        super().__init__()
+        self.observation_space = Box(0, 255, (210, 160, 1), np.uint8)
+
+    def _frame(self):
+        rgb = super()._frame().astype(np.uint16)
+        gray = (77 * rgb[..., 0] + 150 * rgb[..., 1] + 29 * rgb[..., 2]) >> 8
+        return gray.astype(np.uint8)[..., None]
+
+
 class CartPole:
     STEPS = 60
 
@@ -2381,7 +2441,8 @@ class CartPole:
         pass
 
 
-_GAMES = {"BreakoutNoFrameskip-v4": Breakout, "CartPole-v1": CartPole}
+_GAMES = {"BreakoutNoFrameskip-v4": Breakout,
+          "BreakoutGray-v0": BreakoutGray, "CartPole-v1": CartPole}
 
 
 def make(env_id, **kwargs):
@@ -2548,6 +2609,59 @@ def atari_gym_path(driver, config, scratch, train_counted):
     _loop_rate(gym, "gym_CartPole-v1 (stand-in), bf16, 72x96",
                ROUTE_UPDATES)
     return launches, f32_launches
+
+
+def one_channel_and_deep_atari_paths(driver, config, scratch, train_counted,
+                                     reset_counts, read_counts):
+    """Phase 3n, the last two grad-W geometries: ``gym_BreakoutGray-v0``
+    (the stand-in's one-channel Breakout resized to the main path's 72x96:
+    [72, 96, 1] frames through the shallow stem, the C=1 kernels) and
+    ``--torso_type=resnet --level_name=atari_breakout`` (the ResNet stem on
+    Atari's [84, 84, 4]: the ResNet C=4 kernels), each NEW_PATH_UPDATES
+    bf16 and F32_UPDATES float32 updates counted as in phase 3 (its stem's
+    kernel once an update, every other stem's never), at the main path's
+    layout, with s per update; then ``--mode=test`` on the deep Atari run's
+    checkpoint through the bf16 lean LSTM kernel.  Returns the launches
+    by run."""
+    launches = {}
+    for label, fields, frame, stem in (
+            ("gym_BreakoutGray-v0", dict(level_name="gym_BreakoutGray-v0"),
+             (72, 96, 1), "stem_gradw_c1"),
+            ("atari_breakout resnet", dict(level_name="atari_breakout",
+                                           torso_type="resnet"),
+             (84, 84, 4), "resnet_stem_gradw_c4")):
+        run = dataclasses.replace(config, trace=False, logdir=os.path.join(
+            scratch, label.replace(" ", "_")), **fields)
+        got = tuple(driver.probe_env(
+            driver.apply_env_overrides(run))[0].frame.shape)
+        if got != frame:
+            raise AssertionError(f"{label} frames {got}, expected {frame}")
+        run = dataclasses.replace(run, total_environment_frames=float(
+            NEW_PATH_UPDATES * run.frames_per_update()))
+        launches[label] = train_counted(run, NEW_PATH_UPDATES, "_bf16",
+                                        stem=stem)
+        _loop_rate(run, f"{label} (stand-in), bf16, {frame}",
+                   NEW_PATH_UPDATES)
+        f32 = dataclasses.replace(
+            run, compute_dtype="float32", logdir=run.logdir + "_f32",
+            total_environment_frames=float(F32_UPDATES
+                                           * run.frames_per_update()))
+        launches[label + " float32"] = train_counted(f32, F32_UPDATES, "",
+                                                     stem=stem)
+    reset_counts()
+    t0 = time.monotonic()
+    returns = driver.test(dataclasses.replace(
+        run, mode="test", test_num_episodes=2))["atari_breakout"]
+    test_launches = read_counts()
+    print(f"  atari_breakout resnet --mode=test: {len(returns)} returns "
+          f"{returns} in {time.monotonic() - t0:.1f} s; launches "
+          f"{test_launches}", flush=True)
+    if (len(returns) != 2 or test_launches["lstm_fwd_lean_bf16"] == 0
+            or any(test_launches[c] for c in GRADW_COUNTERS)):
+        raise AssertionError("the deep atari_breakout --mode=test did not "
+                             "run 2 episodes through the bf16 lean LSTM "
+                             "kernel alone")
+    return launches
 
 
 def _all_rows(logdir):
@@ -3861,6 +3975,19 @@ def main() -> int:
         timed.update(time_rows(torch, rows))
         del rows
         torch.cuda.empty_cache()
+        # A one-channel gym level's 72x96x1 frames through the shallow stem
+        # and Atari's 84x84x4 through the ResNet stem (phase 3n's
+        # gym_BreakoutGray-v0 and deep atari_breakout runs): the C=1 and
+        # the ResNet C=4 kernels.
+        rows = []
+        for dtype in (torch.float32, torch.bfloat16):
+            rows += compare_gradw(torch, conv_cuda, device, dtype=dtype,
+                                  frame=(72, 96, 1))
+            rows += compare_resnet_gradw(torch, conv_cuda, device,
+                                         dtype=dtype, frame=(84, 84, 4))
+        timed.update(time_rows(torch, rows))
+        del rows
+        torch.cuda.empty_cache()
 
     def train_counted(config, updates, suffix, stem="stem_gradw",
                       expected=None):
@@ -3902,8 +4029,7 @@ def main() -> int:
                                  else 0),
                 "lstm_fwd_lean" + other: 0, "lstm_fwd_resid" + other: 0,
                 "lstm_bptt" + other: 0}
-            for name in ("stem_gradw", "stem_gradw_c4",
-                         "resnet_stem_gradw"):
+            for name in STEMS:
                 expected[name + suffix] = updates if name == stem else 0
                 expected[name + other] = 0
         _expect_launches(config.level_name, launches, expected)
@@ -4037,6 +4163,10 @@ def main() -> int:
         atari_launches, atari_f32_launches = atari_gym_path(
             driver, config, scratch, train_counted)
         torch.cuda.empty_cache()
+        new_launches = one_channel_and_deep_atari_paths(
+            driver, config, scratch, train_counted, reset_counts,
+            read_counts)
+        torch.cuda.empty_cache()
 
         phase("phase 3d: the default loop's machinery on the card")
         outs = pool_trajectories(torch, driver, config, 4)
@@ -4106,13 +4236,24 @@ def main() -> int:
                       "resnet_stem_gradw_bf16"],
                   stem_gradw_c4=atari_f32_launches["stem_gradw_c4"],
                   stem_gradw_c4_bf16=atari_launches["stem_gradw_c4_bf16"])
+    gym, deep = "gym_BreakoutGray-v0", "atari_breakout resnet"
+    counts.update(
+        stem_gradw_c1=new_launches[gym + " float32"]["stem_gradw_c1"],
+        stem_gradw_c1_bf16=new_launches[gym]["stem_gradw_c1_bf16"],
+        resnet_stem_gradw_c4=new_launches[deep + " float32"][
+            "resnet_stem_gradw_c4"],
+        resnet_stem_gradw_c4_bf16=new_launches[deep][
+            "resnet_stem_gradw_c4_bf16"])
     kernels = [dict(timed[name], launches=counts[name])
                for name in ("lstm_fwd_lean", "lstm_fwd_resid", "lstm_bptt",
                             "stem_gradw", "lstm_fwd_lean_bf16",
                             "lstm_fwd_resid_bf16", "lstm_bptt_bf16",
                             "stem_gradw_bf16", "vtrace_fused",
                             "resnet_stem_gradw", "resnet_stem_gradw_bf16",
-                            "stem_gradw_c4", "stem_gradw_c4_bf16")]
+                            "stem_gradw_c4", "stem_gradw_c4_bf16",
+                            "stem_gradw_c1", "stem_gradw_c1_bf16",
+                            "resnet_stem_gradw_c4",
+                            "resnet_stem_gradw_c4_bf16")]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

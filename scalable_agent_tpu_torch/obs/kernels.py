@@ -121,11 +121,11 @@ def kernel_name(raw: str) -> str:
 
 # The hand-written kernels each library route leaves out (by name prefix):
 # core_impl=xla the LSTM kernels (csrc/lstm.cu), conv_backend=xla the
-# stems' grad-W kernels and their reduce (csrc/conv.cu).
+# stems' grad-W kernels and their reduce (csrc/conv*.cu).
 LIBRARY_ROUTES = {
     "core_impl": ("sgemm_kernel", "lstm_", "bptt_"),
-    "conv_backend": ("conv_gradw_band_kernel", "resnet_stem_gradw_kernel",
-                     "reduce_partials_kernel"),
+    "conv_backend": ("conv_gradw_band_kernel", "conv_gradw_mma_kernel",
+                     "resnet_stem_gradw_kernel", "reduce_partials_kernel"),
 }
 
 
@@ -146,7 +146,7 @@ def handwritten_costs(frame_shape, num_logits: int, unroll_length: int,
     variants; the bf16 variant's dgates, grad-W x and g are bf16).
     ``matmul_dtype`` is the LSTM products' operand type (default: as
     ``compute_dtype``); ``sm_count`` sizes grad-W's partial sums, and the
-    frame's channel count (3, or Atari's stack of 4) its taps and plan;
+    frame's channel count (3, Atari's stack of 4 or one) its taps and plan;
     ``torso_type`` picks the stem's grad-W kernel and ``use_instruction``
     widens the core's input by the instruction encoding; ``num_logits``,
     the policy's logit count, is the one-hot last action's width.
@@ -175,20 +175,30 @@ def handwritten_costs(frame_shape, num_logits: int, unroll_length: int,
     x_bytes = 2 if compute_dtype == "bfloat16" else 4
     stem = conv_shapes(torso_type, frame_shape)[0][0]
     taps = stem.kernel * stem.kernel * stem.in_channels * stem.out_channels
-    built = True
+    # A geometry the kernels are not built for has no cost entry: on the
+    # card its grad-W raises.
+    stride = 1 if torso_type == "resnet" else conv_cuda.STEM[1]
+    built = (stem.kernel, stride, stem.in_channels,
+             stem.out_channels) in conv_cuda._VARIANTS
+    blocks = 0
     if torso_type == "resnet":
         gradw = "resnet_stem_gradw_kernel"
-        blocks = conv_cuda.resnet_gradw_plan(
-            m, stem.in_height, stem.in_width, x_bytes, sm_count).blocks
-    else:
+        if built:
+            blocks = conv_cuda.resnet_gradw_plan(
+                m, stem.in_height, stem.in_width, x_bytes, sm_count,
+                channels=stem.in_channels).blocks
+    elif x_bytes == 4:
         gradw = "conv_gradw_band_kernel"
-        # A channel count the kernel is not built for has no cost entry:
-        # on the card its grad-W raises.
-        built = stem.in_channels in conv_cuda.GRADW_GROUPS
-        blocks = (conv_cuda.gradw_plan(m, stem.out_height, stem.out_width,
-                                       False, False, sm_count,
-                                       stem.in_channels).blocks
-                  if built else 0)
+        if built:
+            blocks = conv_cuda.gradw_plan(
+                m, stem.out_height, stem.out_width, False, False, sm_count,
+                stem.in_channels).blocks
+    else:
+        gradw = "conv_gradw_mma_kernel"
+        if built:
+            blocks = conv_cuda.gradw_mma_plan(
+                m, stem.in_height, stem.in_width, stem.in_channels, False,
+                False, sm_count).blocks
 
     def entry(source, calls, flops, nbytes):
         return {"flops_est": float(flops) / calls,
@@ -208,7 +218,10 @@ def handwritten_costs(frame_shape, num_logits: int, unroll_length: int,
             4 * (m * h + m + m * g + 2 * m * h + h * g + 2 * b * h
                  + b * g + 2 * b * h) + op_bytes * m * g),
         gradw: entry(
-            conv, 1, 2 * m * stem.out_height * stem.out_width * taps,
+            {"conv_gradw_mma_kernel": "csrc/conv_mma.cu",
+             "resnet_stem_gradw_kernel": "csrc/conv_resnet.cu"}.get(gradw,
+                                                                   conv),
+            1, 2 * m * stem.out_height * stem.out_width * taps,
             x_bytes * m * (stem.in_height * stem.in_width * stem.in_channels
                            + stem.out_height * stem.out_width
                            * stem.out_channels) + 4 * blocks * taps),

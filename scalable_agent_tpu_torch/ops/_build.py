@@ -38,7 +38,7 @@ _F = ctypes.c_float
 # C signatures of csrc/*.cu's extern "C" entry points.  Pointers and the
 # stream go through c_void_p: a bare Python int would be cut to 32 bits.
 # An entry point ending in ``_bf16`` is the bf16-operand variant of the
-# one without, with the same arguments.
+# one without, with the same arguments but for the shallow stem's grad-W.
 _SIGNATURES = {
     "sat_error_string": ([_I], ctypes.c_char_p),
     "sat_lstm_resid_active_clusters": ([_I] * 3, _I),
@@ -49,11 +49,17 @@ for _name, _signature in {
         "sat_lstm_forward_resid": ([_P] * 15 + [_I] * 7 + [_P], _I),
         "sat_lstm_step": ([_P] * 9 + [_I] * 3 + [_P], _I),
         "sat_lstm_backward": ([_P] * 20 + [_I] * 8 + [_P], _I),
-        "sat_conv_gradw": ([_P] * 4 + [_I] * 15 + [_L, _I, _P], _I),
-        "sat_conv_gradw_c4": ([_P] * 4 + [_I] * 15 + [_L, _I, _P], _I),
-        "sat_resnet_stem_gradw": ([_P] * 4 + [_I] * 13 + [_L, _I, _P],
-                                  _I)}.items():
+        "sat_resnet_stem_gradw": ([_P] * 4 + [_I] * 13 + [_L, _I, _P], _I),
+        "sat_resnet_stem_gradw_c4": ([_P] * 4 + [_I] * 13 + [_L, _I, _P],
+                                     _I)}.items():
     _SIGNATURES[_name] = _SIGNATURES[_name + "_bf16"] = _signature
+# The shallow stem's grad-W: the float32 band kernel and the bf16 mma.sync
+# kernel take their own plans' arguments.
+for _suffix in ("", "_c4", "_c1"):
+    _SIGNATURES["sat_conv_gradw" + _suffix] = (
+        [_P] * 4 + [_I] * 15 + [_L, _I, _P], _I)
+    _SIGNATURES["sat_conv_gradw" + _suffix + "_bf16"] = (
+        [_P] * 4 + [_I] * 23 + [_L, _I, _P], _I)
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()

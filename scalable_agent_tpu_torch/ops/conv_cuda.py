@@ -6,47 +6,57 @@ The counterpart of ``scalable_agent_tpu/ops/conv_pallas.py``.
 ``g``, HWIO ``dW``) so the tests compare like with like; ``stem_conv`` is
 the torso-facing op in PyTorch's layout (NCHW input, OIHW weight).
 
-Kernels (``csrc/conv.cu``), both replacing ``conv_pallas.py::
-_gradw_kernel`` (via ``conv_gradw``), one for each stem geometry the
-torsos have; ``conv_gradw`` dispatches on (K, S, C, F):
+Kernels (``csrc/conv*.cu``), all replacing ``conv_pallas.py::
+_gradw_kernel`` (via ``conv_gradw``); ``conv_gradw`` dispatches on (K, S,
+C, F) and the operand dtype:
 
 - ``STEM`` (8x8, stride 4, 3 channels into 32 features; the shallow
-  torso's ``conv_0``): ``conv_gradw_band_kernel``, launch counters
-  ``LAUNCHES["stem_gradw"]`` and, for its bf16-operand variant,
-  ``LAUNCHES["stem_gradw_bf16"]``.  ``STEM_C4`` (the same stem on
-  Atari's grayscale stack of 4 frames) is the same kernel built for
-  C = 4 (``sat_conv_gradw_c4``, counters ``stem_gradw_c4`` and
-  ``stem_gradw_c4_bf16``), with ``GRADW_GROUPS[4]`` row groups.  The float32 kernel is bound by float32
-  FMA (17 GFLOP at the main path's shape).  Each block stages bands of
-  whole images -- input rows with their halo and the band's cotangent rows
-  -- in shared memory with double-buffered ``cp.async`` copies, forms every
-  patch value there by space-to-depth addressing, and accumulates 12x8
-  register tiles in six row groups (``gradw_plan`` sizes the bands and
-  assigns the image bands to blocks).
+  torso's ``conv_0``), ``STEM_C4`` (the same stem on Atari's grayscale
+  stack of 4 frames) and ``STEM_C1`` (on a ``gym_`` level's one-channel
+  frames).  float32: ``conv_gradw_band_kernel``, one template on C
+  (``sat_conv_gradw``, ``sat_conv_gradw_c4``, ``sat_conv_gradw_c1``;
+  counters ``LAUNCHES["stem_gradw"]``, ``["stem_gradw_c4"]``,
+  ``["stem_gradw_c1"]``), bound by float32 FMA (17 GFLOP at the main
+  path's shape).  Each block stages bands of whole images -- input rows
+  with their halo and the band's cotangent rows -- in shared memory with
+  double-buffered ``cp.async`` copies, forms every patch value there by
+  space-to-depth addressing, and accumulates register tiles in
+  ``GRADW_GROUPS[C]`` row groups (``gradw_plan`` sizes the bands and
+  assigns the image bands to blocks).  bf16 x and g (the torso under
+  ``compute_dtype=bfloat16``, ``matmul_dtype="bfloat16"`` in the JAX
+  package): ``conv_gradw_mma_kernel`` (``sat_conv_gradw_bf16``,
+  ``..._c4_bf16``, ``..._c1_bf16``; counters ending in ``_bf16``), bound
+  by the bytes: x's and g's rows go raw by ``cp.async`` into a ring of
+  stages (a unit is a band of one image, or several whole images of a
+  small frame), and ``mma.sync`` m16n8k16 contracts 16 pixels a step, the
+  32 features by the 64*C taps split over the warps, g's fragment by
+  ``ldmatrix`` and the patches' by 16-bit loads through a per-unit table
+  of patch origins (``gradw_mma_plan`` sizes the units, the ring and the
+  table).
 - ``RESNET_STEM`` (3x3, stride 1, 3 channels into 16 features; the ResNet
-  torso's ``downscale_0``): ``resnet_stem_gradw_kernel``, launch counters
-  ``LAUNCHES["resnet_stem_gradw"]`` and ``LAUNCHES["resnet_stem_gradw_bf16"]``.
+  torso's ``downscale_0``) and ``RESNET_STEM_C4`` (on Atari's stack of
+  4): ``resnet_stem_gradw_kernel``, launch counters
+  ``LAUNCHES["resnet_stem_gradw"]``, ``["resnet_stem_gradw_bf16"]``,
+  ``["resnet_stem_gradw_c4"]`` and ``["resnet_stem_gradw_c4_bf16"]``.
   Its work is bound by the bytes of the full-resolution 16-channel
   cotangent.  Each block stages bands of 8 output rows (x with its halo,
   g) in shared memory.  The float32 body (FFMA) stages them double-buffered
-  in one layout and walks each row with a sliding 3x3x3 window, a thread
-  holding the 27 patch rows for 4 features.  The bf16 body (tensor cores)
-  stages each tensor raw, in its own layout, by ``cp.async`` in a ring of
-  up to ``RESNET_STAGES`` bands, and contracts 16 pixels of a row at a time
-  with ``mma.sync`` m16n8k16: the 16 features by the 27 taps (padded to
-  32), g's fragment by ``ldmatrix``, the patches' by 16-bit loads.
-  ``resnet_gradw_plan`` sizes the staged rows and the ring.
+  in one layout and walks each row with a sliding 3x3xC window, a thread
+  holding the 9*C patch rows for 4 features (2 at C = 4).  The bf16 body
+  (tensor cores) stages each tensor raw, in its own layout, by
+  ``cp.async`` in a ring of up to ``RESNET_STAGES`` bands, and contracts
+  16 pixels of a row at a time with ``mma.sync`` m16n8k16: the 16
+  features by the 9*C taps (padded to 32 or 40), g's fragment by
+  ``ldmatrix``, the patches' by 16-bit loads.  ``resnet_gradw_plan``
+  sizes the staged rows and the ring.
 
-Both take x and g as float32 or as bfloat16 (the torso under
-``compute_dtype=bfloat16``, ``matmul_dtype="bfloat16"`` in the JAX
-package), the bf16 variants reading half the bytes and summing the exact
-products in float32; ``dW`` is float32 from both.  Both take ``x`` and
-``g`` each either as contiguous NHWC or as an NHWC view of contiguous NCHW
-memory (``tensor_layout``); anything else raises, and so does any other
-geometry (one-channel frames and the ResNet stem at C = 4 among them:
-ROADMAP.md, queue 2).  Both sum their per-block partials in a fixed order: two calls
-give bitwise-equal dW.  The source's comments have the designs and PERF.md
-their times.
+Every kernel takes ``x`` and ``g`` each either as contiguous NHWC or as an
+NHWC view of contiguous NCHW memory (``tensor_layout``); anything else
+raises, and so does a geometry no ported path reaches (``(8, 4, 2, 32)``,
+say).  ``dW`` is float32 from all: the bf16 kernels read half the bytes
+and sum the exact products in float32.  Each sums its per-block partials
+in a fixed order: two calls give bitwise-equal dW.  The source's comments
+have the designs and PERF.md their times.
 
 As in ``conv_pallas.py``, a kernel/stride pair with ``K % S != 0`` takes
 the library's weight gradient instead (``torch.nn.grad.conv2d_weight``).
@@ -62,15 +72,15 @@ import torch.nn.functional as F
 
 from scalable_agent_tpu_torch.ops import _build
 
-LAUNCHES = {"stem_gradw": 0, "stem_gradw_bf16": 0,
-            "stem_gradw_c4": 0, "stem_gradw_c4_bf16": 0,
-            "resnet_stem_gradw": 0, "resnet_stem_gradw_bf16": 0}
-# (K, S, C, F) that csrc/conv.cu's kernels are built for: the shallow
-# torso's stem on RGB frames and on Atari's grayscale stack of 4, and the
-# ResNet torso's.
+# (K, S, C, F) that csrc/conv*.cu's kernels are built for: the shallow
+# torso's stem on RGB frames, on Atari's grayscale stack of 4 and on
+# one-channel frames, and the ResNet torso's on RGB frames and on Atari's
+# stack.
 STEM = (8, 4, 3, 32)
 STEM_C4 = (8, 4, 4, 32)
+STEM_C1 = (8, 4, 1, 32)
 RESNET_STEM = (3, 1, 3, 16)
+RESNET_STEM_C4 = (3, 1, 4, 16)
 # Per geometry and operand dtype: the C entry point and launch counter.
 _VARIANTS = {
     STEM: {torch.float32: ("sat_conv_gradw", "stem_gradw"),
@@ -78,20 +88,29 @@ _VARIANTS = {
     STEM_C4: {torch.float32: ("sat_conv_gradw_c4", "stem_gradw_c4"),
               torch.bfloat16: ("sat_conv_gradw_c4_bf16",
                                "stem_gradw_c4_bf16")},
+    STEM_C1: {torch.float32: ("sat_conv_gradw_c1", "stem_gradw_c1"),
+              torch.bfloat16: ("sat_conv_gradw_c1_bf16",
+                               "stem_gradw_c1_bf16")},
     RESNET_STEM: {
         torch.float32: ("sat_resnet_stem_gradw", "resnet_stem_gradw"),
         torch.bfloat16: ("sat_resnet_stem_gradw_bf16",
                          "resnet_stem_gradw_bf16")},
+    RESNET_STEM_C4: {
+        torch.float32: ("sat_resnet_stem_gradw_c4", "resnet_stem_gradw_c4"),
+        torch.bfloat16: ("sat_resnet_stem_gradw_c4_bf16",
+                         "resnet_stem_gradw_c4_bf16")},
 }
+LAUNCHES = {counter: 0 for variants in _VARIANTS.values()
+            for _, counter in variants.values()}
 _DTYPES = (torch.float32, torch.bfloat16)
 
 # The stages of the blocks on one SM must fit this (an H100 SM has 228
 # KB), and so must the shallow stem's final sum of the other row groups'
 # [K*K*C, F] tiles.
 SMEM_BUDGET = 200 * 1024
-# The shallow stem kernel's row groups at each channel count
+# The shallow stem's float32 kernel's row groups at each channel count
 # (csrc/conv.cu Band<C, TileChannels<C>::kCT>::kGroups).
-GRADW_GROUPS = {3: 6, 4: 3}
+GRADW_GROUPS = {1: 6, 3: 6, 4: 3}
 
 
 def same_pads(size: int, k: int, s: int) -> Tuple[int, Tuple[int, int]]:
@@ -171,8 +190,9 @@ class GradWPlan(NamedTuple):
     blocks: int
 
 
-def _round4(n: int) -> int:
-    return -(-n // 4) * 4
+def _round(n: int, m: int) -> int:
+    """n rounded up to a multiple of m."""
+    return -(-n // m) * m
 
 
 def _stage(rows: int, out_w: int, x_chw: bool, g_chw: bool,
@@ -184,10 +204,10 @@ def _stage(rows: int, out_w: int, x_chw: bool, g_chw: bool,
     padded_w = (out_w - 1) * s + k
     width = padded_w if x_chw else padded_w * channels
     xrs = width + (8 - width) % 32
-    x_floats = _round4(((rows - 1) * s + k) * xrs
-                       * (channels if x_chw else 1))
+    x_floats = _round(((rows - 1) * s + k) * xrs
+                      * (channels if x_chw else 1), 4)
     gps = rows * out_w | 1
-    g_floats = _round4(f * gps if g_chw else rows * out_w * f)
+    g_floats = _round(f * gps if g_chw else rows * out_w * f, 4)
     return xrs, x_floats, gps, x_floats + g_floats
 
 
@@ -196,7 +216,7 @@ def gradw_plan(n: int, out_h: int, out_w: int, x_chw: bool, g_chw: bool,
     """Bands: the fewest whose two stages fit ``SMEM_BUDGET``, of equal
     height.  Blocks: one per SM (at most one per unit); block b owns the
     units ``block_units(plan, b)``, in order.  ``channels`` is the
-    frames' C (3, or Atari's 4: ``GRADW_GROUPS``)."""
+    frames' C (3, Atari's 4 or one: ``GRADW_GROUPS``)."""
     fits = [r for r in range(1, out_h + 1)
             if 8 * _stage(r, out_w, x_chw, g_chw, channels)[3]
             <= SMEM_BUDGET]
@@ -221,22 +241,120 @@ def block_units(plan, block: int) -> range:
                  (block + 1) * plan.units // plan.blocks)
 
 
+# The shallow stem's bf16 kernel (csrc/conv_mma.cu conv_gradw_mma_kernel):
+# its block of MMA_WARPS warps, MMA_BLOCKS_PER_SM blocks an SM, the warps
+# a step's taps are split over at each channel count (MmaTaps<C>::
+# kTapWarps; the rest take every other or every fourth step), a block's
+# ring of stages (at least MMA_MIN_STAGES of the tallest band whose stages
+# fit its share of SMEM_BUDGET, up to MMA_STAGES), and the pixels a unit of
+# several whole small images holds at most.  On an H100 two blocks an SM
+# read 0.177 ms at the main path's N=3232 where one read 0.208 (PERF.md,
+# section 6).
+MMA_WARPS = 8
+MMA_BLOCKS_PER_SM = 2
+MMA_TAP_WARPS = {1: 2, 3: 4, 4: 4}
+MMA_STAGES = 4
+MMA_MIN_STAGES = 3
+MMA_UNIT_PIXELS = 128
+
+
+class GradWMmaPlan(NamedTuple):
+    """Launch geometry of the shallow stem's bf16 grad-W kernel; sizes in
+    bf16 elements."""
+
+    band_rows: int     # output rows per band
+    bands: int         # bands per image
+    images: int        # whole images per unit (1 unless bands == 1)
+    xo: int            # element of padded column 0 in a staged x row
+    xrs: int           # staged x row stride
+    xplane: int        # planar x: one channel's plane, else 0
+    ximg: int          # staged x of one image
+    x_elems: int       # staged x of a unit
+    gps: int           # planar g: one feature's plane, else 0
+    g_elems: int       # staged g of a unit
+    pix: int           # table entries: a unit's pixels, to 16s
+    stage_elems: int   # one stage: x + g + the table (2 elements an int)
+    stages: int
+    smem_bytes: int
+    units: int         # units: (image group, band) pairs
+    blocks: int
+
+
+def gradw_mma_plan(n: int, height: int, width: int, channels: int,
+                   x_chw: bool, g_chw: bool, sm_count: int,
+                   budget: int = SMEM_BUDGET // MMA_BLOCKS_PER_SM
+                   ) -> GradWMmaPlan:
+    """Bands: the fewest whose MMA_MIN_STAGES stages fit ``budget`` (a
+    block's share of the SM), of equal height; where one band holds a
+    whole image, a unit takes as many whole images as fit MMA_UNIT_PIXELS
+    pixels and the budget.  A staged row (x with its SAME pads, NHWC or
+    planar as ``x_chw`` says) starts its data 16-byte aligned at padded
+    column ``pad_w``; NHWC g is 64 bytes a pixel, planar g's feature
+    planes are 16 bytes (mod 128) apart, so the 8 rows of one ldmatrix
+    fall on distinct banks.  Blocks:
+    MMA_BLOCKS_PER_SM an SM (at most one per unit); block b owns the units
+    ``block_units(plan, b)``, in order; unit u is image group u // bands
+    (images ``images * (u // bands)`` on), band u % bands."""
+    k, s, _, f = STEM
+    out_h, _ = same_pads(height, k, s)
+    out_w, (pad_w, _) = same_pads(width, k, s)
+    px = 1 if x_chw else channels
+    xo = -pad_w * px % 8
+    xrs = _round(xo + (s * out_w + s) * px, 8)
+
+    def stage(rows, images):
+        x_rows = (rows - 1) * s + k
+        xplane = _round(x_rows * xrs, 8) if x_chw else 0
+        ximg = channels * xplane if x_chw else _round(x_rows * xrs, 8)
+        pix = _round(images * rows * out_w, 16)
+        gps = _at_least(pix, 8, 64) if g_chw else 0
+        g_elems = f * (gps if g_chw else pix)
+        return (xplane, ximg, images * ximg, gps, g_elems, pix,
+                images * ximg + g_elems + 2 * pix)
+
+    fits = [r for r in range(1, out_h + 1)
+            if 2 * MMA_MIN_STAGES * stage(r, 1)[-1] <= budget]
+    if not fits:
+        raise ValueError(f"a {width}-wide frame does not fit the bf16 "
+                         f"grad-W kernel's shared memory")
+    bands = -(-out_h // fits[-1])
+    rows = -(-out_h // bands)
+    images = 1
+    if bands == 1:
+        images = max(1, min(n, MMA_UNIT_PIXELS // (rows * out_w)))
+        while images > 1 and (2 * MMA_MIN_STAGES * stage(rows, images)[-1]
+                              > budget):
+            images -= 1
+    xplane, ximg, x_elems, gps, g_elems, pix, stage_elems = stage(rows,
+                                                                  images)
+    stages = min(MMA_STAGES, budget // (2 * stage_elems))
+    reduce_bytes = (4 * (MMA_WARPS // MMA_TAP_WARPS[channels]) * k * k
+                    * channels * f)
+    units = -(-n // images) * bands
+    return GradWMmaPlan(rows, bands, images, xo, xrs, xplane, ximg, x_elems,
+                        gps, g_elems, pix, stage_elems, stages,
+                        max(2 * stages * stage_elems, reduce_bytes), units,
+                        min(units, MMA_BLOCKS_PER_SM * sm_count))
+
+
 # The ResNet stem kernel's output rows per band and its block's size
-# (csrc/conv.cu kResRows, kResWarps); a block's dynamic shared memory
+# (csrc/conv_resnet.cu kResRows, kResWarps); a block's dynamic shared
+# memory
 # must fit the H100's 227 KB.
 RESNET_ROWS = 8
 RESNET_WARPS = 8
 SMEM_LIMIT = 227 * 1024
-# The bf16 body (csrc/conv.cu res_mma_body): pixels of one mma.sync step,
-# to which a staged output row is padded (kResPix); the element of padded
-# column 0 in a staged x row, NHWC and planar (kResXoHwc, kResXoChw: the
-# data, column 1, then starts 16-byte aligned); its blocks per SM and its
-# ring's stages, as many as fit the SM's SMEM_BUDGET up to RESNET_STAGES
+# The bf16 body (csrc/conv_resnet.cu res_mma_body): pixels of one mma.sync
+# step,
+# to which a staged output row is padded (kResPix); its blocks per SM and
+# its ring's stages, as many as fit the SM's SMEM_BUDGET up to RESNET_STAGES
 # (the kernel takes at most kResMaxStages = 8).  On an H100 two blocks of
 # 3 stages read 0.30 ms at the main path's N=3232 where one block of 2, 3,
 # 4 or 6 read 0.40-0.42 (PERF.md, section 6).
 RESNET_PIXELS = 16
-RESNET_XO = {False: 5, True: 7}
+# The bf16 body's row and plane residues (mod 64 elements) at each channel
+# count: (NHWC x rows, planar x rows, planar x planes).
+RESNET_RESIDUES = {3: (40, 8, 24), 4: (32, 8, 16)}
 RESNET_BLOCKS_PER_SM = 2
 RESNET_STAGES = 3
 
@@ -264,9 +382,17 @@ def _at_least(n: int, residue: int, modulus: int) -> int:
     return n + (residue - n) % modulus
 
 
+def _resnet_xo(x_chw: bool, channels: int) -> int:
+    """The element of padded column 0 in a bf16 staged x row
+    (csrc/conv_resnet.cu kResXoChw, res_xo_hwc): the data, column 1,
+    starts 16-byte aligned (7 planar, 8 - C in NHWC)."""
+    return 7 if x_chw else 8 - channels
+
+
 def resnet_gradw_plan(n: int, height: int, width: int, itemsize: int,
                       sm_count: int, x_chw: bool = False,
-                      g_chw: bool = False) -> ResnetGradWPlan:
+                      g_chw: bool = False,
+                      channels: int = 3) -> ResnetGradWPlan:
     """Blocks: one per SM for float32, RESNET_BLOCKS_PER_SM for bf16 (at
     most one per unit); block b owns the units ``block_units(plan, b)``,
     in order.
@@ -280,14 +406,17 @@ def resnet_gradw_plan(n: int, height: int, width: int, itemsize: int,
     bf16 (the mma.sync body; each tensor staged in its own layout, ``x_chw``
     and ``g_chw``): output rows padded to ``wp`` pixels, a multiple of
     RESNET_PIXELS.  Strides in elements, chosen for the shared-memory banks
-    of the kernel's reads: NHWC x rows 40 (mod 64) apart (its 12 operand
-    loads take 1.33 wavefronts on average); planar x rows 8 and planes 24
-    (mod 64) apart (one wavefront each); NHWC g rows 32 bytes a pixel,
+    of the kernel's reads (RESNET_RESIDUES): at C = 3 NHWC x rows 40 (mod
+    64) apart (its 12 operand loads take 1.33 wavefronts on average),
+    planar x rows 8 and planes 24 (mod 64) apart (one wavefront each); at
+    C = 4 NHWC x rows 32 apart, planar rows 8 and planes 16 (one wavefront
+    each of its 16 loads); NHWC g rows 32 bytes a pixel,
     whose halves the kernel swaps at pixels with bit 2 set; planar g
     planes 16 bytes (mod 128) apart, so the 8 rows of one ldmatrix fall on
     distinct banks.  Every row starts 16-byte aligned.  As many stages as
     fit the SM's SMEM_BUDGET, up to RESNET_STAGES."""
-    k, _, c, f = RESNET_STEM
+    k, _, _, f = RESNET_STEM
+    c = channels
     bands = -(-height // RESNET_ROWS)
     units = n * bands
     x_rows = RESNET_ROWS + k - 1
@@ -299,13 +428,14 @@ def resnet_gradw_plan(n: int, height: int, width: int, itemsize: int,
         per_sm = 1
     else:
         wp = -(-width // RESNET_PIXELS) * RESNET_PIXELS
-        xo = RESNET_XO[x_chw]
+        xo = _resnet_xo(x_chw, c)
+        hwc_rows, chw_rows, chw_planes = RESNET_RESIDUES[c]
         if x_chw:
-            xrs = _at_least(xo + wp + 2, 8, 64)
-            xplane = _at_least(x_rows * xrs, 24, 64)
+            xrs = _at_least(xo + wp + 2, chw_rows, 64)
+            xplane = _at_least(x_rows * xrs, chw_planes, 64)
             x_elems = c * xplane
         else:
-            xrs = _at_least(xo + c * (wp + 2), 40, 64)
+            xrs = _at_least(xo + c * (wp + 2), hwc_rows, 64)
             xplane, x_elems = 0, x_rows * xrs
         if g_chw:
             grs = _at_least(RESNET_ROWS * wp, 8, 64)
@@ -354,8 +484,8 @@ def conv_gradw(x, g, kernel_size: int, stride: int):
     geometry = (k, s, c, f)
     if geometry not in _VARIANTS:
         raise ValueError(f"the grad-W kernels are built for the stems' "
-                         f"(K, S, C, F) = {STEM}, {STEM_C4} and "
-                         f"{RESNET_STEM}, got {geometry}")
+                         f"(K, S, C, F) = {', '.join(map(str, _VARIANTS))}, "
+                         f"got {geometry}")
     x_chw = tensor_layout(x) == "chw"
     g_chw = tensor_layout(g) == "chw"
     dw = torch.empty((k, k, c, f), dtype=torch.float32, device=x.device)
@@ -363,25 +493,27 @@ def conv_gradw(x, g, kernel_size: int, stride: int):
     stream = torch.cuda.current_stream().cuda_stream
     entry, counter = _VARIANTS[geometry][x.dtype]
     fn = getattr(_build.library(), entry)
-    if geometry != RESNET_STEM:
-        plan = gradw_plan(n, out_h, out_w, x_chw, g_chw, sm_count, c)
-        partial = torch.empty((plan.blocks, k * k * c * f),
-                              dtype=torch.float32, device=x.device)
-        code = fn(x.data_ptr(), g.data_ptr(), partial.data_ptr(),
-                  dw.data_ptr(), height, width, out_h, out_w, top, left,
-                  plan.band_rows, plan.bands, plan.xrs, plan.x_floats,
-                  plan.gps, plan.stage_floats, plan.smem_bytes, int(x_chw),
-                  int(g_chw), plan.units, plan.blocks, stream)
-    else:
+    if geometry in (RESNET_STEM, RESNET_STEM_C4):
         plan = resnet_gradw_plan(n, height, width, x.element_size(),
-                                 sm_count, x_chw, g_chw)
-        partial = torch.empty((plan.blocks, k * k * c * f),
-                              dtype=torch.float32, device=x.device)
-        code = fn(x.data_ptr(), g.data_ptr(), partial.data_ptr(),
-                  dw.data_ptr(), height, width, plan.bands, plan.xrs,
-                  plan.grs, plan.x_elems, plan.stage_elems, plan.stages,
-                  plan.xplane, plan.wp, plan.smem_bytes, int(x_chw),
-                  int(g_chw), plan.units, plan.blocks, stream)
+                                 sm_count, x_chw, g_chw, c)
+        args = (height, width, plan.bands, plan.xrs, plan.grs, plan.x_elems,
+                plan.stage_elems, plan.stages, plan.xplane, plan.wp,
+                plan.smem_bytes)
+    elif x.dtype == torch.float32:
+        plan = gradw_plan(n, out_h, out_w, x_chw, g_chw, sm_count, c)
+        args = (height, width, out_h, out_w, top, left, plan.band_rows,
+                plan.bands, plan.xrs, plan.x_floats, plan.gps,
+                plan.stage_floats, plan.smem_bytes)
+    else:
+        plan = gradw_mma_plan(n, height, width, c, x_chw, g_chw, sm_count)
+        args = (n, height, width, out_h, out_w, top, left, plan.band_rows,
+                plan.bands, plan.images, plan.xo, plan.xrs, plan.xplane,
+                plan.ximg, plan.x_elems, plan.gps, plan.g_elems, plan.pix,
+                plan.stage_elems, plan.stages, plan.smem_bytes)
+    partial = torch.empty((plan.blocks, k * k * c * f), dtype=torch.float32,
+                          device=x.device)
+    code = fn(x.data_ptr(), g.data_ptr(), partial.data_ptr(), dw.data_ptr(),
+              *args, int(x_chw), int(g_chw), plan.units, plan.blocks, stream)
     _build.check(code, f"grad-W kernel {entry}")
     _build.count_launch(LAUNCHES, counter)
     return dw

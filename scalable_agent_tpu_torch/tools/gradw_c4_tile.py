@@ -9,7 +9,9 @@ channels a thread (the kernel: 8 x 8 accumulators, three row groups of
 as the 3-channel kernel's whole-channel tile), prints each variant's
 ptxas registers and spills for its C = 4 band kernels, then times each at
 the Atari learner's x [3232, 84, 84, 4] and g [3232, 21, 21, 32], float32
-and bf16, contiguous NHWC and NHWC views of NCHW memory, twice in turns
+(the band kernel is float32 only: bf16 x and g take
+``conv_gradw_mma_kernel``), contiguous NHWC and NHWC views of NCHW
+memory, twice in turns
 (device ms per call from torch.profiler, each kernel's time divided by its
 recorded launches, as ``chip_smoke.py``'s ``_kernel_ms``), beside its
 error against ``conv_gradw_plain`` and cuDNN's ``conv2d_weight`` on the
@@ -41,7 +43,7 @@ N, H, W, C, F = 3232, 84, 84, 4, 32
 
 def build_variants(workdir):
     """One shared library per variant, compiled in parallel; returns each
-    one's bound C = 4 entry points by dtype and its ptxas lines for the
+    one's bound float32 C = 4 entry point and its ptxas lines for the
     C = 4 band kernels."""
     source = (_build.SOURCE_DIR / "conv.cu").read_text()
     jobs = []
@@ -55,8 +57,8 @@ def build_variants(workdir):
         src, lib = workdir / f"variant{i}.cu", workdir / f"variant{i}.so"
         src.write_text(text)
         jobs.append((name, lib, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(lib),
-             str(src)],
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.SOURCE_DIR),
+             "-shared", "-o", str(lib), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     built = {}
     for name, lib, proc in jobs:
@@ -64,11 +66,9 @@ def build_variants(workdir):
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {name}:\n{out}")
         handle = ctypes.CDLL(str(lib))
-        entries = {}
-        for dtype, entry in conv_cuda._VARIANTS[conv_cuda.STEM_C4].items():
-            fn = getattr(handle, entry[0])
-            fn.argtypes, fn.restype = _build._SIGNATURES[entry[0]]
-            entries[dtype] = fn
+        entry = conv_cuda._VARIANTS[conv_cuda.STEM_C4][torch.float32][0]
+        fn = getattr(handle, entry)
+        fn.argtypes, fn.restype = _build._SIGNATURES[entry]
         # Each kernel's "Function properties" line is followed by its
         # stack/spill line and its "Used N registers" line.
         lines = out.splitlines()
@@ -76,7 +76,7 @@ def build_variants(workdir):
                   for i, line in enumerate(lines[:-2])
                   if "Function properties" in line
                   and re.search(r"conv_gradw_band_kernel\w*Li4E", line)]
-        built[name] = (entries, report)
+        built[name] = (fn, report)
     return built
 
 
@@ -145,29 +145,25 @@ def main():
         built = build_variants(Path(workdir))
         for name, (_, report) in built.items():
             print(f"{name}: " + " | ".join(report), flush=True)
-        for dtype in (torch.float32, torch.bfloat16):
-            x, g = x32.to(dtype), g32.to(dtype)
-            want = conv_cuda.conv_gradw_plain(x, g, 8, 4)
-            cudnn = lambda: torch.nn.grad.conv2d_weight(
-                x.permute(0, 3, 1, 2), (F, C, 8, 8), g.permute(0, 3, 1, 2),
-                4, 2)
-            print(f"{dtype}: cuDNN conv2d_weight device "
-                  f"{device_ms(cudnn):.4f} ms", flush=True)
-            for turn in (1, 2):
-                for name, (entries, _) in built.items():
-                    groups = VARIANTS[name][1]
-                    cells = []
-                    for layout, xx, gg in (("NHWC", x, g),
-                                           ("planar", planar(x),
-                                            planar(g))):
-                        call = lambda: _call(entries[dtype], groups, xx, gg)
-                        got = call()
-                        err = float((got - want).abs().max()
-                                    / want.abs().max())
-                        cells.append(f"{layout} {device_ms(call):.4f} ms "
-                                     f"(err {err:.1e})")
-                    print(f"turn {turn}, {dtype}, {name}: "
-                          + "; ".join(cells), flush=True)
+        x, g = x32, g32
+        want = conv_cuda.conv_gradw_plain(x, g, 8, 4)
+        cudnn = lambda: torch.nn.grad.conv2d_weight(
+            x.permute(0, 3, 1, 2), (F, C, 8, 8), g.permute(0, 3, 1, 2), 4, 2)
+        print(f"cuDNN conv2d_weight device {device_ms(cudnn):.4f} ms",
+              flush=True)
+        for turn in (1, 2):
+            for name, (fn, _) in built.items():
+                groups = VARIANTS[name][1]
+                cells = []
+                for layout, xx, gg in (("NHWC", x, g),
+                                       ("planar", planar(x), planar(g))):
+                    call = lambda: _call(fn, groups, xx, gg)
+                    got = call()
+                    err = float((got - want).abs().max() / want.abs().max())
+                    cells.append(f"{layout} {device_ms(call):.4f} ms "
+                                 f"(err {err:.1e})")
+                print(f"turn {turn}, {name}: " + "; ".join(cells),
+                      flush=True)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

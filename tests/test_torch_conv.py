@@ -181,10 +181,14 @@ def test_other_strides_raise_on_the_kernel_route(monkeypatch, which):
 
 
 def test_other_geometries_raise_on_the_kernel_route(monkeypatch):
+    """A geometry no ported path reaches (two-channel frames through the
+    shallow stem, in either operand type) raises on the kernel route."""
     monkeypatch.setattr(_build, "on_cpu", lambda *_: False)
-    x, g = (torch.tensor(a) for a in _case(4, 2, 16, 16, 1, 32, 4))
-    with pytest.raises(ValueError, match="built for the stems'"):
-        conv_cuda.conv_gradw(x, g, 8, 4)
+    for dtype in (torch.float32, torch.bfloat16):
+        x, g = (torch.tensor(a).to(dtype)
+                for a in _case(4, 2, 16, 16, 2, 32, 4))
+        with pytest.raises(ValueError, match="built for the stems'"):
+            conv_cuda.conv_gradw(x, g, 8, 4)
 
 
 # -- the ResNet stem: 3x3, stride 1, 3 channels into 16 features -------------
@@ -276,7 +280,7 @@ def test_resnet_gradw_plan_fits_and_splits_in_order(n, h, w, item, sms):
         assert (per_sm * plan.stages * plan.stage_elems * item
                 <= conv_cuda.SMEM_BUDGET)
         assert plan.wp % 16 == 0 and w <= plan.wp < w + 16
-        xo, px = conv_cuda.RESNET_XO[x_chw], (1 if x_chw else 3)
+        xo, px = conv_cuda._resnet_xo(x_chw, 3), (1 if x_chw else 3)
         assert ((xo + px) * item) % 16 == 0
         assert plan.xrs >= xo + px * (plan.wp + 2)
         if x_chw:
@@ -321,7 +325,7 @@ def test_resnet_gradw_plan_refuses_a_frame_too_wide():
         conv_cuda.resnet_gradw_plan(8, 16, 1600, 2, 132)
 
 
-# -- the bf16 body's addressing, mirrored from csrc/conv.cu res_mma_body ------
+# -- the bf16 body's addressing, mirrored from conv_resnet.cu res_mma_body --
 #
 # A staged band is built as the kernel's copies build it (the same runs of
 # raw memory, the same zeroing, the same ring of stages), and each lane's
@@ -330,29 +334,36 @@ def test_resnet_gradw_plan_refuses_a_frame_too_wide():
 # the kernel.
 
 
-def _b_offsets(plan, x_chw, lane):
-    """A lane's off_a, off_b and elements per padded column."""
+def _b_offsets(plan, x_chw, lane, channels=3):
+    """A lane's off_a, off_b, off_c (C = 4's tile 4) and elements per
+    padded column."""
     gid, t = lane >> 2, lane & 3
-    px = 1 if x_chw else 3
+    c = channels
+    px = 1 if x_chw else c
     cs = plan.xplane if x_chw else 1
-    xo = conv_cuda.RESNET_XO[x_chw]
-    off_a = (gid // 3) * plan.xrs + (gid % 3) * cs + xo + 2 * t * px
-    off_b = 2 * (plan.xrs + cs) + xo + (2 * t + min(gid, 2)) * px
-    return off_a, off_b, px
+    xo = conv_cuda._resnet_xo(x_chw, c)
+    off_a = (gid // c) * plan.xrs + (gid % c) * cs + xo + 2 * t * px
+    if c == 3:
+        off_b = 2 * (plan.xrs + cs) + xo + (2 * t + min(gid, 2)) * px
+    else:
+        off_b = 2 * plan.xrs + (gid % 4) * cs + xo + (2 * t + gid // 4) * px
+    off_c = 2 * plan.xrs + (gid % 4) * cs + xo + (2 * t + 2) * px
+    return off_a, off_b, off_c, px
 
 
-def _b_loads(plan, x_chw):
-    """The 12 16-bit loads of one chunk's patches (per half: v0..v3 then
-    w0, w1), each the 32 lanes' elements relative to the chunk's first
-    pixel in the warp's staged x row."""
+def _b_loads(plan, x_chw, channels=3):
+    """The 16-bit loads of one chunk's patches (per half: v0..v3, w0, w1
+    and at C = 4 y0, y1: 12 or 16), each the 32 lanes' elements relative
+    to the chunk's first pixel in the warp's staged x row."""
     loads = []
+    runs = ((0, 4), (1, 2)) + (((2, 2),) if channels == 4 else ())
     for h in range(2):
-        for which, count in ((0, 4), (1, 2)):
+        for which, count in runs:
             for d in range(count):
                 loads.append([])
                 for lane in range(32):
-                    off_a, off_b, px = _b_offsets(plan, x_chw, lane)
-                    loads[-1].append((off_a, off_b)[which] + (8 * h + d) * px)
+                    *offs, px = _b_offsets(plan, x_chw, lane, channels)
+                    loads[-1].append(offs[which] + (8 * h + d) * px)
     return loads
 
 
@@ -364,11 +375,16 @@ def _a_row(plan, g_chw, lane):
     return (r8 + 8 * (mat >> 1)) * 16 + 8 * ((mat & 1) ^ (r8 >> 2))
 
 
-def _column_tap(j, i):
-    """res_column_tap: dW row (kh*3 + kw)*3 + c of column i of tile j."""
+def _column_tap(j, i, channels=3):
+    """res_column_tap: dW row (kh*3 + kw)*C + c of column i of tile j."""
+    c = channels
     if j < 3:
-        return ((i // 3) * 3 + j) * 3 + i % 3
-    return (6 + i) * 3 + 2 if i < 3 else -1
+        return ((i // c) * 3 + j) * c + i % c
+    if c == 3:
+        return (6 + i) * 3 + 2 if i < 3 else -1
+    if j == 3:
+        return (6 + i // 4) * 4 + i % 4
+    return 8 * 4 + i if i < 4 else -1
 
 
 def _runs(buf, dst, dpl, drow, mem, src, spl, srow, planes, rows, length):
@@ -383,24 +399,25 @@ def _zero_runs(buf, dst, dpl, drow, planes, r0, r1):
         buf[dst + p * dpl + r0 * drow:dst + p * dpl + r1 * drow] = 0
 
 
-def _stage(buf, plan, x_chw, g_chw, xm, gm, n, band, h, w):
+def _stage(buf, plan, x_chw, g_chw, xm, gm, n, band, h, w, channels=3):
     """res_mma_stage: image n's band into the stage ``buf``."""
+    c = channels
     oh0 = band * 8
     rows = min(8, h - oh0)
     xr, ih0 = rows + 2, oh0 - 1
     lo, hi = max(0, -ih0), min(xr, h - ih0)
     plane = h * w
-    xo = conv_cuda.RESNET_XO[x_chw]
+    xo = conv_cuda._resnet_xo(x_chw, c)
     if x_chw:
-        _zero_runs(buf, 0, plan.xplane, plan.xrs, 3, 0, lo)
-        _zero_runs(buf, 0, plan.xplane, plan.xrs, 3, hi, xr)
+        _zero_runs(buf, 0, plan.xplane, plan.xrs, c, 0, lo)
+        _zero_runs(buf, 0, plan.xplane, plan.xrs, c, hi, xr)
         _runs(buf, lo * plan.xrs + xo + 1, plan.xplane, plan.xrs, xm,
-              n * 3 * plane + (ih0 + lo) * w, plane, w, 3, hi - lo, w)
+              n * c * plane + (ih0 + lo) * w, plane, w, c, hi - lo, w)
     else:
         _zero_runs(buf, 0, 0, plan.xrs, 1, 0, lo)
         _zero_runs(buf, 0, 0, plan.xrs, 1, hi, xr)
-        _runs(buf, lo * plan.xrs + xo + 3, 0, plan.xrs, xm,
-              (n * plane + (ih0 + lo) * w) * 3, 0, w * 3, 1, hi - lo, w * 3)
+        _runs(buf, lo * plan.xrs + xo + c, 0, plan.xrs, xm,
+              (n * plane + (ih0 + lo) * w) * c, 0, w * c, 1, hi - lo, w * c)
     gs = plan.x_elems
     src = n * 16 * plane + oh0 * w
     if g_chw and plan.wp == w:
@@ -430,57 +447,62 @@ def _ldmatrix_x4(buf, rows_at, trans):
     return regs
 
 
-def _fragments(buf, plan, x_chw, g_chw, warp, cb):
-    """The matrices a warp's 4 mma.sync multiply for chunk cb of its row:
-    A [16 features, 16 pixels] and B [16 pixels, 32 columns], and every
-    element the lanes read (to hold them inside their regions)."""
-    x_row = warp * plan.xrs + cb * 16 * (1 if x_chw else 3)
+def _fragments(buf, plan, x_chw, g_chw, warp, cb, channels=3):
+    """The matrices a warp's 4 (5 at C = 4) mma.sync multiply for chunk cb
+    of its row: A [16 features, 16 pixels] and B [16 pixels, 32 (40)
+    columns], and every element the lanes read (to hold them inside their
+    regions)."""
+    tiles = 4 if channels == 3 else 5
+    x_row = warp * plan.xrs + cb * 16 * (1 if x_chw else channels)
     g_chunk = plan.x_elems + warp * plan.wp * (1 if g_chw else 16) + (
         cb * 16 * (1 if g_chw else 16))
     rows_at = [g_chunk + _a_row(plan, g_chw, lane) for lane in range(32)]
     regs = _ldmatrix_x4(buf, rows_at, trans=not g_chw)
     a_mat = np.empty((16, 16))
-    b_mat = np.empty((16, 32))
-    loads = np.array(_b_loads(plan, x_chw)) + x_row  # [12, 32]
+    b_mat = np.empty((16, 8 * tiles))
+    loads = np.array(_b_loads(plan, x_chw, channels)) + x_row  # [12|16, 32]
     values = buf[loads]
+    per = len(loads) // 2
     for lane in range(32):
         gid, t = lane >> 2, lane & 3
         for i in range(4):
             a_mat[gid + 8 * (i & 1), 2 * t + 8 * (i >> 1):][:2] = regs[lane, i]
         for h in range(2):
-            v = values[6 * h:6 * h + 4, lane]
-            w0, w1 = values[6 * h + 4:6 * h + 6, lane]
-            for j, pair in enumerate(((v[0], v[1]), (v[1], v[2]),
-                                      (v[2], v[3]), (w0, w1))):
+            v = values[per * h:per * h + per, lane]
+            pairs = ((v[0], v[1]), (v[1], v[2]), (v[2], v[3]), (v[4], v[5]))
+            if tiles == 5:
+                pairs += ((v[6], v[7]),)
+            for j, pair in enumerate(pairs):
                 b_mat[2 * t + 8 * h:2 * t + 8 * h + 2, 8 * j + gid] = pair
     return a_mat, b_mat, rows_at, loads
 
 
 def _emulate_resnet_bf16(x, g, x_chw, g_chw, sm_count, check=None):
-    """csrc/conv.cu's bf16 body on numpy [N, H, W, 3] x and [N, H, W, 16]
-    g: every block's ring, staging and mma fragments, summed in the
+    """csrc/conv_resnet.cu's bf16 body on numpy [N, H, W, C] x and [N, H,
+    W, 16] g: every block's ring, staging and mma fragments, summed in the
     kernel's order (chunks into a band's float32 accumulator, bands into
-    the running sums, warps, then blocks); dW [3, 3, 3, 16].
+    the running sums, warps, then blocks); dW [3, 3, C, 16].
     ``check(n, oh0, warp, cb, a_mat, b_mat)`` sees every chunk's
     matrices."""
-    n_img, h, w, _ = x.shape
+    n_img, h, w, c = x.shape
+    tiles = 4 if c == 3 else 5
     plan = conv_cuda.resnet_gradw_plan(n_img, h, w, 2, sm_count, x_chw,
-                                       g_chw)
+                                       g_chw, c)
     xm = np.ascontiguousarray(x.transpose(0, 3, 1, 2) if x_chw else x).ravel()
     gm = np.ascontiguousarray(g.transpose(0, 3, 1, 2) if g_chw else g).ravel()
     partials = []
     for block in range(plan.blocks):
         ring = np.zeros((plan.stages, plan.stage_elems))
-        acc = np.zeros((8, 16, 32), np.float32)
+        acc = np.zeros((8, 16, 8 * tiles), np.float32)
         for i, u in enumerate(conv_cuda.block_units(plan, block)):
             n, band = divmod(u, plan.bands)
             buf = ring[i % plan.stages]
-            _stage(buf, plan, x_chw, g_chw, xm, gm, n, band, h, w)
+            _stage(buf, plan, x_chw, g_chw, xm, gm, n, band, h, w, c)
             for warp in range(min(8, h - band * 8)):
-                part = np.zeros((16, 32), np.float32)
+                part = np.zeros((16, 8 * tiles), np.float32)
                 for cb in range(plan.wp // 16):
                     a_mat, b_mat, rows_at, loads = _fragments(
-                        buf, plan, x_chw, g_chw, warp, cb)
+                        buf, plan, x_chw, g_chw, warp, cb, c)
                     assert plan.x_elems <= min(rows_at)
                     assert max(rows_at) + 8 <= plan.stage_elems
                     assert 0 <= loads.min() and loads.max() < plan.x_elems
@@ -488,14 +510,14 @@ def _emulate_resnet_bf16(x, g, x_chw, g_chw, sm_count, check=None):
                         check(n, band * 8, warp, cb, a_mat, b_mat)
                     part += (a_mat @ b_mat).astype(np.float32)
                 acc[warp] += part
-        dw = np.zeros((27, 16), np.float32)
+        dw = np.zeros((9 * c, 16), np.float32)
         for warp in range(8):
-            for col in range(32):
-                tap = _column_tap(col // 8, col % 8)
+            for col in range(8 * tiles):
+                tap = _column_tap(col // 8, col % 8, c)
                 if tap >= 0:
                     dw[tap] += acc[warp, :, col]
         partials.append(dw)
-    return np.sum(partials, axis=0, dtype=np.float32).reshape(3, 3, 3, 16)
+    return np.sum(partials, axis=0, dtype=np.float32).reshape(3, 3, c, 16)
 
 
 RESNET_BF16_CASES = [(1, 72, 96), (3, 17, 23)]
@@ -580,14 +602,9 @@ class _Recorder:
         return lambda *args: self.calls.append((name, args)) or 0
 
 
-@pytest.mark.parametrize("dtype,suffix", [(torch.float32, ""),
-                                          (torch.bfloat16, "_bf16")])
-@pytest.mark.parametrize("layout", ["hwc", "chw"])
-def test_resnet_geometry_takes_its_kernel_on_the_card(monkeypatch, dtype,
-                                                      suffix, layout):
-    """On the kernel route (x and g on the card, here a stand-in library)
-    (3, 1, 3, 16) launches the ResNet stem kernel of the operand type with
-    its plan and counts it there, and never the plain version."""
+def _kernel_route(monkeypatch):
+    """The kernel route with a stand-in library and 132 SMs; the plain
+    version fails the test if it runs."""
     library = _Recorder()
     monkeypatch.setattr(_build, "on_cpu", lambda *_: False)
     monkeypatch.setattr(_build, "library", lambda: library)
@@ -596,6 +613,18 @@ def test_resnet_geometry_takes_its_kernel_on_the_card(monkeypatch, dtype,
                         lambda: type("S", (), {"cuda_stream": 7})())
     monkeypatch.setattr(conv_cuda, "conv_gradw_plain", lambda *a: pytest.fail(
         "the kernel route ran the plain version"))
+    return library
+
+
+@pytest.mark.parametrize("dtype,suffix", [(torch.float32, ""),
+                                          (torch.bfloat16, "_bf16")])
+@pytest.mark.parametrize("layout", ["hwc", "chw"])
+def test_resnet_geometry_takes_its_kernel_on_the_card(monkeypatch, dtype,
+                                                      suffix, layout):
+    """On the kernel route (x and g on the card, here a stand-in library)
+    (3, 1, 3, 16) launches the ResNet stem kernel of the operand type with
+    its plan and counts it there, and never the plain version."""
+    library = _kernel_route(monkeypatch)
     x, g = (torch.tensor(a).to(dtype) for a in _case(6, 2, 17, 23, 3, 16, 1))
     x, g = _layouts(x, g)[layout]
     before = dict(conv_cuda.LAUNCHES)
@@ -710,16 +739,10 @@ def test_c4_gradw_plain_matches_pallas(atari_gradw_case, hw, dtype):
 def test_c4_geometry_takes_its_kernel_on_the_card(monkeypatch, dtype,
                                                   suffix, layout):
     """On the kernel route (x and g on the card, here a stand-in library)
-    (8, 4, 4, 32) launches the C = 4 band kernel of the operand type with
-    its plan and counts it there, and never the plain version."""
-    library = _Recorder()
-    monkeypatch.setattr(_build, "on_cpu", lambda *_: False)
-    monkeypatch.setattr(_build, "library", lambda: library)
-    monkeypatch.setattr(conv_cuda, "_sm_count", lambda index: 132)
-    monkeypatch.setattr(conv_cuda.torch.cuda, "current_stream",
-                        lambda: type("S", (), {"cuda_stream": 7})())
-    monkeypatch.setattr(conv_cuda, "conv_gradw_plain", lambda *a: pytest.fail(
-        "the kernel route ran the plain version"))
+    (8, 4, 4, 32) launches the C = 4 kernel of the operand type (float32:
+    the band kernel; bf16: the mma.sync kernel) with its plan and counts
+    it there, and never the plain version."""
+    library = _kernel_route(monkeypatch)
     x, g = (torch.tensor(a).to(dtype) for a in _case(8, 2, 84, 84, 4, 32, 4))
     x, g = _layouts(x, g)[layout]
     before = dict(conv_cuda.LAUNCHES)
@@ -727,11 +750,20 @@ def test_c4_geometry_takes_its_kernel_on_the_card(monkeypatch, dtype,
     (name, args), = library.calls
     assert name == "sat_conv_gradw_c4" + suffix
     chw = layout == "chw"
-    plan = conv_cuda.gradw_plan(2, 21, 21, chw, chw, 132, 4)
-    assert args[4:] == (84, 84, 21, 21, 2, 2, plan.band_rows, plan.bands,
-                        plan.xrs, plan.x_floats, plan.gps,
-                        plan.stage_floats, plan.smem_bytes, int(chw),
-                        int(chw), plan.units, plan.blocks, 7)
+    if dtype == torch.float32:
+        plan = conv_cuda.gradw_plan(2, 21, 21, chw, chw, 132, 4)
+        assert args[4:] == (84, 84, 21, 21, 2, 2, plan.band_rows,
+                            plan.bands, plan.xrs, plan.x_floats, plan.gps,
+                            plan.stage_floats, plan.smem_bytes, int(chw),
+                            int(chw), plan.units, plan.blocks, 7)
+    else:
+        plan = conv_cuda.gradw_mma_plan(2, 84, 84, 4, chw, chw, 132)
+        assert args[4:] == (2, 84, 84, 21, 21, 2, 2, plan.band_rows,
+                            plan.bands, plan.images, plan.xo, plan.xrs,
+                            plan.xplane, plan.ximg, plan.x_elems, plan.gps,
+                            plan.g_elems, plan.pix, plan.stage_elems,
+                            plan.stages, plan.smem_bytes, int(chw), int(chw),
+                            plan.units, plan.blocks, 7)
     grown = {k: v - before[k] for k, v in conv_cuda.LAUNCHES.items()
              if v != before[k]}
     assert grown == {"stem_gradw_c4" + suffix: 1}
@@ -776,12 +808,631 @@ def test_c4_gradw_plan_of_the_atari_path():
     assert plan.xrs == 360
 
 
-def test_one_channel_and_resnet_c4_still_raise(monkeypatch):
-    """The geometries left to port (ROADMAP.md, queue 2) raise on the
-    kernel route: a one-channel image through the shallow stem, and the
-    ResNet stem on 4 channels."""
-    monkeypatch.setattr(_build, "on_cpu", lambda *_: False)
-    for (k, s, c, f) in ((8, 4, 1, 32), (3, 1, 4, 16)):
-        x, g = (torch.tensor(a) for a in _case(5, 2, 16, 16, c, f, s))
-        with pytest.raises(ValueError, match="built for the stems'"):
-            conv_cuda.conv_gradw(x, g, k, s)
+# -- the shallow stem's bf16 kernel, mirrored from csrc/conv_mma.cu ----------
+#
+# conv_gradw_mma_kernel: a unit (a band of one image, or whole small images)
+# is staged as the kernel's copies stage it (the same raw runs, the g
+# chunks' swizzle, the zeroed rows and tail, the table of patch origins,
+# the same ring of stages), and each lane's ldmatrix and 16-bit loads read
+# it at the kernel's offsets; the fragments are then laid out as mma.sync
+# m16n8k16 defines them.  Change these with the kernel.
+
+
+def _mma_tap(plan, channels, x_chw, tile, n):
+    """mma_tap: dW row and staged-x offset of column n of n8 tile
+    ``tile``."""
+    if x_chw:
+        kh, c, kw = tile // channels, tile % channels, n
+        off = c * plan.xplane + kh * plan.xrs + kw
+    else:
+        tau = 8 * tile + n
+        kh, kw = tau // (8 * channels), (tau // channels) % 8
+        c = tau % channels
+        off = kh * plan.xrs + kw * channels + c
+    return (kh * 8 + kw) * channels + c, off
+
+
+def _mma_pixel(g_chw, k):
+    """mma_pixel: the pixel of a step that row k of the fragments is."""
+    return k if g_chw else 8 * (k >> 3) + ((k >> 1) & 3) + 4 * (k & 1)
+
+
+def _mma_geometry(h, w):
+    out_h, (pad_h, _) = conv_cuda.same_pads(h, 8, 4)
+    out_w, (pad_w, _) = conv_cuda.same_pads(w, 8, 4)
+    return out_h, out_w, pad_h, pad_w
+
+
+def _mma_unit(plan, u, n_img, out_h, out_w):
+    """The images, band rows and pixels of unit u."""
+    group, band = divmod(u, plan.bands)
+    n0 = group * plan.images
+    imgs = min(plan.images, n_img - n0)
+    oh0 = band * plan.band_rows
+    rows = min(plan.band_rows, out_h - oh0)
+    return n0, imgs, oh0, rows, imgs * rows * out_w
+
+
+def _mma_stage(buf, table, plan, channels, x_chw, g_chw, xm, gm, u, n_img,
+               h, w):
+    """mma_stage: unit u into the stage ``buf`` and its table."""
+    out_h, out_w, pad_h, pad_w = _mma_geometry(h, w)
+    n0, imgs, oh0, rows, pu = _mma_unit(plan, u, n_img, out_h, out_w)
+    xr = (rows - 1) * 4 + 8
+    ih0 = oh0 * 4 - pad_h
+    lo, hi = max(0, -ih0), min(xr, h - ih0)
+    px = 1 if x_chw else channels
+    planes = imgs * channels if x_chw else imgs
+    dpl = plan.xplane if x_chw else plan.ximg
+    spl = h * w if x_chw else h * w * channels
+    _zero_runs(buf, 0, dpl, plan.xrs, planes, 0, lo)
+    _zero_runs(buf, 0, dpl, plan.xrs, planes, hi, xr)
+    _runs(buf, lo * plan.xrs + plan.xo + pad_w * px, dpl, plan.xrs, xm,
+          n0 * h * w * channels + (ih0 + lo) * w * px, spl, w * px, planes,
+          hi - lo, w * px)
+    gs, pimg, p16 = plan.x_elems, rows * out_w, -(-pu // 16) * 16
+    ohw = out_h * out_w
+    if g_chw:
+        _runs(buf, gs, plan.gps, pimg, gm, n0 * 32 * ohw + oh0 * out_w, ohw,
+              32 * ohw, 32, imgs, pimg)
+        for f in range(32):
+            buf[gs + f * plan.gps + pu:gs + f * plan.gps + p16] = 0
+    else:
+        src = (n0 * ohw + oh0 * out_w) * 32
+        p = np.arange(pu)[:, None]
+        f = np.arange(32)[None, :]
+        dst = gs + p * 32 + 8 * ((f >> 3) ^ ((p >> 1) & 3)) + (f & 7)
+        buf[dst] = gm[src + p * 32 + f]
+        buf[gs + pu * 32:gs + p16 * 32] = 0
+    assert plan.x_elems + plan.g_elems + 2 * plan.pix <= plan.stage_elems
+    table[:] = plan.xo
+    p = np.arange(pu)
+    i, r = np.divmod(p, pimg)
+    oh, ow = np.divmod(r, out_w)
+    table[:pu] = plan.xo + i * plan.ximg + oh * 4 * plan.xrs + ow * 4 * px
+    return n0, oh0, pu
+
+
+def _mma_fragments(buf, table, plan, channels, x_chw, g_chw, k0):
+    """One step's A [32 features, 16 k] and B [16 k, 64*C taps] as the 8
+    warps' lanes load them (B's columns in dW row order), and every
+    element the lanes read."""
+    gs = plan.x_elems
+    lanes = np.arange(32)
+    gid, t = lanes >> 2, lanes & 3
+    mat, r8 = lanes >> 3, lanes & 7
+    a_mat = np.empty((32, 16))
+    rows_seen = []
+    for mt in range(2):
+        if g_chw:
+            rows_at = (gs + k0 + (16 * mt + r8 + 8 * (mat & 1)) * plan.gps
+                       + 8 * (mat >> 1))
+        else:
+            p = np.array([_mma_pixel(False, k) for k in r8 + 8 * (mat >> 1)])
+            rows_at = (gs + k0 * 32 + p * 32
+                       + 8 * (((mat & 1) + 2 * mt) ^ ((p >> 1) & 3)))
+        rows_seen += list(rows_at)
+        regs = _ldmatrix_x4(buf, list(rows_at), trans=not g_chw)
+        for lane in range(32):
+            for i in range(4):
+                a_mat[16 * mt + gid[lane] + 8 * (i & 1),
+                      2 * t[lane] + 8 * (i >> 1):][:2] = regs[lane, i]
+    kj = [2 * t + (j & 1) + 8 * (j >> 1) for j in range(4)]
+    origins = [table[k0 + np.array([_mma_pixel(g_chw, k) for k in kk])]
+               for kk in kj]
+    b_mat = np.empty((16, 64 * channels))
+    loads = []
+    for tile in range(8 * channels):
+        for lane in range(32):
+            tap, off = _mma_tap(plan, channels, x_chw, tile, gid[lane])
+            for j in range(4):
+                loads.append(origins[j][lane] + off)
+                b_mat[kj[j][lane], tap] = buf[origins[j][lane] + off]
+    return a_mat, b_mat, np.array(rows_seen), np.array(loads)
+
+
+def _emulate_mma_bf16(x, g, x_chw, g_chw, sm_count, budget=None,
+                      check=None):
+    """csrc/conv_mma.cu's conv_gradw_mma_kernel on numpy [N, H, W, C] x
+    and [N, OH, OW, 32] g: every block's ring, staging and fragments,
+    summed in the kernel's order (each pixel group's steps in order into
+    its float32 sums, the pixel groups in order, then the blocks); dW [8,
+    8, C, 32].  ``check(n0,
+    oh0, pu, k0, a_mat, b_mat)`` sees every step's matrices."""
+    n_img, h, w, channels = x.shape
+    out_h, out_w, _, _ = _mma_geometry(h, w)
+    plan = conv_cuda.gradw_mma_plan(
+        n_img, h, w, channels, x_chw, g_chw, sm_count,
+        **({} if budget is None else {"budget": budget}))
+    groups = conv_cuda.MMA_WARPS // conv_cuda.MMA_TAP_WARPS[channels]
+    xm = np.ascontiguousarray(x.transpose(0, 3, 1, 2) if x_chw else x).ravel()
+    gm = np.ascontiguousarray(g.transpose(0, 3, 1, 2) if g_chw else g).ravel()
+    partials = []
+    for block in range(plan.blocks):
+        ring = np.zeros((plan.stages, plan.stage_elems))
+        tables = np.zeros((plan.stages, plan.pix), np.int64)
+        acc = np.zeros((groups, 32, 64 * channels), np.float32)
+        for i, u in enumerate(conv_cuda.block_units(plan, block)):
+            buf, table = ring[i % plan.stages], tables[i % plan.stages]
+            n0, oh0, pu = _mma_stage(buf, table, plan, channels, x_chw,
+                                     g_chw, xm, gm, u, n_img, h, w)
+            for st in range(-(-pu // 16)):
+                a_mat, b_mat, rows_at, loads = _mma_fragments(
+                    buf, table, plan, channels, x_chw, g_chw, 16 * st)
+                assert plan.x_elems <= rows_at.min()
+                assert rows_at.max() + 8 <= plan.x_elems + plan.g_elems
+                assert 0 <= loads.min() and loads.max() < plan.x_elems
+                if check:
+                    check(n0, oh0, pu, 16 * st, a_mat, b_mat)
+                acc[st % groups] += (a_mat @ b_mat).astype(np.float32)
+        partials.append(np.sum(acc, axis=0, dtype=np.float32))
+    dw = np.sum(partials, axis=0, dtype=np.float32)
+    return dw.T.reshape(8, 8, channels, 32)
+
+
+MMA_LAYOUTS = [(False, False), (True, True)]
+MMA_CASES = [
+    # (N, frame H, W, C, split): odd frames (asymmetric pads) of several
+    # whole images a unit, 16x16 frames (4x4 outputs), the one-channel
+    # path's 72x96x1, and bands of one image (split: a budget just short
+    # of a whole image's stages, _mma_budget).
+    (3, 17, 23, 1, False), (2, 17, 23, 3, False), (2, 17, 23, 4, False),
+    (3, 16, 16, 3, False), (1, 72, 96, 1, False),
+    (2, 24, 32, 3, True), (1, 36, 36, 4, True),
+]
+
+
+def _mma_budget(h, w, c, x_chw, g_chw, split):
+    """None, or a budget that leaves MMA_MIN_STAGES stages of a whole
+    image just out of reach (two bands)."""
+    if not split:
+        return None
+    whole = conv_cuda.gradw_mma_plan(1, h, w, c, x_chw, g_chw, 2)
+    return 2 * conv_cuda.MMA_MIN_STAGES * whole.stage_elems - 2
+
+
+@pytest.mark.parametrize("x_chw,g_chw", MMA_LAYOUTS + [(True, False),
+                                                        (False, True)])
+@pytest.mark.parametrize("n,h,w,c,split", MMA_CASES)
+def test_mma_bf16_fragments_hold_the_right_taps_and_pixels(n, h, w, c,
+                                                           split, x_chw,
+                                                           g_chw):
+    """Index level: with every x and g element replaced by its own number
+    (1, 2, ...; the pads 0), each step's A holds g[n, oh, ow, f] at (f, k)
+    for the unit's pixel k stands for (zero past the unit's last pixel),
+    and its B holds x[n, 4*oh + kh - pad_h, 4*ow + kw - pad_w, c] at (k,
+    tap (kh, kw, c)), zero in the SAME pads; every unit's pixels are
+    taken once."""
+    out_h, out_w, pad_h, pad_w = _mma_geometry(h, w)
+    x_id = 1.0 + np.arange(n * h * w * c, dtype=np.float64).reshape(
+        n, h, w, c)
+    g_id = 1.0 + np.arange(n * out_h * out_w * 32, dtype=np.float64
+                           ).reshape(n, out_h, out_w, 32)
+    hp, wp = (out_h - 1) * 4 + 8, (out_w - 1) * 4 + 8
+    xp = np.zeros((n, hp, wp, c))
+    xp[:, pad_h:pad_h + h, pad_w:pad_w + w] = x_id
+    budget = _mma_budget(h, w, c, x_chw, g_chw, split)
+    plan = conv_cuda.gradw_mma_plan(n, h, w, c, x_chw, g_chw, 2,
+                                    **({} if budget is None
+                                       else {"budget": budget}))
+    if split:
+        assert plan.bands > 1 and plan.images == 1
+    taps = [(kh, kw, cc) for kh in range(8) for kw in range(8)
+            for cc in range(c)]
+    kh, kw, cc = (np.array(v) for v in zip(*taps))
+    seen = []
+
+    def check(n0, oh0, pu, k0, a_mat, b_mat):
+        rows = min(plan.band_rows, out_h - oh0)
+        for k in range(16):
+            p = k0 + _mma_pixel(g_chw, k)
+            if p >= pu:
+                assert not a_mat[:, k].any()
+                assert np.isfinite(b_mat[k]).all()
+                continue
+            i, r = divmod(p, rows * out_w)
+            oh, ow = oh0 + r // out_w, r % out_w
+            np.testing.assert_array_equal(a_mat[:, k], g_id[n0 + i, oh, ow])
+            np.testing.assert_array_equal(
+                b_mat[k], xp[n0 + i, 4 * oh + kh, 4 * ow + kw, cc])
+            seen.append((n0 + i, oh, ow))
+
+    _emulate_mma_bf16(x_id, g_id, x_chw, g_chw, sm_count=2, budget=budget,
+                      check=check)
+    assert sorted(seen) == [(i, oh, ow) for i in range(n)
+                            for oh in range(out_h) for ow in range(out_w)]
+
+
+@pytest.fixture(scope="module")
+def mma_sum_cases():
+    """bf16-exact x and g for MMA_CASES, and the Pallas kernel's dW on
+    them (interpret mode, matmul_dtype="bfloat16"): computed once."""
+    cases = {}
+    for n, h, w, c, _ in MMA_CASES:
+        x, g = _case(h * w + 11 * c, n, h, w, c, 32, 4)
+        x = torch.tensor(x).bfloat16()
+        g = torch.tensor(g).bfloat16()
+        want = np.asarray(conv_pallas.conv_gradw(
+            jnp.asarray(x.float().numpy(), jnp.bfloat16),
+            jnp.asarray(g.float().numpy(), jnp.bfloat16), 8, 4,
+            interpret=True, matmul_dtype="bfloat16"))
+        cases[(n, h, w, c)] = (x, g, want)
+    return cases
+
+
+@pytest.mark.parametrize("x_chw,g_chw", MMA_LAYOUTS)
+@pytest.mark.parametrize("n,h,w,c,split", MMA_CASES)
+def test_mma_bf16_fragment_sums_match_plain_and_pallas(mma_sum_cases, n, h,
+                                                       w, c, split, x_chw,
+                                                       g_chw):
+    """The products those fragments pair, summed in the kernel's order,
+    against conv_gradw_plain and the Pallas kernel on bf16-exact x and g,
+    at the tolerance of test_c4_gradw_plain_matches_pallas."""
+    x, g, want = mma_sum_cases[(n, h, w, c)]
+    got = _emulate_mma_bf16(x.float().numpy().astype(np.float64),
+                            g.float().numpy().astype(np.float64), x_chw,
+                            g_chw, sm_count=2,
+                            budget=_mma_budget(h, w, c, x_chw, g_chw, split))
+    plain = conv_cuda.conv_gradw_plain(x, g, 8, 4).numpy()
+    for reference in (plain, want):
+        np.testing.assert_allclose(got, reference, rtol=1e-5,
+                                   atol=2e-6 * np.abs(reference).max())
+
+
+MMA_PLAN_FRAMES = [
+    # (frame H, W, C): every frame a ported path hands the bf16 kernel.
+    (72, 96, 3), (72, 128, 3), (16, 16, 3), (84, 84, 4), (72, 96, 1)]
+
+
+@pytest.mark.parametrize("sms", [132, 7])
+@pytest.mark.parametrize("n", [3232, 3233, 1])
+@pytest.mark.parametrize("h,w,c", MMA_PLAN_FRAMES)
+def test_gradw_mma_plan_fits_and_splits_in_order(h, w, c, n, sms):
+    """Every (image group, band) unit once and in order, over blocks
+    (MMA_BLOCKS_PER_SM an SM) that differ by at most one unit; equal bands
+    covering the output rows; several whole images a unit only where a
+    band is the whole image; the staged rows' data 16-byte aligned
+    (cp.async) in both layouts; a block's ring of at least MMA_MIN_STAGES
+    stages within its share of SMEM_BUDGET, and the pixel groups' final
+    sums within the block's shared memory."""
+    out_h, out_w, _, pad_w = _mma_geometry(h, w)
+    for x_chw, g_chw in LAYOUT_PAIRS:
+        plan = conv_cuda.gradw_mma_plan(n, h, w, c, x_chw, g_chw, sms)
+        assert plan.bands * plan.band_rows >= out_h
+        assert (plan.bands - 1) * plan.band_rows < out_h
+        assert plan.images == 1 or plan.bands == 1
+        assert plan.images * plan.band_rows * out_w <= max(
+            conv_cuda.MMA_UNIT_PIXELS, plan.band_rows * out_w)
+        assert plan.units == -(-n // plan.images) * plan.bands
+        per_sm = conv_cuda.MMA_BLOCKS_PER_SM
+        assert plan.blocks == min(plan.units, per_sm * sms)
+        units = [list(conv_cuda.block_units(plan, b))
+                 for b in range(plan.blocks)]
+        assert all(units) and max(map(len, units)) - min(map(len, units)) <= 1
+        assert [u for block in units for u in block] == list(
+            range(plan.units))
+        px = 1 if x_chw else c
+        assert ((plan.xo + pad_w * px) * 2) % 16 == 0
+        for size in (plan.xrs, plan.xplane, plan.ximg, plan.x_elems,
+                     plan.gps, plan.g_elems, plan.stage_elems):
+            assert (size * 2) % 16 == 0
+        x_rows = (plan.band_rows - 1) * 4 + 8
+        assert plan.xrs >= plan.xo + (4 * out_w + 4) * px
+        if x_chw:
+            assert plan.xplane >= x_rows * plan.xrs
+            assert plan.ximg == c * plan.xplane
+        else:
+            assert plan.ximg >= x_rows * plan.xrs
+        assert plan.pix % 16 == 0
+        assert plan.pix >= plan.images * plan.band_rows * out_w
+        if g_chw:
+            # Feature planes 16 bytes (mod 128) apart: the 8 rows of one
+            # ldmatrix on distinct banks.
+            assert plan.gps >= plan.pix and (plan.gps * 2) % 128 == 16
+        assert plan.stage_elems >= (plan.images * plan.ximg + plan.g_elems
+                                    + 2 * plan.pix)
+        assert (conv_cuda.MMA_MIN_STAGES <= plan.stages
+                <= conv_cuda.MMA_STAGES)
+        groups = conv_cuda.MMA_WARPS // conv_cuda.MMA_TAP_WARPS[c]
+        assert plan.smem_bytes == max(plan.stages * plan.stage_elems * 2,
+                                      4 * groups * 64 * c * 32)
+        assert per_sm * plan.smem_bytes <= conv_cuda.SMEM_BUDGET
+
+
+def test_gradw_mma_plan_of_the_main_path():
+    """72x96x3 frames at N=3232, NHWC: three bands of 6 output rows (28
+    input rows with the halo, 144 pixels), 9696 units over 264 blocks
+    (two an SM); a staged row of 100 padded columns from element 2 (the
+    data, column 2, at element 8), 304 elements; three stages of 26.2
+    KB."""
+    plan = conv_cuda.gradw_mma_plan(3232, 72, 96, 3, False, False, 132)
+    assert (plan.band_rows, plan.bands, plan.images, plan.units,
+            plan.blocks) == (6, 3, 1, 9696, 264)
+    assert (plan.xo, plan.xrs, plan.ximg, plan.pix) == (2, 304, 28 * 304,
+                                                        144)
+    assert plan.g_elems == 144 * 32
+    assert (plan.stage_elems, plan.stages) == (28 * 304 + 144 * 32 + 288, 3)
+    # 16x16 frames: 8 whole images a unit (128 pixels), 404 units.
+    plan = conv_cuda.gradw_mma_plan(3232, 16, 16, 3, False, False, 132)
+    assert (plan.bands, plan.images, plan.pix, plan.units) == (1, 8, 128,
+                                                               404)
+
+
+def test_gradw_mma_plan_refuses_a_frame_too_wide():
+    with pytest.raises(ValueError, match="does not fit"):
+        conv_cuda.gradw_mma_plan(8, 16, 4000, 3, False, False, 132)
+
+
+# -- the one-channel stem (8, 4, 1, 32) and the ResNet stem on Atari's
+# -- stack of 4 (3, 1, 4, 16) -------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def new_geometry_cases():
+    """The Pallas kernel's dW, in interpret mode at float32 and at
+    matmul_dtype="bfloat16", on an odd frame (17x23) and the path's frame
+    of each new geometry: one-channel 72x96 frames through the shallow
+    stem, Atari's 84x84x4 through the ResNet stem.  Computed once."""
+    cases = {}
+    for (k, s, c, f), frames in (((8, 4, 1, 32), ((2, 72, 96), (3, 17, 23))),
+                                 ((3, 1, 4, 16), ((1, 84, 84), (2, 17, 23)))):
+        for n, h, w in frames:
+            x, g = _case(h * w + c, n, h, w, c, f, s)
+            want = {name: np.asarray(conv_pallas.conv_gradw(
+                jnp.asarray(x, dtype), jnp.asarray(g, dtype), k, s,
+                interpret=True, matmul_dtype=name))
+                for name, dtype in (("float32", jnp.float32),
+                                    ("bfloat16", jnp.bfloat16))}
+            cases[(k, c, h, w)] = (x, g, want)
+    return cases
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k,c,h,w", [(8, 1, 72, 96), (8, 1, 17, 23),
+                                     (3, 4, 84, 84), (3, 4, 17, 23)])
+def test_new_geometries_plain_matches_pallas(new_geometry_cases, k, c, h, w,
+                                             dtype):
+    """conv_gradw at (8, 4, 1, 32) and (3, 1, 4, 16) -- on the CPU its
+    plain version -- against the Pallas kernel, float32 and with bf16 x
+    and g (exact products, float32 sums), in both layouts the stem's
+    backward hands over: rtol 1e-5 and an absolute tolerance of 2e-6 of
+    max |dW|, as test_c4_gradw_plain_matches_pallas."""
+    x, g, want = new_geometry_cases[(k, c, h, w)]
+    want = want[dtype]
+    tdtype = getattr(torch, dtype)
+    s = 4 if k == 8 else 1
+    for layout, (xt, gt) in _layouts(torch.tensor(x).to(tdtype),
+                                     torch.tensor(g).to(tdtype)).items():
+        if c > 1:
+            assert conv_cuda.tensor_layout(xt) == layout
+        assert conv_cuda.tensor_layout(gt) == layout
+        got = conv_cuda.conv_gradw(xt, gt, k, s)
+        assert got.dtype == torch.float32
+        assert got.shape == (k, k, c, g.shape[-1])
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                                   atol=2e-6 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("layout", ["hwc", "chw"])
+@pytest.mark.parametrize("c,h,w,entry", [
+    (3, 72, 96, "sat_conv_gradw_bf16"), (3, 16, 16, "sat_conv_gradw_bf16"),
+    (4, 84, 84, "sat_conv_gradw_c4_bf16"),
+    (1, 72, 96, "sat_conv_gradw_c1_bf16")])
+def test_bf16_stem_takes_the_mma_kernel_on_the_card(monkeypatch, c, h, w,
+                                                    entry, layout):
+    """On the kernel route bf16 x and g through the shallow stem launch
+    the mma.sync kernel of their channel count with gradw_mma_plan's
+    arguments, counted under the bf16 counter, never the plain version."""
+    library = _kernel_route(monkeypatch)
+    x, g = (torch.tensor(a).bfloat16() for a in _case(9, 2, h, w, c, 32, 4))
+    x, g = _layouts(x, g)[layout]
+    chw = layout == "chw"
+    x_chw = chw and c > 1  # one channel: both layouts are one memory
+    before = dict(conv_cuda.LAUNCHES)
+    conv_cuda.conv_gradw(x, g, 8, 4)
+    (name, args), = library.calls
+    assert name == entry
+    out_h, out_w, pad_h, pad_w = _mma_geometry(h, w)
+    plan = conv_cuda.gradw_mma_plan(2, h, w, c, x_chw, chw, 132)
+    assert args[4:] == (2, h, w, out_h, out_w, pad_h, pad_w, plan.band_rows,
+                        plan.bands, plan.images, plan.xo, plan.xrs,
+                        plan.xplane, plan.ximg, plan.x_elems, plan.gps,
+                        plan.g_elems, plan.pix, plan.stage_elems, plan.stages,
+                        plan.smem_bytes, int(x_chw), int(chw), plan.units,
+                        plan.blocks, 7)
+    grown = {k: v - before[k] for k, v in conv_cuda.LAUNCHES.items()
+             if v != before[k]}
+    assert grown == {entry[len("sat_"):].replace("conv_gradw",
+                                                 "stem_gradw"): 1}
+
+
+@pytest.mark.parametrize("layout", ["hwc", "chw"])
+def test_c1_geometry_takes_its_band_kernel_on_the_card(monkeypatch, layout):
+    """float32 one-channel frames launch the band kernel built for C = 1
+    (GRADW_GROUPS[1] row groups) with its plan, counted as
+    ``stem_gradw_c1``."""
+    library = _kernel_route(monkeypatch)
+    x, g = (torch.tensor(a) for a in _case(8, 2, 72, 96, 1, 32, 4))
+    x, g = _layouts(x, g)[layout]
+    before = dict(conv_cuda.LAUNCHES)
+    conv_cuda.conv_gradw(x, g, 8, 4)
+    (name, args), = library.calls
+    assert name == "sat_conv_gradw_c1"
+    chw = layout == "chw"
+    plan = conv_cuda.gradw_plan(2, 18, 24, False, chw, 132, 1)
+    assert args[4:] == (72, 96, 18, 24, 2, 2, plan.band_rows, plan.bands,
+                        plan.xrs, plan.x_floats, plan.gps,
+                        plan.stage_floats, plan.smem_bytes, 0, int(chw),
+                        plan.units, plan.blocks, 7)
+    grown = {k: v - before[k] for k, v in conv_cuda.LAUNCHES.items()
+             if v != before[k]}
+    assert grown == {"stem_gradw_c1": 1}
+
+
+@pytest.mark.parametrize("dtype,suffix", [(torch.float32, ""),
+                                          (torch.bfloat16, "_bf16")])
+@pytest.mark.parametrize("layout", ["hwc", "chw"])
+def test_resnet_c4_geometry_takes_its_kernel_on_the_card(monkeypatch, dtype,
+                                                         suffix, layout):
+    """(3, 1, 4, 16) launches the ResNet stem kernel built for C = 4 of
+    the operand type with its plan (``resnet_gradw_plan(...,
+    channels=4)``), counted as ``resnet_stem_gradw_c4[_bf16]``."""
+    library = _kernel_route(monkeypatch)
+    x, g = (torch.tensor(a).to(dtype)
+            for a in _case(6, 2, 84, 84, 4, 16, 1))
+    x, g = _layouts(x, g)[layout]
+    before = dict(conv_cuda.LAUNCHES)
+    conv_cuda.conv_gradw(x, g, 3, 1)
+    (name, args), = library.calls
+    assert name == "sat_resnet_stem_gradw_c4" + suffix
+    chw = layout == "chw"
+    plan = conv_cuda.resnet_gradw_plan(2, 84, 84, x.element_size(), 132,
+                                       chw, chw, 4)
+    assert args[4:] == (84, 84, plan.bands, plan.xrs, plan.grs,
+                        plan.x_elems, plan.stage_elems, plan.stages,
+                        plan.xplane, plan.wp, plan.smem_bytes, int(chw),
+                        int(chw), plan.units, plan.blocks, 7)
+    grown = {k: v - before[k] for k, v in conv_cuda.LAUNCHES.items()
+             if v != before[k]}
+    assert grown == {"resnet_stem_gradw_c4" + suffix: 1}
+
+
+@pytest.mark.parametrize("n,h,w,x_chw,g_chw,sms", [
+    (3232, 72, 96, False, False, 132), (3233, 72, 96, False, True, 132),
+    (1, 72, 96, False, False, 132), (64, 17, 23, False, True, 132),
+    (5, 72, 96, False, False, 7)])
+def test_c1_gradw_plan_takes_every_image_band_once_in_order(n, h, w, x_chw,
+                                                            g_chw, sms):
+    """At C = 1 (six row groups of 64 threads, 4 x 8 accumulators a
+    thread): equal bands covering the output rows, every (image, band)
+    unit once and in order, two stages within the budget, room for the
+    final sum of the other five row groups' [64, 32] tiles, and the bank
+    padding of the staged rows."""
+    out_h, _ = conv_cuda.same_pads(h, 8, 4)
+    out_w, _ = conv_cuda.same_pads(w, 8, 4)
+    plan = conv_cuda.gradw_plan(n, out_h, out_w, x_chw, g_chw, sms, 1)
+    assert conv_cuda.GRADW_GROUPS[1] == 6
+    assert plan.bands * plan.band_rows >= out_h
+    assert (plan.bands - 1) * plan.band_rows < out_h
+    units = [list(conv_cuda.block_units(plan, b))
+             for b in range(plan.blocks)]
+    assert [u for block in units for u in block] == list(range(plan.units))
+    assert 8 * plan.stage_floats <= conv_cuda.SMEM_BUDGET
+    assert plan.smem_bytes >= 4 * 5 * 64 * 32
+    assert plan.smem_bytes <= conv_cuda.SMEM_LIMIT
+    assert plan.xrs % 32 == 8 and plan.gps % 2 == 1
+    assert plan.x_floats % 4 == 0 and plan.stage_floats % 4 == 0
+
+
+def test_c1_gradw_plan_of_the_gym_path():
+    """72x96x1 frames (18x24 outputs): one band of all 18 output rows (76
+    input rows), 100 padded columns to a row stride of 104 floats."""
+    plan = conv_cuda.gradw_plan(3232, 18, 24, False, False, 132, 1)
+    assert (plan.band_rows, plan.bands, plan.units, plan.blocks) == (
+        18, 1, 3232, 132)
+    assert plan.xrs == 104
+
+
+@pytest.mark.parametrize("n,h,w,item,sms", [
+    (3232, 84, 84, 4, 132), (3232, 84, 84, 2, 132), (3233, 84, 84, 2, 132),
+    (64, 17, 23, 2, 132), (1, 84, 84, 4, 132), (5, 16, 16, 2, 7)])
+def test_resnet_c4_gradw_plan_fits_and_splits_in_order(n, h, w, item, sms):
+    """The ResNet stem's plan at C = 4: every unit once and in order,
+    16-byte aligned rows, the stages and the warps' final sums [36, 16]
+    within the block; bf16: NHWC x rows 32 (mod 64) and planar rows 8 and
+    planes 16 (mod 64) apart, so each of the 16 patch loads of a chunk
+    takes one shared-memory wavefront, and at least two stages."""
+    rows = conv_cuda.RESNET_ROWS
+    layouts = [(False, False)] if item == 4 else LAYOUT_PAIRS
+    for x_chw, g_chw in layouts:
+        plan = conv_cuda.resnet_gradw_plan(n, h, w, item, sms, x_chw, g_chw,
+                                           4)
+        assert plan.bands == -(-h // rows) and plan.units == n * plan.bands
+        units = [list(conv_cuda.block_units(plan, b))
+                 for b in range(plan.blocks)]
+        assert [u for block in units for u in block] == list(
+            range(plan.units))
+        for stride in (plan.xrs, plan.grs, plan.x_elems, plan.stage_elems,
+                       plan.xplane):
+            assert (stride * item) % 16 == 0
+        assert plan.stages * plan.stage_elems * item <= plan.smem_bytes
+        assert plan.smem_bytes >= 4 * conv_cuda.RESNET_WARPS * 36 * 16
+        assert plan.smem_bytes <= conv_cuda.SMEM_LIMIT
+        if item == 4:
+            assert plan.xrs >= 4 + 4 * (w + 1) and plan.grs >= 16 * w
+            assert (plan.xrs * item) % 128 == 16
+            continue
+        assert plan.stages >= 2
+        xo, px = conv_cuda._resnet_xo(x_chw, 4), (1 if x_chw else 4)
+        assert ((xo + px) * item) % 16 == 0
+        assert plan.xrs >= xo + px * (plan.wp + 2)
+        assert plan.x_elems == (4 * plan.xplane if x_chw
+                                else (rows + 2) * plan.xrs)
+        worst = max(_bank_wavefronts([2 * (base + a) for a in lane_elems])
+                    for base in range(0, 64, 8)
+                    for lane_elems in _b_loads(plan, x_chw, 4))
+        assert worst == 1
+
+
+RESNET_C4_CASES = [(1, 20, 36), (2, 17, 23)]
+
+
+@pytest.mark.parametrize("x_chw,g_chw", LAYOUT_PAIRS)
+@pytest.mark.parametrize("n,h,w", RESNET_C4_CASES)
+def test_resnet_c4_bf16_fragments_hold_the_right_taps_and_pixels(n, h, w,
+                                                                  x_chw,
+                                                                  g_chw):
+    """As test_resnet_bf16_fragments_hold_the_right_taps_and_pixels at
+    C = 4: five n8 tiles, tiles 0-2 kw = j with (kh, c) = (i / 4, i % 4),
+    tile 3 kh = 2 at (kw, c) = (i / 4, i % 4), tile 4 kh = kw = 2 at
+    c = i < 4; the 4 unused columns hold staged (finite) values."""
+    x_id = 1.0 + np.arange(n * h * w * 4, dtype=np.float64).reshape(
+        n, h, w, 4)
+    g_id = 1.0 + np.arange(n * h * w * 16, dtype=np.float64).reshape(
+        n, h, w, 16)
+    xp = np.pad(x_id, ((0, 0), (1, 1), (1, 1), (0, 0)))
+    seen = []
+
+    def check(img, oh0, warp, cb, a_mat, b_mat):
+        oh = oh0 + warp
+        ow = 16 * cb + np.arange(16)
+        inside = ow < w
+        want_a = np.where(inside[None, :],
+                          g_id[img, oh, np.minimum(ow, w - 1), :].T, 0.0)
+        np.testing.assert_array_equal(a_mat, want_a)
+        for col in range(40):
+            tap = _column_tap(col // 8, col % 8, 4)
+            if tap < 0:
+                assert np.isfinite(b_mat[:, col]).all()
+                continue
+            kh, kw, c = tap // 12, (tap // 4) % 3, tap % 4
+            pc = ow + kw
+            want = np.where(pc < w + 2,
+                            xp[img, oh + kh, np.minimum(pc, w + 1), c], 0.0)
+            np.testing.assert_array_equal(b_mat[:, col], want)
+        seen.append((img, oh, cb))
+
+    _emulate_resnet_bf16(x_id, g_id, x_chw, g_chw, sm_count=2, check=check)
+    wp = -(-w // 16) * 16
+    assert sorted(seen) == [(i, oh, cb) for i in range(n) for oh in range(h)
+                            for cb in range(wp // 16)]
+    assert sorted(_column_tap(j, i, 4) for j in range(5) for i in range(8)
+                  if _column_tap(j, i, 4) >= 0) == list(range(36))
+
+
+@pytest.mark.parametrize("x_chw,g_chw", [(False, False), (True, True)])
+def test_resnet_c4_bf16_fragment_sums_match_plain_and_pallas(
+        new_geometry_cases, x_chw, g_chw):
+    """Those fragments' products summed in the kernel's order against
+    conv_gradw_plain and the Pallas kernel at matmul_dtype="bfloat16", on
+    bf16-exact 17x23x4 frames."""
+    x, g, want = new_geometry_cases[(3, 4, 17, 23)]
+    want = want["bfloat16"]
+    xb, gb = torch.tensor(x).bfloat16(), torch.tensor(g).bfloat16()
+    got = _emulate_resnet_bf16(xb.float().numpy().astype(np.float64),
+                               gb.float().numpy().astype(np.float64), x_chw,
+                               g_chw, sm_count=2)
+    plain = conv_cuda.conv_gradw_plain(xb, gb, 3, 1).numpy()
+    for reference in (plain, want):
+        np.testing.assert_allclose(got, reference, rtol=2e-5,
+                                   atol=2e-6 * np.abs(reference).max())

@@ -385,6 +385,79 @@ def test_deep_agent_matches_jax(dtype):
     _assert_grads(names, grads, want_grads, tol)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_resnet_agent_on_atari_stacks_matches_jax(dtype):
+    """``--torso_type=resnet`` on an ``atari_`` level: the ResNet agent
+    (no instruction) on 4-channel frames, its stem's grad-W at (3, 1, 4,
+    16) (Pallas in interpret mode on the JAX side), against the JAX agent
+    with the port's seeded weights converted by ``convert.py``: logits,
+    baseline, final carry and every parameter gradient, as
+    test_deep_agent_matches_jax."""
+    frame, T, B = (17, 23, 4), 2, 2
+    rng = np.random.default_rng(44)
+    d = dict(actions=rng.integers(0, A, (T, B)),
+             reward=(rng.standard_normal((T, B)) * 2).astype(np.float32),
+             done=rng.random((T, B)) < 0.3,
+             frame=rng.integers(0, 256, (T, B) + frame, dtype=np.uint8),
+             c=(rng.standard_normal((B, H)) * 0.5).astype(np.float32),
+             h=np.tanh(rng.standard_normal((B, H))).astype(np.float32))
+    zeros = np.zeros((T, B), np.float32)
+    jargs = (jnp.asarray(d["actions"], jnp.int32),
+             JaxStepOutput(reward=jnp.asarray(d["reward"]),
+                           info=JaxStepOutputInfo(zeros,
+                                                  zeros.astype(np.int32)),
+                           done=jnp.asarray(d["done"]),
+                           observation=JaxObservation(
+                               frame=jnp.asarray(d["frame"]))),
+             JaxAgentState(c=jnp.asarray(d["c"]), h=jnp.asarray(d["h"])))
+    jax_agent = JaxAgent(num_actions=A, core_size=H, torso_type="resnet",
+                         core_impl="pallas", conv_backend="pallas",
+                         compute_dtype=JNP[dtype], core_matmul_dtype=dtype)
+    agent = ImpalaAgent(A, frame, core_size=H, torso_type="resnet",
+                        generator=torch.Generator().manual_seed(4),
+                        compute_dtype=TORCH[dtype], core_matmul_dtype=dtype)
+    assert agent.state_dict()["convnet.downscale_0.weight"].shape == (
+        16, 4, 3, 3)
+    assert agent.core.wi.shape == (256 + 1 + A, 4 * H)
+    params = jax.tree_util.tree_map(
+        jnp.asarray, convert.state_dict_to_flax(agent.state_dict()))
+
+    def loss_j_of(heads, state):
+        logits, baseline = heads
+        return (jnp.sum(logits ** 2) + jnp.sum(baseline)
+                + jnp.sum(state.c) + jnp.sum(state.h ** 2))
+
+    def loss_j(p):
+        heads, state = jax_agent.apply(p, *jargs)
+        return loss_j_of(heads, state), (*heads, state.c, state.h)
+
+    (_, outs_j), grads_j = jax.jit(jax.value_and_grad(loss_j, has_aux=True))(
+        params)
+    zeros_t = torch.zeros((T, B))
+    (logits, baseline), state = agent(
+        torch.tensor(d["actions"]),
+        StepOutput(reward=torch.tensor(d["reward"]),
+                   info=StepOutputInfo(zeros_t, zeros_t),
+                   done=torch.tensor(d["done"]),
+                   observation=Observation(frame=torch.tensor(d["frame"]))),
+        AgentState(c=torch.tensor(d["c"]), h=torch.tensor(d["h"])))
+    loss = (logits.square().sum() + baseline.sum() + state.c.sum()
+            + state.h.square().sum())
+    names = [name for name, _ in agent.named_parameters()]
+    grads = torch.autograd.grad(loss, list(agent.parameters()))
+    bf16 = dtype == "bfloat16"
+    tol = BAND if bf16 else TOL
+    for got, want in zip((logits, baseline, state.c, state.h), outs_j):
+        np.testing.assert_allclose(got.detach().float().numpy(),
+                                   np.asarray(want, np.float32), **tol)
+    want_grads = convert.flax_to_state_dict(
+        jax.tree_util.tree_map(np.asarray, grads_j))
+    if bf16:
+        want_grads.update(_bias_sums(
+            jax_agent, params, jargs, lambda out: loss_j_of(*out)))
+    _assert_grads(names, grads, want_grads, tol)
+
+
 def test_deep_convert_round_trip_is_exact():
     params, agent = _deep_agent((16, 16), seed=3)
     host = jax.tree_util.tree_map(np.asarray, params)

@@ -120,6 +120,24 @@ class FakeALE:
         pass
 
 
+class FakeGrayALE(FakeALE):
+    """The same game observed as one channel, [210, 160, 1] uint8 (a
+    gymnasium env with a grayscale observation kept 3-D)."""
+
+    def __init__(self):
+        import gymnasium
+
+        super().__init__()
+        self.observation_space = gymnasium.spaces.Box(
+            0, 255, (210, 160, 1), np.uint8)
+
+    def _obs(self):
+        frame = np.zeros((210, 160, 1), np.uint8)
+        frame[::3] = (self.steps * 11) % 256
+        frame[:, ::5] = 255 - self.steps % 256
+        return frame
+
+
 @pytest.fixture
 def fake_gym_make(monkeypatch):
     import gymnasium
@@ -128,7 +146,7 @@ def fake_gym_make(monkeypatch):
 
     def fake_make(env_id, **kwargs):
         made.append((env_id, kwargs))
-        return FakeALE()
+        return FakeGrayALE() if env_id == "BreakoutGray-v0" else FakeALE()
 
     monkeypatch.setattr(gymnasium, "make", fake_make)
     return made
@@ -407,6 +425,23 @@ class TestGymnasiumBridge:
         _assert_same(ours, theirs)
 
 
+    def test_one_channel_outputs_match_jax(self, fake_gym_make):
+        """A gym env with [H, W, 1] uint8 observations, resized to the
+        driver's 72x96: 12 seeded steps with 4 repeats keep the one
+        channel and equal the JAX bridge's bit for bit."""
+        from scalable_agent_tpu_torch.envs import create_env
+
+        env = create_env("gym_BreakoutGray-v0", height=72, width=96)
+        assert env.observation_spec.frame.shape == (72, 96, 1)
+        env.close()
+        ours, theirs = _both_streams("gym_BreakoutGray-v0", 12, 4,
+                                     num_action_repeats=4, height=72,
+                                     width=96)
+        assert ours[0][4].shape == (72, 96, 1)
+        assert len({out[4].tobytes() for out in ours}) > 2
+        _assert_same(ours, theirs)
+
+
 # -- the driver on the CPU, and the agent at Atari's frames -----------------------
 
 
@@ -440,12 +475,15 @@ def _config(tmp_path, **fields):
 @pytest.mark.parametrize("level,frame,fields", [
     ("atari_breakout", (84, 84, 4), {}),
     ("gym_CartPole-v1", (16, 16, 3), dict(height=16, width=16)),
+    ("gym_BreakoutGray-v0", (16, 16, 1), dict(height=16, width=16)),
+    ("atari_breakout", (84, 84, 4), dict(torso_type="resnet")),
 ])
 def test_driver_trains_and_tests(tmp_path, gymnasium_standin, level, frame,
                                  fields):
     """``driver.train`` for 2 updates and ``driver.test`` for 2 episodes
     on an Atari level (the family's 84x84 grayscale stack of 4 and 4
-    repeats) and a gym level, under the stand-in gymnasium."""
+    repeats; through the shallow torso and the ResNet torso), a gym level
+    and a one-channel gym level, under the stand-in gymnasium."""
     from scalable_agent_tpu_torch.config import Config
     from scalable_agent_tpu_torch.driver import probe_env
     from scalable_agent_tpu_torch.driver import test as run_test
@@ -460,6 +498,7 @@ def test_driver_trains_and_tests(tmp_path, gymnasium_standin, level, frame,
     saved = Config.load(str(tmp_path / "logs" / "config.json"))
     spec = probe_env(saved)[0]
     assert tuple(spec.frame.shape) == frame
+    assert saved.torso_type == fields.get("torso_type", "shallow")
     returns = run_test(dataclasses.replace(config, mode="test",
                                            test_num_episodes=2,
                                            test_batch_size=2))
@@ -473,12 +512,12 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 BAND = dict(rtol=2e-2, atol=2e-2)
 
 
-@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
-def test_shallow_agent_on_atari_frames_matches_jax(compute_dtype):
-    """The shallow agent on [84, 84, 4] frames (the stem's grad-W at
-    C = 4, the Pallas kernel in interpret mode) against the JAX agent with
-    the same weights (``convert.py``): logits, baseline, final carry and
-    every parameter gradient; float32 at 1e-5, bf16 in the 2e-2 band."""
+def _shallow_agent_matches_jax(frame_shape, compute_dtype):
+    """The shallow agent on ``frame_shape`` frames (the stem's grad-W at
+    the frames' channel count, the Pallas kernel in interpret mode) against
+    the JAX agent with the same weights (``convert.py``): logits,
+    baseline, final carry and every parameter gradient; float32 at 1e-5,
+    bf16 in the 2e-2 band."""
     import jax
     import jax.numpy as jnp
 
@@ -502,7 +541,8 @@ def test_shallow_agent_on_atari_frames_matches_jax(compute_dtype):
     d = dict(actions=rng.integers(0, A, (T, B)),
              reward=rng.standard_normal((T, B)).astype(np.float32),
              done=rng.random((T, B)) < 0.3,
-             frame=rng.integers(0, 256, (T, B, 84, 84, 4), dtype=np.uint8),
+             frame=rng.integers(0, 256, (T, B) + frame_shape,
+                                dtype=np.uint8),
              c=(rng.standard_normal((B, H)) * 0.5).astype(np.float32),
              h=np.tanh(rng.standard_normal((B, H))).astype(np.float32))
     zeros = np.zeros((T, B), np.float32)
@@ -519,7 +559,7 @@ def test_shallow_agent_on_atari_frames_matches_jax(compute_dtype):
                          core_matmul_dtype=compute_dtype)
     # The port's seeded weights, converted (``convert.py`` is exact both
     # ways: tests/test_torch_agent.py), spare the JAX init's trace.
-    agent = ImpalaAgent(A, (84, 84, 4), core_size=H,
+    agent = ImpalaAgent(A, frame_shape, core_size=H,
                         generator=torch.Generator().manual_seed(3),
                         compute_dtype=getattr(torch, compute_dtype),
                         core_matmul_dtype=compute_dtype)
@@ -553,8 +593,22 @@ def test_shallow_agent_on_atari_frames_matches_jax(compute_dtype):
     want_grads = convert.flax_to_state_dict(
         jax.tree_util.tree_map(np.asarray, grads_j))
     assert sorted(want_grads) == sorted(names)
-    assert agent.state_dict()["convnet.conv_0.weight"].shape == (32, 4, 8, 8)
+    assert agent.state_dict()["convnet.conv_0.weight"].shape == (
+        32, frame_shape[-1], 8, 8)
     for name, got in zip(names, grads):
         np.testing.assert_allclose(got.float().numpy(),
                                    want_grads[name].float().numpy(),
                                    err_msg=name, **tol)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_shallow_agent_on_atari_frames_matches_jax(compute_dtype):
+    """On Atari's [84, 84, 4] frames: the stem's grad-W at C = 4."""
+    _shallow_agent_matches_jax((84, 84, 4), compute_dtype)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_shallow_agent_on_one_channel_frames_matches_jax(compute_dtype):
+    """On a one-channel gym level's [72, 96, 1] frames: the stem's
+    grad-W at C = 1."""
+    _shallow_agent_matches_jax((72, 96, 1), compute_dtype)

@@ -105,12 +105,16 @@ DEMANGLED = {
         "(anonymous namespace)::bptt_reduce_kernel(float const*, float*, "
         "float const*, float*, float*, int, int, int, int)"],
     "conv_gradw_band_kernel": [
-        "void (anonymous namespace)::conv_gradw_band_kernel<float, false, "
+        "void (anonymous namespace)::conv_gradw_band_kernel<3, 3, false, "
         "true>(float const*, float const*, float*, (anonymous namespace)::"
         "Geometry, long long)",
-        "void (anonymous namespace)::conv_gradw_band_kernel<__nv_bfloat16, "
-        "true, true>(__nv_bfloat16 const*, __nv_bfloat16 const*, float*, "
-        "(anonymous namespace)::Geometry, long long)"],
+        "void (anonymous namespace)::conv_gradw_band_kernel<1, 1, true, "
+        "true>(float const*, float const*, float*, (anonymous namespace)::"
+        "Geometry, long long)"],
+    "conv_gradw_mma_kernel": [
+        "void (anonymous namespace)::conv_gradw_mma_kernel<3, false, false>"
+        "(__nv_bfloat16 const*, __nv_bfloat16 const*, float*, (anonymous "
+        "namespace)::MmaGeometry, long long)"],
     "reduce_partials_kernel": [
         "(anonymous namespace)::reduce_partials_kernel(float const*, "
         "float*, int, int)"],
@@ -214,10 +218,10 @@ def test_costs_at_the_path_shapes_sum_to_update_flops(
     bf16 = compute_dtype == "bfloat16"
     assert set(costs) == {
         "sgemm_kernel<true", "lstm_resid_kernel", "bptt_chain_kernel",
-        "bptt_reduce_kernel", "conv_gradw_band_kernel",
-        "reduce_partials_kernel", "vtrace_chunked_kernel"} | (
-        {"bptt_dx_kernel", "bptt_dw_kernel"} if bf16
-        else {"sgemm_kernel<false"})
+        "bptt_reduce_kernel", "reduce_partials_kernel",
+        "vtrace_chunked_kernel"} | (
+        {"bptt_dx_kernel", "bptt_dw_kernel", "conv_gradw_mma_kernel"}
+        if bf16 else {"sgemm_kernel<false", "conv_gradw_band_kernel"})
     assert all(c["bytes"] > 0 for c in costs.values())
     # x.Wi reads x [3232, 266] and Wi, writes pre [3232, 1024]: float32.
     if frame == (72, 96, 3):
