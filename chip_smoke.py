@@ -29,7 +29,11 @@ a result:
    T=1 for B in {1, 8, 32, 64}, at T=5 (five launches), and from two
    threads on two streams at once, two calls must be bitwise equal, and
    its float32 device time
-   (torch.profiler) must not exceed ``torch.lstm_cell``'s.  The residual
+   (torch.profiler) must not exceed ``torch.lstm_cell``'s.  It is held
+   again over the IMPACT target network's unroll, x [101, 32, 266] (101
+   launches; bf16 as the long unrolls below), two calls bitwise equal,
+   with its device time beside 101 ``torch.lstm_cell`` calls after the
+   resets.  The residual
    forward (input-projection GEMM + recurrence kernel) is also held, on
    all seven outputs, at B in
    {1, 33, 64}, at T=1, with done=1 at t=0 and on a whole column, and at
@@ -107,11 +111,11 @@ a result:
    stem's gradient from the card's own cotangent within one bf16 rounding
    of the plain version's, and the relu and max-pool decisions on which
    card and CPU part ways, counted); then the command itself on the
-   main path's configuration (``scan_impl`` at its default) for 4 bf16
+   main path's configuration (``scan_impl`` at its default) for 2 bf16
    updates counted as in phase 3 (the ResNet stem's bf16 grad-W once an
    update, every LSTM kernel, the shallow stem's never) with the layouts
-   of the x and g its backward hands ``conv_gradw`` printed, its s per
-   update, env frames/s and ``ledger/mfu``, ``--mode=test`` on its checkpoint
+   of the x and g its backward hands ``conv_gradw`` printed, the second
+   update's s and ``ledger/mfu``, ``--mode=test`` on its checkpoint
    (adopting the architecture from ``config.json``), 2 float32 updates
    counted, and one iteration taken apart as in 3b; then the bf16 ResNet
    stem grad-W's ms per call (CUDA events) at N=3232 in the layouts the
@@ -146,7 +150,7 @@ a result:
    the env's.
 3k. (Run after 3j.) The library routes: ``--core_impl=xla`` (the
    per-step LSTM in torch ops) and ``--conv_backend=xla`` (cuDNN's wgrad
-   for the stem) each on the main path's configuration for 4 bf16
+   for the stem) each on the main path's configuration for 2 bf16
    updates, counted: no launch of a kernel the route replaces (every
    LSTM counter at 0 under the xla core, the actors' steps included;
    every grad-W counter at 0 under the xla stem), the others as in
@@ -160,7 +164,7 @@ a result:
    ``tests/fakes/vizdoom.py`` with generated scenario files (the fake's
    step cost, not VizDoom's): the resize path the env workers take
    printed; ``doom_benchmark`` at the main path's layout and Doom's
-   72x128 frames, bf16, ``--scan_impl=pallas``, 4 updates counted as in
+   72x128 frames, bf16, ``--scan_impl=pallas``, 2 updates counted as in
    phase 3, s per update and env frames/s (not gated); ``doom_duel`` at
    batch 32 (16 matches x 2 agents a group, 2 groups), 2 bf16 updates
    counted (the LSTM kernels at D=298), the second update's s;
@@ -180,7 +184,7 @@ a result:
 3n. (Run after 3m.) The ``atari_`` and ``gym_`` families under a stand-in
    ``gymnasium`` written into the scratch directory (``GYMNASIUM_STANDIN``:
    its step cost, not ALE's): ``atari_breakout`` at [84, 84, 4] frames for
-   3 bf16 updates counted (the C=4 bf16 grad-W once an update, no C=3
+   2 bf16 updates counted (the C=4 bf16 grad-W once an update, no C=3
    grad-W), s per update, 2 float32 updates counted for the float32 C=4
    kernel; ``gym_CartPole-v1`` (rendered frames resized to 72x96) for 2
    bf16 updates counted as in phase 3; then the last two grad-W
@@ -191,6 +195,23 @@ a result:
    ``atari_breakout`` ([84, 84, 4]), then ``--mode=test`` on the deep
    Atari checkpoint (2 episodes through the bf16 lean kernel, no grad-W
    launched).
+3o. (Run after 3n.) Off-policy training: ``fake_benchmark`` at the main
+   path's layout, bf16, ``--loss=impact --replay_ratio=1
+   --replay_capacity=64 --target_update_interval=2 --scan_impl=pallas``,
+   resumed from phase 3's vtrace checkpoint (the target network starts
+   from the restored parameters: the first update's IMPACT ratio is 1),
+   3 fresh updates and 3 replayed ones counted: 101 lean launches an
+   update (the target network's unroll) beside the actors', one residual
+   forward, BPTT, grad-W and V-trace an update; ``env_frames`` counts the
+   fresh frames only, the replayed updates and samples are 3, the slab
+   occupied, the IMPACT histograms and ``ledger/staleness_replayed_s``
+   published, s per update printed; the impact update alone on one
+   trajectory launches exactly 101 lean steps (its ms and device time
+   beside the vtrace update's); the 64-slot slab's bytes, an insert on a
+   side stream and a sample on the default stream under
+   ``torch.cuda.set_sync_debug_mode("error")``, each sample bitwise the
+   batch in the slot the host mirror names; ``--mode=test`` on the run's
+   checkpoint, which holds the target network.
 3d. (Run after 3b, before 3c.) The default loop's machinery, each part
    failing the run: packed
    bitwise equal to per_leaf for one full-width trajectory from the pool,
@@ -225,7 +246,7 @@ a result:
    and device ms from torch.profiler, interleaved); the pool loop's s per
    update with the planes at their defaults plus ``--trace`` against all
    of them off (``learn_telemetry=false``, ``watchdog_timeout_s=0``, no
-   trace), run on, off, off, on, with the stall verdicts, the ledger's
+   trace), one run each, with the stall verdicts, the ledger's
    dominant segment, ``ledger/mfu`` and ``update_flops`` of the planes-on
    runs; the watchdog drill (a CLI subprocess with
    ``--chaos_spec=throughput_sag@3``, the sag ``OBS_SAG_S`` past
@@ -283,13 +304,15 @@ a result:
    EVERY run rose at least 2.5 above its early rows (no sound run has
    risen less than 3.4: a stall has learned two cues) and at least 2 runs
    met the full curve (a sound learner misses that about 4% of the time
-   at a one-in-two stall rate, 0.6% at one in three).
+   at a one-in-two stall rate, 0.6% at one in three).  The runs keep the
+   health plane's records but open no profile window.
 4. A ``{"kernels": [...]}`` line (the float32 kernels with their launches
    on the float32 path, the bf16 variants and V-trace with theirs on the
    main path; the ResNet stem's from 3h's float32 and bf16 runs, the C=4
    stem's from 3n's Atari runs, the C=1 and ResNet C=4 kernels' from 3n's
-   one-channel gym and deep Atari runs), the card's line, then as the last
-   line ``{"ok": true, "device": {...}}``.
+   one-channel gym and deep Atari runs, the lean kernel over the target
+   network's unroll with 3o's launches), the card's line, then as the
+   last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -527,12 +550,17 @@ def _lstm_tol(matmul_dtype, steps):
 
 
 def _lstm_costs(T, B, D, H):
-    """(bytes, operations) of the lean step at T=1, the residual forward
-    and the BPTT at T steps: each input read once, each output written
-    once (float32: the kernels read float32 in both variants)."""
+    """(bytes, operations) of the lean step at T=1, the lean forward over
+    T steps (``unroll``: Wi, Wh and b read once, x, done and ys once a
+    step, the carries once), the residual forward and the BPTT at T
+    steps: each input read once, each output written once (float32: the
+    kernels read float32 in both variants)."""
     f4 = 4
     lean = (f4 * (B * D + B + 2 * B * H + (D + H + 1) * 4 * H + 2 * B * H),
             2 * B * (D + H) * 4 * H + 12 * B * H)
+    unroll = (f4 * (T * B * D + T * B + 2 * B * H + (D + H + 1) * 4 * H
+                    + T * B * H + 2 * B * H),
+              T * (2 * B * (D + H) * 4 * H + 12 * B * H))
     resid = (f4 * (T * B * D + T * B + 2 * B * H + (D + H + 1) * 4 * H
                    + T * B * H * 8 + 2 * B * H),
              T * (2 * B * (D + H) * 4 * H + 12 * B * H))
@@ -541,7 +569,7 @@ def _lstm_costs(T, B, D, H):
                   + T * B * D + (D + H + 1) * 4 * H + 2 * B * H),
             (2 * T * B * 4 * H * (H + D + D + H) + T * B * 4 * H
              + 20 * T * B * H))
-    return {"lean": lean, "resid": resid, "bptt": bptt}
+    return {"lean": lean, "unroll": unroll, "resid": resid, "bptt": bptt}
 
 
 def compare_lstm(torch, lstm_cuda, device, matmul_dtype="float32"):
@@ -1352,6 +1380,70 @@ def compare_lstm_wide(torch, lstm_cuda, device, matmul_dtype="float32",
     return ms
 
 
+def compare_lean_target(torch, lstm_cuda, device, matmul_dtype="float32"):
+    """The lean step kernel over the IMPACT target network's unroll (phase
+    3o): x [101, 32, 266], H=256, one launch a step, against its plain
+    version (``_lean_unroll_check``: the bf16 unroll at
+    LSTM_BF16_LONG_TOL where rows flip, as the residual forward's 101
+    steps), two calls bitwise equal, and its device time (torch.profiler,
+    the 101 launches of a call summed).  Returns its phase-2 row: the
+    bound is the whole unroll's (``_lstm_costs``' ``unroll``: the weights
+    read once, as the TPU kernel's constant-index blocks fetch them once
+    over its grid of T); the library call is
+    101 ``torch.lstm_cell`` calls, each after the done-reset of its carry
+    (two multiplies), in bf16 for the bf16 variant."""
+    bf16 = matmul_dtype == "bfloat16"
+    tag = " bf16" if bf16 else ""
+    gen = torch.Generator().manual_seed(4321)
+    T, B, D, H = 101, 32, 266, 256
+    rand = lambda *shape, scale=1.0: (
+        torch.randn(shape, generator=gen) * scale).to(device)
+    x = rand(T, B, D)
+    done = (torch.rand((T, B), generator=gen) < 0.05).float().to(device)
+    c0, h0 = rand(B, H, scale=0.5), torch.tanh(rand(B, H))
+    wi, wh = rand(D, 4 * H, scale=D ** -0.5), rand(H, 4 * H, scale=H ** -0.5)
+    b = rand(4 * H, scale=0.1)
+    args = (x, done, c0, h0, wi, wh, b)
+    md = dict(matmul_dtype=matmul_dtype)
+    name = f"lstm_fwd_lean{tag} [{T},{B},{D}] (the target unroll)"
+    _lean_unroll_check(torch, lstm_cuda, name, args, matmul_dtype,
+                       flipped_tol=LSTM_BF16_LONG_TOL)
+    lean = lambda: lstm_cuda.lstm_forward(*args, residuals=False, **md)
+    plain = lambda: lstm_cuda.lstm_forward_plain(*args, residuals=False,
+                                                 **md)
+    _bitwise(torch, name, lean()[:3], lean()[:3])
+    err = _errors(zip(lean()[:3], plain()[:3]))
+    cast = (lambda t: t.bfloat16()) if bf16 else (lambda t: t)
+    xs = [cast(x[t]) for t in range(T)]
+    keeps = [cast((1.0 - done[t])[:, None]) for t in range(T)]
+    wi_t, wh_t, bias, zero_b = (cast(t) for t in (
+        wi.t().contiguous(), wh.t().contiguous(), b, torch.zeros_like(b)))
+
+    def cells():
+        h, c = cast(h0), cast(c0)
+        for t in range(T):
+            h, c = torch.lstm_cell(xs[t], (h * keeps[t], c * keeps[t]),
+                                   wi_t, wh_t, bias, zero_b)
+        return h, c
+
+    cell_h, cell_c = cells()
+    final = plain()
+    cell_err = _errors([(cell_h.float(), final.h), (cell_c.float(),
+                                                    final.c)])
+    print(f"  (101 torch.lstm_cell{tag} calls after the resets against the "
+          f"same plain version: max_rel_err {cell_err[1]:.3e})", flush=True)
+    device_ms = _device_ms(torch, lean, "lstm_step_kernel", 10)
+    cell_device_ms = _device_ms(torch, cells, None, 10)
+    print(f"  lstm_fwd_lean{tag} [{T},{B},{D}]: {T} step launches, device "
+          f"time {device_ms:.4f} ms; 101 torch.lstm_cell{tag} after the "
+          f"resets (all their kernels) {cell_device_ms:.4f} ms "
+          f"(torch.profiler)", flush=True)
+    nbytes, flops = _lstm_costs(T, B, D, H)["unroll"]
+    return [(_variant("lstm_fwd_lean_target", matmul_dtype), "lstm.cu",
+             "lstm_pallas.py:89", err, lean, plain, cells, nbytes, flops,
+             bf16, device_ms)]
+
+
 def time_rows(torch, rows):
     """Each phase-2 row timed on the card: the kernel's wrapper, its plain
     version and the library call (CUDA events), beside its bound; the
@@ -1361,6 +1453,8 @@ def time_rows(torch, rows):
          flops, bf16, device_ms) in rows:
         iters = 50 if name.startswith(("lstm_fwd_lean",
                                        "vtrace_fused")) else 10
+        if name.startswith("lstm_fwd_lean_target"):
+            iters = 10
         ms = _time_ms(torch, kern_fn, iters)
         plain_ms = _time_ms(torch, plain_fn, max(3, iters // 5))
         lib_ms = _time_ms(torch, lib_fn, iters) if lib_fn else None
@@ -1788,9 +1882,9 @@ def deep_path(torch, driver, config, scratch, train_counted, reset_counts,
               read_counts):
     """``--torso_type=resnet --use_instruction=true`` on the main path's
     configuration (``scan_impl`` at its default, as the command a user
-    types): 4 bf16 updates counted (the ResNet stem's bf16 grad-W once an
-    update, every LSTM kernel at D=330), s per update after the first 2,
-    env frames/s and ``ledger/mfu``; ``--mode=test`` on its checkpoint
+    types): DEEP_UPDATES bf16 updates counted (the ResNet stem's bf16
+    grad-W once an update, every LSTM kernel at D=330), the second
+    update's s and ``ledger/mfu``; ``--mode=test`` on its checkpoint
     with the default architecture's flags (the checkpoint's wins); 2
     float32 updates counted; then the bf16 path's iteration taken apart
     (``breakdown``: the update's device ms by kernel).  Returns the bf16
@@ -1800,7 +1894,9 @@ def deep_path(torch, driver, config, scratch, train_counted, reset_counts,
 
     deep = dataclasses.replace(
         config, torso_type="resnet", use_instruction=True, scan_impl="auto",
-        trace=False, logdir=os.path.join(scratch, "deep"))
+        trace=False, logdir=os.path.join(scratch, "deep"),
+        total_environment_frames=float(
+            DEEP_UPDATES * config.frames_per_update()))
     layouts = set()
     conv_gradw = conv_cuda.conv_gradw
 
@@ -1809,20 +1905,15 @@ def deep_path(torch, driver, config, scratch, train_counted, reset_counts,
         return conv_gradw(x, g, kernel_size, stride)
 
     with _patched(conv_cuda, conv_gradw=recording):
-        launches = train_counted(deep, UPDATES, "_bf16", "resnet_stem_gradw")
+        launches = train_counted(deep, DEEP_UPDATES, "_bf16",
+                                 "resnet_stem_gradw")
     print(f"  the deep path's backward handed conv_gradw (x, g) in the "
           f"layouts {sorted(layouts)} (tensor_layout: hwc contiguous NHWC, "
           f"chw an NHWC view of NCHW)", flush=True)
-    rows = {r["step"]: r for r in _rows(deep.logdir)}
-    s_per_update = (rows[UPDATES]["time"] - rows[2]["time"]) / (UPDATES - 2)
+    _loop_rate(deep, "deep path", DEEP_UPDATES)
     registry = [r for r in _all_rows(deep.logdir) if _is_registry_row(r)]
-    tail = [rows[k] for k in range(3, UPDATES + 1)]
-    print(f"  deep path, updates 3..{UPDATES}: {s_per_update:.4f} s per "
-          f"update ({deep.frames_per_update() / s_per_update:.0f} env "
-          f"frames/s; mean of per-update rows: learner fps "
-          f"{sum(r['fps'] for r in tail) / len(tail):.0f}, actor fps "
-          f"{sum(r['actor_fps'] for r in tail) / len(tail):.0f}); "
-          f"ledger/mfu {registry[-1]['obs/ledger/mfu']:.6g}", flush=True)
+    print(f"  deep path: ledger/mfu {registry[-1]['obs/ledger/mfu']:.6g}",
+          flush=True)
     reset_counts()
     t0 = time.monotonic()
     returns = driver.test(dataclasses.replace(
@@ -1849,15 +1940,18 @@ def deep_path(torch, driver, config, scratch, train_counted, reset_counts,
 
 def _loop_rate(config, label, updates=UPDATES):
     """Print s per update over updates 3..``updates`` of a run logged every
-    update (update 2 alone for a 2-update run), and its env frames/s (not
-    gated)."""
+    update, and its env frames/s (not gated).  A 2-update run has one
+    interval, update 2's, and prints it as that, not as a loop rate."""
     rows = {r["step"]: r for r in _rows(config.logdir)}
     first = min(2, updates - 1)
     s_per_update = ((rows[updates]["time"] - rows[first]["time"])
                     / (updates - first))
-    print(f"  {label}, updates {first + 1}..{updates}: {s_per_update:.4f} s "
-          f"per update ({config.frames_per_update() / s_per_update:.0f} env "
-          f"frames/s)", flush=True)
+    what = (f"updates {first + 1}..{updates}: {s_per_update:.4f} s per "
+            f"update" if updates - first > 1 else
+            f"update {updates}'s interval alone (one interval, not a loop "
+            f"rate): {s_per_update:.4f} s")
+    print(f"  {label}, {what} ({config.frames_per_update() / s_per_update:.0f}"
+          f" env frames/s)", flush=True)
 
 
 def composite_agent_on_one_trajectory(torch, driver, config, out):
@@ -2059,7 +2153,9 @@ STEMS = ("stem_gradw", "stem_gradw_c4", "stem_gradw_c1",
          "resnet_stem_gradw", "resnet_stem_gradw_c4")
 GRADW_COUNTERS = tuple(f"{stem}{suffix}" for stem in STEMS
                        for suffix in ("", "_bf16"))
-ROUTE_UPDATES = 2            # phase 3k's fake_tuple run, 3l's doom_duel run
+ROUTE_UPDATES = 2            # phase 3k's runs, 3l's doom_benchmark and
+                             # doom_duel runs
+DEEP_UPDATES = 2             # phase 3h's bf16 run
 DUEL_BATCH = 32              # 16 matches x 2 agents a group
 
 
@@ -2115,7 +2211,7 @@ def route_tables(torch, driver, arms, out, rounds=2):
 def library_routes(torch, driver, config, scratch, train_counted):
     """Phase 3k: the library routes.  ``--core_impl=xla`` and
     ``--conv_backend=xla`` each on the main path's configuration for
-    UPDATES bf16 updates: no launch of a kernel the route replaces (the
+    ROUTE_UPDATES bf16 updates: no launch of a kernel the route replaces (the
     LSTM counters at 0 under the xla core, the actors' steps included; the
     grad-W counters at 0 under the xla stem), the other kernels as in
     phase 3 (``train_counted``); s per update; then the update alone on
@@ -2129,22 +2225,23 @@ def library_routes(torch, driver, config, scratch, train_counted):
     update."""
     fpu = config.frames_per_update()
     main = dataclasses.replace(config, trace=False, total_environment_frames=
-                               float(UPDATES * fpu))
+                               float(ROUTE_UPDATES * fpu))
     core = dataclasses.replace(main, core_impl="xla",
                                logdir=os.path.join(scratch, "core_xla"))
     conv = dataclasses.replace(main, conv_backend="xla",
                                logdir=os.path.join(scratch, "conv_xla"))
-    common = {"vtrace_fused": UPDATES, "stem_gradw": 0,
+    common = {"vtrace_fused": ROUTE_UPDATES, "stem_gradw": 0,
               "resnet_stem_gradw": 0, "resnet_stem_gradw_bf16": 0}
-    train_counted(core, UPDATES, "_bf16", expected=dict(
-        common, stem_gradw_bf16=UPDATES, **{c: 0 for c in LSTM_COUNTERS}))
-    _loop_rate(core, "--core_impl=xla, bf16")
-    train_counted(conv, UPDATES, "_bf16", expected=dict(
+    train_counted(core, ROUTE_UPDATES, "_bf16", expected=dict(
+        common, stem_gradw_bf16=ROUTE_UPDATES,
+        **{c: 0 for c in LSTM_COUNTERS}))
+    _loop_rate(core, "--core_impl=xla, bf16", ROUTE_UPDATES)
+    train_counted(conv, ROUTE_UPDATES, "_bf16", expected=dict(
         common, lstm_fwd_lean=0, lstm_fwd_resid=0, lstm_bptt=0,
-        lstm_fwd_lean_bf16=(UPDATES * config.unroll_length, None),
-        lstm_fwd_resid_bf16=UPDATES, lstm_bptt_bf16=UPDATES,
+        lstm_fwd_lean_bf16=(ROUTE_UPDATES * config.unroll_length, None),
+        lstm_fwd_resid_bf16=ROUTE_UPDATES, lstm_bptt_bf16=ROUTE_UPDATES,
         **{c: 0 for c in GRADW_COUNTERS}))
-    _loop_rate(conv, "--conv_backend=xla, bf16")
+    _loop_rate(conv, "--conv_backend=xla, bf16", ROUTE_UPDATES)
     out = pool_trajectories(torch, driver, main, 1)[0]
     tables = route_tables(torch, driver, [
         ("kernels (auto)", main), ("--core_impl=xla", core),
@@ -2163,7 +2260,7 @@ def library_routes(torch, driver, config, scratch, train_counted):
         conv_backend="xla", logdir=os.path.join(scratch, "tuple_conv_xla"),
         total_environment_frames=float(ROUTE_UPDATES * fpu))
     train_counted(tup, ROUTE_UPDATES, "_bf16", expected=dict(
-        common, vtrace_fused=ROUTE_UPDATES, lstm_fwd_lean=0,
+        common, lstm_fwd_lean=0,
         lstm_fwd_resid=0, lstm_bptt=0,
         lstm_fwd_lean_bf16=(ROUTE_UPDATES * config.unroll_length, None),
         lstm_fwd_resid_bf16=ROUTE_UPDATES, lstm_bptt_bf16=ROUTE_UPDATES,
@@ -2215,8 +2312,8 @@ def doom_path(torch, driver, config, scratch, root, train_counted,
     (``doom_scenarios``): it measures the fake simulator's step cost, not
     VizDoom's.  ``doom_benchmark`` (Discrete(9), D=266) at the main path's
     layout and Doom's 72x128 frames (the family's defaults), bf16,
-    ``--scan_impl=pallas``, UPDATES updates counted as in phase 3, with s
-    per update and env frames/s; then ``doom_duel`` (two agents a match,
+    ``--scan_impl=pallas``, ROUTE_UPDATES updates counted as in phase 3,
+    with s per update and env frames/s; then ``doom_duel`` (two agents a match,
     the full discretized space with use: 41 logits, D=298, 23
     measurements) at batch DUEL_BATCH (16 matches x 2 agents a group, 2
     groups), ROUTE_UPDATES bf16 updates counted, the second's s; ``--mode=test
@@ -2236,9 +2333,10 @@ def doom_path(torch, driver, config, scratch, root, train_counted,
     if tuple(frame.shape) != (72, 128, 3):
         raise AssertionError(f"doom_benchmark frames {frame.shape}")
     bench = dataclasses.replace(bench, total_environment_frames=float(
-        UPDATES * bench.frames_per_update()))
-    train_counted(bench, UPDATES, "_bf16")
-    _loop_rate(bench, "doom_benchmark (fake VizDoom), bf16, 72x128")
+        ROUTE_UPDATES * bench.frames_per_update()))
+    train_counted(bench, ROUTE_UPDATES, "_bf16")
+    _loop_rate(bench, "doom_benchmark (fake VizDoom), bf16, 72x128",
+               ROUTE_UPDATES)
 
     duel = dataclasses.replace(
         config, level_name="doom_duel", trace=False, batch_size=DUEL_BATCH,
@@ -2287,8 +2385,8 @@ def doom_path(torch, driver, config, scratch, root, train_counted,
     return launches
 
 
-DMLAB_UPDATES = 4           # phase 3m's dmlab30 run
-ATARI_UPDATES = 4           # phase 3n's atari_breakout run (bf16)
+DMLAB_UPDATES = 2           # phase 3m's dmlab30 run
+ATARI_UPDATES = 2           # phase 3n's atari_breakout run (bf16)
 NEW_PATH_UPDATES = 2        # phase 3n's one-channel gym and deep Atari
                             # runs (bf16; and F32_UPDATES float32)
 # A stand-in for the gymnasium package, which the card's machine lacks: a
@@ -2664,6 +2762,253 @@ def one_channel_and_deep_atari_paths(driver, config, scratch, train_counted,
     return launches
 
 
+OFF_POLICY_FRESH = 3         # phase 3o's fresh updates (and replayed ones)
+OFF_POLICY_CAPACITY = 64     # its slab, the JAX default --replay_capacity
+
+
+def _host_trajectory(config, num_actions, seed):
+    """A full-width host trajectory (numpy, the pool's dtypes) made from
+    ``seed``: the packed transport's and the learner's input at the main
+    path's shapes, without a pool."""
+    import numpy as np
+
+    from scalable_agent_tpu_torch.runtime.learner import Trajectory
+    from scalable_agent_tpu_torch.types import (
+        AgentOutput,
+        AgentState,
+        Observation,
+        StepOutput,
+        StepOutputInfo,
+    )
+
+    rng = np.random.default_rng(seed)
+    t1, b = config.unroll_length + 1, config.batch_size
+    f32 = lambda *shape: rng.standard_normal(shape).astype(np.float32)
+    return Trajectory(
+        agent_state=AgentState(c=f32(b, 256), h=np.tanh(f32(b, 256))),
+        env_outputs=StepOutput(
+            reward=f32(t1, b),
+            info=StepOutputInfo(
+                episode_return=f32(t1, b),
+                episode_step=rng.integers(0, 99, (t1, b)).astype(np.int32)),
+            done=rng.random((t1, b)) < 0.02,
+            observation=Observation(
+                frame=rng.integers(0, 256, (t1, b, config.height,
+                                            config.width, 3), dtype=np.uint8),
+                instruction=None)),
+        agent_outputs=AgentOutput(
+            action=rng.integers(0, num_actions, (t1, b)),
+            policy_logits=f32(t1, b, num_actions),
+            baseline=f32(t1, b)))
+
+
+def _slab_under_sync_debug(torch, device, config, num_actions):
+    """The replay slab at OFF_POLICY_CAPACITY, fed as the driver feeds it:
+    a packed buffer uploaded on a side stream (the prefetch thread's),
+    inserted there, and sampled on the default stream (the update's).  A
+    warm insert and sample first (they build the slabs); then an insert
+    and a sample under ``torch.cuda.set_sync_debug_mode("error")``, which
+    raises at any synchronizing call; each sample bitwise equal to the
+    batch in the slot the host mirror names; the slab's bytes printed."""
+    import numpy as np
+
+    from scalable_agent_tpu_torch.runtime.replay import DeviceReplayBuffer
+    from scalable_agent_tpu_torch.runtime.transport import (
+        PackedTransport,
+        tree_leaves,
+    )
+
+    transport = PackedTransport(device)
+    replay = DeviceReplayBuffer(OFF_POLICY_CAPACITY, seed=config.seed,
+                                postprocess=transport.unpack)
+    hosts = [_host_trajectory(config, num_actions, seed) for seed in (1, 2)]
+    side = torch.cuda.Stream(device)
+
+    def upload(host):
+        with torch.cuda.stream(side):
+            return transport.upload(transport.pack(host))
+
+    def check(sampled, counter):
+        torch.cuda.synchronize()
+        host = hosts[replay.mirror_slot(counter, replay.size)]
+        for got, want in zip(tree_leaves(sampled), tree_leaves(host)):
+            if want is None:
+                continue
+            if not np.array_equal(got.cpu().numpy(), np.asarray(want)):
+                raise AssertionError("a replay sample is not the inserted "
+                                     "batch of its slot bit for bit")
+
+    first = upload(hosts[0])
+    with torch.cuda.stream(side):
+        replay.insert(first)
+    check(replay.sample(), 0)
+    second = upload(hosts[1])
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        with torch.cuda.stream(side):
+            replay.insert(second)
+        t1 = time.perf_counter()
+        sampled = replay.sample()
+        t2 = time.perf_counter()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(sampled, 1)
+    shard = transport.spec.shard_nbytes
+    print(f"  replay slab: {OFF_POLICY_CAPACITY} slots x {shard} bytes = "
+          f"{replay.nbytes / 2**30:.3f} GiB on the card; an insert "
+          f"(side stream) and a sample (default stream) under "
+          f"set_sync_debug_mode('error'): {1e3 * (t1 - t0):.3f} and "
+          f"{1e3 * (t2 - t1):.3f} ms of host dispatch, no synchronizing "
+          f"call; each sample the inserted batch of its slot bit for bit",
+          flush=True)
+
+
+def off_policy_path(torch, driver, CheckpointManager, config, scratch,
+                    train_counted, reset_counts, read_counts):
+    """Phase 3o: off-policy training on the main path.  ``fake_benchmark``
+    at the reference layout and the bf16 policy with ``--loss=impact
+    --replay_ratio=1 --replay_capacity=64 --target_update_interval=2
+    --scan_impl=pallas``, resumed from phase 3's vtrace checkpoint (the
+    migration: the target network starts from the restored parameters,
+    so the first update's IMPACT ratio is 1), for OFF_POLICY_FRESH fresh
+    updates and as many replayed ones, counted as in phase 3: 101 lean
+    launches an update (the target's unroll) beside the actors', one
+    residual forward, BPTT, grad-W and V-trace an update.  The rows:
+    ``env_frames`` counts fresh frames only, replayed updates and samples
+    equal OFF_POLICY_FRESH, the slab is occupied, the IMPACT histograms
+    and ``ledger/staleness_replayed_s`` are published; s per update.
+    Then the update alone on one trajectory (launches, ms against the
+    vtrace update's), the slab under the sync debug mode, and
+    ``--mode=test`` on the run's checkpoint, which holds the target.
+    Returns the run's launches of the target's unroll alone: the update
+    alone's lean launches times the run's updates (the run's own lean
+    count also holds the actors' T=1 steps)."""
+    import shutil
+
+    from scalable_agent_tpu_torch.obs import get_registry
+    from scalable_agent_tpu_torch.ops.distributions import spec_for_space
+
+    fpu = config.frames_per_update()
+    updates = 2 * OFF_POLICY_FRESH
+    logdir = os.path.join(scratch, "impact")
+    shutil.copytree(os.path.join(config.logdir, "checkpoints"),
+                    os.path.join(logdir, "checkpoints"))
+    step, saved = CheckpointManager(logdir).restore()
+    if step != UPDATES or "target_params" in saved:
+        raise AssertionError(f"phase 3's checkpoint step {step} is not the "
+                             f"vtrace step {UPDATES} the resume needs")
+    impact = dataclasses.replace(
+        config, logdir=logdir, trace=False, loss="impact", replay_ratio=1,
+        replay_capacity=OFF_POLICY_CAPACITY, target_update_interval=2,
+        scan_impl="pallas", total_environment_frames=float(
+            (UPDATES + OFF_POLICY_FRESH) * fpu))
+    before = get_registry().snapshot()
+    expected = {c: 0 for c in LSTM_COUNTERS + GRADW_COUNTERS}
+    expected.update(
+        lstm_fwd_lean_bf16=(updates * (config.unroll_length + 1)
+                            + OFF_POLICY_FRESH * config.unroll_length, None),
+        lstm_fwd_resid_bf16=updates, lstm_bptt_bf16=updates,
+        stem_gradw_bf16=updates, vtrace_fused=updates)
+    launches = train_counted(impact, UPDATES + OFF_POLICY_FRESH, "_bf16",
+                             expected=expected)
+    rows = {r["step"]: r for r in _rows(logdir)}
+    registry = [r for r in _all_rows(logdir) if _is_registry_row(r)][-1]
+    delta = lambda key: registry[f"obs/{key}"] - before.get(key, 0.0)
+    first, last = min(rows), max(rows)
+    per_iteration = ((rows[last]["time"] - rows[last - 2]["time"])
+                     if last - 2 in rows else float("nan"))
+    print(f"  impact + replay: steps {sorted(rows)}; the last fresh "
+          f"iteration (one fresh and one replayed update) "
+          f"{per_iteration:.4f} s, {per_iteration / 2:.4f} s per update; "
+          f"env_frames {rows[last]['env_frames']:.0f} at the last row; "
+          f"the first update's impact_ratio_mean "
+          f"{rows[first]['impact_ratio_mean']:.6f}", flush=True)
+    readings = {key: delta(key) for key in (
+        "learner/replayed_updates_total", "replay/sampled_total",
+        "replay/insert_total", "ledger/staleness_replayed_s/count",
+        "learner/env_frames_total")}
+    readings.update({key: registry[f"obs/{key}"] for key in (
+        "replay/occupancy", "devtel/learn/impact_ratio/count",
+        "devtel/learn/impact_ratio/mean",
+        "devtel/learn/impact_clip_fraction/mean",
+        "devtel/learn/impact_ess_frac", "ledger/staleness_replayed_s/p50",
+        "ledger/staleness_s/p50", "replay/insert_s/mean",
+        "replay/sample_s/mean", "replay/target_update_interval")})
+    print(f"  registry: {json.dumps(readings, sort_keys=True)}", flush=True)
+    if (readings["learner/replayed_updates_total"] != OFF_POLICY_FRESH
+            or readings["replay/sampled_total"] != OFF_POLICY_FRESH
+            or readings["ledger/staleness_replayed_s/count"]
+            != OFF_POLICY_FRESH
+            or readings["learner/env_frames_total"] != OFF_POLICY_FRESH * fpu
+            or not readings["replay/occupancy"] > 0
+            or not readings["devtel/learn/impact_ratio/count"] > 0
+            or abs(rows[first]["impact_ratio_mean"] - 1.0) > 1e-2):
+        raise AssertionError("phase 3o's counts are not the off-policy "
+                             "dial's")
+
+    obs_spec, action_space, _ = driver.probe_env(impact)
+    num_actions = spec_for_space(action_space).num_logits
+    device = torch.device(impact.device)
+    host = _host_trajectory(impact, num_actions, seed=0)
+    traj = driver.make_transport("per_leaf", device).put(host)[0]
+    target_launches = None
+    for loss in ("impact", "vtrace"):
+        run = dataclasses.replace(impact, loss=loss, replay_ratio=0)
+        agent = driver.build_agent(run, obs_spec, action_space, device)
+        learner = driver.build_learner(run, agent)
+        learner.update(traj)
+        torch.cuda.synchronize()
+        reset_counts()
+        learner.update(traj)
+        torch.cuda.synchronize()
+        alone = read_counts()
+        want = dict(lstm_fwd_lean_bf16=(config.unroll_length + 1
+                                        if loss == "impact" else 0),
+                    lstm_fwd_resid_bf16=1, lstm_bptt_bf16=1,
+                    stem_gradw_bf16=1, vtrace_fused=1)
+        _expect_launches(f"the {loss} update alone", alone, want)
+        if loss == "impact":
+            target_launches = updates * alone["lstm_fwd_lean_bf16"]
+        ms = _time_ms(torch, lambda: learner.update(traj), 3)
+        by_kernel = _kernel_ms(torch, lambda: learner.update(traj), 1)
+        busy = sum(by_kernel.values())
+        lean = _matching(by_kernel, "lstm_step_kernel")
+        print(f"  the {loss} update alone on one trajectory: "
+              f"{ms:.2f} ms (CUDA events), device busy {busy:.3f} ms, of "
+              f"which lean step kernel {lean:.3f} ms; launches "
+              f"{ {k: v for k, v in alone.items() if v} }", flush=True)
+        del learner, agent
+    torch.cuda.empty_cache()
+    _slab_under_sync_debug(torch, device, impact, num_actions)
+
+    ckpt = CheckpointManager(logdir)
+    step, saved = ckpt.restore()
+    ok, why = ckpt.verify(step, saved)
+    if (step != UPDATES + updates or not ok or "target_params" not in saved
+            or saved["env_frames"] != (UPDATES + OFF_POLICY_FRESH) * fpu):
+        raise AssertionError(f"phase 3o's checkpoint step {step} verified "
+                             f"{ok} ({why}), env_frames "
+                             f"{saved['env_frames']}")
+    reset_counts()
+    t0 = time.monotonic()
+    returns = driver.test(dataclasses.replace(
+        impact, mode="test", test_num_episodes=4))[impact.level_name]
+    test_launches = read_counts()
+    print(f"  impact --mode=test on checkpoint step {step} (target network "
+          f"saved, manifest verified): {len(returns)} returns in "
+          f"{time.monotonic() - t0:.1f} s; lean bf16 launches "
+          f"{test_launches['lstm_fwd_lean_bf16']}", flush=True)
+    if len(returns) != 4 or test_launches["lstm_fwd_lean_bf16"] == 0:
+        raise AssertionError("the impact run's --mode=test did not run 4 "
+                             "episodes through the bf16 lean LSTM kernel")
+    print(f"  the target's unroll in the run: {target_launches} of its "
+          f"{launches['lstm_fwd_lean_bf16']} lean bf16 launches ({updates} "
+          f"updates x {config.unroll_length + 1}; the rest are the actors' "
+          f"T=1 steps)", flush=True)
+    return target_launches
+
+
 def _all_rows(logdir):
     with open(os.path.join(logdir, "metrics.jsonl")) as f:
         return [json.loads(line) for line in f]
@@ -2742,7 +3087,9 @@ def learn_bandit(driver, Config, scratch):
     """fake_bandit through the pool on the card (tests/test_learning.py's
     settings), logged every update, once per seed of BANDIT_SEEDS: every
     run must rise BANDIT_RISE above its early rows, and BANDIT_FULL runs
-    must meet the full curve."""
+    must meet the full curve.  The health plane keeps its records and
+    dumps but opens no profile window (3f drills those): a window's
+    profiler and harvest are seconds of host time in a 200-update run."""
     t, b = 16, 16
     full, stalled, flat = [], [], []
     for seed in BANDIT_SEEDS:
@@ -2754,7 +3101,8 @@ def learn_bandit(driver, Config, scratch):
             total_environment_frames=float(BANDIT_UPDATES * t * b),
             learning_rate=0.002, entropy_cost=0.003,
             num_env_workers_per_group=2, log_interval_s=0.0,
-            checkpoint_interval_s=3600.0, scan_impl="pallas", seed=seed)
+            checkpoint_interval_s=3600.0, scan_impl="pallas", seed=seed,
+            health_max_windows=0)
         t0 = time.monotonic()
         driver.train(config)
         print(f"  seed {seed}: {BANDIT_UPDATES} updates in "
@@ -3302,15 +3650,15 @@ def telemetry_in_the_update(torch, driver, config, out):
 
 def obs_cost_in_the_loop(torch, driver, config, scratch):
     """The pool loop's s per update with the planes at their defaults plus
-    --trace against all of them off, run on, off, off, on; then the
-    planes-on runs' stall verdicts, dominant ledger segment and live MFU
-    from their registry rows."""
+    --trace against all of them off, one run each; then the planes-on
+    run's stall verdicts, dominant ledger segment and live MFU from its
+    registry rows."""
     on = dataclasses.replace(config, trace=True)
     off = dataclasses.replace(config, learn_telemetry=False,
                               watchdog_timeout_s=0.0)
     s_per_update = {"on": [], "off": []}
     readings = []
-    for name in ("on", "off", "off", "on"):
+    for name in ("on", "off"):
         logdir = os.path.join(scratch, f"obs_{name}{len(s_per_update[name])}")
         print(f"  planes {name}:", flush=True)
         s_per_update[name].append(pool_steady_state(
@@ -3319,7 +3667,8 @@ def obs_cost_in_the_loop(torch, driver, config, scratch):
             readings.append(_registry_readings(logdir))
     mean = lambda xs: sum(xs) / len(xs)
     on_s, off_s = mean(s_per_update["on"]), mean(s_per_update["off"])
-    print(f"  pool loop s per update, planes on + trace against off: "
+    print(f"  pool loop s per update, planes on + trace against off (one "
+          f"run each, on then off: drift between them is not balanced): "
           f"{on_s:.4f} against {off_s:.4f} ({100 * (on_s / off_s - 1):+.2f}"
           f"%); runs {s_per_update}", flush=True)
     return readings
@@ -3942,6 +4291,8 @@ def main() -> int:
         for matmul_dtype, dtype in (("float32", torch.float32),
                                     ("bfloat16", torch.bfloat16)):
             rows += compare_lstm(torch, lstm_cuda, device, matmul_dtype)
+            rows += compare_lean_target(torch, lstm_cuda, device,
+                                        matmul_dtype)
             rows += compare_gradw(torch, conv_cuda, device, dtype=dtype)
         rows += compare_vtrace(torch, vtrace_cuda, vtrace, device)
         timed = time_rows(torch, rows)
@@ -4168,6 +4519,16 @@ def main() -> int:
             read_counts)
         torch.cuda.empty_cache()
 
+        phase("phase 3o: off-policy training, --loss=impact with the "
+              "replay slab")
+        t0 = time.monotonic()
+        with float32_precision():
+            target_launches = off_policy_path(
+                torch, driver, CheckpointManager, config, scratch,
+                train_counted, reset_counts, read_counts)
+        torch.cuda.empty_cache()
+        print(f"  phase 3o took {time.monotonic() - t0:.1f} s", flush=True)
+
         phase("phase 3d: the default loop's machinery on the card")
         outs = pool_trajectories(torch, driver, config, 4)
         with float32_precision():
@@ -4244,6 +4605,7 @@ def main() -> int:
             "resnet_stem_gradw_c4"],
         resnet_stem_gradw_c4_bf16=new_launches[deep][
             "resnet_stem_gradw_c4_bf16"])
+    counts["lstm_fwd_lean_target_bf16"] = target_launches
     kernels = [dict(timed[name], launches=counts[name])
                for name in ("lstm_fwd_lean", "lstm_fwd_resid", "lstm_bptt",
                             "stem_gradw", "lstm_fwd_lean_bf16",
@@ -4253,7 +4615,8 @@ def main() -> int:
                             "stem_gradw_c4", "stem_gradw_c4_bf16",
                             "stem_gradw_c1", "stem_gradw_c1_bf16",
                             "resnet_stem_gradw_c4",
-                            "resnet_stem_gradw_c4_bf16")]
+                            "resnet_stem_gradw_c4_bf16",
+                            "lstm_fwd_lean_target_bf16")]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

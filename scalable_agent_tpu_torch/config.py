@@ -25,10 +25,7 @@ UNPORTED_FLAGS = (
     "mesh_data", "mesh_seq", "mesh_model", "distributed_coordinator",
     "distributed_num_processes", "distributed_process_id", "inference_mode",
     "accum_fused_shards", "actor", "service_max_batch", "train_backend",
-    "updates_per_dispatch", "loss",
-    "replay_ratio", "replay_capacity", "target_update_interval",
-    "impact_clip_epsilon", "sentinel_interval",
-    "sentinel_rtol",
+    "updates_per_dispatch", "sentinel_interval", "sentinel_rtol",
     "chaos_channel", "compile_cache_dir", "peer_timeout_s",
     "collective_timeout_s",
     "coordinator_init_timeout_s", "elastic", "fleet_epoch",
@@ -228,6 +225,23 @@ class Config:
     # Fault injection (runtime/faults.py): 'point@i[:j...]',
     # 'point@t=30s' or 'point@p=0.01' entries joined by ';'.
     chaos_spec: str = ""
+
+    # -- off-policy training (runtime/replay.py, ops/impact.py)
+    # "vtrace" (the reference's objective) or "impact" (the clipped-target
+    # surrogate anchored on a target network; it tolerates staler data).
+    loss: str = "vtrace"
+    # Replayed updates behind every fresh one: each fresh batch's packed
+    # upload also lands in the replay slab on the card.  Replayed updates
+    # do not advance env_frames.  0 allocates no slab.
+    replay_ratio: int = 0
+    # The slab's capacity in whole batches (capacity x packed-batch bytes
+    # on the card); its contents are not checkpointed.
+    replay_capacity: int = 64
+    # IMPACT: copy the parameters into the target network every this many
+    # FRESH updates.
+    target_update_interval: int = 100
+    # IMPACT: the ratio pi_theta/pi_target is clipped to [1-eps, 1+eps].
+    impact_clip_epsilon: float = 0.3
 
     checkpoint_interval_s: float = 600.0  # reference: experiment.py:611-612
     checkpoint_keep: int = 5

@@ -20,6 +20,9 @@ paths are the same, ``/`` for ``.`` (``convnet/residual_1_0/conv_0`` is
   <-> ``instruction.embed.weight`` as it is.
 
 Both directions copy exactly (no arithmetic), so a round trip is bitwise.
+The IMPACT target network is a second param tree (the JAX
+``TrainState.target_params``, the port's ``TrainState.target_params``)
+and takes the same two functions.
 
 ``layer_group`` sends each port parameter to the ``LAYER_GROUPS`` bucket
 of the flax module it comes from, by the JAX learner's rule
@@ -129,3 +132,4 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
         path, _, leaf = _EMBED[1].rpartition("/")
         put(path, leaf, sd[_EMBED[0]])
     return {"params": tree}
+

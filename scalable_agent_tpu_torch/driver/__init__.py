@@ -92,8 +92,14 @@ SIGTERM.  The obs CLIs read a run's logdir (``python -m
 scalable_agent_tpu_torch.obs.report <logdir>``; ``obs/__init__.py``).
 The level families are those of the JAX package but for ``device_``:
 ``fake_``, ``doom_``, ``dmlab_``, ``atari_`` and ``gym_``
-(``envs/registry.py``).  Replay, the in-graph backend and the
-multi-process fleet are not ported yet (ROADMAP.md, queue 1).
+(``envs/registry.py``).  Off-policy training runs as in the JAX host
+backend: ``--loss=impact`` trains on the IMPACT surrogate with its
+target network, and ``--replay_ratio=R`` (packed transport only;
+``build_replay``) runs R updates on batches sampled from the replay slab
+on the card behind every fresh update, through the same in-flight
+window, holding ``env_frames``; a rollback flushes the slab.  The
+in-graph backend and the multi-process fleet are not ported yet
+(ROADMAP.md, queue 1).
 """
 
 import contextlib
@@ -174,8 +180,10 @@ from scalable_agent_tpu_torch.runtime.learner import (
     NonFiniteTracker,
     update_flops,
 )
+from scalable_agent_tpu_torch.runtime.replay import DeviceReplayBuffer
 from scalable_agent_tpu_torch.runtime.transport import (
     InflightWindow,
+    PackedTransport,
     host_trajectory,
     make_transport,
 )
@@ -293,6 +301,25 @@ def build_learner(config: Config, agent: ImpalaAgent) -> Learner:
         raise ValueError(
             f"inflight_updates must be >= 1, got "
             f"{config.inflight_updates}")
+    # The JAX driver also checks updates_per_dispatch against
+    # train_backend (driver.py:1989); neither flag is ported (ROADMAP.md,
+    # queue 1, item 8), so there is nothing to check yet.
+    if config.loss not in ("vtrace", "impact"):
+        raise ValueError(
+            f"unknown loss {config.loss!r} (vtrace | impact)")
+    if config.replay_ratio < 0:
+        raise ValueError(
+            f"replay_ratio must be >= 0, got {config.replay_ratio}")
+    if config.replay_ratio > 0 and config.replay_capacity < 1:
+        raise ValueError(
+            f"replay_capacity must be >= 1 with replay enabled, got "
+            f"{config.replay_capacity}")
+    if config.replay_ratio > 0 and config.transport != "packed":
+        # The replay insert is the packed upload landing in the slab; the
+        # per-leaf path has no single device buffer to tap.
+        raise ValueError(
+            "replay_ratio > 0 requires --transport=packed on the host "
+            "backend (the replay slab is fed by the packed upload)")
     hp = LearnerHyperparams(
         entropy_cost=config.entropy_cost,
         baseline_cost=config.baseline_cost,
@@ -306,7 +333,35 @@ def build_learner(config: Config, agent: ImpalaAgent) -> Learner:
     return Learner(agent, hp, config.frames_per_update(),
                    scan_impl=config.scan_impl,
                    fused_forward=config.fused_forward,
-                   learn_telemetry=config.learn_telemetry)
+                   learn_telemetry=config.learn_telemetry,
+                   loss=config.loss,
+                   target_update_interval=config.target_update_interval,
+                   impact_clip_epsilon=config.impact_clip_epsilon)
+
+
+def build_replay(config: Config, transport) -> Optional[DeviceReplayBuffer]:
+    """The replay slab of a training run, or None (nothing allocated) at
+    ``replay_ratio`` 0.  It stores the packed transport's uploaded
+    buffers, tapped by ``set_upload_sink`` with the current ledger
+    record's birth stamp (so ``ledger/staleness_replayed_s`` reads the
+    frames' true age), and its samples unpack through the transport's
+    ``unpack``."""
+    if config.replay_ratio <= 0:
+        return None
+    if not isinstance(transport, PackedTransport):
+        raise ValueError(
+            "replay requires the packed transport on the host backend")
+    replay = DeviceReplayBuffer(config.replay_capacity, seed=config.seed,
+                                postprocess=transport.unpack)
+
+    def sink(device_buf):
+        ledger = get_ledger()
+        tid = ledger.current()
+        birth = ledger.birth_us(tid) if tid is not None else None
+        replay.insert(device_buf, birth_us=birth)
+
+    transport.set_upload_sink(sink)
+    return replay
 
 
 def worker_processes(requested: int, num_envs: int) -> int:
@@ -679,7 +734,7 @@ def kernel_costs(config: Config, device: torch.device, observation_spec,
               distributions.spec_for_space(action_space).num_logits,
               config.unroll_length, config.batch_size)
     model = dict(torso_type=config.torso_type,
-                 use_instruction=config.use_instruction)
+                 use_instruction=config.use_instruction, loss=config.loss)
     kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     sm_count = (torch.cuda.get_device_properties(device).multi_processor_count
@@ -1001,6 +1056,9 @@ def train(config: Config) -> Dict[str, float]:
                                  action_space)
             configure_live_mfu(config, ledger, costs)
             transport = make_transport(config.transport, device)
+            # Every fresh batch's upload also lands in the replay slab;
+            # None at replay_ratio 0.
+            replay = build_replay(config, transport)
             window = InflightWindow(config.inflight_updates,
                                     registry=registry)
             tracker = NonFiniteTracker(config.nonfinite_tolerance,
@@ -1089,6 +1147,26 @@ def train(config: Config) -> Dict[str, float]:
                 window.push(dispatched, ledger_id=ledger_tid)
                 watchdog.touch("learner")
                 del trajectory, item
+                # The off-policy dial: replay_ratio updates on sampled
+                # batches behind each fresh one, through the same window
+                # with no ledger record (their frames were counted fresh;
+                # their age goes to ledger/staleness_replayed_s).  After a
+                # rollback's flush they wait for the slab to refill.
+                if replay is not None and replay.size >= 1:
+                    for _ in range(config.replay_ratio):
+                        with timing.time_avg("update"), \
+                                interval.add_time("update"), \
+                                get_tracer().span("learner/replay_update",
+                                                  cat="learner"):
+                            dispatched = learner.update(replay.sample(),
+                                                        fresh=False)
+                        window.push(dispatched, ledger_id=None)
+                        updates += 1
+                        if window.full:
+                            with timing.time_avg("retire"), \
+                                    interval.add_time("retire"):
+                                metrics = window.retire()
+                        watchdog.touch("learner")
                 # The snapshot's copies are queued after this update on
                 # the same stream: they hold its weights, not the next's.
                 pool.set_params(agent, version=updates)
@@ -1196,10 +1274,13 @@ def train(config: Config) -> Dict[str, float]:
                     frames = learner.state.env_frames
                     # Nothing of the abandoned timeline leaks forward: its
                     # in-flight metrics are dropped unread (their ledger
-                    # records discarded), and the actors get the restored
-                    # weights.
+                    # records discarded), the replay slab's batches go
+                    # (the dial refills from fresh ones), and the actors
+                    # get the restored weights.
                     window.discard()
                     metrics = {}
+                    if replay is not None:
+                        replay.flush()
                     pool.set_params(agent, version=updates)
                     last_log = time.monotonic()
                     frames_at_last_log = frames

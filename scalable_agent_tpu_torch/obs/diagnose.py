@@ -10,7 +10,8 @@ POLICY healthy?  Renders the learning-dynamics metric table
 explained-variance, per-layer update ratios), applies the
 obs/learning.py rules, names any anomaly records the health plane
 already wrote for the same failure, and states the measured
-staleness→clipping relationship when replay ran.
+staleness→clipping relationship when replay ran.  Its ``impact`` section
+reads a ``--loss=impact`` run's ``devtel/learn/impact_*`` families.
 
 Exit status: 0 when every rule passes, 1 when any verdict fired (CI
 can gate on a clean diagnosis), 2 on operator error (missing logdir /

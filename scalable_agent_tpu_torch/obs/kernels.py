@@ -136,7 +136,8 @@ def handwritten_costs(frame_shape, num_logits: int, unroll_length: int,
                       sm_count: int = 132, torso_type: str = "shallow",
                       use_instruction: bool = False,
                       core_impl: str = "pallas",
-                      conv_backend: str = "pallas") -> Dict[str, dict]:
+                      conv_backend: str = "pallas",
+                      loss: str = "vtrace") -> Dict[str, dict]:
     """Per-call ``{"flops_est", "bytes", "op", "calls"}`` of each
     hand-written kernel one update launches (``calls`` per update), keyed
     by the start of its ``kernel_name``.  FLOPs count the products at 2
@@ -154,7 +155,9 @@ def handwritten_costs(frame_shape, num_logits: int, unroll_length: int,
     ``conv_backend="xla"`` the grad-W kernels (``LIBRARY_ROUTES``): the
     library kernels those routes launch in their place are costed from
     their aten ops like every other library kernel, so a library arm's
-    table names them and the two arms' tables compare row by row."""
+    table names them and the two arms' tables compare row by row.
+    ``loss="impact"`` adds the target network's unroll: the lean step
+    kernel, one launch per step of the T+1."""
     from scalable_agent_tpu_torch.models.agent import CORE_SIZE
     from scalable_agent_tpu_torch.models.instruction import LSTM_SIZE
     from scalable_agent_tpu_torch.models.networks import (
@@ -229,6 +232,10 @@ def handwritten_costs(frame_shape, num_logits: int, unroll_length: int,
         "vtrace_chunked_kernel": entry(
             "csrc/vtrace.cu", 1, 0, 4 * (6 * unroll_length * b + b)),
     }
+    if loss == "impact":
+        costs["lstm_step_kernel"] = entry(
+            lstm, s, 2 * m * (d + h) * g,
+            4 * s * (b * d + b + 4 * b * h + (d + h + 1) * g))
     if matmul_dtype == "bfloat16":
         splits = lstm_cuda.wgrad_splits(m, d, h)
         costs["bptt_dx_kernel"] = entry(

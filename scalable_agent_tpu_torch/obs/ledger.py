@@ -34,11 +34,18 @@ with no open record.  ``stamp`` takes no lock (a dict store and an
 atomic deque append per stage crossing); the rest takes one small lock
 at trajectory cadence, and the derivation runs at the log interval.
 
-The JAX ledger's service and replay stages (``note_service``,
-``ledger/staleness_replayed_s``) belong to subsystems not ported yet
-(ROADMAP.md, queues 6 and 7): their names (``SERVICE_STAGES``) are here
-for ``obs/report.py``, and nothing publishes them.  Its ``PEAK_FLOPS``
-table lists TPU peaks only, none of which applies here.
+Beside the trajectory path, ``note_service`` feeds the replay slab's two
+dispatch points (``runtime/replay.py``), the ``replay_insert`` and
+``replay_sample`` stages: a replayed batch re-enters the learner without
+a record of its own (its frames were counted when it was consumed
+fresh), so its cost shows as ``ledger/rate/<stage>_per_s`` and
+``ledger/rho/<stage>``, and its age in ``ledger/staleness_replayed_s``
+(``observe_replay_staleness``).  The actor service's stages
+(``inference_service``, ``service_wait``, ``service_batch``) wait for
+that service (ROADMAP.md, queue 1, item 7): their names are in
+``SERVICE_STAGES`` for ``obs/report.py``, and nothing publishes them.
+The JAX ``PEAK_FLOPS`` table lists TPU peaks only, none of which applies
+here.
 """
 
 import json
@@ -47,7 +54,7 @@ import threading
 import time
 import weakref
 from collections import deque
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 __all__ = [
     "PEAK_FLOPS",
@@ -56,6 +63,7 @@ __all__ = [
     "SERVICE_STAGES",
     "SERVICE_UTILIZATION_STAGES",
     "STAGES",
+    "TIMING_STAGE_MAP",
     "PipelineLedger",
     "configure_ledger",
     "get_ledger",
@@ -96,13 +104,15 @@ SEGMENTS = (
     ("device", "dispatch", "retire"),
 )
 
-# The JAX ledger's stages beside the trajectory path, fed by its inference
-# services and replay slab (not ported): the report reads their rate and
-# rho when a run publishes them.  SERVICE_UTILIZATION_STAGES are those
+# The stages beside the trajectory path, fed by note_service (arrivals
+# and busy seconds): the JAX inference services' (not ported) and the
+# replay slab's two dispatch points.  SERVICE_UTILIZATION_STAGES are those
 # whose rho is one server's utilization in [0, 1].
 SERVICE_STAGES = ("inference_service", "service_wait", "service_batch",
                   "replay_insert", "replay_sample")
 SERVICE_UTILIZATION_STAGES = ("inference_service", "service_batch")
+# The service stages this port publishes.
+PORTED_SERVICE_STAGES = ("replay_insert", "replay_sample")
 
 SEGMENT_LABELS = {
     "unroll": "actor unroll (env stepping + inference)",
@@ -116,6 +126,20 @@ SEGMENT_LABELS = {
     "service_batch": "actor-service batched inference execution",
     "replay_insert": "replay slab insert dispatch (device-side write)",
     "replay_sample": "replay slab sample dispatch (gather + unpack)",
+}
+
+# Each timing histogram the port registers (names ending in _s) by the
+# ledger stage whose span it measures, as the JAX map has it.
+TIMING_STAGE_MAP = {
+    "actor/env_step_s": "unroll",
+    "actor/inference_s": "unroll",
+    "learner/put_trajectory_s": "transport",
+    "transport/pack_s": "transport",
+    "transport/upload_s": "transport",
+    "transport/unpack_s": "transport",
+    "learner/retire_s": "device",
+    "replay/insert_s": "replay_insert",
+    "replay/sample_s": "replay_sample",
 }
 
 # Peak dense FLOP/s of the cards the live MFU gauge knows, by
@@ -182,6 +206,8 @@ class PipelineLedger:
         self._ring: deque = deque(maxlen=RING_CAPACITY)
         self._stamps_total = 0
         self._bindings: Dict[int, int] = {}
+        # note_service's accumulators: stage -> [arrivals, busy seconds].
+        self._service: Dict[str, List[float]] = {}
         self._mfu_flops = 0.0
         self._mfu_peak = 0.0
         self._epoch_unix_us = int(time.time() * 1e6)
@@ -227,7 +253,15 @@ class PipelineLedger:
         self._h_staleness = reg.histogram(
             "ledger/staleness_s",
             "FRESH frame age at consumption: unroll birth -> update "
-            "retire")
+            "retire (the staleness metric IMPACT-style replay tunes "
+            "against; replayed consumptions read the _replayed series "
+            "so this histogram stays honest when replay_ratio > 0)")
+        self._h_staleness_replayed = reg.histogram(
+            "ledger/staleness_replayed_s",
+            "REPLAYED frame age at consumption: unroll birth -> replay "
+            "sample (runtime/replay.py's deterministic slot mirror — "
+            "the dial obs.report judges the IMPACT clip's useful range "
+            "against)")
         self._g_mfu = reg.gauge(
             "ledger/mfu",
             "live model FLOPs utilization: flops_per_update x retire "
@@ -252,6 +286,13 @@ class PipelineLedger:
                 "Little's-law L for a wait stage)")
             for name, _, _ in SEGMENTS
         }
+        for name in PORTED_SERVICE_STAGES:
+            self._seg_rate[name] = reg.gauge(
+                f"ledger/rate/{name}_per_s",
+                f"requests/s served by {SEGMENT_LABELS[name]}")
+            self._seg_rho[name] = reg.gauge(
+                f"ledger/rho/{name}",
+                f"utilization of {SEGMENT_LABELS[name]} (busy s / s)")
         self._seg_share = {
             name: reg.gauge(
                 f"ledger/latency_share/{name}",
@@ -359,6 +400,26 @@ class PipelineLedger:
 
     # -- MFU ---------------------------------------------------------------
 
+    def birth_us(self, tid: int) -> Optional[int]:
+        """An open record's birth stamp (the replay insert tags its slot
+        with it); None once the record has closed."""
+        record = self._open.get(tid)
+        return None if record is None else record.stamps.get("birth")
+
+    def observe_replay_staleness(self, age_s: float) -> None:
+        """One replayed consumption's frame age (``runtime/replay.py``'s
+        host-side slot mirror): the replayed half of the staleness
+        split."""
+        self._h_staleness_replayed.observe(max(0.0, float(age_s)))
+
+    def note_service(self, name: str, n: int, busy_s: float) -> None:
+        """``n`` requests served in ``busy_s`` seconds by the service
+        stage ``name`` (the replay slab's insert and sample)."""
+        with self._lock:
+            acc = self._service.setdefault(name, [0.0, 0.0])
+            acc[0] += n
+            acc[1] += busy_s
+
     def configure_mfu(self, flops_per_update: float,
                       peak_flops: float) -> None:
         """Arm the live MFU gauge (one card)."""
@@ -375,6 +436,8 @@ class PipelineLedger:
         with self._lock:
             records = list(self._closed)
             self._closed.clear()
+            service = {k: tuple(v) for k, v in self._service.items()}
+            self._service.clear()
         ts = now_us()
         if interval_s is None:
             interval_s = max(1e-9, (ts - self._last_publish_us) / 1e6)
@@ -421,6 +484,12 @@ class PipelineLedger:
             for name, share in shares.items():
                 self._seg_share[name].set(share)
         stats["latency_shares"] = dict(self._last_shares)
+        for name, (n, busy_s) in service.items():
+            if name in self._seg_rate:
+                self._seg_rate[name].set(n / interval_s)
+                self._seg_rho[name].set(busy_s / interval_s)
+            stats["segments"][name] = {
+                "rate_per_s": n / interval_s, "rho": busy_s / interval_s}
 
         if self._mfu_flops and self._mfu_peak:
             mfu = self._mfu_flops * retired / interval_s / self._mfu_peak

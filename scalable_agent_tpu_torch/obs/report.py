@@ -25,10 +25,13 @@ card):
   the run's ``kernels.json`` when a ``--profile_dir`` window captured one.
 
 ``--json`` emits the same verdicts as one machine-readable object
-(``build_report``), with the JAX report's keys.  Sections whose families
-the port does not publish yet (the actor service's stages, the replay
-slab, the numerics sentinel) read ``None`` or empty, as the JAX report's
-do on a run without those subsystems.
+(``build_report``), with the JAX report's keys.  The replay slab's
+section, the replayed half of the staleness split and the replay
+recommendation read a ``--replay_ratio`` run's live values (and
+``--loss=impact``'s anchor cadence).  Sections whose families the port
+does not publish yet (the actor service's stages, the numerics sentinel)
+read ``None`` or empty, as the JAX report's do on a run without those
+subsystems.
 
 Two differences from the JAX report, both deliberate.  ``bench_kernels``
 is ``None``: the JAX report reads the committed ``BENCH_r*.json``, which

@@ -6,8 +6,10 @@ format instead of Orbax's:
 
 - ``checkpoints/<step>.pt``: one ``torch.save`` of the learner's
   ``state_dict`` (params, RMSProp ``nu`` and, at ``rmsprop_momentum !=
-  0``, the momentum trace, each by parameter name; ``env_frames``, the
-  non-finite counters), copied to the CPU first and
+  0``, the momentum trace, and under ``--loss=impact`` (or carried
+  through from a restored impact step) the target network, each by
+  parameter name; ``env_frames``, the non-finite counters), copied to the
+  CPU first and
   read back with ``torch.load(..., weights_only=True)``.  It is written to
   a temporary name and renamed, so a crash mid-save leaves no half step.
 - ``checkpoints/manifests/<step>.json``: the per-leaf integrity manifest
@@ -37,9 +39,14 @@ calling thread's watchdog heartbeat (``heartbeat``, default the thread's
 name): a slow disk is not a wedge, and the caller's next touch re-arms
 it.
 
-Checkpoints of the two packages are not interchangeable yet (ROADMAP.md,
-queue 1); ``convert.state_dict_to_flax`` turns a restored ``params`` into
-the JAX agent's param tree.
+A step with or without the target network restores into either loss:
+the manifest covers the step as saved, and ``Learner.load_state_dict``
+migrates after the check (an impact run starts its target from the
+restored parameters; a vtrace run carries a restored target through).
+
+Checkpoints of the two packages are not interchangeable (ROADMAP.md,
+queue 1); ``convert.state_dict_to_flax`` turns a restored ``params`` (or
+``target_params``) into the JAX agent's param tree.
 """
 
 import json
@@ -73,9 +80,10 @@ class CheckpointIntegrityError(RuntimeError):
 
 def _groups(state: Dict) -> Tuple[str, ...]:
     """The state's groups of tensors by parameter name, in a fixed order:
-    the momentum trace only where the run keeps one."""
-    return ("params", "opt_state") + (
-        ("momentum",) if "momentum" in state else ())
+    the momentum trace and the IMPACT target network only where the run
+    keeps them."""
+    return ("params", "opt_state") + tuple(
+        group for group in ("momentum", "target_params") if group in state)
 
 
 def _to_host(state: Dict) -> Dict:

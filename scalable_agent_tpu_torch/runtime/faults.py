@@ -8,6 +8,8 @@ seeded, per-point firing decisions.  The points this package places:
 
 - ``nan_grad`` (``runtime/learner.py``): multiply one update's rewards
   by NaN, so the non-finite guard must skip it.
+- ``replay_corrupt`` (``runtime/replay.py``): multiply one sampled replay
+  batch's rewards by NaN, so the guard must skip the replayed update.
 - ``actor_raise`` (``runtime/actor.py``): raise ``InjectedFault`` from an
   actor thread's unroll loop (the bounded-respawn retry).
 - ``worker_kill`` (``runtime/actor.py``): SIGKILL one env worker process
@@ -74,10 +76,10 @@ CHAOS_POINTS = {
     "replica_diverge": "corrupt this process's param fingerprint",
 }
 
-# Points whose subsystem (replay, the actor service, the multi-process
-# fleet, the sentinel) is not ported yet.
+# Points whose subsystem (the actor service, the multi-process fleet, the
+# sentinel) is not ported yet.
 UNPORTED_POINTS = frozenset({
-    "replay_corrupt", "service_stall", "peer_exit", "peer_hang",
+    "service_stall", "peer_exit", "peer_hang",
     "param_bitflip", "kernel_miscompute", "replica_diverge"})
 
 # How long ``throughput_sag`` sleeps when it fires, as in the JAX package.

@@ -35,6 +35,20 @@ experiment.py:346-427):
   residual forward included), so both shapes give the same update.
 - The ``nan_grad`` fault point (``runtime/faults.py``) multiplies the
   trajectory's rewards by NaN before the loss.
+- ``loss="impact"`` trains on the IMPACT clipped-target surrogate
+  (``ops/impact.py``; JAX ``_loss_impact``): ``TrainState.target_params``
+  holds a target network, a copy of the parameters by name, distinct from
+  them.  The loss makes the one online unroll, then the target's unroll
+  without gradients (``torch.func.functional_call`` over the target
+  tensors, so the core takes its lean kernel over all T+1 steps), V-trace
+  with the target's logits as its target policy, and the surrogate beside
+  the vtrace branch's baseline and entropy terms.  Every
+  ``target_update_interval`` fresh updates the updated parameters are
+  copied into the target, after the guard's select (a skipped update
+  copies the parameters it kept).  ``update(trajectory, fresh=False)`` is
+  a replayed update (``runtime/replay.py``): it trains but holds
+  ``env_frames``, the learning rate's frame count and the target
+  schedule, and counts in ``learner/replayed_updates_total``.
 
 V-trace's recurrence follows ``scan_impl`` (``ops/vtrace.py``): ``"auto"``
 resolves to ``"associative"``, as the JAX learner resolves it on a mesh
@@ -90,6 +104,7 @@ from scalable_agent_tpu_torch.obs.device_telemetry import (
 )
 from scalable_agent_tpu_torch.obs.learning import LAYER_GROUPS
 from scalable_agent_tpu_torch.ops import distributions
+from scalable_agent_tpu_torch.ops import impact as impact_lib
 from scalable_agent_tpu_torch.ops import losses as losses_lib
 from scalable_agent_tpu_torch.ops import vtrace
 from scalable_agent_tpu_torch.runtime.faults import get_fault_injector
@@ -138,9 +153,16 @@ def learner_telemetry_spec() -> DeviceTelemetry:
     )
 
 
-def learning_telemetry_spec() -> DeviceTelemetry:
+# The IMPACT clip fraction's histogram buckets (JAX ``_FRACTION_EDGES``).
+_FRACTION_EDGES = (0.01, 0.05, 0.1, 0.25, 0.5, 0.75, 0.9, 0.99)
+LOSSES = ("vtrace", "impact")
+
+
+def learning_telemetry_spec(loss: str = "vtrace") -> DeviceTelemetry:
     """The learning-dynamics gauges of the newest update, as the JAX
-    package declares them for ``loss="vtrace"`` (the port's only loss)."""
+    package declares them for ``loss``: under ``impact`` also the IMPACT
+    ratio and clip-fraction histograms (every update between fetches) and
+    the online-to-target drift gauges."""
     spec = DeviceTelemetry("learn")
     for name, help_text in (
         ("entropy_frac",
@@ -177,13 +199,30 @@ def learning_telemetry_spec() -> DeviceTelemetry:
         spec.gauge(f"update_ratio_{group}",
                    f"|lr-scaled update| / |param| for the {group} group "
                    "(healthy ~1e-4..1e-2)")
+    if loss == "impact":
+        spec.histogram(
+            "impact_ratio",
+            (0.5, 0.8, 0.9, 0.95, 1.0, 1.05, 1.1, 1.25, 2.0),
+            "per-update mean IMPACT ratio pi_theta/pi_tgt (~1 = online "
+            "net hugging its target anchor)")
+        spec.histogram(
+            "impact_clip_fraction", _FRACTION_EDGES,
+            "per-update fraction of cells where the IMPACT clip bound "
+            "was active")
+        spec.gauge("impact_log_ratio_p95",
+                   "p95 of log(pi_theta/pi_tgt) — online-to-target "
+                   "drift tail")
+        spec.gauge("impact_ess_frac",
+                   "ESS fraction of the online-to-target importance "
+                   "weights")
     return spec
 
 
 def update_flops(frame_shape: Sequence[int], num_logits: int,
                  unroll_length: int, batch_size: int,
                  core_size: int = CORE_SIZE, torso_type: str = "shallow",
-                 use_instruction: bool = False) -> float:
+                 use_instruction: bool = False,
+                 loss: str = "vtrace") -> float:
     """FLOPs of one update at 2 per multiply-add: every product and
     convolution of the agent's forward over the [T+1, B] trajectory and
     of its backward, elementwise work left out (as
@@ -196,7 +235,8 @@ def update_flops(frame_shape: Sequence[int], num_logits: int,
     (``fused_forward``, no ``remat_torso``: recomputation is not model
     work).  ``num_logits`` is the policy's logit count (the one-hot last
     action's width and the policy head's), the action count of a
-    Discrete space."""
+    Discrete space.  ``loss="impact"`` adds the target network's forward
+    over the trajectory (no backward)."""
     convs, flat = conv_shapes(torso_type, frame_shape)
     forward = backward = 0
     for i, conv in enumerate(convs):
@@ -217,7 +257,9 @@ def update_flops(frame_shape: Sequence[int], num_logits: int,
     for macs in layers:
         forward += macs
         backward += 2 * macs
-    return 2.0 * (unroll_length + 1) * batch_size * (forward + backward)
+    forwards = 2 if loss == "impact" else 1
+    return 2.0 * (unroll_length + 1) * batch_size * (forwards * forward
+                                                     + backward)
 
 
 @dataclasses.dataclass
@@ -232,6 +274,10 @@ class TrainState:
     nonfinite_streak: torch.Tensor
     # The momentum trace by parameter name; None at rmsprop_momentum 0.
     momentum: Optional[Dict[str, torch.Tensor]] = None
+    # The IMPACT target network by parameter name (plain tensors, distinct
+    # from the parameters); None under loss="vtrace" unless a restored
+    # checkpoint brought one, which is then carried through unused.
+    target_params: Optional[Dict[str, torch.Tensor]] = None
 
 
 class Learner:
@@ -241,7 +287,18 @@ class Learner:
     def __init__(self, agent: ImpalaAgent, hp: LearnerHyperparams,
                  frames_per_update: int, env_frames: float = 0.0,
                  scan_impl: str = "auto", fused_forward: bool = True,
-                 learn_telemetry: bool = True):
+                 learn_telemetry: bool = True, loss: str = "vtrace",
+                 target_update_interval: int = 100,
+                 impact_clip_epsilon: float = 0.3):
+        if loss not in LOSSES:
+            raise ValueError(f"unknown loss {loss!r} (vtrace | impact)")
+        if target_update_interval < 1:
+            raise ValueError(
+                f"target_update_interval must be >= 1, got "
+                f"{target_update_interval}")
+        self.loss_name = loss
+        self._target_update_interval = int(target_update_interval)
+        self._impact_clip_epsilon = float(impact_clip_epsilon)
         if scan_impl == "auto":
             scan_impl = "associative"
         if scan_impl not in vtrace.SCAN_IMPLS:
@@ -265,7 +322,9 @@ class Learner:
             nonfinite_streak=zero(),
             momentum=({name: torch.zeros_like(p)
                        for name, p in self._params.items()}
-                      if hp.rmsprop_momentum else None))
+                      if hp.rmsprop_momentum else None),
+            target_params=(self._copy_params()
+                           if loss == "impact" else None))
         if hp.rmsprop_momentum:
             warnings.warn(
                 "rmsprop_momentum != 0: the momentum trace accumulates "
@@ -280,7 +339,7 @@ class Learner:
             device=device)
         self._devtel_spec = learner_telemetry_spec()
         self._learn_enabled = bool(learn_telemetry)
-        self._learn_spec = (learning_telemetry_spec()
+        self._learn_spec = (learning_telemetry_spec(loss)
                             if self._learn_enabled
                             else DeviceTelemetry("learn"))
         # entropy_frac's normalizer: the uniform policy's entropy.
@@ -294,6 +353,21 @@ class Learner:
         self._frames_counter = registry.counter(
             "learner/env_frames_total",
             "env frames consumed by dispatched updates")
+        self._replayed_counter = registry.counter(
+            "learner/replayed_updates_total",
+            "update steps dispatched on REPLAYED batches (their frames "
+            "were already counted at fresh consumption)")
+        if loss == "impact":
+            # The anchor cadence, for obs.report's staleness budget.
+            registry.gauge(
+                "replay/target_update_interval",
+                "fresh updates between IMPACT target-network hard "
+                "copies (the clipped-target surrogate's anchor "
+                "cadence)").set(float(self._target_update_interval))
+
+    def _copy_params(self) -> Dict[str, torch.Tensor]:
+        """The parameters as new plain tensors by name."""
+        return {name: p.detach().clone() for name, p in self._params.items()}
 
     # -- device telemetry --------------------------------------------------
 
@@ -347,6 +421,80 @@ class Learner:
             trajectory.agent_outputs.action, trajectory.env_outputs,
             trajectory.agent_state, residual_core=True)
         return logits, baselines
+
+    @torch.no_grad()
+    def _target_forward(self, trajectory: Trajectory):
+        """The target network's unroll: the agent over the target tensors,
+        without gradients, so the core runs its lean kernel over every
+        step and keeps no residuals; its logits [T+1, B, A]."""
+        (logits, _), _ = torch.func.functional_call(
+            self._agent, self.state.target_params,
+            (trajectory.agent_outputs.action, trajectory.env_outputs,
+             trajectory.agent_state))
+        return logits
+
+    def _loss_impact(self, trajectory: Trajectory):
+        """The IMPACT surrogate (JAX ``_loss_impact``): V-trace's
+        advantages with the TARGET network as the target policy, then the
+        ratio clip of pi_theta against pi_tgt; the baseline and entropy
+        terms as in the vtrace branch."""
+        hp = self._hp
+        (online_logits, baselines), dead_torso = self._forward(
+            trajectory, capture=self._learn_enabled)
+        if self._fused_forward:
+            comparison_baselines = baselines
+        else:
+            _, comparison_baselines = self._comparison_forward(trajectory)
+        anchor_logits = self._target_forward(trajectory)
+        bootstrap_value = comparison_baselines[-1]
+        behaviour = AgentOutput(*(t[1:] for t in trajectory.agent_outputs))
+        env = trajectory.env_outputs
+        online_logits = online_logits[:-1]
+        anchor_logits = anchor_logits[:-1]
+        baselines = baselines[:-1]
+        comparison_baselines = comparison_baselines[:-1]
+        rewards = losses_lib.clip_rewards(env.reward[1:], hp.reward_clipping)
+        discounts = torch.where(
+            env.done[1:], torch.zeros_like(rewards),
+            torch.full_like(rewards, hp.discounting))
+        dist_spec = self._agent.dist_spec
+        vt = vtrace.from_logits(
+            behaviour_policy_logits=behaviour.policy_logits,
+            target_policy_logits=anchor_logits,
+            actions=behaviour.action,
+            discounts=discounts,
+            rewards=rewards,
+            values=comparison_baselines,
+            bootstrap_value=bootstrap_value,
+            clip_rho_threshold=hp.clip_rho_threshold,
+            clip_pg_rho_threshold=hp.clip_pg_rho_threshold,
+            scan_impl=self.scan_impl,
+            dist_spec=dist_spec)
+        surrogate = impact_lib.surrogate_from_logits(
+            online_logits, anchor_logits, behaviour.action,
+            vt.pg_advantages, clip_epsilon=self._impact_clip_epsilon,
+            dist_spec=dist_spec)
+        baseline_loss = losses_lib.compute_baseline_loss(vt.vs - baselines)
+        entropy_loss = losses_lib.compute_entropy_loss(
+            online_logits, dist_spec=dist_spec)
+        total = (surrogate.loss + hp.baseline_cost * baseline_loss
+                 + hp.entropy_cost * entropy_loss)
+        metrics = {
+            "total_loss": total,
+            "policy_gradient_loss": surrogate.loss,
+            "baseline_loss": baseline_loss,
+            "entropy_loss": entropy_loss,
+            "impact_ratio_mean": surrogate.ratio_mean,
+            "impact_clip_fraction": surrogate.clip_fraction,
+        }
+        if self._learn_enabled:
+            metrics.update(self._learning_metrics(
+                vt, behaviour.policy_logits, online_logits, baselines,
+                dist_spec, dead_torso))
+            metrics["impact_log_ratio_mean"] = surrogate.log_ratio_mean
+            metrics["impact_log_ratio_p95"] = surrogate.log_ratio_p95
+            metrics["impact_ess_frac"] = surrogate.ess_frac
+        return total, metrics
 
     def _loss_vtrace(self, trajectory: Trajectory):
         hp = self._hp
@@ -438,19 +586,27 @@ class Learner:
             "dead_torso_frac": dead_torso,
         }
 
-    def update(self, trajectory: Trajectory) -> Dict[str, torch.Tensor]:
+    def update(self, trajectory: Trajectory,
+               fresh: bool = True) -> Dict[str, torch.Tensor]:
         """One update in place (params, ``nu``, counters, telemetry);
-        returns the metrics as 0-d tensors (no host sync)."""
+        returns the metrics as 0-d tensors (no host sync).
+        ``fresh=False`` marks a replayed batch: the update holds
+        ``env_frames`` and the target schedule, whose frames were counted
+        when the batch was consumed fresh."""
         with get_tracer().span("learner/update", cat="learner"):
-            metrics = self._update(trajectory)
+            metrics = self._update(trajectory, fresh)
         self._updates_counter.inc()
-        self._frames_counter.inc(self._frames_per_update)
+        if fresh:
+            self._frames_counter.inc(self._frames_per_update)
+        else:
+            self._replayed_counter.inc()
         get_flight_recorder().record(
             "update", "learner",
             {"update": int(self._updates_counter.value)})
         return metrics
 
-    def _update(self, trajectory: Trajectory) -> Dict[str, torch.Tensor]:
+    def _update(self, trajectory: Trajectory,
+                fresh: bool = True) -> Dict[str, torch.Tensor]:
         hp = self._hp
         injector = get_fault_injector()
         if injector.active and injector.should_fire("nan_grad"):
@@ -461,7 +617,9 @@ class Learner:
                 reward=env.reward * float("nan")))
         names = list(self._params)
         params = [self._params[name] for name in names]
-        total, metrics = self._loss_vtrace(trajectory)
+        loss_fn = (self._loss_impact if self.loss_name == "impact"
+                   else self._loss_vtrace)
+        total, metrics = loss_fn(trajectory)
         grads = torch.autograd.grad(total, params)
         state = self.state
         frames = state.env_frames
@@ -499,7 +657,20 @@ class Learner:
                 state.nonfinite_streak + 1.0)
             grad_sq = self._group_sq(grads)
             grad_norm = torch.sqrt(grad_sq.sum())
-        state.env_frames = frames + self._frames_per_update
+            if self.loss_name == "impact" and fresh:
+                # The hard copy: the updated (or, after a skip, the kept)
+                # parameters overwrite the target every interval-th fresh
+                # update, keyed on the frame count as in JAX.  The frame
+                # count is a host float, so the schedule is decided here
+                # and the copy needs no host sync.
+                k_next = (frames + self._frames_per_update) \
+                    / self._frames_per_update
+                if round(k_next) % self._target_update_interval == 0:
+                    torch._foreach_copy_(
+                        [state.target_params[name] for name in names],
+                        params)
+        if fresh:
+            state.env_frames = frames + self._frames_per_update
         metrics = {name: value.detach() for name, value in metrics.items()}
         metrics.update(
             learning_rate=torch.tensor(lr, dtype=torch.float64),
@@ -538,6 +709,17 @@ class Learner:
             "rho_clip_fraction", "cs_clip_fraction", "pg_rho_clip_fraction",
             "log_rho_mean", "log_rho_p95", "dead_torso_frac")}
         gauges["kl"] = metrics["behaviour_kl"]
+        if self.loss_name == "impact":
+            # Histograms, so the fetch aggregates every update since the
+            # last one.
+            for hist, key in (("impact_ratio", "impact_ratio_mean"),
+                              ("impact_clip_fraction",
+                               "impact_clip_fraction")):
+                value = metrics[key]
+                self._learn_spec.observe(tel, hist, value,
+                                         where=torch.isfinite(value))
+            gauges["impact_log_ratio_p95"] = metrics["impact_log_ratio_p95"]
+            gauges["impact_ess_frac"] = metrics["impact_ess_frac"]
         grad_norms = grad_sq.sqrt()
         param_norms = self._group_sq(params).sqrt()
         ratios = self._group_sq(steps).sqrt() / (param_norms + 1e-8)
@@ -549,9 +731,10 @@ class Learner:
 
     def state_dict(self) -> Dict[str, object]:
         """Everything a checkpoint holds: parameters, RMSProp ``nu`` and,
-        at ``rmsprop_momentum != 0``, the momentum trace (each by
-        parameter name), ``env_frames`` and the non-finite counters.  The
-        tensors are the live ones, not copies."""
+        at ``rmsprop_momentum != 0``, the momentum trace, and where the run
+        keeps one the IMPACT target network (each by parameter name),
+        ``env_frames`` and the non-finite counters.  The tensors are the
+        live ones, not copies."""
         state = self.state
         saved = {
             "params": dict(self._params),
@@ -562,13 +745,19 @@ class Learner:
         }
         if state.momentum is not None:
             saved["momentum"] = dict(state.momentum)
+        if state.target_params is not None:
+            saved["target_params"] = dict(state.target_params)
         return saved
 
     @torch.no_grad()
     def load_state_dict(self, saved: Dict[str, object]) -> None:
         """Copy a ``state_dict`` (on any device) into this learner.  A
         momentum trace saved and none wanted, or the other way round,
-        raises: a resume never drops a trace or starts a fresh one."""
+        raises: a resume never drops a trace or starts a fresh one.  The
+        target network migrates both ways, as the JAX package's does: an
+        impact run restoring a state without one starts it from the
+        restored parameters; a vtrace run keeps a restored one, unused,
+        so its next checkpoint still holds it."""
         theirs, ours = "momentum" in saved, self.state.momentum is not None
         if theirs != ours:
             raise ValueError(
@@ -579,6 +768,14 @@ class Learner:
         groups = {"params": self._params, "opt_state": self.state.opt_state}
         if ours:
             groups["momentum"] = self.state.momentum
+        if "target_params" in saved:
+            if self.state.target_params is None:
+                self.state.target_params = {
+                    name: torch.empty_like(p)
+                    for name, p in self._params.items()}
+            groups["target_params"] = self.state.target_params
+        elif self.loss_name == "vtrace":
+            self.state.target_params = None
         for group, tensors in groups.items():
             if set(saved[group]) != set(tensors):
                 raise ValueError(
@@ -587,6 +784,10 @@ class Learner:
             for name, tensor in tensors.items():
                 tensor.copy_(saved[group][name])
         state = self.state
+        if self.loss_name == "impact" and "target_params" not in saved:
+            torch._foreach_copy_(
+                [state.target_params[name] for name in self._params],
+                list(self._params.values()))
         state.env_frames = float(saved["env_frames"])
         for key in ("nonfinite_skips", "nonfinite_streak"):
             getattr(state, key).copy_(torch.as_tensor(saved[key]))

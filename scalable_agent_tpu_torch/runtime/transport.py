@@ -16,6 +16,10 @@ card:
   used in turn, each rewritten only after the CUDA event of the copy that
   last read it has completed.  There is no fallback: on the card the
   staging buffers are pinned or the transport raises.
+- ``PackedTransport.set_upload_sink`` taps each uploaded buffer right
+  after its copy is issued: the replay slab's insert
+  (``runtime/replay.py``), whose samples ``unpack`` turns back into
+  trajectories.
 - ``InflightWindow`` keeps up to W updates in flight: the driver pushes
   each update's metrics with a CUDA event recorded after it, and blocks
   (``retire``) on the oldest one only when the window is full, so the
@@ -242,6 +246,7 @@ class PackedTransport:
         # until it completes, so a pack into the buffer waits on it.
         self._upload_done: List[Optional[torch.cuda.Event]] = [None, None]
         self._slot = 0
+        self._upload_sink = None
         registry = get_registry()
         self._h_pack = registry.histogram(
             "transport/pack_s", "host pack into the staging buffer")
@@ -295,8 +300,15 @@ class PackedTransport:
         return device_buf
 
     def unpack(self, device_buf: torch.Tensor) -> Trajectory:
-        """The trajectory as views of the device buffer."""
+        """The trajectory as views of the device buffer (also the replay
+        slab's postprocess of a sampled buffer)."""
         return self.spec.unpack(device_buf)
+
+    def set_upload_sink(self, sink) -> None:
+        """Tap every uploaded device buffer (the replay insert):
+        ``sink(device_buf)`` runs on the putting thread and its stream
+        right after the upload is issued; None disconnects."""
+        self._upload_sink = sink
 
     def put(self, trajectory: Trajectory) -> Placed:
         tracer = get_tracer()
@@ -311,6 +323,10 @@ class PackedTransport:
             device_buf = self.upload(buf)
         self._bytes_counter.inc(buf.nbytes)
         ledger.stamp_current("transport_upload")
+        if self._upload_sink is not None:
+            # The batch's bytes are on the card: the replay insert copies
+            # this buffer there, and nothing crosses the link twice.
+            self._upload_sink(device_buf)
         with tracer.span("transport/unpack", cat="h2d"), \
                 self._h_unpack.time():
             result = self.unpack(device_buf)

@@ -41,6 +41,7 @@ from scalable_agent_tpu.runtime import actor as jax_actor
 from scalable_agent_tpu.runtime import learner as jax_learner
 from scalable_agent_tpu.runtime import transport as jax_transport
 from scalable_agent_tpu_torch import driver, obs
+from scalable_agent_tpu_torch.obs import ledger as ledger_lib
 from scalable_agent_tpu_torch.obs import registry as registry_lib
 from scalable_agent_tpu_torch.config import Config
 from scalable_agent_tpu_torch.envs import (
@@ -303,13 +304,13 @@ def _jax_producer_names():
 
 
 # The JAX names the port does not register: XLA's compile counters (the
-# port compiles nothing per step) and the ledger's service and replay
-# stages (subsystems not ported).  The health and sentinel families are
-# not among the producers above.
-NOT_PORTED = ({"jax/compile_count", "jax/compile_time_s",
-               "ledger/staleness_replayed_s"}
+# port compiles nothing per step) and the ledger's actor-service stages
+# (a subsystem not ported).  The health and sentinel families are not
+# among the producers above.
+NOT_PORTED = ({"jax/compile_count", "jax/compile_time_s"}
               | {f"ledger/{kind}/{stage}{suffix}"
                  for stage in jax_ledger.SERVICE_STAGES
+                 if stage not in ledger_lib.PORTED_SERVICE_STAGES
                  for kind, suffix in (("rate", "_per_s"), ("rho", ""))})
 # Names the JAX runtime registers around the producers, which a run of
 # the port registers too.

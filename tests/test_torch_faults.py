@@ -147,7 +147,7 @@ def test_registry_is_the_jax_one():
 
 
 @pytest.mark.parametrize("spec,match", [
-    ("replay_corrupt@1", "ROADMAP.md"), ("nan_grad@1;peer_hang@t=3", "ROADMAP"),
+    ("param_bitflip@1", "ROADMAP.md"), ("nan_grad@1;peer_hang@t=3", "ROADMAP"),
     ("service_stall@p=0.5", "ROADMAP.md"), ("nan_gard@1", "unknown")])
 def test_points_that_cannot_fire_are_refused(spec, match):
     with pytest.raises(ValueError, match=match):

@@ -222,11 +222,11 @@ def test_flag_lists_cover_the_jax_config():
 @pytest.mark.parametrize("argv", [["--mesh_data=2"],
                                   ["--health_baseline_dir", "auto"],
                                   ["--chaos_channel=true"],
-                                  ["--replay_ratio=1"],
+                                  ["--train_backend=ingraph"],
                                   ["--compute_dtype=float16"],
                                   ["--scan_impl=time_sharded"],
                                   ["--inference_mode=service"],
-                                  ["--loss=impact"]])
+                                  ["--sentinel_interval=5"]])
 def test_unported_flags_and_values_raise(argv):
     with pytest.raises(ValueError, match="ROADMAP.md"):
         Config.from_argv(argv)

@@ -3,8 +3,8 @@ held against the live JAX ledger.
 
 One stamp sequence, every timestamp given (an injected clock) and the
 interval fixed, gives the same ``ledger/*`` gauges and histograms to
-1e-9; the port registers the JAX ledger's names less those of the
-service and replay stages it has no subsystem for.  A rollback's
+1e-9; the port registers the JAX ledger's names less those of the actor
+service's stages, which it has no subsystem for.  A rollback's
 ``discard`` counts the trajectory's frames into
 ``ledger/frames_discarded_total``, through the port's ``InflightWindow``
 too; ``finalize`` closes what is left as abandoned; the live MFU gauge
@@ -22,12 +22,12 @@ from scalable_agent_tpu_torch.obs import ledger
 from scalable_agent_tpu_torch.runtime.transport import InflightWindow
 
 FRAMES = 12800.0
-# Names the JAX ledger registers for subsystems the port has not ported:
-# the actor service's and the replay slab's stages.
+# Names the JAX ledger registers for a subsystem the port has not ported:
+# the actor service's stages.
 UNPORTED = {f"ledger/{kind}/{stage}{suffix}"
             for stage in jax_ledger.SERVICE_STAGES
+            if stage not in ledger.PORTED_SERVICE_STAGES
             for kind, suffix in (("rate", "_per_s"), ("rho", ""))}
-UNPORTED.add("ledger/staleness_replayed_s")
 
 # (actor, birth, stamps after birth in us, fate): four trajectories.
 RECORDS = [
@@ -144,3 +144,33 @@ def test_window_discard_counts_frames_discarded(monkeypatch):
     ("cpu", "float32", None)])
 def test_peak_flops_knows_this_card_only(name, dtype, want):
     assert ledger.peak_flops(name, dtype) == want
+
+
+def test_every_timing_histogram_maps_to_a_ledger_stage():
+    """The twin of JAX ``tests/test_ledger_lint.py``: every ``_s``
+    histogram registered in the port's runtime and driver maps to a ledger
+    stage (``TIMING_STAGE_MAP``), but the checkpoint's save time, which no
+    frame's latency passes through; every mapped name is still registered
+    somewhere, and maps to a segment or a service stage."""
+    import ast
+    from pathlib import Path
+
+    package = Path(ledger.__file__).resolve().parents[1]
+    files = sorted((package / "runtime").glob("*.py")) + sorted(
+        (package / "driver").glob("*.py"))
+    names = set()
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if (isinstance(node, ast.Call)
+                    and isinstance(node.func, ast.Attribute)
+                    and node.func.attr == "histogram" and node.args
+                    and isinstance(node.args[0], ast.Constant)
+                    and str(node.args[0].value).endswith("_s")):
+                names.add(node.args[0].value)
+    allowlist = {"checkpoint/save_s"}
+    assert names - allowlist == set(ledger.TIMING_STAGE_MAP)
+    stages = {name for name, _, _ in ledger.SEGMENTS} | set(
+        ledger.PORTED_SERVICE_STAGES)
+    assert set(ledger.TIMING_STAGE_MAP.values()) <= stages
+    for name, stage in ledger.TIMING_STAGE_MAP.items():
+        assert jax_ledger.TIMING_STAGE_MAP[name] == stage, name
