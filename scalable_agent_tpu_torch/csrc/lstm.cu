@@ -1,28 +1,49 @@
 // Hand-written Hopper (sm_90a) kernels for the done-reset LSTM core.
 //
-// Counterpart of scalable_agent_tpu/ops/lstm_pallas.py.  Four kernels and
+// Counterpart of scalable_agent_tpu/ops/lstm_pallas.py.  The kernels and
 // a plain C interface (loaded with ctypes by ops/_build.py):
 //
-// * lstm_step_kernel         replaces _fwd_kernel_lean at the actor's T=1
-//   (one launch per step; a T>1 forward that needs no gradient is T
-//   launches).  The step is a [B, D+H] x [D+H, 4H] product plus the cell:
-//   at B=32, D=266, H=256 it moves 2.3 MB (0.7 us at 3.35 TB/s) and does
-//   34 MFLOP, so what bounds it on this card is latency: one launch, the
-//   weights' trip from L2, a short reduction.  Giving one block to each
-//   batch row keeps 32 of 132 SMs busy, each thread walking all 522
-//   weight rows with dependent L2 loads and every block re-reading the
-//   same 2.1 MB: ~10x slower.  Here the gate columns are split across the
-//   card instead: a cluster of 4 CTAs owns 8 hidden units j0..j0+7 (their
-//   32 gate columns j, H+j, 2H+j, 3H+j) for every batch row, so the
-//   pointwise cell stays inside the cluster.  Each CTA takes a quarter of
-//   the 522-deep reduction: it stages its [131, 8 units x 4 gates] slice
-//   of [Wi; Wh] in shared memory once (32-byte segments, every weight byte read once per
-//   launch, the learner's [D, 4H] layout as it is) and [x | keep*h] for 32
-//   batch rows at a time, then each thread accumulates the 4 gates of one
-//   (row, unit).  The four partial gate vectors are summed through
-//   distributed shared memory (cluster.map_shared_rank) in rank order, a
-//   fixed order, by the CTA that owns the row; it applies the bias and the
-//   cell.  For H=256 that is 128 CTAs, one per SM.
+// * lstm_step_kernel (float32) and lstm_step_mma_kernel (bf16 operands)
+//   replace _fwd_kernel_lean at the actor's T=1: one launch a step.  The
+//   step is a [B, D+H] x [D+H, 4H] product plus the cell: at B=32, D=266,
+//   H=256 it moves 2.3 MB (0.7 us at 3.35 TB/s) and does 34 MFLOP, so what
+//   bounds it on this card is latency: one launch, the weights' trip from
+//   L2, a short reduction.  Giving one block to each batch row keeps 32 of
+//   132 SMs busy, each thread walking all 522 weight rows with dependent L2
+//   loads and every block re-reading the same 2.1 MB: ~10x slower.  Both
+//   split the gate columns across the card instead, each CTA owning a few
+//   hidden units j (their gate columns j, H+j, 2H+j, 3H+j) for every batch
+//   row, so the pointwise cell stays with the units.
+//   - float32 (FFMA): a cluster of 4 CTAs owns 8 hidden units.  Each CTA
+//     takes a quarter of the 522-deep reduction: it stages its [131, 8
+//     units x 4 gates] slice of [Wi; Wh] in shared memory once (32-byte
+//     segments, every weight byte read once per launch, the learner's
+//     [D, 4H] layout as it is) and [x | keep*h] for 32 batch rows at a
+//     time, then each thread accumulates the 4 gates of one (row, unit).
+//     The four partial gate vectors are summed through distributed shared
+//     memory (cluster.map_shared_rank) in rank order, a fixed order, by
+//     the CTA that owns the row; it applies the bias and the cell.  For
+//     H=256 that is 128 CTAs, one per SM.
+//   - bf16 operands (mma.sync m16n8k16, float32 accumulators): no cluster
+//     and no shared-memory staging.  CTA (c, m) owns kMmaStepUnits = 8
+//     hidden units, their 32 gate columns four n8 tiles, over the whole
+//     D+H depth, for the kMmaStepRows = 16 batch rows of m16 tile m (64
+//     CTAs at H=256, B=32).  The depth is cut into k16 steps (zero past
+//     D+H) dealt to the 8 warps in turn; each lane loads the elements of
+//     its A and B fragments for all its steps straight from global memory
+//     into registers (x and h by 4-byte loads, so an odd D's unaligned
+//     rows need nothing; a weight fragment's 8 columns are one 32-byte
+//     sector), every load issued before the first is used: one trip to
+//     L2.  It then rounds them to bf16 pairs (keep*h in float32 first)
+//     and runs the mma.  The warps' partial gates meet in shared memory
+//     and the thread that owns (row, unit) sums them in warp order, a
+//     fixed order, after one __syncthreads(), then adds the bias and
+//     applies the cell.  Staging [x | h] and the weight slice through
+//     shared memory was slower on the card (PERF.md): every CTA of a
+//     batch tile reads the same rows, so the copies queue at L2, and
+//     forming fragments from the staged float32 took as long again.  A
+//     T>1 forward that needs no gradient is not a loop of steps: see
+//     lstm_lean_unroll_kernel below.
 //
 // * sgemm_kernel<true> + lstm_resid_kernel  replace _fwd_kernel (the
 //   residual forward for BPTT), two launches on one stream.  At T=101,
@@ -34,6 +55,12 @@
 //     T*B rows in one launch of the tiled GEMM below, the bias added in its
 //     epilogue.  The gates are then (x.Wi + b) + h.Wh, not the TPU
 //     kernel's (x.Wi + h.Wh) + b: about one ulp apart.
+//   - The same two launches are the lean forward at T>1 (ys and the final
+//     carry only; the IMPACT target network's unroll, which takes no
+//     gradient): sgemm_kernel<true> and lstm_lean_unroll_kernel, the
+//     recurrence below compiled without the residual stores, so its ys and
+//     carry are bitwise the residual forward's.  The TPU kernel ran that
+//     unroll as one pallas_call with Wi and Wh resident over its grid of T.
 //   - The recurrence keeps Wh on chip for all T steps.  A cluster of 8
 //     CTAs owns R batch rows (clusters split the batch and never meet);
 //     CTA r owns hidden units [r*H/8, (r+1)*H/8) and their 4H/8 gate
@@ -99,23 +126,26 @@
 //   residual forward's input projection, so the profiler tells the
 //   forward's GEMM from BPTT's (sgemm_kernel<false, float>).
 //
-// Operand types.  Every kernel is a template on the type of its products'
-// operands, `Op`: float, or __nv_bfloat16 for the JAX package's
-// matmul_dtype="bfloat16" (lstm_pallas.py::_mm and _bwd_kernel's mm, the
-// default under compute_dtype=bfloat16).  The bf16 variant reads the same
-// float32 tensors and rounds each operand to bf16 in registers as it is
-// staged or loaded (round-to-nearest-even, JAX's astype), then multiplies
-// and sums in float32: a product of two bf16 values is exact in float32,
-// so the two variants differ only in what they round, and the bf16 one
-// from its plain version only in summation order.  What is rounded is
-// what JAX rounds: x, keep*h, Wi and Wh in the forwards; dgates, Wi and
-// Wh in dx and dh_prev, x, hpost and dgates in dWi and dWh.  Not rounded:
-// the carries, ys, every residual (hpost is the float32 h), the bias, and
-// db, which sums the float32 dgates in the chain.  The recurrent kernels'
+// Operand types.  Every kernel but the T=1 step is a template on the type
+// of its products' operands, `Op`: float, or __nv_bfloat16 for the JAX
+// package's matmul_dtype="bfloat16" (lstm_pallas.py::_mm and _bwd_kernel's
+// mm, the default under compute_dtype=bfloat16); the T=1 step has a kernel
+// for each (lstm_step_kernel, lstm_step_mma_kernel).  The bf16 variant
+// reads the same float32 tensors and rounds each operand to bf16 in
+// registers as it is staged, loaded or packed into a fragment
+// (round-to-nearest-even, JAX's astype), then multiplies and sums in
+// float32: a product of two bf16 values is exact in float32, so the two
+// variants differ only in what they round, and the bf16 one from its
+// plain version only in summation order.  What is rounded is what JAX
+// rounds: x, keep*h, Wi and Wh in the forwards; dgates, Wi and Wh in dx
+// and dh_prev, x, hpost and dgates in dWi and dWh.  Not rounded: the
+// carries, ys, every residual (hpost is the float32 h), the bias, and db,
+// which sums the float32 dgates in the chain.  The recurrent kernels'
 // shared-memory layouts stay float32, so the bf16 variant keeps the float
-// variant's geometry; only BPTT's products stage bf16 tiles (they feed
-// tensor cores) and its dgates stash is bf16.  The entry points of the
-// bf16 variant end in _bf16.
+// variant's geometry; BPTT's products stage bf16 tiles (they feed tensor
+// cores) and its dgates stash is bf16; the bf16 T=1 step packs its
+// fragments in registers.  The entry points of the bf16 variant end in
+// _bf16.
 //
 // Every entry point launches on the caller's stream, allocates nothing,
 // keeps no state between launches, and returns cudaGetLastError() so a
@@ -164,11 +194,10 @@ inline size_t step_shared_bytes(int k) {
          sizeof(float) * (size_t)kStepRows * step_xstride(ks);
 }
 
-// One done-reset LSTM step for all B rows: y = h' and c_out = c' of
-// gates = [x | keep*h0] . [Wi; Wh] + b.  Cluster c owns hidden units
+// One done-reset LSTM step for all B rows, float32: y = h' and c_out = c'
+// of gates = [x | keep*h0] . [Wi; Wh] + b.  Cluster c owns hidden units
 // j0 = 8c .. 8c+7; its CTA of rank r reduces over rows [r*ks, (r+1)*ks) of
 // the D+H stack.
-template <typename Op>
 __global__ void __cluster_dims__(kStepSplit, 1, 1)
     __launch_bounds__(kStepThreads)
         lstm_step_kernel(const float* __restrict__ x,
@@ -219,10 +248,10 @@ __global__ void __cluster_dims__(kStepSplit, 1, 1)
       if (e < nk * 8) {
         const int gate = (e >> 1) & 3, half = e & 1;
         float* d = wsf + ((e >> 3) * kStepUnits + 4 * half) * 4 + gate;
-        d[0] = operand<Op>(v[i].x);
-        d[4] = operand<Op>(v[i].y);
-        d[8] = operand<Op>(v[i].z);
-        d[12] = operand<Op>(v[i].w);
+        d[0] = v[i].x;
+        d[4] = v[i].y;
+        d[8] = v[i].z;
+        d[12] = v[i].w;
       }
     }
   }
@@ -238,8 +267,8 @@ __global__ void __cluster_dims__(kStepSplit, 1, 1)
 #pragma unroll 8
       for (int kk = unit; kk < nk; kk += kStepUnits) {
         const int k = k0 + kk;
-        dst[kk] = operand<Op>(k < D ? x[(size_t)b * D + k]
-                                    : keep * h0[(size_t)b * H + (k - D)]);
+        dst[kk] = k < D ? x[(size_t)b * D + k]
+                        : keep * h0[(size_t)b * H + (k - D)];
       }
     }
     __syncthreads();
@@ -339,26 +368,23 @@ __device__ __forceinline__ void resid_fma(float4 (&acc)[R], const float* hb,
   }
 }
 
-// The recurrence of the residual forward over pre = x.Wi + b.  Cluster q
-// owns batch rows [q*R, q*R + R); its CTA of rank r owns hidden units
-// j0 = r*U .. j0+U-1 (U = H/8).  Shared memory: ws [resident][U] float4
-// (the 4 gates of a unit in one vector), part [8][R][U] float4 (partial
-// gates), hbuf [2][R][H] (keep*h of this step and the next, as operands).
-template <int R, typename Op>
-__global__ void __cluster_dims__(kResidCluster, 1, 1)
-    __launch_bounds__(resid_max_threads(R))
-        lstm_resid_kernel(const float* __restrict__ pre,
-                          const float* __restrict__ done,
-                          const float* __restrict__ c0,
-                          const float* __restrict__ h0,
-                          const float* __restrict__ wh,
-                          float* __restrict__ ys, float* __restrict__ ifgo,
-                          float* __restrict__ cpost,
-                          float* __restrict__ hpost,
-                          float* __restrict__ cnew,
-                          float* __restrict__ c_out,
-                          float* __restrict__ h_out, int T, int B, int H,
-                          int resident) {
+// The recurrence over pre = x.Wi + b.  Cluster q owns batch rows
+// [q*R, q*R + R); its CTA of rank r owns hidden units j0 = r*U .. j0+U-1
+// (U = H/8).  Shared memory: ws [resident][U] float4 (the 4 gates of a
+// unit in one vector), part [8][R][U] float4 (partial gates), hbuf
+// [2][R][H] (keep*h of this step and the next, as operands).  kStash
+// writes the residuals ifgo, cpost, hpost and cnew (lstm_resid_kernel);
+// without it they are never touched (lstm_lean_unroll_kernel), and ys and
+// the final carry come out bit for bit the same.
+template <int R, typename Op, bool kStash>
+__device__ __forceinline__ void recurrence(
+    const float* __restrict__ pre, const float* __restrict__ done,
+    const float* __restrict__ c0, const float* __restrict__ h0,
+    const float* __restrict__ wh, float* __restrict__ ys,
+    float* __restrict__ ifgo, float* __restrict__ cpost,
+    float* __restrict__ hpost, float* __restrict__ cnew,
+    float* __restrict__ c_out, float* __restrict__ h_out, int T, int B,
+    int H, int resident) {
   extern __shared__ float4 smem4[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -478,15 +504,17 @@ __global__ void __cluster_dims__(kResidCluster, 1, 1)
       const float cn = fg * cp + ig * gg;
       const float hn = og * tanhf(cn);
       const size_t o = row * H + fj;
-      cpost[o] = cp;
-      hpost[o] = keep * h;
-      cnew[o] = cn;
       ys[o] = hn;
-      float* gates = ifgo + row * G + fj;
-      gates[0] = ig;
-      gates[H] = fg;
-      gates[2 * H] = gg;
-      gates[3 * H] = og;
+      if constexpr (kStash) {
+        cpost[o] = cp;
+        hpost[o] = keep * h;
+        cnew[o] = cn;
+        float* gates = ifgo + row * G + fj;
+        gates[0] = ig;
+        gates[H] = fg;
+        gates[2 * H] = gg;
+        gates[3 * H] = og;
+      }
       c = cn;
       h = hn;
       if (t + 1 < T) {
@@ -505,6 +533,49 @@ __global__ void __cluster_dims__(kResidCluster, 1, 1)
     c_out[(size_t)fb * H + fj] = c;
     h_out[(size_t)fb * H + fj] = h;
   }
+}
+
+// The residual forward's recurrence: ys, the residuals and the final carry.
+template <int R, typename Op>
+__global__ void __cluster_dims__(kResidCluster, 1, 1)
+    __launch_bounds__(resid_max_threads(R))
+        lstm_resid_kernel(const float* __restrict__ pre,
+                          const float* __restrict__ done,
+                          const float* __restrict__ c0,
+                          const float* __restrict__ h0,
+                          const float* __restrict__ wh,
+                          float* __restrict__ ys, float* __restrict__ ifgo,
+                          float* __restrict__ cpost,
+                          float* __restrict__ hpost,
+                          float* __restrict__ cnew,
+                          float* __restrict__ c_out,
+                          float* __restrict__ h_out, int T, int B, int H,
+                          int resident) {
+  recurrence<R, Op, true>(pre, done, c0, h0, wh, ys, ifgo, cpost, hpost,
+                          cnew, c_out, h_out, T, B, H, resident);
+}
+
+// The lean forward's recurrence at T>1: ys and the final carry only.  It
+// takes the residual kernel's arguments (the residual pointers unused) so
+// that one launcher serves both.
+template <int R, typename Op>
+__global__ void __cluster_dims__(kResidCluster, 1, 1)
+    __launch_bounds__(resid_max_threads(R))
+        lstm_lean_unroll_kernel(const float* __restrict__ pre,
+                                const float* __restrict__ done,
+                                const float* __restrict__ c0,
+                                const float* __restrict__ h0,
+                                const float* __restrict__ wh,
+                                float* __restrict__ ys,
+                                float* __restrict__ ifgo,
+                                float* __restrict__ cpost,
+                                float* __restrict__ hpost,
+                                float* __restrict__ cnew,
+                                float* __restrict__ c_out,
+                                float* __restrict__ h_out, int T, int B,
+                                int H, int resident) {
+  recurrence<R, Op, false>(pre, done, c0, h0, wh, ys, ifgo, cpost, hpost,
+                           cnew, c_out, h_out, T, B, H, resident);
 }
 
 // The type BPTT stashes its dgates in: the products' operand type.
@@ -794,6 +865,171 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// -- The bf16 lean step on tensor cores (lstm_step_mma_kernel) ------------
+
+constexpr int kMmaStepUnits = 8;  // hidden units a CTA: 32 columns, four n8
+constexpr int kMmaStepRows = 16;  // batch rows a CTA: one m16 tile
+constexpr int kMmaStepWarps = 8;  // the k16 steps are dealt to them in turn
+constexpr int kMmaStepThreads = 32 * kMmaStepWarps;
+constexpr int kMmaStepDepth = 5;  // k16 steps a warp holds in registers:
+                                  // D+H up to 640 in one round of loads
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// One done-reset LSTM step with bf16 operands: y = h' and c_out = c' of
+// gates = [x | keep*h0] . [Wi; Wh] + b, x, keep*h0, Wi and Wh rounded to
+// bf16 (RNE), the products summed in float32.  CTA (c, m) owns hidden
+// units j0 = c*U .. j0+U-1, their 4U gate columns n = gate*U + u, over the
+// whole depth, for batch rows b0 = m*M .. b0+M-1.  Warp w takes the k16
+// steps w, w+8, ...: it loads each step's A and B fragment elements from
+// global memory straight into registers, every load of a round issued
+// before the first is used, and packs them to bf16 pairs only then.
+template <int U, int M>
+__global__ void __launch_bounds__(kMmaStepThreads)
+    lstm_step_mma_kernel(const float* __restrict__ x,
+                         const float* __restrict__ done,
+                         const float* __restrict__ c0,
+                         const float* __restrict__ h0,
+                         const float* __restrict__ wi,
+                         const float* __restrict__ wh,
+                         const float* __restrict__ bias,
+                         float* __restrict__ y, float* __restrict__ c_out,
+                         int B, int D, int H) {
+  constexpr int N = 4 * U;    // gate columns
+  constexpr int NT = N / 8;   // n8 tiles
+  constexpr int MT = M / 16;  // m16 tiles
+  constexpr int S = kMmaStepDepth;
+  __shared__ __align__(16) float part[kMmaStepWarps][M][N];  // partial gates
+  const int K = D + H, G = 4 * H, ksteps = (K + 15) / 16;
+  const int j0 = blockIdx.x * U, b0 = blockIdx.y * M;
+  const int nb = min(M, B - b0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  // The lane's A rows 16mt + g + 8hi (a row past the batch reads the last
+  // one: its products land in rows no one reads) and B columns n = 8nt + g.
+  const float* xrow[MT][2];
+  const float* hrow[MT][2];
+  float keep[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int r = b0 + min(16 * mt + g + 8 * hi, nb - 1);
+      xrow[mt][hi] = x + (size_t)r * D;
+      hrow[mt][hi] = h0 + (size_t)r * H;
+      keep[mt][hi] = 1.0f - done[r];
+    }
+  int bcol[NT];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int n = 8 * nt + g;
+    bcol[nt] = n / U * H + j0 + n % U;
+  }
+  // The epilogue's cell: thread tid owns (row tid / U, unit tid % U).
+  const int orow = tid / U, ou = tid % U, oj = j0 + ou;
+  const bool owner = orow < nb;
+  float okeep = 0.f, oc = 0.f, obias[4] = {0.f, 0.f, 0.f, 0.f};
+  if (owner) {
+    okeep = 1.0f - done[b0 + orow];
+    oc = c0[(size_t)(b0 + orow) * H + oj];
+#pragma unroll
+    for (int gate = 0; gate < 4; ++gate) obias[gate] = bias[gate * H + oj];
+  }
+
+  float acc[MT][NT][4] = {};
+  for (int first = warp; first < ksteps; first += S * kMmaStepWarps) {
+    // Element q of a step is depth kb + (q & 1) + 8 (q >> 1), kb its lane's
+    // 16*step + 2*t4: the two halves of a fragment's two registers.
+    float av[S][MT][2][4], bv[S][NT][4];
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int k = 16 * (first + s * kMmaStepWarps) + 2 * t4 + (q & 1) +
+                      8 * (q >> 1);
+        const bool in = k < K;
+        const float* wrow =
+            k < D ? wi + (size_t)k * G : wh + (size_t)(k - D) * G;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          bv[s][nt][q] = in ? __ldg(wrow + bcol[nt]) : 0.f;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int hi = 0; hi < 2; ++hi)
+            av[s][mt][hi][q] = in ? __ldg(k < D ? xrow[mt][hi] + k
+                                                : hrow[mt][hi] + (k - D))
+                                     : 0.f;
+      }
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int step = first + s * kMmaStepWarps;
+      if (step >= ksteps) break;  // warp-uniform: mma.sync needs every lane
+      const int kb = 16 * step + 2 * t4;
+      unsigned bf[NT][2];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        bf[nt][0] = pack_bf16(bv[s][nt][0], bv[s][nt][1]);
+        bf[nt][1] = pack_bf16(bv[s][nt][2], bv[s][nt][3]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        float o[2][4];  // the operands: keep*h where the depth is h's
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int k = kb + (q & 1) + 8 * (q >> 1);
+            const float v = av[s][mt][hi][q];
+            o[hi][q] = k < D ? v : keep[mt][hi] * v;
+          }
+        const unsigned a[4] = {pack_bf16(o[0][0], o[0][1]),
+                               pack_bf16(o[1][0], o[1][1]),
+                               pack_bf16(o[0][2], o[0][3]),
+                               pack_bf16(o[1][2], o[1][3])};
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          mma_bf16(acc[mt][nt], a, bf[nt][0], bf[nt][1]);
+      }
+    }
+  }
+  // Each warp's partial gates (c0, c1 at row g, c2, c3 at row g + 8).
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      float* p = &part[warp][16 * mt + g][8 * nt + 2 * t4];
+      *reinterpret_cast<float2*>(p) =
+          make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+      *reinterpret_cast<float2*>(p + 8 * N) =
+          make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+    }
+  __syncthreads();
+  if (owner) {
+    // The partials in warp order, then the bias and the cell.
+    float s4[4];
+#pragma unroll
+    for (int gate = 0; gate < 4; ++gate) {
+      float sum = part[0][orow][gate * U + ou];
+#pragma unroll
+      for (int w = 1; w < kMmaStepWarps; ++w)
+        sum += part[w][orow][gate * U + ou];
+      s4[gate] = sum + obias[gate];
+    }
+    const float ig = sigmoid_f(s4[0]);
+    const float fg = sigmoid_f(s4[1]);
+    const float gg = tanhf(s4[2]);
+    const float og = sigmoid_f(s4[3]);
+    const float cn = fg * (okeep * oc) + ig * gg;
+    const size_t o = (size_t)(b0 + orow) * H + oj;
+    y[o] = og * tanhf(cn);
+    c_out[o] = cn;
+  }
+}
+
 // One warp's 32x32 share of a 64x64 tile over one kMmaK-deep tile pair.
 // Lane l addresses row l%8 of the 8x8 matrix l/8 of each ldmatrix.x4:
 // A's matrices are (m 0-7, k 0-7), (m 8-15, k 0-7), (m 0-7, k 8-15),
@@ -1064,18 +1300,23 @@ cudaError_t allow_shared(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
-template <int R, typename Op>
-cudaError_t launch_resid(const float* pre, const float* done,
-                         const float* c0, const float* h0, const float* wh,
-                         float* ys, float* ifgo, float* cpost, float* hpost,
-                         float* cnew, float* c_out, float* h_out, int T,
-                         int B, int H, int resident, size_t shared,
-                         cudaStream_t stream) {
+// The recurrence over pre: lstm_resid_kernel<R, Op> with the residual
+// stores, lstm_lean_unroll_kernel<R, Op> without.
+template <int R, typename Op, bool kStash>
+cudaError_t launch_recurrence(const float* pre, const float* done,
+                              const float* c0, const float* h0,
+                              const float* wh, float* ys, float* ifgo,
+                              float* cpost, float* hpost, float* cnew,
+                              float* c_out, float* h_out, int T, int B, int H,
+                              int resident, size_t shared,
+                              cudaStream_t stream) {
   if (H > resid_max_threads(R)) return cudaErrorInvalidValue;
-  cudaError_t err = allow_shared(lstm_resid_kernel<R, Op>, shared);
+  const auto kernel = kStash ? &lstm_resid_kernel<R, Op>
+                             : &lstm_lean_unroll_kernel<R, Op>;
+  cudaError_t err = allow_shared(kernel, shared);
   if (err != cudaSuccess) return err;
   const int clusters = (B + R - 1) / R;
-  lstm_resid_kernel<R, Op><<<clusters * kResidCluster, H, shared, stream>>>(
+  kernel<<<clusters * kResidCluster, H, shared, stream>>>(
       pre, done, c0, h0, wh, ys, ifgo, cpost, hpost, cnew, c_out, h_out, T,
       B, H, resident);
   return cudaGetLastError();
@@ -1097,13 +1338,15 @@ int active_clusters(Kernel kernel, int H, size_t shared) {
   return err == cudaSuccess ? clusters : -(int)err;
 }
 
-template <typename Op>
-int forward_resid(const float* x, const float* done, const float* c0,
-                  const float* h0, const float* wi, const float* wh,
-                  const float* bias, float* pre, float* ys, float* ifgo,
-                  float* cpost, float* hpost, float* cnew, float* c_out,
-                  float* h_out, int T, int B, int D, int H, int rows,
-                  int resident, int shared, void* stream) {
+// The residual forward (kStash) or the lean one at T>1: pre = x.Wi + b
+// over all T*B rows, then the recurrence over it.
+template <typename Op, bool kStash>
+int forward(const float* x, const float* done, const float* c0,
+            const float* h0, const float* wi, const float* wh,
+            const float* bias, float* pre, float* ys, float* ifgo,
+            float* cpost, float* hpost, float* cnew, float* c_out,
+            float* h_out, int T, int B, int D, int H, int rows, int resident,
+            int shared, void* stream) {
   if (H % (4 * kResidCluster) != 0 || resident % 4 != 0 || resident < 0 ||
       resident > H)
     return (int)cudaErrorInvalidValue;
@@ -1116,38 +1359,50 @@ int forward_resid(const float* x, const float* done, const float* c0,
   if (err != cudaSuccess) return (int)err;
   switch (rows) {
     case 1:
-      return (int)launch_resid<1, Op>(pre, done, c0, h0, wh, ys, ifgo, cpost,
-                                      hpost, cnew, c_out, h_out, T, B, H,
-                                      resident, shared, s);
+      return (int)launch_recurrence<1, Op, kStash>(
+          pre, done, c0, h0, wh, ys, ifgo, cpost, hpost, cnew, c_out, h_out,
+          T, B, H, resident, shared, s);
     case 2:
-      return (int)launch_resid<2, Op>(pre, done, c0, h0, wh, ys, ifgo, cpost,
-                                      hpost, cnew, c_out, h_out, T, B, H,
-                                      resident, shared, s);
+      return (int)launch_recurrence<2, Op, kStash>(
+          pre, done, c0, h0, wh, ys, ifgo, cpost, hpost, cnew, c_out, h_out,
+          T, B, H, resident, shared, s);
     case 4:
-      return (int)launch_resid<4, Op>(pre, done, c0, h0, wh, ys, ifgo, cpost,
-                                      hpost, cnew, c_out, h_out, T, B, H,
-                                      resident, shared, s);
+      return (int)launch_recurrence<4, Op, kStash>(
+          pre, done, c0, h0, wh, ys, ifgo, cpost, hpost, cnew, c_out, h_out,
+          T, B, H, resident, shared, s);
     case 8:
-      return (int)launch_resid<8, Op>(pre, done, c0, h0, wh, ys, ifgo, cpost,
-                                      hpost, cnew, c_out, h_out, T, B, H,
-                                      resident, shared, s);
+      return (int)launch_recurrence<8, Op, kStash>(
+          pre, done, c0, h0, wh, ys, ifgo, cpost, hpost, cnew, c_out, h_out,
+          T, B, H, resident, shared, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-template <typename Op>
 int step(const float* x, const float* done, const float* c0, const float* h0,
          const float* wi, const float* wh, const float* bias, float* y,
          float* c_out, int B, int D, int H, void* stream) {
   if (H % kStepUnits != 0) return (int)cudaErrorInvalidValue;
   const int ks = step_slice(D + H);
   const size_t shared = step_shared_bytes(D + H);
-  cudaError_t err = allow_shared(lstm_step_kernel<Op>, shared);
+  cudaError_t err = allow_shared(lstm_step_kernel, shared);
   if (err != cudaSuccess) return (int)err;
-  lstm_step_kernel<Op><<<(H / kStepUnits) * kStepSplit, kStepThreads, shared,
-                         (cudaStream_t)stream>>>(x, done, c0, h0, wi, wh,
-                                                 bias, y, c_out, B, D, H, ks);
+  lstm_step_kernel<<<(H / kStepUnits) * kStepSplit, kStepThreads, shared,
+                     (cudaStream_t)stream>>>(x, done, c0, h0, wi, wh, bias, y,
+                                             c_out, B, D, H, ks);
+  return (int)cudaGetLastError();
+}
+
+template <int U, int M>
+int step_mma(const float* x, const float* done, const float* c0,
+             const float* h0, const float* wi, const float* wh,
+             const float* bias, float* y, float* c_out, int B, int D, int H,
+             void* stream) {
+  if (H % U != 0 || M * U > kMmaStepThreads) return (int)cudaErrorInvalidValue;
+  const dim3 grid(H / U, (B + M - 1) / M);
+  lstm_step_mma_kernel<U, M><<<grid, kMmaStepThreads, 0,
+                               (cudaStream_t)stream>>>(
+      x, done, c0, h0, wi, wh, bias, y, c_out, B, D, H);
   return (int)cudaGetLastError();
 }
 
@@ -1255,7 +1510,7 @@ int sat_lstm_forward_resid(const float* x, const float* done,
                            float* cnew, float* c_out, float* h_out, int T,
                            int B, int D, int H, int rows, int resident,
                            int shared, void* stream) {
-  return forward_resid<float>(x, done, c0, h0, wi, wh, bias, pre, ys, ifgo,
+  return forward<float, true>(x, done, c0, h0, wi, wh, bias, pre, ys, ifgo,
                               cpost, hpost, cnew, c_out, h_out, T, B, D, H,
                               rows, resident, shared, stream);
 }
@@ -1268,10 +1523,39 @@ int sat_lstm_forward_resid_bf16(const float* x, const float* done,
                                 float* cnew, float* c_out, float* h_out,
                                 int T, int B, int D, int H, int rows,
                                 int resident, int shared, void* stream) {
-  return forward_resid<__nv_bfloat16>(x, done, c0, h0, wi, wh, bias, pre, ys,
-                                      ifgo, cpost, hpost, cnew, c_out, h_out,
-                                      T, B, D, H, rows, resident, shared,
-                                      stream);
+  return forward<__nv_bfloat16, true>(x, done, c0, h0, wi, wh, bias, pre,
+                                      ys, ifgo, cpost, hpost, cnew, c_out,
+                                      h_out, T, B, D, H, rows, resident,
+                                      shared, stream);
+}
+
+// The lean forward at T>1: the residual forward's two launches, the
+// recurrence lstm_lean_unroll_kernel<rows, Op>, which writes ys and the
+// final carry only.  Arguments as sat_lstm_forward_resid's without the
+// residuals.
+int sat_lstm_forward_lean(const float* x, const float* done, const float* c0,
+                          const float* h0, const float* wi, const float* wh,
+                          const float* bias, float* pre, float* ys,
+                          float* c_out, float* h_out, int T, int B, int D,
+                          int H, int rows, int resident, int shared,
+                          void* stream) {
+  return forward<float, false>(x, done, c0, h0, wi, wh, bias, pre, ys,
+                               nullptr, nullptr, nullptr, nullptr, c_out,
+                               h_out, T, B, D, H, rows, resident, shared,
+                               stream);
+}
+
+int sat_lstm_forward_lean_bf16(const float* x, const float* done,
+                               const float* c0, const float* h0,
+                               const float* wi, const float* wh,
+                               const float* bias, float* pre, float* ys,
+                               float* c_out, float* h_out, int T, int B,
+                               int D, int H, int rows, int resident,
+                               int shared, void* stream) {
+  return forward<__nv_bfloat16, false>(x, done, c0, h0, wi, wh, bias, pre,
+                                       ys, nullptr, nullptr, nullptr, nullptr,
+                                       c_out, h_out, T, B, D, H, rows,
+                                       resident, shared, stream);
 }
 
 // How many clusters of lstm_resid_kernel<rows, float> (the residual
@@ -1298,20 +1582,21 @@ int sat_lstm_bptt_active_clusters(int H, int rows, int shared) {
   }
 }
 
+// The lean step at T=1: lstm_step_kernel (float32 operands) and
+// lstm_step_mma_kernel<kMmaStepUnits, kMmaStepRows> (bf16 operands).
 int sat_lstm_step(const float* x, const float* done, const float* c0,
                   const float* h0, const float* wi, const float* wh,
                   const float* bias, float* y, float* c_out, int B, int D,
                   int H, void* stream) {
-  return step<float>(x, done, c0, h0, wi, wh, bias, y, c_out, B, D, H,
-                     stream);
+  return step(x, done, c0, h0, wi, wh, bias, y, c_out, B, D, H, stream);
 }
 
 int sat_lstm_step_bf16(const float* x, const float* done, const float* c0,
                        const float* h0, const float* wi, const float* wh,
                        const float* bias, float* y, float* c_out, int B,
                        int D, int H, void* stream) {
-  return step<__nv_bfloat16>(x, done, c0, h0, wi, wh, bias, y, c_out, B, D,
-                             H, stream);
+  return step_mma<kMmaStepUnits, kMmaStepRows>(x, done, c0, h0, wi, wh, bias,
+                                               y, c_out, B, D, H, stream);
 }
 
 // BPTT of the residual forward: bptt_chain_kernel<rows, Op>, the

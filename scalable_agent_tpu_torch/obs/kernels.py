@@ -15,10 +15,11 @@ Chrome trace (``torch_profile.<pid>.json``, written with
   autograd engine thread (the backward of CUDA tensors runs there; the
   actors run under ``no_grad``), or the kernel's ``External id`` must
   name an op of such a thread (the actors' ops are not recorded: their
-  threads predate the window).  So the actors' ``lstm_step_kernel`` is
-  not a row, as the JAX table keeps only the update's HLO module.  Scope
-  is ``learner`` for a kernel launched inside a ``learner/update`` range,
-  else ``unattributed``.  On ``cpu`` the rows are the learner thread's
+  threads predate the window).  So the actors' step kernel
+  (``lstm_step_kernel``, ``lstm_step_mma_kernel``) is not a row, as the
+  JAX table keeps only the update's HLO module.  Scope is ``learner``
+  for a kernel launched inside a ``learner/update`` range, else
+  ``unattributed``.  On ``cpu`` the rows are the learner thread's
   top-level ``cpu_op`` events inside the update.  A ``cuda`` window with
   no kernel event yields no table: it never falls back to CPU ops.
 - **Names.**  ``kernel_name`` drops the return type, the anonymous
@@ -156,8 +157,9 @@ def handwritten_costs(frame_shape, num_logits: int, unroll_length: int,
     library kernels those routes launch in their place are costed from
     their aten ops like every other library kernel, so a library arm's
     table names them and the two arms' tables compare row by row.
-    ``loss="impact"`` adds the target network's unroll: the lean step
-    kernel, one launch per step of the T+1."""
+    ``loss="impact"`` adds the target network's unroll over the T+1
+    steps: a second input-projection GEMM and the lean recurrence
+    (``lstm_lean_unroll_kernel``), which writes no residuals."""
     from scalable_agent_tpu_torch.models.agent import CORE_SIZE
     from scalable_agent_tpu_torch.models.instruction import LSTM_SIZE
     from scalable_agent_tpu_torch.models.networks import (
@@ -209,9 +211,11 @@ def handwritten_costs(frame_shape, num_logits: int, unroll_length: int,
                 "calls": calls}
 
     lstm, conv = "csrc/lstm.cu", "csrc/conv.cu"
+    gemms = 2 if loss == "impact" else 1  # x.Wi + b of each forward
     costs = {
         "sgemm_kernel<true": entry(
-            lstm, 1, 2 * m * d * g, 4 * (m * d + d * g + g + m * g)),
+            lstm, gemms, gemms * 2 * m * d * g,
+            gemms * 4 * (m * d + d * g + g + m * g)),
         "lstm_resid_kernel": entry(
             lstm, 1, 2 * m * h * g,
             4 * (m * g + m + 2 * b * h + h * g + m * h + m * g + 3 * m * h
@@ -233,9 +237,9 @@ def handwritten_costs(frame_shape, num_logits: int, unroll_length: int,
             "csrc/vtrace.cu", 1, 0, 4 * (6 * unroll_length * b + b)),
     }
     if loss == "impact":
-        costs["lstm_step_kernel"] = entry(
-            lstm, s, 2 * m * (d + h) * g,
-            4 * s * (b * d + b + 4 * b * h + (d + h + 1) * g))
+        costs["lstm_lean_unroll_kernel"] = entry(
+            lstm, 1, 2 * m * h * g,
+            4 * (m * g + m + 2 * b * h + h * g + m * h + 2 * b * h))
     if matmul_dtype == "bfloat16":
         splits = lstm_cuda.wgrad_splits(m, d, h)
         costs["bptt_dx_kernel"] = entry(

@@ -47,6 +47,7 @@ _SIGNATURES = {
 }
 for _name, _signature in {
         "sat_lstm_forward_resid": ([_P] * 15 + [_I] * 7 + [_P], _I),
+        "sat_lstm_forward_lean": ([_P] * 11 + [_I] * 7 + [_P], _I),
         "sat_lstm_step": ([_P] * 9 + [_I] * 3 + [_P], _I),
         "sat_lstm_backward": ([_P] * 20 + [_I] * 8 + [_P], _I),
         "sat_resnet_stem_gradw": ([_P] * 4 + [_I] * 13 + [_L, _I, _P], _I),

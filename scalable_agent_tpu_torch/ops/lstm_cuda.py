@@ -14,19 +14,29 @@ residuals, the bias and db stay float32 (db sums the unrounded dgates).
 ``compute_dtype=bfloat16`` resolves to ``"bfloat16"`` (config.py).
 
 Kernels (``csrc/lstm.cu``), one launch counter each in ``LAUNCHES`` per
-operand type (the bf16 variants' counters end in ``_bf16``; each kernel is
-a template on its operand type, reading float32 and rounding in
-registers):
+operand type (the bf16 variants' counters end in ``_bf16``; every kernel
+reads float32 and rounds the operands in registers, each a template on
+their type but the T=1 step, which has a kernel for each):
 
 - ``lstm_fwd_lean`` replaces ``lstm_pallas.py::_fwd_kernel_lean`` (ys and
   the final carry only; actor inference and every forward that needs no
-  gradient).  It is one done-reset step for all batch rows, so the lean
-  forward is ``lean_forward``: one launch per step, a single launch at the
-  actor's T=1.  The step is latency-bound (2.3 MB, 34 MFLOP at B=32,
-  D=266, H=256): the gate columns are split over clusters of 4 CTAs, each
-  cluster owning 8 hidden units for every batch row and each CTA a quarter
-  of the D+H reduction, the partial gates summed through distributed
-  shared memory in a fixed order; every weight byte is read once.
+  gradient) at T=1: one done-reset step for all batch rows, one launch.
+  The step is latency-bound (2.3 MB, 34 MFLOP at B=32, D=266, H=256), so
+  the gate columns are split over the card, each CTA owning a few hidden
+  units.  float32 (``lstm_step_kernel``): clusters of 4 CTAs own 8 units
+  for every batch row, each CTA a quarter of the D+H reduction, the
+  partial gates summed through distributed shared memory in a fixed
+  order.  bf16 operands (``lstm_step_mma_kernel``): no cluster; a CTA owns
+  8 units for 16 batch rows over the whole depth on ``mma.sync`` tensor
+  cores, each lane loading its fragments' elements straight into
+  registers, all before the first use; the warps' partial gates are
+  summed in a fixed order.
+- ``lstm_fwd_lean_unroll`` replaces the same TPU kernel at T>1 (the IMPACT
+  target network's unroll): one C call (``sat_lstm_forward_lean[_bf16]``),
+  the residual forward's two launches below without its residual stores,
+  Wh resident over all T steps as the TPU kernel's constant-index blocks
+  keep Wi and Wh; its ys and carry are bitwise the residual forward's, so
+  its gates are summed as ``(x.Wi + b) + h.Wh`` too.
 - ``lstm_fwd_resid`` replaces ``lstm_pallas.py::_fwd_kernel`` (also the
   residuals ``ifgo [T,B,4H]``, ``cpost``/``hpost``/``cnew [T,B,H]``) with
   two launches.  The input projection has no recurrence, so
@@ -64,7 +74,8 @@ from scalable_agent_tpu_torch.ops import _build
 
 MATMUL_DTYPES = ("float32", "bfloat16")
 LAUNCHES = {name + suffix: 0
-            for name in ("lstm_fwd_lean", "lstm_fwd_resid", "lstm_bptt")
+            for name in ("lstm_fwd_lean", "lstm_fwd_lean_unroll",
+                         "lstm_fwd_resid", "lstm_bptt")
             for suffix in ("", "_bf16")}
 
 
@@ -310,9 +321,9 @@ Step = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor],
 
 def lean_forward(step: Step, x, done, c0, h0) -> Forward:
     """The lean forward as T calls of ``step(x_t, done_t, c, h) -> (h', c')``:
-    one launch of the step kernel per step on the card (a single one at the
-    actor's T=1), the plain step on the CPU.  At T=1 ``ys`` is a view of
-    the new h."""
+    the plain version's loop (on the card a T=1 forward is one launch of
+    the step kernel and a longer one the lean unroll).  At T=1 ``ys`` is a
+    view of the new h."""
     c, h = c0, h0
     ys = []
     for t in range(x.shape[0]):
@@ -322,33 +333,11 @@ def lean_forward(step: Step, x, done, c0, h0) -> Forward:
                    None)
 
 
-def _step_kernel(lib, wi, wh, b, suffix):
-    """The lean step kernel of the variant ``suffix`` as a ``Step``;
-    operands checked by the caller."""
-    in_dim, hidden = wi.shape[0], wh.shape[0]
-    entry = getattr(lib, "sat_lstm_step" + suffix)
-
-    def step(x_t, done_t, c, h):
-        batch = x_t.shape[0]
-        y = torch.empty((batch, hidden), dtype=torch.float32,
-                        device=x_t.device)
-        c_new = torch.empty_like(y)
-        code = entry(
-            x_t.data_ptr(), done_t.data_ptr(), c.data_ptr(), h.data_ptr(),
-            wi.data_ptr(), wh.data_ptr(), b.data_ptr(), y.data_ptr(),
-            c_new.data_ptr(), batch, in_dim, hidden, _stream())
-        _build.check(code, "lstm step kernel")
-        _build.count_launch(LAUNCHES, "lstm_fwd_lean" + suffix)
-        return y, c_new
-
-    return step
-
-
 def lstm_forward(x, done, c0, h0, wi, wh, b, residuals: bool,
                  matmul_dtype: str = "float32") -> Forward:
     """Done-reset LSTM forward.  ``residuals=False`` is the lean variant
-    (``_fwd_kernel_lean``, as ``lean_forward`` over the step kernel),
-    ``True`` also stashes what BPTT needs (``_fwd_kernel``)."""
+    (``_fwd_kernel_lean``: the step kernel at T=1, the lean unroll past
+    it), ``True`` also stashes what BPTT needs (``_fwd_kernel``)."""
     suffix = _suffix(matmul_dtype)
     if _build.on_cpu("LSTM", x, done, c0, h0, wi, wh, b):
         if residuals:
@@ -373,24 +362,37 @@ def lstm_forward(x, done, c0, h0, wi, wh, b, residuals: bool,
         raise ValueError("the LSTM kernels read Wi and Wh in 16-byte "
                          "vectors: they must be 16-byte aligned")
     lib = _build.library()
-    if not residuals:
-        return lean_forward(_step_kernel(lib, wi, wh, b, suffix), x, done,
-                            c0, h0)
     empty = lambda *shape: torch.empty(shape, dtype=torch.float32,
                                        device=x.device)
     ys = empty(steps, batch, hidden)
-    c_out, h_out = empty(batch, hidden), empty(batch, hidden)
+    c_out = empty(batch, hidden)
+    if not residuals and steps == 1:
+        code = getattr(lib, "sat_lstm_step" + suffix)(
+            *(t.data_ptr() for t in (x, done, c0, h0, wi, wh, b, ys,
+                                     c_out)),
+            batch, in_dim, hidden, _stream())
+        _build.check(code, "lstm step kernel")
+        _build.count_launch(LAUNCHES, "lstm_fwd_lean" + suffix)
+        return Forward(ys, c_out, ys[0], None)
+    h_out = empty(batch, hidden)
+    pre = empty(steps * batch, 4 * hidden)  # x.Wi + b, scratch
+    plan = resid_plan(batch, hidden)
+    geometry = (steps, batch, in_dim, hidden, plan.rows, plan.resident,
+                plan.smem_bytes, _stream())
+    if not residuals:
+        code = getattr(lib, "sat_lstm_forward_lean" + suffix)(
+            *(t.data_ptr() for t in (x, done, c0, h0, wi, wh, b, pre, ys,
+                                     c_out, h_out)), *geometry)
+        _build.check(code, "lstm lean unroll kernels")
+        _build.count_launch(LAUNCHES, "lstm_fwd_lean_unroll" + suffix)
+        return Forward(ys, c_out, h_out, None)
     res = Residuals(empty(steps, batch, 4 * hidden),
                     empty(steps, batch, hidden),
                     empty(steps, batch, hidden),
                     empty(steps, batch, hidden))
-    pre = empty(steps * batch, 4 * hidden)  # x.Wi + b, scratch
-    plan = resid_plan(batch, hidden)
     code = getattr(lib, "sat_lstm_forward_resid" + suffix)(
         *(t.data_ptr() for t in (x, done, c0, h0, wi, wh, b, pre, ys, *res,
-                                 c_out, h_out)),
-        steps, batch, in_dim, hidden, plan.rows, plan.resident,
-        plan.smem_bytes, _stream())
+                                 c_out, h_out)), *geometry)
     _build.check(code, "lstm residual forward kernels")
     _build.count_launch(LAUNCHES, "lstm_fwd_resid" + suffix)
     return Forward(ys, c_out, h_out, res)

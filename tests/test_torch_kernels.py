@@ -86,6 +86,15 @@ DEMANGLED = {
         "float const*, float const*, float const*, float const*, float "
         "const*, float*, float*, float*, float*, float*, float*, float*, "
         "int, int, int, int)"],
+    "lstm_lean_unroll_kernel": [
+        "void (anonymous namespace)::lstm_lean_unroll_kernel<4, float>("
+        "float const*, float const*, float const*, float const*, float "
+        "const*, float*, float*, float*, float*, float*, float*, float*, "
+        "int, int, int, int)",
+        "void (anonymous namespace)::lstm_lean_unroll_kernel<4, "
+        "__nv_bfloat16>(float const*, float const*, float const*, float "
+        "const*, float const*, float*, float*, float*, float*, float*, "
+        "float*, float*, int, int, int, int)"],
     "bptt_chain_kernel": [
         "void (anonymous namespace)::bptt_chain_kernel<4, float>(float "
         "const*, float const*, float const*, float const*, float const*, "
@@ -132,7 +141,8 @@ def test_kernel_name_keeps_templates_and_drops_parameters(key):
     for name in names:
         assert name.startswith(key) and "(" not in name
         assert not name.startswith("void")
-    costs = {**kernels.handwritten_costs((72, 96, 3), 9, 100, 32),
+    costs = {**kernels.handwritten_costs((72, 96, 3), 9, 100, 32,
+                                         loss="impact"),
              **kernels.handwritten_costs((72, 96, 3), 9, 100, 32,
                                          compute_dtype="float32")}
     for name in names:
@@ -227,6 +237,31 @@ def test_costs_at_the_path_shapes_sum_to_update_flops(
     if frame == (72, 96, 3):
         assert costs["sgemm_kernel<true"]["bytes"] == 4 * (
             3232 * 266 + 266 * 1024 + 1024 + 3232 * 1024)
+
+
+@pytest.mark.parametrize("compute_dtype", ["bfloat16", "float32"])
+def test_impact_costs_add_the_target_unroll(compute_dtype):
+    """``loss="impact"`` adds the target network's core over the T+1 steps:
+    the input-projection GEMM a second time and the lean recurrence
+    (``lstm_lean_unroll_kernel``, no residuals written), whose products
+    are exactly the target core's 2 * m * (D+H) * 4H FLOPs."""
+    shapes = ((72, 96, 3), 9, 100, 32)
+    vtrace = kernels.handwritten_costs(*shapes, compute_dtype=compute_dtype)
+    impact = kernels.handwritten_costs(*shapes, compute_dtype=compute_dtype,
+                                       loss="impact")
+    assert set(impact) == set(vtrace) | {"lstm_lean_unroll_kernel"}
+    total = lambda costs: sum(c["flops_est"] * c["calls"]
+                              for c in costs.values())
+    m, d, g = 101 * 32, 256 + 1 + 9, 4 * 256
+    assert total(impact) - total(vtrace) == 2 * m * (d + 256) * g
+    gemm, lean = impact["sgemm_kernel<true"], impact["lstm_lean_unroll_kernel"]
+    assert gemm["calls"] == 2 and lean["calls"] == 1
+    assert gemm["flops_est"] == vtrace["sgemm_kernel<true"]["flops_est"]
+    assert gemm["bytes"] == vtrace["sgemm_kernel<true"]["bytes"]
+    # The lean recurrence reads pre, done, the carries and Wh and writes
+    # ys and the final carry: the residual recurrence less its residuals.
+    resid = vtrace["lstm_resid_kernel"]
+    assert resid["bytes"] - lean["bytes"] == 4 * m * (4 * 256 + 3 * 256)
 
 
 def test_op_cost_equals_the_flop_counter():
@@ -344,7 +379,7 @@ class TestTraceJoin:
         launches' correlation ids."""
         rows, costs = kernels.join_trace(_synthetic_trace(), "cuda",
                                          HANDWRITTEN)
-        assert not any("lstm_step_kernel" in name for name in rows)
+        assert not any("lstm_step" in name for name in rows)
         assert "never_launched" not in rows
         assert rows["sgemm_kernel<true, __nv_bfloat16>"] == {
             "time_us": 140.0, "calls": 1.0}
@@ -425,8 +460,8 @@ def _synthetic_trace():
            **{ext: 40}),
         _x("cudaLaunchKernelExC", "cuda_runtime", 3, 400, 5,
            correlation=1007, **{ext: 0}),
-        _x("void (anonymous namespace)::lstm_step_kernel<__nv_bfloat16>("
-           "float const*)", "kernel", 0, 2800, 12, correlation=1007),
+        _x("void (anonymous namespace)::lstm_step_mma_kernel<8, 16>(float "
+           "const*)", "kernel", 0, 2800, 12, correlation=1007),
         _x("never_launched", "kernel", 0, 2900, 3, correlation=9999),
         _x("Memcpy HtoD (Pageable -> Device)", "gpu_memcpy", 0, 3000, 30,
            correlation=1008),

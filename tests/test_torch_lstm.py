@@ -364,11 +364,242 @@ def test_bptt_cuda_route_launches_the_kernels_only(monkeypatch, matmul_dtype,
     assert lstm_cuda.LAUNCHES[counter] == before + 1
 
 
+def _fake_card(monkeypatch, calls, *plain):
+    """The CUDA route with a stand-in library whose entry points record
+    their arguments: no card needed.  The plain versions ``plain`` and
+    PyTorch's matmul fail the test if the route runs them."""
+
+    class FakeLibrary:
+        def __getattr__(self, name):
+            return lambda *args: calls.append((name, args)) or 0
+
+    forbidden = lambda *a, **k: pytest.fail("the CUDA route ran PyTorch math")
+    monkeypatch.setattr(lstm_cuda._build, "on_cpu", lambda *a: False)
+    monkeypatch.setattr(lstm_cuda._build, "library", FakeLibrary)
+    monkeypatch.setattr(lstm_cuda, "_stream", lambda: 7)
+    for name in plain:
+        monkeypatch.setattr(lstm_cuda, name, forbidden)
+    monkeypatch.setattr(torch, "matmul", forbidden)
+    monkeypatch.setattr(torch.Tensor, "__matmul__", forbidden)
+
+
+def _zero_case(steps, batch, in_dim=D, hidden=32):
+    """Zero forward inputs of these shapes: a wrapper's operands."""
+    return dict(x=torch.zeros(steps, batch, in_dim),
+                done=torch.zeros(steps, batch),
+                c0=torch.zeros(batch, hidden), h0=torch.zeros(batch, hidden),
+                wi=torch.zeros(in_dim, 4 * hidden),
+                wh=torch.zeros(hidden, 4 * hidden), b=torch.zeros(4 * hidden))
+
+
+LEAN_PLAIN = ("lean_forward", "lstm_step_plain", "lstm_forward_plain")
+
+
+@pytest.mark.parametrize("matmul_dtype,suffix", [("float32", ""),
+                                                 ("bfloat16", "_bf16")])
+@pytest.mark.parametrize("batch", [1, 33])
+def test_lean_step_cuda_route_launches_the_step_kernel_only(
+        monkeypatch, matmul_dtype, suffix, batch):
+    """At T=1 the lean forward is one call of the step kernel of its
+    operand type (``sat_lstm_step``: the float32 FFMA kernel;
+    ``sat_lstm_step_bf16``: the tensor-core kernel), with a pointer for
+    every operand, counted once under ``lstm_fwd_lean[_bf16]``; ys is a
+    view of h.  It never runs the plain step or a PyTorch matmul."""
+    calls = []
+    _fake_card(monkeypatch, calls, *LEAN_PLAIN)
+    t = _zero_case(1, batch)
+    before = dict(lstm_cuda.LAUNCHES)
+    out = lstm_cuda.lstm_forward(*(t[k] for k in ORDER), residuals=False,
+                                 matmul_dtype=matmul_dtype)
+    (name, args), = calls
+    assert name == "sat_lstm_step" + suffix
+    argtypes, _ = lstm_cuda._build._SIGNATURES[name]
+    assert len(args) == len(argtypes) == 13
+    assert list(args[:7]) == [t[k].data_ptr() for k in ORDER]
+    assert args[7:] == (out.ys.data_ptr(), out.c.data_ptr(), batch, D, 32, 7)
+    assert out.h.data_ptr() == out.ys.data_ptr() and out.residuals is None
+    assert out.ys.shape == (1, batch, 32) and out.c.shape == (batch, 32)
+    grown = {k: v - before[k] for k, v in lstm_cuda.LAUNCHES.items()
+             if v != before[k]}
+    assert grown == {"lstm_fwd_lean" + suffix: 1}
+
+
+@pytest.mark.parametrize("matmul_dtype,suffix", [("float32", ""),
+                                                 ("bfloat16", "_bf16")])
+@pytest.mark.parametrize("steps,batch,hidden", [(2, 4, 32), (T, 33, 64),
+                                                (101, 32, 256)])
+def test_lean_unroll_cuda_route_launches_the_kernels_only(
+        monkeypatch, matmul_dtype, suffix, steps, batch, hidden):
+    """At T>1 the lean forward is one call of ``sat_lstm_forward_lean``
+    (the input-projection GEMM, then the recurrence with Wh resident and
+    no residual stores), with the residual forward's plan and a pointer
+    for every operand, counted once under ``lstm_fwd_lean_unroll``: not T
+    step launches, and never the plain loop or a PyTorch matmul."""
+    calls = []
+    _fake_card(monkeypatch, calls, *LEAN_PLAIN)
+    t = _zero_case(steps, batch, hidden=hidden)
+    before = dict(lstm_cuda.LAUNCHES)
+    out = lstm_cuda.lstm_forward(*(t[k] for k in ORDER), residuals=False,
+                                 matmul_dtype=matmul_dtype)
+    (name, args), = calls
+    assert name == "sat_lstm_forward_lean" + suffix
+    argtypes, _ = lstm_cuda._build._SIGNATURES[name]
+    assert len(args) == len(argtypes) == 19
+    plan = lstm_cuda.resid_plan(batch, hidden)
+    assert args[11:] == (steps, batch, D, hidden, plan.rows, plan.resident,
+                         plan.smem_bytes, 7)
+    assert list(args[:7]) == [t[k].data_ptr() for k in ORDER]
+    assert list(args[8:11]) == [o.data_ptr() for o in out[:3]]
+    assert len(set(args[:11])) == 11  # pre is scratch of its own
+    assert out.ys.shape == (steps, batch, hidden) and out.residuals is None
+    grown = {k: v - before[k] for k, v in lstm_cuda.LAUNCHES.items()
+             if v != before[k]}
+    assert grown == {"lstm_fwd_lean_unroll" + suffix: 1}
+
+
+# csrc/lstm.cu's lstm_step_mma_kernel geometry (kMmaStepUnits, kMmaStepRows,
+# kMmaStepWarps, kMmaStepDepth): change these with the kernel.
+MMA_UNITS, MMA_ROWS, MMA_WARPS, MMA_DEPTH = 8, 16, 8, 5
+
+
+def test_step_mma_mirror_has_the_kernels_geometry():
+    """The emulator's MMA_* constants are csrc/lstm.cu's kMmaStep*."""
+    import re
+    from pathlib import Path
+
+    source = (Path(lstm_cuda.__file__).resolve().parents[1] / "csrc"
+              / "lstm.cu").read_text()
+    found = {name: int(value) for name, value in re.findall(
+        r"constexpr int (kMmaStep\w+) = (\d+);", source)}
+    assert found == {"kMmaStepUnits": MMA_UNITS, "kMmaStepRows": MMA_ROWS,
+                     "kMmaStepWarps": MMA_WARPS,
+                     "kMmaStepDepth": MMA_DEPTH}
+
+
+def _bf16(v):
+    return torch.from_numpy(np.asarray(v, np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
+def _emulate_step_mma(x, done, c0, h0, wi, wh, b):
+    """The bf16 step kernel's arithmetic, index by index: each CTA's and
+    warp's k16 steps, each lane's fragment elements as the kernel loads
+    them (its rows, depths and weight columns), placed into the mma tiles
+    by the PTX layout of m16n8k16 (A: row g + 8 (i & 1), depth 2 t4 + h +
+    8 (i >> 1) of register i, half h; B: depth 2 t4 + h + 8 j of register
+    j, column g; C: row g + 8 (i >> 1), column 2 t4 + (i & 1)), the
+    partials summed in warp order, then the bias and the cell.  numpy
+    arrays in, (h', c') out, float32."""
+    batch, in_dim = x.shape
+    hidden = h0.shape[1]
+    depth = in_dim + hidden
+    steps = -(-depth // 16)
+    units, rows = MMA_UNITS, MMA_ROWS
+    cols = 4 * units
+    keep_all = 1.0 - done
+    lane = np.arange(32)
+    g, t4 = lane >> 2, lane & 3
+    y = np.zeros((batch, hidden), np.float32)
+    c_out = np.zeros_like(y)
+    for j0 in range(0, hidden, units):
+        for b0 in range(0, batch, rows):
+            nb = min(rows, batch - b0)
+            part = np.zeros((MMA_WARPS, rows, cols), np.float64)
+            for warp in range(MMA_WARPS):
+                acc = np.zeros((cols // 8, 32, 4))
+                for step in range(warp, steps, MMA_WARPS):
+                    kb = 16 * step + 2 * t4
+
+                    def operand(k, hi):
+                        r = b0 + np.minimum(g + 8 * hi, nb - 1)
+                        v = np.zeros(32, np.float32)
+                        for i in range(32):
+                            kk = k[i]
+                            if kk < in_dim:
+                                v[i] = x[r[i], kk]
+                            elif kk < depth:
+                                v[i] = keep_all[r[i]] * h0[r[i], kk - in_dim]
+                        return _bf16(v)
+
+                    # o[hi][q]: depth kb + (q & 1) + 8 (q >> 1).
+                    o = [[operand(kb + (q & 1) + 8 * (q >> 1), hi)
+                          for q in range(4)] for hi in range(2)]
+                    regs_a = [(o[0][0], o[0][1]), (o[1][0], o[1][1]),
+                              (o[0][2], o[0][3]), (o[1][2], o[1][3])]
+                    tile_a = np.zeros((16, 16))
+                    for i, (lo, hi_) in enumerate(regs_a):
+                        for h, v in enumerate((lo, hi_)):
+                            tile_a[g + 8 * (i & 1),
+                                   2 * t4 + h + 8 * (i >> 1)] = v
+                    for nt in range(cols // 8):
+                        n = 8 * nt + g
+                        col = n // units * hidden + j0 + n % units
+                        w = np.concatenate([wi, wh])
+                        bv = []
+                        for q in range(4):
+                            k = kb + (q & 1) + 8 * (q >> 1)
+                            bv.append(_bf16(np.where(
+                                k < depth, w[np.minimum(k, depth - 1), col],
+                                0.0)))
+                        tile_b = np.zeros((16, 8))
+                        for j, pair in enumerate(((bv[0], bv[1]),
+                                                  (bv[2], bv[3]))):
+                            for h, v in enumerate(pair):
+                                tile_b[2 * t4 + h + 8 * j, g] = v
+                        prod = tile_a @ tile_b
+                        for i in range(4):
+                            acc[nt, :, i] += prod[g + 8 * (i >> 1),
+                                                  2 * t4 + (i & 1)]
+                for nt in range(cols // 8):
+                    for i in range(4):
+                        part[warp, g + 8 * (i >> 1),
+                             8 * nt + 2 * t4 + (i & 1)] = acc[nt, :, i]
+            for row in range(nb):
+                for u in range(units):
+                    gates = [part[:, row, gate * units + u].astype(
+                        np.float32).sum(dtype=np.float32)
+                        + b[gate * hidden + j0 + u] for gate in range(4)]
+                    sig = lambda v: 1.0 / (1.0 + np.exp(-v))
+                    keep = keep_all[b0 + row]
+                    cn = (sig(gates[1]) * keep * c0[b0 + row, j0 + u]
+                          + sig(gates[0]) * np.tanh(gates[2]))
+                    y[b0 + row, j0 + u] = sig(gates[3]) * np.tanh(cn)
+                    c_out[b0 + row, j0 + u] = cn
+    return y, c_out
+
+
+@pytest.mark.parametrize("batch,in_dim", [(1, 12), (8, 13), (33, 12),
+                                          (3, 621)])
+def test_step_mma_fragments_match_the_plain_step(batch, in_dim):
+    """The bf16 step kernel's fragment index math, emulated lane by lane
+    (``_emulate_step_mma``), gives the plain bf16 step: a row, depth or
+    weight column the kernel loads into the wrong register shows here.
+    Ragged batches (a CTA's rows past the batch read its last row), odd
+    D, and a depth past one round of loads (D+H = 653: 41 k16 steps, so
+    warp 0 takes 6, past MMA_DEPTH = 5)."""
+    rng = np.random.default_rng(batch + in_dim)
+    hidden = 32
+    f32 = lambda *shape, scale=1.0: (
+        rng.standard_normal(shape) * scale).astype(np.float32)
+    x, c0 = f32(batch, in_dim), f32(batch, hidden, scale=0.5)
+    h0 = np.tanh(f32(batch, hidden))
+    wi = f32(in_dim, 4 * hidden, scale=in_dim ** -0.5)
+    wh = f32(hidden, 4 * hidden, scale=hidden ** -0.5)
+    b = f32(4 * hidden, scale=0.1)
+    done = (rng.random(batch) < 0.3).astype(np.float32)
+    y, c = _emulate_step_mma(x, done, c0, h0, wi, wh, b)
+    t = lambda v: torch.from_numpy(v)
+    h_want, c_want = lstm_cuda.lstm_step_plain(
+        t(x), t(done), t(c0), t(h0), t(wi), t(wh), t(b), "bfloat16")
+    np.testing.assert_allclose(y, h_want.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(c, c_want.numpy(), rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("steps", [1, 5])
 def test_lean_forward_runs_one_step_per_time_step(steps):
-    """The lean route: T calls of the step (one kernel launch each on the
-    card), the carry threaded through, against the Pallas lean kernel.  At
-    T=1 ys is a view of the new h, with no copy."""
+    """The plain lean route on the CPU: T calls of the step, the carry
+    threaded through, against the Pallas lean kernel.  At T=1 ys is a view
+    of the new h, with no copy."""
     arrays = _inputs(11)
     arrays["x"], arrays["done"] = (arrays["x"][:steps],
                                    arrays["done"][:steps])
