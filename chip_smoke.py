@@ -29,7 +29,12 @@ a result:
    kernel; bf16: the tensor-core kernel) is also held at T=1 for B in {1,
    8, 32, 64} and from two threads on two streams at once, two calls must
    be bitwise equal, and its device time (torch.profiler) must not exceed
-   ``torch.lstm_cell``'s in either type.  The lean forward at T>1 (one
+   ``torch.lstm_cell``'s in either type; at the actor service's padded
+   batch sizes, B in ``SERVICE_BUCKETS`` (4, 8, 16, 64; phase 3p), it is
+   held at LSTM_TOL with two calls bitwise equal in both types, and its
+   wrapper ms, device ms, plain ms, byte bound and ``torch.lstm_cell``'s
+   wrapper and device ms at the same B are printed (not gated).  The lean
+   forward at T>1 (one
    call: the input GEMM and the lean recurrence) is held at T=5, its ys,
    cT and hT bitwise the residual forward's; and again over the IMPACT
    target network's unroll, x [101, 32, 266] (bf16 as the long unrolls
@@ -142,9 +147,22 @@ a result:
    packed as pack, upload with its GB/s, and unpack) and one update taken
    apart (with torch.profiler for the update's kernels), at bf16 and at
    float32, then the pool loop's steady state at bf16 over
-   ``POOL_UPDATES`` (8) updates at ``inflight_updates`` 2 and 1 (s per
-   update after the first 2, actor against learner fps, ``wait_batch``,
-   ``update`` and ``retire``).
+   ``POOL_UPDATES`` (8) updates at ``inflight_updates`` 2 and over
+   ``POOL_UPDATES_WINDOW1`` (4) at 1 (s per update after the first 2,
+   actor against learner fps, ``wait_batch``, ``update`` and
+   ``retire``).
+3p. (Run after 3b.) The continuous-batching actor service: the main path
+   with ``--actor=service`` (one inference thread batching the 16 worker
+   slices of 4 envs as they arrive, up to every env; bf16,
+   ``--scan_impl=pallas``) for ``SERVICE_UPDATES`` (4) updates counted as
+   in phase 3, every trajectory the learner takes [101, 32]; the bf16
+   lean step kernel launched exactly once per service batch
+   (``service/batches_total``), ``ledger/rho/service_batch`` and
+   ``service_wait`` in ``metrics.prom`` and no ledger record open, each
+   failing the run; s per update after the first 2 beside 3b's pool loop,
+   actor fps, ``service/batch_s`` p50 and p95 and the batches by valid
+   rows and by padded size printed, not gated; then 2 float32 updates,
+   the float32 step kernel once per batch.
 3j. (Run after 3b.) ``--benchmark_mode=true`` on the main path, 4 bf16
    updates counted, its s per update and env frames/s beside 3b's (not
    gated); then one pool trajectory whose env outputs, frames included,
@@ -315,7 +333,8 @@ a result:
    main path; the ResNet stem's from 3h's float32 and bf16 runs, the C=4
    stem's from 3n's Atari runs, the C=1 and ResNet C=4 kernels' from 3n's
    one-channel gym and deep Atari runs, the lean unroll (the target
-   network's) with 3o's launches), the card's line, then as the
+   network's) with 3o's launches; the lean step's two entries also carry
+   ``service_launches``, 3p's), the card's line, then as the
    last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
@@ -372,6 +391,11 @@ RESNET_BF16_MAX_MS = 0.507  # the bf16 ResNet stem grad-W's ms per call at
 UPDATES = 4
 F32_UPDATES = 2             # the float32 policy's shorter path
 POOL_UPDATES = 8             # 2 to fill the window, 6 measured
+POOL_UPDATES_WINDOW1 = 4     # phase 3b's window-1 arm: 2 measured
+SERVICE_UPDATES = 4          # phase 3p's bf16 run: 2 to fill, 2 measured
+# The actor service's padded batch sizes at the reference layout (slices
+# of 4 envs, at most 64 rows) beside the B=32 of the grouped pool.
+SERVICE_BUCKETS = (4, 8, 16, 64)
 UPLOAD_REPS = 5             # uploads timed per transport (phase 3b)
 PACKED_UPLOADS = 30         # back-to-back packed uploads held (phase 3d)
 DUMMY_MATMULS = 12          # 4096^2 float32 products per upload read:
@@ -585,6 +609,71 @@ def _lstm_costs(T, B, D, H):
     return {"lean": lean, "unroll": unroll, "resid": resid, "bptt": bptt}
 
 
+def _cell_after_reset(torch, args, bf16):
+    """The library yardstick of the lean step on ``args`` (x [1, B, D],
+    done, c0, h0, wi, wh, b): ``torch.lstm_cell`` after the done-reset
+    computes the same function (gate order i, f, g, o; its CUDA path needs
+    both biases, so the second is zero), in bf16 for the bf16 variant."""
+    x, done, c0, h0, wi, wh, b = args
+    keep = (1.0 - done[0])[:, None]
+    cast = (lambda t: t.bfloat16()) if bf16 else (lambda t: t)
+    cell_args = tuple(cast(t) for t in (
+        x[0], h0 * keep, c0 * keep, wi.t(), wh.t(), b, torch.zeros_like(b)))
+    return lambda: torch.lstm_cell(cell_args[0], cell_args[1:3],
+                                   *cell_args[3:])
+
+
+def compare_lean_buckets(torch, lstm_cuda, device, matmul_dtype="float32"):
+    """The lean step kernel at the actor service's padded batch sizes
+    (``SERVICE_BUCKETS``, phase 3p), D=266, H=256: against its plain
+    version at LSTM_TOL, two calls bitwise equal, then the wrapper's ms
+    (CUDA events), the kernel's device ms (torch.profiler), the plain
+    version's ms, the byte bound, and ``torch.lstm_cell`` after the reset
+    at the same B (wrapper and device ms).  No time is gated."""
+    bf16 = matmul_dtype == "bfloat16"
+    tag = " bf16" if bf16 else ""
+    gen = torch.Generator().manual_seed(4321)
+    D, H = 266, 256
+    rand = lambda *shape, scale=1.0: (
+        torch.randn(shape, generator=gen) * scale).to(device)
+    wi, wh = rand(D, 4 * H, scale=D ** -0.5), rand(H, 4 * H, scale=H ** -0.5)
+    b = rand(4 * H, scale=0.1)
+    md = dict(matmul_dtype=matmul_dtype)
+    readings = {}
+    for batch in SERVICE_BUCKETS:
+        done = (torch.rand((1, batch), generator=gen) < 0.3).float()
+        args = (rand(1, batch, D), done.to(device),
+                rand(batch, H, scale=0.5), torch.tanh(rand(batch, H)),
+                wi, wh, b)
+        lean = lambda args=args: lstm_cuda.lstm_forward(
+            *args, residuals=False, **md)
+        plain = lambda args=args: lstm_cuda.lstm_forward_plain(
+            *args, residuals=False, **md)
+        name = f"lstm_fwd_lean{tag} T=1 B={batch} (a service bucket)"
+        kern, want, again = lean(), plain(), lean()
+        torch.cuda.synchronize()
+        err = _errors(zip(kern[:3], want[:3]))
+        _check(name, *err, LSTM_TOL)
+        _bitwise(torch, name, kern[:3], again[:3])
+        cell = _cell_after_reset(torch, args, bf16)
+        nbytes, flops = _lstm_costs(1, batch, D, H)["lean"]
+        bound_ms, bound_by = _bound_ms(nbytes, flops, bf16)
+        reading = dict(
+            max_abs_err=err[0], ms=_time_ms(torch, lean, 50),
+            device_ms=_device_ms(torch, lean, LEAN_STEP, 50),
+            plain_ms=_time_ms(torch, plain, 10), bound_ms=bound_ms,
+            cell_ms=_time_ms(torch, cell, 50),
+            cell_device_ms=_device_ms(torch, cell, None, 50))
+        readings[batch] = reading
+        print(f"  lstm_fwd_lean{tag} [1,{batch},{D}] H={H}: kernel "
+              f"{reading['ms']:.4f} ms, device {reading['device_ms']:.4f} "
+              f"ms, plain {reading['plain_ms']:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}); torch.lstm_cell{tag} "
+              f"after the reset {reading['cell_ms']:.4f} ms, device "
+              f"{reading['cell_device_ms']:.4f} ms", flush=True)
+    return readings
+
+
 def compare_lstm(torch, lstm_cuda, device, matmul_dtype="float32"):
     """Lean forward (T=1), residual forward and BPTT (T=101) vs plain, at
     the products' operand type ``matmul_dtype``."""
@@ -633,16 +722,7 @@ def compare_lstm(torch, lstm_cuda, device, matmul_dtype="float32"):
     err = _errors(zip(kern[:3], plain[:3]))
     _check(f"lstm_fwd_lean{tag}", *err, short_tol)
     _bitwise(torch, f"lstm_fwd_lean{tag}", kern[:3], again[:3])
-    # The library yardstick: torch.lstm_cell after the done-reset computes
-    # the same function (gate order i, f, g, o; its CUDA path needs both
-    # biases, so the second is zero), in bf16 for the bf16 variant.
-    keep = (1.0 - args1[1][0])[:, None]
-    zero_b = torch.zeros_like(b)
-    cast = (lambda t: t.bfloat16()) if bf16 else (lambda t: t)
-    cell_args = tuple(cast(t) for t in (
-        args1[0][0], h0 * keep, c0 * keep, wi.t(), wh.t(), b, zero_b))
-    cell = lambda: torch.lstm_cell(cell_args[0], cell_args[1:3],
-                                   *cell_args[3:])
+    cell = _cell_after_reset(torch, args1, bf16)
     cell_h, cell_c = cell()
     cell_err = _errors([(cell_h.float(), plain.h), (cell_c.float(), plain.c)])
     print(f"  (torch.lstm_cell{tag} after the reset against the same plain "
@@ -3075,30 +3155,31 @@ def _rows(logdir):
     return [r for r in _all_rows(logdir) if not _is_registry_row(r)]
 
 
-def pool_steady_state(torch, driver, config, logdir):
-    """The pool loop's own figures over POOL_UPDATES updates logged every
+def pool_steady_state(torch, driver, config, logdir,
+                      updates=POOL_UPDATES, label="pool loop"):
+    """The loop's own figures over ``updates`` updates logged every
     update: s per update after the first 2, actor against learner fps,
     and Timing's wait_batch, update and retire over the same updates."""
     config = dataclasses.replace(
         config, logdir=logdir, log_interval_s=0.0,
         total_environment_frames=float(
-            POOL_UPDATES * config.frames_per_update()))
+            updates * config.frames_per_update()))
     driver.train(config)
     rows = {r["step"]: r for r in _rows(logdir)}
-    first, last = rows[2], rows[POOL_UPDATES]
-    n = POOL_UPDATES - 2
+    first, last = rows[2], rows[updates]
+    n = updates - 2
     s_per_update = (last["time"] - first["time"]) / n
     # Timing keeps a moving average over the last 50 values, one value
     # per update (retire: none while the window fills): differencing two
     # rows gives the mean of updates 3..N.
     lag = config.inflight_updates - 1
-    steady = lambda key, lag=0: ((last[key] * (POOL_UPDATES - lag)
+    steady = lambda key, lag=0: ((last[key] * (updates - lag)
                                   - first[key] * (2 - lag)) / n)
-    tail = [rows[k] for k in range(3, POOL_UPDATES + 1)]
+    tail = [rows[k] for k in range(3, updates + 1)]
     fps = sum(r["fps"] for r in tail) / len(tail)
     actor_fps = sum(r["actor_fps"] for r in tail) / len(tail)
-    print(f"  pool loop at inflight_updates={config.inflight_updates}, "
-          f"updates 3..{POOL_UPDATES}: {s_per_update:.4f} s per "
+    print(f"  {label} at inflight_updates={config.inflight_updates}, "
+          f"updates 3..{updates}: {s_per_update:.4f} s per "
           f"update ({config.frames_per_update() / s_per_update:.0f} env "
           f"frames/s); mean of per-update rows: learner fps {fps:.0f}, "
           f"actor fps {actor_fps:.0f}; wait_batch "
@@ -3106,6 +3187,112 @@ def pool_steady_state(torch, driver, config, logdir):
           f"{steady('timing/update'):.4f} s, retire "
           f"{steady('timing/retire', lag):.4f} s per update", flush=True)
     return s_per_update
+
+
+def service_path(torch, driver, config, scratch, train_counted, pool_s):
+    """Phase 3p: ``--actor=service`` on the main path (64 envs in 2 groups
+    of 32, 8 worker processes a group: slices of 4 envs; the default
+    ``--service_max_batch``, every env; bf16, ``--scan_impl=pallas``) for
+    SERVICE_UPDATES updates counted as in phase 3, every trajectory the
+    learner takes held at [T+1, B] = [101, 32]: the bf16 lean step kernel
+    launched exactly once per service batch (``service/batches_total``),
+    ``ledger/rho/service_batch`` and ``service_wait`` in ``metrics.prom``,
+    no ledger record left open; s per update after the first 2 beside
+    phase 3b's pool loop, actor fps, ``service/batch_s`` p50 and p95, the
+    batches by valid rows and by padded size (the kernel's B).  Then
+    F32_UPDATES float32 updates, the float32 step kernel once per batch.
+    Returns the runs' step launches by kernel name."""
+    from scalable_agent_tpu_torch.obs import get_registry
+    from scalable_agent_tpu_torch.runtime import service as service_mod
+
+    batches = []
+    shapes = []
+    real_step = service_mod.service_actor_step
+
+    def recording_step(agent, generator, ids, n, *rest):
+        batches.append((n, int(ids.shape[0])))
+        return real_step(agent, generator, ids, n, *rest)
+
+    class Checked(service_mod.ActorService):
+        def get_trajectory(self, timeout=None):
+            out = super().get_trajectory(timeout)
+            shapes.append((out.env_outputs.observation.frame.shape[:2],
+                           out.agent_outputs.policy_logits.shape[:2],
+                           out.agent_state.c.shape[0]))
+            return out
+
+    batches_total = get_registry().counter("service/batches_total")
+    launches = {}
+    for compute_dtype, updates, suffix in (
+            ("bfloat16", SERVICE_UPDATES, "_bf16"),
+            ("float32", F32_UPDATES, "")):
+        logdir = os.path.join(scratch, f"service_{compute_dtype}")
+        run = dataclasses.replace(
+            config, logdir=logdir, actor="service",
+            compute_dtype=compute_dtype, log_interval_s=0.0,
+            total_environment_frames=float(
+                updates * config.frames_per_update()))
+        other = "" if suffix else "_bf16"
+        expected = {
+            "lstm_fwd_lean" + suffix: (1, None),
+            "lstm_fwd_resid" + suffix: updates, "lstm_bptt" + suffix: updates,
+            "stem_gradw" + suffix: updates, "vtrace_fused": updates,
+            "lstm_fwd_lean" + other: 0, "lstm_fwd_resid" + other: 0,
+            "lstm_bptt" + other: 0, "stem_gradw" + other: 0}
+        del batches[:], shapes[:]
+        before = batches_total.value
+        with _patched(service_mod, service_actor_step=recording_step), \
+                _patched(driver, ActorService=Checked):
+            counts = train_counted(run, updates, suffix, expected=expected)
+        ran = batches_total.value - before
+        name = "lstm_fwd_lean" + suffix
+        launches[name] = counts[name]
+        print(f"  --actor=service at {compute_dtype}: {int(ran)} service "
+              f"batches, {counts[name]} {name} launches, "
+              f"{len(shapes)} trajectories taken", flush=True)
+        if not (counts[name] == ran == len(batches) > 0):
+            raise AssertionError(
+                f"phase 3p: {name} launched {counts[name]} times in "
+                f"{ran} service batches ({len(batches)} recorded)")
+        want = ((config.unroll_length + 1, config.batch_size),
+                (config.unroll_length + 1, config.batch_size),
+                config.batch_size)
+        if len(shapes) < updates or any(s != want for s in shapes):
+            raise AssertionError(f"phase 3p: trajectories {set(shapes)} "
+                                 f"are not [T+1, B] = {want[0]}")
+        prom = open(os.path.join(logdir, "metrics.prom")).read()
+        for family in ("impala_ledger_rho_service_batch",
+                       "impala_ledger_rho_service_wait"):
+            if family not in prom:
+                raise AssertionError(f"phase 3p: metrics.prom lacks "
+                                     f"{family}")
+        with open(os.path.join(logdir, "ledger.p0.json")) as f:
+            open_records = json.load(f)["open_records"]
+        if open_records:
+            raise AssertionError(f"phase 3p: {len(open_records)} ledger "
+                                 f"records left open")
+        if compute_dtype != "bfloat16":
+            continue
+        rows = {r["step"]: r for r in _rows(logdir)}
+        s_per_update = (rows[updates]["time"] - rows[2]["time"]) / (
+            updates - 2)
+        actor_fps = sum(rows[k]["actor_fps"]
+                        for k in range(3, updates + 1)) / (updates - 2)
+        batch_s = get_registry().histogram("service/batch_s").quantiles()
+        by_rows, by_padded = {}, {}
+        for n, padded in batches:
+            by_rows[n] = by_rows.get(n, 0) + 1
+            by_padded[padded] = by_padded.get(padded, 0) + 1
+        print(f"  service loop, updates 3..{updates}: {s_per_update:.4f} "
+              f"s per update ({config.frames_per_update() / s_per_update:.0f}"
+              f" env frames/s) against phase 3b's pool loop {pool_s:.4f} "
+              f"on the same machine; actor fps {actor_fps:.0f}; "
+              f"service/batch_s p50 {batch_s[0.5] * 1e3:.3f} ms, p95 "
+              f"{batch_s[0.95] * 1e3:.3f} ms", flush=True)
+        print(f"  service batches by valid rows "
+              f"{dict(sorted(by_rows.items()))}; by padded size (the step "
+              f"kernel's B) {dict(sorted(by_padded.items()))}", flush=True)
+    return launches
 
 
 def _early_late(returns, random_return):
@@ -4342,6 +4529,7 @@ def main() -> int:
         for matmul_dtype, dtype in (("float32", torch.float32),
                                     ("bfloat16", torch.bfloat16)):
             rows += compare_lstm(torch, lstm_cuda, device, matmul_dtype)
+            compare_lean_buckets(torch, lstm_cuda, device, matmul_dtype)
             rows += compare_lean_target(torch, lstm_cuda, device,
                                         matmul_dtype)
             rows += compare_gradw(torch, conv_cuda, device, dtype=dtype)
@@ -4532,11 +4720,22 @@ def main() -> int:
             breakdown(torch, driver, config)
             print("  the same at compute_dtype=float32:", flush=True)
             breakdown(torch, driver, f32)
+        # Window 1, a reading only, over fewer updates (the script's time
+        # limit pays for phase 3p).
         pool_s = {window: pool_steady_state(
             torch, driver, dataclasses.replace(config,
                                                inflight_updates=window),
-            os.path.join(scratch, f"pool{window}"))
-            for window in (2, 1)}
+            os.path.join(scratch, f"pool{window}"), updates=updates)
+            for window, updates in ((2, POOL_UPDATES),
+                                    (1, POOL_UPDATES_WINDOW1))}
+
+        phase("phase 3p: the continuous-batching actor service, "
+              "--actor=service")
+        t0 = time.monotonic()
+        service_launches = service_path(
+            torch, driver, config, scratch, train_counted,
+            pool_s[config.inflight_updates])
+        print(f"  phase 3p took {time.monotonic() - t0:.1f} s", flush=True)
 
         phase("phase 3j: --benchmark_mode=true on the main path")
         benchmark_path(torch, driver, config, scratch, train_counted,
@@ -4657,6 +4856,8 @@ def main() -> int:
         resnet_stem_gradw_c4_bf16=new_launches[deep][
             "resnet_stem_gradw_c4_bf16"])
     counts["lstm_fwd_lean_unroll_bf16"] = unroll_launches
+    for name, launches in service_launches.items():
+        timed[name]["service_launches"] = launches
     kernels = [dict(timed[name], launches=counts[name])
                for name in ("lstm_fwd_lean", "lstm_fwd_resid", "lstm_bptt",
                             "stem_gradw", "lstm_fwd_lean_bf16",

@@ -24,7 +24,7 @@ from typing import Optional
 UNPORTED_FLAGS = (
     "mesh_data", "mesh_seq", "mesh_model", "distributed_coordinator",
     "distributed_num_processes", "distributed_process_id", "inference_mode",
-    "accum_fused_shards", "actor", "service_max_batch", "train_backend",
+    "accum_fused_shards", "train_backend",
     "updates_per_dispatch", "sentinel_interval", "sentinel_rtol",
     "chaos_channel", "compile_cache_dir", "peer_timeout_s",
     "collective_timeout_s",
@@ -35,6 +35,9 @@ UNPORTED_FLAGS = (
 # Ported flags that take only some of the JAX package's values here.
 SUPPORTED_VALUES = {
     "mode": ("train", "test"),
+    # The host actor runtime (a value outside these raises the JAX
+    # driver's "unknown actor" error).
+    "actor": ("grouped", "service"),
     "torso_type": ("shallow", "resnet"),
     "compute_dtype": ("bfloat16", "float32"),
     # "pallas" names the hand-written CUDA kernels (the fused done-reset
@@ -273,6 +276,15 @@ class Config:
     # Respawns of a failing actor thread (capped exponential backoff)
     # before its exception ends the run; 0 fails fast.
     actor_max_restarts: int = 3
+    # The host actor runtime: "grouped" (ActorPool, one thread per env
+    # group stepping its envs in lockstep) or "service" (the
+    # continuous-batching ActorService, runtime/service.py: env workers
+    # stream their observations out one worker at a time, and one
+    # inference thread batches whatever has arrived).
+    actor: str = "grouped"
+    # service only: the largest batch the inference thread forms (rows =
+    # envs), padded up a power-of-two ladder; 0 = every env of the run.
+    service_max_batch: int = 0
 
     # -- the run-health plane (obs/health.py): detectors at log cadence
     # over the registry stream and the interval's metrics.  A trip appends
@@ -302,6 +314,9 @@ class Config:
     device: str = "cuda"
 
     def __post_init__(self):
+        if self.actor not in SUPPORTED_VALUES["actor"]:
+            raise ValueError(
+                f"unknown actor {self.actor!r} (grouped | service)")
         for name, allowed in SUPPORTED_VALUES.items():
             if getattr(self, name) not in allowed:
                 raise _not_ported(f"--{name}={getattr(self, name)}")

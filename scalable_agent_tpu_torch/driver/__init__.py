@@ -8,8 +8,11 @@ experiment.py:675-708):
   points and the SIGTERM preemption grace; build the agent and the
   learner; restore the newest verified checkpoint; start the
   ``ActorPool`` (one thread per env group of ``batch_size`` envs, each
-  group stepped by ``num_env_workers_per_group`` worker processes) and
-  the prefetch thread, which puts trajectories on the card through the
+  group stepped by ``num_env_workers_per_group`` worker processes), or
+  under ``--actor=service`` the continuous-batching ``ActorService``
+  (``runtime/service.py``: one inference thread batching the workers'
+  slices as they arrive, up to ``--service_max_batch`` rows), and the
+  prefetch thread, which puts trajectories on the card through the
   ``--transport`` on its own stream and stages them one deep (the
   reference's StagingArea +1-step policy lag, experiment.py:587-597).
   Then, until the frame budget is spent: take the staged batch, issue the
@@ -181,6 +184,7 @@ from scalable_agent_tpu_torch.runtime.learner import (
     update_flops,
 )
 from scalable_agent_tpu_torch.runtime.replay import DeviceReplayBuffer
+from scalable_agent_tpu_torch.runtime.service import ActorService
 from scalable_agent_tpu_torch.runtime.transport import (
     InflightWindow,
     PackedTransport,
@@ -1011,12 +1015,16 @@ def _level_metrics(row: Dict[str, float], by_level,
             returns.clear()
 
 
-def train(config: Config) -> Dict[str, float]:
+def train(config: Config, clock=time) -> Dict[str, float]:
     """Train until ``total_environment_frames``, or until a SIGTERM drains
     the run; returns the newest update's metrics as host floats (plus
     ``episode_return``, the mean of the pool's recent finished episodes,
     when there are any).  Raises ``SystemExit(71)`` when the non-finite
-    guard cannot roll back."""
+    guard cannot roll back.  ``clock`` (the ``time`` module) times the
+    log intervals (``clock.monotonic``: the metrics rows' fps and actor
+    fps, and so the health plane's throughput detectors) and takes the
+    ``throughput_sag`` pause (``clock.sleep``); a test passes a fake
+    one."""
     device = resolve_device(config.device)
     config = apply_env_overrides(config)
     config.save()
@@ -1026,6 +1034,11 @@ def train(config: Config) -> Dict[str, float]:
     observation_spec, action_space, num_agents = probe_env(
         dataclasses.replace(config, level_name=level_names[0])
         if multi_task else config)
+    if config.actor == "service" and num_agents > 1:
+        raise ValueError(
+            f"--actor=service steps each env worker process on its own "
+            f"(MultiEnv's per-worker API); {config.level_name}'s lockstep "
+            f"multi-agent matches have none: run it with --actor=grouped")
     groups = pool = prefetch_thread = writer = learner = None
     prefetch_stop = threading.Event()
     monitor = PreemptionMonitor(config.preemption_grace_s)
@@ -1077,10 +1090,20 @@ def train(config: Config) -> Dict[str, float]:
             tracker.rebase(float(learner.state.nonfinite_skips))
             groups = make_env_groups(config, observation_spec.frame,
                                      num_agents, level_names)
-            pool = ActorPool(
-                agent, groups, config.unroll_length,
-                level_name=config.level_name, seed=config.seed,
-                max_restarts=config.actor_max_restarts)
+            if config.actor == "service":
+                # The continuous-batching actor service: the pool's queue
+                # and surface, so the prefetch stage and all after it are
+                # unchanged.
+                pool = ActorService(
+                    agent, groups, config.unroll_length,
+                    level_name=config.level_name, seed=config.seed,
+                    max_batch=config.service_max_batch,
+                    max_restarts=config.actor_max_restarts)
+            else:
+                pool = ActorPool(
+                    agent, groups, config.unroll_length,
+                    level_name=config.level_name, seed=config.seed,
+                    max_restarts=config.actor_max_restarts)
             pool.set_params(agent, version=start_updates)
             pool.start()
             staged: queue_lib.Queue = queue_lib.Queue(maxsize=1)
@@ -1099,7 +1122,7 @@ def train(config: Config) -> Dict[str, float]:
             injector = get_fault_injector()
             updates = start_updates
             frames = learner.state.env_frames
-            last_log = time.monotonic()
+            last_log = clock.monotonic()
             frames_at_last_log = frames
             steps_at_last_log = pool.agent_steps
             # Multi-task: each train level's returns since the last
@@ -1141,7 +1164,7 @@ def train(config: Config) -> Dict[str, float]:
                     # timing, so the stall attributor reads a slow device.
                     if injector.active and injector.should_fire(
                             "throughput_sag"):
-                        time.sleep(throughput_sag_s())
+                        clock.sleep(throughput_sag_s())
                 if ledger_tid is not None:
                     ledger.stamp(ledger_tid, "dispatch")
                 window.push(dispatched, ledger_id=ledger_tid)
@@ -1197,7 +1220,7 @@ def train(config: Config) -> Dict[str, float]:
                     # harvest, into kernels.<anomaly_id>.json.
                     watchdog.suspend("learner")
                     health.close_window(costs)
-                now = time.monotonic()
+                now = clock.monotonic()
                 if now - last_log >= config.log_interval_s:
                     if not metrics:
                         # Nothing has left the window yet: log the newest
@@ -1282,7 +1305,7 @@ def train(config: Config) -> Dict[str, float]:
                     if replay is not None:
                         replay.flush()
                     pool.set_params(agent, version=updates)
-                    last_log = time.monotonic()
+                    last_log = clock.monotonic()
                     frames_at_last_log = frames
                     steps_at_last_log = pool.agent_steps
                     interval.clear()

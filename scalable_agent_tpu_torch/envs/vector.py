@@ -12,6 +12,13 @@ The counterpart of ``scalable_agent_tpu/envs/vector.py::MultiEnv``
   observations carry them).
 - ``step_send``/``step_recv`` let an actor thread wait on the pipes while
   other threads run inference.
+- The per-worker API (``worker_slices``, ``worker_connection``,
+  ``worker_lock``, ``worker_generation``, ``worker_send``,
+  ``worker_recv``, ``worker_initial``) steps one worker's slice alone, for
+  the continuous-batching actor service (``runtime/service.py``): one
+  thread may send while another drains replies, and each worker's send
+  ``RLock`` is held around every send and every respawn handshake, so a
+  respawn never interleaves with a concurrent send.
 - A worker that dies is respawned with generation-shifted seeds
   (``_reseeded``); its slice restarts from fresh episodes (done=True).
   More than ``max_respawns`` deaths of one worker within
@@ -39,10 +46,11 @@ import functools
 import logging
 import multiprocessing as mp
 import pickle
+import threading
 import time
 from collections import deque
 from multiprocessing import shared_memory
-from typing import Callable, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 
@@ -204,6 +212,7 @@ class MultiEnv:
         self._shm = None
         self._slices, self._fns_pickled, self._generations = [], [], []
         self._respawn_times, self._procs, self._conns = [], [], []
+        self._send_locks = []
         num_workers = min(num_workers, self.num_envs)
         if num_workers <= 0:
             self._slab = np.zeros(self._slab_shape, frame_spec.dtype)
@@ -226,6 +235,9 @@ class MultiEnv:
             self._respawn_times.append(deque())
             self._procs.append(None)
             self._conns.append(None)
+            # An RLock, so a caller can hold it around its own
+            # check-then-send (the actor service's generation gate).
+            self._send_locks.append(threading.RLock())
             self._spawn_worker(w)
             start += size
         failures = []
@@ -311,23 +323,33 @@ class MultiEnv:
             raise pickle.loads(payload)
 
     def _send(self, w: int, request) -> None:
-        """Send to worker ``w``; a dead worker is respawned and primed
-        with its initial outputs instead (same reply layout)."""
-        try:
-            self._conns[w].send(request)
-        except (BrokenPipeError, OSError):
-            self._respawn_worker(w)
-            self._conns[w].send((_INITIAL,))
+        """Send to worker ``w`` under its send lock; a dead worker is
+        respawned and primed with its initial outputs instead (same reply
+        layout)."""
+        with self._send_locks[w]:
+            try:
+                self._conns[w].send(request)
+            except (BrokenPipeError, OSError):
+                self._respawn_worker(w)
+                self._conns[w].send((_INITIAL,))
 
     def _recv(self, w: int):
         """One worker's reply as ``(payload, None)`` or ``(None, error)``.
         A worker dead mid-step is respawned and its slice's fresh initial
         outputs are substituted."""
+        conn = self._conns[w]
         try:
-            ok, payload = self._conns[w].recv()
+            ok, payload = conn.recv()
         except (EOFError, OSError):
-            self._respawn_worker(w)
-            self._conns[w].send((_INITIAL,))
+            with self._send_locks[w]:
+                if self._conns[w] is conn:
+                    self._respawn_worker(w)
+                    self._conns[w].send((_INITIAL,))
+                # Else a concurrent sender found the death first and
+                # respawned and primed the worker under this lock: a
+                # second respawn would kill the healthy replacement and
+                # charge the budget twice for one death.  Either way the
+                # primed initial reply is pending.
             ok, payload = self._conns[w].recv()
         if not ok:
             return None, pickle.loads(payload)
@@ -335,15 +357,20 @@ class MultiEnv:
 
     # -- protocol ------------------------------------------------------------
 
-    def _output(self, rewards, dones, returns, steps, instructions,
-                measurements) -> StepOutput:
+    def _record_done_stats(self, offset: int, dones, steps, returns):
+        """Finished episodes of a slice whose global env indices start at
+        ``offset`` (initial() marks done without an episode: skipped)."""
         for i in np.nonzero(dones)[0]:
-            if steps[i] > 0:  # initial() marks done without an episode
+            if steps[i] > 0:
                 self.episode_stats.append((float(returns[i]), int(steps[i])))
                 if self.env_labels is not None:
                     self.level_episode_stats.append(
-                        (self.env_labels[i], float(returns[i]),
+                        (self.env_labels[offset + i], float(returns[i]),
                          int(steps[i])))
+
+    def _output(self, rewards, dones, returns, steps, instructions,
+                measurements) -> StepOutput:
+        self._record_done_stats(0, dones, steps, returns)
         return StepOutput(
             reward=rewards,
             info=StepOutputInfo(episode_return=returns, episode_step=steps),
@@ -409,6 +436,76 @@ class MultiEnv:
     def step(self, actions) -> StepOutput:
         self.step_send(actions)
         return self.step_recv()
+
+    # -- the per-worker protocol ---------------------------------------------
+    # The actor service (runtime/service.py) steps each worker's slice on
+    # its own: a worker's observations flow out the moment its reply
+    # lands, without the group barrier of ``step_recv``.  One thread may
+    # send (worker_send) while another drains replies (worker_recv):
+    # opposite directions of the duplex pipe, serialised per worker by the
+    # send lock where a respawn handshake needs it.  Worker processes
+    # only: ``MultiEnv(num_workers=0)`` has no workers.
+
+    def worker_slices(self) -> List[slice]:
+        """Per-worker env index ranges, in batch order."""
+        return list(self._slices)
+
+    def worker_connection(self, w: int):
+        """The worker's parent-side pipe end, for
+        ``multiprocessing.connection.wait``."""
+        return self._conns[w]
+
+    def worker_lock(self, w: int):
+        """The worker's send RLock: a caller wraps its check-then-send
+        (the service's stale-generation gate) around ``worker_send``."""
+        return self._send_locks[w]
+
+    def worker_generation(self, w: int) -> int:
+        """The worker's respawn generation (bumped by every respawn, under
+        the send lock on concurrent paths).  The service stamps requests
+        with it, so that a step computed for a worker before its respawn
+        is dropped: the respawn's _INITIAL prime already has a reply in
+        flight."""
+        return self._generations[w]
+
+    def _slice_output(self, w: int, payload) -> StepOutput:
+        sl = self._slices[w]
+        rewards, dones, returns, steps, instructions, measurements = payload
+        self._record_done_stats(sl.start, dones, steps, returns)
+        return StepOutput(
+            reward=rewards,
+            info=StepOutputInfo(episode_return=returns, episode_step=steps),
+            done=dones,
+            observation=Observation(frame=self._slab[sl].copy(),
+                                    instruction=instructions,
+                                    measurements=measurements))
+
+    def worker_send(self, w: int, actions) -> None:
+        """Dispatch one step to worker ``w``'s slice ([k] actions, or
+        [k, K] for a composite policy).  A dead worker is respawned and
+        primed with its initial outputs instead (same reply layout)."""
+        actions = np.asarray(actions)
+        sl = self._slices[w]
+        if actions.shape[0] != sl.stop - sl.start:
+            raise ValueError(
+                f"got {actions.shape[0]} actions for worker {w}'s "
+                f"{sl.stop - sl.start} envs")
+        self._send(w, (_STEP, actions))
+
+    def worker_recv(self, w: int) -> StepOutput:
+        """Worker ``w``'s outstanding reply as a [k, ...] StepOutput (the
+        frames copied from its slab slice; episode stats recorded under
+        the global env indices)."""
+        payload, error = self._recv(w)
+        if error is not None:
+            raise error
+        return self._slice_output(w, payload)
+
+    def worker_initial(self, w: int) -> StepOutput:
+        """(Re)start worker ``w``'s episodes and return its slice's
+        initial outputs."""
+        self._send(w, (_INITIAL,))
+        return self.worker_recv(w)
 
     def resync(self) -> None:
         """Best-effort pipe re-alignment after an exception of unknown

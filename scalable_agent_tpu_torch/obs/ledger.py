@@ -34,17 +34,26 @@ with no open record.  ``stamp`` takes no lock (a dict store and an
 atomic deque append per stage crossing); the rest takes one small lock
 at trajectory cadence, and the derivation runs at the log interval.
 
-Beside the trajectory path, ``note_service`` feeds the replay slab's two
-dispatch points (``runtime/replay.py``), the ``replay_insert`` and
-``replay_sample`` stages: a replayed batch re-enters the learner without
-a record of its own (its frames were counted when it was consumed
-fresh), so its cost shows as ``ledger/rate/<stage>_per_s`` and
-``ledger/rho/<stage>``, and its age in ``ledger/staleness_replayed_s``
-(``observe_replay_staleness``).  The actor service's stages
-(``inference_service``, ``service_wait``, ``service_batch``) wait for
-that service (ROADMAP.md, queue 1, item 7): their names are in
-``SERVICE_STAGES`` for ``obs/report.py``, and nothing publishes them.
-The JAX ``PEAK_FLOPS`` table lists TPU peaks only, none of which applies
+Beside the trajectory path, ``note_service`` feeds stages with
+arrivals and busy seconds, published as ``ledger/rate/<stage>_per_s`` and
+``ledger/rho/<stage>``:
+
+- the continuous-batching actor service's two halves
+  (``runtime/service.py``, ``--actor=service``), each executed batch:
+  ``service_wait`` (request submission -> batch formation; its busy
+  seconds are the summed waits, so its rho is Little's-law L, the parked
+  requests) and ``service_batch`` (the one inference thread's batched
+  step; its rho is that thread's utilization);
+- the replay slab's two dispatch points (``runtime/replay.py``),
+  ``replay_insert`` and ``replay_sample``: a replayed batch re-enters the
+  learner without a record of its own (its frames were counted when it
+  was consumed fresh), and its age goes to
+  ``ledger/staleness_replayed_s`` (``observe_replay_staleness``).
+
+The dynamic-batching inference service's stage, ``inference_service``,
+waits for that service (ROADMAP.md, queue 1, item 7b): its name is in
+``SERVICE_STAGES`` for ``obs/report.py``, and nothing publishes it.  The
+JAX ``PEAK_FLOPS`` table lists TPU peaks only, none of which applies
 here.
 """
 
@@ -105,14 +114,16 @@ SEGMENTS = (
 )
 
 # The stages beside the trajectory path, fed by note_service (arrivals
-# and busy seconds): the JAX inference services' (not ported) and the
-# replay slab's two dispatch points.  SERVICE_UTILIZATION_STAGES are those
-# whose rho is one server's utilization in [0, 1].
+# and busy seconds): the dynamic-batching inference service's (not
+# ported), the actor service's two halves and the replay slab's two
+# dispatch points.  SERVICE_UTILIZATION_STAGES are those whose rho is one
+# server's utilization in [0, 1].
 SERVICE_STAGES = ("inference_service", "service_wait", "service_batch",
                   "replay_insert", "replay_sample")
 SERVICE_UTILIZATION_STAGES = ("inference_service", "service_batch")
 # The service stages this port publishes.
-PORTED_SERVICE_STAGES = ("replay_insert", "replay_sample")
+PORTED_SERVICE_STAGES = ("service_wait", "service_batch", "replay_insert",
+                         "replay_sample")
 
 SEGMENT_LABELS = {
     "unroll": "actor unroll (env stepping + inference)",
@@ -138,6 +149,11 @@ TIMING_STAGE_MAP = {
     "transport/upload_s": "transport",
     "transport/unpack_s": "transport",
     "learner/retire_s": "device",
+    "service/wait_s": "service_wait",
+    "service/batch_s": "service_batch",
+    # submission -> action spans the wait and the batch; under load the
+    # wait dominates, so the latency reads with the wait stage.
+    "service/request_latency_s": "service_wait",
     "replay/insert_s": "replay_insert",
     "replay/sample_s": "replay_sample",
 }
@@ -208,6 +224,9 @@ class PipelineLedger:
         self._bindings: Dict[int, int] = {}
         # note_service's accumulators: stage -> [arrivals, busy seconds].
         self._service: Dict[str, List[float]] = {}
+        # Each service stage's rho in the last interval that fed it
+        # (service_pressure).
+        self._last_service_rho: Dict[str, float] = {}
         self._mfu_flops = 0.0
         self._mfu_peak = 0.0
         self._epoch_unix_us = int(time.time() * 1e6)
@@ -414,7 +433,8 @@ class PipelineLedger:
 
     def note_service(self, name: str, n: int, busy_s: float) -> None:
         """``n`` requests served in ``busy_s`` seconds by the service
-        stage ``name`` (the replay slab's insert and sample)."""
+        stage ``name`` (the actor service's wait and batch halves, the
+        replay slab's insert and sample)."""
         with self._lock:
             acc = self._service.setdefault(name, [0.0, 0.0])
             acc[0] += n
@@ -488,6 +508,7 @@ class PipelineLedger:
             if name in self._seg_rate:
                 self._seg_rate[name].set(n / interval_s)
                 self._seg_rho[name].set(busy_s / interval_s)
+            self._last_service_rho[name] = busy_s / interval_s
             stats["segments"][name] = {
                 "rate_per_s": n / interval_s, "rho": busy_s / interval_s}
 
@@ -507,6 +528,21 @@ class PipelineLedger:
             return None
         name = max(shares, key=shares.get)
         return name, shares[name]
+
+    def service_pressure(self, threshold: float = 0.5
+                         ) -> Optional[Tuple[str, float]]:
+        """The busiest utilization-type service stage's ``(name, rho)``
+        when it reached ``threshold`` in the last interval that fed it:
+        the actor service's inference runs inside the unroll segment, so
+        the latency shares alone cannot name it."""
+        candidates = {name: rho
+                      for name, rho in self._last_service_rho.items()
+                      if name in SERVICE_UTILIZATION_STAGES}
+        if not candidates:
+            return None
+        name = max(candidates, key=candidates.get)
+        rho = candidates[name]
+        return (name, rho) if rho >= threshold else None
 
     # -- shutdown ----------------------------------------------------------
 

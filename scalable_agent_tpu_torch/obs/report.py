@@ -29,9 +29,10 @@ card):
 section, the replayed half of the staleness split and the replay
 recommendation read a ``--replay_ratio`` run's live values (and
 ``--loss=impact``'s anchor cadence).  Sections whose families the port
-does not publish yet (the actor service's stages, the numerics sentinel)
-read ``None`` or empty, as the JAX report's do on a run without those
-subsystems.
+does not publish yet (the dynamic-batching inference service's stage,
+the numerics sentinel) read ``None`` or empty, as the JAX report's do on
+a run without those subsystems; the actor service's stages read a
+``--actor=service`` run's live values.
 
 Two differences from the JAX report, both deliberate.  ``bench_kernels``
 is ``None``: the JAX report reads the committed ``BENCH_r*.json``, which
@@ -79,10 +80,13 @@ RECOMMENDATIONS = {
     "unroll": (
         "the actor side (env stepping + inference) holds the frames: "
         "raise --num_env_workers_per_group or split the envs into more "
-        "actor groups (--num_actors over --batch_size); the actor step "
-        "as one CUDA graph is the first known gap (ROADMAP.md, queue 2), "
-        "and batched inference and device-resident rollouts are not "
-        "ported yet (ROADMAP.md, queue 1, items 7-8)"),
+        "actor groups (--num_actors over --batch_size), or take the "
+        "group lockstep away with --actor=service (one "
+        "continuous-batching inference thread over the env workers' "
+        "slices as they arrive); the actor step as one CUDA graph is the "
+        "first known gap (ROADMAP.md, queue 2), and the dynamic and "
+        "accum batchers and device-resident rollouts are not ported yet "
+        "(ROADMAP.md, queue 1, items 7b-8)"),
     "backpressure": (
         "actors block on a full trajectory queue: the learner side "
         "consumes slower than actors produce — read the device/"
@@ -92,7 +96,7 @@ RECOMMENDATIONS = {
         "prefetch/transport stage: speed up put_trajectory "
         "(--transport=packed, the default) or add prefetch depth; the "
         "JAX link probe (runtime/linktune.py) is not ported yet "
-        "(ROADMAP.md, queue 1, item 7)"),
+        "(ROADMAP.md, queue 1, item 7c)"),
     "transport": (
         "host->device transport dominates: --transport=packed (the "
         "default), check transport/h2d_bytes_total against the card's "
@@ -110,15 +114,21 @@ RECOMMENDATIONS = {
         "window (--profile_dir) and read the worst-kernels section below"),
     "inference_service": (
         "the dynamic-batching inference service saturates: the port "
-        "does not run it yet (ROADMAP.md, queue 1, item 7)"),
+        "does not run it yet (ROADMAP.md, queue 1, item 7b)"),
     "service_wait": (
         "requests park waiting for the actor service's inference "
-        "thread: the port does not run the actor service yet "
-        "(ROADMAP.md, queue 1, item 7)"),
+        "thread (rho here is Little's-law L, the parked count): raise "
+        "--service_max_batch so one step drains more of the ring, check "
+        "service/batch_s for slow buckets (the ladder bounds the batch "
+        "sizes the step kernel sees), or split the envs into more actor "
+        "groups (--num_actors over --batch_size)"),
     "service_batch": (
         "the actor service's single inference thread runs near 100% "
-        "busy: the port does not run the actor service yet (ROADMAP.md, "
-        "queue 1, item 7)"),
+        "busy: raise --service_max_batch (bigger batches amortize the "
+        "per-step host work), shrink the observation (--height/--width), "
+        "or take the actor step off the host's critical path: the step "
+        "as one CUDA graph (ROADMAP.md, queue 2) or device-resident "
+        "rollouts (not ported yet: ROADMAP.md, queue 1, item 8)"),
 }
 
 

@@ -20,9 +20,11 @@ seconds, and the actors' ``actor/env_step_s`` and ``actor/inference_s``
 histograms, whose cumulative sums are differenced per interval.  When
 the pipeline ledger (``obs/ledger.py``) of the same registry has
 published latency shares, the verdict also names the segment that holds
-the most frame latency; a ``device_bound`` verdict names the worst kernel
-of the last kernel table published against the same registry
-(``obs/kernels.py``).
+the most frame latency, and the actor service's inference stage when its
+utilization reached half (``PipelineLedger.service_pressure``: that
+service runs inside the unroll segment); a ``device_bound`` verdict names
+the worst kernel of the last kernel table published against the same
+registry (``obs/kernels.py``).
 """
 
 from typing import Dict, Optional, Tuple
@@ -134,6 +136,13 @@ class StallAttributor:
             if dominant is not None:
                 evidence["ledger_dominant"] = dominant[0]
                 evidence["ledger_dominant_share"] = dominant[1]
+            # The actor service's inference runs inside the unroll
+            # segment, so a saturated service reads as "unroll" in the
+            # shares; its rho names the real constraint.
+            pressure = ledger.service_pressure()
+            if pressure is not None:
+                evidence["ledger_service"] = pressure[0]
+                evidence["ledger_service_rho"] = pressure[1]
         if category == "device_bound":
             # The next step of a device-bound verdict is a kernel: the
             # worst of the last table a profile window published here.
@@ -177,6 +186,10 @@ class StallAttributor:
             ledger_part = (
                 f"; {share:.0%} of frame latency in "
                 f"{SEGMENT_LABELS.get(dominant, dominant)}")
+        service = fractions.get("ledger_service")
+        if service:
+            rho = fractions.get("ledger_service_rho", 0.0)
+            ledger_part += f"; service {service} rho {rho:.2f}"
         worst_kernel = fractions.get("kernel_worst")
         if worst_kernel:
             ledger_part += (

@@ -44,8 +44,9 @@ The counterpart of ``scalable_agent_tpu/runtime/actor.py``:
   record of each trajectory from its birth (the unroll's start) through
   ``unroll_done``, ``queue_put`` and ``queue_get``.
 
-The service, accum and native-batcher inference modes are not ported yet
-(ROADMAP.md, queue 1).
+The continuous-batching actor service (``--actor=service``) is
+``runtime/service.py``; the accum and native-batcher inference modes are
+not ported yet (ROADMAP.md, queue 1, items 7b-7c).
 """
 
 import contextlib
@@ -105,6 +106,53 @@ def actor_stage_histograms(registry=None):
     )
 
 
+def pool_instruments(owner, queue, registry=None):
+    """The registry instruments every actor front end (``ActorPool``, the
+    actor service) publishes: the queue's depth and bound and the newest
+    weight version (``owner._params_version``) as gauges, sampled by
+    callback through weak references (the process-global registry must
+    not keep a finished front end alive), and the agent-steps,
+    trajectories and restarts counters, returned in that order."""
+    registry = registry or get_registry()
+    queue_ref = weakref.ref(queue)
+    registry.gauge(
+        "actor_pool/queue_depth",
+        "trajectories staged for the learner",
+        fn=lambda: (q.qsize() if (q := queue_ref()) is not None else 0.0))
+    registry.gauge(
+        "actor_pool/queue_capacity",
+        "trajectory queue bound").set(queue.maxsize)
+    owner_ref = weakref.ref(owner)
+    registry.gauge(
+        "actor_pool/params_version",
+        "newest published weight snapshot",
+        fn=lambda: (o._params_version if (o := owner_ref()) is not None
+                    else 0.0))
+    return (
+        registry.counter(
+            "actor/agent_steps_total",
+            "agent steps generated across all groups (x action repeats "
+            "= env frames)"),
+        registry.counter(
+            "actor/trajectories_total", "unrolls handed to the queue"),
+        registry.counter(
+            "actor/restarts_total",
+            "actor-thread respawns after a transient failure (the "
+            "per-actor detail rides the flight recorder's "
+            "actor_restart events)"),
+    )
+
+
+def kill_first_worker(envs: MultiEnv) -> None:
+    """``worker_kill``: SIGKILL the group's first live env worker process;
+    MultiEnv's respawn must absorb it."""
+    for proc in envs._procs:
+        if proc is not None and proc.is_alive():
+            log.warning("chaos: killing env worker pid %d", proc.pid)
+            proc.kill()
+            return
+
+
 def to_numpy(tree):
     return map_structure(
         lambda t: None if t is None else t.detach().cpu().numpy(), tree)
@@ -145,6 +193,22 @@ def snapshot_params_for_inference(agent: ImpalaAgent,
         event = torch.cuda.Event()
         event.record()
     return ParamsSnapshot(version, tensors, event)
+
+
+@torch.no_grad()
+def load_snapshot(agent: ImpalaAgent, snapshot: ParamsSnapshot) -> None:
+    """Copy a published snapshot into ``agent`` on the current stream,
+    after the stream has waited for the snapshot's copies."""
+    stream = None
+    if snapshot.event is not None:
+        stream = torch.cuda.current_stream(next(agent.parameters()).device)
+        stream.wait_event(snapshot.event)
+    for param, value in zip(agent.parameters(), snapshot.tensors):
+        param.copy_(value)
+        if stream is not None:
+            # Keep the snapshot's memory from being reused by the
+            # publishing stream before this copy has run.
+            value.record_stream(stream)
 
 
 def publish_trajectory(queue, trajectory, stop: threading.Event, *,
@@ -328,24 +392,12 @@ class VectorActor:
     def envs(self) -> MultiEnv:
         return self._envs
 
-    @torch.no_grad()
     def load_params(self, snapshot: ParamsSnapshot) -> None:
-        """Copy a published snapshot into this actor's agent on the
-        current stream, after the stream has waited for the snapshot's
-        copies."""
-        if snapshot is self._loaded:
-            return
-        stream = None
-        if snapshot.event is not None:
-            stream = torch.cuda.current_stream(self._device)
-            stream.wait_event(snapshot.event)
-        for param, value in zip(self._agent.parameters(), snapshot.tensors):
-            param.copy_(value)
-            if stream is not None:
-                # Keep the snapshot's memory from being reused by the
-                # publishing stream before this copy has run.
-                value.record_stream(stream)
-        self._loaded = snapshot
+        """Copy a published snapshot into this actor's agent
+        (``load_snapshot``), unless it is the one loaded last."""
+        if snapshot is not self._loaded:
+            load_snapshot(self._agent, snapshot)
+            self._loaded = snapshot
 
     def _bootstrap(self):
         batch = self._envs.num_envs
@@ -462,35 +514,8 @@ class ActorPool:
         self.restarts = 0
         self._steps_per_trajectory = unroll_length * (
             env_groups[0].num_envs if env_groups else 0)
-        # The gauges sample by callback and hold only weak references: the
-        # process-global registry must not keep a finished pool alive.
-        registry = get_registry()
-        queue_ref = weakref.ref(self.queue)
-        registry.gauge(
-            "actor_pool/queue_depth",
-            "trajectories staged for the learner",
-            fn=lambda: (q.qsize() if (q := queue_ref()) is not None
-                        else 0.0))
-        registry.gauge(
-            "actor_pool/queue_capacity",
-            "trajectory queue bound").set(self.queue.maxsize)
-        pool_ref = weakref.ref(self)
-        registry.gauge(
-            "actor_pool/params_version",
-            "newest published weight snapshot",
-            fn=lambda: (p._params_version if (p := pool_ref()) is not None
-                        else 0.0))
-        self._steps_counter = registry.counter(
-            "actor/agent_steps_total",
-            "agent steps generated across all groups (x action repeats "
-            "= env frames)")
-        self._trajectories_counter = registry.counter(
-            "actor/trajectories_total", "unrolls handed to the queue")
-        self._restarts_counter = registry.counter(
-            "actor/restarts_total",
-            "actor-thread respawns after a transient failure (the "
-            "per-actor detail rides the flight recorder's "
-            "actor_restart events)")
+        (self._steps_counter, self._trajectories_counter,
+         self._restarts_counter) = pool_instruments(self, self.queue)
 
     @property
     def actors(self) -> Sequence[VectorActor]:
@@ -518,16 +543,6 @@ class ActorPool:
         self._count("restarts", 1)
         self._restarts_counter.inc()
 
-    @staticmethod
-    def _chaos_kill_worker(actor: VectorActor) -> None:
-        """``worker_kill``: SIGKILL the group's first live env worker
-        process; MultiEnv's respawn must absorb it."""
-        for proc in actor.envs._procs:
-            if proc is not None and proc.is_alive():
-                log.warning("chaos: killing env worker pid %d", proc.pid)
-                proc.kill()
-                return
-
     def _unroll_loop(self, actor: VectorActor):
         recorder = get_flight_recorder()
         thread_name = threading.current_thread().name
@@ -540,7 +555,7 @@ class ActorPool:
             if injector.active:
                 injector.maybe_raise("actor_raise")
                 if injector.should_fire("worker_kill"):
-                    self._chaos_kill_worker(actor)
+                    kill_first_worker(actor.envs)
             with tracer.span("actor/unroll", cat="actor"):
                 trajectory = actor.run_unroll(self._get_params())
             recorder.record("unroll", actor.level_name or "actor",

@@ -23,6 +23,10 @@ seeded, per-point firing decisions.  The points this package places:
 - ``throughput_sag`` (``driver.train``): the loop sleeps
   ``throughput_sag_s()`` inside the update's timing (a mid-run slowdown
   for the stall attributor and the watchdog).
+- ``service_stall`` (``runtime/service.py``): the actor service's
+  inference thread sleeps ``SERVICE_STALL_S`` (or
+  ``$SCALABLE_AGENT_SERVICE_STALL_S``, read when it fires) before a
+  batch, so its heartbeat goes stale.
 
 The other points of the registry belong to subsystems this package does
 not port yet (``UNPORTED_POINTS``).  Their names still parse, so a spec
@@ -76,10 +80,10 @@ CHAOS_POINTS = {
     "replica_diverge": "corrupt this process's param fingerprint",
 }
 
-# Points whose subsystem (the actor service, the multi-process fleet, the
-# sentinel) is not ported yet.
+# Points whose subsystem (the multi-process fleet, the sentinel) is not
+# ported yet.
 UNPORTED_POINTS = frozenset({
-    "service_stall", "peer_exit", "peer_hang",
+    "peer_exit", "peer_hang",
     "param_bitflip", "kernel_miscompute", "replica_diverge"})
 
 # How long ``throughput_sag`` sleeps when it fires, as in the JAX package.

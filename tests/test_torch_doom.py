@@ -538,6 +538,17 @@ class TestDriverMultiAgent:
         so that tier-1 drives the multi-agent train and eval paths."""
         _train_then_eval(tmp_path, num_episodes=2, updates=1)
 
+    def test_actor_service_refuses_lockstep_matches(self, tmp_path):
+        """A multi-agent level's groups step their matches in lockstep and
+        have no per-worker API: --actor=service raises, naming the flag,
+        before any env starts."""
+        from scalable_agent_tpu_torch.driver import train
+
+        config = _driver_config(tmp_path, level_name="doom_duel",
+                                actor="service")
+        with pytest.raises(ValueError, match="--actor=service"):
+            train(config)
+
     def test_batch_size_must_divide_by_agents(self, tmp_path):
         from scalable_agent_tpu_torch.driver import make_env_groups
         from scalable_agent_tpu_torch.envs.spec import TensorSpec

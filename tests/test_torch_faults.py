@@ -148,11 +148,33 @@ def test_registry_is_the_jax_one():
 
 @pytest.mark.parametrize("spec,match", [
     ("param_bitflip@1", "ROADMAP.md"), ("nan_grad@1;peer_hang@t=3", "ROADMAP"),
-    ("service_stall@p=0.5", "ROADMAP.md"), ("nan_gard@1", "unknown")])
+    ("kernel_miscompute@p=0.5", "ROADMAP.md"), ("nan_gard@1", "unknown")])
 def test_points_that_cannot_fire_are_refused(spec, match):
     with pytest.raises(ValueError, match=match):
         faults.configure_faults(spec)
     assert not faults.get_fault_injector().active
+
+
+def test_service_stall_is_ported(monkeypatch):
+    """The actor service's point arms and fires like the others, and its
+    stall reads ``$SCALABLE_AGENT_SERVICE_STALL_S`` when it fires."""
+    from scalable_agent_tpu.runtime import service as jax_service
+    from scalable_agent_tpu_torch.runtime import service
+
+    assert "service_stall" not in faults.UNPORTED_POINTS
+    injector = faults.configure_faults("service_stall@2")
+    try:
+        assert [injector.should_fire("service_stall")
+                for _ in range(3)] == [False, True, False]
+    finally:
+        faults.configure_faults("")
+    assert service.SERVICE_STALL_S == jax_service.SERVICE_STALL_S
+    monkeypatch.delenv("SCALABLE_AGENT_SERVICE_STALL_S", raising=False)
+    assert service._stall_seconds() == service.SERVICE_STALL_S
+    for value, want in (("0.25", 0.25), ("soon", service.SERVICE_STALL_S)):
+        monkeypatch.setenv("SCALABLE_AGENT_SERVICE_STALL_S", value)
+        assert service._stall_seconds() == want
+        assert jax_service._stall_seconds() == want
 
 
 def test_preempt_sigterm_needs_the_grace_protocol():

@@ -28,6 +28,7 @@ import copy
 import glob
 import json
 import os
+import time
 
 import pytest
 
@@ -564,14 +565,54 @@ def _health_config(tmp_path, **overrides):
         log_interval_s=0.0, seed=5,
         # One actor group (the JAX pair runs two): the data, and so the
         # loss and grad-norm streams, do not depend on thread timing, and
-        # each interval hands over exactly one unroll, so actor/fps is not
-        # a 0-or-2 count.  As the JAX pair: 6 warm-up intervals build the
+        # under _PipelineClock each interval hands over exactly one
+        # unroll, so actor/fps is not a 0-or-2 count and no fps depends on
+        # the machine's load.  As the JAX pair: 6 warm-up intervals build the
         # baselines, the z floor rides above the batch-2 run's loss
         # swings, and the sag's relative fps drop trips on its own.
         health_warmup_intervals=6, health_z_threshold=6.0,
         health_max_windows=1, health_window_updates=2)
     base.update(overrides)
     return Config(**base)
+
+
+class _PipelineClock:
+    """The loop's clock for the CPU driver runs (``driver.train(clock=)``):
+    the rows' fps and actor fps, which the throughput detectors read, come
+    from it instead of the wall clock.
+
+    Each reading first waits until the actor has filled the pipeline
+    behind the updates taken so far: the trajectory queue, the prefetch
+    thread's hand and the staging slot hold ``AHEAD`` unrolls, so after
+    update k exactly k + AHEAD have been published.  Every interval then
+    hands over exactly one unroll, whatever the load on the machine.  Each
+    reading advances the time by ``STEP_S``; ``sleep`` (the
+    ``throughput_sag`` pause) advances it without sleeping."""
+
+    STEP_S = 0.1
+    AHEAD = 3
+    TIMEOUT_S = 120.0
+
+    def __init__(self, registry, config):
+        self._steps = registry.counter("actor/agent_steps_total")
+        self._per_unroll = config.unroll_length * config.batch_size
+        self._readings = 0
+        self._now = 0.0
+
+    def monotonic(self) -> float:
+        want = (self._readings + self.AHEAD) * self._per_unroll
+        deadline = time.monotonic() + self.TIMEOUT_S
+        while self._steps.value < want:
+            assert time.monotonic() < deadline, (
+                f"the actor published {self._steps.value} of {want} agent "
+                f"steps")
+            time.sleep(0.002)
+        self._readings += 1
+        self._now += self.STEP_S
+        return self._now
+
+    def sleep(self, seconds: float) -> None:
+        self._now += seconds
 
 
 @pytest.fixture
@@ -597,7 +638,7 @@ def test_throughput_sag_drives_the_full_anomaly_protocol(
         tmp_path, monkeypatch, registry, capsys):
     monkeypatch.setenv("SCALABLE_AGENT_LEDGER_MFU_PEAK", "1e12")
     config = _health_config(tmp_path, chaos_spec="throughput_sag@8:11")
-    metrics = driver.train(config)
+    metrics = driver.train(config, clock=_PipelineClock(registry, config))
     assert metrics["env_frames"] == 96
 
     records = health.read_anomalies(config.logdir)
@@ -641,7 +682,8 @@ def test_throughput_sag_drives_the_full_anomaly_protocol(
 
 @pytest.mark.chaos
 def test_clean_run_stays_anomaly_free(tmp_path, registry, capsys):
-    metrics = driver.train(_health_config(tmp_path))
+    config = _health_config(tmp_path)
+    metrics = driver.train(config, clock=_PipelineClock(registry, config))
     assert metrics["env_frames"] == 96
     assert health.read_anomalies(str(tmp_path / "run")) == []
     prom = (tmp_path / "run" / "metrics.prom").read_text()

@@ -232,6 +232,20 @@ def test_unported_flags_and_values_raise(argv):
         Config.from_argv(argv)
 
 
+def test_actor_flags_are_ported_and_a_bad_actor_raises():
+    """``--actor`` and ``--service_max_batch`` left the unported flags; an
+    ``--actor`` outside grouped | service raises the JAX driver's error,
+    from the flag and from ``Config``."""
+    assert {"actor", "service_max_batch"}.isdisjoint(UNPORTED_FLAGS)
+    assert SUPPORTED_VALUES["actor"] == ("grouped", "service")
+    for make in (lambda: Config.from_argv(["--actor=batched"]),
+                 lambda: Config(actor="batched")):
+        with pytest.raises(ValueError,
+                           match=r"unknown actor 'batched' \(grouped \| "
+                                 r"service\)"):
+            make()
+
+
 def test_dataset_path_and_renderer_are_ported():
     """The DMLab flags parse, with the JAX defaults, and are no longer in
     ``UNPORTED_FLAGS``."""
@@ -337,7 +351,10 @@ def test_library_name_follows_the_sources(monkeypatch, tmp_path):
     (["--health_cooldown_s=30"], "health_cooldown_s", 30.0),
     (["--health_max_windows=0"], "health_max_windows", 0),
     (["--health_window_updates=2"], "health_window_updates", 2),
-    (["--health_baseline_dir="], "health_baseline_dir", "")])
+    (["--health_baseline_dir="], "health_baseline_dir", ""),
+    (["--actor=service"], "actor", "service"),
+    (["--actor=grouped"], "actor", "grouped"),
+    (["--service_max_batch=16"], "service_max_batch", 16)])
 def test_flags_ported_for_the_pool_path(argv, field, value):
     assert getattr(Config.from_argv(argv), field) == value
 

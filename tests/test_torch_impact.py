@@ -434,7 +434,7 @@ def test_replay_flags_are_ported():
                  "target_update_interval", "impact_clip_epsilon"):
         assert name not in UNPORTED_FLAGS
         assert getattr(Config(), name) == getattr(JaxConfig(), name)
-    assert len(UNPORTED_FLAGS) == 24
+    assert len(UNPORTED_FLAGS) == 22  # actor, service_max_batch ported
     config = Config.from_argv(["--loss=impact", "--replay_ratio=2",
                                "--target_update_interval=7"])
     assert (config.loss, config.replay_ratio,
