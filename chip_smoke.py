@@ -30,7 +30,9 @@ a result:
    8, 32, 64} and from two threads on two streams at once, two calls must
    be bitwise equal, and its device time (torch.profiler) must not exceed
    ``torch.lstm_cell``'s in either type; at the actor service's padded
-   batch sizes, B in ``SERVICE_BUCKETS`` (4, 8, 16, 64; phase 3p), it is
+   batch sizes, B in ``SERVICE_BUCKETS`` (4, 8, 16, 64; phase 3p), and at
+   an accum_fused shard's of 3 and 4 groups, B in ``FUSED_BUCKETS`` (96,
+   128; phase 3q), it is
    held at LSTM_TOL with two calls bitwise equal in both types, and its
    wrapper ms, device ms, plain ms, byte bound and ``torch.lstm_cell``'s
    wrapper and device ms at the same B are printed (not gated).  The lean
@@ -163,6 +165,28 @@ a result:
    actor fps, ``service/batch_s`` p50 and p95 and the batches by valid
    rows and by padded size printed, not gated; then 2 float32 updates,
    the float32 step kernel once per batch.
+3q. (Run after 3p.) The ActorPool's other inference modes on the main
+   path (bf16, ``--scan_impl=pallas``), each for ``MODE_UPDATES`` (4)
+   updates counted as in phase 3: ``--inference_mode=service`` (the groups'
+   requests co-batched by the native batcher, built by ``g++``; the bf16
+   lean step launched exactly once per batch, ``native_batcher/
+   batches_total``), ``accum`` (once per actor step of 32 rows: groups x T
+   a round) and ``accum_fused`` at ``--accum_fused_shards=0`` (the link
+   probe's RTT, H2D bandwidth and shard choice printed; once per step of a
+   shard's k x 32 rows: shards x T a round), then ``SHARD_UPDATES`` (2)
+   updates at the shard count the probe did not pick.  Under the accum
+   modes every trajectory reaches the learner as the actor's own CUDA
+   tensors, passed through by the transport, and ``transport/pack_s``
+   does not move; under ``service`` every one is packed: each failing the
+   run.  s per update after the first 2 beside 3b's pool loop,
+   ``actor/inference`` ms per step and ``transport/h2d_bytes_total`` per
+   update printed, not gated.  Then, at float32 with identically seeded
+   env groups, ``ACCUM_CHECK_UNROLLS`` (2) unrolls of each group's
+   ``AccumVectorActor`` and of one ``GroupedAccumActor`` over both, run at
+   once on their own threads and streams and taken on another stream
+   through ``adopt_device_trajectory``, against each group's structural
+   ``VectorActor``: frames, actions and dones equal, logits, baselines and
+   the first core state within rtol 1e-5, atol 1e-6, else the run fails.
 3j. (Run after 3b.) ``--benchmark_mode=true`` on the main path, 4 bf16
    updates counted, its s per update and env frames/s beside 3b's (not
    gated); then one pool trajectory whose env outputs, frames included,
@@ -334,7 +358,8 @@ a result:
    stem's from 3n's Atari runs, the C=1 and ResNet C=4 kernels' from 3n's
    one-channel gym and deep Atari runs, the lean unroll (the target
    network's) with 3o's launches; the lean step's two entries also carry
-   ``service_launches``, 3p's), the card's line, then as the
+   ``service_launches``, 3p's, and the bf16 one ``mode_launches``,
+   3q's by mode), the card's line, then as the
    last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
@@ -350,6 +375,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 MEM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, published
@@ -396,6 +422,12 @@ SERVICE_UPDATES = 4          # phase 3p's bf16 run: 2 to fill, 2 measured
 # The actor service's padded batch sizes at the reference layout (slices
 # of 4 envs, at most 64 rows) beside the B=32 of the grouped pool.
 SERVICE_BUCKETS = (4, 8, 16, 64)
+# The lean step's B at accum_fused's 3 and 4 groups of 32 a shard (phase
+# 2; phase 3q's 2 groups reach 32 and 64).
+FUSED_BUCKETS = (96, 128)
+MODE_UPDATES = 4             # phase 3q's runs: 2 to fill, 2 measured
+SHARD_UPDATES = 2            # its run at the shard count auto did not pick
+ACCUM_CHECK_UNROLLS = 2      # phase 3q's accum-against-structural check
 UPLOAD_REPS = 5             # uploads timed per transport (phase 3b)
 PACKED_UPLOADS = 30         # back-to-back packed uploads held (phase 3d)
 DUMMY_MATMULS = 12          # 4096^2 float32 products per upload read:
@@ -623,9 +655,11 @@ def _cell_after_reset(torch, args, bf16):
                                    *cell_args[3:])
 
 
-def compare_lean_buckets(torch, lstm_cuda, device, matmul_dtype="float32"):
+def compare_lean_buckets(torch, lstm_cuda, device, matmul_dtype="float32",
+                         batches=SERVICE_BUCKETS, what="a service bucket"):
     """The lean step kernel at the actor service's padded batch sizes
-    (``SERVICE_BUCKETS``, phase 3p), D=266, H=256: against its plain
+    (``SERVICE_BUCKETS``, phase 3p; ``FUSED_BUCKETS``, an accum_fused
+    shard's, phase 3q), D=266, H=256: against its plain
     version at LSTM_TOL, two calls bitwise equal, then the wrapper's ms
     (CUDA events), the kernel's device ms (torch.profiler), the plain
     version's ms, the byte bound, and ``torch.lstm_cell`` after the reset
@@ -640,7 +674,7 @@ def compare_lean_buckets(torch, lstm_cuda, device, matmul_dtype="float32"):
     b = rand(4 * H, scale=0.1)
     md = dict(matmul_dtype=matmul_dtype)
     readings = {}
-    for batch in SERVICE_BUCKETS:
+    for batch in batches:
         done = (torch.rand((1, batch), generator=gen) < 0.3).float()
         args = (rand(1, batch, D), done.to(device),
                 rand(batch, H, scale=0.5), torch.tanh(rand(batch, H)),
@@ -649,7 +683,7 @@ def compare_lean_buckets(torch, lstm_cuda, device, matmul_dtype="float32"):
             *args, residuals=False, **md)
         plain = lambda args=args: lstm_cuda.lstm_forward_plain(
             *args, residuals=False, **md)
-        name = f"lstm_fwd_lean{tag} T=1 B={batch} (a service bucket)"
+        name = f"lstm_fwd_lean{tag} T=1 B={batch} ({what})"
         kern, want, again = lean(), plain(), lean()
         torch.cuda.synchronize()
         err = _errors(zip(kern[:3], want[:3]))
@@ -3295,6 +3329,312 @@ def service_path(torch, driver, config, scratch, train_counted, pool_s):
     return launches
 
 
+def inference_modes_path(torch, driver, config, scratch, train_counted,
+                         pool_s):
+    """Phase 3q: the ActorPool's other inference modes on the main path
+    (64 envs in 2 groups of 32, 8 worker processes a group; bf16,
+    ``--scan_impl=pallas``), each for MODE_UPDATES updates counted as in
+    phase 3: ``--inference_mode=service`` (the bf16 lean step kernel
+    launched once per native-batcher batch, ``native_batcher/
+    batches_total``), ``accum`` (once per ``grouped_actor_step`` of B=32
+    rows: groups x T an unroll round) and ``accum_fused`` at
+    ``--accum_fused_shards=0`` (the probe's RTT, H2D bandwidth and shard
+    count printed; once per step of a shard's k*B rows: shards x T a
+    round), then SHARD_UPDATES updates at the shard count the probe did
+    not pick.  Under the accum modes every trajectory reaches the learner
+    as the actor's own CUDA tensors (the transport passes it through) and
+    ``transport/pack_s`` does not move; under ``service`` every one is
+    packed.  Each failing the run.  Printed, not gated: s per update after
+    the first 2 beside phase 3b's pool loop, ``actor/inference`` ms per
+    step, ``transport/h2d_bytes_total`` per update.  Then the accum actors
+    against the structural one on the card
+    (``accum_matches_structural_on_card``).  Returns each mode's bf16 lean
+    step launches."""
+    from scalable_agent_tpu_torch.obs import get_registry
+    from scalable_agent_tpu_torch.runtime import accum_actor
+    from scalable_agent_tpu_torch.runtime.transport import tree_leaves
+
+    registry = get_registry()
+    calls = []  # (thread, rows) of each accum actor step
+    placed = []  # (every leaf on the card, passed through) of each put
+    pools = []
+    real_step = accum_actor.grouped_actor_step
+    real_make = driver.make_transport
+
+    def recording_step(agent, generators, group_rows, *rest):
+        calls.append((threading.current_thread().name,
+                      len(generators) * group_rows))
+        return real_step(agent, generators, group_rows, *rest)
+
+    def recording_transport(name, device):
+        transport = real_make(name, device)
+        real_put = transport.put
+
+        def put(trajectory, ready=None):
+            leaves = [t for t in tree_leaves(trajectory) if t is not None]
+            out = real_put(trajectory, ready=ready)
+            placed.append((
+                all(isinstance(t, torch.Tensor) and t.device.type == kind
+                    for t in leaves),
+                out[0].env_outputs.observation.frame
+                is trajectory.env_outputs.observation.frame))
+            return out
+
+        transport.put = put
+        return transport
+
+    class Recorded(driver.ActorPool):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            pools.append(self)
+
+    def reading():
+        infer = registry.histogram("actor/inference_s")
+        return dict(
+            batches=registry.counter("native_batcher/batches_total").value,
+            packs=registry.histogram("transport/pack_s").count,
+            h2d=registry.counter("transport/h2d_bytes_total").value,
+            infer_n=infer.count, infer_s=infer.sum)
+
+    kind = torch.device(config.device).type
+    fpu = config.frames_per_update()
+    runs = [("service", 0, MODE_UPDATES), ("accum", 0, MODE_UPDATES),
+            ("accum_fused", 0, MODE_UPDATES)]
+    launches = {}
+    for mode, shards, updates in runs:
+        label = f"{mode}" + (f" shards={shards}" if mode == "accum_fused"
+                             else "")
+        run = dataclasses.replace(
+            config, logdir=os.path.join(scratch, f"mode_{mode}_{shards}"),
+            inference_mode=mode, accum_fused_shards=shards,
+            log_interval_s=0.0,
+            total_environment_frames=float(updates * fpu))
+        expected = {
+            "lstm_fwd_lean_bf16": (1, None),
+            "lstm_fwd_resid_bf16": updates, "lstm_bptt_bf16": updates,
+            "stem_gradw_bf16": updates, "vtrace_fused": updates,
+            "lstm_fwd_lean": 0, "lstm_fwd_resid": 0, "lstm_bptt": 0,
+            "stem_gradw": 0}
+        del calls[:], placed[:], pools[:]
+        before = reading()
+        with _patched(accum_actor, grouped_actor_step=recording_step), \
+                _patched(driver, make_transport=recording_transport,
+                         ActorPool=Recorded):
+            counts = train_counted(run, updates, "_bf16", expected=expected)
+        after = reading()
+        delta = {key: after[key] - before[key] for key in after}
+        (pool,) = pools
+        step = counts["lstm_fwd_lean_bf16"]
+        launches[label] = step
+        T, B = config.unroll_length, config.batch_size
+        if mode == "service":
+            if not step == delta["batches"] > 0:
+                raise AssertionError(
+                    f"phase 3q {label}: {step} lean step launches in "
+                    f"{delta['batches']} native batcher batches")
+            how = f"{int(delta['batches'])} native batcher batches"
+        else:
+            rows = {}
+            for thread, n in calls:
+                rows.setdefault(thread, set()).add(n)
+            by_thread = {thread: sum(1 for t, _ in calls if t == thread)
+                         for thread in rows}
+            want_rows = sorted(len(actor.envs_list) * B
+                               for actor in pool.actors)
+            if (step != len(calls) or len(rows) != len(pool.actors)
+                    or sorted(sorted(n) for n in rows.values())
+                    != [[n] for n in want_rows]
+                    or min(by_thread.values()) < T):
+                raise AssertionError(
+                    f"phase 3q {label}: {step} lean step launches, "
+                    f"{len(calls)} actor steps by thread {by_thread} with "
+                    f"rows {rows}; {len(pool.actors)} actors of rows "
+                    f"{want_rows}")
+            rounds = {thread: divmod(n, T)
+                      for thread, n in sorted(by_thread.items())}
+            how = (f"{len(calls)} actor steps of {want_rows} rows on "
+                   f"{len(pool.actors)} threads (unroll rounds of T={T} and "
+                   f"steps of an unfinished one, by thread: {rounds})")
+        on_card = {p for p, _ in placed}
+        through = {t for _, t in placed}
+        device_path = mode != "service"
+        if (len(placed) < updates or on_card != {device_path}
+                or through != {device_path}
+                or (delta["packs"] == 0) != device_path):
+            raise AssertionError(
+                f"phase 3q {label}: {len(placed)} trajectories placed, on "
+                f"the card as the actor's own tensors {on_card}/{through}, "
+                f"{delta['packs']} packs")
+        print(f"  --inference_mode={label}: {step} lean step launches = "
+              f"{how}; {len(placed)} trajectories placed, "
+              f"{'passed through as CUDA tensors, no pack' if device_path else 'packed and uploaded'}",
+              flush=True)
+        if mode == "accum_fused" and shards == 0:
+            link = pool.link
+            print(f"  link probe: rtt {link.rtt_s * 1e3:.4f} ms, h2d "
+                  f"{link.h2d_bytes_per_s / 1e9:.3f} GB/s; "
+                  f"accum_fused_shards=0 chose {pool.fused_shards} "
+                  f"shard(s) for {config.num_actors // B} groups of {B}",
+                  flush=True)
+            other = 2 if pool.fused_shards == 1 else 1
+            runs.append(("accum_fused", other, SHARD_UPDATES))
+        infer_ms = (delta["infer_s"] / max(delta["infer_n"], 1)) * 1e3
+        parts = [f"actor/inference {infer_ms:.3f} ms per step "
+                 f"({int(delta['infer_n'])} steps)",
+                 f"transport/h2d_bytes_total {delta['h2d'] / updates / 1e6:.2f}"
+                 f" MB per update"]
+        if updates > 2:
+            rows = {r["step"]: r for r in _rows(run.logdir)}
+            s_per_update = (rows[updates]["time"] - rows[2]["time"]) / (
+                updates - 2)
+            parts.insert(0, f"updates 3..{updates}: {s_per_update:.4f} s "
+                            f"per update ({fpu / s_per_update:.0f} env "
+                            f"frames/s) against phase 3b's pool loop "
+                            f"{pool_s:.4f}")
+        print(f"  {label}: " + "; ".join(parts), flush=True)
+    accum_matches_structural_on_card(torch, driver, config)
+    return launches
+
+
+def accum_matches_structural_on_card(torch, driver, config):
+    """Phase 3q's hold of the accum device path against the structural
+    path on the card: the same weights at float32 and identically seeded
+    env groups (the main path's 2 groups of 32), ACCUM_CHECK_UNROLLS
+    unrolls each of a structural ``VectorActor`` a group (the reference),
+    an ``AccumVectorActor`` a group and one ``GroupedAccumActor`` over both
+    groups.  The three accum actors run at once, each on its own thread and
+    CUDA stream as in the pool, and go on with their next unroll while a
+    consumer on another stream takes each trajectory through
+    ``adopt_device_trajectory``, as the prefetch does: the pinned staging's
+    non-blocking copies, the staging and ready events, ``record_stream``
+    and the in-place slot writes all run as on the main path.  Frames,
+    actions and dones must equal the structural ones exactly, rewards
+    within 1e-6, logits, baselines and the first core state within the CPU
+    test's rtol 1e-5, atol 1e-6; a mismatch fails the run."""
+    import copy
+    import queue as queue_lib
+
+    import numpy as np
+
+    from scalable_agent_tpu_torch.ops import float32_precision
+    from scalable_agent_tpu_torch.runtime import VectorActor
+    from scalable_agent_tpu_torch.runtime.accum_actor import (
+        AccumPrograms,
+        AccumVectorActor,
+        GroupedAccumActor,
+    )
+    from scalable_agent_tpu_torch.runtime.actor import to_numpy
+    from scalable_agent_tpu_torch.runtime.transport import (
+        adopt_device_trajectory,
+        host_trajectory,
+    )
+
+    run = dataclasses.replace(config, compute_dtype="float32")
+    device = torch.device(run.device)
+    spec, space, _ = driver.probe_env(run)
+    agent = driver.build_agent(run, spec, space, device).requires_grad_(
+        False)
+    T, B = run.unroll_length, run.batch_size
+    groups = run.num_actors // B
+    seeds = [run.seed + 1000 * g for g in range(groups)]
+    unrolls = ACCUM_CHECK_UNROLLS
+    # cuDNN's default TF32 would make the fused actor's B=64 convolutions
+    # differ from the B=32 ones by more than float32's rounding.
+    with float32_precision():
+        fleets, threads, stop = [], [], threading.Event()
+        try:
+            fleets.append(driver.make_env_groups(run, spec.frame))
+            want = []
+            for g, envs in enumerate(fleets[0]):
+                actor = VectorActor(agent, envs, T, seed=seeds[g])
+                want.append([actor.run_unroll() for _ in range(unrolls)])
+            fleets.append(driver.make_env_groups(run, spec.frame))
+            fleets.append(driver.make_env_groups(run, spec.frame))
+            programs = AccumPrograms(agent, T, B,
+                                     fleets[1][0].frame_slab().shape[1:])
+            producers = [(f"accum-{g}", AccumVectorActor(
+                programs, envs, seed=seeds[g],
+                agent=copy.deepcopy(agent)))
+                for g, envs in enumerate(fleets[1])]
+            producers.append(("fused", GroupedAccumActor(
+                programs, fleets[2], seeds=seeds,
+                agent=copy.deepcopy(agent))))
+            handoff = queue_lib.Queue()
+
+            def produce(name, actor):
+                try:
+                    with torch.cuda.stream(torch.cuda.Stream(device)):
+                        for unroll in range(unrolls):
+                            if stop.is_set():
+                                return
+                            out = actor.run_unroll()
+                            handoff.put((name, unroll,
+                                         out if isinstance(out, list)
+                                         else [out]))
+                except BaseException as exc:
+                    handoff.put((name, None, exc))
+
+            threads.extend(threading.Thread(target=produce, args=producer,
+                                            daemon=True)
+                           for producer in producers)
+            for thread in threads:
+                thread.start()
+            got = {}
+            with torch.cuda.stream(torch.cuda.Stream(device)):
+                for _ in range(len(producers) * unrolls):
+                    name, unroll, outs = handoff.get(timeout=300)
+                    if unroll is None:
+                        raise outs
+                    for i, out in enumerate(outs):
+                        group = i if name == "fused" else int(name[-1])
+                        trajectory, _ = adopt_device_trajectory(
+                            host_trajectory(out), out.ready)
+                        got[(name, group, unroll)] = to_numpy(trajectory)
+        finally:
+            # The producers leave their envs before they are closed.
+            stop.set()
+            for thread in threads:
+                thread.join(timeout=60)
+            for fleet in fleets:
+                for envs in fleet:
+                    envs.close()
+    worst = {}
+    for (name, group, unroll), a in sorted(got.items()):
+        s = want[group][unroll]
+        msg = f"phase 3q: {name} group {group} unroll {unroll}"
+        for field, x, y in (
+                ("frame", s.env_outputs.observation.frame,
+                 a.env_outputs.observation.frame),
+                ("action", s.agent_outputs.action, a.agent_outputs.action),
+                ("done", s.env_outputs.done, a.env_outputs.done)):
+            if x.shape != y.shape or not np.array_equal(x, y):
+                raise AssertionError(
+                    f"{msg}: {field} differs from the structural path "
+                    f"({x.shape} against {y.shape}, first at "
+                    f"{np.argwhere(x != y)[:3].tolist()})")
+        np.testing.assert_allclose(a.env_outputs.reward,
+                                   s.env_outputs.reward, rtol=1e-6,
+                                   err_msg=f"{msg}: reward")
+        for field, x, y in (
+                ("logits", s.agent_outputs.policy_logits,
+                 a.agent_outputs.policy_logits),
+                ("baseline", s.agent_outputs.baseline,
+                 a.agent_outputs.baseline),
+                ("c", s.agent_state.c, a.agent_state.c),
+                ("h", s.agent_state.h, a.agent_state.h)):
+            np.testing.assert_allclose(y, x, rtol=1e-5, atol=1e-6,
+                                       err_msg=f"{msg}: {field}")
+            kind = worst.setdefault(name.split("-")[0], {})
+            kind[field] = max(kind.get(field, 0.0),
+                              float(np.max(np.abs(y - x))))
+    print(f"  accum on the card against structural (float32, {groups} "
+          f"groups of {B}, {unrolls} unrolls of T={T}; {len(got)} "
+          f"trajectories taken on another stream): frames, actions and "
+          f"dones equal; max abs differences: " + "; ".join(
+              f"{kind} " + ", ".join(f"{k} {v:.3e}" for k, v in d.items())
+              for kind, d in worst.items()), flush=True)
+
+
 def _early_late(returns, random_return):
     """The means of the first 3 and the last 5 episode_return rows."""
     if len(returns) < 8:
@@ -4530,6 +4870,8 @@ def main() -> int:
                                     ("bfloat16", torch.bfloat16)):
             rows += compare_lstm(torch, lstm_cuda, device, matmul_dtype)
             compare_lean_buckets(torch, lstm_cuda, device, matmul_dtype)
+            compare_lean_buckets(torch, lstm_cuda, device, matmul_dtype,
+                                 FUSED_BUCKETS, "an accum_fused shard")
             rows += compare_lean_target(torch, lstm_cuda, device,
                                         matmul_dtype)
             rows += compare_gradw(torch, conv_cuda, device, dtype=dtype)
@@ -4737,6 +5079,14 @@ def main() -> int:
             pool_s[config.inflight_updates])
         print(f"  phase 3p took {time.monotonic() - t0:.1f} s", flush=True)
 
+        phase("phase 3q: the ActorPool's other inference modes, "
+              "--inference_mode=service, accum and accum_fused")
+        t0 = time.monotonic()
+        mode_launches = inference_modes_path(
+            torch, driver, config, scratch, train_counted,
+            pool_s[config.inflight_updates])
+        print(f"  phase 3q took {time.monotonic() - t0:.1f} s", flush=True)
+
         phase("phase 3j: --benchmark_mode=true on the main path")
         benchmark_path(torch, driver, config, scratch, train_counted,
                        pool_s[config.inflight_updates])
@@ -4858,6 +5208,7 @@ def main() -> int:
     counts["lstm_fwd_lean_unroll_bf16"] = unroll_launches
     for name, launches in service_launches.items():
         timed[name]["service_launches"] = launches
+    timed["lstm_fwd_lean_bf16"]["mode_launches"] = mode_launches
     kernels = [dict(timed[name], launches=counts[name])
                for name in ("lstm_fwd_lean", "lstm_fwd_resid", "lstm_bptt",
                             "stem_gradw", "lstm_fwd_lean_bf16",

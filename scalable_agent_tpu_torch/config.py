@@ -23,8 +23,7 @@ from typing import Optional
 # list against the JAX Config so the two cannot drift apart.
 UNPORTED_FLAGS = (
     "mesh_data", "mesh_seq", "mesh_model", "distributed_coordinator",
-    "distributed_num_processes", "distributed_process_id", "inference_mode",
-    "accum_fused_shards", "train_backend",
+    "distributed_num_processes", "distributed_process_id", "train_backend",
     "updates_per_dispatch", "sentinel_interval", "sentinel_rtol",
     "chaos_channel", "compile_cache_dir", "peer_timeout_s",
     "collective_timeout_s",
@@ -285,6 +284,19 @@ class Config:
     # service only: the largest batch the inference thread forms (rows =
     # envs), padded up a power-of-two ladder; 0 = every env of the run.
     service_max_batch: int = 0
+    # grouped only, the ActorPool's inference (runtime/actor.py):
+    # "structural" (one actor_step per group on its own thread),
+    # "service" (the native batcher co-batches the groups' requests into
+    # one step), "accum" (the trajectory accumulates on the card: per
+    # step the frame bytes go up and the actions come down,
+    # runtime/accum_actor.py) or "accum_fused" (accum with the groups in
+    # lockstep: one step and one action fetch serve a shard's groups).
+    inference_mode: str = "structural"
+    # accum_fused only: the lockstep shards the groups split into (one
+    # thread each); 0 probes the link when the pool is built and picks
+    # the predicted-best count (runtime/linktune.py).  Clamped to the
+    # group count.
+    accum_fused_shards: int = 0
 
     # -- the run-health plane (obs/health.py): detectors at log cadence
     # over the registry stream and the interval's metrics.  A trip appends

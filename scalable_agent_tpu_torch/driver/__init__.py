@@ -8,7 +8,12 @@ experiment.py:675-708):
   points and the SIGTERM preemption grace; build the agent and the
   learner; restore the newest verified checkpoint; start the
   ``ActorPool`` (one thread per env group of ``batch_size`` envs, each
-  group stepped by ``num_env_workers_per_group`` worker processes), or
+  group stepped by ``num_env_workers_per_group`` worker processes, its
+  inference by ``--inference_mode``: ``structural``, ``service`` through
+  the native batcher, or the device-resident ``accum`` and
+  ``accum_fused``, whose trajectories the transport passes through; the
+  accum modes refuse ``--replay_ratio`` > 0, whose slab only the packed
+  upload feeds), or
   under ``--actor=service`` the continuous-batching ``ActorService``
   (``runtime/service.py``: one inference thread batching the workers'
   slices as they arrive, up to ``--service_max_batch`` rows), and the
@@ -324,6 +329,15 @@ def build_learner(config: Config, agent: ImpalaAgent) -> Learner:
         raise ValueError(
             "replay_ratio > 0 requires --transport=packed on the host "
             "backend (the replay slab is fed by the packed upload)")
+    if config.replay_ratio > 0 and config.inference_mode in (
+            "accum", "accum_fused"):
+        # The same guard for the case the JAX driver lets through: its
+        # accum trajectories skip the upload sink, and it replays nothing.
+        raise ValueError(
+            f"replay_ratio > 0 cannot run with --inference_mode="
+            f"{config.inference_mode}: its trajectories accumulate on the "
+            f"device and never go through the packed upload that feeds "
+            f"the replay slab")
     hp = LearnerHyperparams(
         entropy_cost=config.entropy_cost,
         baseline_cost=config.baseline_cost,
@@ -540,8 +554,12 @@ def start_prefetch(pool: ActorPool, transport, device: torch.device,
                         continue
                     with get_tracer().span("learner/put_trajectory",
                                            cat="h2d"), put_hist.time():
+                        # An accum actor's trajectory is on the card
+                        # already: the transport passes it through after
+                        # its actor's event.
                         trajectory, owners = transport.put(
-                            host_trajectory(out))
+                            host_trajectory(out),
+                            ready=getattr(out, "ready", None))
                         event = None
                         if stream is not None:
                             event = torch.cuda.Event()
@@ -1034,6 +1052,11 @@ def train(config: Config, clock=time) -> Dict[str, float]:
     observation_spec, action_space, num_agents = probe_env(
         dataclasses.replace(config, level_name=level_names[0])
         if multi_task else config)
+    if config.actor == "service" and config.inference_mode != "structural":
+        raise ValueError(
+            f"--actor=service owns its inference (one continuous-batching "
+            f"thread); inference_mode={config.inference_mode!r} applies to "
+            f"--actor=grouped only")
     if config.actor == "service" and num_agents > 1:
         raise ValueError(
             f"--actor=service steps each env worker process on its own "
@@ -1103,6 +1126,9 @@ def train(config: Config, clock=time) -> Dict[str, float]:
                 pool = ActorPool(
                     agent, groups, config.unroll_length,
                     level_name=config.level_name, seed=config.seed,
+                    inference_mode=config.inference_mode,
+                    observation_spec=observation_spec,
+                    fused_shards=config.accum_fused_shards,
                     max_restarts=config.actor_max_restarts)
             pool.set_params(agent, version=start_updates)
             pool.start()

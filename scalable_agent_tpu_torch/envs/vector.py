@@ -258,6 +258,11 @@ class MultiEnv:
     def num_workers(self) -> int:
         return len(self._slices)
 
+    def frame_slab(self) -> np.ndarray:
+        """The shared [N, H, W, C] frame slab itself, no copy (valid until
+        the next step)."""
+        return self._slab
+
     # -- workers -------------------------------------------------------------
 
     def _spawn_worker(self, w: int) -> None:

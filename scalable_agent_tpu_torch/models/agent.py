@@ -248,7 +248,6 @@ class ImpalaAgent(nn.Module):
         return (policy_logits, baseline), new_state
 
 
-@torch.no_grad()
 def actor_step(agent: ImpalaAgent, generator: torch.Generator, last_action,
                env_output: StepOutput, core_state: AgentState
                ) -> Tuple[AgentOutput, AgentState]:
@@ -256,11 +255,35 @@ def actor_step(agent: ImpalaAgent, generator: torch.Generator, last_action,
     core runs its lean kernel) and sample an action from ``generator``.
     last_action [B] ([B, K] for a composite policy, and so is the sampled
     action), env_output [B, ...] tensors on the agent's device."""
+    return grouped_actor_step(agent, [generator], last_action.shape[0],
+                              last_action, env_output, core_state)
+
+
+@torch.no_grad()
+def grouped_actor_step(agent: ImpalaAgent,
+                       generators: Sequence[torch.Generator],
+                       group_rows: int, last_action,
+                       env_output: StepOutput, core_state: AgentState
+                       ) -> Tuple[AgentOutput, AgentState]:
+    """One batched inference step over the rows of several env groups at
+    once: one T=1 unroll over every row, then group i's ``group_rows`` rows
+    sampled from ``generators[i]`` alone, so each group draws what its own
+    ``actor_step`` would (the JAX package vmaps its step over groups, each
+    with its own key).  Rows past ``len(generators) * group_rows`` are
+    padding: their action is 0 and they draw nothing."""
     expand = lambda t: None if t is None else t[None]
     (policy_logits, baseline), new_state = agent(
         last_action[None], map_structure(expand, env_output), core_state)
     policy_logits = policy_logits[0]
-    action = distributions.sample(generator, policy_logits, agent.dist_spec)
+    actions = [distributions.sample(
+        generator, policy_logits[i * group_rows:(i + 1) * group_rows],
+        agent.dist_spec) for i, generator in enumerate(generators)]
+    valid = len(generators) * group_rows
+    if valid < policy_logits.shape[0]:
+        actions.append(torch.zeros(
+            (policy_logits.shape[0] - valid,) + actions[0].shape[1:],
+            dtype=actions[0].dtype, device=actions[0].device))
+    action = actions[0] if len(actions) == 1 else torch.cat(actions)
     return (AgentOutput(action=action, policy_logits=policy_logits,
                         baseline=baseline[0]),
             new_state)

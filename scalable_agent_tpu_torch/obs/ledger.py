@@ -48,12 +48,13 @@ arrivals and busy seconds, published as ``ledger/rate/<stage>_per_s`` and
   ``replay_insert`` and ``replay_sample``: a replayed batch re-enters the
   learner without a record of its own (its frames were counted when it
   was consumed fresh), and its age goes to
-  ``ledger/staleness_replayed_s`` (``observe_replay_staleness``).
+  ``ledger/staleness_replayed_s`` (``observe_replay_staleness``);
+- the dynamic-batching inference service (``runtime/batcher.py``,
+  ``runtime/native_batcher.py``; ``--inference_mode=service``),
+  ``inference_service``: each executed batch's requests and busy seconds,
+  its rho the consumer thread's utilization.
 
-The dynamic-batching inference service's stage, ``inference_service``,
-waits for that service (ROADMAP.md, queue 1, item 7b): its name is in
-``SERVICE_STAGES`` for ``obs/report.py``, and nothing publishes it.  The
-JAX ``PEAK_FLOPS`` table lists TPU peaks only, none of which applies
+The JAX ``PEAK_FLOPS`` table lists TPU peaks only, none of which applies
 here.
 """
 
@@ -114,16 +115,14 @@ SEGMENTS = (
 )
 
 # The stages beside the trajectory path, fed by note_service (arrivals
-# and busy seconds): the dynamic-batching inference service's (not
-# ported), the actor service's two halves and the replay slab's two
-# dispatch points.  SERVICE_UTILIZATION_STAGES are those whose rho is one
+# and busy seconds): the dynamic-batching inference service's, the actor
+# service's two halves and the replay slab's two dispatch points.  SERVICE_UTILIZATION_STAGES are those whose rho is one
 # server's utilization in [0, 1].
 SERVICE_STAGES = ("inference_service", "service_wait", "service_batch",
                   "replay_insert", "replay_sample")
 SERVICE_UTILIZATION_STAGES = ("inference_service", "service_batch")
-# The service stages this port publishes.
-PORTED_SERVICE_STAGES = ("service_wait", "service_batch", "replay_insert",
-                         "replay_sample")
+# The service stages this port publishes: all of them.
+PORTED_SERVICE_STAGES = SERVICE_STAGES
 
 SEGMENT_LABELS = {
     "unroll": "actor unroll (env stepping + inference)",
@@ -144,6 +143,8 @@ SEGMENT_LABELS = {
 TIMING_STAGE_MAP = {
     "actor/env_step_s": "unroll",
     "actor/inference_s": "unroll",
+    "batcher/request_latency_s": "inference_service",
+    "native_batcher/request_latency_s": "inference_service",
     "learner/put_trajectory_s": "transport",
     "transport/pack_s": "transport",
     "transport/upload_s": "transport",

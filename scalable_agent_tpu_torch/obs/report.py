@@ -80,13 +80,15 @@ RECOMMENDATIONS = {
     "unroll": (
         "the actor side (env stepping + inference) holds the frames: "
         "raise --num_env_workers_per_group or split the envs into more "
-        "actor groups (--num_actors over --batch_size), or take the "
-        "group lockstep away with --actor=service (one "
+        "actor groups (--num_actors over --batch_size); take the per-step "
+        "agent-output fetch and the trajectory's second upload away with "
+        "--inference_mode=accum, or with accum_fused (one step and one "
+        "action fetch a shard of groups, --accum_fused_shards); or take "
+        "the group lockstep away with --actor=service (one "
         "continuous-batching inference thread over the env workers' "
         "slices as they arrive); the actor step as one CUDA graph is the "
-        "first known gap (ROADMAP.md, queue 2), and the dynamic and "
-        "accum batchers and device-resident rollouts are not ported yet "
-        "(ROADMAP.md, queue 1, items 7b-8)"),
+        "first known gap (ROADMAP.md, queue 2), and device-resident "
+        "rollouts are not ported yet (ROADMAP.md, queue 1, item 8)"),
     "backpressure": (
         "actors block on a full trajectory queue: the learner side "
         "consumes slower than actors produce — read the device/"
@@ -94,9 +96,9 @@ RECOMMENDATIONS = {
     "queue_wait": (
         "trajectories sit in the trajectory queue waiting for the "
         "prefetch/transport stage: speed up put_trajectory "
-        "(--transport=packed, the default) or add prefetch depth; the "
-        "JAX link probe (runtime/linktune.py) is not ported yet "
-        "(ROADMAP.md, queue 1, item 7c)"),
+        "(--transport=packed, the default; --inference_mode=accum leaves "
+        "no upload to the stage, and --accum_fused_shards=0 probes the "
+        "link to pick its shards) or add prefetch depth"),
     "transport": (
         "host->device transport dominates: --transport=packed (the "
         "default), check transport/h2d_bytes_total against the card's "
@@ -113,8 +115,10 @@ RECOMMENDATIONS = {
         "hand-written kernels' known gaps), a larger batch — profile a "
         "window (--profile_dir) and read the worst-kernels section below"),
     "inference_service": (
-        "the dynamic-batching inference service saturates: the port "
-        "does not run it yet (ROADMAP.md, queue 1, item 7b)"),
+        "the dynamic-batching inference service saturates "
+        "(--inference_mode=service: one native-batcher consumer thread): "
+        "give it fewer, larger groups (--batch_size), or step each group "
+        "on its own (--inference_mode=structural or accum)"),
     "service_wait": (
         "requests park waiting for the actor service's inference "
         "thread (rho here is Little's-law L, the parked count): raise "

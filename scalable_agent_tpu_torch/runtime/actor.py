@@ -14,9 +14,15 @@ The counterpart of ``scalable_agent_tpu/runtime/actor.py``:
   parameters at each step, as the JAX actor's jitted step does, and the
   lean kernel reads the float32 Wi/Wh and rounds them to bf16 in
   registers, so no bf16 copy of them is kept per ``load_params``.
-- ``ActorPool`` (``inference_mode="structural"``) runs one thread per
-  group, each on its own CUDA stream, with a private copy of the agent.
-  Trajectories (numpy) go through a bounded queue of one slot per group.
+- ``ActorPool`` (``inference_mode="structural"``, the default) runs one
+  thread per group, each on its own CUDA stream, with a private copy of
+  the agent.  Trajectories (numpy) go through a bounded queue of one slot
+  per group.  The pool's other inference modes are the JAX pool's:
+  ``service`` (the groups' requests co-batched by the native batcher,
+  ``runtime/native_batcher.py``), ``accum`` and ``accum_fused``
+  (trajectories accumulated on the device, ``runtime/accum_actor.py``;
+  the fused mode's shard count from the link probe,
+  ``runtime/linktune.py``).
   The learner publishes weights with ``set_params``: a clone of its
   parameters made on its own stream, with a CUDA event recorded after it
   (``snapshot_params_for_inference``).  An actor picks up the newest
@@ -45,19 +51,19 @@ The counterpart of ``scalable_agent_tpu/runtime/actor.py``:
   ``unroll_done``, ``queue_put`` and ``queue_get``.
 
 The continuous-batching actor service (``--actor=service``) is
-``runtime/service.py``; the accum and native-batcher inference modes are
-not ported yet (ROADMAP.md, queue 1, items 7b-7c).
+``runtime/service.py``.
 """
 
 import contextlib
 import copy
+import functools
 import logging
 import queue as queue_lib
 import threading
 import time
 import weakref
 from collections import deque
-from typing import Callable, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -66,6 +72,7 @@ from scalable_agent_tpu_torch.envs.vector import MultiEnv
 from scalable_agent_tpu_torch.models.agent import (
     ImpalaAgent,
     actor_step,
+    grouped_actor_step,
     initial_state,
 )
 from scalable_agent_tpu_torch.obs import (
@@ -85,6 +92,12 @@ from scalable_agent_tpu_torch.types import (
 )
 
 log = logging.getLogger("scalable_agent_tpu_torch")
+
+# The JAX ActorPool's inference modes (ActorPool's docstring).
+INFERENCE_MODES = ("structural", "service", "accum", "accum_fused")
+# --inference_mode=service: how long the batcher waits for the other
+# groups' requests before it runs a partial batch (the JAX pool's default).
+SERVICE_TIMEOUT_MS = 5.0
 
 # run_with_retry: the longest backoff between restarts, and the window
 # after which a restart no longer counts against the budget.
@@ -144,8 +157,9 @@ def pool_instruments(owner, queue, registry=None):
 
 
 def kill_first_worker(envs: MultiEnv) -> None:
-    """``worker_kill``: SIGKILL the group's first live env worker process;
-    MultiEnv's respawn must absorb it."""
+    """``worker_kill``: SIGKILL the group's first live env worker process
+    (an accum-fused actor's first group's); MultiEnv's respawn must absorb
+    it."""
     for proc in envs._procs:
         if proc is not None and proc.is_alive():
             log.warning("chaos: killing env worker pid %d", proc.pid)
@@ -154,8 +168,13 @@ def kill_first_worker(envs: MultiEnv) -> None:
 
 
 def to_numpy(tree):
+    """Tensors -> numpy arrays (arrays stay as they are, None stays
+    None)."""
     return map_structure(
-        lambda t: None if t is None else t.detach().cpu().numpy(), tree)
+        lambda t: (None if t is None
+                   else t.detach().cpu().numpy()
+                   if isinstance(t, torch.Tensor) else np.asarray(t)),
+        tree)
 
 
 def to_device(tree, device):
@@ -367,17 +386,26 @@ def run_with_retry(loop_fn: Callable[[], None], *, stop: threading.Event,
 
 
 class VectorActor:
-    """One env group: batched inference + trajectory accumulation."""
+    """One env group: batched inference + trajectory accumulation.
+
+    ``step_fn`` (``ActorPool``'s service mode) replaces the actor's own
+    inference: ``step_fn(last_action, env_output, core_state)`` on host
+    arrays returns ``(AgentOutput, AgentState)`` as host arrays; the actor
+    then neither runs nor loads its agent, whose shapes alone it reads."""
 
     def __init__(self, agent: ImpalaAgent, envs: MultiEnv,
-                 unroll_length: int, level_name: str = "", seed: int = 0):
+                 unroll_length: int, level_name: str = "", seed: int = 0,
+                 step_fn: Optional[Callable] = None):
         self._agent = agent
         self._envs = envs
         self._unroll_length = unroll_length
         self.level_name = level_name
+        self._step_fn = step_fn
         self._device = next(agent.parameters()).device
-        self._generator = torch.Generator(device=self._device)
-        self._generator.manual_seed(seed)
+        self._generator = None
+        if step_fn is None:
+            self._generator = torch.Generator(device=self._device)
+            self._generator.manual_seed(seed)
         self._loaded = None  # the ParamsSnapshot copied into the agent
         self._last_env_output = None
         self._last_agent_output = None
@@ -394,16 +422,18 @@ class VectorActor:
 
     def load_params(self, snapshot: ParamsSnapshot) -> None:
         """Copy a published snapshot into this actor's agent
-        (``load_snapshot``), unless it is the one loaded last."""
-        if snapshot is not self._loaded:
+        (``load_snapshot``), unless it is the one loaded last.  Under a
+        ``step_fn`` the batcher's consumer loads the snapshots instead."""
+        if self._step_fn is None and snapshot is not self._loaded:
             load_snapshot(self._agent, snapshot)
             self._loaded = snapshot
 
     def _bootstrap(self):
         batch = self._envs.num_envs
         self._last_env_output = self._envs.initial()
-        self._core_state = initial_state(batch, self._agent.core_size,
-                                         self._device)
+        self._core_state = initial_state(
+            batch, self._agent.core_size,
+            "cpu" if self._step_fn is not None else self._device)
         self._last_agent_output = AgentOutput(
             action=self._agent.zero_actions(batch).numpy(),
             policy_logits=np.zeros((batch, self._agent.num_logits),
@@ -437,12 +467,8 @@ class VectorActor:
                 watchdog.touch()  # per-step heartbeat: one dict store
             t0 = time.perf_counter()
             with tracer.span("actor/inference", cat="actor"):
-                out, core_state = actor_step(
-                    self._agent, self._generator,
-                    torch.as_tensor(agent_output.action,
-                                    device=self._device),
-                    to_device(env_output, self._device), core_state)
-                agent_output = to_numpy(out)
+                agent_output, core_state = self._infer(
+                    agent_output, env_output, core_state)
             t1 = time.perf_counter()
             # Wait on the env pipes; other groups' inference runs
             # meanwhile.
@@ -463,6 +489,18 @@ class VectorActor:
             env_outputs=_stack_time(env_entries),
             agent_outputs=_stack_time(agent_entries))
 
+    def _infer(self, agent_output: AgentOutput, env_output,
+               core_state: AgentState):
+        """One inference step: host agent output and the new state."""
+        if self._step_fn is not None:
+            return self._step_fn(agent_output.action, env_output,
+                                 core_state)
+        out, core_state = actor_step(
+            self._agent, self._generator,
+            torch.as_tensor(agent_output.action, device=self._device),
+            to_device(env_output, self._device), core_state)
+        return to_numpy(out), core_state
+
     def reset(self):
         """Drop the carried unroll state after a mid-unroll failure:
         re-align the env pipes and force a fresh bootstrap."""
@@ -476,29 +514,84 @@ class VectorActor:
 
 
 class ActorPool:
-    """One ``VectorActor`` thread per env group, feeding a bounded queue.
+    """N env groups on threads, feeding a bounded queue.
 
-    Actor ``i`` samples from a generator seeded ``seed + 1000 * i``, as in
-    the JAX pool; the queue holds one trajectory per group.  ``set_params``
-    must run before ``start``.
+    Group ``i`` samples from a generator seeded ``seed + 1000 * i``, as in
+    the JAX pool, in every inference mode; the queue holds one trajectory
+    per group.  ``set_params`` must run before ``start``.  The modes (the
+    JAX ``ActorPool``'s):
+
+    - ``structural`` (default): one ``VectorActor`` thread per group, each
+      with a private copy of the agent on its own stream, one
+      ``actor_step`` on its group's [B] rows a step.
+    - ``service``: the groups' ``VectorActor`` threads submit each step's
+      request to a ``NativeBatcher`` (the C++ dynamic-batching core),
+      whose consumer thread co-batches the k groups that arrived within
+      ``SERVICE_TIMEOUT_MS`` (padded up ``bucket_ladder(groups)``) into ONE
+      ``grouped_actor_step`` over their [k*B] rows, on its own stream with
+      its own copy of the agent; each group's rows are sampled from that
+      group's generator, so the actions are the structural pool's
+      (reference: dynamic_batching.py:65-102 + batcher.cc).
+    - ``accum``: one ``AccumVectorActor`` thread per group: the
+      trajectory accumulates on the device, frames go up once and only
+      the actions come down (``runtime/accum_actor.py``).
+    - ``accum_fused``: ``fused_shards`` lockstep ``GroupedAccumActor``
+      threads over a balanced split of the groups, each one step on its
+      groups' [k*B] rows and one action fetch; 0 probes the link and picks
+      the count (``runtime/linktune.py``).
+
+    The accum modes read the frame shape from ``MultiEnv.frame_slab()`` and
+    the optional observation streams' shapes from ``observation_spec``.
     """
 
     def __init__(self, agent: ImpalaAgent, env_groups: Sequence[MultiEnv],
                  unroll_length: int, level_name: str = "", seed: int = 0,
                  inference_mode: str = "structural", max_restarts: int = 3,
-                 restart_backoff_s: float = 0.5):
+                 restart_backoff_s: float = 0.5, observation_spec=None,
+                 fused_shards: int = 0):
+        if inference_mode not in INFERENCE_MODES:
+            raise ValueError(f"unknown inference_mode {inference_mode!r}")
         if inference_mode != "structural":
-            raise ValueError(
-                f"inference_mode={inference_mode!r} is not ported to "
-                f"scalable_agent_tpu_torch yet (ROADMAP.md, queue 1); only "
-                f"'structural' runs")
+            sizes = {envs.num_envs for envs in env_groups}
+            if len(sizes) > 1:
+                raise ValueError(
+                    f"{inference_mode.split('_')[0]} inference needs "
+                    f"uniform group sizes, got {sorted(sizes)}")
         self._device = next(agent.parameters()).device
-        self._actors = []
-        for i, envs in enumerate(env_groups):
-            private = copy.deepcopy(agent).requires_grad_(False)
-            self._actors.append(VectorActor(
-                private, envs, unroll_length, level_name=level_name,
-                seed=seed + 1000 * i))
+        self._inference_mode = inference_mode
+        self.fused_shards = 0
+        self.link = None  # the probed LinkProfile (accum_fused_shards=0)
+        self._batcher = None
+        self._batcher_lock = threading.Lock()
+        private = lambda: copy.deepcopy(agent).requires_grad_(False)
+        seeds = [seed + 1000 * i for i in range(len(env_groups))]
+        if inference_mode == "structural":
+            self._actors = [
+                VectorActor(private(), envs, unroll_length,
+                            level_name=level_name, seed=seeds[i])
+                for i, envs in enumerate(env_groups)]
+        elif inference_mode == "service":
+            self._service_max = len(env_groups)
+            # The consumer thread's: its agent, the groups' generators, its
+            # stream (made on that thread) and the snapshot it loaded.
+            self._service_agent = private()
+            self._service_generators = []
+            for group_seed in seeds:
+                generator = torch.Generator(device=self._device)
+                generator.manual_seed(group_seed)
+                self._service_generators.append(generator)
+            self._service_stream = None
+            self._service_loaded = None
+            self._actors = [
+                VectorActor(agent, envs, unroll_length,
+                            level_name=level_name,
+                            step_fn=functools.partial(
+                                self._service_request, i))
+                for i, envs in enumerate(env_groups)]
+        else:
+            self._actors = self._accum_actors(
+                agent, env_groups, unroll_length, level_name, seeds,
+                observation_spec, fused_shards, private)
         self.queue = queue_lib.Queue(maxsize=len(env_groups))
         self._params = None
         self._params_version = 0
@@ -516,6 +609,127 @@ class ActorPool:
             env_groups[0].num_envs if env_groups else 0)
         (self._steps_counter, self._trajectories_counter,
          self._restarts_counter) = pool_instruments(self, self.queue)
+
+    def _accum_actors(self, agent, env_groups, unroll_length, level_name,
+                      seeds, observation_spec, fused_shards, private):
+        """The accum modes' actors over one ``AccumPrograms``."""
+        from scalable_agent_tpu_torch.runtime.accum_actor import (
+            AccumPrograms,
+            AccumVectorActor,
+            GroupedAccumActor,
+        )
+        from scalable_agent_tpu_torch.runtime.linktune import (
+            resolve_fused_shards,
+        )
+
+        instruction = getattr(observation_spec, "instruction", None)
+        measurements = getattr(observation_spec, "measurements", None)
+        frame_shape = env_groups[0].frame_slab().shape[1:]
+        batch = env_groups[0].num_envs
+        programs = AccumPrograms(
+            agent, unroll_length, batch, frame_shape,
+            instruction_shape=(None if instruction is None
+                               else instruction.shape),
+            measurements_shape=(None if measurements is None
+                                else measurements.shape))
+        if self._inference_mode == "accum":
+            return [AccumVectorActor(programs, envs, level_name=level_name,
+                                     seed=seeds[i], agent=private())
+                    for i, envs in enumerate(env_groups)]
+        shards, self.link = resolve_fused_shards(
+            fused_shards, len(env_groups), batch,
+            int(np.prod(frame_shape)), device=self._device)
+        if self.link is not None:
+            log.info("auto accum_fused_shards=%d (probed rtt %.3f ms, h2d "
+                     "%.0f MB/s, %d groups x %d envs)", shards,
+                     self.link.rtt_s * 1e3,
+                     self.link.h2d_bytes_per_s / 1e6, len(env_groups),
+                     batch)
+        self.fused_shards = shards
+        # A balanced split into exactly ``shards`` lockstep drivers (4
+        # groups over 3 shards: [2, 1, 1]).
+        base, extra = divmod(len(env_groups), shards)
+        bounds = [0]
+        for s in range(shards):
+            bounds.append(bounds[-1] + base + (1 if s < extra else 0))
+        return [GroupedAccumActor(programs, env_groups[lo:hi],
+                                  level_name=level_name,
+                                  seeds=seeds[lo:hi], agent=private())
+                for lo, hi in zip(bounds, bounds[1:])]
+
+    # -- service mode ------------------------------------------------------
+
+    def _service_request(self, group: int, last_action, env_output,
+                         core_state: AgentState):
+        """``VectorActor``'s ``step_fn`` under ``service``: one group's
+        request to the shared batcher; the consumer computes it under the
+        newest snapshot at batch time."""
+        sample = (np.int32(group), np.asarray(last_action),
+                  to_numpy(env_output), *to_numpy(core_state))
+        out, c, h = self._ensure_batcher(sample).compute(sample)
+        return out, AgentState(c=c, h=h)
+
+    def _ensure_batcher(self, example_sample):
+        from scalable_agent_tpu_torch.runtime.batcher import bucket_ladder
+        from scalable_agent_tpu_torch.runtime.native_batcher import (
+            NativeBatcher,
+        )
+
+        with self._batcher_lock:
+            if self._batcher is None:
+                _, action, _, c, _ = example_sample
+                batch = action.shape[0]
+                # Built from shapes: a computed example would draw from a
+                # group's generator.
+                example_result = (
+                    AgentOutput(action=np.zeros_like(action),
+                                policy_logits=np.zeros(
+                                    (batch, self._service_agent.num_logits),
+                                    np.float32),
+                                baseline=np.zeros((batch,), np.float32)),
+                    np.zeros_like(c), np.zeros_like(c))
+                self._batcher = NativeBatcher(
+                    self._service_compute, example_sample=example_sample,
+                    example_result=example_result, minimum_batch_size=1,
+                    maximum_batch_size=self._service_max,
+                    timeout_ms=SERVICE_TIMEOUT_MS,
+                    pad_to_sizes=bucket_ladder(self._service_max))
+            return self._batcher
+
+    def _service_compute(self, batched, k: int):
+        """The batcher's consumer: k co-batched group requests (padded to
+        [padded, B, ...]) -> one ``grouped_actor_step`` over their rows,
+        group ``gid`` sampled from its own generator; the k valid groups'
+        outputs."""
+        group, action, env_output, c, h = batched
+        batch = action.shape[1]
+        rows = action.shape[0] * batch
+        flat = lambda a: None if a is None else torch.as_tensor(
+            a.reshape((rows,) + a.shape[2:]), device=self._device)
+        if self._device.type == "cuda" and self._service_stream is None:
+            self._service_stream = torch.cuda.Stream(self._device)
+        context = (torch.cuda.stream(self._service_stream)
+                   if self._service_stream is not None
+                   else contextlib.nullcontext())
+        with context:
+            snapshot = self._get_params()
+            if snapshot is not self._service_loaded:
+                load_snapshot(self._service_agent, snapshot)
+                self._service_loaded = snapshot
+            out, state = grouped_actor_step(
+                self._service_agent,
+                [self._service_generators[int(g)] for g in group[:k]],
+                batch, flat(action), map_structure(flat, env_output),
+                AgentState(c=flat(c), h=flat(h)))
+            host = to_numpy((out, state))
+        valid = k * batch
+        out, state = map_structure(
+            lambda a: a[:valid].reshape((k, batch) + a.shape[1:]), host)
+        return out, state.c, state.h
+
+    @property
+    def inference_mode(self) -> str:
+        return self._inference_mode
 
     @property
     def actors(self) -> Sequence[VectorActor]:
@@ -557,16 +771,21 @@ class ActorPool:
                 if injector.should_fire("worker_kill"):
                     kill_first_worker(actor.envs)
             with tracer.span("actor/unroll", cat="actor"):
-                trajectory = actor.run_unroll(self._get_params())
+                result = actor.run_unroll(self._get_params())
+            # An accum-fused actor's lockstep unroll gives one trajectory
+            # per group, all born at its start.
+            items = result if isinstance(result, list) else [result]
             recorder.record("unroll", actor.level_name or "actor",
-                            {"trajectories": 1})
-            if publish_trajectory(
-                    self.queue, trajectory, self._stop,
-                    actor_name=thread_name, level_name=actor.level_name,
-                    birth_us=actor.unroll_birth_us):
-                self._count("agent_steps", self._steps_per_trajectory)
-                self._steps_counter.inc(self._steps_per_trajectory)
-                self._trajectories_counter.inc()
+                            {"trajectories": len(items)})
+            for trajectory in items:
+                if publish_trajectory(
+                        self.queue, trajectory, self._stop,
+                        actor_name=thread_name,
+                        level_name=actor.level_name,
+                        birth_us=actor.unroll_birth_us):
+                    self._count("agent_steps", self._steps_per_trajectory)
+                    self._steps_counter.inc(self._steps_per_trajectory)
+                    self._trajectories_counter.inc()
 
     def _actor_loop(self, actor: VectorActor, stream):
         def deliver(exc):
@@ -600,8 +819,13 @@ class ActorPool:
 
     def stop(self):
         """Stop and join every actor thread, then close every group's
-        envs (their worker processes included)."""
+        envs (their worker processes included).  Under ``service`` the
+        batcher closes first: every actor thread blocked on a request gets
+        ``BatcherClosedError`` (reference: batcher.cc:393-431)."""
         self._stop.set()
+        with self._batcher_lock:
+            if self._batcher is not None:
+                self._batcher.close()
         for thread in self._threads:
             thread.join(timeout=10)
             if thread.is_alive():
@@ -614,11 +838,18 @@ class ActorPool:
     def threads(self) -> Sequence[threading.Thread]:
         return tuple(self._threads)
 
+    def _all_envs(self) -> List[MultiEnv]:
+        """Every group's envs (an accum-fused actor drives several)."""
+        envs = []
+        for actor in self._actors:
+            envs.extend(getattr(actor, "envs_list", None) or [actor.envs])
+        return envs
+
     def episode_stats(self):
         """Merged completed-episode (return, length) ring buffers."""
-        return merged_episode_stats(actor.envs for actor in self._actors)
+        return merged_episode_stats(self._all_envs())
 
     def drain_level_stats(self):
         """Level-attributed episodes finished since the last drain
         (``drain_level_stats``)."""
-        return drain_level_stats(actor.envs for actor in self._actors)
+        return drain_level_stats(self._all_envs())

@@ -16,6 +16,11 @@ card:
   used in turn, each rewritten only after the CUDA event of the copy that
   last read it has completed.  There is no fallback: on the card the
   staging buffers are pinned or the transport raises.
+- A trajectory whose leaves are already tensors (the accum actors',
+  ``runtime/accum_actor.py``) passes through either transport as it is:
+  no pack, no host copy, no second upload (``adopt_device_trajectory``).
+  The putting stream waits on the event the actor recorded after its last
+  write and ``record_stream``s every leaf.
 - ``PackedTransport.set_upload_sink`` taps each uploaded buffer right
   after its copy is issued: the replay slab's insert
   (``runtime/replay.py``), whose samples ``unpack`` turns back into
@@ -96,6 +101,44 @@ def host_trajectory(actor_output) -> Trajectory:
                       agent_outputs=actor_output.agent_outputs)
 
 
+def h2d_bytes_counter(registry=None):
+    """The shared upload-byte counter: the packed trajectory staging here
+    and the accum actors' per-step uploads both feed it, so
+    ``transport/h2d_bytes_total`` is the host->device byte count of the
+    whole pipeline."""
+    return (registry or get_registry()).counter(
+        "transport/h2d_bytes_total",
+        "host->device bytes staged by the transport layer (packed "
+        "trajectory batches + accum per-step uploads)")
+
+
+def is_device_trajectory(trajectory) -> bool:
+    """True when the trajectory's leaves are already tensors (an accum
+    actor's, written in place on the device)."""
+    return any(isinstance(leaf, torch.Tensor)
+               for leaf in tree_leaves(trajectory))
+
+
+def adopt_device_trajectory(trajectory, ready=None) -> Placed:
+    """Pass a trajectory whose leaves are tensors through, on the current
+    stream: it waits on ``ready``, the event the producing actor recorded
+    on its own stream after the trajectory's last write, and
+    ``record_stream``s every leaf, so the caching allocator cannot hand
+    their memory to the actor's next unroll while this stream's work on
+    them is pending.  On the CPU the work is done when it is issued; an
+    event there (a test's stand-in) is waited on the host."""
+    leaves = tuple(t for t in tree_leaves(trajectory) if t is not None)
+    if ready is not None:
+        if leaves and leaves[0].is_cuda:
+            stream = torch.cuda.current_stream(leaves[0].device)
+            stream.wait_event(ready)
+            for tensor in leaves:
+                tensor.record_stream(stream)
+        else:
+            ready.synchronize()
+    return trajectory, leaves
+
+
 def _torch_dtype(dtype: np.dtype) -> torch.dtype:
     return torch.from_numpy(np.zeros(0, dtype)).dtype
 
@@ -106,7 +149,9 @@ class PerLeafTransport:
     def __init__(self, device):
         self._device = torch.device(device)
 
-    def put(self, trajectory: Trajectory) -> Placed:
+    def put(self, trajectory: Trajectory, ready=None) -> Placed:
+        if is_device_trajectory(trajectory):
+            return adopt_device_trajectory(trajectory, ready)
         placed = to_device(trajectory, self._device)
         return placed, tuple(t for t in tree_leaves(placed)
                              if t is not None)
@@ -254,10 +299,7 @@ class PackedTransport:
             "transport/upload_s", "single-copy H2D dispatch seconds")
         self._h_unpack = registry.histogram(
             "transport/unpack_s", "on-device unpack dispatch seconds")
-        self._bytes_counter = registry.counter(
-            "transport/h2d_bytes_total",
-            "host->device bytes staged by the transport layer (packed "
-            "trajectory batches + accum per-step uploads)")
+        self._bytes_counter = h2d_bytes_counter(registry)
 
     def _ensure_spec(self, trajectory) -> PackedSpec:
         if self.spec is None:
@@ -310,7 +352,12 @@ class PackedTransport:
         right after the upload is issued; None disconnects."""
         self._upload_sink = sink
 
-    def put(self, trajectory: Trajectory) -> Placed:
+    def put(self, trajectory: Trajectory, ready=None) -> Placed:
+        """Pack, upload and unpack a host trajectory; a trajectory already
+        on the device passes through (``adopt_device_trajectory``: nothing
+        crosses the link, and the upload sink sees nothing)."""
+        if is_device_trajectory(trajectory):
+            return adopt_device_trajectory(trajectory, ready)
         tracer = get_tracer()
         ledger = get_ledger()
         with tracer.span("transport/pack", cat="h2d"), \

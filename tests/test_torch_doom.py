@@ -11,8 +11,9 @@ for bit, over the same seeded steps: single-agent streams (frames,
 rewards, dones, episode info, measurements), lockstep matches and the
 recorded episode files.
 
-``TestAccumMeasurements`` waits for the accum actor and ``TestTools`` for
-``envs/doom/tools.py`` (ROADMAP.md, queue 1).  The twins of the JAX tests
+``TestAccumMeasurements`` holds the accum actor against the structural one
+on a measurements level.  ``TestTools`` waits for ``envs/doom/tools.py``
+(ROADMAP.md, queue 1).  The twins of the JAX tests
 marked slow keep the mark.
 """
 
@@ -280,6 +281,82 @@ def _assert_same(ours, theirs):
                 continue
             assert x.dtype == y.dtype and x.shape == y.shape, (t, i)
             np.testing.assert_array_equal(x, y, err_msg=f"step {t} leaf {i}")
+
+
+class TestAccumMeasurements:
+    def test_accum_matches_structural_on_battle(self):
+        """Accum == structural on a measurements-carrying Doom level: the
+        ``DoomAdditionalInput`` float32 vector rides the per-step upload
+        into its own buffer (reference:
+        envs/doom/wrappers/additional_input.py:7-96)."""
+        from scalable_agent_tpu_torch.envs import (
+            MultiEnv,
+            TensorSpec,
+            create_env,
+            make_impala_stream,
+        )
+        from scalable_agent_tpu_torch.models import ImpalaAgent
+        from scalable_agent_tpu_torch.runtime import VectorActor
+        from scalable_agent_tpu_torch.runtime.accum_actor import (
+            AccumPrograms,
+            AccumVectorActor,
+        )
+        from scalable_agent_tpu_torch.runtime.actor import to_numpy
+
+        t, b = 4, 2
+        probe = create_env("doom_battle", num_action_repeats=4, width=64,
+                           height=36)
+        try:
+            spec = probe.observation_spec
+            action_space = probe.action_space
+        finally:
+            probe.close()
+        assert spec.measurements is not None
+        frame = TensorSpec(tuple(spec.frame.shape), np.uint8, "frame")
+        agent = ImpalaAgent(frame_shape=frame.shape,
+                            action_space=action_space, core_size=16,
+                            generator=torch.Generator().manual_seed(0))
+
+        def make_group():
+            fns = [functools.partial(
+                make_impala_stream, "doom_battle", seed=100 + i,
+                num_action_repeats=4, width=64, height=36)
+                for i in range(b)]
+            return MultiEnv(fns, frame, num_workers=1)
+
+        envs_a, envs_b = make_group(), make_group()
+        try:
+            structural = VectorActor(agent, envs_a, t, seed=5)
+            programs = AccumPrograms(
+                agent, t, b, frame.shape,
+                measurements_shape=tuple(spec.measurements.shape))
+            accum = AccumVectorActor(programs, envs_b, seed=5)
+            for unroll in range(2):
+                s = structural.run_unroll()
+                a = to_numpy(accum.run_unroll())
+                msg = f"unroll {unroll}"
+                assert a.env_outputs.observation.measurements.dtype == (
+                    np.float32)
+                np.testing.assert_allclose(
+                    s.env_outputs.observation.measurements,
+                    a.env_outputs.observation.measurements, rtol=1e-6,
+                    err_msg=msg)
+                np.testing.assert_array_equal(
+                    s.env_outputs.observation.frame,
+                    a.env_outputs.observation.frame, err_msg=msg)
+                # A composite policy: actions [T+1, B, K].
+                assert a.agent_outputs.action.shape == (
+                    s.agent_outputs.action.shape)
+                np.testing.assert_array_equal(
+                    s.agent_outputs.action, a.agent_outputs.action,
+                    err_msg=msg)
+                np.testing.assert_allclose(
+                    s.agent_outputs.policy_logits,
+                    a.agent_outputs.policy_logits, rtol=1e-5, atol=1e-6,
+                    err_msg=msg)
+        finally:
+            envs_a.close()
+            envs_b.close()
 
 
 class TestOutputsMatchJax:

@@ -225,11 +225,23 @@ def test_flag_lists_cover_the_jax_config():
                                   ["--train_backend=ingraph"],
                                   ["--compute_dtype=float16"],
                                   ["--scan_impl=time_sharded"],
-                                  ["--inference_mode=service"],
+                                  ["--updates_per_dispatch=4"],
                                   ["--sentinel_interval=5"]])
 def test_unported_flags_and_values_raise(argv):
     with pytest.raises(ValueError, match="ROADMAP.md"):
         Config.from_argv(argv)
+
+
+def test_inference_mode_flags_are_ported():
+    """``--inference_mode`` (all four JAX values) and
+    ``--accum_fused_shards`` left the unported flags."""
+    assert {"inference_mode", "accum_fused_shards"}.isdisjoint(
+        UNPORTED_FLAGS)
+    for mode in ("structural", "service", "accum", "accum_fused"):
+        config = Config.from_argv([f"--inference_mode={mode}",
+                                   "--accum_fused_shards=2"])
+        assert (config.inference_mode, config.accum_fused_shards) == (
+            mode, 2)
 
 
 def test_actor_flags_are_ported_and_a_bad_actor_raises():

@@ -434,7 +434,9 @@ def test_replay_flags_are_ported():
                  "target_update_interval", "impact_clip_epsilon"):
         assert name not in UNPORTED_FLAGS
         assert getattr(Config(), name) == getattr(JaxConfig(), name)
-    assert len(UNPORTED_FLAGS) == 22  # actor, service_max_batch ported
+    # actor and service_max_batch ported, then inference_mode and
+    # accum_fused_shards.
+    assert len(UNPORTED_FLAGS) == 20
     config = Config.from_argv(["--loss=impact", "--replay_ratio=2",
                                "--target_update_interval=7"])
     assert (config.loss, config.replay_ratio,

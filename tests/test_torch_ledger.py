@@ -150,23 +150,41 @@ def test_every_timing_histogram_maps_to_a_ledger_stage():
     """The twin of JAX ``tests/test_ledger_lint.py``: every ``_s``
     histogram registered in the port's runtime and driver maps to a ledger
     stage (``TIMING_STAGE_MAP``), but the checkpoint's save time, which no
-    frame's latency passes through; every mapped name is still registered
-    somewhere, and maps to a segment or a service stage."""
+    frame's latency passes through; an f-string name (the batchers'
+    ``f"{metrics_name}/request_latency_s"``) is matched by its constant
+    suffix, as the JAX lint matches it; every mapped name is still
+    registered somewhere, and maps to a segment or a service stage."""
     import ast
     from pathlib import Path
 
     package = Path(ledger.__file__).resolve().parents[1]
     files = sorted((package / "runtime").glob("*.py")) + sorted(
         (package / "driver").glob("*.py"))
-    names = set()
+    names, suffixes = set(), set()
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
-            if (isinstance(node, ast.Call)
+            if not (isinstance(node, ast.Call)
                     and isinstance(node.func, ast.Attribute)
-                    and node.func.attr == "histogram" and node.args
-                    and isinstance(node.args[0], ast.Constant)
-                    and str(node.args[0].value).endswith("_s")):
-                names.add(node.args[0].value)
+                    and node.func.attr == "histogram" and node.args):
+                continue
+            arg = node.args[0]
+            if isinstance(arg, ast.Constant) and str(arg.value).endswith(
+                    "_s"):
+                names.add(arg.value)
+            elif isinstance(arg, ast.JoinedStr):
+                tail = ""
+                for part in reversed(arg.values):
+                    if not (isinstance(part, ast.Constant)
+                            and isinstance(part.value, str)):
+                        break
+                    tail = part.value + tail
+                if tail.endswith("_s"):
+                    suffixes.add(tail)
+    for tail in suffixes:
+        matched = {name for name in ledger.TIMING_STAGE_MAP
+                   if name.endswith(tail)}
+        assert matched, f"no TIMING_STAGE_MAP name ends in {tail!r}"
+        names |= matched
     allowlist = {"checkpoint/save_s"}
     assert names - allowlist == set(ledger.TIMING_STAGE_MAP)
     stages = {name for name, _, _ in ledger.SEGMENTS} | set(

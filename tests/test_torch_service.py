@@ -22,9 +22,11 @@ runtime/batcher.py, MultiEnv's per-worker API) on the CPU, the twins of
 - ``--actor=service`` through ``driver.train`` with a complete ledger and
   the report naming the service stages.
 
-``test_dynamic_batcher_uses_shared_policy`` waits for the dynamic batcher
-(ROADMAP.md, queue 1, item 7b) and ``test_ingraph_rejects_actor_service``
-for the in-graph backend (item 8).
+``ActorPool``'s service mode (``--inference_mode=service``, the native
+batcher co-batching the groups' requests) gives the structural pool's
+trajectories for the same seeds, co-batched or not; the driver refuses it
+under ``--actor=service``.  ``test_ingraph_rejects_actor_service`` waits
+for the in-graph backend (ROADMAP.md, queue 1, item 8).
 """
 
 import functools
@@ -57,9 +59,11 @@ from scalable_agent_tpu_torch.envs import (
 from scalable_agent_tpu_torch.models import ImpalaAgent
 from scalable_agent_tpu_torch.obs import registry as registry_lib
 from scalable_agent_tpu_torch.obs.registry import MetricsRegistry
-from scalable_agent_tpu_torch.runtime import VectorActor
+from scalable_agent_tpu_torch.runtime import ActorPool, VectorActor
+from scalable_agent_tpu_torch.runtime import actor as actor_mod
 from scalable_agent_tpu_torch.runtime import service as service_mod
 from scalable_agent_tpu_torch.runtime.batcher import (
+    DynamicBatcher,
     bucket_ladder,
     pad_to_bucket,
 )
@@ -146,6 +150,26 @@ class TestBatchFormation:
         # these batch sizes.
         assert {pad_to_bucket(n, sizes) for n in range(4, 65, 4)} == {
             4, 8, 16, 32, 64}
+
+    def test_dynamic_batcher_uses_shared_policy(self):
+        """The batcher's padding is the shared implementation: a formed
+        batch of 3 against a [1, 2, 4, 8] ladder pads to 4."""
+        seen = []
+
+        def compute(tree, n):
+            seen.append((np.asarray(tree).shape[0], n))
+            return np.asarray(tree)
+
+        with DynamicBatcher(compute, maximum_batch_size=8, timeout_ms=1.0,
+                            pad_to_sizes=bucket_ladder(8)) as batcher:
+            futures = [batcher.compute_async(np.float32(i))
+                       for i in range(3)]
+            for future in futures:
+                future.result(timeout=10)
+        padded_sizes = {shape for shape, _ in seen}
+        valid = {n for _, n in seen}
+        assert padded_sizes <= {1, 2, 4, 8}
+        assert sum(valid) == 3
 
 
 # ---------------------------------------------------------------------------
@@ -639,6 +663,99 @@ def test_service_actor_step_writes_only_the_valid_rows():
                                   state.h[:2].numpy())
     for row in (1, 3, 4):  # untouched, the dummy row included
         assert not slab_c[row].any() and not slab_h[row].any()
+
+
+# ---------------------------------------------------------------------------
+# ActorPool(inference_mode="service")
+# ---------------------------------------------------------------------------
+
+
+def test_service_pool_gives_the_structural_trajectories(monkeypatch):
+    """Three groups' actors step at once, so the native batcher co-batches
+    their requests (padded up [1, 2, 3]) into one step over their rows;
+    each group's rows are sampled from the generator its structural actor
+    would use (seed + 1000 * i), and padded slots draw nothing.  Each
+    group's unrolls equal the structural actor's: frames, actions and
+    dones exactly, logits, baselines and state at float32's 1e-5."""
+    agent = make_agent()
+    groups = 3
+    refs = []
+    for g in range(groups):
+        envs = make_envs(seed_base=100 * g)
+        try:
+            actor = VectorActor(agent, envs, T, seed=3 + 1000 * g)
+            refs.append([actor.run_unroll() for _ in range(3)])
+        finally:
+            envs.close()
+    # A longer wait than the pool's, so the three groups co-batch on a
+    # loaded machine.
+    monkeypatch.setattr(actor_mod, "SERVICE_TIMEOUT_MS", 50.0)
+    pool = ActorPool(agent, [make_envs(seed_base=100 * g)
+                             for g in range(groups)], T, seed=3,
+                     inference_mode="service")
+    pool.set_params(agent)
+    sizes = []
+    real_compute = pool._service_compute
+
+    def recording_compute(batched, k):
+        sizes.append((k, batched[1].shape[0]))
+        return real_compute(batched, k)
+
+    pool._service_compute = recording_compute
+    outs = [[] for _ in range(groups)]
+    barrier = threading.Barrier(groups)
+
+    def run(g):
+        barrier.wait()
+        for _ in range(3):
+            outs[g].append(pool.actors[g].run_unroll(pool._get_params()))
+
+    threads = [threading.Thread(target=run, args=(g,))
+               for g in range(groups)]
+    try:
+        for thread in threads:
+            thread.start()
+        for thread in threads:
+            thread.join(timeout=120)
+    finally:
+        pool.stop()
+    assert not any(thread.is_alive() for thread in threads)
+    assert max(k for k, _ in sizes) > 1, "no batch was co-batched"
+    assert {padded for _, padded in sizes} <= set(bucket_ladder(groups))
+    for g in range(groups):
+        assert len(outs[g]) == 3
+        for k, (got, want) in enumerate(zip(outs[g], refs[g])):
+            msg = f"group {g} unroll {k}"
+            np.testing.assert_array_equal(
+                got.env_outputs.observation.frame,
+                want.env_outputs.observation.frame, err_msg=msg)
+            np.testing.assert_array_equal(got.agent_outputs.action,
+                                          want.agent_outputs.action,
+                                          err_msg=msg)
+            np.testing.assert_array_equal(got.env_outputs.done,
+                                          want.env_outputs.done, err_msg=msg)
+            for a, b in ((got.agent_outputs.policy_logits,
+                          want.agent_outputs.policy_logits),
+                         (got.agent_outputs.baseline,
+                          want.agent_outputs.baseline),
+                         (got.agent_state.c, want.agent_state.c),
+                         (got.agent_state.h, want.agent_state.h)):
+                np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6,
+                                           err_msg=msg)
+
+
+def test_driver_refuses_actor_service_with_another_inference_mode(tmp_path):
+    from scalable_agent_tpu_torch import driver
+    from scalable_agent_tpu_torch.config import Config
+
+    for mode in ("service", "accum", "accum_fused"):
+        config = Config(device="cpu", logdir=str(tmp_path / mode),
+                        level_name="fake_small", num_actors=4, batch_size=2,
+                        unroll_length=4, height=16, width=16,
+                        total_environment_frames=32, actor="service",
+                        inference_mode=mode)
+        with pytest.raises(ValueError, match="applies to --actor=grouped"):
+            driver.train(config)
 
 
 # ---------------------------------------------------------------------------
