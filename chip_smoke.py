@@ -258,6 +258,35 @@ a result:
    ``torch.cuda.set_sync_debug_mode("error")``, each sample bitwise the
    batch in the slot the host mirror names; ``--mode=test`` on the run's
    checkpoint, which holds the target network.
+3r. (Run after 3o.) The numerics sentinel on the main path, bf16, every
+   update audited (``--sentinel_interval=1``), three runs counted as in
+   phase 3: a clean one of 3 updates (no breach at the default rtol 0.6;
+   the bf16 residual forward, BPTT and grad-W launched by the updates and
+   again by the audits' hot gradients, the float32 residual forward twice
+   and BPTT once an audit by the reference learner, the float32 grad-W
+   never: cuDNN's wgrad is the reference's; each audit's deviation per
+   flax leaf, both arms, printed, and the audit's host ms and one audit's
+   kernels' device ms beside the card's line), and a
+   ``kernel_miscompute@2;param_bitflip@3`` one (a breach near 1.0 at the
+   second audit, rung 1, the bf16 grad-W counter still after the swap,
+   exact frames; at the third audit the flipped leaf's delta arm at least
+   the flip over the step bound, above its reading without the flip on
+   the same update; a breach printed, not required: a 256x256 gate
+   kernel's RMSProp step can hide a flip of 1/8 of one element).
+3s. (Run after 3r.) One single-process chaos soak through the CLI's
+   ``run`` (``python -m scalable_agent_tpu_torch.runtime.soak run``): the
+   main path as a driver subprocess with ``--sentinel_interval=2`` at the
+   card's calibration ``--sentinel_rtol=2.0`` (1.5x the largest clean
+   reading of 200 audits; the JAX default 0.6 trips in 2% of clean
+   audits on the card), a metrics row every 1 s and no health profile
+   window (``--health_max_windows=0``), 4 faults of seed 5 over
+   ``nan_grad``, ``throughput_sag``, ``param_bitflip`` and
+   ``actor_raise`` through the runtime channel, a 20 s budget from the
+   run's first update, recovery windows of 4-8 s; every fault landed, a
+   drained exit 0, and ``soak_report.json`` passing every invariant but
+   the throughput floor, which is printed (the actor-bound loop's rows
+   are too noisy to grade at 0.8 in a short soak: ``soak_path``).
+   Each phase prints its seconds, and phase 4 the script's total.
 3d. (Run after 3b, before 3c.) The default loop's machinery, each part
    failing the run: packed
    bitwise equal to per_leaf for one full-width trajectory from the pool,
@@ -351,7 +380,9 @@ a result:
    risen less than 3.4: a stall has learned two cues) and at least 2 runs
    met the full curve (a sound learner misses that about 4% of the time
    at a one-in-two stall rate, 0.6% at one in three).  The runs keep the
-   health plane's records but open no profile window.
+   health plane's records but open no profile window.  Each seed is a
+   driver CLI subprocess, all at once (one after another they took 464 s
+   of a slow host's 1404 s on the card; 4 at a time 198 s of 1176).
 4. A ``{"kernels": [...]}`` line (the float32 kernels with their launches
    on the float32 path, the bf16 variants and V-trace with theirs on the
    main path; the ResNet stem's from 3h's float32 and bf16 runs, the C=4
@@ -438,11 +469,13 @@ CLI_TIMEOUT_S = 300         # each driver subprocess of phases 3d and 3e
 OBS_WATCHDOG_S = 2.0        # the watchdog drill's heartbeat deadline and
 OBS_SAG_S = 6.0             # its throughput sag, past deadline + poll
 TELEMETRY_UPDATES = 10      # updates timed per arm of the telemetry cost
+OBS_POOL_UPDATES = 4        # each planes on/off pool run (2 measured)
 BANDIT_UPDATES = 200
 BANDIT_RANDOM = 4.0         # fake_bandit: 16 steps, 4 actions
 BANDIT_SEEDS = tuple(range(1, 9))
 BANDIT_RISE = 2.5           # every run rises at least this above early
 BANDIT_FULL = 2             # runs that must meet the full curve
+BANDIT_PARALLEL = 8         # seeds run at once, each a CLI subprocess
 HEALTH_UPDATES = 10         # phase 3f's sag drill: the window closes
                             # after update HEALTH_SAG_AT + 3
 HEALTH_SAG_AT = 6           # the sagging update: after the 3 warm-up
@@ -3635,6 +3668,309 @@ def accum_matches_structural_on_card(torch, driver, config):
               for kind, d in worst.items()), flush=True)
 
 
+SENTINEL_UPDATES = 3         # phase 3r's clean run and its chaos run
+SOAK_BUDGET_S = 20.0         # phase 3s: seconds from the run's first update
+SOAK_SEED = 5                # the first seed whose 4 faults span the 4 points
+SOAK_POINTS = ("nan_grad", "throughput_sag", "param_bitflip", "actor_raise")
+# The card's in-process recoveries take seconds (a skipped update, a 0.45 s
+# sleep, a rebuild and its first update, an actor respawn after 0.5 s),
+# not the JAX defaults' TPU re-jit windows of 15-30 s, which would cover
+# every row of a 20 s budget.  A window opens when the line is appended;
+# an actor's point lands at its next unroll (3.7 s later in one card run),
+# so those windows are 8 s.
+SOAK_RECOVERY = "nan_grad=4,throughput_sag=4,param_bitflip=8,actor_raise=8"
+SOAK_TIMEOUT_S = 300
+# The soak's sentinel runs at the card's own calibration, not the JAX
+# default 0.6 (a TPU's): over 100 clean audits a rung on the main path
+# the card read a largest deviation of 1.332 at rung 0 and 1.149 at rung
+# 1 (a conv bias, a near-cancelled sum of bf16 cotangents), 2% of the
+# audits over 0.6 (PERF.md: tools/sentinel_envelope.py), which the
+# soak's quiet invariant would count as spontaneous trips.  1.5x the
+# largest reading.  Phase 3r holds the default.
+SOAK_SENTINEL_RTOL = 2.0
+
+
+def _device_time_ms(torch, profiler):
+    """The CUDA kernels' own milliseconds in a finished profiler window."""
+    total = 0.0
+    for evt in profiler.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            total += getattr(evt, "self_device_time_total", None) or getattr(
+                evt, "self_cuda_time_total", 0.0)
+    return total / 1e3
+
+
+def _flip_target(torch, sentinel_lib, sentinel, snap):
+    """Before a ``param_bitflip`` audit: the flax leaf and value of the
+    element the flip will take, the change the flip makes, the leaf's size
+    and the audit's lr."""
+    import numpy as np
+
+    views = sentinel_lib.flax_leaf_views(
+        sentinel.learner.state_dict()["params"])
+    flat = torch.cat([v.detach().reshape(-1) for _, v in views])
+    index = int(flat.abs().argmax())
+    for path, view in views:
+        if index < view.numel():
+            break
+        index -= view.numel()
+    value = np.float32(view.reshape(-1)[index].item())
+    flipped = (value.view(np.int32) ^ np.int32(1 << sentinel_lib.FLIP_BIT)
+               ).view(np.float32)
+    hp = sentinel.learner._hp
+    return dict(leaf=path, numel=view.numel(), value=float(value),
+                change=abs(float(flipped) - float(value)),
+                lr=hp.learning_rate * max(
+                    0.0, 1.0 - snap.env_frames / hp.total_environment_frames))
+
+
+def _audit_recorder(torch, sentinel_lib, read_counts, audits,
+                    profile_index=None, flip_index=None, write_counts=None):
+    """A ``NumericsSentinel.audit`` that appends, after each audit, its
+    rung before and after, its per-leaf deviations (both arms, read off
+    the card after the audit's own single read), the launch counts, its
+    host ms (from a synchronized start to its end, synchronized) and, for
+    audit ``profile_index``, the kernels' device ms (torch.profiler).  For
+    audit ``flip_index`` it first records ``_flip_target`` and the same
+    update's deviations without the flip, whose launches it takes back
+    off the counts (``write_counts``): they are not the path's."""
+    real_audit = sentinel_lib.NumericsSentinel.audit
+
+    def recorded(self, snap, trajectory, updates):
+        rung = self.rung
+        flip = None
+        if len(audits) == flip_index:
+            flip = _flip_target(torch, sentinel_lib, self, snap)
+            counts = read_counts()
+            grad, delta = self._deviations(snap, trajectory, False)
+            flip.update(clean_grad=grad.tolist(), clean_delta=delta.tolist())
+            write_counts(counts)
+        torch.cuda.synchronize()
+        profiler = None
+        if len(audits) == profile_index:
+            profiler = torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA])
+            profiler.start()
+        t0 = time.perf_counter()
+        real_audit(self, snap, trajectory, updates)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        device_ms = None
+        if profiler is not None:
+            profiler.stop()
+            device_ms = _device_time_ms(torch, profiler)
+        grad, delta = self.last_deviations
+        audits.append(dict(update=updates, rung=rung, rung_after=self.rung,
+                           grad=grad.tolist(), delta=delta.tolist(),
+                           leaves=list(self.leaf_names), counts=read_counts(),
+                           host_ms=host_ms, device_ms=device_ms, flip=flip))
+
+    return recorded
+
+
+def _print_audit(audit, rtol, all_leaves=False):
+    """Print one recorded audit; returns (max deviation, its arm)."""
+    rows = ([(d, leaf, "grad") for d, leaf in
+             zip(audit["grad"], audit["leaves"])]
+            + [(d, leaf, "delta") for d, leaf in
+               zip(audit["delta"], audit["leaves"])])
+    dev, leaf, arm = max(rows)
+    print(f"  audit of update {audit['update'] + 1} (rung {audit['rung']} -> "
+          f"{audit['rung_after']}): max_deviation {dev:.6g} ({arm} arm, "
+          f"{leaf}) against rtol {rtol}; {audit['host_ms']:.2f} host ms"
+          + (f", {audit['device_ms']:.3f} device ms"
+             if audit["device_ms"] is not None else ""), flush=True)
+    if all_leaves:
+        print("    per leaf, grad / delta: " + "; ".join(
+            f"{leaf} {g:.3g} / {d:.3g}" for leaf, g, d in zip(
+                audit["leaves"], audit["grad"], audit["delta"])),
+              flush=True)
+    return dev, arm
+
+
+def sentinel_path(torch, driver, config, scratch, train_counted, read_counts,
+                  write_counts, card):
+    """Phase 3r: the numerics sentinel on the main path (bf16,
+    ``--scan_impl=pallas``, every update audited: ``--sentinel_interval=1``)
+    in three runs counted as in phase 3.  The audit takes each batch's
+    gradients at the pre-update parameters through the hot route (the bf16
+    kernels, the stem's grad-W) and the reference learner (the float32
+    LSTM kernels, cuDNN's wgrad, the two-pass loss), both on the card.
+    (1) Clean, SENTINEL_UPDATES updates: every update audited, no breach
+    at the default rtol, the bf16 residual forward, BPTT and grad-W
+    launched by the updates and again by the audits, the float32 residual
+    forward twice and the float32 BPTT once an audit, the float32 grad-W
+    never; each audit's deviation per flax leaf printed, its host ms and
+    (the second audit) its kernels' device ms beside the card's name and
+    power limit.  (2) ``kernel_miscompute@2;param_bitflip@3``: the second
+    audit breaches near 1.0 and demotes to rung 1 (``conv_backend=xla``);
+    the bf16 grad-W counter does not move after the swap; the third
+    audit's flipped leaf reads the flip on its delta arm (below); the run
+    finishes with exact frames.  Returns the clean run's launch counts."""
+    from scalable_agent_tpu_torch.obs import get_registry
+    from scalable_agent_tpu_torch.runtime import sentinel as sentinel_lib
+
+    registry = get_registry()
+    fpu, steps = config.frames_per_update(), config.unroll_length
+    rtol = config.sentinel_rtol
+
+    def audited_run(name, updates, expected, chaos_spec="",
+                    profile_index=None, flip_index=None):
+        audits = []
+        run = dataclasses.replace(
+            config, logdir=os.path.join(scratch, f"sentinel_{name}"),
+            sentinel_interval=1, chaos_spec=chaos_spec, log_interval_s=0.0,
+            total_environment_frames=float(updates * fpu))
+        before = registry.snapshot()
+        t0 = time.monotonic()
+        with _patched(sentinel_lib.NumericsSentinel,
+                      audit=_audit_recorder(torch, sentinel_lib, read_counts,
+                                            audits, profile_index,
+                                            flip_index, write_counts)):
+            counts = train_counted(run, updates, "_bf16", expected=expected)
+        after = registry.snapshot()
+        delta = lambda key: after.get(key, 0.0) - before.get(key, 0.0)
+        print(f"  {name} run: {updates} updates, {len(audits)} audits, "
+              f"{delta('devtel/sentinel/breaches_total'):.0f} breaches, rung "
+              f"{after.get('sentinel/rung')}, in {time.monotonic() - t0:.1f} "
+              f"s", flush=True)
+        if (len(audits) != updates
+                or delta("devtel/sentinel/audits_total") != updates):
+            raise AssertionError(f"phase 3r ({name}): {len(audits)} audits "
+                                 f"recorded, devtel "
+                                 f"{delta('devtel/sentinel/audits_total')}, "
+                                 f"for {updates} updates")
+        return counts, audits, delta, after
+
+    # (1) The clean run.
+    u = SENTINEL_UPDATES
+    counts, audits, delta, _ = audited_run(
+        "clean", u, {"lstm_fwd_lean_bf16": (u * steps, None),
+                     "lstm_fwd_resid_bf16": 2 * u, "lstm_bptt_bf16": 2 * u,
+                     "stem_gradw_bf16": 2 * u, "vtrace_fused": 3 * u,
+                     "lstm_fwd_resid": 2 * u, "lstm_bptt": u,
+                     "stem_gradw": 0, "lstm_fwd_lean": 0},
+        profile_index=1)
+    worst = [_print_audit(a, rtol, all_leaves=True)[0] for a in audits]
+    if delta("devtel/sentinel/breaches_total") or max(worst) > rtol:
+        raise AssertionError(f"phase 3r: the clean run breached: max "
+                             f"deviations {worst} against rtol {rtol}")
+    host = [a["host_ms"] for a in audits[1:]]
+    print(f"  the audit's added time per audited update (audits 2..{u}; "
+          f"the first builds the reference learner, "
+          f"{audits[0]['host_ms']:.1f} ms): host {sum(host) / len(host):.2f} "
+          f"ms, the second audit's kernels {audits[1]['device_ms']:.3f} "
+          f"device ms; {card}", flush=True)
+
+    # (2) One chaos run: kernel_miscompute at the second audit (a breach
+    # near 1.0, rung 1, the bf16 grad-W still after the swap), then
+    # param_bitflip at the third, on the rung-1 learner.  The flip moves
+    # one element by `change`; an RMSProp step is at most 10 lr an element
+    # (nu >= 0.01 g^2), so the flipped leaf's delta arm, flipped plus
+    # clean, reads at least change / (10 lr sqrt(n)).  Whether that passes
+    # rtol depends on the leaf's size: a breach is printed, not required
+    # (PERF.md, section 6).
+    _, audits, delta, after = audited_run(
+        "chaos", u, {"stem_gradw_bf16": 4, "stem_gradw": 0,
+                     "lstm_bptt_bf16": 2 * u, "lstm_bptt": u},
+        chaos_spec="kernel_miscompute@2;param_bitflip@3", flip_index=2)
+    devs = [_print_audit(a, rtol) for a in audits]
+    breach = devs[1][0]
+    if not (abs(breach - 1.0) < 0.25 and audits[0]["rung_after"] == 0
+            and audits[1]["rung_after"] == 1 and audits[2]["rung"] == 1):
+        raise AssertionError(f"phase 3r: kernel_miscompute read {devs}")
+    swapped = audits[1]["counts"]["stem_gradw_bf16"]
+    if audits[2]["counts"]["stem_gradw_bf16"] != swapped:
+        raise AssertionError("phase 3r: the stem's grad-W kernel launched "
+                             "after the demotion to conv_backend=xla")
+    print(f"  kernel_miscompute: breach {breach:.6g} at the second audit, "
+          f"rung 1; stem_gradw_bf16 {swapped} at the swap and at the end",
+          flush=True)
+    audit = audits[2]
+    flip = audit["flip"]
+    k = audit["leaves"].index(flip["leaf"])
+    floor = flip["change"] / (10.0 * flip["lr"] * math.sqrt(flip["numel"]))
+    read = audit["delta"][k]
+    print(f"  param_bitflip: {flip['leaf']} ({flip['numel']} elements) "
+          f"{flip['value']:.6g} flipped by {flip['change']:.6g}; its delta "
+          f"arm {read:.6g} against {flip['clean_delta'][k]:.6g} without "
+          f"the flip on the same update (grad arm {audit['grad'][k]:.6g}"
+          f" / {flip['clean_grad'][k]:.6g}), the step bound's floor "
+          f"{floor:.6g}; rung {audit['rung']} -> {audit['rung_after']} "
+          f"at rtol {rtol}", flush=True)
+    if not (read + flip["clean_delta"][k] >= floor and read > flip[
+            "clean_delta"][k] and abs(audit["grad"][k]
+                                      - flip["clean_grad"][k]) < 1e-3):
+        raise AssertionError("phase 3r: the delta arm did not read the "
+                             "param_bitflip on its leaf")
+    return counts
+
+
+def soak_path(root, scratch, card):
+    """Phase 3s: one single-process chaos soak on the card through the
+    CLI's ``run``: the main path (bf16, ``--scan_impl=pallas``, every
+    other update audited at SOAK_SENTINEL_RTOL, a row every 1 s) as a
+    driver subprocess fed SOAK_POINTS through the runtime channel (4
+    faults of seed SOAK_SEED, all four points, ``param_bitflip`` the
+    sentinel's), SOAK_BUDGET_S from its first update, then SIGTERMed and
+    drained.  Every fault must land (``faults/injected_total``), the run
+    drain with exit 0, and ``soak_report.json`` pass every invariant but
+    ``throughput_floor``, which is printed: on the card the main path's
+    loop is actor-bound, a metrics row of a few updates reads +-15-25%
+    and the loop ramps for ~20 s, so the floor (0.8 of the median of the
+    graded rows) read 0.63-0.98 over nine soaks on the card at 20-60 s
+    budgets and 1-4 s rows (PERF.md, section 6).  The health plane's
+    detectors run and are graded, but open no profile window: starting
+    ``torch.profiler`` stalls the loop for ~6 s on the card, which the
+    graded rows and detectors would take for the run's own."""
+    from scalable_agent_tpu_torch.runtime import soak
+
+    logdir = os.path.join(scratch, "soak")
+    cmd = [sys.executable, "-m", "scalable_agent_tpu_torch.runtime.soak",
+           "run", f"--soak_seed={SOAK_SEED}", "--soak_faults=4",
+           f"--soak_budget_s={SOAK_BUDGET_S}",
+           f"--soak_points={','.join(SOAK_POINTS)}",
+           f"--soak_recovery_s={SOAK_RECOVERY}", f"--logdir={logdir}",
+           "--level_name=fake_benchmark", "--scan_impl=pallas",
+           "--sentinel_interval=2",
+           f"--sentinel_rtol={SOAK_SENTINEL_RTOL}", "--log_interval_s=1",
+           "--checkpoint_interval_s=5", "--health_max_windows=0"]
+    proc, elapsed = _run_cli(root, cmd, SOAK_TIMEOUT_S)
+    report = soak.read_soak_report(logdir)
+    print(proc.stdout.strip(), flush=True)
+    if report is None:
+        raise AssertionError(f"phase 3s: no soak report (exit "
+                             f"{proc.returncode}):\n{proc.stderr[-3000:]}")
+    counters = soak._read_prom_counters(logdir)
+    print(f"  soak: exit {proc.returncode} in {elapsed:.1f} s; the run's "
+          f"first update "
+          f"{report['started_unix'] - report['launched_unix']:.1f} s after "
+          f"launch; faults landed {report['land_wait_s']} s after "
+          f"the budget; {counters.get('learner_updates_total', 0):.0f} "
+          f"updates, {counters.get('devtel_sentinel_audits_total', 0):.0f} "
+          f"audits, sentinel trips "
+          f"{counters.get('sentinel_trips_total', 0):.0f}, rung "
+          f"{counters.get('sentinel_rung')}; {card}", flush=True)
+    points = set(report["points"])
+    gated = {name: verdict for name, verdict in report["invariants"].items()
+             if name != "throughput_floor"}
+    throughput = report["invariants"]["throughput_floor"]
+    print(f"  throughput_floor (printed, not gated): ok {throughput['ok']}, "
+          f"{json.dumps(throughput, sort_keys=True)}", flush=True)
+    landed = counters.get("faults_injected_total", 0) == len(
+        report["injected"])
+    if not (all(v["ok"] for v in gated.values()) and landed
+            and len(points) >= 3 and "param_bitflip" in points
+            and report["worker_rc"] == 0 and report["drained"]):
+        raise AssertionError(f"phase 3s: the soak did not land its faults "
+                             f"over >= 3 points, param_bitflip among them, "
+                             f"and drain, and pass every invariant but the "
+                             f"throughput floor:\n"
+                             f"{json.dumps(report['invariants'])}"
+                             f"\n{proc.stderr[-3000:]}")
+
+
 def _early_late(returns, random_return):
     """The means of the first 3 and the last 5 episode_return rows."""
     if len(returns) < 8:
@@ -3661,19 +3997,23 @@ def _learned(early, late, random_return):
     return None
 
 
-def learn_bandit(driver, Config, scratch):
+def learn_bandit(Config, scratch, root):
     """fake_bandit through the pool on the card (tests/test_learning.py's
-    settings), logged every update, once per seed of BANDIT_SEEDS: every
-    run must rise BANDIT_RISE above its early rows, and BANDIT_FULL runs
-    must meet the full curve.  The health plane keeps its records and
-    dumps but opens no profile window (3f drills those): a window's
-    profiler and harvest are seconds of host time in a 200-update run."""
+    settings), logged every update, once per seed of BANDIT_SEEDS, each a
+    driver CLI subprocess, BANDIT_PARALLEL of them at a time (in one
+    process the eight took 288-464 s of the script's 1200): every run must
+    rise BANDIT_RISE above its early
+    rows, and BANDIT_FULL runs must meet the full curve.  The health plane
+    keeps its records and dumps but opens no profile window (3f drills
+    those): a window's profiler and harvest are seconds of host time in a
+    200-update run."""
     t, b = 16, 16
     full, stalled, flat = [], [], []
+    runs = {}
     for seed in BANDIT_SEEDS:
-        logdir = os.path.join(scratch, f"bandit_seed{seed}")
-        config = Config(
-            level_name="fake_bandit", logdir=logdir, device="cuda",
+        runs[seed] = Config(
+            level_name="fake_bandit", device="cuda",
+            logdir=os.path.join(scratch, f"bandit_seed{seed}"),
             height=16, width=16, num_actors=32, batch_size=b,
             unroll_length=t, num_action_repeats=1,
             total_environment_frames=float(BANDIT_UPDATES * t * b),
@@ -3681,12 +4021,37 @@ def learn_bandit(driver, Config, scratch):
             num_env_workers_per_group=2, log_interval_s=0.0,
             checkpoint_interval_s=3600.0, scan_impl="pallas", seed=seed,
             health_max_windows=0)
-        t0 = time.monotonic()
-        driver.train(config)
-        print(f"  seed {seed}: {BANDIT_UPDATES} updates in "
-              f"{time.monotonic() - t0:.1f} s", flush=True)
-        _print_anomalies(logdir, f"seed {seed}")
-        early, late = _early_late([r["episode_return"] for r in _rows(logdir)
+    env = dict(os.environ, PYTHONPATH=root)
+    pending, running = list(runs), {}
+    while pending or running:
+        while pending and len(running) < BANDIT_PARALLEL:
+            seed = pending.pop(0)
+            log_file = open(os.path.join(scratch, f"bandit_{seed}.log"), "w")
+            running[seed] = (subprocess.Popen(
+                _cli(runs[seed]), cwd=root, env=env, stdout=log_file,
+                stderr=subprocess.STDOUT), log_file, time.monotonic())
+        time.sleep(1.0)
+        for seed, (proc, log_file, t0) in list(running.items()):
+            if proc.poll() is None:
+                if time.monotonic() - t0 > CLI_TIMEOUT_S:
+                    proc.kill()
+                    proc.wait()
+                else:
+                    continue
+            log_file.close()
+            del running[seed]
+            print(f"  seed {seed}: {BANDIT_UPDATES} updates, exit "
+                  f"{proc.returncode} in {time.monotonic() - t0:.1f} s "
+                  f"(start included)", flush=True)
+            if proc.returncode != 0:
+                with open(log_file.name) as f:
+                    raise AssertionError(f"fake_bandit seed {seed} exited "
+                                         f"{proc.returncode}:\n"
+                                         f"{f.read()[-3000:]}")
+    for seed, config in runs.items():
+        _print_anomalies(config.logdir, f"seed {seed}")
+        early, late = _early_late([r["episode_return"]
+                                   for r in _rows(config.logdir)
                                    if "episode_return" in r], BANDIT_RANDOM)
         failure = _learned(early, late, BANDIT_RANDOM)
         if failure is None:
@@ -3913,11 +4278,8 @@ def compare_windows(torch, driver, CheckpointManager, config, outs,
 def _cli(config):
     """The driver's CLI for ``config``: a flag for every field that
     differs from its default."""
-    default = type(config)()
-    return [sys.executable, "-m", "scalable_agent_tpu_torch.driver"] + [
-        f"--{f.name}={getattr(config, f.name)}"
-        for f in dataclasses.fields(config)
-        if getattr(config, f.name) != getattr(default, f.name)]
+    return ([sys.executable, "-m", "scalable_agent_tpu_torch.driver"]
+            + config.to_argv())
 
 
 def _run_cli(root, cmd, timeout, env=None):
@@ -3939,6 +4301,17 @@ def rollback_drill(driver, config, scratch, root):
         config, logdir=os.path.join(scratch, "rollback"), chaos_spec=spec,
         nonfinite_tolerance=3, checkpoint_interval_s=0.0,
         total_environment_frames=frames)
+    # The --no_rollback CLI runs beside the in-process drill (its start is
+    # most of its time on the card).
+    t0 = time.monotonic()
+    stderr_path = os.path.join(scratch, "no_rollback.log")
+    with open(stderr_path, "w") as stderr_file:
+        no_rollback = subprocess.Popen(
+            _cli(dataclasses.replace(
+                drill, logdir=os.path.join(scratch, "no_rollback"),
+                no_rollback=True)), cwd=root,
+            env=dict(os.environ, PYTHONPATH=root),
+            stdout=subprocess.DEVNULL, stderr=stderr_file)
     handler = _log_messages()
     logger = logging.getLogger("scalable_agent_tpu_torch")
     logger.addHandler(handler)
@@ -3957,14 +4330,19 @@ def rollback_drill(driver, config, scratch, root):
             or not math.isfinite(metrics["total_loss"])):
         raise AssertionError("the rollback drill did not roll back once "
                              "and complete with 3 skips")
-    proc, elapsed = _run_cli(root, _cli(dataclasses.replace(
-        drill, logdir=os.path.join(scratch, "no_rollback"),
-        no_rollback=True)), CLI_TIMEOUT_S)
-    print(f"  --no_rollback: exit {proc.returncode} in {elapsed:.1f} s",
-          flush=True)
-    if proc.returncode != 71:
-        raise AssertionError(f"--no_rollback exited {proc.returncode}, not "
-                             f"71:\n{proc.stderr[-3000:]}")
+    try:
+        no_rollback.wait(timeout=CLI_TIMEOUT_S)
+    finally:
+        if no_rollback.poll() is None:
+            no_rollback.kill()
+            no_rollback.wait()
+    print(f"  --no_rollback: exit {no_rollback.returncode} in "
+          f"{time.monotonic() - t0:.1f} s (beside the drill)", flush=True)
+    if no_rollback.returncode != 71:
+        with open(stderr_path) as f:
+            raise AssertionError(f"--no_rollback exited "
+                                 f"{no_rollback.returncode}, not 71:\n"
+                                 f"{f.read()[-3000:]}")
 
 
 def preemption_drill(CheckpointManager, config, scratch, root):
@@ -4240,7 +4618,8 @@ def obs_cost_in_the_loop(torch, driver, config, scratch):
         logdir = os.path.join(scratch, f"obs_{name}{len(s_per_update[name])}")
         print(f"  planes {name}:", flush=True)
         s_per_update[name].append(pool_steady_state(
-            torch, driver, on if name == "on" else off, logdir))
+            torch, driver, on if name == "on" else off, logdir,
+            updates=OBS_POOL_UPDATES))
         if name == "on":
             readings.append(_registry_readings(logdir))
     mean = lambda xs: sum(xs) / len(xs)
@@ -4841,6 +5220,11 @@ def main() -> int:
     def read_counts():
         return {k: v for launches in counters for k, v in launches.items()}
 
+    def write_counts(saved):
+        for launches in counters:
+            for key in launches:
+                launches[key] = saved[key]
+
     # -- phase 1: the card and the build
     started = time.monotonic()
 
@@ -5129,6 +5513,18 @@ def main() -> int:
         torch.cuda.empty_cache()
         print(f"  phase 3o took {time.monotonic() - t0:.1f} s", flush=True)
 
+        phase("phase 3r: the numerics sentinel, every update audited")
+        t0 = time.monotonic()
+        sentinel_path(torch, driver, config, scratch, train_counted,
+                      read_counts, write_counts, card)
+        torch.cuda.empty_cache()
+        print(f"  phase 3r took {time.monotonic() - t0:.1f} s", flush=True)
+
+        phase("phase 3s: a chaos soak through the runtime channel")
+        t0 = time.monotonic()
+        soak_path(root, scratch, card)
+        print(f"  phase 3s took {time.monotonic() - t0:.1f} s", flush=True)
+
         phase("phase 3d: the default loop's machinery on the card")
         outs = pool_trajectories(torch, driver, config, 4)
         with float32_precision():
@@ -5164,7 +5560,8 @@ def main() -> int:
               f"bfloat16", flush=True)
         for i, reading in enumerate(readings):
             print(f"  planes-on pool run {i}: stall verdicts of updates "
-                  f"3..{POOL_UPDATES} {reading['verdicts_of_updates_3_on']}, "
+                  f"3..{OBS_POOL_UPDATES} "
+                  f"{reading['verdicts_of_updates_3_on']}, "
                   f"last {reading['last_verdict']} (wait_batch "
                   f"{reading['wait_frac']:.3f} of the learner interval); "
                   f"dominant ledger segment {reading['dominant_segment']} "
@@ -5184,7 +5581,7 @@ def main() -> int:
 
         phase("phase 3c: fake_bandit learns through the pool on the card "
               "(bf16 policy)")
-        learn_bandit(driver, Config, scratch)
+        learn_bandit(Config, scratch, root)
         phase("phase 4: the report")
 
     # -- phase 4: the report.  Launches: the bf16 variants' (and V-trace's)
@@ -5220,6 +5617,8 @@ def main() -> int:
                             "resnet_stem_gradw_c4",
                             "resnet_stem_gradw_c4_bf16",
                             "lstm_fwd_lean_unroll_bf16")]
+    print(f"chip_smoke.py total: {time.monotonic() - started:.1f} s "
+          f"({card})", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

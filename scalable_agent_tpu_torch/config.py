@@ -24,8 +24,7 @@ from typing import Optional
 UNPORTED_FLAGS = (
     "mesh_data", "mesh_seq", "mesh_model", "distributed_coordinator",
     "distributed_num_processes", "distributed_process_id", "train_backend",
-    "updates_per_dispatch", "sentinel_interval", "sentinel_rtol",
-    "chaos_channel", "compile_cache_dir", "peer_timeout_s",
+    "updates_per_dispatch", "compile_cache_dir", "peer_timeout_s",
     "collective_timeout_s",
     "coordinator_init_timeout_s", "elastic", "fleet_epoch",
     "elastic_restart_budget", "elastic_stable_s", "elastic_rejoin_delay_s",
@@ -227,6 +226,26 @@ class Config:
     # Fault injection (runtime/faults.py): 'point@i[:j...]',
     # 'point@t=30s' or 'point@p=0.01' entries joined by ';'.
     chaos_spec: str = ""
+    # Arm the runtime injection channel: the injector tails
+    # <logdir>/chaos_inject.jsonl and fires each appended
+    # {"point": ..., "t_unix": ...} line once at that point's next
+    # evaluation, so faults land in a run that is already going (the chaos
+    # soak, runtime/soak.py, writes the lines).
+    chaos_channel: bool = False
+    # The numerics sentinel (runtime/sentinel.py): every K updates,
+    # shadow-audit the hot route's gradients and param delta against the
+    # reference route (the library stem, float32 compute, the two-pass
+    # loss) and demote down the degradation ladder on a breach; also
+    # publish a param fingerprint every 8 updates.  0 disables it (nothing
+    # is built and the update is unchanged).
+    sentinel_interval: int = 0
+    # The largest per-leaf L2-relative deviation ||hot - ref|| /
+    # (||ref|| + eps) a gradient or param-delta leaf may show before an
+    # audit breaches.  The JAX package's default, calibrated on its TPU
+    # (a 2x-miscomputing kernel reads exactly 1.0); the card's clean
+    # deviation is in PERF.md.  Watch devtel/sentinel/max_deviation to
+    # re-calibrate.
+    sentinel_rtol: float = 0.6
 
     # -- off-policy training (runtime/replay.py, ops/impact.py)
     # "vtrace" (the reference's objective) or "impact" (the clipped-target
@@ -360,6 +379,20 @@ class Config:
             raw = json.load(f)
         known = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in raw.items() if k in known})
+
+    def to_argv(self) -> list:
+        """The inverse of ``from_argv``: the ``--field=value`` flags of the
+        fields that differ from their defaults (how a run's config is
+        handed to a driver subprocess, the chaos soak's)."""
+        args = []
+        for field in dataclasses.fields(self):
+            value = getattr(self, field.name)
+            if value == field.default:
+                continue
+            if isinstance(value, bool):
+                value = "true" if value else "false"
+            args.append(f"--{field.name}={value}")
+        return args
 
     @classmethod
     def from_argv(cls, argv=None, description=None) -> "Config":

@@ -24,6 +24,12 @@ The IMPACT target network is a second param tree (the JAX
 ``TrainState.target_params``, the port's ``TrainState.target_params``)
 and takes the same two functions.
 
+``flax_leaf_views`` gives the flax leaves of any tree keyed by the port's
+parameter names (the parameters, their gradients, a step) as views, in
+the order ``jax.tree_util.tree_leaves`` walks the flax tree: the numerics
+sentinel's per-leaf deviations, bit flip and fingerprint follow the JAX
+package's leaves through it.
+
 ``layer_group`` sends each port parameter to the ``LAYER_GROUPS`` bucket
 of the flax module it comes from, by the JAX learner's rule
 (``runtime/learner.py`` ``_layer_group``): ``convnet/*`` (``fc``
@@ -32,7 +38,7 @@ included) is the torso, ``core/lstm/*`` the core, ``policy_logits`` and
 torso.
 """
 
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -97,6 +103,42 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
         arrays[_EMBED[0]] = np.asarray(_get(tree, _EMBED[1]))
     return {name: torch.from_numpy(np.array(a, np.float32))
             for name, a in arrays.items()}
+
+
+def flax_leaf_views(named: Mapping[str, torch.Tensor]
+                    ) -> List[Tuple[str, torch.Tensor]]:
+    """``(flax path, view)`` for every flax leaf of ``named`` (tensors by
+    port parameter name), sorted as ``jax.tree_util.tree_leaves`` orders
+    the tree ``state_dict_to_flax`` builds (dict keys sorted at every
+    level).  Each view is of ``named``'s tensor, indexed as the flax leaf
+    (a conv kernel HWIO, a Dense kernel [in, out], one gate's columns of
+    an LSTM), so writing it writes the tensor."""
+    leaves = []
+    for name, tensor in named.items():
+        module, _, leaf = name.rpartition(".")
+        if module.split(".")[0] in _LAYERS:
+            path = module.replace(".", "/")
+            if leaf == "bias":
+                leaves.append((f"{path}/bias", tensor))
+            else:
+                leaves.append((f"{path}/kernel",
+                               tensor.permute(2, 3, 1, 0)
+                               if tensor.dim() == 4 else tensor.t()))
+        elif name == _EMBED[0]:
+            leaves.append((_EMBED[1], tensor))
+        elif module in _LSTMS and leaf in ("wi", "wh", "b"):
+            hidden = tensor.shape[-1] // len(GATES)
+            for n, g in enumerate(GATES):
+                cols = slice(n * hidden, (n + 1) * hidden)
+                if leaf == "b":
+                    leaves.append((f"{_LSTMS[module]}/h{g}/bias",
+                                   tensor[cols]))
+                else:
+                    leaves.append((f"{_LSTMS[module]}/{leaf[1]}{g}/kernel",
+                                   tensor[:, cols]))
+        else:
+            raise ValueError(f"no flax leaf for parameter {name!r}")
+    return sorted(leaves, key=lambda item: item[0].split("/"))
 
 
 def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:

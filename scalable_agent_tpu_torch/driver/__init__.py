@@ -29,9 +29,21 @@ experiment.py:675-708):
   back to the newest verified checkpoint (``_rollback_or_exit``: exit 71
   under ``--no_rollback`` or with nothing to restore), else a checkpoint
   at the checkpoint cadence.  The tail drains the window and forces one
-  final checkpoint.  Threads and worker processes are joined in a
-  ``finally``, and an actor's terminal exception ends the run with that
-  exception.
+  final checkpoint.
+- The numerics sentinel (``--sentinel_interval`` > 0, ``build_sentinel``,
+  ``runtime/sentinel.py``): the learner is snapshotted before every
+  audited update and the audit runs after it, before the replayed updates,
+  with the learner's heartbeat suspended; a demotion swaps in the rebuilt
+  agent and learner (the actors take the new dtype policy with the weights
+  published next), flushes the replay slab and suspends the heartbeat
+  across the new route's first update.  The param fingerprint is taken
+  every 8 updates, a breach past the ladder rolls back (reason
+  ``sentinel``; exit 73 where nothing restores or under
+  ``--no_rollback``), and the sentinel's device telemetry is published at
+  the log cadence and at the end.  ``--chaos_channel`` arms the runtime
+  injection channel ``<logdir>/chaos_inject.jsonl`` (``arm_faults``).
+- Threads and worker processes are joined in a ``finally``, and an
+  actor's terminal exception ends the run with that exception.
 - The obs producers (``obs/``), armed before anything else as the JAX
   driver arms them (``_setup_observability``): the metrics registry with
   its device-memory gauge, ``<logdir>/metrics.prom``, the flight recorder
@@ -95,9 +107,10 @@ The run happens on ``--device=cuda`` (the default) and fails when there is
 no card; ``--device=cpu`` runs every kernel's plain PyTorch version.  Exit
 codes (``runtime/exit_codes.py``): 0 for a finished or a drained
 preempted run, 70 for the watchdog under ``--watchdog_abort``, 71 for the
-non-finite guard, 72 for an expired preemption grace, 143 for a second
-SIGTERM.  The obs CLIs read a run's logdir (``python -m
-scalable_agent_tpu_torch.obs.report <logdir>``; ``obs/__init__.py``).
+non-finite guard, 72 for an expired preemption grace, 73 for the numerics
+sentinel, 143 for a second SIGTERM.  The obs CLIs read a run's logdir
+(``python -m scalable_agent_tpu_torch.obs.report <logdir>``;
+``obs/__init__.py``).
 The level families are those of the JAX package but for ``device_``:
 ``fake_``, ``doom_``, ``dmlab_``, ``atari_`` and ``gym_``
 (``envs/registry.py``).  Off-policy training runs as in the JAX host
@@ -176,8 +189,13 @@ from scalable_agent_tpu_torch.runtime import (
     Trajectory,
 )
 from scalable_agent_tpu_torch.runtime.actor import to_device
-from scalable_agent_tpu_torch.runtime.exit_codes import NONFINITE_EXIT_CODE
+from scalable_agent_tpu_torch.runtime.exit_codes import (
+    NONFINITE_EXIT_CODE,
+    SENTINEL_EXIT_CODE,
+)
 from scalable_agent_tpu_torch.runtime.faults import (
+    CHANNEL_NAME,
+    SENTINEL_POINTS,
     armed_points,
     configure_faults,
     get_fault_injector,
@@ -188,6 +206,7 @@ from scalable_agent_tpu_torch.runtime.learner import (
     NonFiniteTracker,
     update_flops,
 )
+from scalable_agent_tpu_torch.runtime import sentinel as sentinel_lib
 from scalable_agent_tpu_torch.runtime.replay import DeviceReplayBuffer
 from scalable_agent_tpu_torch.runtime.service import ActorService
 from scalable_agent_tpu_torch.runtime.transport import (
@@ -382,6 +401,23 @@ def build_replay(config: Config, transport) -> Optional[DeviceReplayBuffer]:
     return replay
 
 
+def build_sentinel(config: Config, agent: ImpalaAgent, learner: Learner,
+                   observation_spec, action_space, device: torch.device):
+    """The numerics sentinel of a training run (``runtime/sentinel.py``),
+    or None at ``--sentinel_interval=0`` (nothing built, the update
+    unchanged).  Its ``rebuild`` makes every ladder rung and the reference
+    learner through ``build_agent`` and ``build_learner``, so a demoted
+    route is the one its flags would build, on the run's device."""
+    if config.sentinel_interval <= 0:
+        return None
+
+    def rebuild(cfg):
+        rebuilt = build_agent(cfg, observation_spec, action_space, device)
+        return rebuilt, build_learner(cfg, rebuilt)
+
+    return sentinel_lib.NumericsSentinel(config, agent, learner, rebuild)
+
+
 def worker_processes(requested: int, num_envs: int) -> int:
     """Env worker processes for a fleet of ``num_envs`` envs, as the JAX
     MultiEnv reads its ``num_workers``: 0 means one per env, and there is
@@ -502,15 +538,27 @@ def make_env_groups(config: Config, frame_spec, num_agents: int = 1,
 
 
 def arm_faults(config: Config) -> None:
-    """Arm ``--chaos_spec`` for this run.  A point that cannot fire in
-    this configuration raises: ``preempt_sigterm`` lives in the
-    preemption monitor, which runs only with ``preemption_grace_s > 0``."""
-    if ("preempt_sigterm" in armed_points(config.chaos_spec)
-            and config.preemption_grace_s <= 0):
+    """Arm ``--chaos_spec`` for this run and, under ``--chaos_channel``,
+    the runtime injection channel ``<logdir>/chaos_inject.jsonl``.  A
+    point that cannot fire in this configuration raises:
+    ``preempt_sigterm`` lives in the preemption monitor, which runs only
+    with ``preemption_grace_s > 0``, the sentinel's points in the
+    sentinel, which runs only with ``sentinel_interval > 0``."""
+    points = armed_points(config.chaos_spec)
+    if "preempt_sigterm" in points and config.preemption_grace_s <= 0:
         raise ValueError(
             "chaos_spec arms preempt_sigterm, which fires from the "
             "preemption monitor: it needs --preemption_grace_s > 0")
-    configure_faults(config.chaos_spec, seed=config.seed)
+    sentinel_points = sorted(points & set(SENTINEL_POINTS))
+    if sentinel_points and config.sentinel_interval <= 0:
+        raise ValueError(
+            f"chaos_spec arms {sentinel_points}, which fire in the numerics "
+            f"sentinel: they need --sentinel_interval > 0")
+    configure_faults(
+        config.chaos_spec,
+        channel_path=(os.path.join(config.logdir, CHANNEL_NAME)
+                      if config.chaos_channel else None),
+        seed=config.seed)
 
 
 def start_prefetch(pool: ActorPool, transport, device: torch.device,
@@ -604,23 +652,28 @@ def _adopt(staged_item, device: torch.device) -> Trajectory:
 
 
 def _rollback_or_exit(config: Config, ckpt: CheckpointManager,
-                      learner: Learner, tracker: NonFiniteTracker) -> int:
-    """The non-finite tolerance is exhausted: restore the newest VERIFIED
-    checkpoint into ``learner`` (its streak zeroed, so the restored
-    timeline gets the full tolerance again; the learner's heartbeat
-    suspended across the read) and return its step, or raise
-    ``SystemExit(71)`` under ``--no_rollback`` or when nothing restores
+                      learner: Learner, tracker: NonFiniteTracker,
+                      reason: str = "nonfinite") -> int:
+    """A guard's tolerance is exhausted (``reason``: the non-finite
+    streak, or ``sentinel``, a breach that survived the degradation
+    ladder): restore the newest VERIFIED checkpoint into ``learner`` (its
+    streak zeroed, so the restored timeline gets the full tolerance
+    again; the learner's heartbeat suspended across the read) and return
+    its step, or raise ``SystemExit`` (71, or 73 for the sentinel) under
+    ``--no_rollback`` or when nothing restores
     (``scalable_agent_tpu/driver.py:887``), after the flight recorder's
     dump."""
-    guard = "non-finite guard"
+    guard = "sentinel" if reason == "sentinel" else "non-finite guard"
+    exit_code = (SENTINEL_EXIT_CODE if reason == "sentinel"
+                 else NONFINITE_EXIT_CODE)
     recorder = get_flight_recorder()
     if config.no_rollback:
         log.error("%s: rollback wanted and --no_rollback is set — exiting "
-                  "%d", guard, NONFINITE_EXIT_CODE)
+                  "%d", guard, exit_code)
         recorder.record("rollback", "disabled",
-                        {"streak": tracker.tolerance, "reason": "nonfinite"})
-        recorder.dump_all("nonfinite:no_rollback")
-        raise SystemExit(NONFINITE_EXIT_CODE)
+                        {"streak": tracker.tolerance, "reason": reason})
+        recorder.dump_all(f"{reason}:no_rollback")
+        raise SystemExit(exit_code)
     watchdog = get_watchdog()
     try:
         restored = ckpt.restore(heartbeat="learner")
@@ -629,11 +682,10 @@ def _rollback_or_exit(config: Config, ckpt: CheckpointManager,
         restored = None
     if restored is None:
         log.error("%s: rollback wanted and no restorable checkpoint under "
-                  "%s — exiting %d", guard, config.logdir,
-                  NONFINITE_EXIT_CODE)
-        recorder.record("rollback", "no_checkpoint", {"reason": "nonfinite"})
-        recorder.dump_all("nonfinite:no_checkpoint")
-        raise SystemExit(NONFINITE_EXIT_CODE)
+                  "%s — exiting %d", guard, config.logdir, exit_code)
+        recorder.record("rollback", "no_checkpoint", {"reason": reason})
+        recorder.dump_all(f"{reason}:no_checkpoint")
+        raise SystemExit(exit_code)
     step, saved = restored
     saved["nonfinite_streak"] = torch.zeros_like(
         torch.as_tensor(saved["nonfinite_streak"]))
@@ -647,7 +699,7 @@ def _rollback_or_exit(config: Config, ckpt: CheckpointManager,
         "breach)").inc()
     recorder.record("rollback", "restored",
                     {"step": step, "env_frames": learner.state.env_frames,
-                     "reason": "nonfinite"})
+                     "reason": reason})
     tracker.rebase(float(saved["nonfinite_skips"]))
     watchdog.touch("learner")
     log.warning("%s: rolled back to checkpoint step %d (%.0f frames)",
@@ -1062,7 +1114,7 @@ def train(config: Config, clock=time) -> Dict[str, float]:
             f"--actor=service steps each env worker process on its own "
             f"(MultiEnv's per-worker API); {config.level_name}'s lockstep "
             f"multi-agent matches have none: run it with --actor=grouped")
-    groups = pool = prefetch_thread = writer = learner = None
+    groups = pool = prefetch_thread = writer = learner = sentinel = None
     prefetch_stop = threading.Event()
     monitor = PreemptionMonitor(config.preemption_grace_s)
     metrics: Dict[str, torch.Tensor] = {}
@@ -1088,6 +1140,10 @@ def train(config: Config, clock=time) -> Dict[str, float]:
             agent = build_agent(config, observation_spec, action_space,
                                 device)
             learner = build_learner(config, agent)
+            # The numerics sentinel: None (nothing built) at
+            # --sentinel_interval=0.
+            sentinel = build_sentinel(config, agent, learner,
+                                      observation_spec, action_space, device)
             costs = kernel_costs(config, device, observation_spec,
                                  action_space)
             configure_live_mfu(config, ledger, costs)
@@ -1180,6 +1236,11 @@ def train(config: Config, clock=time) -> Dict[str, float]:
                 watchdog.touch("learner")
                 trajectory = _adopt(item, device)
                 ledger_tid = ledger.lookup(id(item))
+                audit_snap = None
+                if sentinel is not None and sentinel.audit_due(updates):
+                    # The learner before the update, queued ahead of it on
+                    # this stream, for the shadow audit below.
+                    audit_snap = sentinel.snapshot()
                 if first_dispatch:
                     watchdog.suspend("learner")
                     first_dispatch = False
@@ -1195,6 +1256,29 @@ def train(config: Config, clock=time) -> Dict[str, float]:
                     ledger.stamp(ledger_tid, "dispatch")
                 window.push(dispatched, ledger_id=ledger_tid)
                 watchdog.touch("learner")
+                if audit_snap is not None:
+                    # The shadow audit of this batch, before the replayed
+                    # updates, so its delta arm sees the fresh update's
+                    # parameters.  Recovery machinery, not a wedge: the
+                    # heartbeat is suspended across it.
+                    watchdog.suspend("learner")
+                    with timing.time_avg("audit"), \
+                            interval.add_time("audit"):
+                        sentinel.audit(audit_snap, trajectory, updates)
+                    audit_snap = None
+                    if sentinel.consume_swap():
+                        # A demotion: publish the old hot learner's
+                        # telemetry, adopt the rebuilt pair (the actors
+                        # take it with the weights published below) and
+                        # drop the replay slab, filled by the breached
+                        # route.  The next update is the new route's
+                        # first: the heartbeat is suspended across it.
+                        learner.publish_device_telemetry()
+                        learner, agent = sentinel.learner, sentinel.agent
+                        if replay is not None:
+                            replay.flush()
+                        first_dispatch = True
+                    watchdog.touch("learner")
                 del trajectory, item
                 # The off-policy dial: replay_ratio updates on sampled
                 # batches behind each fresh one, through the same window
@@ -1281,6 +1365,8 @@ def train(config: Config, clock=time) -> Dict[str, float]:
                                 for k, v in timing.summary().items()})
                     # The obs publication, in the JAX driver's order.
                     learner.publish_device_telemetry()
+                    if sentinel is not None:
+                        sentinel.publish()
                     ledger.publish()
                     watchdog.touch("learner")
                     interval_sums = interval.summary()
@@ -1309,17 +1395,32 @@ def train(config: Config, clock=time) -> Dict[str, float]:
                         StallAttributor.describe(category, evidence))
                     last_log, frames_at_last_log = now, frames
                     steps_at_last_log = steps
-                # The decisions, at a fixed point of every iteration.
+                # The decisions, at a fixed point of every iteration.  The
+                # fingerprint rides the JAX decision cadence (its
+                # cross-process compare waits for the multi-process
+                # fleet).
+                if (sentinel is not None
+                        and updates % sentinel_lib.FINGERPRINT_EVERY == 0):
+                    sentinel.local_fingerprint(
+                        learner.state_dict()["params"])
                 if monitor.preemption_requested():
                     monitor.note_preempt_decision(updates)
                     log.warning("preemption drain: stopping at update %d "
                                 "(%.3g frames) for the final checkpoint",
                                 updates, frames)
                     break
+                rollback_reason = "nonfinite"
+                if sentinel is not None and sentinel.rollback_pending:
+                    # A breach survived the whole ladder.
+                    rollback_wanted = True
+                    rollback_reason = "sentinel"
                 if rollback_wanted:
                     rollback_wanted = False
                     updates = _rollback_or_exit(config, ckpt, learner,
-                                                tracker)
+                                                tracker,
+                                                reason=rollback_reason)
+                    if rollback_reason == "sentinel":
+                        sentinel.note_rollback()
                     frames = learner.state.env_frames
                     # Nothing of the abandoned timeline leaks forward: its
                     # in-flight metrics are dropped unread (their ledger
@@ -1379,6 +1480,11 @@ def train(config: Config, clock=time) -> Dict[str, float]:
                     learner.publish_device_telemetry()
                 except Exception:
                     log.exception("final device-telemetry publish failed")
+            if sentinel is not None:
+                try:
+                    sentinel.publish()
+                except Exception:
+                    log.exception("final sentinel-telemetry publish failed")
             if writer is not None:
                 writer.close()
             # The grace deadline covers the shutdown tail above; the

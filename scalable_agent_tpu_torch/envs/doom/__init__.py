@@ -1,5 +1,5 @@
 """VizDoom environment family: copies of ``scalable_agent_tpu/envs/doom/``
-(``tools.py``, the sample CLI, is not ported yet: ROADMAP.md, queue 1).
+(``tools.py``: the sample, replay and play CLI and ``concat_grid``).
 
 The reference fork's distinguishing environment backend: IMPALA-on-VizDoom
 (reference: environments_doom.py:33-97 and the vendored Sample-Factory

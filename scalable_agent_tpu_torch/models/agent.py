@@ -201,6 +201,21 @@ class ImpalaAgent(nn.Module):
         return self.dist_spec.num_logits
 
     @property
+    def dtype_policy(self) -> Tuple[torch.dtype, str]:
+        """(``compute_dtype``, ``core_matmul_dtype``)."""
+        return self.compute_dtype, self.core_matmul_dtype
+
+    def set_dtype_policy(self, compute_dtype: torch.dtype,
+                         core_matmul_dtype: str) -> None:
+        """Run under another dtype policy from the next call on (the
+        parameters stay float32, so nothing is converted): the numerics
+        sentinel's float32 rung reaches the actors' private agents this
+        way."""
+        self.compute_dtype = compute_dtype
+        self.convnet.dtype = compute_dtype
+        self.core_matmul_dtype = core_matmul_dtype
+
+    @property
     def num_action_components(self) -> int:
         return self.dist_spec.num_components
 

@@ -100,8 +100,8 @@ def build_diagnosis(logdir: str) -> dict:
                 "recorder dump (reason sentinel_trip:*), check "
                 "sentinel/rung for where the degradation ladder "
                 "settled, and requalify the demoted backend "
-                "before promoting it back (the sentinel is not ported "
-                "yet: ROADMAP.md, queue 1, item 10)"),
+                "(runtime/sentinel.py, the ladder) before promoting it "
+                "back"),
             "anomalies": []})
     impact = {}
     for short, name in (

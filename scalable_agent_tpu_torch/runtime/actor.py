@@ -192,12 +192,14 @@ def _stack_time(entries):
 
 class ParamsSnapshot(NamedTuple):
     """One published weight version: detached copies of the agent's
-    parameters (in ``parameters()`` order) and, on the card, the event
-    recorded after the copies on the publishing stream."""
+    parameters (in ``parameters()`` order), on the card the event
+    recorded after the copies on the publishing stream, and the
+    publishing agent's ``dtype_policy`` (None: leave the loader's)."""
 
     version: int
     tensors: Tuple[torch.Tensor, ...]
     event: Optional[torch.cuda.Event]
+    policy: Optional[Tuple[torch.dtype, str]] = None
 
 
 @torch.no_grad()
@@ -211,13 +213,16 @@ def snapshot_params_for_inference(agent: ImpalaAgent,
     if tensors and tensors[0].is_cuda:
         event = torch.cuda.Event()
         event.record()
-    return ParamsSnapshot(version, tensors, event)
+    return ParamsSnapshot(version, tensors, event, agent.dtype_policy)
 
 
 @torch.no_grad()
 def load_snapshot(agent: ImpalaAgent, snapshot: ParamsSnapshot) -> None:
     """Copy a published snapshot into ``agent`` on the current stream,
-    after the stream has waited for the snapshot's copies."""
+    after the stream has waited for the snapshot's copies, and take its
+    dtype policy (changed only by the numerics sentinel's demotion)."""
+    if snapshot.policy is not None and snapshot.policy != agent.dtype_policy:
+        agent.set_dtype_policy(*snapshot.policy)
     stream = None
     if snapshot.event is not None:
         stream = torch.cuda.current_stream(next(agent.parameters()).device)

@@ -9,7 +9,7 @@ same number.
 | 70 | watchdog | obs/watchdog.py (``--watchdog_abort``) | a pipeline thread missed its heartbeat deadline |
 | 71 | non-finite | driver._rollback_or_exit | the non-finite tolerance was exhausted with ``--no_rollback`` or nothing restorable |
 | 72 | fleet | runtime/fleet.py | the preemption grace window expired before the drain finished |
-| 73 | sentinel | not ported yet | silent numeric corruption survived the degradation ladder |
+| 73 | sentinel | runtime/sentinel.py | silent numeric corruption survived the degradation ladder and a rollback |
 
 ``128 + signum`` (143 for a SIGTERM with ``--preemption_grace_s=0``, or
 for a second SIGTERM, after the flight recorder's dump) keeps its POSIX

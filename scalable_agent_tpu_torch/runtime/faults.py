@@ -27,12 +27,33 @@ seeded, per-point firing decisions.  The points this package places:
   inference thread sleeps ``SERVICE_STALL_S`` (or
   ``$SCALABLE_AGENT_SERVICE_STALL_S``, read when it fires) before a
   batch, so its heartbeat goes stale.
+- ``param_bitflip`` (``runtime/sentinel.py``): flip bit 20 of the param
+  tree's largest-magnitude element right after an audited update (the
+  sentinel's param-delta arm must catch it; occurrences count audits).
+- ``kernel_miscompute`` (``runtime/sentinel.py``): scale the audited hot
+  gradients by 2 (the gradient arm must breach and the first ladder rung
+  clear it; occurrences count audits, effective at rung 0 only).
+- ``replica_diverge`` (``runtime/sentinel.py``): XOR a constant into this
+  process's param fingerprint (occurrences count fingerprints).
 
-The other points of the registry belong to subsystems this package does
-not port yet (``UNPORTED_POINTS``).  Their names still parse, so a spec
-reads the same in both packages, but ``configure_faults`` refuses to arm
-one: no point is ever armed and silently inert.  The runtime injection
-channel (``--chaos_channel``) is not ported either.
+The two fleet points (``UNPORTED_POINTS``: ``peer_exit``, ``peer_hang``)
+belong to the multi-process fleet, which this package does not port yet.
+Their names still parse, so a spec reads the same in both packages, but
+``configure_faults`` refuses to arm one, and the channel skips a line
+naming one with a warning: no point is ever armed and silently inert.
+
+The runtime injection channel: an injector built with ``channel_path``
+(the driver passes ``<logdir>/chaos_inject.jsonl`` under
+``--chaos_channel``) tails that file; each appended JSON line
+``{"point": ..., "t_unix": ...}`` arms one firing of the point (``count``
+firings with an optional ``"count"``), consumed at its next evaluation,
+so faults land in a process that is already running (``runtime/soak.py``
+writes the lines).  A line whose ``t_unix`` predates the injector's arm
+time is skipped, so a relaunched process does not fire again what an
+earlier one consumed; an optional ``"proc"`` targets one fleet process
+(matched against ``process_id``).  The file is polled from
+``should_fire`` at most every ``CHANNEL_POLL_S`` seconds; a torn final
+line (no newline yet) waits for the next poll.
 
 The grammar is ``;``-joined entries, each one of three trigger forms:
 
@@ -49,13 +70,14 @@ fault that fires is logged, recorded in the flight recorder and counted
 in ``faults/injected_total``.
 """
 
+import json
 import logging
 import os
 import random
 import re
 import threading
 import time
-from typing import Dict, FrozenSet, List, NamedTuple, Tuple
+from typing import Dict, FrozenSet, List, NamedTuple, Optional, Tuple
 
 from scalable_agent_tpu_torch.obs import get_flight_recorder, get_registry
 
@@ -80,11 +102,16 @@ CHAOS_POINTS = {
     "replica_diverge": "corrupt this process's param fingerprint",
 }
 
-# Points whose subsystem (the multi-process fleet, the sentinel) is not
-# ported yet.
-UNPORTED_POINTS = frozenset({
-    "peer_exit", "peer_hang",
-    "param_bitflip", "kernel_miscompute", "replica_diverge"})
+# Points whose subsystem (the multi-process fleet) is not ported yet.
+UNPORTED_POINTS = frozenset({"peer_exit", "peer_hang"})
+
+# The points the numerics sentinel places (``runtime/sentinel.py``).
+SENTINEL_POINTS = ("param_bitflip", "kernel_miscompute", "replica_diverge")
+
+# The runtime injection channel's file under the logdir, and its polling
+# period (module docstring), as in the JAX package.
+CHANNEL_NAME = "chaos_inject.jsonl"
+CHANNEL_POLL_S = 0.25
 
 # How long ``throughput_sag`` sleeps when it fires, as in the JAX package.
 THROUGHPUT_SAG_S = 0.45
@@ -183,10 +210,12 @@ def armed_points(spec: str) -> FrozenSet[str]:
 class FaultInjector:
     """Trigger-evaluating injection registry.  Deterministic: the Nth
     evaluation of a point fires iff N is in the spec's occurrence list, a
-    not-yet-consumed time trigger is due, or a seeded per-point RNG draw
-    lands under the point's probability."""
+    not-yet-consumed time trigger is due, a seeded per-point RNG draw
+    lands under the point's probability, or the runtime channel has a
+    pending arm for it."""
 
-    def __init__(self, spec: str = "", seed: int = 0):
+    def __init__(self, spec: str = "", channel_path: Optional[str] = None,
+                 seed: int = 0, process_id: int = 0):
         parsed = parse_chaos_spec_full(spec)
         self._points = parsed.occurrences
         self._at_times: Dict[str, List[float]] = {
@@ -196,13 +225,62 @@ class FaultInjector:
         self._rngs = {point: random.Random(f"{seed}:{point}")
                       for point in parsed.probs}
         self._armed_monotonic = time.monotonic()
+        self._armed_unix = time.time()
+        self._process_id = process_id
+        self._channel_path = channel_path
+        self._channel_offset = 0
+        self._channel_next_poll = 0.0
+        self._pending: Dict[str, int] = {}
         self._counts: Dict[str, int] = {}
         self._lock = threading.Lock()
 
     @property
     def active(self) -> bool:
         """False for the inert injector: hot paths gate on this."""
-        return bool(self._points or self._at_times or self._probs)
+        return bool(self._points or self._at_times or self._probs
+                    or self._channel_path)
+
+    def _poll_channel_locked(self):
+        """Consume the channel's newly appended lines into ``_pending``,
+        tailing by byte offset; a torn final line waits for the next
+        poll."""
+        now = time.monotonic()
+        if now < self._channel_next_poll:
+            return
+        self._channel_next_poll = now + CHANNEL_POLL_S
+        try:
+            with open(self._channel_path, "rb") as f:
+                f.seek(self._channel_offset)
+                data = f.read()
+        except OSError:
+            return
+        cut = data.rfind(b"\n") + 1
+        if cut == 0:
+            return
+        self._channel_offset += cut
+        for line in data[:cut].splitlines():
+            try:
+                payload = json.loads(line.decode("utf-8"))
+            except (ValueError, UnicodeDecodeError):
+                continue
+            point = payload.get("point") if isinstance(
+                payload, dict) else None
+            if not point:
+                continue
+            t_unix = payload.get("t_unix")
+            if t_unix is not None and t_unix < self._armed_unix:
+                continue  # consumed by an earlier process
+            proc = payload.get("proc")
+            if proc is not None and int(proc) != self._process_id:
+                continue
+            if point in UNPORTED_POINTS or point not in CHAOS_POINTS:
+                log.warning("chaos channel: skipping %r, which this "
+                            "package cannot fire (ROADMAP.md, queue 1)",
+                            point)
+                continue
+            self._pending[point] = (
+                self._pending.get(point, 0)
+                + max(1, int(payload.get("count", 1))))
 
     def should_fire(self, point: str) -> bool:
         """Count one evaluation of ``point``; True when a trigger is armed
@@ -224,6 +302,11 @@ class FaultInjector:
             if fired is None and point in self._probs:
                 if self._rngs[point].random() < self._probs[point]:
                     fired = "probability"
+            if fired is None and self._channel_path is not None:
+                self._poll_channel_locked()
+                if self._pending.get(point, 0) > 0:
+                    self._pending[point] -= 1
+                    fired = "channel"
         if fired is None:
             return False
         log.warning("chaos: fault %r fired (occurrence %d, %s trigger)",
@@ -263,12 +346,13 @@ def get_fault_injector() -> FaultInjector:
     return _injector
 
 
-def configure_faults(spec: str = "", seed: int = 0) -> FaultInjector:
+def configure_faults(spec: str = "", channel_path: Optional[str] = None,
+                     seed: int = 0, process_id: int = 0) -> FaultInjector:
     """Install (and return) the process-global injector; an empty spec
-    restores the inert one (the driver does so when a run ends, so one
-    run's spec cannot leak into the next).  A spec arming a point that is
-    not in ``CHAOS_POINTS``, or one whose subsystem is not ported, raises
-    ``ValueError``."""
+    with no channel restores the inert one (the driver does so when a run
+    ends, so one run's faults cannot leak into the next).  A spec arming a
+    point that is not in ``CHAOS_POINTS``, or one whose subsystem is not
+    ported, raises ``ValueError``."""
     global _injector
     points = armed_points(spec)
     unknown = sorted(points - set(CHAOS_POINTS))
@@ -283,5 +367,7 @@ def configure_faults(spec: str = "", seed: int = 0) -> FaultInjector:
             f"to scalable_agent_tpu_torch yet; ROADMAP.md (queue 1) lists "
             f"what the port runs and what comes next")
     with _injector_lock:
-        _injector = FaultInjector(spec, seed=seed) if spec else _DISABLED
+        _injector = (FaultInjector(spec, channel_path=channel_path,
+                                   seed=seed, process_id=process_id)
+                     if (spec or channel_path) else _DISABLED)
         return _injector

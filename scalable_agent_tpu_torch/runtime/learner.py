@@ -262,6 +262,19 @@ def update_flops(frame_shape: Sequence[int], num_logits: int,
                                                      + backward)
 
 
+def rmsprop_step(grad, nu, trace, lr: float, hp: LearnerHyperparams):
+    """One RMSProp step of one parameter, as optax's ``rmsprop`` chain with
+    the decayed lr applied after it (the module docstring): (the step the
+    parameter adds, the new ``nu``, the new momentum trace, None without
+    one)."""
+    new_nu = hp.rmsprop_decay * nu + (1.0 - hp.rmsprop_decay) * grad * grad
+    scaled = grad * torch.rsqrt(new_nu + hp.rmsprop_epsilon)
+    if trace is None:
+        return -(lr * scaled), new_nu, None
+    new_trace = -scaled + hp.rmsprop_momentum * trace
+    return lr * new_trace, new_nu, new_trace
+
+
 @dataclasses.dataclass
 class TrainState:
     """Optimizer state and counters.  ``env_frames`` is a host float: it
@@ -388,6 +401,19 @@ class Learner:
         self._devtel_publisher.publish(fetched)
         return fetched
 
+    def adopt_device_telemetry(self, other: "Learner") -> None:
+        """Carry on ``other``'s device telemetry (a learner of the same
+        run rebuilt on another route: the numerics sentinel's demotion):
+        its buffers, so the gauges keep their last values rather than read
+        0 until this learner's first update, and its publisher's running
+        totals, so no counter is published twice."""
+        if [s.namespace for s in self.devtel_specs] != [
+                s.namespace for s in other.devtel_specs]:
+            raise ValueError("device telemetry specs differ between the "
+                             "learners")
+        self._devtel = other._devtel
+        self._devtel_publisher = other._devtel_publisher
+
     def _forward(self, trajectory: Trajectory, capture: bool = False):
         """The ONE whole-trajectory unroll of the update: ((logits
         [T+1,B,A], baselines [T+1,B]), dead_torso_frac or None).
@@ -423,17 +449,28 @@ class Learner:
         return logits, baselines
 
     @torch.no_grad()
-    def _target_forward(self, trajectory: Trajectory):
+    def _target_forward(self, trajectory: Trajectory, target_params):
         """The target network's unroll: the agent over the target tensors,
         without gradients, so the core runs its lean kernel over every
         step and keeps no residuals; its logits [T+1, B, A]."""
         (logits, _), _ = torch.func.functional_call(
-            self._agent, self.state.target_params,
+            self._agent, target_params,
             (trajectory.agent_outputs.action, trajectory.env_outputs,
              trajectory.agent_state))
         return logits
 
-    def _loss_impact(self, trajectory: Trajectory):
+    def loss(self, trajectory: Trajectory, target_params=None):
+        """(total loss, metrics) of ``trajectory`` at the agent's
+        parameters, by the learner's objective (the JAX ``_loss``);
+        ``target_params`` stands in for the state's IMPACT target network
+        (the numerics sentinel audits at a snapshot's)."""
+        if self.loss_name == "impact":
+            return self._loss_impact(
+                trajectory, self.state.target_params
+                if target_params is None else target_params)
+        return self._loss_vtrace(trajectory)
+
+    def _loss_impact(self, trajectory: Trajectory, target_params):
         """The IMPACT surrogate (JAX ``_loss_impact``): V-trace's
         advantages with the TARGET network as the target policy, then the
         ratio clip of pi_theta against pi_tgt; the baseline and entropy
@@ -445,7 +482,7 @@ class Learner:
             comparison_baselines = baselines
         else:
             _, comparison_baselines = self._comparison_forward(trajectory)
-        anchor_logits = self._target_forward(trajectory)
+        anchor_logits = self._target_forward(trajectory, target_params)
         bootstrap_value = comparison_baselines[-1]
         behaviour = AgentOutput(*(t[1:] for t in trajectory.agent_outputs))
         env = trajectory.env_outputs
@@ -617,9 +654,7 @@ class Learner:
                 reward=env.reward * float("nan")))
         names = list(self._params)
         params = [self._params[name] for name in names]
-        loss_fn = (self._loss_impact if self.loss_name == "impact"
-                   else self._loss_vtrace)
-        total, metrics = loss_fn(trajectory)
+        total, metrics = self.loss(trajectory)
         grads = torch.autograd.grad(total, params)
         state = self.state
         frames = state.env_frames
@@ -632,22 +667,15 @@ class Learner:
             finite = torch.isfinite(total)
             for grad in grads:
                 finite = finite & torch.isfinite(grad).all()
-            decay, eps = hp.rmsprop_decay, hp.rmsprop_epsilon
-            momentum = hp.rmsprop_momentum
             for name, param, grad in zip(names, params, grads):
                 nu = state.opt_state[name]
-                new_nu = decay * nu + (1.0 - decay) * grad * grad
-                if momentum:
-                    trace = state.momentum[name]
-                    new_trace = (-(grad * torch.rsqrt(new_nu + eps))
-                                 + momentum * trace)
-                    step = lr * new_trace
-                    new_param = param + step
+                trace = (state.momentum[name] if hp.rmsprop_momentum
+                         else None)
+                step, new_nu, new_trace = rmsprop_step(grad, nu, trace,
+                                                       lr, hp)
+                if trace is not None:
                     trace.copy_(torch.where(finite, new_trace, trace))
-                else:
-                    step = lr * (grad * torch.rsqrt(new_nu + eps))
-                    new_param = param - step
-                param.copy_(torch.where(finite, new_param, param))
+                param.copy_(torch.where(finite, param + step, param))
                 nu.copy_(torch.where(finite, new_nu, nu))
                 steps.append(step)
             skipped = 1.0 - finite.float()

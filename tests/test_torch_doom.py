@@ -12,8 +12,10 @@ rewards, dones, episode info, measurements), lockstep matches and the
 recorded episode files.
 
 ``TestAccumMeasurements`` holds the accum actor against the structural one
-on a measurements level.  ``TestTools`` waits for ``envs/doom/tools.py``
-(ROADMAP.md, queue 1).  The twins of the JAX tests
+on a measurements level.  ``TestTools`` and ``TestDoomRenderGrid`` twin
+``tests/test_doom.py::TestTools`` and
+``tests/test_utils_algo.py::TestDoomRenderGrid`` (``envs/doom/tools.py``),
+the grid bit for bit with the JAX one.  The twins of the JAX tests
 marked slow keep the mark.
 """
 
@@ -889,3 +891,57 @@ class TestStepHumanInput:
             assert env.unwrapped.current_histogram.sum() == 4
         finally:
             env.close()
+
+
+class TestTools:
+    def test_sample_cli_converts_numeric_args(self):
+        """main() int()-converts the numeric CLI args before they reach
+        range() and the env (the JAX package's regression: '500' crashed
+        sample_env)."""
+        from scalable_agent_tpu_torch.envs.doom import tools
+
+        tools.main(["sample", "doom_basic", "8", "2", "3"])
+
+    def test_concat_grid(self):
+        from scalable_agent_tpu_torch.envs.doom import tools
+
+        frames = [np.full((4, 6, 3), i, np.uint8) for i in range(3)]
+        grid = tools.concat_grid(frames)
+        assert grid.shape == (8, 12, 3)
+        assert (grid[:4, :6] == 0).all() and (grid[:4, 6:] == 1).all()
+
+    def test_cli_rejects_bad_commands(self):
+        from scalable_agent_tpu_torch.envs.doom import tools
+
+        with pytest.raises(SystemExit, match="unknown command"):
+            tools.main(["fly"])
+        with pytest.raises(SystemExit, match="usage: replay"):
+            tools.main(["replay", "doom_basic"])
+
+
+class TestDoomRenderGrid:
+    def test_concat_grid_tiles(self):
+        from scalable_agent_tpu_torch.envs.doom.tools import concat_grid
+
+        frames = [np.full((4, 6, 3), i, np.uint8) for i in range(3)]
+        grid = concat_grid(frames)
+        assert grid.shape == (8, 12, 3)  # 2x2 grid for 3 frames
+        assert (grid[:4, :6] == 0).all()
+        assert (grid[:4, 6:12] == 1).all()
+        assert (grid[4:, :6] == 2).all()
+        assert (grid[4:, 6:] == 0).all()  # empty cell
+
+    @pytest.mark.parametrize("count", [1, 2, 5, 9, 10])
+    def test_concat_grid_matches_jax(self, count):
+        from scalable_agent_tpu.envs.doom.tools import (
+            concat_grid as jax_concat_grid,
+        )
+        from scalable_agent_tpu_torch.envs.doom.tools import concat_grid
+
+        rng = np.random.default_rng(count)
+        frames = [rng.integers(0, 256, (3, 5, 3), dtype=np.uint8)
+                  for _ in range(count)]
+        np.testing.assert_array_equal(concat_grid(frames),
+                                      jax_concat_grid(frames))
+        with pytest.raises(ValueError, match="no frames"):
+            concat_grid([])

@@ -6,6 +6,10 @@ respawn, and the SIGTERM preemption grace (runtime/fleet.py).
 - Every grammar case of ``tests/test_chaos.py::TestFaultInjector`` and
   ``TestTriggerForms`` is parsed, and fired, by both packages with the
   same result.
+- ``TestRuntimeChannel``: the twins of ``tests/test_chaos.py``'s class of
+  that name (the ``chaos_inject.jsonl`` channel: one firing a line,
+  ``count``, stale lines, ``proc``, torn and garbage lines), each channel
+  file also fired through the JAX injector with the same result.
 - ``NonFiniteTracker``: ``TestNonFiniteTracker``'s three cases.
 - The driver rolls back after ``nonfinite_tolerance`` consecutive skips
   and completes, or exits 71 under ``--no_rollback`` (the twins of
@@ -17,6 +21,7 @@ respawn, and the SIGTERM preemption grace (runtime/fleet.py).
 
 import dataclasses
 import functools
+import json
 import logging
 import os
 import re
@@ -24,6 +29,7 @@ import signal
 import subprocess
 import sys
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -147,8 +153,8 @@ def test_registry_is_the_jax_one():
 
 
 @pytest.mark.parametrize("spec,match", [
-    ("param_bitflip@1", "ROADMAP.md"), ("nan_grad@1;peer_hang@t=3", "ROADMAP"),
-    ("kernel_miscompute@p=0.5", "ROADMAP.md"), ("nan_gard@1", "unknown")])
+    ("peer_exit@1", "ROADMAP.md"), ("nan_grad@1;peer_hang@t=3", "ROADMAP"),
+    ("peer_hang@p=0.5", "ROADMAP.md"), ("nan_gard@1", "unknown")])
 def test_points_that_cannot_fire_are_refused(spec, match):
     with pytest.raises(ValueError, match=match):
         faults.configure_faults(spec)
@@ -177,6 +183,20 @@ def test_service_stall_is_ported(monkeypatch):
         assert jax_service._stall_seconds() == want
 
 
+@pytest.mark.parametrize("spec", ["param_bitflip@1",
+                                  "kernel_miscompute@p=0.5",
+                                  "replica_diverge@t=3"])
+def test_sentinel_points_arm_with_the_sentinel(spec):
+    """The sentinel's points are ported: they arm, but only in a run whose
+    sentinel can fire them."""
+    assert faults.configure_faults(spec).active
+    config = Config(device="cpu", chaos_spec=spec)
+    with pytest.raises(ValueError, match="sentinel_interval"):
+        driver.arm_faults(config)
+    driver.arm_faults(dataclasses.replace(config, sentinel_interval=2))
+    assert faults.get_fault_injector().active
+
+
 def test_preempt_sigterm_needs_the_grace_protocol():
     config = Config(device="cpu", chaos_spec="preempt_sigterm@1",
                     preemption_grace_s=0.0)
@@ -191,6 +211,109 @@ def test_exit_codes_are_the_jax_ones():
 
     assert EXIT_CODES == jax_codes.EXIT_CODES
     assert NONFINITE_EXIT_CODE == 71
+
+
+class TestRuntimeChannel:
+    """The ``<logdir>/chaos_inject.jsonl`` runtime injection channel:
+    faults landing in an already-running process."""
+
+    @staticmethod
+    def _arm(path, point, **extra):
+        payload = {"point": point, "t_unix": time.time(), **extra}
+        with open(path, "a") as f:
+            f.write(json.dumps(payload) + "\n")
+
+    @pytest.fixture
+    def channel(self, tmp_path):
+        return str(tmp_path / faults.CHANNEL_NAME)
+
+    @staticmethod
+    def _both(channel, **kwargs):
+        return (faults.FaultInjector("", channel_path=channel, **kwargs),
+                jax_faults.FaultInjector("", channel_path=channel,
+                                         **kwargs))
+
+    def test_channel_only_injector_is_active(self, channel):
+        assert faults.FaultInjector("", channel_path=channel).active
+        assert faults.CHANNEL_NAME == jax_faults.CHANNEL_NAME
+        assert faults.CHANNEL_POLL_S == jax_faults.CHANNEL_POLL_S
+
+    def test_line_arms_exactly_one_firing(self, channel):
+        both = self._both(channel)
+        self._arm(channel, "nan_grad")
+        for injector in both:
+            assert injector.should_fire("nan_grad")
+            assert not injector.should_fire("nan_grad")
+
+    def test_count_field_arms_multiple_firings(self, channel):
+        both = self._both(channel)
+        self._arm(channel, "nan_grad", count=3)
+        for injector in both:
+            assert [injector.should_fire("nan_grad") for _ in range(4)] == [
+                True, True, True, False]
+
+    def test_stale_line_from_a_dead_epoch_is_skipped(self, channel):
+        both = self._both(channel)
+        self._arm(channel, "nan_grad")
+        with open(channel, "w") as f:
+            f.write(json.dumps(
+                {"point": "nan_grad", "t_unix": time.time() - 100.0})
+                + "\n")
+        for injector in both:
+            assert not injector.should_fire("nan_grad")
+
+    def test_proc_targeting_matches_process_id(self, channel):
+        both = self._both(channel, process_id=1)
+        self._arm(channel, "nan_grad", proc=0)
+        self._arm(channel, "nan_grad", proc=1)
+        for injector in both:
+            assert injector.should_fire("nan_grad")
+            assert not injector.should_fire("nan_grad")
+
+    def test_torn_final_line_is_deferred_not_dropped(self, channel):
+        both = self._both(channel)
+        payload = json.dumps({"point": "nan_grad", "t_unix": time.time()})
+        with open(channel, "w") as f:
+            f.write(payload[:10])  # a crash-mid-append stand-in
+        for injector in both:
+            assert not injector.should_fire("nan_grad")
+        with open(channel, "a") as f:
+            f.write(payload[10:] + "\n")
+        time.sleep(faults.CHANNEL_POLL_S + 0.05)  # past the poll gate
+        for injector in both:
+            assert injector.should_fire("nan_grad")
+
+    def test_garbage_lines_are_ignored(self, channel):
+        both = self._both(channel)
+        with open(channel, "w") as f:
+            f.write("not json\n")
+            f.write(json.dumps({"nope": 1}) + "\n")
+        self._arm(channel, "nan_grad")
+        for injector in both:
+            assert injector.should_fire("nan_grad")
+            assert not injector.should_fire("nan_grad")
+
+    def test_unported_points_are_skipped(self, channel, caplog):
+        """A line naming a point this package cannot fire is skipped with
+        a warning, never held pending."""
+        injector = faults.FaultInjector("", channel_path=channel)
+        self._arm(channel, "peer_exit")
+        self._arm(channel, "nan_grad")
+        with caplog.at_level(logging.WARNING, "scalable_agent_tpu_torch"):
+            assert injector.should_fire("nan_grad")
+        assert "peer_exit" in caplog.text
+        assert not injector.should_fire("peer_exit")
+
+    def test_driver_arms_the_channel_under_chaos_channel(self, tmp_path):
+        config = Config(device="cpu", logdir=str(tmp_path),
+                        chaos_channel=True)
+        driver.arm_faults(config)
+        injector = faults.get_fault_injector()
+        assert injector.active
+        self._arm(str(tmp_path / faults.CHANNEL_NAME), "throughput_sag")
+        assert injector.should_fire("throughput_sag")
+        driver.arm_faults(dataclasses.replace(config, chaos_channel=False))
+        assert not faults.get_fault_injector().active
 
 
 # ---------------------------------------------------------------------------

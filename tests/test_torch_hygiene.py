@@ -141,7 +141,7 @@ def test_env_worker_modules_leave_torch_and_jax_out(tmp_path):
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('torch', 'jax', 'jaxlib', 'scalable_agent_tpu'))\n"
             "assert not bad, bad\n")
-    assert len(ENV_WORKER_MODULES) == 14
+    assert len(ENV_WORKER_MODULES) == 15  # envs/doom/tools.py included
     env = _doom_scenarios(tmp_path)
     env["PYTHONPATH"] = os.pathsep.join([standin, env["PYTHONPATH"]])
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
@@ -221,12 +221,12 @@ def test_flag_lists_cover_the_jax_config():
 
 @pytest.mark.parametrize("argv", [["--mesh_data=2"],
                                   ["--health_baseline_dir", "auto"],
-                                  ["--chaos_channel=true"],
+                                  ["--elastic=true"],
                                   ["--train_backend=ingraph"],
                                   ["--compute_dtype=float16"],
                                   ["--scan_impl=time_sharded"],
                                   ["--updates_per_dispatch=4"],
-                                  ["--sentinel_interval=5"]])
+                                  ["--peer_timeout_s=5"]])
 def test_unported_flags_and_values_raise(argv):
     with pytest.raises(ValueError, match="ROADMAP.md"):
         Config.from_argv(argv)
@@ -287,8 +287,8 @@ def test_obs_ports_the_jax_producers_only():
     """obs/ holds copies of the JAX producers, of the run-health plane
     with the two modules it stands on, and of the four CLIs that read a
     logdir (each checked above for imports); --metrics_http_port is
-    ported with them.  The sentinel and the rounds CLI, and the
-    sentinel's flags, stay unported and raise."""
+    ported with them.  The rounds CLI stays unported; the sentinel lives
+    in runtime/ with its flags, which parse."""
     ported = {p.stem for p in (PACKAGE / "obs").glob("*.py")}
     assert ported == {"__init__", "registry", "exporters", "flightrec",
                       "trace", "stall", "watchdog", "ledger",
@@ -303,10 +303,10 @@ def test_obs_ports_the_jax_producers_only():
     assert "metrics_http_port" not in UNPORTED_FLAGS
     assert Config.from_argv(["--metrics_http_port=1"]).metrics_http_port \
         == 1
+    assert (PACKAGE / "runtime" / "sentinel.py").exists()
     for flag in ("sentinel_interval", "sentinel_rtol"):
-        assert flag in UNPORTED_FLAGS
-        with pytest.raises(ValueError, match="ROADMAP.md"):
-            Config.from_argv([f"--{flag}=1"])
+        assert flag not in UNPORTED_FLAGS
+        assert getattr(Config.from_argv([f"--{flag}=1"]), flag) == 1
 
 
 def test_unknown_flags_still_fail():
@@ -376,3 +376,52 @@ def test_config_save_load_round_trip(tmp_path):
     path = config.save()
     assert path == str(tmp_path / "config.json")
     assert Config.load(path) == config
+
+
+def test_sentinel_and_channel_flags_are_ported():
+    """``--sentinel_interval``, ``--sentinel_rtol`` and ``--chaos_channel``
+    left the unported flags with the JAX defaults; the in-graph backend's
+    ``--updates_per_dispatch`` (the JAX sentinel's in-graph arm) still
+    raises.  The unported flags are the JAX ``Config``'s fleet, mesh,
+    in-graph and compile-cache fields, and nothing else."""
+    ported = {"sentinel_interval", "sentinel_rtol", "chaos_channel"}
+    assert ported.isdisjoint(UNPORTED_FLAGS)
+    config = Config.from_argv(["--sentinel_interval=3",
+                               "--sentinel_rtol=0.25",
+                               "--chaos_channel=true"])
+    assert (config.sentinel_interval, config.sentinel_rtol,
+            config.chaos_channel) == (3, 0.25, True)
+    assert Config.from_argv(config.to_argv()) == config
+    with pytest.raises(ValueError, match="ROADMAP.md"):
+        Config.from_argv(["--updates_per_dispatch=1"])
+    assert set(UNPORTED_FLAGS) == {
+        "mesh_data", "mesh_seq", "mesh_model", "distributed_coordinator",
+        "distributed_num_processes", "distributed_process_id",
+        "train_backend", "updates_per_dispatch", "compile_cache_dir",
+        "peer_timeout_s", "collective_timeout_s",
+        "coordinator_init_timeout_s", "elastic", "fleet_epoch",
+        "elastic_restart_budget", "elastic_stable_s",
+        "elastic_rejoin_delay_s"}
+
+
+def test_unported_points_are_the_fleet_ones():
+    from scalable_agent_tpu.runtime import faults as jax_faults
+    from scalable_agent_tpu.runtime import soak as jax_soak
+    from scalable_agent_tpu_torch.runtime.faults import UNPORTED_POINTS
+
+    assert UNPORTED_POINTS == {"peer_exit", "peer_hang"}
+    assert UNPORTED_POINTS < set(jax_faults.CHAOS_POINTS)
+    assert UNPORTED_POINTS < set(jax_soak.FLEET_ONLY_POINTS)
+
+
+def test_the_soak_launches_the_port_driver():
+    """The chaos soak's subprocess is the port's driver (which imports no
+    JAX, as the tests above hold), with the run's flags."""
+    from scalable_agent_tpu_torch.runtime import soak
+
+    config = Config(device="cpu", logdir="/x", sentinel_interval=2)
+    cmd = soak._worker_command(config)
+    assert cmd[:3] == [sys.executable, "-m", "scalable_agent_tpu_torch.driver"]
+    assert not any("scalable_agent_tpu." in part or part.startswith("jax")
+                   for part in cmd)
+    assert Config.from_argv(cmd[3:]) == config

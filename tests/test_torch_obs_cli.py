@@ -1095,9 +1095,9 @@ class TestDiagnoseCLI:
 
     def test_sentinel_trip_is_a_verdict(self, tmp_path, capsys):
         """The sentinel's verdict of ``build_diagnosis`` (no JAX test of
-        its own): the port publishes no sentinel series, and a logdir
-        that has them is diagnosed alike, but for the remedy's prose,
-        which names ROADMAP.md's queue item."""
+        its own): a logdir with the sentinel's series is diagnosed alike,
+        but for the remedy's prose, which names the port's module where
+        the JAX one names its docs."""
         _write_snapshot(tmp_path, extra={"sentinel/trips_total": 2.0,
                                          "sentinel/rung": 1.0})
         diagnosis = diagnose.build_diagnosis(str(tmp_path))
@@ -1106,7 +1106,7 @@ class TestDiagnoseCLI:
         want["verdicts"][-1].pop("remedy")
         assert diagnosis == want
         assert diagnosis["verdicts"][-1]["name"] == "sentinel_tripped"
-        assert "ROADMAP.md, queue 1" in remedy
+        assert "runtime/sentinel.py" in remedy
         assert diagnose.main([str(tmp_path)]) == 1
 
 
