@@ -83,7 +83,15 @@ a result:
    one channel (``stem_gradw_c1``, 72x96x1) and the ResNet stem on
    Atari's stack (``resnet_stem_gradw_c4``, 84x84x4).  Every bf16 8x8 row
    (72x96, 72x128, 16x16, 84x84x4, 72x96x1) is the mma.sync kernel, held
-   in both layouts with two calls bitwise equal in each.
+   in both layouts with two calls bitwise equal in each.  Last, the
+   device worlds' shapes (phase 3t), timed into the kernels line as rows
+   of their own: the stem grad-W at N=3232 frames of 15x15x3 (the
+   gridworlds: SAME pads 2/3, the first asymmetric pair a level reaches;
+   cuDNN's yardstick pads the frames first, as no single call takes an
+   asymmetric pair), 10x10x3 (asterix) and 10x10x4 (breakout, the C=4
+   kernels; pads 3/3) as the 72x96x3 one above, and the three LSTM
+   kernels at D=260 (breakout: 256 + 1 + 3) and D=262 (asterix) as at
+   D=330, both types.
 3. Train: ``driver.train`` on ``fake_benchmark`` at full width (64 actors
    in two groups of 32 on ActorPool threads, 8 env worker processes per
    group, unroll 100, 4 action repeats, LSTM 256, ``--scan_impl=pallas``,
@@ -287,6 +295,32 @@ a result:
    the throughput floor, which is printed (the actor-bound loop's rows
    are too noisy to grade at 0.8 in a short soak: ``soak_path``).
    Each phase prints its seconds, and phase 4 the script's total.
+3t. (Run after 3s.) The in-graph backend (``--train_backend=ingraph``,
+   ``runtime/ingraph.py``) on the card, bf16: the main path's
+   configuration on ``fake_benchmark`` (the ``DeviceFakeEnv`` twin,
+   72x96x3, Discrete(9); batch 32, unroll 100, 4 repeats,
+   ``--scan_impl=pallas``: 12,800 env frames an update) through
+   ``driver.train`` for 4 updates at ``--updates_per_dispatch=1`` and 4
+   at 2, counted as phase 3 (the lean step 100 times an update, the
+   residual forward, BPTT, grad-W and V-trace once each), one metric row
+   a dispatch; then the dispatch alone (``dispatch_alone``) from the K=1
+   run's checkpoint: 2 updates at K=2 bitwise equal to 2 at K=1
+   (parameters, optimizer state, the last loss), s per update over 4
+   updates after the first at each K, one update's device ms by
+   ``record_function`` range (``actor_inference``, ``env_step``,
+   ``learner_update``; torch.profiler), and one K=2 dispatch under
+   ``torch.cuda.set_sync_debug_mode("error")``, which must raise nothing.
+   Each ``device_`` level (``device_grid_small``, ``device_grid_large``,
+   ``device_minatar_breakout``, ``device_minatar_asterix``) trains 2 bf16
+   updates in-graph, and one float32 update each of the three geometries,
+   counted at their shapes (15x15x3, 10x10x4 and D=260, 10x10x3 and
+   D=262).  ``device_minatar_breakout`` through the host backend's pool
+   with 2 env workers for 2 updates: every worker's streams report torch
+   loaded, CUDA never initialized, no jax (``_ProbedStream`` at close),
+   and a spawned worker's 100-step stream (the host twin on the CPU)
+   equals the card's world on the same seed and actions, bitwise.  Last,
+   the conformance harness on ``cuda`` for all eight levels (its
+   ``zero_host_sync`` check under the sync debug mode).
 3d. (Run after 3b, before 3c.) The default loop's machinery, each part
    failing the run: packed
    bitwise equal to per_leaf for one full-width trajectory from the pool,
@@ -390,7 +424,8 @@ a result:
    one-channel gym and deep Atari runs, the lean unroll (the target
    network's) with 3o's launches; the lean step's two entries also carry
    ``service_launches``, 3p's, and the bf16 one ``mode_launches``,
-   3q's by mode), the card's line, then as the
+   3q's by mode; the device worlds' shapes with 3t's launches at them),
+   the card's line, then as the
    last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
@@ -398,6 +433,7 @@ Imports nothing of JAX or of the JAX package.
 
 import contextlib
 import dataclasses
+import functools
 import json
 import logging
 import math
@@ -619,6 +655,17 @@ def _bound_ms(nbytes, flops, bf16=False):
     t_ops = flops / (BF16_FLOP_PER_S if bf16 else F32_FLOP_PER_S)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def _taps(size, K, S):
+    """The (output, tap) pairs along one axis of a SAME-padded K-tap,
+    stride-S convolution whose input lies inside the frame: a grad-W's
+    operations are 2 * N * C * F * _taps(H) * _taps(W), the taps over the
+    padding multiplying zeros the function need not read."""
+    out = -(-size // S)
+    before = max((out - 1) * S + K - size, 0) // 2
+    return sum(0 <= o * S + k - before < size
+               for o in range(out) for k in range(K))
 
 
 def _check(name, err_abs, err_rel, tol):
@@ -1112,6 +1159,21 @@ def _device_generator(torch, device, seed):
     return torch.Generator(device=device).manual_seed(seed)
 
 
+def _library_gradw(torch, conv_cuda, x_nchw, g_nchw, C, K, S, Fo):
+    """cuDNN's weight gradient of the SAME-padded stem conv on NCHW views:
+    ``conv2d_weight`` with the pads when they are symmetric; an asymmetric
+    pair (a 15x15 frame's 2/3) has no single call, so the frames are padded
+    first and the pad is timed with it."""
+    _, (top, bottom) = conv_cuda.same_pads(x_nchw.shape[2], K, S)
+    _, (left, right) = conv_cuda.same_pads(x_nchw.shape[3], K, S)
+    if (top, left) == (bottom, right):
+        return lambda: torch.nn.grad.conv2d_weight(
+            x_nchw, (Fo, C, K, K), g_nchw, S, (top, left))
+    return lambda: torch.nn.grad.conv2d_weight(
+        torch.nn.functional.pad(x_nchw, (left, right, top, bottom)),
+        (Fo, C, K, K), g_nchw, S, 0)
+
+
 # The kernels one grad-W call launches: the float32 band kernel or the
 # bf16 mma.sync kernel of the shallow stem, the ResNet stem's, and the
 # fixed-order reduce.
@@ -1147,10 +1209,8 @@ def compare_gradw(torch, conv_cuda, device, N=101 * 32, dtype=None,
     g = cotangent(N, OH, OW, Fo)
     kern = conv_cuda.conv_gradw(x, g, K, S)
     plain = conv_cuda.conv_gradw_plain(x, g, K, S)
-    _, (pad, _) = conv_cuda.same_pads(Hh, K, S)
     x_nchw, g_nchw = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
-    library = lambda: torch.nn.grad.conv2d_weight(
-        x_nchw, (Fo, C, K, K), g_nchw, S, pad)
+    library = _library_gradw(torch, conv_cuda, x_nchw, g_nchw, C, K, S, Fo)
     lib_dw = library().permute(2, 3, 1, 0).float()
     again = conv_cuda.conv_gradw(x, g, K, S)
     torch.cuda.synchronize()
@@ -1198,7 +1258,7 @@ def compare_gradw(torch, conv_cuda, device, N=101 * 32, dtype=None,
           f"(torch.profiler)", flush=True)
     width = x.element_size()
     nbytes = width * (N * Hh * W * C + N * OH * OW * Fo) + 4 * K * K * C * Fo
-    flops = 2 * N * OH * OW * K * K * C * Fo
+    flops = 2 * N * C * Fo * _taps(Hh, K, S) * _taps(W, K, S)
     return [(stem + ("_bf16" if bf16 else ""),
              "conv_mma.cu" if bf16 else "conv.cu",
              "conv_pallas.py:86", err,
@@ -1228,9 +1288,8 @@ def compare_gradw_frame(torch, conv_cuda, device, hh, ww, N=101 * 32,
     g = torch.randn((N, OH, OW, Fo), generator=gen, device=device).to(dtype)
     kern = lambda: conv_cuda.conv_gradw(x, g, K, S)
     plain = lambda: conv_cuda.conv_gradw_plain(x, g, K, S)
-    _, (pad, _) = conv_cuda.same_pads(hh, K, S)
-    library = lambda: torch.nn.grad.conv2d_weight(
-        x.permute(0, 3, 1, 2), (Fo, C, K, K), g.permute(0, 3, 1, 2), S, pad)
+    library = _library_gradw(torch, conv_cuda, x.permute(0, 3, 1, 2),
+                             g.permute(0, 3, 1, 2), C, K, S, Fo)
     first, want, again = kern(), plain(), kern()
     torch.cuda.synchronize()
     err = _errors([(first, want)])
@@ -1245,8 +1304,8 @@ def compare_gradw_frame(torch, conv_cuda, device, hh, ww, N=101 * 32,
     del xx, gg
     nbytes = (x.element_size() * (N * hh * ww * C + N * OH * OW * Fo)
               + 4 * K * K * C * Fo)
-    bound, bound_by = _bound_ms(nbytes, 2 * N * OH * OW * K * K * C * Fo,
-                                bf16)
+    bound, bound_by = _bound_ms(
+        nbytes, 2 * N * C * Fo * _taps(hh, K, S) * _taps(ww, K, S), bf16)
     device_ms = _device_ms(torch, kern, GRADW_KERNELS, 10)
     print(f"  {name}: ms {_time_ms(torch, kern, 10):.4f}, device ms "
           f"{device_ms:.4f}, bound {bound:.4f} ms ({bound_by}), plain ms "
@@ -1315,7 +1374,7 @@ def compare_resnet_gradw(torch, conv_cuda, device, N=101 * 32, dtype=None,
         del xs, gs
     width = x.element_size()
     nbytes = width * (N * Hh * W * C + N * Hh * W * Fo) + 4 * K * K * C * Fo
-    flops = 2 * N * Hh * W * K * K * C * Fo
+    flops = 2 * N * C * Fo * _taps(Hh, K, 1) * _taps(W, K, 1)
     bound, bound_by = _bound_ms(nbytes, flops, bf16)
     lib_device_ms = _device_ms(torch, library, None, 10)
     device_ms = {}
@@ -1366,7 +1425,8 @@ def resnet_gradw_in_layout(torch, conv_cuda, device, layouts, card,
     g = torch.randn((N, Hh, W, Fo), generator=gen, device=device).bfloat16()
     planar = lambda t: t.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
     bound, bound_by = _bound_ms(2 * N * Hh * W * (C + Fo) + 4 * 27 * Fo,
-                                2 * N * Hh * W * 27 * Fo, True)
+                                2 * N * C * Fo * _taps(Hh, 3, 1)
+                                * _taps(W, 3, 1), True)
     lib_ms = _device_ms(torch, lambda: torch.nn.grad.conv2d_weight(
         x.permute(0, 3, 1, 2), (Fo, C, 3, 3), g.permute(0, 3, 1, 2), 1, 1),
         None, 10)
@@ -1504,6 +1564,8 @@ def compare_lstm_wide(torch, lstm_cuda, device, matmul_dtype="float32",
     args1 = (x[:1].contiguous(), done[:1].contiguous(), c0, h0, wi, wh, b)
     lean = lambda: lstm_cuda.lstm_forward(*args1, residuals=False, **md)
     _bitwise(torch, f"lstm_fwd_lean{tag} D={D}", lean()[:3], lean()[:3])
+    errs = {"lean": _errors(zip(lean()[:3], lstm_cuda.lstm_forward_plain(
+        *args1, residuals=False, **md)[:3]))}
     ms["lean"] = _device_ms(torch, lean, LEAN_STEP, 50)
     # The library yardstick, as compare_lstm's: torch.lstm_cell after the
     # done-reset (a zero second bias), in bf16 for the bf16 variant.
@@ -1525,8 +1587,8 @@ def compare_lstm_wide(torch, lstm_cuda, device, matmul_dtype="float32",
     again = lstm_cuda.lstm_forward(*args, residuals=True, **md)
     torch.cuda.synchronize()
     tol = _lstm_tol(matmul_dtype, T)
-    _check(f"lstm_fwd_resid{tag} [{T},{B},{D}]",
-           *_errors(zip(_resid_outputs(kern), _resid_outputs(plain))), tol)
+    errs["resid"] = _errors(zip(_resid_outputs(kern), _resid_outputs(plain)))
+    _check(f"lstm_fwd_resid{tag} [{T},{B},{D}]", *errs["resid"], tol)
     if not all(torch.equal(p, q) for p, q in zip(_resid_outputs(kern),
                                                    _resid_outputs(again))):
         raise AssertionError(f"lstm_fwd_resid{tag} D={D}: two calls gave "
@@ -1536,8 +1598,8 @@ def compare_lstm_wide(torch, lstm_cuda, device, matmul_dtype="float32",
              plain.residuals, matmul_dtype)
     kern = lstm_cuda.lstm_backward(*bargs)
     again = lstm_cuda.lstm_backward(*bargs)
-    _check(f"lstm_bptt{tag} [{T},{B},{D}]", *_errors(zip(
-        kern, lstm_cuda.lstm_backward_plain(*bargs))), tol)
+    errs["bptt"] = _errors(zip(kern, lstm_cuda.lstm_backward_plain(*bargs)))
+    _check(f"lstm_bptt{tag} [{T},{B},{D}]", *errs["bptt"], tol)
     if not all(torch.equal(p, q) for p, q in zip(kern, again)):
         raise AssertionError(f"lstm_bptt{tag} D={D}: two calls gave "
                              f"different gradients")
@@ -1558,7 +1620,7 @@ def compare_lstm_wide(torch, lstm_cuda, device, matmul_dtype="float32",
     ms["lean_library"] = library
     for part, (kern_fn, plain_fn, iters) in calls.items():
         bound, bound_by = _bound_ms(*costs[part], bf16)
-        times = dict(device_ms=ms[part],
+        times = dict(device_ms=ms[part], max_abs_err=errs[part][0],
                      ms=_time_ms(torch, kern_fn, iters),
                      plain_ms=_time_ms(torch, plain_fn, max(3, iters // 5)),
                      bound_ms=bound, bound_by=bound_by)
@@ -3971,6 +4033,424 @@ def soak_path(root, scratch, card):
                              f"\n{proc.stderr[-3000:]}")
 
 
+INGRAPH_UPDATES = 4          # phase 3t's main-path runs, at K=1 and at K=2
+INGRAPH_LEVEL_UPDATES = 2    # each device_ level's bf16 in-graph run
+INGRAPH_TIMED = 4            # updates timed per K on the dispatch alone
+DEVICE_WORLDS = ("device_grid_small", "device_grid_large",
+                 "device_minatar_breakout", "device_minatar_asterix")
+# The levels whose float32 run (1 update) launches the float32 kernels at
+# the worlds' new shapes: 15x15x3, 10x10x4 and D=260, 10x10x3 and D=262.
+WORLD_F32_LEVELS = ("device_grid_small", "device_minatar_breakout",
+                    "device_minatar_asterix")
+# The stem's frames and the core's widths the worlds take (phase 2).
+WORLD_FRAMES = ((15, 15, 3), (10, 10, 3), (10, 10, 4))
+WORLD_WIDTHS = (260, 262)
+HOST_STREAM_STEPS = 100      # the host twin's stream held against the card's
+INGRAPH_RANGES = ("actor_inference", "env_step", "learner_update")
+
+
+def _frame_tag(frame):
+    return "x".join(str(n) for n in frame)
+
+
+def _world_stem(frame):
+    """The stem grad-W's launch counter at a world's frame."""
+    return "stem_gradw_c4" if frame[-1] == 4 else "stem_gradw"
+
+
+def _shape_rows(rows, frame):
+    """Phase-2 rows renamed with the frame they were taken at."""
+    return [(f"{row[0]} {_frame_tag(frame)}",) + tuple(row[1:])
+            for row in rows]
+
+
+def _wide_rows(ms, width, matmul_dtype):
+    """``compare_lstm_wide``'s readings at core width ``width`` as the
+    kernels line's fields, one row per kernel."""
+    rows = {}
+    for part, counter, replaces in (
+            ("lean", "lstm_fwd_lean", "lstm_pallas.py:89"),
+            ("resid", "lstm_fwd_resid", "lstm_pallas.py:105"),
+            ("bptt", "lstm_bptt", "lstm_pallas.py:123")):
+        times = ms[part]
+        name = f"{_variant(counter, matmul_dtype)} D={width}"
+        rows[name] = dict(
+            name=name, route="cuda",
+            source="scalable_agent_tpu_torch/csrc/lstm.cu",
+            replaces=f"scalable_agent_tpu/ops/{replaces}",
+            max_abs_err=times["max_abs_err"], ms=times["ms"],
+            plain_ms=times["plain_ms"], bound_ms=times["bound_ms"],
+            bound_by=times["bound_by"],
+            library_ms=(ms["lean_library"]["ms"] if part == "lean"
+                        else None),
+            device_ms=times["device_ms"])
+    return rows
+
+
+def _ingraph_config(config, scratch, name, level="fake_benchmark",
+                    updates=INGRAPH_UPDATES, **overrides):
+    """The main path's configuration under ``--train_backend=ingraph``
+    for ``updates`` updates of ``level``."""
+    return dataclasses.replace(
+        config, level_name=level, train_backend="ingraph", trace=False,
+        logdir=os.path.join(scratch, name),
+        total_environment_frames=float(updates
+                                       * config.frames_per_update()),
+        **overrides)
+
+
+def _ingraph_trainer(torch, driver, config):
+    """(learner, InGraphTrainer) of ``config``, through the driver's own
+    ``build_*`` functions in ``train_ingraph``'s order."""
+    device = torch.device(config.device)
+    obs_spec, space, _ = driver.probe_env(config)
+    env = driver.build_ingraph_env(config, obs_spec, space)
+    agent = driver.build_agent(config, obs_spec, space, device)
+    learner = driver.build_learner(config, agent)
+    return learner, driver.build_ingraph_trainer(config, agent, learner, env)
+
+
+def _range_device_ms(torch, fn, trace_path):
+    """Device ms of ``fn``'s kernels by the in-graph ranges that launched
+    them (``INGRAPH_RANGES``, else ``other``), from a torch.profiler trace:
+    a kernel belongs to the innermost range around its launch on the
+    launching thread, and a kernel launched by the autograd engine's
+    thread (the backward) inside a ``learner_update`` range's time to
+    that range.  Returns (ms by range, kernels recorded)."""
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(trace_path)
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    ranges = [e for e in events if e.get("cat") == "user_annotation"
+              and e.get("name") in INGRAPH_RANGES]
+    launches = {(e.get("args") or {}).get("correlation"): e
+                for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")}
+    inside = lambda r, ts: r["ts"] <= ts <= r["ts"] + r.get("dur", 0.0)
+    ms = dict.fromkeys(INGRAPH_RANGES + ("other",), 0.0)
+    kernels = 0
+    for event in events:
+        if event.get("cat") != "kernel":
+            continue
+        kernels += 1
+        launch = launches.get((event.get("args") or {}).get("correlation"))
+        name = "other"
+        if launch is not None:
+            ts = float(launch["ts"])
+            around = [r for r in ranges if r.get("tid") == launch.get("tid")
+                      and inside(r, ts)] or [
+                r for r in ranges if r["name"] == "learner_update"
+                and inside(r, ts)]
+            if around:
+                name = min(around, key=lambda r: r.get("dur", 0.0))["name"]
+        ms[name] += float(event.get("dur", 0.0)) / 1e3
+    return ms, kernels
+
+
+def _state_equal(torch, a, b):
+    """The learners' parameters and optimizer state bitwise equal."""
+    sa, sb = a.state_dict(), b.state_dict()
+    return all(torch.equal(sa[group][name], sb[group][name])
+               for group in ("params", "opt_state")
+               for name in sa[group])
+
+
+def dispatch_alone(torch, driver, CheckpointManager, main, scratch, card):
+    """The in-graph dispatch without the driver's loop, from phase 3t's
+    K=1 checkpoint: 2 updates at K=2 against 2 at K=1 (params, optimizer
+    state and the last loss bitwise equal), s per update at each K, one
+    update's device time by range, and one K=2 dispatch under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    step, saved = CheckpointManager(main.logdir).restore()
+    pairs = {}
+    for k in (1, 2):
+        learner, trainer = _ingraph_trainer(
+            torch, driver, dataclasses.replace(main,
+                                               updates_per_dispatch=k))
+        learner.load_state_dict(saved)
+        pairs[k] = [learner, trainer, trainer.init()]
+    got = {}
+    for k, pair in pairs.items():
+        pair[2], metrics = pair[1].run(pair[2], 2, counter_start=step)
+        got[k] = metrics
+    torch.cuda.synchronize()
+    same = _state_equal(torch, pairs[1][0], pairs[2][0])
+    loss_same = torch.equal(got[1]["total_loss"], got[2]["total_loss"])
+    print(f"  2 updates at K=2 from checkpoint step {step} against 2 at "
+          f"K=1: parameters and optimizer state bitwise equal {same}, "
+          f"last total_loss bitwise equal {loss_same} "
+          f"({float(got[1]['total_loss']):.6f})", flush=True)
+    if not (same and loss_same):
+        raise AssertionError("the K=2 megaloop is not bitwise the K=1 "
+                             "dispatches")
+    counter = step + 2
+    for k, (learner, trainer, carry) in pairs.items():
+        t0 = time.monotonic()
+        carry, _ = trainer.run(carry, INGRAPH_TIMED, counter_start=counter)
+        torch.cuda.synchronize()
+        per = (time.monotonic() - t0) / INGRAPH_TIMED
+        pairs[k][2] = carry
+        print(f"  in-graph K={k}: {per:.4f} s per update over "
+              f"{INGRAPH_TIMED} updates after the first ({card})",
+              flush=True)
+    counter += INGRAPH_TIMED
+    learner, trainer, carry = pairs[1]
+    holder = [carry]
+
+    def one_update():
+        holder[0], _ = trainer.run(holder[0], 1, counter_start=counter)
+
+    ms, kernels = _range_device_ms(
+        torch, one_update, os.path.join(scratch, "ingraph_ranges.json"))
+    print(f"  one in-graph update's device ms by range ({kernels} kernels "
+          f"recorded): " + ", ".join(f"{name} {value:.4f}"
+                                     for name, value in ms.items()),
+          flush=True)
+    learner, trainer, carry = pairs[2]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        carry, metrics = trainer.train_step(carry, counter)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    loss = float(metrics["total_loss"])
+    print(f"  one K=2 dispatch under set_sync_debug_mode('error') raised "
+          f"nothing (total_loss {loss:.6f})", flush=True)
+    if not math.isfinite(loss):
+        raise AssertionError("the dispatch under sync debug mode gave a "
+                             "non-finite loss")
+
+
+class _ProbedStream:
+    """An env stream that records, when its worker closes it, whether its
+    process had loaded torch, jax or the JAX package and had initialized
+    CUDA (a json file per stream in ``marker_dir``)."""
+
+    def __init__(self, stream, marker_dir):
+        self._stream = stream
+        self._marker_dir = marker_dir
+
+    def __getattr__(self, name):
+        return getattr(self._stream, name)
+
+    def close(self):
+        torch = sys.modules.get("torch")
+        record = {
+            "pid": os.getpid(),
+            "torch": torch is not None,
+            "cuda_initialized": bool(torch is not None
+                                     and torch.cuda.is_initialized()),
+            "jax": sorted(m for m in sys.modules
+                          if m.split(".")[0] in ("jax", "jaxlib",
+                                                 "scalable_agent_tpu"))}
+        path = os.path.join(self._marker_dir,
+                            f"{os.getpid()}.{id(self)}.json")
+        with open(path, "w") as f:
+            json.dump(record, f)
+        self._stream.close()
+
+
+def probed_stream(marker_dir, *args, **kwargs):
+    """``make_impala_stream`` wrapped in ``_ProbedStream`` (built in an env
+    worker)."""
+    from scalable_agent_tpu_torch.envs import make_impala_stream
+
+    return _ProbedStream(make_impala_stream(*args, **kwargs), marker_dir)
+
+
+def host_twin_stream(level, seed, actions, repeats, out_path):
+    """An env worker's stream of ``level`` (its host twin, on the CPU) over
+    ``actions``, saved to ``out_path`` with whether this process loaded
+    torch and initialized CUDA (run in a spawned process)."""
+    from scalable_agent_tpu_torch.envs import make_impala_stream
+
+    stream = make_impala_stream(level, seed=seed,
+                                num_action_repeats=repeats)
+    outs = [stream.initial()] + [stream.step(int(a)) for a in actions]
+    stream.close()
+    import torch
+
+    np_ = sys.modules["numpy"]
+    np_.savez(out_path,
+              frame=np_.stack([o.observation.frame for o in outs]),
+              reward=np_.asarray([o.reward for o in outs], np_.float32),
+              done=np_.asarray([o.done for o in outs]),
+              episode_return=np_.asarray(
+                  [o.info.episode_return for o in outs], np_.float32),
+              episode_step=np_.asarray(
+                  [o.info.episode_step for o in outs], np_.int32),
+              torch="torch" in sys.modules,
+              cuda=torch.cuda.is_initialized())
+
+
+def host_backend_world(torch, driver, config, scratch, train_counted):
+    """``device_minatar_breakout`` through the host backend's pool with 2
+    env workers for 2 updates: every worker loaded torch, never jax, never
+    initialized CUDA; then a spawned worker's 100-step stream of the same
+    level against the card's world on the same seed and actions,
+    bitwise."""
+    import multiprocessing
+
+    import numpy as np
+    from scalable_agent_tpu_torch.envs.device import make_device_env
+
+    level = "device_minatar_breakout"
+    seed, repeats = 17, config.num_action_repeats
+    env = make_device_env(level, num_action_repeats=repeats)
+    actions = np.random.default_rng(seed).integers(
+        0, env.num_actions, size=HOST_STREAM_STEPS)
+    out_path = os.path.join(scratch, "host_twin_stream.npz")
+    # The worker stream's process starts first and runs beside the pool.
+    proc = multiprocessing.get_context("spawn").Process(
+        target=host_twin_stream,
+        args=(level, seed, actions, repeats, out_path))
+    proc.start()
+    markers = os.path.join(scratch, "worker_markers")
+    os.makedirs(markers, exist_ok=True)
+    cfg = dataclasses.replace(
+        config, level_name=level, logdir=os.path.join(scratch, "host_world"),
+        num_actors=config.batch_size, num_env_workers_per_group=2,
+        total_environment_frames=float(2 * config.frames_per_update()),
+        health_max_windows=0)
+    try:
+        with _patched(driver, make_impala_stream=functools.partial(
+                probed_stream, markers)):
+            launches = train_counted(cfg, 2, "_bf16", stem="stem_gradw_c4")
+    except BaseException:
+        proc.terminate()
+        proc.join()
+        raise
+    records = []
+    for name in sorted(os.listdir(markers)):
+        with open(os.path.join(markers, name)) as f:
+            records.append(json.load(f))
+    pids = {r["pid"] for r in records}
+    print(f"  host backend, {level}, 2 env workers: {len(records)} "
+          f"streams closed in {len(pids)} worker processes; torch loaded "
+          f"in {sum(r['torch'] for r in records)}, CUDA initialized in "
+          f"{sum(r['cuda_initialized'] for r in records)}, jax or the JAX "
+          f"package loaded in {sum(bool(r['jax']) for r in records)}",
+          flush=True)
+    if (len(pids) != 2 or len(records) != config.batch_size
+            or not all(r["torch"] for r in records)
+            or any(r["cuda_initialized"] or r["jax"] for r in records)):
+        raise AssertionError("a device_ env worker initialized CUDA, "
+                             "loaded jax, or did not run the host twin")
+    proc.join(timeout=CLI_TIMEOUT_S)
+    if proc.exitcode != 0:
+        raise AssertionError(f"the host twin's stream process exited "
+                             f"{proc.exitcode}")
+    host = np.load(out_path)
+    device = torch.device(config.device)
+    state, out = env.initial([seed], device=device)
+    card = [out]
+    for a in actions:
+        state, out = env.step(state, torch.tensor([int(a)], device=device))
+        card.append(out)
+    fields = {
+        "frame": lambda o: o.observation.frame[0],
+        "reward": lambda o: o.reward[0], "done": lambda o: o.done[0],
+        "episode_return": lambda o: o.info.episode_return[0],
+        "episode_step": lambda o: o.info.episode_step[0]}
+    equal = {name: np.array_equal(
+        host[name], torch.stack([get(o) for o in card]).cpu().numpy())
+        for name, get in fields.items()}
+    print(f"  the host twin's {HOST_STREAM_STEPS}-step stream in a spawned "
+          f"worker (torch loaded {bool(host['torch'])}, CUDA initialized "
+          f"{bool(host['cuda'])}) against the card's world, seed {seed}: "
+          f"bitwise equal {equal}; {int(host['done'].sum())} dones",
+          flush=True)
+    if not all(equal.values()) or not host["torch"] or host["cuda"]:
+        raise AssertionError("the host twin's stream differs from the "
+                             "card's world, or its process touched CUDA")
+    return launches
+
+
+def ingraph_path(torch, driver, CheckpointManager, config, scratch,
+                 train_counted, card):
+    """Phase 3t: the in-graph backend on the card (module docstring).
+    Returns the launch counts of its runs by label."""
+    from scalable_agent_tpu_torch.envs.device import (
+        DEVICE_LEVELS,
+        conformance,
+        make_device_env,
+    )
+    from scalable_agent_tpu_torch.ops import float32_precision
+
+    launches = {}
+    main = _ingraph_config(config, scratch, "ingraph_k1")
+    for k in (1, 2):
+        cfg = (main if k == 1 else _ingraph_config(
+            config, scratch, "ingraph_k2", updates_per_dispatch=k))
+        launches[f"K={k}"] = train_counted(cfg, INGRAPH_UPDATES, "_bf16")
+        rows = _rows(cfg.logdir)
+        if len(rows) != INGRAPH_UPDATES // k:
+            raise AssertionError(f"K={k}: {len(rows)} metric rows, expected "
+                                 f"one a dispatch")
+        print(f"  K={k}: {len(rows)} metric rows (one a dispatch), the "
+              f"last at update {rows[-1]['step']}", flush=True)
+    with float32_precision():
+        # As train_ingraph runs its dispatches.
+        dispatch_alone(torch, driver, CheckpointManager, main, scratch,
+                       card)
+    for level in DEVICE_WORLDS:
+        stem = _world_stem(make_device_env(level).observation_spec.frame.shape)
+        launches[level] = train_counted(
+            _ingraph_config(config, scratch, f"ingraph_{level}", level=level,
+                            updates=INGRAPH_LEVEL_UPDATES),
+            INGRAPH_LEVEL_UPDATES, "_bf16", stem=stem)
+        if level in WORLD_F32_LEVELS:
+            launches[level + " float32"] = train_counted(
+                _ingraph_config(config, scratch, f"ingraph_{level}_f32",
+                                level=level, updates=1,
+                                compute_dtype="float32"),
+                1, "", stem=stem)
+    launches["host"] = host_backend_world(torch, driver, config, scratch,
+                                          train_counted)
+    t0 = time.monotonic()
+    for level in sorted(DEVICE_LEVELS):
+        ran = conformance.run_conformance(lambda: make_device_env(level),
+                                          device=config.device)
+        print(f"  conformance on {config.device}, {level}: "
+              f"{', '.join(ran)} passed", flush=True)
+    print(f"  the conformance matrix took {time.monotonic() - t0:.1f} s",
+          flush=True)
+    return launches
+
+
+def world_launches(ingraph_launches):
+    """The launches of phase 3t's runs at each new shape's kernels-line row:
+    the grad-W at each frame of ``WORLD_FRAMES`` by the worlds of that
+    frame, the LSTM at each width of ``WORLD_WIDTHS`` (D = 256 + 1 +
+    actions) by its world; each world's frame and width read from its
+    device env."""
+    from scalable_agent_tpu_torch.envs.device import make_device_env
+
+    counts = {}
+    for level in DEVICE_WORLDS:
+        env = make_device_env(level)
+        frame = tuple(env.observation_spec.frame.shape)
+        width = 256 + 1 + env.num_actions
+        stem = _world_stem(frame)
+        for run, suffix in ((level, "_bf16"), (level + " float32", "")):
+            got = ingraph_launches.get(run)
+            if got is None:
+                continue
+            if frame in WORLD_FRAMES:
+                name = f"{stem}{suffix} {_frame_tag(frame)}"
+                counts[name] = counts.get(name, 0) + got[stem + suffix]
+            if width in WORLD_WIDTHS:
+                for counter in ("lstm_fwd_lean", "lstm_fwd_resid",
+                                "lstm_bptt"):
+                    counts[f"{counter}{suffix} D={width}"] = got[
+                        counter + suffix]
+    return counts
+
+
 def _early_late(returns, random_return):
     """The means of the first 3 and the last 5 episode_return rows."""
     if len(returns) < 8:
@@ -5304,6 +5784,23 @@ def main() -> int:
         timed.update(time_rows(torch, rows))
         del rows
         torch.cuda.empty_cache()
+        # The device worlds' shapes (phase 3t): the stem grad-W at
+        # 15x15x3 (SAME pads 2/3, the first asymmetric pair of the main
+        # paths) and 10x10x3/x4 (pads 3/3), the core at D=260 and 262.
+        rows = []
+        for frame in WORLD_FRAMES:
+            for dtype in (torch.float32, torch.bfloat16):
+                rows += _shape_rows(compare_gradw(
+                    torch, conv_cuda, device, dtype=dtype, frame=frame),
+                    frame)
+        timed.update(time_rows(torch, rows))
+        del rows
+        for width in WORLD_WIDTHS:
+            for matmul_dtype in ("float32", "bfloat16"):
+                timed.update(_wide_rows(compare_lstm_wide(
+                    torch, lstm_cuda, device, matmul_dtype, D=width), width,
+                    matmul_dtype))
+        torch.cuda.empty_cache()
 
     def train_counted(config, updates, suffix, stem="stem_gradw",
                       expected=None):
@@ -5525,6 +6022,15 @@ def main() -> int:
         soak_path(root, scratch, card)
         print(f"  phase 3s took {time.monotonic() - t0:.1f} s", flush=True)
 
+        phase("phase 3t: the in-graph backend, --train_backend=ingraph, "
+              "and the device_ worlds")
+        t0 = time.monotonic()
+        ingraph_launches = ingraph_path(
+            torch, driver, CheckpointManager, config, scratch,
+            train_counted, card)
+        torch.cuda.empty_cache()
+        print(f"  phase 3t took {time.monotonic() - t0:.1f} s", flush=True)
+
         phase("phase 3d: the default loop's machinery on the card")
         outs = pool_trajectories(torch, driver, config, 4)
         with float32_precision():
@@ -5617,6 +6123,10 @@ def main() -> int:
                             "resnet_stem_gradw_c4",
                             "resnet_stem_gradw_c4_bf16",
                             "lstm_fwd_lean_unroll_bf16")]
+    # The device worlds' shapes, with phase 3t's launches at them.
+    kernels += [dict(timed[name], launches=count)
+                for name, count in world_launches(
+                    ingraph_launches).items()]
     print(f"chip_smoke.py total: {time.monotonic() - started:.1f} s "
           f"({card})", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

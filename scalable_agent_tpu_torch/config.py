@@ -23,9 +23,8 @@ from typing import Optional
 # list against the JAX Config so the two cannot drift apart.
 UNPORTED_FLAGS = (
     "mesh_data", "mesh_seq", "mesh_model", "distributed_coordinator",
-    "distributed_num_processes", "distributed_process_id", "train_backend",
-    "updates_per_dispatch", "compile_cache_dir", "peer_timeout_s",
-    "collective_timeout_s",
+    "distributed_num_processes", "distributed_process_id",
+    "compile_cache_dir", "peer_timeout_s", "collective_timeout_s",
     "coordinator_init_timeout_s", "elastic", "fleet_epoch",
     "elastic_restart_budget", "elastic_stable_s", "elastic_rejoin_delay_s",
 )
@@ -209,6 +208,17 @@ class Config:
     # Recompute the torso in the backward pass: auto | on | off; "auto"
     # is on only on a TPU, so off on the card (driver.resolve_remat_torso).
     remat_torso: str = "auto"
+
+    # -- the training backend: "host" (the actor pool, the prefetch stage
+    # and the learner, the reference's architecture, experiment.py:479-672)
+    # or "ingraph" (the rollout on a device env and the update on the card
+    # with no host traffic inside a dispatch, runtime/ingraph.py; the
+    # fake_ and device_ levels, one process).
+    train_backend: str = "host"
+    # ingraph only: updates a dispatch runs (the megaloop), bit-exact with
+    # as many dispatches of 1; checkpoint, log and preemption decisions
+    # land between dispatches.  Replay and the sentinel need 1.
+    updates_per_dispatch: int = 1
 
     # -- the host loop (runtime/transport.py, runtime/fleet.py)
     # "packed": one pinned staging buffer and one copy per batch,

@@ -111,16 +111,24 @@ non-finite guard, 72 for an expired preemption grace, 73 for the numerics
 sentinel, 143 for a second SIGTERM.  The obs CLIs read a run's logdir
 (``python -m scalable_agent_tpu_torch.obs.report <logdir>``;
 ``obs/__init__.py``).
-The level families are those of the JAX package but for ``device_``:
-``fake_``, ``doom_``, ``dmlab_``, ``atari_`` and ``gym_``
-(``envs/registry.py``).  Off-policy training runs as in the JAX host
-backend: ``--loss=impact`` trains on the IMPACT surrogate with its
-target network, and ``--replay_ratio=R`` (packed transport only;
-``build_replay``) runs R updates on batches sampled from the replay slab
-on the card behind every fresh update, through the same in-flight
-window, holding ``env_frames``; a rollback flushes the slab.  The
-in-graph backend and the multi-process fleet are not ported yet
-(ROADMAP.md, queue 1).
+The level families are those of the JAX package: ``fake_``, ``device_``,
+``doom_``, ``dmlab_``, ``atari_`` and ``gym_`` (``envs/registry.py``).
+Off-policy training runs as in the JAX host backend: ``--loss=impact``
+trains on the IMPACT surrogate with its target network, and
+``--replay_ratio=R`` (packed transport only; ``build_replay``) runs R
+updates on batches sampled from the replay slab on the card behind every
+fresh update, through the same in-flight window, holding ``env_frames``; a
+rollback flushes the slab.
+
+``--train_backend=ingraph`` (``train_ingraph``) trains a ``fake_`` or
+``device_`` level with its env on the card (``envs/device/``): each
+dispatch runs ``--updates_per_dispatch`` iterations of a rollout and an
+update with nothing read back (``runtime/ingraph.py``); the metrics, the
+ledger's records (one a dispatch), the telemetry, the health plane, the
+checkpoints, faults, preemption, replay and the sentinel act between
+dispatches.  It runs in one process, without ``--actor=service``, and with
+K = 1 under replay or the sentinel (``check_ingraph``).  The
+multi-process fleet is not ported yet (ROADMAP.md, queue 1).
 """
 
 import contextlib
@@ -202,8 +210,10 @@ from scalable_agent_tpu_torch.runtime.faults import (
     throughput_sag_s,
 )
 from scalable_agent_tpu_torch.runtime.fleet import PreemptionMonitor
+from scalable_agent_tpu_torch.runtime.ingraph import InGraphTrainer
 from scalable_agent_tpu_torch.runtime.learner import (
     NonFiniteTracker,
+    rollout_flops,
     update_flops,
 )
 from scalable_agent_tpu_torch.runtime import sentinel as sentinel_lib
@@ -329,9 +339,17 @@ def build_learner(config: Config, agent: ImpalaAgent) -> Learner:
         raise ValueError(
             f"inflight_updates must be >= 1, got "
             f"{config.inflight_updates}")
-    # The JAX driver also checks updates_per_dispatch against
-    # train_backend (driver.py:1989); neither flag is ported (ROADMAP.md,
-    # queue 1, item 8), so there is nothing to check yet.
+    if config.updates_per_dispatch < 1:
+        raise ValueError(
+            f"updates_per_dispatch must be >= 1, got "
+            f"{config.updates_per_dispatch}")
+    if (config.updates_per_dispatch > 1
+            and config.train_backend != "ingraph"):
+        raise ValueError(
+            "--updates_per_dispatch is the in-graph megaloop knob "
+            "(train_backend=ingraph); the host backend pipelines via "
+            "--inflight_updates instead")
+    host = config.train_backend == "host"
     if config.loss not in ("vtrace", "impact"):
         raise ValueError(
             f"unknown loss {config.loss!r} (vtrace | impact)")
@@ -342,13 +360,13 @@ def build_learner(config: Config, agent: ImpalaAgent) -> Learner:
         raise ValueError(
             f"replay_capacity must be >= 1 with replay enabled, got "
             f"{config.replay_capacity}")
-    if config.replay_ratio > 0 and config.transport != "packed":
+    if config.replay_ratio > 0 and host and config.transport != "packed":
         # The replay insert is the packed upload landing in the slab; the
         # per-leaf path has no single device buffer to tap.
         raise ValueError(
             "replay_ratio > 0 requires --transport=packed on the host "
             "backend (the replay slab is fed by the packed upload)")
-    if config.replay_ratio > 0 and config.inference_mode in (
+    if config.replay_ratio > 0 and host and config.inference_mode in (
             "accum", "accum_fused"):
         # The same guard for the case the JAX driver lets through: its
         # accum trajectories skip the upload sink, and it replays nothing.
@@ -803,7 +821,9 @@ class KernelCosts:
 def kernel_costs(config: Config, device: torch.device, observation_spec,
                  action_space) -> KernelCosts:
     """``KernelCosts`` at the run's shapes and dtype policy (the policy's
-    logit count from ``action_space``)."""
+    logit count from ``action_space``).  An in-graph update also runs its
+    unroll's inference on the card (``rollout_flops``): its table's module
+    is the whole iteration, as the JAX ledger costs the fused program."""
     shapes = (observation_spec.frame.shape,
               distributions.spec_for_space(action_space).num_logits,
               config.unroll_length, config.batch_size)
@@ -813,8 +833,12 @@ def kernel_costs(config: Config, device: torch.device, observation_spec,
             else "cpu")
     sm_count = (torch.cuda.get_device_properties(device).multi_processor_count
                 if device.type == "cuda" else 1)
+    flops = update_flops(*shapes, **model)
+    if config.train_backend == "ingraph":
+        flops += rollout_flops(*shapes, torso_type=config.torso_type,
+                               use_instruction=config.use_instruction)
     return KernelCosts(
-        device=device, flops=update_flops(*shapes, **model),
+        device=device, flops=flops,
         handwritten=kernels_lib.handwritten_costs(
             *shapes, compute_dtype=config.compute_dtype,
             matmul_dtype=resolve_core_matmul_dtype(config),
@@ -825,16 +849,19 @@ def kernel_costs(config: Config, device: torch.device, observation_spec,
 
 
 def configure_live_mfu(config: Config, ledger: PipelineLedger,
-                       costs: KernelCosts) -> None:
-    """Arm ``ledger/mfu``: ``update_flops`` at the run's shapes against
-    the card's peak for ``compute_dtype`` (``_resolve_roofline_peak``).
-    Without a peak the gauge stays at 0, with one log line."""
+                       costs: KernelCosts, updates_per_record: int = 1
+                       ) -> None:
+    """Arm ``ledger/mfu``: ``update_flops`` at the run's shapes (times the
+    updates one ledger record stands for: an in-graph dispatch's K)
+    against the card's peak for ``compute_dtype``
+    (``_resolve_roofline_peak``).  Without a peak the gauge stays at 0,
+    with one log line."""
     if costs.peak is None:
         log.info("live MFU gauge off: no peak FLOP/s known for %s at %s "
                  "(%.4g FLOPs per update)", costs.device_kind,
                  config.compute_dtype, costs.flops)
         return
-    ledger.configure_mfu(costs.flops, costs.peak)
+    ledger.configure_mfu(costs.flops * updates_per_record, costs.peak)
     log.info("live MFU gauge armed: %.4g FLOPs per update against %.4g "
              "peak FLOP/s (%s, %s)", costs.flops, costs.peak,
              costs.device_kind, config.compute_dtype)
@@ -927,7 +954,8 @@ class _HealthPlane:
     harvests it into ``kernels.<anomaly_id>.json``.  Every method is a
     no-op under ``--health=false``."""
 
-    def __init__(self, config: Config, device: torch.device):
+    def __init__(self, config: Config, device: torch.device,
+                 backend: str = "host"):
         self.monitor = None
         self.window_id: Optional[str] = None
         self.window_dir: Optional[str] = None
@@ -939,7 +967,7 @@ class _HealthPlane:
             return
         self.monitor = HealthMonitor(
             default_detectors(
-                backend="host",
+                backend=backend,
                 warmup=config.health_warmup_intervals,
                 alpha=config.health_ewma_alpha,
                 z_threshold=config.health_z_threshold,
@@ -1095,6 +1123,12 @@ def train(config: Config, clock=time) -> Dict[str, float]:
     fps, and so the health plane's throughput detectors) and takes the
     ``throughput_sag`` pause (``clock.sleep``); a test passes a fake
     one."""
+    if config.train_backend == "ingraph":
+        return train_ingraph(config, clock)
+    if config.train_backend != "host":
+        raise ValueError(
+            f"unknown train_backend {config.train_backend!r} "
+            f"(host | ingraph)")
     device = resolve_device(config.device)
     config = apply_env_overrides(config)
     config.save()
@@ -1497,6 +1531,376 @@ def train(config: Config, clock=time) -> Dict[str, float]:
     if returns:
         result["episode_return"] = float(np.mean(returns))
     return result
+
+
+# Dispatched updates whose ledger records wait for a fetch: past this
+# many, one wait retires them (the ledger holds 8192 open records); the
+# log-interval fetch comes first in any ordinary run.
+_INGRAPH_PENDING_CAP = 2048
+
+
+def check_ingraph(config: Config) -> None:
+    """The in-graph backend's refusals (``scalable_agent_tpu/driver.py:
+    1979-1998``): one process, no host actor runtime, and K = 1 under the
+    replay slab or the sentinel, which act between updates."""
+    if (torch.distributed.is_available()
+            and torch.distributed.is_initialized()
+            and torch.distributed.get_world_size() > 1):
+        raise ValueError(
+            "train_backend=ingraph is single-process (the host backend "
+            "covers multi-process training)")
+    if config.actor == "service":
+        raise ValueError(
+            "train_backend=ingraph has no host actor pipeline; "
+            "--actor=service applies to the host backend")
+    if config.replay_ratio > 0 and config.updates_per_dispatch > 1:
+        raise ValueError(
+            "replay_ratio > 0 requires --updates_per_dispatch=1: replayed "
+            "updates interleave with fresh ones between dispatches "
+            "(runtime/ingraph.py)")
+    if config.sentinel_interval > 0 and config.updates_per_dispatch > 1:
+        raise ValueError(
+            "sentinel_interval > 0 requires --updates_per_dispatch=1: the "
+            "shadow audit snapshots the learner at update granularity "
+            "(runtime/sentinel.py)")
+
+
+def _finalize_ingraph_metrics(metrics: Dict[str, torch.Tensor],
+                              config: Config) -> Dict[str, float]:
+    """A dispatch's metrics on the host, in one copy for those on the card,
+    under the host backend's episode contract: the episode means appear
+    only where episodes finished, and frames are simulator frames (agent
+    steps x ``num_action_repeats``).  Serves the logged rows and the
+    returned metrics alike, so the two cannot disagree."""
+    on_card = [k for k, v in metrics.items() if v.device.type != "cpu"]
+    host = {k: float(v) for k, v in metrics.items() if k not in on_card}
+    if on_card:
+        values = torch.stack([metrics[k].float() for k in on_card]).cpu()
+        host.update(zip(on_card, values.tolist()))
+    if host.pop("episodes_completed", 0) < 1:
+        host.pop("episode_return", None)
+        host.pop("episode_frames", None)
+    elif "episode_frames" in host:
+        host["episode_frames"] *= config.num_action_repeats
+    return host
+
+
+def build_ingraph_env(config: Config, observation_spec, action_space):
+    """The device env of ``config.level_name`` for the in-graph backend.
+    Its frame must agree with the host twin's spec (``probe_env``:
+    envs/fake.py for the fake family, the adapter over the same transition
+    function for device_ levels)."""
+    from scalable_agent_tpu_torch.envs.device import make_device_env
+
+    env = make_device_env(
+        config.level_name, height=config.height, width=config.width,
+        num_actions=getattr(action_space, "n", 0),
+        num_action_repeats=config.num_action_repeats,
+        with_instruction=config.use_instruction)
+    host_frame = tuple(observation_spec.frame.shape)
+    device_frame = tuple(env.observation_spec.frame.shape)
+    if host_frame != device_frame:
+        raise ValueError(
+            f"host/device observation drift: host frame {host_frame} != "
+            f"device mirror {device_frame} (envs/fake.py and envs/device/ "
+            f"must stay in lock-step)")
+    return env
+
+
+def build_ingraph_trainer(config: Config, agent: ImpalaAgent,
+                          learner: Learner, env) -> InGraphTrainer:
+    """The in-graph trainer of ``config`` over ``agent``, ``learner`` and
+    the device ``env`` (``build_ingraph_env``).  The replay slab and the
+    sentinel's audit take each dispatch's trajectory."""
+    return InGraphTrainer(
+        agent, learner, env, config.unroll_length, config.batch_size,
+        seed=config.seed,
+        emit_trajectory=(config.replay_ratio > 0
+                         or config.sentinel_interval > 0),
+        updates_per_dispatch=config.updates_per_dispatch)
+
+
+def train_ingraph(config: Config, clock=time) -> Dict[str, float]:
+    """In-graph training (``--train_backend=ingraph``,
+    ``scalable_agent_tpu/driver.py:1959``): the rollout on a device env
+    (``envs/device/``, the ``DEVICE_LEVELS`` registry) and the update on the
+    card, ``updates_per_dispatch`` updates a dispatch with nothing read
+    back inside one (``runtime/ingraph.py``).  Checkpoints, metrics names,
+    the lr schedule, resume, the obs planes, the health plane, faults,
+    preemption, replay and the sentinel are the host backend's; a resumed
+    run's envs start from new episodes (as the host backend's workers
+    do), while its draws continue the update-keyed stream.  A ledger
+    record stands for a dispatch and retires at the next metrics fetch,
+    the loop's only wait on the card."""
+    check_ingraph(config)
+    device = resolve_device(config.device)
+    config = apply_env_overrides(config)
+    config.save()
+    observation_spec, action_space, _ = probe_env(config)
+    env = build_ingraph_env(config, observation_spec, action_space)
+    k = config.updates_per_dispatch
+    frames_per_dispatch = config.frames_per_update() * k
+    trainer = carry = writer = sentinel = None
+    metrics: Dict[str, torch.Tensor] = {}
+    profiler = None
+    monitor = PreemptionMonitor(config.preemption_grace_s)
+    arm_faults(config)
+    obs_handles = _setup_observability(config)
+    registry, prom = obs_handles.registry, obs_handles.prom
+    ledger = configure_ledger(registry=registry,
+                              frames_per_trajectory=frames_per_dispatch,
+                              logdir=config.logdir)
+    health = _HealthPlane(config, device, backend="ingraph")
+    with float32_precision():
+        try:
+            monitor.start()
+            agent = build_agent(config, observation_spec, action_space,
+                                device)
+            learner = build_learner(config, agent)
+            trainer = build_ingraph_trainer(config, agent, learner, env)
+            sentinel = build_sentinel(config, agent, learner,
+                                      observation_spec, action_space, device)
+            costs = kernel_costs(config, device, observation_spec,
+                                 action_space)
+            configure_live_mfu(config, ledger, costs, updates_per_record=k)
+            replay = (DeviceReplayBuffer(config.replay_capacity,
+                                         seed=config.seed)
+                      if config.replay_ratio > 0 else None)
+            carry = trainer.init()
+            tracker = NonFiniteTracker(config.nonfinite_tolerance,
+                                       registry=registry)
+            ckpt = CheckpointManager(config.logdir,
+                                     config.checkpoint_interval_s,
+                                     config.checkpoint_keep)
+            restored = ckpt.restore()
+            start_updates = 0
+            if restored is not None:
+                start_updates, saved = restored
+                learner.load_state_dict(saved)
+                log.info("restored checkpoint at update %d (%.0f frames); "
+                         "the device envs start from new episodes",
+                         start_updates, learner.state.env_frames)
+            tracker.rebase(float(learner.state.nonfinite_skips))
+            learner_fps_gauge = registry.gauge(
+                "learner/fps", "env frames/s consumed by the learner")
+            writer = MetricsWriter(config.logdir, registry=registry)
+            timing = Timing()
+            watchdog = get_watchdog()
+            injector = get_fault_injector()
+            updates = start_updates
+            frames = learner.state.env_frames
+            last_log = clock.monotonic()
+            frames_at_last_log = frames
+            # Dispatched, not yet known to have run: retired together at
+            # the next metrics fetch.
+            pending: List[int] = []
+            profile_stop_at = None
+            # The first dispatch builds the kernels: the learner's
+            # heartbeat is suspended across it.
+            first_dispatch = True
+
+            def retire_pending():
+                for tid in pending:
+                    ledger.close(tid, retired=True)
+                pending.clear()
+
+            def rollback(reason):
+                nonlocal updates, frames, metrics, carry, last_log
+                nonlocal frames_at_last_log
+                updates = _rollback_or_exit(config, ckpt, learner, tracker,
+                                            reason=reason)
+                if reason == "sentinel":
+                    sentinel.note_rollback()
+                frames = learner.state.env_frames
+                # Nothing of the abandoned timeline leaks forward: the
+                # replay slab's lineage and the streak peak go; the
+                # rollout carry is env state and rides through.
+                metrics = {}
+                if replay is not None:
+                    replay.flush()
+                carry = carry._replace(
+                    streak_peak=torch.zeros_like(carry.streak_peak))
+                last_log = clock.monotonic()
+                frames_at_last_log = frames
+
+            while frames < config.total_environment_frames:
+                if (config.profile_dir and profiler is None
+                        and not health.window_open
+                        and profile_stop_at is None
+                        and updates - start_updates
+                        >= config.profile_start_update):
+                    # >=: dispatches advance the count by K.
+                    profiler = _start_profile(device)
+                    profile_stop_at = (updates + PROFILE_WARMUP_UPDATES
+                                       + config.profile_num_updates)
+                ledger_tid = ledger.open("ingraph", config.level_name)
+                audit_snap = None
+                if sentinel is not None and sentinel.audit_due(updates):
+                    audit_snap = sentinel.snapshot()
+                if first_dispatch:
+                    watchdog.suspend("learner")
+                    first_dispatch = False
+                with timing.time_avg("update"), \
+                        get_tracer().span("learner/train_step",
+                                          cat="learner"):
+                    # The update count keys the rollout's draws, so a
+                    # resume continues the interrupted run's stream.
+                    result = trainer.train_step(carry, updates)
+                    carry, metrics = result[:2]
+                    # Chaos: a mid-run slowdown inside the update's timing
+                    # (occurrences count dispatches).
+                    if injector.active and injector.should_fire(
+                            "throughput_sag"):
+                        clock.sleep(throughput_sag_s())
+                ledger.stamp(ledger_tid, "dispatch")
+                pending.append(ledger_tid)
+                watchdog.touch("learner")
+                if audit_snap is not None:
+                    # The shadow audit of the batch the update trained on,
+                    # before the replayed updates move the parameters.
+                    watchdog.suspend("learner")
+                    with timing.time_avg("audit"):
+                        sentinel.audit(audit_snap, result[2], updates)
+                    audit_snap = None
+                    if sentinel.consume_swap():
+                        # A demotion: the trainer runs the rebuilt pair
+                        # from the next dispatch; the replay slab, filled
+                        # by the breached route, goes.
+                        learner.publish_device_telemetry()
+                        learner, agent = sentinel.learner, sentinel.agent
+                        trainer.rebind(agent, learner)
+                        if replay is not None:
+                            replay.flush()
+                        first_dispatch = True
+                    watchdog.touch("learner")
+                if sentinel is not None and sentinel.rollback_pending:
+                    # A breach survived the whole ladder.
+                    rollback("sentinel")
+                    continue
+                if replay is not None:
+                    # The off-policy dial: the fresh unroll lands in the
+                    # slab and replay_ratio replayed updates follow (their
+                    # frames were counted fresh); the fresh metrics keep
+                    # the episode stats, the losses are the last replayed
+                    # update's.
+                    replay.insert(result[2],
+                                  birth_us=ledger.birth_us(ledger_tid))
+                    for _ in range(config.replay_ratio):
+                        with timing.time_avg("update"), \
+                                get_tracer().span("learner/replay_update",
+                                                  cat="learner"):
+                            metrics = dict(metrics, **trainer.replay_step(
+                                replay.sample()))
+                        updates += 1
+                if len(pending) >= _INGRAPH_PENDING_CAP:
+                    if device.type == "cuda":
+                        torch.cuda.synchronize(device)
+                    retire_pending()
+                watchdog.touch("learner")
+                updates += k
+                frames = learner.state.env_frames
+                if profiler is not None and updates >= profile_stop_at:
+                    path = _stop_profile(profiler, device,
+                                         config.profile_dir)
+                    profiler = None
+                    # The stop waited for the card: every pending
+                    # dispatch has run.
+                    retire_pending()
+                    log.info("profiler trace written to %s", path)
+                    watchdog.suspend("learner")
+                    health.note_baseline(_harvest_kernel_ledger(
+                        config, costs, config.profile_num_updates))
+                if health.window_open and updates >= health.window_stop_at:
+                    watchdog.suspend("learner")
+                    health.close_window(costs)
+                    retire_pending()
+                now = clock.monotonic()
+                if now - last_log >= config.log_interval_s:
+                    # The fetch waits for the card: not a wedge.
+                    watchdog.suspend("learner")
+                    row = _finalize_ingraph_metrics(metrics, config)
+                    # The stream runs in order: the newest dispatch's
+                    # metrics arrived, so every pending one has run.
+                    retire_pending()
+                    # The obs publication, in the JAX driver's order.
+                    trainer.publish_telemetry(carry)
+                    if sentinel is not None:
+                        sentinel.publish()
+                    ledger.publish()
+                    watchdog.touch("learner")
+                    if tracker.observe(row):
+                        rollback("nonfinite")
+                        continue
+                    elapsed = max(now - last_log, 1e-9)
+                    row["fps"] = (frames - frames_at_last_log) / elapsed
+                    learner_fps_gauge.set(row["fps"])
+                    row.update({f"timing/{key}": v
+                                for key, v in timing.summary().items()})
+                    # No stall attributor: there is no host pipeline to
+                    # time, so a health record carries the ledger's
+                    # attribution only.
+                    if health.active:
+                        health.step({**registry.snapshot(), **row},
+                                    update=updates)
+                        if profiler is None:
+                            health.maybe_open_window(updates)
+                    writer.write(updates, row)
+                    writer.write_registry(updates)
+                    prom.dump()
+                    log.info(
+                        "update %d frames %.3g fps %.0f loss %.3f return "
+                        "%.2f | %s", updates, frames, row["fps"],
+                        row["total_loss"],
+                        row.get("episode_return", float("nan")), timing)
+                    last_log, frames_at_last_log = now, frames
+                if (sentinel is not None
+                        and updates % sentinel_lib.FINGERPRINT_EVERY == 0):
+                    sentinel.local_fingerprint(
+                        learner.state_dict()["params"])
+                if monitor.preemption_requested():
+                    monitor.note_preempt_decision(updates)
+                    log.warning("preemption drain: stopping at update %d "
+                                "(%.3g frames) for the final checkpoint",
+                                updates, frames)
+                    break
+                ckpt.maybe_save(updates, learner.state_dict(),
+                                heartbeat="learner")
+            # A slow but healthy shutdown tail is not a wedge.
+            watchdog.suspend("learner")
+            if pending and metrics:
+                # One last fetch retires every pending record.
+                _finalize_ingraph_metrics(metrics, config)
+                retire_pending()
+            ckpt.maybe_save(updates, learner.state_dict(), force=True,
+                            heartbeat="learner")
+        finally:
+            configure_watchdog(None)
+            configure_faults("")
+            if profiler is not None:
+                profiler.stop()
+                get_tracer().set_annotate(False)
+            health.finalize()
+            try:
+                get_ledger().finalize()
+            except Exception:
+                log.exception("ledger finalize failed")
+            # A run shorter than the log interval still publishes its
+            # device telemetry into the final snapshot.
+            if carry is not None:
+                try:
+                    trainer.publish_telemetry(carry)
+                except Exception:
+                    log.exception("final device-telemetry publish failed")
+            if sentinel is not None:
+                try:
+                    sentinel.publish()
+                except Exception:
+                    log.exception("final sentinel-telemetry publish failed")
+            if writer is not None:
+                writer.close()
+            monitor.stop()
+            _teardown_observability(config, obs_handles)
+    return _finalize_ingraph_metrics(metrics, config)
 
 
 def _eval_loop(envs, config: Config, agent: ImpalaAgent,

@@ -4,12 +4,15 @@ The counterpart of ``scalable_agent_tpu/envs/registry.py`` (reference:
 envs/create_env.py:1-19): families register a factory under a name prefix
 (``register_family``), and the simulator families import their modules
 lazily, so that a missing simulator package fails only when its family is
-asked for.  The fake-level defaults are copied from the ``fake_*`` rows of
-``scalable_agent_tpu/envs/device/protocol.py``, ``fake_tuple``'s from
-``scalable_agent_tpu/envs/registry.py``.  The ``doom_`` (``envs/doom/``),
-``dmlab_`` (``envs/dmlab/``), ``atari_`` (``envs/atari/``) and ``gym_``
-(``envs/gym_adapter.py``) families are ported; ``device_`` is not yet
-(ROADMAP.md, queue 1, item 8) and raises.
+asked for.  The fake levels with a device twin read their defaults from
+``envs/device/protocol.py``'s ``DEVICE_LEVELS`` (one copy, so the host
+spec ``probe_env`` reads and the in-graph backend's device env cannot
+drift apart; the module imports no torch, so the env workers read it);
+``fake_tuple``, host-only, keeps its own here.  Every family of the JAX
+package is ported: ``fake_``, ``device_`` (``envs/device/host.py``, the
+device worlds on the CPU at batch 1; only its workers load torch),
+``doom_`` (``envs/doom/``), ``dmlab_`` (``envs/dmlab/``), ``atari_``
+(``envs/atari/``) and ``gym_`` (``envs/gym_adapter.py``).
 """
 
 from typing import Callable, Dict, Tuple
@@ -22,29 +25,17 @@ from scalable_agent_tpu_torch.envs.spaces import (
     TupleSpace,
 )
 
+# The host-only fake levels (no device twin): composite action space
+# Tuple(Discrete, Discretized), the hermetic stand-in for Doom's composite
+# spaces (reference: envs/doom/action_space.py:13-138).
 FAKE_LEVELS = {
-    # zero-simulator-cost throughput benchmark fake
-    "fake_benchmark": dict(height=72, width=96, episode_length=1000,
-                           num_actions=9),
-    # small deterministic fake for smoke tests
-    "fake_small": dict(height=16, width=16, episode_length=10,
-                       num_actions=9),
-    # learnable contextual bandit (learning-proof level)
-    "fake_bandit": dict(height=16, width=16, episode_length=16,
-                        num_actions=4, reward_mode="bandit"),
-    # learnable only through the LSTM's memory (done-reset red test)
-    "fake_memory": dict(height=16, width=16, episode_length=8,
-                        num_actions=4, reward_mode="memory"),
-    # composite action space Tuple(Discrete, Discretized): the hermetic
-    # stand-in for Doom's composite spaces
-    # (reference: envs/doom/action_space.py:13-138)
     "fake_tuple": dict(height=16, width=16, episode_length=10,
                        action_space=TupleSpace(
                            [Discrete(3), Discretized(5, -1.0, 1.0)])),
 }
 
 # The JAX package's simulator families this package does not port yet.
-UNPORTED_FAMILIES = ("device_",)
+UNPORTED_FAMILIES = ()
 
 _FACTORIES: Dict[str, Tuple[Callable[..., Environment], bool]] = {}
 
@@ -83,9 +74,14 @@ def create_env(full_env_name: str, **kwargs) -> Environment:
 
 
 def _make_fake(full_env_name: str, **kwargs) -> Environment:
-    """A fake level; the level's defaults fill whatever the caller did not
-    pass."""
-    for key, value in FAKE_LEVELS.get(full_env_name, {}).items():
+    """A fake level; the level's defaults (its ``DEVICE_LEVELS`` entry, or
+    ``FAKE_LEVELS``) fill whatever the caller did not pass."""
+    from scalable_agent_tpu_torch.envs.device.protocol import DEVICE_LEVELS
+
+    entry = DEVICE_LEVELS.get(full_env_name)
+    defaults = (entry.defaults if entry is not None
+                else FAKE_LEVELS.get(full_env_name, {}))
+    for key, value in defaults.items():
         kwargs.setdefault(key, value)
     return FakeEnv(**kwargs)
 
@@ -109,6 +105,11 @@ def _lazy_family(family: str, module: str, attr: str):
     return factory
 
 
+# The device worlds' host twin: the same transition function at batch 1
+# on the CPU (envs/device/host.py); it imports torch, so it is lazy.
+_make_device = _lazy_family(
+    "device_", "scalable_agent_tpu_torch.envs.device.host",
+    "make_host_device_env")
 _make_doom = _lazy_family(
     "doom_", "scalable_agent_tpu_torch.envs.doom.factory", "make_doom_env")
 _make_atari = _lazy_family(
@@ -119,6 +120,7 @@ _make_gym = _lazy_family(
     "gym_", "scalable_agent_tpu_torch.envs.gym_adapter", "make_gym_env")
 
 register_family("fake_", _make_fake, consumes_action_repeats=True)
+register_family("device_", _make_device, consumes_action_repeats=True)
 register_family("doom_", _make_doom, consumes_action_repeats=True)
 register_family("atari_", _make_atari, consumes_action_repeats=True)
 register_family("dmlab_", _make_dmlab, consumes_action_repeats=True)

@@ -87,8 +87,9 @@ RECOMMENDATIONS = {
         "the group lockstep away with --actor=service (one "
         "continuous-batching inference thread over the env workers' "
         "slices as they arrive); the actor step as one CUDA graph is the "
-        "first known gap (ROADMAP.md, queue 2), and device-resident "
-        "rollouts are not ported yet (ROADMAP.md, queue 1, item 8)"),
+        "first known gap (ROADMAP.md, queue 2); on a fake_ or device_ "
+        "level, --train_backend=ingraph runs the rollouts on the card "
+        "with no host pipeline"),
     "backpressure": (
         "actors block on a full trajectory queue: the learner side "
         "consumes slower than actors produce — read the device/"
@@ -103,7 +104,7 @@ RECOMMENDATIONS = {
         "host->device transport dominates: --transport=packed (the "
         "default), check transport/h2d_bytes_total against the card's "
         "link rate, or eliminate the upload with device-resident "
-        "rollouts (not ported yet: ROADMAP.md, queue 1, item 8)"),
+        "rollouts (--train_backend=ingraph on a fake_ or device_ level)"),
     "staged_wait": (
         "staged batches wait on a busy learner — the device is the "
         "constraint (healthy); raise --inflight_updates or feed a "
@@ -132,7 +133,7 @@ RECOMMENDATIONS = {
         "per-step host work), shrink the observation (--height/--width), "
         "or take the actor step off the host's critical path: the step "
         "as one CUDA graph (ROADMAP.md, queue 2) or device-resident "
-        "rollouts (not ported yet: ROADMAP.md, queue 1, item 8)"),
+        "rollouts (--train_backend=ingraph on a fake_ or device_ level)"),
 }
 
 

@@ -14,8 +14,8 @@ algorithms/utils/action_distributions.py, ``CategoricalActionDistribution``
   single-component policy keeps the component-less layout ([T, B], [B]).
 
 ``sample`` draws from the caller's ``torch.Generator``, which lives on
-the logits' device: one ``torch.multinomial`` per component, in component
-order.
+the logits' device: one draw of ``torch.multinomial(probs, 1)`` per
+component, in component order, without its validity checks (``sample``).
 """
 
 from typing import NamedTuple, Tuple
@@ -83,12 +83,21 @@ def _component_actions(actions, spec: DistributionSpec):
 
 def sample(generator: torch.Generator, logits, spec: DistributionSpec):
     """Sample every component from ``generator`` -> int64 [..., K],
-    [...] for K == 1."""
+    [...] for K == 1.  Each draw is ``torch.multinomial(probs, 1)``'s
+    exponential race, ``argmax(probs / q)`` with ``q ~ Exp(1)`` from the
+    generator, written out: the same draws from the same generator state
+    (``tests/test_torch_ingraph.py`` holds them bitwise), without
+    multinomial's validity checks, which read the probabilities back to
+    the host (two syncs a call on the card; the in-graph backend issues
+    whole unrolls without one).  So a NaN or negative probability draws
+    an action (``argmax`` over the race) where multinomial raised, as the
+    JAX sampler draws one."""
     parts = []
     for chunk in _component_logits(logits, spec):
         probs = torch.softmax(chunk, dim=-1)
         flat = probs.reshape(-1, probs.shape[-1])
-        draws = torch.multinomial(flat, 1, generator=generator)
+        race = torch.empty_like(flat).exponential_(1, generator=generator)
+        draws = torch.argmax(flat / race, dim=-1)
         parts.append(draws.reshape(chunk.shape[:-1]))
     if spec.num_components == 1:
         return parts[0]

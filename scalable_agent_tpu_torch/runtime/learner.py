@@ -77,6 +77,7 @@ scalars also ride the metrics dict.  ``update_flops`` counts the update's
 FLOPs for the live MFU gauge (``obs/ledger.py``).
 """
 
+import contextlib
 import dataclasses
 import warnings
 from typing import Dict, NamedTuple, Optional, Sequence
@@ -237,6 +238,28 @@ def update_flops(frame_shape: Sequence[int], num_logits: int,
     action's width and the policy head's), the action count of a
     Discrete space.  ``loss="impact"`` adds the target network's forward
     over the trajectory (no backward)."""
+    forward, backward = _agent_macs(frame_shape, num_logits, core_size,
+                                    torso_type, use_instruction)
+    forwards = 2 if loss == "impact" else 1
+    return 2.0 * (unroll_length + 1) * batch_size * (forwards * forward
+                                                     + backward)
+
+
+def rollout_flops(frame_shape: Sequence[int], num_logits: int,
+                  unroll_length: int, batch_size: int,
+                  core_size: int = CORE_SIZE, torso_type: str = "shallow",
+                  use_instruction: bool = False) -> float:
+    """FLOPs of the actors' inference over one unroll (``update_flops``'
+    forward at T steps of B envs, no backward): what the in-graph backend
+    runs on the card beside each update."""
+    forward, _ = _agent_macs(frame_shape, num_logits, core_size,
+                             torso_type, use_instruction)
+    return 2.0 * unroll_length * batch_size * forward
+
+
+def _agent_macs(frame_shape, num_logits, core_size, torso_type,
+                use_instruction):
+    """(forward, backward) multiply-adds of the agent on one frame."""
     convs, flat = conv_shapes(torso_type, frame_shape)
     forward = backward = 0
     for i, conv in enumerate(convs):
@@ -257,9 +280,7 @@ def update_flops(frame_shape: Sequence[int], num_logits: int,
     for macs in layers:
         forward += macs
         backward += 2 * macs
-    forwards = 2 if loss == "impact" else 1
-    return 2.0 * (unroll_length + 1) * batch_size * (forwards * forward
-                                                     + backward)
+    return forward, backward
 
 
 def rmsprop_step(grad, nu, trace, lr: float, hp: LearnerHyperparams):
@@ -395,9 +416,13 @@ class Learner:
         waits for the updates issued so far)."""
         return fetch_merged(self.devtel_specs, self._devtel)
 
-    def publish_device_telemetry(self) -> Dict[str, np.ndarray]:
-        """Fetch and fold into the metrics registry (``devtel/*``)."""
-        fetched = self.fetch_device_telemetry()
+    def publish_device_telemetry(
+            self, fetched: Optional[Dict[str, np.ndarray]] = None
+    ) -> Dict[str, np.ndarray]:
+        """Fetch, unless ``fetched`` already holds this learner's leaves
+        on the host, and fold into the metrics registry (``devtel/*``)."""
+        if fetched is None:
+            fetched = self.fetch_device_telemetry()
         self._devtel_publisher.publish(fetched)
         return fetched
 
@@ -623,15 +648,21 @@ class Learner:
             "dead_torso_frac": dead_torso,
         }
 
-    def update(self, trajectory: Trajectory,
-               fresh: bool = True) -> Dict[str, torch.Tensor]:
+    def update(self, trajectory: Trajectory, fresh: bool = True,
+               ingraph: bool = False) -> Dict[str, torch.Tensor]:
         """One update in place (params, ``nu``, counters, telemetry);
         returns the metrics as 0-d tensors (no host sync).
         ``fresh=False`` marks a replayed batch: the update holds
         ``env_frames`` and the target schedule, whose frames were counted
-        when the batch was consumed fresh."""
-        with get_tracer().span("learner/update", cat="learner"):
-            metrics = self._update(trajectory, fresh)
+        when the batch was consumed fresh.  ``ingraph=True`` is the
+        in-graph trainer's call (``runtime/ingraph.py``): it opens no
+        ``learner/update`` span (the trainer's covers the rollout and the
+        update) and evaluates no ``nan_grad`` point (the trainer matches
+        it against the global update index itself)."""
+        span = (contextlib.nullcontext() if ingraph else
+                get_tracer().span("learner/update", cat="learner"))
+        with span:
+            metrics = self._update(trajectory, fresh, chaos=not ingraph)
         self._updates_counter.inc()
         if fresh:
             self._frames_counter.inc(self._frames_per_update)
@@ -642,11 +673,11 @@ class Learner:
             {"update": int(self._updates_counter.value)})
         return metrics
 
-    def _update(self, trajectory: Trajectory,
-                fresh: bool = True) -> Dict[str, torch.Tensor]:
+    def _update(self, trajectory: Trajectory, fresh: bool = True,
+                chaos: bool = True) -> Dict[str, torch.Tensor]:
         hp = self._hp
         injector = get_fault_injector()
-        if injector.active and injector.should_fire("nan_grad"):
+        if chaos and injector.active and injector.should_fire("nan_grad"):
             # Chaos: poison this batch's rewards so the loss and every
             # gradient go NaN; the guard must absorb it as a skip.
             env = trajectory.env_outputs
@@ -848,6 +879,12 @@ class NonFiniteTracker:
         streak has reached the tolerance."""
         total = float(host_metrics.get("nonfinite_skips", 0.0))
         streak = float(host_metrics.get("nonfinite_streak", 0.0))
+        # The in-graph megaloop's contract (runtime/ingraph.py
+        # TrainCarry.streak_peak): the streak at a dispatch's end may have
+        # reset after reaching the tolerance inside it; the peak is the
+        # worst since the last rollback.
+        streak = max(streak, float(
+            host_metrics.get("nonfinite_streak_peak", 0.0)))
         delta = total - self._last_total
         if delta > 0:
             self.skips_total += delta

@@ -191,16 +191,19 @@ class TestDoomEnvCore:
             resolve_scenario_path("nope.cfg")
 
     def test_other_families_still_raise(self):
-        """Of the JAX package's families only ``device_`` is left to
-        port: it raises with the ROADMAP pointer, and the ``atari_``,
-        ``dmlab_`` and ``gym_`` names resolve to their factories."""
+        """Every family of the JAX package is ported (``device_`` was the
+        last): none is left unported, ``device_grid_small`` builds its
+        host twin, the ``atari_``, ``dmlab_`` and ``gym_`` names resolve
+        to their factories, and an unknown prefix still raises."""
         from scalable_agent_tpu_torch.envs import create_env, registry
 
-        with pytest.raises(ValueError, match="ROADMAP.md"):
-            create_env("device_grid_small")
-        assert registry.UNPORTED_FAMILIES == ("device_",)
+        assert registry.UNPORTED_FAMILIES == ()
+        env = create_env("device_grid_small")
+        assert env.observation_spec.frame.shape == (15, 15, 3)
         for name in ("atari_pong", "dmlab_nav", "gym_CartPole-v1"):
             assert registry._lookup(name)[0] is not registry._make_fake
+        with pytest.raises(ValueError, match="unknown env name"):
+            create_env("nope_level")
 
 
 class TestDoomPipeline:

@@ -1,6 +1,7 @@
 """The port's boundaries: it imports neither JAX nor the JAX package, it
-never runs on the CPU when the card was asked for, and what it does not
-port yet fails loudly instead of being ignored."""
+never runs on the CPU when the card was asked for, what it does not port
+yet fails loudly instead of being ignored, and only the ``device_``
+family's env workers load torch (on the CPU)."""
 
 import ast
 import dataclasses
@@ -222,10 +223,10 @@ def test_flag_lists_cover_the_jax_config():
 @pytest.mark.parametrize("argv", [["--mesh_data=2"],
                                   ["--health_baseline_dir", "auto"],
                                   ["--elastic=true"],
-                                  ["--train_backend=ingraph"],
+                                  ["--compile_cache_dir=/tmp/cache"],
                                   ["--compute_dtype=float16"],
                                   ["--scan_impl=time_sharded"],
-                                  ["--updates_per_dispatch=4"],
+                                  ["--fleet_epoch=2"],
                                   ["--peer_timeout_s=5"]])
 def test_unported_flags_and_values_raise(argv):
     with pytest.raises(ValueError, match="ROADMAP.md"):
@@ -380,11 +381,12 @@ def test_config_save_load_round_trip(tmp_path):
 
 def test_sentinel_and_channel_flags_are_ported():
     """``--sentinel_interval``, ``--sentinel_rtol`` and ``--chaos_channel``
-    left the unported flags with the JAX defaults; the in-graph backend's
-    ``--updates_per_dispatch`` (the JAX sentinel's in-graph arm) still
-    raises.  The unported flags are the JAX ``Config``'s fleet, mesh,
-    in-graph and compile-cache fields, and nothing else."""
-    ported = {"sentinel_interval", "sentinel_rtol", "chaos_channel"}
+    left the unported flags with the JAX defaults, and so did the in-graph
+    backend's ``--updates_per_dispatch`` (the JAX sentinel's in-graph
+    arm).  The unported flags are the JAX ``Config``'s fleet, mesh and
+    compile-cache fields, 15 of them, and nothing else."""
+    ported = {"sentinel_interval", "sentinel_rtol", "chaos_channel",
+              "updates_per_dispatch"}
     assert ported.isdisjoint(UNPORTED_FLAGS)
     config = Config.from_argv(["--sentinel_interval=3",
                                "--sentinel_rtol=0.25",
@@ -392,16 +394,98 @@ def test_sentinel_and_channel_flags_are_ported():
     assert (config.sentinel_interval, config.sentinel_rtol,
             config.chaos_channel) == (3, 0.25, True)
     assert Config.from_argv(config.to_argv()) == config
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        Config.from_argv(["--updates_per_dispatch=1"])
+    assert Config.from_argv(
+        ["--updates_per_dispatch=1"]).updates_per_dispatch == 1
     assert set(UNPORTED_FLAGS) == {
         "mesh_data", "mesh_seq", "mesh_model", "distributed_coordinator",
         "distributed_num_processes", "distributed_process_id",
-        "train_backend", "updates_per_dispatch", "compile_cache_dir",
-        "peer_timeout_s", "collective_timeout_s",
+        "compile_cache_dir", "peer_timeout_s", "collective_timeout_s",
         "coordinator_init_timeout_s", "elastic", "fleet_epoch",
         "elastic_restart_budget", "elastic_stable_s",
         "elastic_rejoin_delay_s"}
+    assert len(UNPORTED_FLAGS) == 15
+
+
+def test_train_backend_and_updates_per_dispatch_are_ported():
+    """``--train_backend`` and ``--updates_per_dispatch`` parse with the
+    JAX defaults and run: an in-graph run of ``device_grid_small`` at K=2
+    trains through the driver; the host backend refuses K > 1 and an
+    unknown backend raises the JAX driver's error."""
+    assert {"train_backend", "updates_per_dispatch"}.isdisjoint(
+        UNPORTED_FLAGS)
+    config = Config.from_argv(["--train_backend=ingraph",
+                               "--updates_per_dispatch=4"])
+    assert (config.train_backend, config.updates_per_dispatch) == (
+        "ingraph", 4)
+    defaults = jax_config.Config()
+    assert (Config().train_backend, Config().updates_per_dispatch) == (
+        defaults.train_backend, defaults.updates_per_dispatch)
+    with pytest.raises(ValueError, match="unknown train_backend"):
+        driver.train(Config(device="cpu", train_backend="fused"))
+    with pytest.raises(ValueError, match="updates_per_dispatch"):
+        driver.build_learner(Config(device="cpu", updates_per_dispatch=2),
+                             None)
+
+
+def test_device_levels_train_on_both_backends(tmp_path):
+    """``--level_name=device_*`` trains in-graph and through the host
+    backend's pool (its workers run the host twin)."""
+    base = dict(device="cpu", level_name="device_grid_small", num_actors=2,
+                batch_size=2, unroll_length=3, num_action_repeats=1,
+                total_environment_frames=12, compute_dtype="float32",
+                num_env_workers_per_group=1, log_interval_s=0.0,
+                checkpoint_interval_s=1e9)
+    for backend in ("ingraph", "host"):
+        metrics = driver.train(Config(logdir=str(tmp_path / backend),
+                                      train_backend=backend,
+                                      updates_per_dispatch=2
+                                      if backend == "ingraph" else 1,
+                                      **base))
+        assert metrics["env_frames"] == 12, backend
+
+
+def test_device_protocol_imports_without_torch():
+    """``envs/device/protocol.py`` (the level defaults the fake family's
+    env workers read) and the lazy ``envs/device`` package load no torch,
+    nor does building and stepping a fake stream through them."""
+    code = ("import sys\n"
+            "from scalable_agent_tpu_torch.envs.device import protocol\n"
+            "import scalable_agent_tpu_torch.envs.device as device\n"
+            "assert len(device.DEVICE_LEVELS) == 8\n"
+            "from scalable_agent_tpu_torch.envs import make_impala_stream\n"
+            "s = make_impala_stream('fake_small', num_action_repeats=4)\n"
+            "s.initial(); s.step(1); s.close()\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'jax', 'jaxlib', 'scalable_agent_tpu'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   cwd=str(ROOT), timeout=120)
+
+
+def test_device_worker_loads_torch_on_the_cpu_only():
+    """A ``device_`` stream built and stepped in a process of its own, as
+    an env worker hosts it: torch is loaded (the host twin runs the world
+    on the CPU), jax and the JAX package are not, and CUDA is never
+    initialized."""
+    code = ("import sys\n"
+            "from scalable_agent_tpu_torch.envs import make_impala_stream\n"
+            "for name in ('device_grid_small', 'device_minatar_asterix'):\n"
+            "    s = make_impala_stream(name, seed=3, num_action_repeats=4)\n"
+            "    s.initial()\n"
+            "    for a in range(20):\n"
+            "        s.step(a % 4)\n"
+            "    s.close()\n"
+            "import torch\n"
+            "assert 'torch' in sys.modules\n"
+            "assert not torch.cuda.is_initialized()\n"
+            "assert torch.get_num_threads() == 1\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'scalable_agent_tpu'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   cwd=str(ROOT), timeout=120)
 
 
 def test_unported_points_are_the_fleet_ones():

@@ -435,8 +435,9 @@ def test_replay_flags_are_ported():
         assert name not in UNPORTED_FLAGS
         assert getattr(Config(), name) == getattr(JaxConfig(), name)
     # actor and service_max_batch ported, then inference_mode and
-    # accum_fused_shards, then the sentinel's two flags and chaos_channel.
-    assert len(UNPORTED_FLAGS) == 17
+    # accum_fused_shards, then the sentinel's two flags and chaos_channel,
+    # then train_backend and updates_per_dispatch.
+    assert len(UNPORTED_FLAGS) == 15
     config = Config.from_argv(["--loss=impact", "--replay_ratio=2",
                                "--target_update_interval=7"])
     assert (config.loss, config.replay_ratio,

@@ -874,8 +874,7 @@ class TestReportCli:
         assert got["dominant_stage"]["name"] == stage
         text = got["recommendation"]
         assert text == report.RECOMMENDATIONS[stage]
-        for jax_only in ("train_backend", "core_impl", "mesh",
-                         "service_max_batch"):
+        for jax_only in ("core_impl", "mesh", "service_max_batch"):
             assert jax_only not in text
         if "linktune" in text or "not ported" in text:
             assert "ROADMAP.md, queue" in text

@@ -20,8 +20,9 @@ the watchdog across an audit) and the slow twins of its host
   wins a tie);
 - ``_reference_config`` and each rung's overrides equal to the JAX ones.
 
-The JAX in-graph test (``test_ingraph_megaloop_with_sentinel_rejected``)
-waits for the in-graph backend: ``--updates_per_dispatch`` still raises.
+The JAX in-graph tests (``test_ingraph_megaloop_with_sentinel_rejected``,
+``test_ingraph_kernel_miscompute_detect_demote_finish``) have their twins
+in ``tests/test_torch_ingraph.py``.
 """
 
 import dataclasses
@@ -168,9 +169,18 @@ class TestSentinelWiring:
         assert ref.fused_forward is False
 
     def test_updates_per_dispatch_is_still_unported(self):
-        with pytest.raises(ValueError, match="ROADMAP.md"):
-            Config.from_argv(["--sentinel_interval=2",
-                              "--updates_per_dispatch=8"])
+        """``--updates_per_dispatch`` is ported with the in-graph backend
+        (the name is older): it parses, and the in-graph driver refuses
+        the sentinel under the megaloop, as the JAX driver does
+        (``tests/test_torch_ingraph.py`` runs it)."""
+        config = Config.from_argv(["--sentinel_interval=2",
+                                   "--updates_per_dispatch=8",
+                                   "--train_backend=ingraph"])
+        assert config.updates_per_dispatch == 8
+        from scalable_agent_tpu_torch.driver import check_ingraph
+
+        with pytest.raises(ValueError, match="sentinel"):
+            check_ingraph(config)
 
     def test_exit_73_is_the_jax_sentinel_code(self):
         assert SENTINEL_EXIT_CODE == 73 == jax_exit_codes.SENTINEL_EXIT_CODE

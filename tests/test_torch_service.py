@@ -25,8 +25,8 @@ runtime/batcher.py, MultiEnv's per-worker API) on the CPU, the twins of
 ``ActorPool``'s service mode (``--inference_mode=service``, the native
 batcher co-batching the groups' requests) gives the structural pool's
 trajectories for the same seeds, co-batched or not; the driver refuses it
-under ``--actor=service``.  ``test_ingraph_rejects_actor_service`` waits
-for the in-graph backend (ROADMAP.md, queue 1, item 8).
+under ``--actor=service``.  ``test_ingraph_rejects_actor_service`` has its
+twin in ``tests/test_torch_ingraph.py``.
 """
 
 import functools
